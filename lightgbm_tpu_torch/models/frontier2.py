@@ -1,0 +1,308 @@
+"""Frontier grower v2 — one fused route + histogram pass per tree level.
+
+PyTorch counterpart of ``lightgbm_tpu/models/frontier2.py`` on the serial,
+numerical, unbundled path. Per level, one :func:`ops.fused_level.level_pass`
+routes every row and histograms the smaller child of each split; the
+sibling comes from the parent's pooled histogram by subtraction (ref:
+serial_tree_learner.cpp:283-323, 423-425), and the split search runs only
+on the 2*Sp fresh children. Level caps are the JAX package's (1, 2, 4, ...
+capped at ``max_slot_cap``, then ``extra_levels`` passes), so both packages
+grow the same trees.
+
+Differences from the JAX grower, all of them PyTorch's idiom:
+
+- the per-level ``lax.cond`` on device values (skip a level with nothing
+  to split; switch to the route-only pass once the leaf budget is spent)
+  is a host branch on ``n_sel``, read once per level — the one host sync
+  per level (``host_syncs`` counts them);
+- the [L, F, B] histogram pools are read and written by exact indexing
+  (the JAX package used one-hot HIGHEST-precision matmuls only because TPU
+  gathers are slow);
+- ``num_leaves`` is a host int.
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+from ..ops.fused_level import (NCH_PRECISE, build_route_table, hist_planes,
+                               level_pass, max_slot_cap, route_pass,
+                               table_lookup)
+from ..ops.split import (BestSplit, SplitParams, best_split_cm,
+                         calculate_leaf_output)
+from .learner import (NEG_INF, FeatureMeta, _masked_gain, _masked_scatter,
+                      meta_is_cat)
+from .tree import TreeArrays, empty_tree
+
+# host reads of device values made by the grower since the last reset
+host_syncs = {"count": 0}
+
+
+def level_caps(num_leaves: int, max_depth: int, extra_levels: int,
+               slot_cap: int = 128) -> Tuple[int, ...]:
+    """Per-level split caps: 1, 2, 4, ... (<= slot_cap) until the
+    cumulative cap covers num_leaves-1, then ``extra_levels`` passes of
+    min(64, slot_cap) more; levels with nothing to split are skipped."""
+    caps: List[int] = []
+    cum = 0
+    d = 0
+    while cum < num_leaves - 1:
+        if max_depth > 0 and d >= max_depth:
+            break
+        c = min(1 << d, slot_cap, num_leaves - 1)
+        caps.append(c)
+        cum += c
+        d += 1
+    caps.extend([min(64, slot_cap, num_leaves - 1)] * extra_levels)
+    return tuple(caps)
+
+
+def _merge_best_many(best: BestSplit, idx, vals: BestSplit,
+                     mask) -> BestSplit:
+    return BestSplit(*[_masked_scatter(a, idx, v, mask)
+                       for a, v in zip(best, vals)])
+
+
+def _pool_write(pool: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """pool[idx[k]] = vals[k] where mask[k] (in place; indices are unique
+    among the masked-in slots)."""
+    pool[idx[mask].long()] = vals[mask]
+    return pool
+
+
+def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
+                    meta: FeatureMeta, feature_mask: torch.Tensor,
+                    params: SplitParams, num_leaves: int, max_bins: int,
+                    f_oh: int, num_rows: int = 0, nch: int = NCH_PRECISE,
+                    max_depth: int = -1, extra_levels: int = 3
+                    ) -> Tuple[TreeArrays, torch.Tensor]:
+    """Grow one tree with fused level passes.
+
+    Args:
+      bins_T: [Fp, Rp] int8/int16 feature-major binned matrix; padded
+        feature rows all-zero.
+      gh_T: [8, Rp] bfloat16 from ops.fused_level.pack_gh (zeros in padding
+        columns).
+      meta: FeatureMeta sized f_oh (padding features carry num_bin=0 and
+        feature_mask False).
+      feature_mask: [f_oh] bool.
+      max_bins: the padded pow2 bin count Bp.
+      num_rows: real row count R (0 = all Rp rows are real); padding rows
+        sit at leaf -1, so they never route, histogram or score.
+
+    Returns (TreeArrays, row_leaf [Rp] int32; padding rows stay at -1).
+    """
+    Fp, Rp = bins_T.shape
+    dev = bins_T.device
+    L = num_leaves
+    B = max_bins
+    caps = level_caps(L, max_depth, extra_levels,
+                      slot_cap=max_slot_cap(f_oh * B, nch))
+    R = num_rows or Rp
+    leaf_T = torch.where(torch.arange(Rp, device=dev)[None, :] < R, 0, -1) \
+        .to(torch.int32)
+
+    tree = empty_tree(L, dev)
+    pool_g = torch.zeros((L, f_oh, B), dtype=torch.float32, device=dev)
+    pool_h = torch.zeros_like(pool_g)
+    pool_c = torch.zeros_like(pool_g)
+
+    # ---- root pass: slot 0 collects the full-data histogram (W0[0, bins of
+    # column 0] = 1 sends every row "left" on slot 0)
+    Sp0 = 8
+    W0 = torch.zeros((Sp0, f_oh * B), dtype=torch.bfloat16, device=dev)
+    W0[0, :B] = 1
+    tbl0 = torch.zeros((Sp0, 128), dtype=torch.int32, device=dev)
+    tbl0[1:, 0] = -2
+    tbl0[0, 2] = 1
+    hist0, _ = level_pass(bins_T, leaf_T, gh_T, W0, tbl0, num_bins=B,
+                          f_oh=f_oh, nch=nch)
+    g0, h0, c0 = hist_planes(hist0, nch, Sp0, f_oh, B)
+    pool_g[0] = g0[0]
+    pool_h[0] = h0[0]
+    pool_c[0] = c0[0]
+    root_g = g0[0, 0, :].sum()
+    root_h = h0[0, 0, :].sum()
+    root_c = c0[0, 0, :].sum()
+    root_out = calculate_leaf_output(root_g, root_h, params, root_c, 0.0)
+    tree.leaf_value[0] = root_out
+    tree.leaf_count[0] = root_c
+    tree.leaf_weight[0] = root_h
+
+    root_best = best_split_cm(
+        g0[:1], h0[:1], c0[:1], meta.num_bin, meta.missing_type,
+        meta.default_bin, feature_mask[None, :], meta_is_cat(meta), params,
+        tree.leaf_value[:1])
+    best = BestSplit(*[torch.cat([a[:1], torch.zeros((L - 1,) + a.shape[1:],
+                                                      dtype=a.dtype,
+                                                      device=dev)])
+                       for a in root_best])
+    best = best._replace(gain=torch.cat(
+        [best.gain[:1], torch.full((L - 1,), NEG_INF, device=dev)]))
+
+    lpn = torch.full((L,), -1, dtype=torch.int32, device=dev)  # leaf->parent
+    lil = torch.zeros((L,), dtype=torch.bool, device=dev)      # is left child
+    state = (tree, leaf_T, pool_g, pool_h, pool_c, best, lpn, lil)
+    for li, S_d in enumerate(caps):
+        state = _one_level(state, bins_T, gh_T, meta, feature_mask, params,
+                           L, B, f_oh, S_d, nch, max_depth,
+                           li == len(caps) - 1)
+    tree, leaf_T = state[0], state[1]
+    return tree, leaf_T[0]
+
+
+def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B, f_oh,
+               S_d, nch, max_depth, is_last):
+    (tree, leaf_T, pool_g, pool_h, pool_c, best, lpn, lil) = state
+    dev = bins_T.device
+    Sp = max(8, S_d)
+    slots = torch.arange(L, dtype=torch.int32, device=dev)
+    nl = tree.num_leaves
+
+    gains = _masked_gain(best.gain, tree.leaf_depth, nl, max_depth, L)
+    budget = L - nl
+    # stable, like jnp.argsort: slot order on tied gains decides the tree
+    order = torch.argsort(-gains, stable=True)
+    rank = torch.empty(L, dtype=torch.int64, device=dev)
+    rank[order] = torch.arange(L, device=dev)
+    selected = (gains > 0.0) & (rank < budget) & (rank < S_d)
+    n_sel = int(selected.sum())          # the level's one host sync
+    host_syncs["count"] += 1
+    if n_sel == 0:
+        return state
+    # once the leaf budget is spent by this level's splits (or no pass
+    # follows), no split search runs again: route rows, skip histograms
+    route_only = is_last or budget - n_sel <= 0
+
+    sel_i32 = selected.to(torch.int32)
+    k_of_leaf = torch.cumsum(sel_i32, 0, dtype=torch.int32) - sel_i32
+    new_of_leaf = torch.where(selected, nl + k_of_leaf, -1).to(torch.int32)
+    node_of_leaf = torch.where(selected, nl - 1 + k_of_leaf, -1) \
+        .to(torch.int32)
+
+    # ---- slot tables (leaf_of_slot = -2 marks inactive slots so they can
+    # never match the -1 of padding rows)
+    lof = _masked_scatter(
+        torch.full((Sp,), -2, dtype=torch.int32, device=dev),
+        torch.clamp(k_of_leaf, max=Sp - 1), slots,
+        selected & (k_of_leaf < Sp))
+    lof_on = lof >= 0
+    lof_safe = torch.clamp(lof, min=0).long()
+    feat_s = torch.where(lof_on, best.feature[lof_safe], -1)
+    thr_s = best.threshold[lof_safe]
+    dl_s = best.default_left[lof_safe]
+    small_left_s = best.left_count[lof_safe] <= best.right_count[lof_safe]
+    new_s = torch.where(lof_on, nl + torch.arange(Sp, device=dev), 0)
+    delta_s = torch.where(lof_on, new_s - lof_safe, 0)
+    W = build_route_table(feat_s, thr_s, dl_s, meta.num_bin,
+                          meta.missing_type, meta.default_bin, Sp, f_oh, B)
+    tbl = torch.zeros((Sp, 128), dtype=torch.int32, device=dev)
+    tbl[:, 0] = lof
+    tbl[:, 1] = delta_s.to(torch.int32)
+    tbl[:, 2] = small_left_s.to(torch.int32)
+
+    if route_only:
+        leaf_T2 = route_pass(bins_T, leaf_T, W, tbl, num_bins=B, f_oh=f_oh)
+    else:
+        hist, leaf_T2 = level_pass(bins_T, leaf_T, gh_T, W, tbl, num_bins=B,
+                                   f_oh=f_oh, nch=nch)
+        sm_g, sm_h, sm_c = hist_planes(hist, nch, Sp, f_oh, B)
+        # ---- sibling by subtraction from the parent pool
+        par_g, par_h, par_c = pool_g[lof_safe], pool_h[lof_safe], \
+            pool_c[lof_safe]
+        sb_g, sb_h, sb_c = par_g - sm_g, par_h - sm_h, par_c - sm_c
+        sl = small_left_s[:, None, None]
+        left_g = torch.where(sl, sm_g, sb_g)
+        left_h = torch.where(sl, sm_h, sb_h)
+        left_c = torch.where(sl, sm_c, sb_c)
+        right_g = torch.where(sl, sb_g, sm_g)
+        right_h = torch.where(sl, sb_h, sm_h)
+        right_c = torch.where(sl, sb_c, sm_c)
+        for pool, lv, rv in ((pool_g, left_g, right_g),
+                             (pool_h, left_h, right_h),
+                             (pool_c, left_c, right_c)):
+            _pool_write(pool, lof_safe, lv, lof_on)
+            _pool_write(pool, new_s, rv, lof_on)
+
+    # ---- tree bookkeeping (ref: tree.h:62 Tree::Split)
+    new_depth = tree.leaf_depth + 1
+
+    def w(arr, vals):
+        return _masked_scatter(arr, node_of_leaf, vals, selected)
+
+    lc = w(tree.left_child, -slots - 1)
+    rc = w(tree.right_child, -new_of_leaf - 1)
+    wl = selected & (lpn >= 0) & lil
+    wr = selected & (lpn >= 0) & ~lil
+    lc = _masked_scatter(lc, lpn, node_of_leaf, wl)
+    rc = _masked_scatter(rc, lpn, node_of_leaf, wr)
+    lpn2 = torch.where(selected, node_of_leaf, lpn)
+    lil2 = torch.where(selected, True, lil)
+    lpn2 = _masked_scatter(lpn2, new_of_leaf, node_of_leaf, selected)
+    lil2 = _masked_scatter(lil2, new_of_leaf,
+                           torch.zeros(L, dtype=torch.bool, device=dev),
+                           selected)
+
+    def upd2(arr, lv, rv):
+        arr = _masked_scatter(arr, slots, lv, selected)
+        return _masked_scatter(arr, new_of_leaf, rv, selected)
+
+    tree2 = tree._replace(
+        num_leaves=nl + n_sel,
+        split_feature=w(tree.split_feature, best.feature),
+        threshold_bin=w(tree.threshold_bin, best.threshold),
+        default_left=w(tree.default_left, best.default_left),
+        split_gain=w(tree.split_gain, best.gain),
+        internal_value=w(tree.internal_value, tree.leaf_value),
+        internal_count=w(tree.internal_count, tree.leaf_count),
+        internal_weight=w(tree.internal_weight, tree.leaf_weight),
+        left_child=lc, right_child=rc,
+        leaf_value=upd2(tree.leaf_value, best.left_output,
+                        best.right_output),
+        leaf_count=upd2(tree.leaf_count, best.left_count, best.right_count),
+        leaf_weight=upd2(tree.leaf_weight, best.left_sum_hess,
+                         best.right_sum_hess),
+        leaf_depth=upd2(tree.leaf_depth, new_depth, new_depth),
+    )
+
+    if route_only:
+        # no split search will ever run again; bar the fresh leaves (and
+        # the reused parent slots) from re-selection
+        neg = torch.full((L,), NEG_INF, device=dev)
+        g2 = _masked_scatter(best.gain, slots, neg, selected)
+        g2 = _masked_scatter(g2, new_of_leaf, neg, selected)
+        return (tree2, leaf_T2, pool_g, pool_h, pool_c,
+                best._replace(gain=g2), lpn2, lil2)
+
+    # ---- best splits for the 2*Sp fresh children only; each child's own
+    # post-split output is the parent_output of its prospective children
+    # (ref: feature_histogram.hpp FindBestThreshold parent_output)
+    zero = torch.zeros((), device=dev)
+    left_out = torch.where(lof_on, best.left_output[lof_safe], zero)
+    right_out = torch.where(lof_on, best.right_output[lof_safe], zero)
+    bs = best_split_cm(
+        torch.cat([left_g, right_g]), torch.cat([left_h, right_h]),
+        torch.cat([left_c, right_c]), meta.num_bin, meta.missing_type,
+        meta.default_bin, feature_mask[None, :], meta_is_cat(meta), params,
+        torch.cat([left_out, right_out]))
+    left_bs = BestSplit(*[a[:Sp] for a in bs])
+    right_bs = BestSplit(*[a[Sp:] for a in bs])
+    best2 = _merge_best_many(best, lof_safe, left_bs, lof_on)
+    best2 = _merge_best_many(best2, new_s, right_bs, lof_on)
+    return (tree2, leaf_T2, pool_g, pool_h, pool_c, best2, lpn2, lil2)
+
+
+def tree_score_delta(tree: TreeArrays, row_leaf: torch.Tensor, shrinkage,
+                     num_rows: int = 0) -> torch.Tensor:
+    """Per-row training-score delta of one freshly grown tree:
+    ``shrinkage * leaf_value[row_leaf]`` through the lookup kernel; a
+    dried-up tree (num_leaves <= 1) contributes 0 (the driver appends a
+    constant tree for it instead, gbdt.cpp:421-437)."""
+    n = num_rows or row_leaf.shape[0]
+    if tree.num_leaves <= 1:
+        return torch.zeros(n, dtype=torch.float32, device=row_leaf.device)
+    shrink = torch.tensor(shrinkage, dtype=torch.float32)
+    vals = table_lookup(row_leaf[None, :], tree.leaf_value * shrink)[0]
+    return vals[:n]

@@ -1,0 +1,299 @@
+"""Fused per-level route + histogram pass, and the per-row table lookup.
+
+PyTorch counterpart of ``lightgbm_tpu/ops/fused_level.py``. The layouts and
+contracts are the JAX package's, so the same inputs give the same outputs:
+
+- ``bins_T`` [Fp, Rp] int8 (int16 when Bp > 128), feature-major;
+- ``leaf_T`` [1, Rp] int32, -1 on padding rows;
+- ``gh_T`` [8, Rp] bfloat16 from :func:`pack_gh` (g_hi, g_lo, h_hi, h_lo, w
+  for nch=5; g, h, w for nch=3);
+- ``W`` [Sp, F_oh*Bp] bfloat16 0/1 route table from :func:`build_route_table`;
+- ``tbl`` [Sp, 128] int32: col 0 leaf_of_slot (-2 inactive), col 1
+  right_delta, col 2 small_is_left.
+
+Three kernels, each written by hand in CUDA C++ for sm_90a
+(``lightgbm_tpu_torch/csrc``): :func:`level_pass`, :func:`route_pass` and
+:func:`table_lookup`. Each wrapper checks its inputs, allocates its outputs,
+launches on the current stream without synchronising and counts the launch
+in ``launches``. On a CPU tensor it runs the plain PyTorch version beside it
+(``*_plain``), which the CPU tests hold against the JAX package; on a CUDA
+tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+NCH_PRECISE = 5   # g_hi, g_lo, h_hi, h_lo, w
+NCH_FAST = 3      # g, h, w
+MAX_SLOTS = 128
+TBL_COLS = 128
+
+# launches of each kernel since the last reset (CPU calls never count)
+launches: Dict[str, int] = {"level_pass": 0, "route_pass": 0,
+                            "table_lookup": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def max_slot_cap(FB: int, nch: int, budget: int = 4 * 1024 * 1024) -> int:
+    """Largest per-level slot count whose [FB, nch*Sp] f32 histogram fits in
+    ``budget`` bytes (the JAX package's level schedule; kept so both
+    packages grow the same levels)."""
+    cap = budget // (FB * nch * 4)
+    cap = 1 << max(3, int(cap).bit_length() - 1)
+    return int(min(128, cap))
+
+
+def pack_gh(grad: torch.Tensor, hess: torch.Tensor, weight: torch.Tensor,
+            nch: int) -> torch.Tensor:
+    """[8, R] bfloat16 channel block (round-to-nearest-even, as XLA).
+
+    nch=5: g_hi, g_lo, h_hi, h_lo, w  (hi/lo bf16 split => fp32-grade sums)
+    nch=3: g, h, w. Rows beyond nch are zero.
+    """
+    bf = torch.bfloat16
+    z = torch.zeros_like(grad, dtype=bf)
+    if nch == NCH_PRECISE:
+        g_hi = grad.to(bf)
+        g_lo = (grad - g_hi.float()).to(bf)
+        h_hi = hess.to(bf)
+        h_lo = (hess - h_hi.float()).to(bf)
+        rows = [g_hi, g_lo, h_hi, h_lo, weight.to(bf), z, z, z]
+    else:
+        rows = [grad.to(bf), hess.to(bf), weight.to(bf), z, z, z, z, z]
+    return torch.stack(rows, 0)
+
+
+def hist_planes(hist: torch.Tensor, nch: int, Sp: int, F_oh: int, B: int):
+    """[FB, nch*Sp] kernel output -> (grad, hess, cnt) planes [Sp, F_oh, B]
+    in float32 (hi/lo recombined when nch=5)."""
+    def plane(c):
+        return hist[:, c * Sp:(c + 1) * Sp]
+    if nch == NCH_PRECISE:
+        g = plane(0) + plane(1)
+        h = plane(2) + plane(3)
+        c = plane(4)
+    else:
+        g, h, c = plane(0), plane(1), plane(2)
+
+    def to(x):
+        return x.t().reshape(Sp, F_oh, B)
+    return to(g), to(h), to(c)
+
+
+def build_route_table(feature: torch.Tensor, threshold: torch.Tensor,
+                      default_left: torch.Tensor, num_bin: torch.Tensor,
+                      missing_type: torch.Tensor, default_bin: torch.Tensor,
+                      Sp: int, F_oh: int, B: int) -> torch.Tensor:
+    """W [Sp, F_oh*B] bfloat16: W[k, f*B+b] = 1 iff a row with bin b of
+    feature f goes LEFT under slot k's numerical split. Missing bins ride
+    default_left (ref: src/io/dense_bin.hpp Split); feature=-1 rows are
+    all-zero (inactive slot). ``num_bin``/``missing_type``/``default_bin``
+    are per-feature [F] with F <= F_oh."""
+    dev = feature.device
+    F = num_bin.shape[0]
+    f_iota = torch.arange(F_oh, dtype=torch.int32, device=dev)[None, :, None]
+    b_iota = torch.arange(B, dtype=torch.int32, device=dev)[None, None, :]
+
+    def pad(a):
+        out = torch.zeros(F_oh, dtype=torch.int32, device=dev)
+        out[:F] = a
+        return out[None, :, None]
+    nb, mt, db = pad(num_bin), pad(missing_type), pad(default_bin)
+    feat = feature[:, None, None]
+    thr = threshold[:, None, None]
+    dl = default_left[:, None, None]
+    is_missing = (((mt == 1) & (b_iota == db))
+                  | ((mt == 2) & (b_iota == nb - 1)))
+    go_left = torch.where(is_missing, dl, b_iota <= thr)
+    w = (f_iota == feat) & go_left & (feat >= 0)
+    return w.reshape(Sp, F_oh * B).to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------- checks
+def _check_route_inputs(bins_T, leaf_T, W, tbl, num_bins, f_oh):
+    if bins_T.dim() != 2 or bins_T.dtype not in (torch.int8, torch.int16):
+        raise ValueError("bins_T must be a 2-D int8 or int16 tensor; got "
+                         f"{tuple(bins_T.shape)} {bins_T.dtype}")
+    if bins_T.dtype == torch.int8 and num_bins > 128:
+        raise ValueError("int8 bins hold at most 128 bins; use int16")
+    Fp, Rp = bins_T.shape
+    if Fp < f_oh:
+        raise ValueError(f"bins_T has {Fp} feature rows, f_oh={f_oh}")
+    if tuple(leaf_T.shape) != (1, Rp) or leaf_T.dtype != torch.int32:
+        raise ValueError("leaf_T must be [1, Rp] int32")
+    Sp = tbl.shape[0]
+    if tbl.dim() != 2 or tbl.shape[1] != TBL_COLS \
+            or tbl.dtype != torch.int32:
+        raise ValueError("tbl must be [Sp, 128] int32")
+    if not 1 <= Sp <= MAX_SLOTS:
+        raise ValueError(f"Sp={Sp} outside [1, {MAX_SLOTS}]")
+    if tuple(W.shape) != (Sp, f_oh * num_bins) or W.dtype != torch.bfloat16:
+        raise ValueError(f"W must be [{Sp}, {f_oh * num_bins}] bfloat16")
+    dev = bins_T.device
+    for name, t in (("leaf_T", leaf_T), ("W", W), ("tbl", tbl)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, bins_T on {dev}")
+    return Rp, Sp
+
+
+def _require_cuda(*tensors):
+    for t in tensors:
+        if t.device.type != "cuda" or not t.is_contiguous():
+            raise ValueError("the CUDA kernels take contiguous CUDA tensors; "
+                             f"got a {t.device} tensor "
+                             f"(contiguous={t.is_contiguous()})")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+# ----------------------------------------------------------- plain versions
+def _route_plain(bins_T, leaf_T, W, tbl, num_bins, f_oh):
+    """(slot per row or -1, goes-left per row, new_leaf [1, Rp])."""
+    Rp = bins_T.shape[1]
+    leaf = leaf_T[0]
+    lof = tbl[:, 0]
+    member = leaf[None, :] == lof[:, None]                       # [Sp, Rp]
+    hit = member.any(0)
+    slot = torch.where(hit, member.to(torch.int8).argmax(0),
+                       torch.full_like(leaf, -1, dtype=torch.int64))
+    k = slot.clamp(min=0)
+    FB = f_oh * num_bins
+    Wf = W.reshape(-1).float()
+    D = torch.zeros(Rp, dtype=torch.float32, device=bins_T.device)
+    for f in range(f_oh):
+        D += Wf[k * FB + f * num_bins + bins_T[f].long()]
+    left = D > 0.5
+    delta = tbl[:, 1][k]
+    new_leaf = torch.where(hit & ~left, leaf + delta, leaf)
+    return slot, left, new_leaf[None, :].to(torch.int32)
+
+
+def level_pass_plain(bins_T, leaf_T, gh_T, W, tbl, *, num_bins: int,
+                     f_oh: int, nch: int = NCH_PRECISE):
+    """Plain PyTorch version of :func:`level_pass` (routing by gathering W
+    at the row's slot; the smaller-child histogram by ``index_add_`` over
+    the flat (f*Bp + bin, ch*Sp + k) index, in f32)."""
+    Sp = tbl.shape[0]
+    slot, left, new_leaf = _route_plain(bins_T, leaf_T, W, tbl, num_bins,
+                                        f_oh)
+    small_left = tbl[:, 2] > 0
+    in_small = (slot >= 0) & (left == small_left[slot.clamp(min=0)])
+    rows = torch.nonzero(in_small).squeeze(1)
+    k = slot[rows]
+    C = nch * Sp
+    FB = f_oh * num_bins
+    hist = torch.zeros(FB * C, dtype=torch.float32, device=bins_T.device)
+    vals = gh_T[:nch, rows].float()                               # [nch, n]
+    ch_off = (torch.arange(nch, device=bins_T.device) * Sp)[:, None]
+    for f in range(f_oh):
+        cell = (f * num_bins + bins_T[f, rows].long()) * C + k     # [n]
+        hist.index_add_(0, (cell[None, :] + ch_off).reshape(-1),
+                        vals.reshape(-1))
+    return hist.reshape(FB, C), new_leaf
+
+
+def route_pass_plain(bins_T, leaf_T, W, tbl, *, num_bins: int, f_oh: int):
+    """Plain PyTorch version of :func:`route_pass`."""
+    return _route_plain(bins_T, leaf_T, W, tbl, num_bins, f_oh)[2]
+
+
+def table_lookup_plain(idx_T, table):
+    """Plain PyTorch version of :func:`table_lookup`."""
+    L = table.shape[0]
+    ok = (idx_T >= 0) & (idx_T < L)
+    vals = table[idx_T.clamp(0, L - 1).long()]
+    return torch.where(ok, vals, torch.zeros((), dtype=table.dtype,
+                                             device=table.device))
+
+
+# ---------------------------------------------------------------- wrappers
+def level_pass(bins_T: torch.Tensor, leaf_T: torch.Tensor,
+               gh_T: torch.Tensor, W: torch.Tensor, tbl: torch.Tensor, *,
+               num_bins: int, f_oh: int, nch: int = NCH_PRECISE
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One fused route + smaller-child histogram pass over all rows.
+
+    Returns (hist [F_oh*Bp, nch*Sp] float32, new_leaf [1, Rp] int32).
+    ``num_bins`` is the padded Bp. Every row of a selected leaf moves to its
+    child; rows in the smaller child (``tbl`` col 2) add their nch channels
+    into ``hist[f*Bp + bin_f, ch*Sp + k]`` for every feature f < f_oh.
+    """
+    Rp, Sp = _check_route_inputs(bins_T, leaf_T, W, tbl, num_bins, f_oh)
+    if nch not in (NCH_PRECISE, NCH_FAST):
+        raise ValueError(f"nch must be 3 or 5; got {nch}")
+    if tuple(gh_T.shape) != (8, Rp) or gh_T.dtype != torch.bfloat16:
+        raise ValueError("gh_T must be [8, Rp] bfloat16")
+    if gh_T.device != bins_T.device:
+        raise ValueError("gh_T and bins_T are on different devices")
+    if bins_T.device.type == "cpu":
+        return level_pass_plain(bins_T, leaf_T, gh_T, W, tbl,
+                                num_bins=num_bins, f_oh=f_oh, nch=nch)
+    _require_cuda(bins_T, leaf_T, gh_T, W, tbl)
+    from .cuda_build import library
+    hist = torch.zeros((f_oh * num_bins, nch * Sp), dtype=torch.float32,
+                       device=bins_T.device)
+    new_leaf = torch.empty_like(leaf_T)
+    rc = library().lgbt_level_pass(
+        bins_T.data_ptr(), bins_T.element_size(), leaf_T.data_ptr(),
+        gh_T.data_ptr(), W.data_ptr(), tbl.data_ptr(), hist.data_ptr(),
+        new_leaf.data_ptr(), Rp, f_oh, num_bins, Sp, nch,
+        _stream(bins_T.device))
+    _raise_on(rc, "level_pass")
+    launches["level_pass"] += 1
+    return hist, new_leaf
+
+
+def route_pass(bins_T: torch.Tensor, leaf_T: torch.Tensor, W: torch.Tensor,
+               tbl: torch.Tensor, *, num_bins: int, f_oh: int
+               ) -> torch.Tensor:
+    """Row -> leaf update only (same W/tbl contract as level_pass)."""
+    Rp, Sp = _check_route_inputs(bins_T, leaf_T, W, tbl, num_bins, f_oh)
+    if bins_T.device.type == "cpu":
+        return route_pass_plain(bins_T, leaf_T, W, tbl, num_bins=num_bins,
+                                f_oh=f_oh)
+    _require_cuda(bins_T, leaf_T, W, tbl)
+    from .cuda_build import library
+    new_leaf = torch.empty_like(leaf_T)
+    rc = library().lgbt_route_pass(
+        bins_T.data_ptr(), bins_T.element_size(), leaf_T.data_ptr(),
+        W.data_ptr(), tbl.data_ptr(), new_leaf.data_ptr(), Rp, f_oh,
+        num_bins, Sp, _stream(bins_T.device))
+    _raise_on(rc, "route_pass")
+    launches["route_pass"] += 1
+    return new_leaf
+
+
+def table_lookup(idx_T: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """out[0, r] = table[idx_T[0, r]], and 0 where the index is outside
+    [0, len(table)). ``idx_T`` [1, R] int32, ``table`` [L] float32."""
+    if idx_T.dim() != 2 or idx_T.shape[0] != 1 \
+            or idx_T.dtype != torch.int32:
+        raise ValueError("idx_T must be [1, R] int32")
+    if table.dim() != 1 or table.dtype != torch.float32:
+        raise ValueError("table must be 1-D float32")
+    if table.device != idx_T.device:
+        raise ValueError("idx_T and table are on different devices")
+    if idx_T.device.type == "cpu":
+        return table_lookup_plain(idx_T, table)
+    _require_cuda(idx_T, table)
+    from .cuda_build import library
+    out = torch.empty(idx_T.shape, dtype=torch.float32, device=idx_T.device)
+    rc = library().lgbt_table_lookup(
+        idx_T.data_ptr(), table.data_ptr(), out.data_ptr(), idx_T.shape[1],
+        table.shape[0], _stream(idx_T.device))
+    _raise_on(rc, "table_lookup")
+    launches["table_lookup"] += 1
+    return out

@@ -1,0 +1,93 @@
+#!/usr/bin/env python3
+"""Where one boosting iteration of lightgbm_tpu_torch spends its time on
+the card.
+
+    python3 scripts/torch_profile.py [--rows 1000000] [--rounds 3]
+
+Trains chip_smoke.py's configuration (1,000,000 x 28 rows of bench.py's
+synthetic data, max_bin=63, num_leaves=255), warms up, then traces
+``--rounds`` more iterations with ``torch.profiler`` and prints one JSON line:
+the wall time per iteration, the device time summed over all kernels, the
+device's busy share (device time over wall time), the kernels ranked by
+device time, and the grower's host syncs per tree. Also prints the card's
+name and power limit. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rows", type=int, default=1_000_000)
+    ap.add_argument("--rounds", type=int, default=3)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_profile: no CUDA device", file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.models import frontier2
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    X, y = cs._make_data(args.rows, cs.FEATURES, seed=cs.DATA_SEED)
+    params = {"objective": "binary", "max_bin": 63, "num_leaves": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 1, "verbose": -1,
+              "device_type": "cuda"}
+    ds = lgb.Dataset(X, label=y, params=params).construct()
+    bst = lgb.Booster(params=params, train_set=ds)
+    for _ in range(2):
+        bst.update()
+    torch.cuda.synchronize()
+    frontier2.host_syncs["count"] = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.rounds):
+            bst.update()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events only (kernels, memsets, copies): the CPU-side op
+    # that launched a kernel reports the same time again as its own
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us, e.key, e.count))
+    rows.sort(reverse=True)
+    dev_total_us = sum(r[0] for r in rows)
+    print(json.dumps({
+        "rows": args.rows, "iterations": args.rounds,
+        "wall_ms_per_iter": wall * 1e3 / args.rounds,
+        "device_ms_per_iter": dev_total_us / 1e3 / args.rounds,
+        "device_busy_share": dev_total_us / 1e6 / wall,
+        "host_syncs_per_tree": frontier2.host_syncs["count"] / args.rounds,
+        "device_launches_per_iter": sum(r[2] for r in rows) / args.rounds,
+        "top_device_ops": [{"name": k[:80], "calls_per_iter":
+                            c / args.rounds,
+                            "ms_per_iter": d / 1e3 / args.rounds}
+                           for d, k, c in rows[:15]],
+        "nvidia_smi": smi}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

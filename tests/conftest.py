@@ -98,6 +98,9 @@ def pytest_configure(config):
         "markers", "chaos: multi-process fault-injection acceptance "
         "tests (the CI chaos-acceptance job runs -m chaos; also part "
         "of the weekly slow pass via the paired slow marker)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where torch sees no "
+        "CUDA device (run on the card with -m cuda)")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,125 @@
+"""lightgbm_tpu_torch package contracts: binning parity with the reference
+fixture, the params registry shared with the JAX package, device
+selection, unported options, and that the package and chip_smoke.py import
+no JAX."""
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import lightgbm_tpu_torch as lt
+from lightgbm_tpu.config import Config as JConfig
+from lightgbm_tpu_torch.config import Config as TConfig
+from lightgbm_tpu_torch.dataset import BinnedDataset
+
+REPO = Path(__file__).resolve().parents[1]
+FIX = REPO / "tests" / "fixtures"
+PORT = REPO / "lightgbm_tpu_torch"
+
+
+def test_bin_assignment_matches_reference_fixture():
+    """The port's BinMapper bins every value as the reference's
+    GreedyFindBin does (mirrors test_ref_parity's bin check)."""
+    X = np.load(FIX / "parity_X.npy")
+    want = np.load(FIX / "ref_bins.npy")
+    cfg = TConfig({"max_bin": 63, "min_data_in_bin": 3, "verbose": -1,
+                   "feature_pre_filter": False})
+    ds = BinnedDataset.from_data(np.asarray(X[:, :5], np.float64), cfg,
+                                 "cpu")
+    assert ds.bins.shape == want.shape
+    mismatch = (ds.bins != want).mean(axis=0)
+    assert (mismatch == 0).all(), f"bin mismatch rates per feature {mismatch}"
+    assert torch.equal(ds.bins_dev.cpu(),
+                       torch.as_tensor(ds.bins.astype(np.int16)))
+
+
+def test_config_keeps_every_jax_key():
+    t, j = TConfig().to_dict(), JConfig().to_dict()
+    assert set(t) == set(j)
+    assert t["device_type"] == "cuda"
+    assert TConfig({"device": "cpu"}).device_type == "cpu"
+    assert {k: v for k, v in t.items() if k != "device_type"} == \
+        {k: v for k, v in j.items() if k != "device_type"}
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default runs there")
+    X = np.random.RandomState(0).randn(64, 3)
+    y = (X[:, 0] > 0).astype(float)
+    with pytest.raises(lt.LightGBMError, match="CUDA"):
+        lt.train({"objective": "binary", "verbose": -1},
+                 lt.Dataset(X, label=y), num_boost_round=1)
+    with pytest.raises(lt.LightGBMError, match="CUDA"):
+        lt.Dataset(X, label=y, params={"device_type": "cuda"}).construct()
+
+
+@pytest.mark.parametrize("params", [{"bagging_freq": 1,
+                                     "bagging_fraction": 0.5},
+                                    {"feature_fraction": 0.5},
+                                    {"objective": "multiclass",
+                                     "num_class": 3}])
+def test_unported_options_raise(params):
+    X = np.random.RandomState(0).randn(64, 3)
+    y = (X[:, 0] > 0).astype(float)
+    p = dict({"objective": "binary", "verbose": -1, "device_type": "cpu"},
+             **params)
+    with pytest.raises(lt.LightGBMError, match="not ported"):
+        lt.train(p, lt.Dataset(X, label=y), num_boost_round=1)
+
+
+def _port_modules():
+    mods = []
+    for p in sorted(PORT.rglob("*.py")):
+        rel = p.relative_to(REPO).with_suffix("")
+        mods.append(".".join(rel.parts).replace(".__init__", ""))
+    return mods
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py, in a fresh process:
+    neither jax nor lightgbm_tpu ends up in sys.modules."""
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {_port_modules()!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'jaxlib' or m == 'lightgbm_tpu'"
+        " or m.startswith('lightgbm_tpu.')]\n"
+        "print(json.dumps(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_port_sources_name_no_jax_import():
+    for p in sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(p.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for n in names:
+                root = n.split(".")[0]
+                assert root not in ("jax", "jaxlib", "lightgbm_tpu"), \
+                    f"{p.relative_to(REPO)} imports {n}"
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """chip_smoke.py in a directory with nothing else of the repo (or on a
+    machine without a card) exits non-zero and prints no result line."""
+    (tmp_path / "chip_smoke.py").write_text(
+        (REPO / "chip_smoke.py").read_text())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
