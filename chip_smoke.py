@@ -9,17 +9,28 @@ non-zero (it prints no result line then):
 1. environment and build: the card's name and power limit (nvidia-smi),
    torch and CUDA versions; the CUDA kernels built from ``csrc/``;
 2. each kernel against its plain PyTorch version on the card, at the
-   slice's shapes: Rp = 1,001,472 rows, 28 features, Bp=64 with int8 bins
+   slices' shapes: Rp = 1,001,472 rows, 28 features, Bp=64 with int8 bins
    and Bp=256 with int16 bins, Sp in {8, max_slot_cap}, nch in {5, 3}, a
-   255-entry lookup table; with the error, its tolerance and the times;
-3. end to end: ``lightgbm_tpu_torch.train`` on 1,000,000 x 28 rows of
-   ``bench.py``'s synthetic binary data (seed 1), the Higgs-shaped configuration
-   (max_bin=63, num_leaves=255, learning_rate=0.1, min_data_in_leaf=1),
-   10 rounds: sec/iter, training AUC (> 0.75), the kernels' launch counts
-   (each > 0), and ``Booster.predict`` against the trainer's scores;
-4. the ``kernels`` line: every ported kernel with its launches on the main
-   path, error, time, plain time, bound and library time;
-5. the last line: ``{"ok": true, "device": {...}}``.
+   255-entry lookup table; ``epilogue_pass`` also for kind binary and l2
+   and once with an all-inactive deferred table, with ~30% zero bag
+   weights; with the errors, their tolerances and the times;
+3. end to end through ``lightgbm_tpu_torch.train`` on 1,000,000 x 28 rows
+   of ``bench.py``'s synthetic binary data (seed 1), the Higgs-shaped
+   configuration (max_bin=63, num_leaves=255, learning_rate=0.1,
+   min_data_in_leaf=1), 10 rounds (the megastep body): sec/iter, training
+   AUC (> 0.75), the kernels' launch counts (level_pass, route_pass and
+   table_lookup each > 0), and ``Booster.predict`` against the trainer's
+   scores;
+4. the loop ``bench.py`` times, ``Booster(params, train_set)`` then
+   ``update()`` (the epilogue body), on the same dataset: 2 warm-up and 10
+   timed updates, (a) as bench.py has it, twice, in turns with the same
+   loop on the megastep body (m) that ``train()`` runs, and (b) with
+   bagging_fraction=0.5, bagging_freq=1, feature_fraction=0.8: sec/iter,
+   AUC (> 0.75), leaves, predict agreement, host syncs per tree, every
+   kernel's launches (epilogue_pass > 0 on the epilogue body);
+5. the ``kernels`` line: every ported kernel with its launches on the main
+   path where it runs, error, time, plain time, bound and library time;
+6. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package. It exits non-zero when no CUDA
 device is present.
@@ -43,15 +54,20 @@ ROUNDS = 10
 # seed 1 makes 34% positive
 DATA_SEED = 1
 DEVICE = "cuda"   # the card; a rehearsal on the CPU may set "cpu"
+UPDATES = 10
+WARMUP_UPDATES = 2
+TRAIN_PATH_KERNELS = ("level_pass", "route_pass", "table_lookup")
 REPLACES = {
     "level_pass": "lightgbm_tpu/ops/fused_level.py:402",
     "route_pass": "lightgbm_tpu/ops/fused_level.py:575",
     "table_lookup": "lightgbm_tpu/ops/fused_level.py:811",
+    "epilogue_pass": "lightgbm_tpu/ops/fused_level.py:641",
 }
 SOURCES = {
     "level_pass": "lightgbm_tpu_torch/csrc/level_pass.cu",
     "route_pass": "lightgbm_tpu_torch/csrc/route_pass.cu",
     "table_lookup": "lightgbm_tpu_torch/csrc/table_lookup.cu",
+    "epilogue_pass": "lightgbm_tpu_torch/csrc/epilogue_pass.cu",
 }
 
 
@@ -240,6 +256,120 @@ def check_lookup(Rp, R, L, seed):
         "bound_ms": b, "bound_by": by}
 
 
+def check_epilogue(Rp, R, B, Sp, nch, kind, active, seed, L=255):
+    """epilogue_pass against its plain version: rows in Sp leaves before
+    the deferred route (or an all-inactive table), a 255-entry leaf-value
+    table (routed leaves past it add 0), ~30% zero bag weights, padding
+    rows at leaf -1 with zero operands and bag."""
+    import torch
+    from lightgbm_tpu_torch.ops import fused_level as fl
+    dev = torch.device(DEVICE)
+    bins_T, leaf_T, _, W, tbl = _level_inputs(Rp, R, B, Sp, nch, seed)
+    if not active:
+        W = torch.zeros_like(W)
+        tbl = tbl.clone()
+        tbl[:, 0] = -2
+    rng = np.random.RandomState(seed + 1)
+    lv = torch.as_tensor((rng.randn(L) * 0.1).astype(np.float32), device=dev)
+    score = np.zeros((1, Rp), np.float32)
+    score[0, :R] = rng.randn(R)
+    ops = np.zeros((8, Rp), np.float32)
+    if kind == "binary":
+        ops[0, :R] = np.where(rng.rand(R) < 0.4, 1.0, -1.0)
+    else:
+        ops[0, :R] = rng.randn(R) * 3.0
+    ops[1, :R] = rng.uniform(0.5, 2.0, R)
+    bag = np.zeros((1, Rp), np.float32)
+    bag[0, :R] = rng.rand(R) >= 0.3
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    args = (bins_T, leaf_T, W, tbl, lv, t(score), t(ops), t(bag))
+    kw = dict(num_bins=B, f_oh=FEATURES, nch=nch, kind=kind, sigmoid=1.0)
+    n0 = fl.launches["epilogue_pass"]
+    hist_k, score_k, gh_k = fl.epilogue_pass(*args, **kw)
+    hist_p, score_p, gh_p = fl.epilogue_pass_plain(*args, **kw)
+    torch.cuda.synchronize()
+    launched = fl.launches["epilogue_pass"] - n0
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+    score_err = float((score_k - score_p).abs().max())
+    if not torch.allclose(score_k, score_p, rtol=1e-6, atol=0):
+        raise AssertionError(f"epilogue new_score differs by {score_err}")
+    # decoded channels (hi + lo): if the two exps were an ulp apart, g may
+    # round to the other bf16 hi, and hi + lo may then differ by 2^-15 of
+    # the value and those ulps
+    ch_k, ch_p = gh_k.float(), gh_p.float()
+    if nch == fl.NCH_PRECISE:
+        dec_k = torch.stack([ch_k[0] + ch_k[1], ch_k[2] + ch_k[3], ch_k[4]])
+        dec_p = torch.stack([ch_p[0] + ch_p[1], ch_p[2] + ch_p[3], ch_p[4]])
+    else:
+        dec_k, dec_p = ch_k[:3], ch_p[:3]
+    gh_err = float((dec_k - dec_p).abs().max())
+    if not torch.allclose(dec_k, dec_p, rtol=4e-5, atol=1e-7):
+        raise AssertionError(f"epilogue gh_T differs by {gh_err}")
+    if ch_k[nch:].abs().max() != 0:
+        raise AssertionError("epilogue gh_T rows >= nch are not zero")
+    # histogram: slots 1-7 exactly zero; the weight channel exact; g/h
+    # planes within 1e-5 of the plane's largest |value| sum per cell (the
+    # scale of any f32 summation order's rounding error)
+    live = torch.zeros(nch * 8, dtype=torch.bool, device=dev)
+    live[::8] = True
+    if hist_k[:, ~live].abs().max() != 0:
+        raise AssertionError("epilogue hist slots 1-7 are not zero")
+    FB = FEATURES * B
+    abs_hist = torch.zeros(FB * nch, dtype=torch.float64, device=dev)
+    vals = gh_p[:nch].double().abs()
+    for f in range(FEATURES):
+        cell = (f * B + bins_T[f].long()) * nch
+        abs_hist.index_add_(0, (cell[None, :] + torch.arange(
+            nch, device=dev)[:, None]).reshape(-1), vals.reshape(-1))
+    abs_hist = abs_hist.reshape(FB, nch)
+    hist_abs_err = 0.0
+    hist_rel_sum = 0.0
+    hist_rel_max = 0.0
+    for c in range(nch):
+        k, p = hist_k[:, 8 * c], hist_p[:, 8 * c]
+        err = float((k - p).abs().max())
+        hist_abs_err = max(hist_abs_err, err)
+        if c == nch - 1:
+            if err != 0.0:
+                raise AssertionError(f"epilogue weight channel differs by "
+                                     f"{err}")
+            continue
+        hist_rel_sum = max(hist_rel_sum, err / float(abs_hist[:, c].max()))
+        hist_rel_max = max(hist_rel_max, err / (float(p.abs().max()) or 1.0))
+    if hist_rel_sum > 1e-5:
+        raise AssertionError(f"epilogue hist rel err {hist_rel_sum} > 1e-5")
+
+    # bytes: bins, leaf, score in/out, the two operand rows, bag, the 8
+    # bf16 channels out, W, tbl, leaf values, the [FB, nch*8] histogram;
+    # ops: the route's gather-adds for rows in a selected leaf, ~20 flops
+    # of gradient and pack per row, F*nch adds per row with a non-zero
+    # channel (this run's counts)
+    bb = bins_T.element_size()
+    in_slot = int((leaf_T[0][:, None] == tbl[:, 0][None, :]).any(1).sum())
+    nonzero = int((gh_p[:nch].float() != 0).any(0).sum())
+    nbytes = (Rp * (FEATURES * bb + 4 + 8 + 8 + 4 + 16) + W.numel() * 2
+              + tbl.numel() * 4 + L * 4 + hist_p.numel() * 4)
+    nops = in_slot * FEATURES + Rp * 20 + nonzero * FEATURES * nch
+    b_ms, b_by = bound(nbytes, nops)
+    return {
+        "B": B, "bins": str(bins_T.dtype).replace("torch.", ""), "Sp": Sp,
+        "nch": nch, "kind": kind, "deferred_table": "active" if active
+        else "inactive", "launches": launched,
+        "new_score_max_abs_err": score_err, "new_score_tol": "rtol=1e-6",
+        "gh_max_abs_err": gh_err, "gh_max_rel_err": rel(dec_k, dec_p),
+        "gh_tol": "rtol=4e-5 atol=1e-7",
+        "hist_max_abs_err": hist_abs_err,
+        "hist_rel_err_of_abs_sum": hist_rel_sum, "hist_tol": 1e-5,
+        "hist_rel_err_of_plane_max": hist_rel_max,
+        "weight_channel_exact": True,
+        "kernel_ms": cuda_ms(lambda: fl.epilogue_pass(*args, **kw)),
+        "plain_ms": cuda_ms(lambda: fl.epilogue_pass_plain(*args, **kw),
+                            reps=3, warmup=1),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+
+
 def auc(scores: np.ndarray, y: np.ndarray) -> float:
     order = np.argsort(scores, kind="stable")
     ranks = np.empty(len(scores), np.float64)
@@ -249,6 +379,60 @@ def auc(scores: np.ndarray, y: np.ndarray) -> float:
     n_neg = len(y) - n_pos
     return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2)
                  / (n_pos * n_neg))
+
+
+def run_updates(lgb, params, ds, X, y, megastep=False):
+    """bench.py's loop on the card: Booster(params, train_set), warm-up
+    updates, then UPDATES timed ones, each ending in a synchronize; on the
+    megastep body (what train() runs) when ``megastep``, else on the
+    epilogue body. Returns (the phase's JSON, the kernels' launches in the
+    timed run)."""
+    import torch
+    from lightgbm_tpu_torch.models import frontier2
+    from lightgbm_tpu_torch.ops import fused_level as fl
+    bst = lgb.Booster(params=params, train_set=ds)
+    bst._gbdt.arm_megastep(megastep)
+    for _ in range(WARMUP_UPDATES):
+        bst.update()
+    torch.cuda.synchronize()
+    fl.reset_launch_counts()
+    frontier2.host_syncs["count"] = 0
+    times = []
+    for _ in range(UPDATES):
+        t0 = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = dict(fl.launches)
+    syncs = frontier2.host_syncs["count"]
+    n_trees = bst.num_trees()
+    scores = bst.train_scores().float().cpu().numpy()
+    train_auc = auc(scores, y)
+    pred = bst.predict(X[:100_000], raw_score=True)
+    pred_err = float(np.abs(pred - scores[:100_000]).max())
+    ok_pred = bool(np.allclose(pred, scores[:100_000], rtol=1e-5,
+                               atol=1e-5))
+    epilogue = not megastep and bst._gbdt._use_epilogue()
+    res = {"body": "epilogue" if epilogue else "megastep",
+           "updates": UPDATES, "warmup_updates": WARMUP_UPDATES,
+           "trees": n_trees, "sec_per_iter": float(np.mean(times)),
+           "sec_per_iter_median": float(np.median(times)),
+           "train_auc": train_auc, "launches": launches,
+           "host_syncs_per_tree": syncs / UPDATES,
+           "predict_max_abs_err": pred_err,
+           "predict_tol": "rtol=1e-5 atol=1e-5",
+           "leaves": [m.num_leaves for m in bst.models]}
+    if n_trees != UPDATES + WARMUP_UPDATES:
+        raise AssertionError(f"update() grew {n_trees} trees")
+    if not train_auc > 0.75:
+        raise AssertionError(f"update() training AUC {train_auc} <= 0.75")
+    if epilogue and launches["epilogue_pass"] <= 0:
+        raise AssertionError("epilogue_pass never launched on the "
+                             "update() path")
+    if not ok_pred:
+        raise AssertionError(f"update() predict differs from the "
+                             f"trainer's scores by {pred_err}")
+    return res, launches
 
 
 def main() -> int:
@@ -294,13 +478,28 @@ def main() -> int:
                     main_cfg = res
     lookup = check_lookup(Rp, ROWS, 255, seed=7)
     emit({"phase": "kernel_check", "table_lookup": lookup})
+    epi_main = None
+    for B in (64, 256):
+        for nch in (fl.NCH_PRECISE, fl.NCH_FAST):
+            cap = fl.max_slot_cap(FEATURES * B, nch)
+            for kind in ("binary", "l2"):
+                for Sp in sorted({8, cap}):
+                    res = check_epilogue(Rp, ROWS, B, Sp, nch, kind, True,
+                                         seed=B + Sp + nch + len(kind))
+                    emit({"phase": "kernel_check", "epilogue_pass": res})
+                    if (B, nch, kind, Sp) == (64, fl.NCH_PRECISE, "binary",
+                                              cap):
+                        epi_main = res
+    res = check_epilogue(Rp, ROWS, 64, 64, fl.NCH_PRECISE, "binary", False,
+                         seed=3)
+    emit({"phase": "kernel_check", "epilogue_pass": res})
 
     # ---- 3. end to end through lightgbm_tpu_torch.train
     X, y = _make_data(ROWS, FEATURES, seed=DATA_SEED)
     params = {"objective": "binary", "max_bin": 63, "num_leaves": 255,
               "learning_rate": 0.1, "min_data_in_leaf": 1,
               "min_sum_hessian_in_leaf": 1e-3, "verbose": -1,
-              "device_type": "cuda"}
+              "device_type": DEVICE}
     t0 = time.perf_counter()
     ds = lgb.Dataset(X, label=y, params=params).construct()
     construct_s = time.perf_counter() - t0
@@ -341,29 +540,54 @@ def main() -> int:
         raise AssertionError(f"trained {n_trees} trees, wanted {ROUNDS}")
     if not train_auc > 0.75:
         raise AssertionError(f"training AUC {train_auc} <= 0.75")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in TRAIN_PATH_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
-                                 "main path")
+                                 "train() path")
     if not ok_pred:
         raise AssertionError(f"predict differs from the trainer's scores "
                              f"by {pred_err}")
 
-    # ---- 4. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64)
+    # ---- 4. the loop bench.py times: Booster(params, train_set).update(),
+    # on the epilogue body (a) and, in turns with it, the megastep body
+    # train() runs (m); then (b) with bagging and feature_fraction
+    bagged = {"bagging_fraction": 0.5, "bagging_freq": 1,
+              "feature_fraction": 0.8}
+    upd_launches = None
+    for name, extra, megastep in (("m", {}, True), ("a", {}, False),
+                                  ("a", {}, False), ("m", {}, True),
+                                  ("b", bagged, False)):
+        res, n_launch = run_updates(lgb, dict(params, **extra), ds, X, y,
+                                    megastep)
+        emit({"phase": "update_path", "run": name, "params": extra, **res})
+        if name == "a":
+            upd_launches = upd_launches or n_launch
+
+    # ---- 5. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
+    # the epilogue at Bp=64 int8, nch=5, binary, Sp=64). Launches: the
+    # train() run for the three kernels of its path, update() run (a) for
+    # the epilogue
     lv, rt = main_cfg["level_pass"], main_cfg["route_pass"]
     rows = []
-    for name, r, err in (("level_pass", lv, lv["hist_max_abs_err"]),
-                         ("route_pass", rt, rt["max_abs_err"]),
-                         ("table_lookup", lookup, lookup["max_abs_err"])):
+    for name, r, err, n in (
+            ("level_pass", lv, lv["hist_max_abs_err"],
+             launches["level_pass"]),
+            ("route_pass", rt, rt["max_abs_err"], launches["route_pass"]),
+            ("table_lookup", lookup, lookup["max_abs_err"],
+             launches["table_lookup"]),
+            ("epilogue_pass", epi_main,
+             max(epi_main["hist_max_abs_err"], epi_main["gh_max_abs_err"],
+                 epi_main["new_score_max_abs_err"]),
+             upd_launches["epilogue_pass"])):
         rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                     "replaces": REPLACES[name], "launches": launches[name],
+                     "replaces": REPLACES[name], "launches": n,
                      "max_abs_err": err, "ms": r["kernel_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
     emit({"kernels": rows})
 
-    # ---- 5. the result line
+    # ---- 6. the result line
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

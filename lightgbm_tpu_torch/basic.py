@@ -1,7 +1,8 @@
 """User-facing Dataset and Booster.
 
 PyTorch counterpart of ``lightgbm_tpu/basic.py`` on the main path:
-``Dataset(X, label=...)`` -> ``train`` -> ``Booster.predict(X)`` /
+``Dataset(X, label=...)`` -> ``train`` or ``Booster(params, train_set)``
+with ``update()`` / ``rollback_one_iter()`` -> ``Booster.predict(X)`` /
 ``Booster.model_to_string()``, plus loading a model text
 (``Booster(model_str=...)``). Training and prediction run on
 ``device_type`` (default ``"cuda"``; ``"cpu"`` runs the kernels' plain
@@ -115,8 +116,17 @@ class Booster:
         self.feature_infos = inner.feature_infos()
 
     def update(self) -> bool:
-        """One boosting iteration; True when training stopped."""
+        """One boosting iteration; True when training stopped (ref:
+        basic.py:2936 Booster.update). Takes the epilogue body wherever it
+        applies (binary or L2 with ``tpu_fused_epilogue``; see
+        ``boosting/gbdt.py``)."""
         return self._gbdt.train_one_iter()
+
+    def rollback_one_iter(self) -> "Booster":
+        """Remove the last iteration's tree and its training-score
+        contribution."""
+        self._gbdt.rollback_one_iter()
+        return self
 
     def num_trees(self) -> int:
         return len(self.models)

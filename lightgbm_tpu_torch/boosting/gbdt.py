@@ -1,23 +1,41 @@
 """Gradient boosting driver on the fused engine.
 
 PyTorch counterpart of ``lightgbm_tpu/boosting/gbdt.py`` on its main
-training path — the serial learner's per-iteration body of the fast step
-and the megastep (``GBDT._make_fused_tree_loop``): gradients from the
-scores, ``pack_gh``, ``grow_tree_fused``, ``tree_score_delta``. The
-megastep's ``lax.scan`` is a plain Python loop over iterations here.
+training path, the serial learner on the fused engine. Two iteration
+bodies, as in the JAX package:
+
+- the **megastep body** (``_fused_iter_body``; the JAX package's
+  ``_make_fused_tree_loop``, whose ``lax.scan`` is a plain Python loop over
+  iterations here): gradients from the scores, times the bag weights,
+  ``pack_gh``, ``grow_tree_fused``, ``tree_score_delta``. ``engine.train``
+  arms it while ``tpu_megastep`` is true (the default), as the JAX
+  ``engine.train`` does on the TPU;
+- the **epilogue body** (``_epi_iter_body``; the JAX package's
+  ``_epi_iter_body``): the tree grows from the carried root histogram and
+  packed gradients, its final route is deferred, and one ``epilogue_pass``
+  routes, updates the scores and builds the next iteration's gradients and
+  root histogram. A bare ``Booster.update()`` takes it, and so does
+  ``train()`` with ``tpu_megastep=False``, wherever ``_use_epilogue()``
+  holds (binary or L2, ``tpu_fused_epilogue``, one tree per iteration);
+  the megastep body otherwise.
+
+Bagging (balanced bagging included) and per-tree feature_fraction draw
+from the reference's LCG streams (``utils/random.py``) in the JAX
+package's order; the epilogue body draws the next round's bag one
+iteration ahead without changing that order.
 
 Layout (``_init_fused``): the binned matrix transposed to ``bins_T``
 [Fp=max(F_oh, 8), Rp] with Rp rounded up to 2048, int8 for Bp <= 128 and
 int16 above; padded rows sit at leaf -1 and carry zero gradients.
 
-Not ported yet (they raise or are absent): bagging, feature_fraction,
-init scores, valid sets, callbacks, multiclass, categorical features, EFB, quantized
-gradients, adaptive bins, screening, monotone and interaction constraints,
-distributed learners, DART/GOSS/RF.
+Not ported yet (they raise or are absent): GOSS, feature_fraction_bynode,
+init scores, valid sets, callbacks, multiclass, categorical features, EFB,
+quantized gradients, adaptive bins, screening, monotone and interaction
+constraints, distributed learners, DART/RF.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List
 
 import numpy as np
 import torch
@@ -27,10 +45,12 @@ from ..dataset import BinnedDataset
 from ..models.frontier2 import grow_tree_fused, tree_score_delta
 from ..models.learner import FeatureMeta
 from ..models.tree import HostTree, TreeArrays
-from ..ops.fused_level import NCH_FAST, NCH_PRECISE, pack_gh
+from ..ops.fused_level import NCH_FAST, NCH_PRECISE, epilogue_pass, pack_gh
 from ..ops.layout import feature_layout
+from ..ops.predict import route_binned_rows_to_leaves, tree_depth
 from ..ops.split import SplitParams
 from ..utils import log
+from ..utils import random as ref_random
 
 K_EPSILON = 1e-15
 ROW_BLOCK = 2048   # Rp granularity (the JAX package's widest kernel tile)
@@ -51,8 +71,6 @@ _UNPORTED = (
     ("boosting", lambda v: v != "gbdt", "boosting types other than gbdt"),
     ("tree_learner", lambda v: v != "serial", "distributed tree learners"),
     ("num_class", lambda v: int(v) != 1, "multiclass"),
-    ("bagging_freq", lambda v: int(v) > 0, "bagging"),
-    ("feature_fraction", lambda v: float(v) < 1.0, "feature_fraction"),
     ("feature_fraction_bynode", lambda v: float(v) < 1.0,
      "feature_fraction_bynode"),
     ("interaction_constraints", bool, "interaction constraints"),
@@ -87,9 +105,39 @@ class GBDT:
         self.max_bins = int(train_data.max_num_bin)
         self.params = split_params_from_config(config)
         self.models: List[HostTree] = []
+        self.iter = 0
         self.scores = torch.zeros((1, self.num_data), dtype=torch.float32,
                                   device=self.device)
         self._init_fused(train_data)
+        self._megastep_armed = False
+        # epilogue body: (score [1, Rp], root hist, gh_T) carried to the
+        # next iteration; None = the next iteration primes
+        self._epi_carry = None
+        self._epi_spec = (objective.epilogue_spec()
+                          if objective is not None else None)
+        self._epi_ops = None
+
+        # bagging state (ref: gbdt.cpp:686-758 ResetBaggingConfig;
+        # utils/random.h LCG, gbdt.cpp:804 per-block bagging generators,
+        # col_sampler.hpp:26 by-tree stream)
+        n = self.num_data
+        self.bag_streams = ref_random.BlockBaggingStreams(
+            int(config.bagging_seed), n)
+        self._bag_round_cache = {}
+        self.feat_rng = ref_random.Random(int(config.feature_fraction_seed))
+        self.balanced_bagging = False
+        self.is_bagging = False
+        if config.bagging_freq > 0:
+            if config.bagging_fraction < 1.0:
+                self.is_bagging = True
+            elif (objective is not None and objective.name == "binary"
+                  and (config.pos_bagging_fraction < 1.0
+                       or config.neg_bagging_fraction < 1.0)):
+                self.is_bagging = True
+                self.balanced_bagging = True
+        self.bag_weight = torch.ones(n, dtype=torch.float32,
+                                     device=self.device)   # 1 = in the bag
+        self.bag_cnt = n
 
     def _init_fused(self, train_data: BinnedDataset) -> None:
         """Transposed, padded bin matrix + f_oh-padded feature metadata for
@@ -138,27 +186,103 @@ class GBDT:
             return init_score
         return 0.0
 
-    def grow_one(self) -> Tuple[TreeArrays, torch.Tensor]:
-        """One tree from the current scores: gradients, gh pack, fused
-        growth, score delta (the serial branch of the JAX package's
-        ``_make_fused_tree_loop``). Returns (tree, score delta [n])."""
-        n = self.num_data
-        pad = self.fused_Rp - n
-        grad, hess = self.objective.get_gradients(self.scores)
-        # every row is in the bag (bagging is not ported): weight 1, and 0
-        # on the padding rows
-        w = torch.ones(n, dtype=torch.float32, device=self.device)
-        gh_T = pack_gh(*[torch.nn.functional.pad(x, (0, pad))
-                         for x in (grad[0], hess[0], w)], self.fused_nch)
-        tree, row_leaf = grow_tree_fused(
-            self.fused_bins_T, gh_T, self.fused_meta, self.fused_fmask,
-            self.params, self.max_leaves, self.fused_Bp, self.fused_f_oh,
-            num_rows=n, nch=self.fused_nch,
+    # ---------------------------------------------------- bagging, columns
+    def _bag_mask_for(self, it: int) -> np.ndarray:
+        """In-bag mask [n] bool effective at iteration ``it``. Rounds fire
+        at iterations where it % bagging_freq == 0 and are drawn in stream
+        order on first sight, cached by firing iteration (the two most
+        recent kept): the epilogue body asks one round ahead, and a
+        rollback within the window replays the round it used."""
+        cfg = self.config
+        fire = (it // cfg.bagging_freq) * cfg.bagging_freq
+        cache = self._bag_round_cache
+        if fire not in cache:
+            # one float per row per round from the row's 1024-block LCG
+            # stream (ref: gbdt.cpp:192 BaggingHelper), compared against
+            # the double fraction like the reference's float-vs-double
+            # promotion
+            draws = self.bag_streams.next_floats().astype(np.float64)
+            if self.balanced_bagging:
+                frac = np.where(self.train_data.metadata.label > 0,
+                                np.float64(cfg.pos_bagging_fraction),
+                                np.float64(cfg.neg_bagging_fraction))
+            else:
+                frac = np.float64(cfg.bagging_fraction)
+            cache[fire] = draws < frac
+            for old in [key for key in cache
+                        if key < fire - cfg.bagging_freq]:
+                del cache[old]
+        return cache[fire]
+
+    def _bagging(self, it: int) -> None:
+        """Renew the in-bag weights when a round fires at ``it`` (ref:
+        gbdt.cpp:230 Bagging)."""
+        cfg = self.config
+        if not self.is_bagging or it % cfg.bagging_freq != 0:
+            return
+        mask = self._bag_mask_for(it)
+        self.bag_cnt = int(mask.sum())
+        self.bag_weight = torch.as_tensor(mask.astype(np.float32),
+                                          device=self.device)
+        log.debug("Re-bagging, using %d data to train", self.bag_cnt)
+
+    def _bag_weight_for_iter(self, it: int) -> torch.Tensor:
+        """[n] f32 in-bag weights effective at iteration ``it``, without
+        touching the live ``bag_weight`` (the epilogue's lookahead)."""
+        if not self.is_bagging:
+            return torch.ones(self.num_data, dtype=torch.float32,
+                              device=self.device)
+        return torch.as_tensor(self._bag_mask_for(it).astype(np.float32),
+                               device=self.device)
+
+    def _feature_mask(self) -> np.ndarray:
+        """Per-tree column sampling [F] bool (ref: col_sampler.hpp:20):
+        Sample(F, RoundInt(F * fraction)) from one persistent LCG stream
+        (col_sampler.hpp:33 GetCnt, :78 ResetByTree)."""
+        F = self.train_data.num_features
+        frac = float(self.config.feature_fraction)
+        if frac >= 1.0:
+            return np.ones(F, bool)
+        k = max(ref_random.round_int(F * frac), min(1, F))
+        mask = np.zeros(F, bool)
+        mask[self.feat_rng.sample(F, k)] = True
+        return mask
+
+    def _feature_mask_pad(self) -> torch.Tensor:
+        """This tree's feature mask padded to F_oh, on the device (no draw
+        when feature_fraction is 1)."""
+        if float(self.config.feature_fraction) >= 1.0:
+            return self.fused_fmask
+        m = np.zeros(self.fused_f_oh, bool)
+        m[:self.train_data.num_features] = self._feature_mask()
+        return torch.as_tensor(m, device=self.device)
+
+    def _pad_rows(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.nn.functional.pad(x, (0, self.fused_Rp - self.num_data))
+
+    # ------------------------------------------------------ iteration bodies
+    def _grow(self, gh_T, fmask, root_hist=None, defer=False):
+        return grow_tree_fused(
+            self.fused_bins_T, gh_T, self.fused_meta, fmask, self.params,
+            self.max_leaves, self.fused_Bp, self.fused_f_oh,
+            num_rows=self.num_data, nch=self.fused_nch,
             max_depth=int(self.config.max_depth),
-            extra_levels=int(self.config.tpu_extra_levels))
-        delta = tree_score_delta(tree, row_leaf, self.shrinkage_rate,
-                                 num_rows=n)
-        return tree, delta
+            extra_levels=int(self.config.tpu_extra_levels),
+            root_hist=root_hist, defer_final_route=defer)
+
+    def arm_megastep(self, on: bool = True) -> None:
+        """Permission from a training loop (``engine.train``) to run the
+        megastep body; a bare ``Booster.update`` takes the epilogue body
+        wherever it applies."""
+        self._megastep_armed = bool(on)
+
+    def _use_epilogue(self) -> bool:
+        """The epilogue body applies: an objective with a closed form the
+        kernel implements (binary, l2), ``tpu_fused_epilogue``, one tree
+        per iteration (the serial learner is the only one ported)."""
+        return bool(self._epi_spec is not None
+                    and self.config.tpu_fused_epilogue
+                    and self.num_tree_per_iteration == 1)
 
     def train_one_iter(self) -> bool:
         """One boosting iteration; True when training must stop (no split
@@ -166,9 +290,80 @@ class GBDT:
         if self.objective is None:
             log.fatal("lightgbm_tpu_torch trains with a built-in objective "
                       "only (custom gradients are not ported yet)")
+        if not self._megastep_armed and self._use_epilogue():
+            return self._epi_iter_body()
+        self._epi_carry = None   # this body updates the scores in place
+        return self._fused_iter_body()
+
+    def _fused_iter_body(self) -> bool:
+        """The megastep body: gradients from the scores, times the bag
+        weights, gh pack, fused growth, score delta (the serial branch of
+        the JAX package's ``_make_fused_tree_loop``)."""
+        n = self.num_data
         init_score = self._boost_from_average()
-        tree, delta = self.grow_one()
+        self._bagging(self.iter)
+        fmask = self._feature_mask_pad()
+        grad, hess = self.objective.get_gradients(self.scores)
+        w = self.bag_weight
+        gh_T = pack_gh(*[self._pad_rows(x) for x in
+                         (grad[0] * w, hess[0] * w, w)], self.fused_nch)
+        tree, row_leaf = self._grow(gh_T, fmask)
+        stop = self._finish_iter(tree, init_score)
+        if not stop:
+            self.scores[0] += tree_score_delta(tree, row_leaf,
+                                               self.shrinkage_rate,
+                                               num_rows=n)
+        return stop
+
+    def _epi_iter_body(self) -> bool:
+        """The epilogue body: grow from the carry (or prime it from the
+        scores), then one ``epilogue_pass`` applies the deferred final
+        route, adds the shrunk leaf values to the scores and builds the
+        next iteration's packed gradients (with the next round's bag
+        weights) and root histogram."""
+        n = self.num_data
+        init_score = self._boost_from_average()
+        self._bagging(self.iter)            # live bookkeeping, iteration t
+        kind, (op0, op1), sig = self._epi_spec
+        if self._epi_ops is None:
+            # zero operand rows make the padding rows' gradients vanish
+            ops = torch.zeros((8, self.fused_Rp), dtype=torch.float32,
+                              device=self.device)
+            ops[0, :n] = op0
+            ops[1, :n] = op1
+            self._epi_ops = ops
+        ops = self._epi_ops
+        fmask = self._feature_mask_pad()
+        bag_next = self._pad_rows(self._bag_weight_for_iter(self.iter + 1))
+        if self._epi_carry is None:
+            score_pad = self._pad_rows(self.scores)
+            g, h = self.objective.gradients_from(score_pad, (ops[0], ops[1]))
+            bag = self._pad_rows(self.bag_weight)
+            gh_T = pack_gh(g[0] * bag, h[0] * bag, bag, self.fused_nch)
+            root_hist = None
+        else:
+            score_pad, root_hist, gh_T = self._epi_carry
+        tree, row_leaf, W_last, tbl_last = self._grow(gh_T, fmask, root_hist,
+                                                      defer=True)
+        if tree.num_leaves > 1:
+            lv = tree.leaf_value * torch.tensor(self.shrinkage_rate,
+                                                dtype=torch.float32)
+        else:
+            lv = torch.zeros_like(tree.leaf_value)
+        hist0, score2, gh_next = epilogue_pass(
+            self.fused_bins_T, row_leaf[None, :], W_last, tbl_last, lv,
+            score_pad, ops, bag_next[None, :], num_bins=self.fused_Bp,
+            f_oh=self.fused_f_oh, nch=self.fused_nch, kind=kind,
+            sigmoid=float(sig))
+        self._epi_carry = (score2, hist0, gh_next)
+        self.scores = score2[:, :n]
+        return self._finish_iter(tree, init_score)
+
+    def _finish_iter(self, tree: TreeArrays, init_score: float) -> bool:
+        """Host bookkeeping of one grown tree; True (and no model appended
+        past the first) when it grew no split."""
         if tree.num_leaves <= 1:
+            self._epi_carry = None
             if not self.models:
                 # the reference keeps one constant tree carrying the init
                 # score and adds it to the scorer a second time
@@ -181,13 +376,46 @@ class GBDT:
             log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
             return True
-        self.scores[0] += delta
         ht = self._to_host_tree(tree)
         ht.apply_shrinkage(self.shrinkage_rate)
         if abs(init_score) > K_EPSILON:
             ht.add_bias(init_score)
         self.models.append(ht)
+        self.iter += 1
         return False
+
+    def rollback_one_iter(self) -> None:
+        """Drop the last iteration's tree and subtract it from the training
+        scores (ref: gbdt.cpp:456 RollbackOneIter). The epilogue carry is
+        dropped, so the next iteration primes again; the bag round cache is
+        kept, so a retrain replays the round it used."""
+        self._epi_carry = None
+        if self.iter <= 0:
+            return
+        ht = self.models[-1]
+        lv = torch.as_tensor(np.asarray(ht.leaf_value, np.float32),
+                             device=self.device)
+        if ht.num_leaves <= 1:
+            self.scores[0] -= lv[0]
+        else:
+            ds = self.train_data
+            ni = ht.num_internal
+            inner = [ds.used_features.index(int(f))
+                     for f in ht.split_feature[:ni]]
+
+            def t(a, dt=torch.int64):
+                return torch.as_tensor(np.asarray(a), dtype=dt,
+                                       device=self.device)
+            leaves = route_binned_rows_to_leaves(
+                ds.bins_dev, t(inner), t(ht.threshold_bin[:ni]),
+                t((ht.decision_type[:ni] & 2) != 0, torch.bool),
+                t(ht.left_child[:ni]), t(ht.right_child[:ni]),
+                self.fused_meta.num_bin, self.fused_meta.missing_type,
+                self.fused_meta.default_bin,
+                tree_depth(ht.left_child, ht.right_child))
+            self.scores[0] -= lv[leaves]
+        del self.models[-1]
+        self.iter -= 1
 
     # ------------------------------------------------------------------
     def _to_host_tree(self, tree: TreeArrays) -> HostTree:

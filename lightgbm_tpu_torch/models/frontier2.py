@@ -76,8 +76,9 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
                     meta: FeatureMeta, feature_mask: torch.Tensor,
                     params: SplitParams, num_leaves: int, max_bins: int,
                     f_oh: int, num_rows: int = 0, nch: int = NCH_PRECISE,
-                    max_depth: int = -1, extra_levels: int = 3
-                    ) -> Tuple[TreeArrays, torch.Tensor]:
+                    max_depth: int = -1, extra_levels: int = 3,
+                    root_hist: torch.Tensor = None,
+                    defer_final_route: bool = False):
     """Grow one tree with fused level passes.
 
     Args:
@@ -91,8 +92,17 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
       max_bins: the padded pow2 bin count Bp.
       num_rows: real row count R (0 = all Rp rows are real); padding rows
         sit at leaf -1, so they never route, histogram or score.
+      root_hist: the root histogram [F_oh*Bp, nch*8] in the root pass's
+        layout (slot 0 live), as the previous iteration's
+        ``epilogue_pass`` built it; the root ``level_pass`` is skipped.
+      defer_final_route: the route-only pass (the one that spends the leaf
+        budget, or the last scheduled one) records its splits in the tree
+        but routes no rows; its tables are returned for ``epilogue_pass``.
 
     Returns (TreeArrays, row_leaf [Rp] int32; padding rows stay at -1).
+    With ``defer_final_route``: (tree, row_leaf before the final route,
+    W_last [Sp_max, F_oh*Bp], tbl_last [Sp_max, 128]), padded to the widest
+    level; an all-inactive table (leaf_of_slot -2) routes nothing.
     """
     Fp, Rp = bins_T.shape
     dev = bins_T.device
@@ -110,15 +120,19 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
     pool_c = torch.zeros_like(pool_g)
 
     # ---- root pass: slot 0 collects the full-data histogram (W0[0, bins of
-    # column 0] = 1 sends every row "left" on slot 0)
+    # column 0] = 1 sends every row "left" on slot 0); skipped when the
+    # previous iteration's epilogue already built it
     Sp0 = 8
-    W0 = torch.zeros((Sp0, f_oh * B), dtype=torch.bfloat16, device=dev)
-    W0[0, :B] = 1
-    tbl0 = torch.zeros((Sp0, 128), dtype=torch.int32, device=dev)
-    tbl0[1:, 0] = -2
-    tbl0[0, 2] = 1
-    hist0, _ = level_pass(bins_T, leaf_T, gh_T, W0, tbl0, num_bins=B,
-                          f_oh=f_oh, nch=nch)
+    if root_hist is not None:
+        hist0 = root_hist
+    else:
+        W0 = torch.zeros((Sp0, f_oh * B), dtype=torch.bfloat16, device=dev)
+        W0[0, :B] = 1
+        tbl0 = torch.zeros((Sp0, 128), dtype=torch.int32, device=dev)
+        tbl0[1:, 0] = -2
+        tbl0[0, 2] = 1
+        hist0, _ = level_pass(bins_T, leaf_T, gh_T, W0, tbl0, num_bins=B,
+                              f_oh=f_oh, nch=nch)
     g0, h0, c0 = hist_planes(hist0, nch, Sp0, f_oh, B)
     pool_g[0] = g0[0]
     pool_h[0] = h0[0]
@@ -144,17 +158,28 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
 
     lpn = torch.full((L,), -1, dtype=torch.int32, device=dev)  # leaf->parent
     lil = torch.zeros((L,), dtype=torch.bool, device=dev)      # is left child
+    # deferred final-route tables, padded to the widest level. At most one
+    # route-only pass fires per tree: after it no level selects a split
+    Sp_max = max([8] + [max(8, c) for c in caps])
+    deferred = ([torch.zeros((Sp_max, f_oh * B), dtype=torch.bfloat16,
+                             device=dev),
+                 torch.zeros((Sp_max, 128), dtype=torch.int32, device=dev)]
+                if defer_final_route else None)
+    if deferred is not None:
+        deferred[1][:, 0] = -2
     state = (tree, leaf_T, pool_g, pool_h, pool_c, best, lpn, lil)
     for li, S_d in enumerate(caps):
         state = _one_level(state, bins_T, gh_T, meta, feature_mask, params,
                            L, B, f_oh, S_d, nch, max_depth,
-                           li == len(caps) - 1)
+                           li == len(caps) - 1, deferred)
     tree, leaf_T = state[0], state[1]
+    if deferred is not None:
+        return tree, leaf_T[0], deferred[0], deferred[1]
     return tree, leaf_T[0]
 
 
 def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B, f_oh,
-               S_d, nch, max_depth, is_last):
+               S_d, nch, max_depth, is_last, deferred=None):
     (tree, leaf_T, pool_g, pool_h, pool_c, best, lpn, lil) = state
     dev = bins_T.device
     Sp = max(8, S_d)
@@ -203,7 +228,13 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B, f_oh,
     tbl[:, 1] = delta_s.to(torch.int32)
     tbl[:, 2] = small_left_s.to(torch.int32)
 
-    if route_only:
+    if route_only and deferred is not None:
+        # epilogue_pass applies this pass's routing; rows stay at the
+        # assignment before it
+        deferred[0][:Sp] = W
+        deferred[1][:Sp] = tbl
+        leaf_T2 = leaf_T
+    elif route_only:
         leaf_T2 = route_pass(bins_T, leaf_T, W, tbl, num_bins=B, f_oh=f_oh)
     else:
         hist, leaf_T2 = level_pass(bins_T, leaf_T, gh_T, W, tbl, num_bins=B,

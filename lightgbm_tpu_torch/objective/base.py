@@ -10,6 +10,13 @@ depends on:
   ``score`` (``[k, n]``).
 - ``boost_from_score(class_id)``: initial score (host scalar).
 - ``convert_output(raw)``: raw score -> output space (numpy).
+- ``gradient_operands()`` / ``gradients_from(score, operands)``: the
+  gradients as a function of the score and per-row operand tensors, so the
+  boosting code can compute them on a padded score row;
+- ``epilogue_spec()``: ``(kind, (row0, row1), sigmoid)`` for the fused
+  boosting-epilogue kernel (``ops.fused_level.epilogue_pass``), which
+  re-derives the gradients inside its pass, or None where the objective
+  has no closed form the kernel implements.
 """
 from __future__ import annotations
 
@@ -38,7 +45,20 @@ class ObjectiveFunction:
         self.device = device
 
     def get_gradients(self, score) -> Tuple:
+        return self.gradients_from(score, self.gradient_operands())
+
+    def gradient_operands(self):
         raise NotImplementedError
+
+    def gradients_from(self, score, operands) -> Tuple:
+        raise NotImplementedError
+
+    def epilogue_spec(self):
+        """(kind, (row0, row1), sigmoid): ``kind`` selects the kernel's
+        formula ('binary' | 'l2'); row0/row1 are [n] float32 tensors
+        (binary: ±1 label and label weight; l2: label and row weight).
+        None when the kernel has no closed form for this objective."""
+        return None
 
     def boost_from_score(self, class_id: int) -> float:
         return 0.0

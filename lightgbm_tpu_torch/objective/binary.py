@@ -58,16 +58,26 @@ class BinaryLogloss(ObjectiveFunction):
             lw = lw * self.weight
         self._label_weight = torch.as_tensor(lw, device=device)
 
-    def get_gradients(self, score):
+    def gradient_operands(self):
+        return (self._label_val, self._label_weight)
+
+    def gradients_from(self, score, operands):
         # ref: binary_objective.hpp:107-136
         if not self.need_train:
             return torch.zeros_like(score), torch.zeros_like(score)
-        lv = self._label_val[None, :]
-        lw = self._label_weight[None, :]
+        label_val, label_weight = operands
+        lv = label_val[None, :]
+        lw = label_weight[None, :]
         sig = torch.tensor(self.sigmoid, dtype=torch.float32)
         response = -lv * sig / (1.0 + torch.exp(lv * sig * score))
         abs_resp = torch.abs(response)
         return response * lw, abs_resp * (sig - abs_resp) * lw
+
+    def epilogue_spec(self):
+        if not self.need_train:
+            return None
+        return ("binary", (self._label_val, self._label_weight),
+                self.sigmoid)
 
     def boost_from_score(self, class_id):
         # ref: binary_objective.hpp:139-163

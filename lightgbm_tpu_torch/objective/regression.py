@@ -31,12 +31,25 @@ class RegressionL2Loss(ObjectiveFunction):
         self._weight_t = (torch.as_tensor(self.weight, device=device)
                           if self.weight is not None else None)
 
-    def get_gradients(self, score):
-        diff = score - self._label_t[None, :]
-        if self._weight_t is None:
+    def gradient_operands(self):
+        return (self._label_t, self._weight_t)
+
+    def gradients_from(self, score, operands):
+        label, weight = operands
+        diff = score - label[None, :]
+        if weight is None:
             return diff, torch.ones_like(diff)
-        w = self._weight_t[None, :]
+        w = weight[None, :]
         return diff * w, w.expand_as(diff).clone()
+
+    def epilogue_spec(self):
+        # exact-class guard: a loss that subclasses L2 and overrides its
+        # gradients must not inherit the L2 closed form
+        if type(self) is not RegressionL2Loss:
+            return None
+        w = (self._weight_t if self._weight_t is not None
+             else torch.ones_like(self._label_t))
+        return ("l2", (self._label_t, w), 1.0)
 
     def boost_from_score(self, class_id):
         # ref: regression_objective.hpp:173 — weighted label mean

@@ -29,7 +29,8 @@ from typing import Dict, Optional
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
-SOURCES = ("level_pass.cu", "route_pass.cu", "table_lookup.cu")
+SOURCES = ("level_pass.cu", "route_pass.cu", "table_lookup.cu",
+           "epilogue_pass.cu")
 HEADERS = ("fused_level.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,6 +45,10 @@ SIGNATURES = {
     "lgbt_route_pass": [_P, _c.c_int, _P, _P, _P, _P, _c.c_longlong,
                         _c.c_int, _c.c_int, _c.c_int, _P],
     "lgbt_table_lookup": [_P, _P, _P, _c.c_longlong, _c.c_int, _P],
+    "lgbt_epilogue_pass": [_P, _c.c_int, _P, _P, _P, _P, _c.c_int, _P, _P,
+                           _P, _P, _P, _P, _c.c_longlong, _c.c_int,
+                           _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+                           _c.c_float, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

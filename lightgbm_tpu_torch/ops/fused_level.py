@@ -1,4 +1,5 @@
-"""Fused per-level route + histogram pass, and the per-row table lookup.
+"""Fused per-level route + histogram pass, the per-row table lookup, and
+the fused boosting epilogue.
 
 PyTorch counterpart of ``lightgbm_tpu/ops/fused_level.py``. The layouts and
 contracts are the JAX package's, so the same inputs give the same outputs:
@@ -11,13 +12,14 @@ contracts are the JAX package's, so the same inputs give the same outputs:
 - ``tbl`` [Sp, 128] int32: col 0 leaf_of_slot (-2 inactive), col 1
   right_delta, col 2 small_is_left.
 
-Three kernels, each written by hand in CUDA C++ for sm_90a
-(``lightgbm_tpu_torch/csrc``): :func:`level_pass`, :func:`route_pass` and
-:func:`table_lookup`. Each wrapper checks its inputs, allocates its outputs,
-launches on the current stream without synchronising and counts the launch
-in ``launches``. On a CPU tensor it runs the plain PyTorch version beside it
-(``*_plain``), which the CPU tests hold against the JAX package; on a CUDA
-tensor it launches the kernel or raises.
+Four kernels, each written by hand in CUDA C++ for sm_90a
+(``lightgbm_tpu_torch/csrc``): :func:`level_pass`, :func:`route_pass`,
+:func:`table_lookup` and :func:`epilogue_pass`. Each wrapper checks its
+inputs, allocates its outputs, launches on the current stream without
+synchronising and counts the launch in ``launches``. On a CPU tensor it
+runs the plain PyTorch version beside it (``*_plain``), which the CPU tests
+hold against the JAX package; on a CUDA tensor it launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ TBL_COLS = 128
 
 # launches of each kernel since the last reset (CPU calls never count)
 launches: Dict[str, int] = {"level_pass": 0, "route_pass": 0,
-                            "table_lookup": 0}
+                            "table_lookup": 0, "epilogue_pass": 0}
+EPILOGUE_KINDS = ("binary", "l2")
 
 
 def reset_launch_counts() -> None:
@@ -219,6 +222,41 @@ def table_lookup_plain(idx_T, table):
                                              device=table.device))
 
 
+def epilogue_pass_plain(bins_T, leaf_T, W, tbl, leaf_values, score_T, ops_T,
+                        bag_T, *, num_bins: int, f_oh: int,
+                        nch: int = NCH_PRECISE, kind: str = "binary",
+                        sigmoid: float = 1.0):
+    """Plain PyTorch version of :func:`epilogue_pass`: the deferred route,
+    the leaf-value lookup, the gradients, ``pack_gh`` and the root
+    histogram by ``index_add_`` of the bf16 channels in f32."""
+    new_leaf = route_pass_plain(bins_T, leaf_T, W, tbl, num_bins=num_bins,
+                                f_oh=f_oh)
+    score2 = score_T + table_lookup_plain(new_leaf, leaf_values)
+    # the closed forms from the updated score (ref: binary_objective.hpp:
+    # 107-136, regression_objective.hpp:127-141); zero operand rows give
+    # zero gradients
+    op0, op1 = ops_T[0:1], ops_T[1:2]
+    if kind == "binary":
+        resp = -op0 * sigmoid / (1.0 + torch.exp(op0 * sigmoid * score2))
+        ar = torch.abs(resp)
+        g, h = resp * op1, ar * (sigmoid - ar) * op1
+    else:
+        g, h = (score2 - op0) * op1, op1
+    g = g * bag_T
+    h = h * bag_T
+    gh_T = pack_gh(g[0], h[0], bag_T[0], nch)
+    FB = f_oh * num_bins
+    C = nch * 8
+    hist = torch.zeros(FB * C, dtype=torch.float32, device=bins_T.device)
+    vals = gh_T[:nch].float()                                    # [nch, Rp]
+    ch_off = (torch.arange(nch, device=bins_T.device) * 8)[:, None]
+    for f in range(f_oh):
+        cell = (f * num_bins + bins_T[f].long()) * C              # [Rp]
+        hist.index_add_(0, (cell[None, :] + ch_off).reshape(-1),
+                        vals.reshape(-1))
+    return hist.reshape(FB, C), score2, gh_T
+
+
 # ---------------------------------------------------------------- wrappers
 def level_pass(bins_T: torch.Tensor, leaf_T: torch.Tensor,
                gh_T: torch.Tensor, W: torch.Tensor, tbl: torch.Tensor, *,
@@ -297,3 +335,66 @@ def table_lookup(idx_T: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     _raise_on(rc, "table_lookup")
     launches["table_lookup"] += 1
     return out
+
+
+def epilogue_pass(bins_T: torch.Tensor, leaf_T: torch.Tensor,
+                  W: torch.Tensor, tbl: torch.Tensor,
+                  leaf_values: torch.Tensor, score_T: torch.Tensor,
+                  ops_T: torch.Tensor, bag_T: torch.Tensor, *,
+                  num_bins: int, f_oh: int, nch: int = NCH_PRECISE,
+                  kind: str = "binary", sigmoid: float = 1.0
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused boosting epilogue, in one pass over the rows: the deferred
+    final route (``W``/``tbl``; an all-inactive table routes nothing), the
+    score update ``score += leaf_values[leaf]`` (0 outside [0, L)), the
+    ``kind`` gradients from the UPDATED score times the next iteration's
+    bag weights ``bag_T``, their ``pack_gh`` block, and the next tree's
+    root histogram.
+
+    ``leaf_T`` is the assignment before the final route (-1 on padding
+    rows); ``leaf_values`` [L] f32 is already shrunk (zeros when the tree
+    grew no split); ``ops_T`` [8, Rp] f32 holds the objective's operand rows
+    (binary: ±1 label, label weight; l2: label, weight); ``bag_T`` [1, Rp]
+    is 0 on padding rows.
+
+    Returns (hist [F_oh*Bp, nch*8] f32 in the root ``level_pass`` layout —
+    slot 0 of each 8-column channel block live, slots 1-7 zero —,
+    new_score [1, Rp] f32, gh_T [8, Rp] bf16).
+    """
+    Rp, Sp = _check_route_inputs(bins_T, leaf_T, W, tbl, num_bins, f_oh)
+    if nch not in (NCH_PRECISE, NCH_FAST):
+        raise ValueError(f"nch must be 3 or 5; got {nch}")
+    if kind not in EPILOGUE_KINDS:
+        raise ValueError(f"kind must be one of {EPILOGUE_KINDS}; got {kind}")
+    if leaf_values.dim() != 1 or leaf_values.dtype != torch.float32:
+        raise ValueError("leaf_values must be 1-D float32")
+    for name, t, rows in (("score_T", score_T, 1), ("ops_T", ops_T, 8),
+                          ("bag_T", bag_T, 1)):
+        if tuple(t.shape) != (rows, Rp) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be [{rows}, {Rp}] float32")
+    dev = bins_T.device
+    for name, t in (("leaf_values", leaf_values), ("score_T", score_T),
+                    ("ops_T", ops_T), ("bag_T", bag_T)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, bins_T on {dev}")
+    if dev.type == "cpu":
+        return epilogue_pass_plain(bins_T, leaf_T, W, tbl, leaf_values,
+                                   score_T, ops_T, bag_T, num_bins=num_bins,
+                                   f_oh=f_oh, nch=nch, kind=kind,
+                                   sigmoid=sigmoid)
+    _require_cuda(bins_T, leaf_T, W, tbl, leaf_values, score_T, ops_T, bag_T)
+    from .cuda_build import library
+    hist = torch.zeros((f_oh * num_bins, nch * 8), dtype=torch.float32,
+                       device=dev)
+    new_score = torch.empty_like(score_T)
+    gh_T = torch.empty((8, Rp), dtype=torch.bfloat16, device=dev)
+    rc = library().lgbt_epilogue_pass(
+        bins_T.data_ptr(), bins_T.element_size(), leaf_T.data_ptr(),
+        W.data_ptr(), tbl.data_ptr(), leaf_values.data_ptr(),
+        leaf_values.shape[0], score_T.data_ptr(), ops_T.data_ptr(),
+        bag_T.data_ptr(), hist.data_ptr(), new_score.data_ptr(),
+        gh_T.data_ptr(), Rp, f_oh, num_bins, Sp, nch,
+        EPILOGUE_KINDS.index(kind), float(sigmoid), _stream(dev))
+    _raise_on(rc, "epilogue_pass")
+    launches["epilogue_pass"] += 1
+    return hist, new_score, gh_T

@@ -8,6 +8,10 @@ bitfield, NaN treated as 0.0 unless the node's missing type is NaN, and the
 zero band ``|v| <= 1e-35`` missing for missing type Zero. Values and
 thresholds are float64, so routing is bit-identical to the host walk
 (``HostTree.predict_rows``). Categorical nodes are not ported yet.
+
+:func:`route_binned_rows_to_leaves` is the same walk on the training bins
+(``route_rows_to_leaves`` of the JAX package), which ``rollback_one_iter``
+uses to subtract a tree from the training scores.
 """
 from __future__ import annotations
 
@@ -51,7 +55,39 @@ def route_raw_rows_to_leaves(values: torch.Tensor,
     return torch.where(node < 0, ~node, torch.zeros_like(node))
 
 
-def _tree_depth(left: np.ndarray, right: np.ndarray) -> int:
+def route_binned_rows_to_leaves(bins: torch.Tensor,
+                                split_feature: torch.Tensor,
+                                threshold_bin: torch.Tensor,
+                                default_left: torch.Tensor,
+                                left_child: torch.Tensor,
+                                right_child: torch.Tensor,
+                                num_bin: torch.Tensor,
+                                missing_type: torch.Tensor,
+                                default_bin: torch.Tensor,
+                                max_steps: int) -> torch.Tensor:
+    """Leaf index per row for one tree on binned rows ``bins`` [R, F]:
+    ``split_feature`` holds inner feature indices; a row whose bin is the
+    feature's missing bin (its default bin for missing type Zero, the last
+    bin for NaN) follows ``default_left``, others go left iff
+    bin <= threshold_bin (ref: src/io/dense_bin.hpp Split)."""
+    R = bins.shape[0]
+    node = torch.zeros(R, dtype=torch.int64, device=bins.device)
+    for _ in range(max_steps):
+        is_internal = node >= 0
+        nd = node.clamp(min=0)
+        f = split_feature[nd]
+        b = torch.gather(bins, 1, f[:, None])[:, 0].long()
+        mt = missing_type[f]
+        missing = (((mt == 1) & (b == default_bin[f]))
+                   | ((mt == 2) & (b == num_bin[f] - 1)))
+        go_left = torch.where(missing, default_left[nd],
+                              b <= threshold_bin[nd])
+        nxt = torch.where(go_left, left_child[nd], right_child[nd])
+        node = torch.where(is_internal, nxt, node)
+    return torch.where(node < 0, ~node, torch.zeros_like(node))
+
+
+def tree_depth(left: np.ndarray, right: np.ndarray) -> int:
     depth = 0
     frontier = [0]
     while frontier:
@@ -95,6 +131,6 @@ def predict_raw(models: List, X: torch.Tensor, k: int) -> torch.Tensor:
             torch.as_tensor((d & 2) != 0, device=dev),
             torch.as_tensor((d >> 2) & 3, device=dev),
             a(t.left_child, torch.int64), a(t.right_child, torch.int64),
-            _tree_depth(t.left_child, t.right_child))
+            tree_depth(t.left_child, t.right_child))
         raw[i % k] += lv[leaves]
     return raw

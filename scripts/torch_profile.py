@@ -3,14 +3,18 @@
 the card.
 
     python3 scripts/torch_profile.py [--rows 1000000] [--rounds 3]
+                                     [--path train update]
 
 Trains chip_smoke.py's configuration (1,000,000 x 28 rows of bench.py's
-synthetic data, max_bin=63, num_leaves=255), warms up, then traces
-``--rounds`` more iterations with ``torch.profiler`` and prints one JSON line:
-the wall time per iteration, the device time summed over all kernels, the
-device's busy share (device time over wall time), the kernels ranked by
-device time, and the grower's host syncs per tree. Also prints the card's
-name and power limit. Needs a CUDA device.
+synthetic data, max_bin=63, num_leaves=255) with ``Booster.update()``,
+once per ``--path`` in one process: ``train`` runs the megastep body (what
+``train()`` runs), ``update`` the epilogue body (what a bare ``update()``
+loop runs). Each warms up two iterations, then traces ``--rounds`` more
+with ``torch.profiler`` and prints one JSON line: the wall time per
+iteration, the device time summed over all kernels, the device's busy
+share (device time over wall time), the device launches per iteration,
+the kernels ranked by device time, and the grower's host syncs per tree.
+Also prints the card's name and power limit. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -29,13 +33,13 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--path", nargs="+", choices=("train", "update"),
+                    default=["train", "update"])
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 2
-    from torch.profiler import ProfilerActivity, profile
-
     import chip_smoke as cs
     import lightgbm_tpu_torch as lgb
     from lightgbm_tpu_torch.models import frontier2
@@ -49,7 +53,18 @@ def main() -> int:
               "learning_rate": 0.1, "min_data_in_leaf": 1, "verbose": -1,
               "device_type": "cuda"}
     ds = lgb.Dataset(X, label=y, params=params).construct()
+    for path in args.path:
+        print(json.dumps(dict(path=path, nvidia_smi=smi, **profile_path(
+            lgb, frontier2, params, ds, path == "train", args.rounds))),
+            flush=True)
+    return 0
+
+
+def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     bst = lgb.Booster(params=params, train_set=ds)
+    bst._gbdt.arm_megastep(megastep)
     for _ in range(2):
         bst.update()
     torch.cuda.synchronize()
@@ -57,7 +72,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.rounds):
+        for _ in range(rounds):
             bst.update()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -74,19 +89,17 @@ def main() -> int:
             rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     dev_total_us = sum(r[0] for r in rows)
-    print(json.dumps({
-        "rows": args.rows, "iterations": args.rounds,
-        "wall_ms_per_iter": wall * 1e3 / args.rounds,
-        "device_ms_per_iter": dev_total_us / 1e3 / args.rounds,
+    return {
+        "rows": ds._inner.num_data, "iterations": rounds,
+        "epilogue_body": bool(not megastep and bst._gbdt._use_epilogue()),
+        "wall_ms_per_iter": wall * 1e3 / rounds,
+        "device_ms_per_iter": dev_total_us / 1e3 / rounds,
         "device_busy_share": dev_total_us / 1e6 / wall,
-        "host_syncs_per_tree": frontier2.host_syncs["count"] / args.rounds,
-        "device_launches_per_iter": sum(r[2] for r in rows) / args.rounds,
-        "top_device_ops": [{"name": k[:80], "calls_per_iter":
-                            c / args.rounds,
-                            "ms_per_iter": d / 1e3 / args.rounds}
-                           for d, k, c in rows[:15]],
-        "nvidia_smi": smi}), flush=True)
-    return 0
+        "host_syncs_per_tree": frontier2.host_syncs["count"] / rounds,
+        "device_launches_per_iter": sum(r[2] for r in rows) / rounds,
+        "top_device_ops": [{"name": k[:80], "calls_per_iter": c / rounds,
+                            "ms_per_iter": d / 1e3 / rounds}
+                           for d, k, c in rows[:15]]}
 
 
 if __name__ == "__main__":

@@ -60,9 +60,8 @@ def test_default_device_raises_without_cuda():
         lt.Dataset(X, label=y, params={"device_type": "cuda"}).construct()
 
 
-@pytest.mark.parametrize("params", [{"bagging_freq": 1,
-                                     "bagging_fraction": 0.5},
-                                    {"feature_fraction": 0.5},
+@pytest.mark.parametrize("params", [{"boosting": "goss"},
+                                    {"feature_fraction_bynode": 0.5},
                                     {"objective": "multiclass",
                                      "num_class": 3}])
 def test_unported_options_raise(params):

@@ -28,9 +28,9 @@ def _operands(R, F, B, nch, seed):
     """Random level operands: rows in leaves 0..2, three active slots on
     features with no, zero and NaN missing types, five inactive slots."""
     rng = np.random.RandomState(seed)
-    nb = np.array([B, B - 3, B, 7, B], np.int32)[:F]
-    mt = np.array([0, 1, 2, 0, 2], np.int32)[:F]
-    db = np.array([0, 4, 0, 0, 0], np.int32)[:F]
+    nb = np.resize(np.array([B, B - 3, B, 7, B], np.int32), F)
+    mt = np.resize(np.array([0, 1, 2, 0, 2], np.int32), F)
+    db = np.resize(np.array([0, 4, 0, 0, 0], np.int32), F)
     bins = np.stack([rng.randint(0, nb[f], size=R) for f in range(F)])
     F_oh, _ = feature_layout(F, B)
     bins_T = np.zeros((max(F_oh, 8), R), np.int64)
@@ -67,7 +67,8 @@ def test_kernels_match_plain(cuda_device, nch, B):
     hist_p, leaf_p = tfl.level_pass_plain(*ops, num_bins=B, f_oh=F_oh,
                                           nch=nch)
     assert {k: tfl.launches[k] - n0[k] for k in n0} == \
-        {"level_pass": 1, "route_pass": 1, "table_lookup": 1}
+        {"level_pass": 1, "route_pass": 1, "table_lookup": 1,
+         "epilogue_pass": 0}
     assert torch.equal(leaf_c.cpu(), leaf_p)
     assert torch.equal(route_c.cpu(), leaf_p)
     assert torch.equal(look_c.cpu(), tfl.table_lookup_plain(leaf_p, table))
@@ -96,10 +97,111 @@ def test_cuda_training_matches_cpu(cuda_device):
     bc = lt.train(dict(p, device_type="cpu"), lt.Dataset(X, label=y), 3)
     tfl.reset_launch_counts()
     bg = lt.train(dict(p, device_type="cuda"), lt.Dataset(X, label=y), 3)
-    assert all(n > 0 for n in tfl.launches.values())
+    assert all(tfl.launches[k] > 0
+               for k in ("level_pass", "route_pass", "table_lookup"))
     for a, b in zip(bc.models, bg.models):
         np.testing.assert_array_equal(a.split_feature, b.split_feature)
         np.testing.assert_array_equal(a.threshold_bin, b.threshold_bin)
+    np.testing.assert_allclose(bg.predict(X, raw_score=True),
+                               bc.predict(X, raw_score=True), rtol=1e-5,
+                               atol=1e-6)
+
+
+def _epilogue_operands(R, F, B, nch, kind, seed):
+    """Level operands plus a 7-entry leaf-value table, scores, the kind's
+    operand rows and ~30% zero bag weights (padding rows zero)."""
+    (bins, leaf, _, W, tbl), F_oh = _operands(R, F, B, nch, seed)
+    rng = np.random.RandomState(seed)
+    t = torch.as_tensor
+    lv = t((rng.randn(7) * 0.1).astype(np.float32))
+    score = t(rng.randn(1, R).astype(np.float32))
+    ops = np.zeros((8, R), np.float32)
+    ops[0] = (np.where(rng.rand(R) < 0.4, 1.0, -1.0) if kind == "binary"
+              else rng.randn(R))
+    ops[1] = rng.uniform(0.5, 2.0, R)
+    bag = t((rng.rand(1, R) >= 0.3).astype(np.float32))
+    return (bins, leaf, W, tbl, lv, score, t(ops), bag), F_oh
+
+
+@pytest.mark.parametrize("nch,B,F,kind", [
+    (5, 16, 5, "binary"), (3, 16, 5, "l2"), (5, 256, 5, "l2"),
+    # a [64*256, 40] f32 histogram exceeds a block's shared memory: the
+    # kernel adds straight into global memory
+    (5, 256, 64, "binary")])
+def test_epilogue_kernel_matches_plain(cuda_device, nch, B, F, kind):
+    ops, F_oh = _epilogue_operands(4096, F, B, nch, kind, seed=B + F)
+    kw = dict(num_bins=B, f_oh=F_oh, nch=nch, kind=kind)
+    n0 = tfl.launches["epilogue_pass"]
+    hist_c, score_c, gh_c = tfl.epilogue_pass(
+        *[a.to(cuda_device) for a in ops], **kw)
+    torch.cuda.synchronize()
+    hist_p, score_p, gh_p = tfl.epilogue_pass_plain(*ops, **kw)
+    assert tfl.launches["epilogue_pass"] - n0 == 1
+    np.testing.assert_allclose(score_c.cpu().numpy(), score_p.numpy(),
+                               rtol=1e-6)
+    # the card's expf against the CPU's exp: an ulp apart, g may round to
+    # the other bf16 hi, and lo (a remainder up to 2^-8 of g, rounded to 8
+    # bits) then leaves hi + lo up to 2^-16 of g from g on each side, so
+    # the decoded values may differ by 2^-15 of the value and those ulps
+    def decoded(gh):
+        x = gh.float().cpu()
+        if nch == tfl.NCH_PRECISE:
+            return torch.stack([x[0] + x[1], x[2] + x[3], x[4]])
+        return x[:3]
+    np.testing.assert_allclose(decoded(gh_c).numpy(), decoded(gh_p).numpy(),
+                               rtol=4e-5, atol=1e-7)
+    assert not gh_c[nch:].any()
+    planes_c = tfl.hist_planes(hist_c.cpu(), nch, 8, F_oh, B)
+    planes_p = tfl.hist_planes(hist_p, nch, 8, F_oh, B)
+    for a, b in zip(planes_c[:2], planes_p[:2]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    assert torch.equal(planes_c[2], planes_p[2])     # row counts
+    live = torch.zeros(nch * 8, dtype=torch.bool)
+    live[::8] = True
+    assert not hist_c.cpu()[:, ~live].any()
+
+
+def test_epilogue_wrapper_refuses_mixed_devices_and_dtypes(cuda_device):
+    ops, F_oh = _epilogue_operands(1024, 5, 16, 5, "binary", seed=0)
+    on_card = [a.to(cuda_device) for a in ops]
+    kw = dict(num_bins=16, f_oh=F_oh)
+    with pytest.raises(ValueError):
+        tfl.epilogue_pass(*on_card[:5], ops[5], *on_card[6:], **kw)
+    with pytest.raises(ValueError):
+        tfl.epilogue_pass(*on_card[:7], on_card[7].double(), **kw)
+    with pytest.raises(ValueError):
+        tfl.epilogue_pass(on_card[0].int(), *on_card[1:], **kw)
+
+
+def test_cuda_update_matches_cpu(cuda_device):
+    """Booster.update() (the epilogue body) with bagging and
+    feature_fraction on the card against the same on the CPU."""
+    rng = np.random.RandomState(1)
+    X = rng.randn(5000, 8)
+    X[rng.rand(5000) < 0.05, 2] = np.nan
+    y = (X[:, 0] + 0.5 * np.nan_to_num(X[:, 2]) > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+         "bagging_fraction": 0.7, "bagging_freq": 1,
+         "feature_fraction": 0.8, "verbose": -1}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tfl.reset_launch_counts()
+        bst = lt.Booster(params=dict(p, device_type=dev),
+                         train_set=lt.Dataset(X, label=y))
+        for _ in range(4):
+            bst.update()
+        assert bst._gbdt._use_epilogue()
+        out[dev] = (bst, dict(tfl.launches))
+    (bc, _), (bg, n) = out["cpu"], out["cuda"]
+    assert n["epilogue_pass"] == 4 and n["level_pass"] > 0
+    assert n["route_pass"] == n["table_lookup"] == 0
+    for a, b in zip(bc.models, bg.models):
+        np.testing.assert_array_equal(a.split_feature, b.split_feature)
+        np.testing.assert_array_equal(a.threshold_bin, b.threshold_bin)
+    np.testing.assert_allclose(bg.train_scores().cpu().numpy(),
+                               bc.train_scores().numpy(), rtol=1e-5,
+                               atol=1e-6)
     np.testing.assert_allclose(bg.predict(X, raw_score=True),
                                bc.predict(X, raw_score=True), rtol=1e-5,
                                atol=1e-6)

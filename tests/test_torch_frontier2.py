@@ -24,6 +24,10 @@ from lightgbm_tpu_torch.models import frontier2 as tf2
 from lightgbm_tpu_torch.ops import fused_level as tfl
 from lightgbm_tpu_torch.ops.split import SplitParams as TParams
 
+# small shapes: intra-op threads would only contend with the other test
+# workers' processes
+torch.set_num_threads(1)
+
 STRUCT = ("split_feature", "threshold_bin", "default_left", "left_child",
           "right_child", "leaf_count")
 

@@ -18,6 +18,10 @@ import jax.numpy as jnp
 from lightgbm_tpu.ops import fused_level as jfl
 from lightgbm_tpu_torch.ops import fused_level as tfl
 
+# small shapes: intra-op threads would only contend with the other test
+# workers' processes
+torch.set_num_threads(1)
+
 
 def _setup(R, F, B, seed):
     rng = np.random.RandomState(seed)

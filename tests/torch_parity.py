@@ -1,0 +1,120 @@
+"""Helpers shared by the port's parity tests (not a test module): the
+tree comparison, and the Booster.update slice against the JAX package.
+
+Where the two packages' f32 sums round a near-tie differently, only
+choices that split the training rows identically may differ: a threshold
+anywhere in an empty gap between the same rows, and default_left at a
+node no missing row reaches (there the forward and reverse scans see the
+same partition).
+"""
+import numpy as np
+
+
+def node_rows(tree, X):
+    """Per internal node: the indices of X's rows that reach it (the host
+    walk of the reference, tree.h NumericalDecision)."""
+    out = [None] * tree.num_internal
+    stack = [(0, np.arange(X.shape[0]))]
+    while stack:
+        node, rows = stack.pop()
+        if node < 0:
+            continue
+        out[node] = rows
+        left = goes_left(tree, node, X[rows])
+        stack.append((tree.left_child[node], rows[left]))
+        stack.append((tree.right_child[node], rows[~left]))
+    return out
+
+
+def missing(tree, node, X):
+    """Which rows of X miss the value of ``node``'s split feature."""
+    v = X[:, tree.split_feature[node]]
+    mt = (tree.decision_type[node] >> 2) & 3
+    if mt == 2:
+        return np.isnan(v)
+    if mt == 1:
+        return np.isnan(v) | (np.abs(v) <= 1e-35)
+    return np.zeros(v.shape, bool)
+
+
+def goes_left(tree, node, X):
+    v = X[:, tree.split_feature[node]]
+    miss = missing(tree, node, X)
+    v = np.where(np.isnan(v) & ~miss, 0.0, v)    # NaN rides as 0.0
+    dl = bool(tree.decision_type[node] & 2)
+    return np.where(miss, dl, v <= tree.threshold[node])
+
+
+def assert_same_trees(port_models, jax_models, X, rtol=1e-5, atol=1e-6):
+    """Equal structure under the near-tie rule above; leaf values within
+    rtol/atol (f32 sums taken in another order)."""
+    assert len(port_models) == len(jax_models)
+    for a, b in zip(port_models, jax_models):
+        assert a.num_leaves == b.num_leaves
+        for k in ("split_feature", "left_child", "right_child",
+                  "leaf_count"):
+            np.testing.assert_array_equal(getattr(a, k), getattr(b, k), k)
+        np.testing.assert_array_equal(a.decision_type & ~2,
+                                      b.decision_type & ~2)
+        for node, rows in enumerate(node_rows(b, X)):
+            np.testing.assert_array_equal(
+                goes_left(a, node, X[rows]), goes_left(b, node, X[rows]),
+                f"node {node}: bins {a.threshold_bin[node]}/"
+                f"{b.threshold_bin[node]}")
+        np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=rtol,
+                                   atol=atol)
+
+
+# ------------------------------------------- the Booster.update slice
+# tests/test_epilogue.py's data and base parameters, shared by
+# tests/test_torch_epilogue.py and tests/test_torch_update.py
+BASE = {"objective": "binary", "num_leaves": 15, "verbose": -1,
+        "tpu_engine": "fused", "min_data_in_leaf": 5}
+UPDATES = 6
+
+
+def make_data():
+    """3,000 x 10 rows, 4% NaN; a binary label of two features and a noisy
+    regression label of one."""
+    rng = np.random.RandomState(3)
+    n = 3000
+    X = rng.randn(n, 10)
+    X[rng.rand(n, 10) < 0.04] = np.nan
+    y = (np.nan_to_num(X[:, 0]) + 0.4 * np.nan_to_num(X[:, 1])
+         > 0).astype(np.float32)
+    yr = (np.nan_to_num(X[:, 0]) * 2.0
+          + 0.1 * rng.randn(n)).astype(np.float32)
+    return X, y, yr
+
+
+def update(pkg, X, label, params, n=UPDATES):
+    """``pkg.Booster(params, Dataset)`` then ``n`` bare ``update()``s."""
+    bst = pkg.Booster(params=params, train_set=pkg.Dataset(X, label=label))
+    for _ in range(n):
+        bst.update()
+    return bst
+
+
+def assert_update_matches_jax(data, params, trees=UPDATES):
+    """Port ``update()`` x UPDATES against the JAX package's epilogue path:
+    ``trees`` trees (fewer = training stopped and the port dropped its
+    carry), equal under the near-tie rule, predictions and training scores
+    at rtol 1e-5, atol 1e-6."""
+    import lightgbm_tpu as lj
+    import lightgbm_tpu_torch as lt
+    X, y, yr = data
+    p = dict(BASE, **params)
+    label = yr if p["objective"] == "regression" else y
+    bj = update(lj, X, label, p)
+    bt = update(lt, X, label, dict(p, device_type="cpu"))
+    assert bj._gbdt._use_epilogue() and bt._gbdt._use_epilogue()
+    bj.num_trees()                     # settles the pipelined trees
+    assert bt.num_trees() == trees
+    assert (bt._gbdt._epi_carry is None) == (trees < UPDATES)
+    assert_same_trees(bt.models, bj.models, X)
+    np.testing.assert_allclose(bt.predict(X, raw_score=True),
+                               bj.predict(X, raw_score=True), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(bt.train_scores().numpy(),
+                               np.asarray(bj._gbdt.scores)[0], rtol=1e-5,
+                               atol=1e-6)
