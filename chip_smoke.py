@@ -13,7 +13,10 @@ non-zero (it prints no result line then):
    and Bp=256 with int16 bins, Sp in {8, max_slot_cap}, nch in {5, 3}, a
    255-entry lookup table; ``epilogue_pass`` also for kind binary and l2
    and once with an all-inactive deferred table, with ~30% zero bag
-   weights; with the errors, their tolerances and the times;
+   weights; ``hist_pass`` at R = 1,000,000 rows, Fp = 28, Bp in {64, 256},
+   S in {8, 64}, f32 (nch 3) and quantized to 8 bits (nch 3) and 16 bits
+   (nch 5), ~30% of rows at slot -1 with non-zero gh; with the errors,
+   their tolerances and the times;
 3. end to end through ``lightgbm_tpu_torch.train`` on 1,000,000 x 28 rows
    of ``bench.py``'s synthetic binary data (seed 1), the Higgs-shaped
    configuration (max_bin=63, num_leaves=255, learning_rate=0.1,
@@ -28,9 +31,15 @@ non-zero (it prints no result line then):
    bagging_fraction=0.5, bagging_freq=1, feature_fraction=0.8: sec/iter,
    AUC (> 0.75), leaves, predict agreement, host syncs per tree, every
    kernel's launches (epilogue_pass > 0 on the epilogue body);
-5. the ``kernels`` line: every ported kernel with its launches on the main
+5. the frontier-v1 engine end to end: ``train()`` with
+   ``tpu_engine="frontier"`` on the same dataset and parameters, 10 rounds:
+   sec/iter after the first round, AUC (> 0.75), leaves per tree,
+   ``hist_pass`` launches (> 0) and no launch of the fused engine's
+   kernels, host syncs per tree, and ``Booster.predict`` against the
+   trainer's scores;
+6. the ``kernels`` line: every ported kernel with its launches on the main
    path where it runs, error, time, plain time, bound and library time;
-6. the last line: ``{"ok": true, "device": {...}}``.
+7. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package. It exits non-zero when no CUDA
 device is present.
@@ -57,17 +66,20 @@ DEVICE = "cuda"   # the card; a rehearsal on the CPU may set "cpu"
 UPDATES = 10
 WARMUP_UPDATES = 2
 TRAIN_PATH_KERNELS = ("level_pass", "route_pass", "table_lookup")
+FRONTIER_KERNELS = ("hist_pass",)
 REPLACES = {
     "level_pass": "lightgbm_tpu/ops/fused_level.py:402",
     "route_pass": "lightgbm_tpu/ops/fused_level.py:575",
     "table_lookup": "lightgbm_tpu/ops/fused_level.py:811",
     "epilogue_pass": "lightgbm_tpu/ops/fused_level.py:641",
+    "hist_pass": "lightgbm_tpu/ops/pallas_histogram.py:60",
 }
 SOURCES = {
     "level_pass": "lightgbm_tpu_torch/csrc/level_pass.cu",
     "route_pass": "lightgbm_tpu_torch/csrc/route_pass.cu",
     "table_lookup": "lightgbm_tpu_torch/csrc/table_lookup.cu",
     "epilogue_pass": "lightgbm_tpu_torch/csrc/epilogue_pass.cu",
+    "hist_pass": "lightgbm_tpu_torch/csrc/hist_pass.cu",
 }
 
 
@@ -370,6 +382,95 @@ def check_epilogue(Rp, R, B, Sp, nch, kind, active, seed, L=255):
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
 
+def check_hist(R, Fp, B, S, quant_bits, seed):
+    """hist_pass against its plain version: int32 bins [R, Fp] in [0, B-1),
+    slots in [0, S) with ~30% of rows at -1 (their gh non-zero), gh as f32
+    (g, h, w) or the int8 channels of ``quant_bits``."""
+    import torch
+    from lightgbm_tpu_torch.ops import fused_level as fl
+    from lightgbm_tpu_torch.ops import pallas_histogram as ph
+    from lightgbm_tpu_torch.ops import quantize as q
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bins = torch.randint(0, B - 1, (R, Fp), generator=gen, device=dev,
+                         dtype=torch.int32)
+    slot = torch.randint(0, S, (R,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    slot[torch.rand(R, generator=gen, device=dev) < 0.3] = -1
+    g = torch.randn(R, generator=gen, device=dev)
+    h = torch.rand(R, generator=gen, device=dev) * 0.25
+    w = torch.ones(R, device=dev)
+    if quant_bits:
+        scales = q.quant_scales(g, h, quant_bits)
+        gh = torch.stack(q.encode_channels(
+            *q.quantize_gh(g, h, scales, quant_bits, seed), w, quant_bits),
+            1).contiguous()
+    else:
+        gh = torch.stack([g, h, w], 1).contiguous()
+    nch = gh.shape[1]
+    kw = dict(S=S, Bp=B, nch=nch, quant=bool(quant_bits))
+    n0 = fl.launches["hist_pass"]
+    out_k = ph.hist_pass(bins, gh, slot, **kw)
+    launched = fl.launches["hist_pass"] - n0
+    out_p = ph.hist_pass_plain(bins, gh, slot, **kw)
+    torch.cuda.synchronize()
+    abs_err = float((out_k - out_p).abs().max())
+    rel_sum = 0.0
+    if quant_bits:
+        if not torch.equal(out_k, out_p):
+            raise AssertionError(f"hist_pass quant{quant_bits} differs by "
+                                 f"{abs_err} (B={B} S={S})")
+    else:
+        # g/h planes within 1e-5 of the largest per-cell sum of |value|
+        # (the scale of any f32 summation order's rounding error); the
+        # weight channel counts rows exactly
+        abs_sum = ph.hist_pass_plain(bins, gh.abs(), slot, **kw)
+        for c in range(2):
+            err = float((out_k[c] - out_p[c]).abs().max())
+            rel_sum = max(rel_sum, err / float(abs_sum[c].max()))
+        if not torch.equal(out_k[2], out_p[2]):
+            raise AssertionError("hist_pass weight channel differs")
+        if rel_sum > 1e-5:
+            raise AssertionError(f"hist_pass rel err {rel_sum} > 1e-5")
+
+    # bytes this run's data needs: every slot, the bins and channels of
+    # the slotted rows, the histogram out; ops: Fp*nch adds per slotted row
+    rows = torch.nonzero(slot >= 0).squeeze(1)
+    n_slot = int(rows.numel())
+    nbytes = (R * 4 + n_slot * (Fp * 4 + nch * gh.element_size())
+              + out_p.numel() * 4)
+    b_ms, b_by = bound(nbytes, n_slot * Fp * nch)
+    # the library yardstick: one index_add_ over precomputed flat indices
+    cell = ((slot[rows].long()[:, None] * Fp
+             + torch.arange(Fp, device=dev)) * B + bins[rows].long())
+    src = (gh[rows].int() if quant_bits
+           else gh[rows].to(torch.bfloat16).float())
+    src = src[:, None, :].expand(-1, Fp, -1).reshape(-1, nch)
+    cell = cell.reshape(-1)
+    flat_len = out_p.numel() // nch
+    acc = out_p.dtype
+
+    def library():
+        return torch.zeros((flat_len, nch), dtype=acc,
+                           device=dev).index_add_(0, cell, src)
+    if quant_bits and not torch.equal(library().t().reshape(out_p.shape),
+                                      out_p):
+        raise AssertionError("the index_add_ yardstick differs from the "
+                             "plain version")
+    return {
+        "R": R, "Fp": Fp, "Bp": B, "S": S, "nch": nch,
+        "variant": f"quant{quant_bits}" if quant_bits else "f32",
+        "slotted_rows": n_slot, "launches": launched,
+        "max_abs_err": abs_err,
+        "rel_err_of_abs_sum": rel_sum,
+        "tol": "exact" if quant_bits else "1e-5 of abs sum; w exact",
+        "kernel_ms": cuda_ms(lambda: ph.hist_pass(bins, gh, slot, **kw)),
+        "plain_ms": cuda_ms(lambda: ph.hist_pass_plain(bins, gh, slot, **kw),
+                            reps=3, warmup=1),
+        "library_ms": cuda_ms(library, reps=5, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+
 def auc(scores: np.ndarray, y: np.ndarray) -> float:
     order = np.argsort(scores, kind="stable")
     ranks = np.empty(len(scores), np.float64)
@@ -390,6 +491,7 @@ def run_updates(lgb, params, ds, X, y, megastep=False):
     import torch
     from lightgbm_tpu_torch.models import frontier2
     from lightgbm_tpu_torch.ops import fused_level as fl
+    ds.params = {}      # each run trains on its own parameters alone
     bst = lgb.Booster(params=params, train_set=ds)
     bst._gbdt.arm_megastep(megastep)
     for _ in range(WARMUP_UPDATES):
@@ -433,6 +535,64 @@ def run_updates(lgb, params, ds, X, y, megastep=False):
         raise AssertionError(f"update() predict differs from the "
                              f"trainer's scores by {pred_err}")
     return res, launches
+
+
+def run_frontier(lgb, params, ds, X, y):
+    """train() on the frontier-v1 engine, timed as phase 3 times the fused
+    engine; returns the kernels' launches in the ROUNDS-round run."""
+    import torch
+    from lightgbm_tpu_torch.models import frontier2
+    from lightgbm_tpu_torch.ops import fused_level as fl
+    p = dict(params, tpu_engine="frontier")
+
+    def timed_train(rounds):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ds.params = {}
+        b = lgb.train(p, ds, num_boost_round=rounds)
+        torch.cuda.synchronize()
+        return b, time.perf_counter() - t
+
+    timed_train(1)                        # warm-up
+    _, t_one = timed_train(1)
+    fl.reset_launch_counts()
+    frontier2.host_syncs["count"] = 0
+    bst, t_all = timed_train(ROUNDS)
+    launches = dict(fl.launches)
+    syncs = frontier2.host_syncs["count"]
+    n_trees = bst.num_trees()
+    scores = bst.train_scores().float().cpu().numpy()
+    train_auc = auc(scores, y)
+    pred = bst.predict(X[:100_000], raw_score=True)
+    pred_err = float(np.abs(pred - scores[:100_000]).max())
+    ok_pred = bool(np.allclose(pred, scores[:100_000], rtol=1e-5,
+                               atol=1e-5))
+    emit({"phase": "frontier_train", "engine": "frontier",
+          "use_frontier": bool(bst._gbdt.use_frontier),
+          "bagging": bool(bst._gbdt.is_bagging), "rounds": ROUNDS,
+          "trees": n_trees,
+          "sec_per_iter_after_first": (t_all - t_one) / (ROUNDS - 1),
+          "train_s": t_all, "train_auc": train_auc, "launches": launches,
+          "hist_pass_per_tree": launches["hist_pass"] / max(n_trees, 1),
+          "host_syncs_per_tree": syncs / max(n_trees, 1),
+          "predict_max_abs_err": pred_err,
+          "predict_tol": "rtol=1e-5 atol=1e-5",
+          "leaves": [m.num_leaves for m in bst.models]})
+    if not bst._gbdt.use_frontier:
+        raise AssertionError("tpu_engine=frontier did not take the "
+                             "frontier engine")
+    if n_trees != ROUNDS:
+        raise AssertionError(f"frontier trained {n_trees} trees")
+    if not train_auc > 0.75:
+        raise AssertionError(f"frontier training AUC {train_auc} <= 0.75")
+    for name, n in launches.items():
+        if (n > 0) != (name in FRONTIER_KERNELS):
+            raise AssertionError(f"kernel {name} launched {n} times on the "
+                                 "frontier train() path")
+    if not ok_pred:
+        raise AssertionError(f"frontier predict differs from the trainer's "
+                             f"scores by {pred_err}")
+    return launches
 
 
 def main() -> int:
@@ -493,6 +653,15 @@ def main() -> int:
     res = check_epilogue(Rp, ROWS, 64, 64, fl.NCH_PRECISE, "binary", False,
                          seed=3)
     emit({"phase": "kernel_check", "epilogue_pass": res})
+    hist_main = None
+    for B in (64, 256):
+        for S in (8, 64):
+            for bits in (0, 8, 16):
+                res = check_hist(ROWS, FEATURES, B, S, bits,
+                                 seed=B + S + bits)
+                emit({"phase": "kernel_check", "hist_pass": res})
+                if (B, S, bits) == (64, 64, 0):
+                    hist_main = res
 
     # ---- 3. end to end through lightgbm_tpu_torch.train
     X, y = _make_data(ROWS, FEATURES, seed=DATA_SEED)
@@ -504,10 +673,16 @@ def main() -> int:
     ds = lgb.Dataset(X, label=y, params=params).construct()
     construct_s = time.perf_counter() - t0
     F_oh, Bp = feature_layout(ds._inner.num_features, ds._inner.max_num_bin)
+    # a Booster merges its parameters into its Dataset's, as LightGBM's
+    # does, and a later Booster on that Dataset inherits them: every run
+    # below clears the Dataset's parameters first (the dataset stays
+    # binned), so bagging or tpu_engine never leak from one run into the
+    # next
 
     def timed_train(rounds):
         torch.cuda.synchronize()
         t = time.perf_counter()
+        ds.params = {}
         b = lgb.train(params, ds, num_boost_round=rounds)
         torch.cuda.synchronize()
         return b, time.perf_counter() - t
@@ -563,10 +738,14 @@ def main() -> int:
         if name == "a":
             upd_launches = upd_launches or n_launch
 
-    # ---- 5. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
-    # the epilogue at Bp=64 int8, nch=5, binary, Sp=64). Launches: the
-    # train() run for the three kernels of its path, update() run (a) for
-    # the epilogue
+    # ---- 5. the frontier-v1 engine through train()
+    fr_launches = run_frontier(lgb, params, ds, X, y)
+
+    # ---- 6. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
+    # the epilogue at Bp=64 int8, nch=5, binary, Sp=64; hist_pass at Bp=64,
+    # Sp=64, f32). Launches: the train() run for the three kernels of its
+    # path, update() run (a) for the epilogue, the frontier train() run for
+    # hist_pass
     lv, rt = main_cfg["level_pass"], main_cfg["route_pass"]
     rows = []
     for name, r, err, n in (
@@ -578,7 +757,9 @@ def main() -> int:
             ("epilogue_pass", epi_main,
              max(epi_main["hist_max_abs_err"], epi_main["gh_max_abs_err"],
                  epi_main["new_score_max_abs_err"]),
-             upd_launches["epilogue_pass"])):
+             upd_launches["epilogue_pass"]),
+            ("hist_pass", hist_main, hist_main["max_abs_err"],
+             fr_launches["hist_pass"])):
         rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name], "launches": n,
                      "max_abs_err": err, "ms": r["kernel_ms"],
@@ -587,7 +768,7 @@ def main() -> int:
                      "library_ms": r["library_ms"]})
     emit({"kernels": rows})
 
-    # ---- 6. the result line
+    # ---- 7. the result line
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

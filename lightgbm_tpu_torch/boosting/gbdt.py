@@ -1,8 +1,13 @@
-"""Gradient boosting driver on the fused engine.
+"""Gradient boosting driver on the fused and frontier-v1 engines.
 
 PyTorch counterpart of ``lightgbm_tpu/boosting/gbdt.py`` on its main
-training path, the serial learner on the fused engine. Two iteration
-bodies, as in the JAX package:
+training path, the serial learner. ``tpu_engine`` picks the engine as the
+JAX package resolves it (``gbdt.py:1956-2037``), with only the branches
+the port can take: ``auto`` and ``fused`` train the fused engine,
+``frontier`` the frontier-v1 engine (with ``tpu_histogram_impl`` auto or
+pallas), and anything else raises, naming what is not ported.
+
+The fused engine has two iteration bodies, as in the JAX package:
 
 - the **megastep body** (``_fused_iter_body``; the JAX package's
   ``_make_fused_tree_loop``, whose ``lax.scan`` is a plain Python loop over
@@ -19,14 +24,25 @@ bodies, as in the JAX package:
   holds (binary or L2, ``tpu_fused_epilogue``, one tree per iteration);
   the megastep body otherwise.
 
+The frontier-v1 engine has one (``_frontier_iter_body``; the serial,
+single-class branch of the JAX package's ``_sync_iter_body``): gradients,
+``gh3 = [g*bag, h*bag, bag]``, ``grow_tree_frontier``, the host tree, its
+shrinkage applied in float64 on the host, and an f32 copy of the shrunk
+leaf values added to the scores through the per-row lookup. That order
+differs from the fused bodies' f32 ``leaf_value * shrinkage`` in the last
+bits (the JAX package's ``gbdt.py:3162-3164``), so each engine keeps its
+own. Neither the megastep nor the epilogue applies to it.
+
 Bagging (balanced bagging included) and per-tree feature_fraction draw
 from the reference's LCG streams (``utils/random.py``) in the JAX
 package's order; the epilogue body draws the next round's bag one
 iteration ahead without changing that order.
 
-Layout (``_init_fused``): the binned matrix transposed to ``bins_T``
+Layouts: ``_init_fused`` transposes the binned matrix to ``bins_T``
 [Fp=max(F_oh, 8), Rp] with Rp rounded up to 2048, int8 for Bp <= 128 and
-int16 above; padded rows sit at leaf -1 and carry zero gradients.
+int16 above (padded rows sit at leaf -1 and carry zero gradients);
+``_init_frontier`` keeps it row-major, ``bins_i32`` [num_data, Fp] int32,
+with no row padding.
 
 Not ported yet (they raise or are absent): GOSS, feature_fraction_bynode,
 init scores, valid sets, callbacks, multiclass, categorical features, EFB,
@@ -42,11 +58,13 @@ import torch
 
 from ..config import Config
 from ..dataset import BinnedDataset
+from ..models.frontier import grow_tree_frontier, leaf_value_lookup
 from ..models.frontier2 import grow_tree_fused, tree_score_delta
 from ..models.learner import FeatureMeta
 from ..models.tree import HostTree, TreeArrays
 from ..ops.fused_level import NCH_FAST, NCH_PRECISE, epilogue_pass, pack_gh
 from ..ops.layout import feature_layout
+from ..ops.pallas_histogram import pad_feature_layout
 from ..ops.predict import route_binned_rows_to_leaves, tree_depth
 from ..ops.split import SplitParams
 from ..utils import log
@@ -108,7 +126,7 @@ class GBDT:
         self.iter = 0
         self.scores = torch.zeros((1, self.num_data), dtype=torch.float32,
                                   device=self.device)
-        self._init_fused(train_data)
+        self._setup_engine(config, train_data)
         self._megastep_armed = False
         # epilogue body: (score [1, Rp], root hist, gh_T) carried to the
         # next iteration; None = the next iteration primes
@@ -139,6 +157,46 @@ class GBDT:
                                      device=self.device)   # 1 = in the bag
         self.bag_cnt = n
 
+    def _setup_engine(self, config: Config,
+                      train_data: BinnedDataset) -> None:
+        """Resolve ``tpu_engine`` (gbdt.py:1956-2037, the branches the port
+        can take) and build that engine's layout. Never falls back."""
+        engine = str(config.tpu_engine)
+        if engine == "xla":
+            log.fatal("tpu_engine=xla (the XLA growers of models/learner.py "
+                      "and the XLA histograms of ops/histogram.py) is not "
+                      "ported to lightgbm_tpu_torch yet")
+        if engine == "frontier" \
+                and config.tpu_histogram_impl not in ("auto", "pallas"):
+            log.fatal("tpu_engine=frontier with tpu_histogram_impl=%s needs "
+                      "the XLA histograms of ops/histogram.py, which are not "
+                      "ported to lightgbm_tpu_torch yet",
+                      config.tpu_histogram_impl)
+        if engine not in ("auto", "fused", "frontier"):
+            log.fatal("unknown tpu_engine=%r (auto, fused, frontier or xla)",
+                      engine)
+        self.use_frontier = engine == "frontier"
+        if self.use_frontier:
+            self._init_frontier(train_data)
+        else:
+            self._init_fused(train_data)
+
+    def _init_frontier(self, train_data: BinnedDataset) -> None:
+        """Feature-padded int32 row-major bin matrix and padded feature
+        metadata for the frontier-v1 grower (gbdt.py _init_frontier; the
+        transposed copy is not kept, routing gathers from this one)."""
+        F = train_data.num_features
+        Fp, Bp = pad_feature_layout(F, self.max_bins)
+        self.frontier_Fp = Fp
+        self.frontier_Bp = Bp
+        bins = torch.zeros((self.num_data, Fp), dtype=torch.int32,
+                           device=self.device)
+        if F:
+            bins[:, :F] = train_data.bins_dev.to(torch.int32)
+        self.bins_i32 = bins
+        # pad features are trivial (num_bin 2) and never selected
+        self.frontier_meta = self._padded_meta(train_data, Fp, 2)
+
     def _init_fused(self, train_data: BinnedDataset) -> None:
         """Transposed, padded bin matrix + f_oh-padded feature metadata for
         the fused level kernels (gbdt.py _init_fused, unbundled
@@ -159,17 +217,25 @@ class GBDT:
         self.fused_Rp = Rp
         self.fused_nch = (NCH_FAST if self.config.tpu_hist_precision == "bf16"
                           else NCH_PRECISE)
+        self.fused_meta = self._padded_meta(train_data, F_oh, 0)
 
-        def pad(a):
-            out = np.zeros(F_oh, np.int32)
+    def _padded_meta(self, train_data: BinnedDataset, width: int,
+                     pad_num_bin: int) -> FeatureMeta:
+        """Feature metadata padded to the engine's feature width, padding
+        features at ``pad_num_bin`` bins; sets ``fmask_full``, the mask of
+        the real features."""
+        F = train_data.num_features
+
+        def pad(a, fill=0):
+            out = np.full(width, fill, np.int32)
             out[:F] = a
             return torch.as_tensor(out, device=self.device)
-        self.fused_meta = FeatureMeta(
-            num_bin=pad(train_data.num_bin_per_feat),
+        self.fmask_full = torch.arange(width, device=self.device) < F
+        return FeatureMeta(
+            num_bin=pad(train_data.num_bin_per_feat, pad_num_bin),
             missing_type=pad(train_data.missing_types),
             default_bin=pad(train_data.default_bins()),
             monotone=pad(np.zeros(F, np.int32)))
-        self.fused_fmask = torch.arange(F_oh, device=self.device) < F
 
     # ------------------------------------------------------------------
     def _boost_from_average(self) -> float:
@@ -249,11 +315,12 @@ class GBDT:
         return mask
 
     def _feature_mask_pad(self) -> torch.Tensor:
-        """This tree's feature mask padded to F_oh, on the device (no draw
-        when feature_fraction is 1)."""
+        """This tree's feature mask padded to the engine's feature width
+        (F_oh, or Fp on the frontier engine), on the device (no draw when
+        feature_fraction is 1)."""
         if float(self.config.feature_fraction) >= 1.0:
-            return self.fused_fmask
-        m = np.zeros(self.fused_f_oh, bool)
+            return self.fmask_full
+        m = np.zeros(self.fmask_full.shape[0], bool)
         m[:self.train_data.num_features] = self._feature_mask()
         return torch.as_tensor(m, device=self.device)
 
@@ -281,6 +348,7 @@ class GBDT:
         kernel implements (binary, l2), ``tpu_fused_epilogue``, one tree
         per iteration (the serial learner is the only one ported)."""
         return bool(self._epi_spec is not None
+                    and not self.use_frontier
                     and self.config.tpu_fused_epilogue
                     and self.num_tree_per_iteration == 1)
 
@@ -290,6 +358,8 @@ class GBDT:
         if self.objective is None:
             log.fatal("lightgbm_tpu_torch trains with a built-in objective "
                       "only (custom gradients are not ported yet)")
+        if self.use_frontier:
+            return self._frontier_iter_body()
         if not self._megastep_armed and self._use_epilogue():
             return self._epi_iter_body()
         self._epi_carry = None   # this body updates the scores in place
@@ -314,6 +384,22 @@ class GBDT:
                                                self.shrinkage_rate,
                                                num_rows=n)
         return stop
+
+    def _frontier_iter_body(self) -> bool:
+        """The frontier-v1 engine's body (the serial, single-class branch
+        of the JAX package's ``_sync_iter_body``): gradients, bagging, gh3,
+        ``grow_tree_frontier``; the score update follows the host tree's
+        float64 shrinkage (``_finish_iter``)."""
+        init_score = self._boost_from_average()
+        self._bagging(self.iter)
+        grad, hess = self.objective.get_gradients(self.scores)
+        w = self.bag_weight
+        gh3 = torch.stack([grad[0] * w, hess[0] * w, w], 1)
+        tree, row_leaf = grow_tree_frontier(
+            self.bins_i32, gh3, self.frontier_meta, self._feature_mask_pad(),
+            self.params, self.max_leaves, self.frontier_Bp,
+            int(self.config.max_depth))
+        return self._finish_iter(tree, init_score, row_leaf)
 
     def _epi_iter_body(self) -> bool:
         """The epilogue body: grow from the carry (or prime it from the
@@ -359,9 +445,13 @@ class GBDT:
         self.scores = score2[:, :n]
         return self._finish_iter(tree, init_score)
 
-    def _finish_iter(self, tree: TreeArrays, init_score: float) -> bool:
+    def _finish_iter(self, tree: TreeArrays, init_score: float,
+                     row_leaf: torch.Tensor = None) -> bool:
         """Host bookkeeping of one grown tree; True (and no model appended
-        past the first) when it grew no split."""
+        past the first) when it grew no split. With ``row_leaf`` (the
+        frontier engine) the tree's score update happens here, in the sync
+        driver's order (gbdt.py:4700-4788): shrinkage in float64 on the host
+        tree, then its leaf values as f32 added per row, then the bias."""
         if tree.num_leaves <= 1:
             self._epi_carry = None
             if not self.models:
@@ -378,6 +468,11 @@ class GBDT:
             return True
         ht = self._to_host_tree(tree)
         ht.apply_shrinkage(self.shrinkage_rate)
+        if row_leaf is not None:
+            lv = torch.as_tensor(ht.leaf_value.astype(np.float32),
+                                 device=self.device)
+            self.scores[0] += leaf_value_lookup(lv, row_leaf,
+                                                self.max_leaves)
         if abs(init_score) > K_EPSILON:
             ht.add_bias(init_score)
         self.models.append(ht)
@@ -406,12 +501,13 @@ class GBDT:
             def t(a, dt=torch.int64):
                 return torch.as_tensor(np.asarray(a), dtype=dt,
                                        device=self.device)
+            meta = self.frontier_meta if self.use_frontier \
+                else self.fused_meta
             leaves = route_binned_rows_to_leaves(
                 ds.bins_dev, t(inner), t(ht.threshold_bin[:ni]),
                 t((ht.decision_type[:ni] & 2) != 0, torch.bool),
                 t(ht.left_child[:ni]), t(ht.right_child[:ni]),
-                self.fused_meta.num_bin, self.fused_meta.missing_type,
-                self.fused_meta.default_bin,
+                meta.num_bin, meta.missing_type, meta.default_bin,
                 tree_depth(ht.left_child, ht.right_child))
             self.scores[0] -= lv[leaves]
         del self.models[-1]

@@ -9,7 +9,8 @@ keyed by a hash of the sources and flags, under ``lightgbm_tpu_torch/_build``
 ``Tensor.data_ptr()``, the stream from ``torch.cuda.current_stream()``, and
 every pointer argument is declared ``c_void_p`` so ctypes never truncates it
 to 32 bits. Each C entry point returns ``cudaGetLastError()`` after its
-launch; the wrappers in ``ops/fused_level.py`` raise when it is not 0.
+launch; the wrappers in ``ops/fused_level.py`` and
+``ops/pallas_histogram.py`` raise when it is not 0.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine with no ``nvcc``.
@@ -30,7 +31,7 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 SOURCES = ("level_pass.cu", "route_pass.cu", "table_lookup.cu",
-           "epilogue_pass.cu")
+           "epilogue_pass.cu", "hist_pass.cu")
 HEADERS = ("fused_level.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -49,6 +50,8 @@ SIGNATURES = {
                            _P, _P, _P, _P, _c.c_longlong, _c.c_int,
                            _c.c_int, _c.c_int, _c.c_int, _c.c_int,
                            _c.c_float, _P],
+    "lgbt_hist_pass": [_P, _P, _P, _P, _c.c_longlong, _c.c_int, _c.c_int,
+                       _c.c_int, _c.c_int, _c.c_int, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -32,9 +32,11 @@ NCH_FAST = 3      # g, h, w
 MAX_SLOTS = 128
 TBL_COLS = 128
 
-# launches of each kernel since the last reset (CPU calls never count)
+# launches of each kernel since the last reset (CPU calls never count);
+# ``hist_pass`` is counted by ops/pallas_histogram.py
 launches: Dict[str, int] = {"level_pass": 0, "route_pass": 0,
-                            "table_lookup": 0, "epilogue_pass": 0}
+                            "table_lookup": 0, "epilogue_pass": 0,
+                            "hist_pass": 0}
 EPILOGUE_KINDS = ("binary", "l2")
 
 

@@ -3,18 +3,21 @@
 the card.
 
     python3 scripts/torch_profile.py [--rows 1000000] [--rounds 3]
-                                     [--path train update]
+                                     [--path train update frontier]
 
 Trains chip_smoke.py's configuration (1,000,000 x 28 rows of bench.py's
 synthetic data, max_bin=63, num_leaves=255) with ``Booster.update()``,
-once per ``--path`` in one process: ``train`` runs the megastep body (what
-``train()`` runs), ``update`` the epilogue body (what a bare ``update()``
-loop runs). Each warms up two iterations, then traces ``--rounds`` more
-with ``torch.profiler`` and prints one JSON line: the wall time per
-iteration, the device time summed over all kernels, the device's busy
-share (device time over wall time), the device launches per iteration,
-the kernels ranked by device time, and the grower's host syncs per tree.
-Also prints the card's name and power limit. Needs a CUDA device.
+once per ``--path`` in one process: ``train`` runs the fused engine's
+megastep body (what ``train()`` runs), ``update`` its epilogue body (what
+a bare ``update()`` loop runs), ``frontier`` the frontier-v1 engine
+(``tpu_engine="frontier"``, the same body for both). Each warms up two
+iterations, then traces ``--rounds`` more with ``torch.profiler`` and
+prints one JSON line: the wall time per iteration, the device time summed
+over all kernels, the device's busy share (device time over wall time),
+the device launches per iteration, each of the port's CUDA kernels' device
+ms per iteration, the kernels ranked by device time, and the grower's host
+syncs per tree. Also prints the card's name and power limit. Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -33,8 +36,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--path", nargs="+", choices=("train", "update"),
-                    default=["train", "update"])
+    ap.add_argument("--path", nargs="+",
+                    choices=("train", "update", "frontier"),
+                    default=["train", "update", "frontier"])
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -54,8 +58,10 @@ def main() -> int:
               "device_type": "cuda"}
     ds = lgb.Dataset(X, label=y, params=params).construct()
     for path in args.path:
+        p = dict(params, tpu_engine="frontier") if path == "frontier" \
+            else params
         print(json.dumps(dict(path=path, nvidia_smi=smi, **profile_path(
-            lgb, frontier2, params, ds, path == "train", args.rounds))),
+            lgb, frontier2, p, ds, path == "train", args.rounds))),
             flush=True)
     return 0
 
@@ -63,6 +69,7 @@ def main() -> int:
 def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int):
     import torch
     from torch.profiler import ProfilerActivity, profile
+    ds.params = {}   # a Booster keeps its params in its Dataset: no leaks
     bst = lgb.Booster(params=params, train_set=ds)
     bst._gbdt.arm_megastep(megastep)
     for _ in range(2):
@@ -89,14 +96,20 @@ def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int):
             rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     dev_total_us = sum(r[0] for r in rows)
+    kernel_ms = {k: sum(d for d, key, _ in rows if f"{k}_kernel" in key)
+                 / 1e3 / rounds
+                 for k in ("level_pass", "route_pass", "table_lookup",
+                           "epilogue_pass", "hist_pass")}
     return {
         "rows": ds._inner.num_data, "iterations": rounds,
+        "engine": "frontier" if bst._gbdt.use_frontier else "fused",
         "epilogue_body": bool(not megastep and bst._gbdt._use_epilogue()),
         "wall_ms_per_iter": wall * 1e3 / rounds,
         "device_ms_per_iter": dev_total_us / 1e3 / rounds,
         "device_busy_share": dev_total_us / 1e6 / wall,
         "host_syncs_per_tree": frontier2.host_syncs["count"] / rounds,
         "device_launches_per_iter": sum(r[2] for r in rows) / rounds,
+        "kernel_ms_per_iter": kernel_ms,
         "top_device_ops": [{"name": k[:80], "calls_per_iter": c / rounds,
                             "ms_per_iter": d / 1e3 / rounds}
                            for d, k, c in rows[:15]]}

@@ -122,3 +122,48 @@ def test_chip_smoke_alone_fails(tmp_path):
                          env=env, capture_output=True, text=True)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def _tiny():
+    X = np.random.RandomState(0).randn(256, 4)
+    return X, (X[:, 0] > 0).astype(float)
+
+
+@pytest.mark.parametrize("params", [{}, {"tpu_engine": "auto"},
+                                    {"tpu_engine": "fused"}],
+                         ids=["default", "auto", "fused"])
+def test_tpu_engine_auto_and_fused_train_the_fused_engine(params):
+    X, y = _tiny()
+    p = dict({"objective": "binary", "num_leaves": 7, "verbose": -1,
+              "device_type": "cpu"}, **params)
+    g = lt.train(p, lt.Dataset(X, label=y), num_boost_round=2)._gbdt
+    assert not g.use_frontier and g._use_epilogue()
+    assert hasattr(g, "fused_bins_T") and not hasattr(g, "bins_i32")
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+def test_tpu_engine_frontier_trains_the_frontier_engine(impl):
+    X, y = _tiny()
+    p = {"objective": "binary", "num_leaves": 7, "verbose": -1,
+         "device_type": "cpu", "tpu_engine": "frontier",
+         "tpu_histogram_impl": impl}
+    bst = lt.train(p, lt.Dataset(X, label=y), num_boost_round=2)
+    g = bst._gbdt
+    assert g.use_frontier and not g._use_epilogue()
+    assert hasattr(g, "bins_i32") and not hasattr(g, "fused_bins_T")
+    assert bst.num_trees() == 2 and bst.models[0].num_leaves > 1
+
+
+@pytest.mark.parametrize("params,what", [
+    ({"tpu_engine": "xla"}, "tpu_engine=xla"),
+    ({"tpu_engine": "frontier", "tpu_histogram_impl": "segment"},
+     "tpu_histogram_impl=segment"),
+    ({"tpu_engine": "frontier", "tpu_histogram_impl": "onehot"},
+     "tpu_histogram_impl=onehot"),
+], ids=["xla", "frontier-segment", "frontier-onehot"])
+def test_unported_engines_raise(params, what):
+    X, y = _tiny()
+    p = dict({"objective": "binary", "verbose": -1, "device_type": "cpu"},
+             **params)
+    with pytest.raises(lt.LightGBMError, match=what + ".*not ported"):
+        lt.train(p, lt.Dataset(X, label=y), num_boost_round=1)

@@ -12,6 +12,8 @@ import torch
 
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.ops import fused_level as tfl
+from lightgbm_tpu_torch.ops import pallas_histogram as tph
+from lightgbm_tpu_torch.ops import quantize as tq
 from lightgbm_tpu_torch.ops.layout import feature_layout
 
 pytestmark = pytest.mark.cuda
@@ -68,7 +70,7 @@ def test_kernels_match_plain(cuda_device, nch, B):
                                           nch=nch)
     assert {k: tfl.launches[k] - n0[k] for k in n0} == \
         {"level_pass": 1, "route_pass": 1, "table_lookup": 1,
-         "epilogue_pass": 0}
+         "epilogue_pass": 0, "hist_pass": 0}
     assert torch.equal(leaf_c.cpu(), leaf_p)
     assert torch.equal(route_c.cpu(), leaf_p)
     assert torch.equal(look_c.cpu(), tfl.table_lookup_plain(leaf_p, table))
@@ -196,6 +198,103 @@ def test_cuda_update_matches_cpu(cuda_device):
     (bc, _), (bg, n) = out["cpu"], out["cuda"]
     assert n["epilogue_pass"] == 4 and n["level_pass"] > 0
     assert n["route_pass"] == n["table_lookup"] == 0
+    for a, b in zip(bc.models, bg.models):
+        np.testing.assert_array_equal(a.split_feature, b.split_feature)
+        np.testing.assert_array_equal(a.threshold_bin, b.threshold_bin)
+    np.testing.assert_allclose(bg.train_scores().cpu().numpy(),
+                               bc.train_scores().numpy(), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(bg.predict(X, raw_score=True),
+                               bc.predict(X, raw_score=True), rtol=1e-5,
+                               atol=1e-6)
+
+
+def _hist_operands(R, F, B, S, quant_bits, seed):
+    """[R, Fp] int32 bins, ~30% of rows at slot -1 with non-zero gh, and
+    gh as f32 (g, h, w) or the int8 channels of ``quant_bits``."""
+    rng = np.random.RandomState(seed)
+    Fp, Bp = tph.pad_feature_layout(F, B)
+    bins = np.zeros((R, Fp), np.int32)
+    bins[:, :F] = rng.randint(0, B, (R, F))
+    slot = rng.randint(0, S, R).astype(np.int32)
+    slot[rng.rand(R) < 0.3] = -1
+    t = torch.as_tensor
+    gh = t(np.stack([rng.randn(R), rng.rand(R), np.ones(R)], 1)
+           .astype(np.float32))
+    if quant_bits:
+        g, h = gh[:, 0], gh[:, 1]
+        scales = tq.quant_scales(g, h, quant_bits)
+        gh = torch.stack(tq.encode_channels(
+            *tq.quantize_gh(g, h, scales, quant_bits, seed), gh[:, 2],
+            quant_bits), 1).contiguous()
+    return t(bins), gh, t(slot), Bp
+
+
+@pytest.mark.parametrize("R,F,B,S,bits", [
+    (5000, 28, 64, 64, 0),    # 7 shared-memory feature groups of 4
+    (3001, 28, 64, 8, 0),     # every feature in one group
+    (5000, 28, 64, 64, 8),
+    (4099, 28, 64, 13, 16),
+    # one feature's [5, 64, 256] int32 slab (320 KB) exceeds a block's
+    # shared memory: the kernel adds straight into global memory
+    (5000, 28, 256, 64, 16),
+    (5000, 5, 256, 64, 0),
+])
+def test_hist_pass_matches_plain(cuda_device, R, F, B, S, bits):
+    bins, gh, slot, Bp = _hist_operands(R, F, B, S, bits, seed=R + B + S)
+    quant = bool(bits)
+    nch = gh.shape[1]
+    kw = dict(S=S, Bp=Bp, nch=nch, quant=quant)
+    n0 = tfl.launches["hist_pass"]
+    out_c = tph.hist_pass(bins.to(cuda_device), gh.to(cuda_device),
+                          slot.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert tfl.launches["hist_pass"] - n0 == 1
+    out_p = tph.hist_pass_plain(bins, gh, slot, **kw)
+    assert out_c.shape == out_p.shape and out_c.dtype == out_p.dtype
+    if quant:       # integer sums: exact
+        assert torch.equal(out_c.cpu(), out_p)
+        return
+    # atomics reorder the f32 sums; the weight channel counts rows exactly
+    for c in range(2):
+        np.testing.assert_allclose(
+            out_c[c].cpu().numpy(), out_p[c].numpy(), rtol=1e-5,
+            atol=1e-5 * float(out_p[c].abs().max()))
+    assert torch.equal(out_c[2].cpu(), out_p[2])
+    # unslotted rows added nothing
+    assert float(out_p[2].sum()) == (slot >= 0).sum().item() * bins.shape[1]
+
+
+def test_hist_pass_on_cuda_never_runs_the_plain_version(cuda_device,
+                                                        monkeypatch):
+    bins, gh, slot, Bp = _hist_operands(2048, 6, 16, 4, 0, seed=0)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on CUDA tensors")
+    monkeypatch.setattr(tph, "hist_pass_plain", refuse)
+    out = tph.hist_pass(bins.to(cuda_device), gh.to(cuda_device),
+                        slot.to(cuda_device), S=4, Bp=Bp, nch=3)
+    torch.cuda.synchronize()
+    assert out.is_cuda and float(out[2].sum()) > 0
+    with pytest.raises(ValueError):
+        tph.hist_pass(bins.to(cuda_device), gh, slot.to(cuda_device), S=4,
+                      Bp=Bp, nch=3)
+
+
+def test_cuda_frontier_training_matches_cpu(cuda_device):
+    rng = np.random.RandomState(2)
+    X = rng.randn(5000, 8)
+    X[rng.rand(5000) < 0.05, 2] = np.nan
+    y = (X[:, 0] + 0.5 * np.nan_to_num(X[:, 2]) > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+         "tpu_engine": "frontier", "bagging_fraction": 0.7,
+         "bagging_freq": 1, "feature_fraction": 0.8, "verbose": -1}
+    bc = lt.train(dict(p, device_type="cpu"), lt.Dataset(X, label=y), 3)
+    tfl.reset_launch_counts()
+    bg = lt.train(dict(p, device_type="cuda"), lt.Dataset(X, label=y), 3)
+    n = dict(tfl.launches)
+    assert bg._gbdt.use_frontier and n.pop("hist_pass") > 0
+    assert not any(n.values())           # no fused-engine kernel ran
     for a, b in zip(bc.models, bg.models):
         np.testing.assert_array_equal(a.split_feature, b.split_feature)
         np.testing.assert_array_equal(a.threshold_bin, b.threshold_bin)
