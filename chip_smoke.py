@@ -15,8 +15,14 @@ non-zero (it prints no result line then):
    and once with an all-inactive deferred table, with ~30% zero bag
    weights; ``hist_pass`` at R = 1,000,000 rows, Fp = 28, Bp in {64, 256},
    S in {8, 64}, f32 (nch 3) and quantized to 8 bits (nch 3) and 16 bits
-   (nch 5), ~30% of rows at slot -1 with non-zero gh; with the errors,
-   their tolerances and the times;
+   (nch 5), ~30% of rows at slot -1 with non-zero gh; the histogram-plane
+   variants of ``level_pass`` (quantized to 8 and 16 bits, packed,
+   masked, and all three at once as run (b) of phase 6 runs them; f32
+   padded on the same rows as their yardstick) and the packed
+   ``route_pass`` at Rp = 1,001,472, F_oh = 28, Bp = 64, Sp in {8, 64} on
+   the mixed-cardinality layout of phase 6 (14 features of 63 bins, 14 of
+   8), each quantized plane also against the other layout's after
+   unpacking; with the errors, their tolerances and the times;
 3. end to end through ``lightgbm_tpu_torch.train`` on 1,000,000 x 28 rows
    of ``bench.py``'s synthetic binary data (seed 1), the Higgs-shaped
    configuration (max_bin=63, num_leaves=255, learning_rate=0.1,
@@ -37,9 +43,19 @@ non-zero (it prints no result line then):
    ``hist_pass`` launches (> 0) and no launch of the fused engine's
    kernels, host syncs per tree, and ``Booster.predict`` against the
    trainer's scores;
-6. the ``kernels`` line: every ported kernel with its launches on the main
-   path where it runs, error, time, plain time, bound and library time;
-7. the last line: ``{"ok": true, "device": {...}}``.
+6. the histogram-plane cuts end to end (``plane_cuts_train``): ``train()``
+   on the same rows with columns 14-27 floored to 8 levels (bench.py's
+   all-cuts leg), 10 rounds each of (a) f32 with no cuts, (b) quant16 +
+   gain screening + adaptive bins (tests/test_hist_plane.py's KNOBS), (c)
+   quant8 alone, and (d) quant16, (e) adaptive bins, (f) gain screening,
+   each alone: sec/iter, launches per tree by kernel and variant (on the
+   card exactly the megastep schedule of a full 255-leaf tree), host
+   syncs per tree, AUC (within 0.05 of run a), predict agreement, the
+   packed flat width against F_oh * Bp, the features screening keeps;
+7. the ``kernels`` line: every ported kernel and variant with its launches
+   on the main path where it runs, error, time, plain time, bound and
+   library time;
+8. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package. It exits non-zero when no CUDA
 device is present.
@@ -67,6 +83,26 @@ UPDATES = 10
 WARMUP_UPDATES = 2
 TRAIN_PATH_KERNELS = ("level_pass", "route_pass", "table_lookup")
 FRONTIER_KERNELS = ("hist_pass",)
+# bench.py's all-cuts leg: columns 14-27 floored to 8 levels (8 bins each)
+NARROW_FROM = 14
+PLANE_NUM_BIN = np.array([63] * NARROW_FROM + [8] * (28 - NARROW_FROM),
+                         np.int32)
+SCREENING = {"tpu_gain_screening": True, "tpu_screening_warmup": 2,
+             "tpu_screening_explore_period": 4}
+KNOBS = {"tpu_quantized_grad": 16, "tpu_adaptive_bins": True, **SCREENING}
+# phase 6: (a) the yardstick, (b) tests/test_hist_plane.py's KNOBS, (c)
+# quant8 alone, and each of (b)'s cuts alone: (d) quant16, (e) adaptive
+# bins, (f) gain screening
+PLANE_RUNS = (("a", {}), ("b", KNOBS), ("c", {"tpu_quantized_grad": 8}),
+              ("d", {"tpu_quantized_grad": 16}),
+              ("e", {"tpu_adaptive_bins": True}), ("f", SCREENING))
+# the level_pass variants checked on the mixed layout, as (quant_bits,
+# packed, masked); each row of the kernels line pairs a variant's check
+# with the phase-6 run whose every level_pass launch is that variant
+PLANE_VARIANTS = ((0, False, False), (8, False, False), (16, False, False),
+                  (0, True, False), (0, False, True), (16, True, True))
+VARIANT_RUNS = {"quant8": "c", "quant16": "d", "packed": "e", "fmask": "f",
+                "quant16+packed+fmask": "b"}
 REPLACES = {
     "level_pass": "lightgbm_tpu/ops/fused_level.py:402",
     "route_pass": "lightgbm_tpu/ops/fused_level.py:575",
@@ -119,124 +155,190 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _level_inputs(Rp, R, B, Sp, nch, seed):
-    """Random level-pass operands at the slice's layout: every real row in
-    one of Sp leaves, Sp-1 active slots (the last inactive), missing types
-    None/Zero/NaN across features."""
+def _level_inputs(Rp, R, num_bin, B, Sp, nch, seed, quant_bits=0,
+                  packed=False):
+    """Random level-pass operands: feature f's bins in [0, num_bin[f]),
+    every real row in one of Sp leaves, Sp-1 active slots on random
+    features (the last inactive), missing types None/Zero/NaN, ~30% zero
+    bag weights; padding rows at leaf -1 with zero channels. ``quant_bits``
+    packs the int8 channels (nch from quantize.QNCH); ``packed`` lays the
+    rows out on the adaptive layout (bins_T's rows in feat_order, the route
+    table re-indexed), and the same seed gives the same rows in both
+    layouts. Returns ((bins_T, leaf_T, gh_T, W, tbl), the wrappers'
+    keywords)."""
     import torch
     from lightgbm_tpu_torch.ops import fused_level as fl
+    from lightgbm_tpu_torch.ops import layout
+    from lightgbm_tpu_torch.ops.quantize import QNCH
     dev = torch.device(DEVICE)
     rng = np.random.RandomState(seed)
-    F = FEATURES
-    nb = np.full(F, B - 1, np.int32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nb = np.asarray(num_bin, np.int32)
+    F = len(nb)
     mt = rng.randint(0, 3, F).astype(np.int32)
-    db = rng.randint(0, B - 2, F).astype(np.int32)
-    bins = np.zeros((F, Rp), np.int64)
-    bins[:, :R] = rng.randint(0, B - 1, (F, R))
-    dt = torch.int8 if B <= 128 else torch.int16
-    bins_T = torch.as_tensor(bins, device=dev).to(dt)
-    leaf = np.full(Rp, -1, np.int32)
-    leaf[:R] = rng.randint(0, Sp, R)
-    leaf_T = torch.as_tensor(leaf[None, :], device=dev)
-    g = np.zeros(Rp, np.float32)
-    h = np.zeros(Rp, np.float32)
-    w = np.zeros(Rp, np.float32)
-    g[:R] = rng.randn(R)
-    h[:R] = rng.rand(R) * 0.25
-    w[:R] = 1.0
-    gh_T = fl.pack_gh(torch.as_tensor(g, device=dev),
-                      torch.as_tensor(h, device=dev),
-                      torch.as_tensor(w, device=dev), nch)
+    db = (rng.rand(F) * (nb - 1)).astype(np.int32)
+    nb_t = torch.as_tensor(nb, device=dev)
+    bins = (torch.rand((F, Rp), generator=gen, device=dev)
+            * nb_t[:, None]).to(torch.int8 if B <= 128 else torch.int16)
+    bins[:, R:] = 0
+    leaf = torch.randint(0, Sp, (Rp,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    leaf[R:] = -1
+    w = (torch.rand(Rp, generator=gen, device=dev) >= 0.3).float()
+    w[R:] = 0
+    g = torch.randn(Rp, generator=gen, device=dev) * w
+    h = torch.rand(Rp, generator=gen, device=dev) * 0.25 * w
+    if quant_bits:
+        nch = QNCH[quant_bits]
+        gh_T, _ = fl.pack_gh_quant(g, h, w, quant_bits, seed=seed)
+    else:
+        gh_T = fl.pack_gh(g, h, w, nch)
     lof = np.arange(Sp, dtype=np.int32)
     lof[-1] = -2
     feat = np.where(lof >= 0, rng.randint(0, F, Sp), -1).astype(np.int32)
-    thr = rng.randint(0, B - 2, Sp).astype(np.int32)
+    thr = (rng.rand(Sp) * (nb[np.maximum(feat, 0)] - 1)).astype(np.int32)
     dl = rng.rand(Sp) < 0.5
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-    W = fl.build_route_table(t(feat), t(thr), t(dl), t(nb), t(mt), t(db),
+    W = fl.build_route_table(t(feat), t(thr), t(dl), nb_t, t(mt), t(db),
                              Sp, F, B)
+    pk = None
+    if packed:
+        pk = layout.packed_feature_layout(nb, B - 1, f_oh=F)
+        bins = bins[list(pk.feat_order)]
+        W = fl.pack_route_table(W, pk)
     tbl = np.zeros((Sp, 128), np.int32)
     tbl[:, 0] = lof
     tbl[:, 1] = np.where(lof >= 0, Sp, 0)
     tbl[:, 2] = rng.randint(0, 2, Sp)
-    return bins_T, leaf_T, gh_T, W, t(tbl)
+    kw = dict(num_bins=B, f_oh=F, nch=nch, quant_bits=quant_bits, packed=pk)
+    return (bins.contiguous(), leaf[None, :], gh_T, W, t(tbl)), kw
 
 
-def check_level(Rp, R, B, Sp, nch, seed):
-    """level_pass and route_pass against their plain versions."""
+def _n_small(leaf_T, new_leaf, tbl) -> int:
+    """Rows this level histograms: in an active slot's leaf and on the
+    side of its smaller child."""
+    member = leaf_T[0][None, :] == tbl[:, 0][:, None]
+    left = (new_leaf[0] == leaf_T[0])[None, :]
+    return int((member & (left == (tbl[:, 2] > 0)[:, None])).any(0).sum())
+
+
+def check_level(Rp, R, num_bin, B, Sp, seed, nch=5, quant_bits=0,
+                packed=False, masked=False):
+    """level_pass and route_pass against their plain versions on the card,
+    padded f32 or one combination of the histogram-plane cuts: new leaves
+    equal; f32 planes within 1e-5 of the plane's largest magnitude (atomics
+    reorder the sums) with the weight channel exact; int32 planes
+    (``quant_bits``) bit-exact, and equal to the other layout's on the same
+    rows after unpacking; ``masked``: the grower's screening mask with half
+    the features off (logical feature 0 and the first kernel row's feature
+    kept on), their slabs exactly zero."""
     import torch
     from lightgbm_tpu_torch.ops import fused_level as fl
-    bins_T, leaf_T, gh_T, W, tbl = _level_inputs(Rp, R, B, Sp, nch, seed)
-    F = FEATURES
-    kw = dict(num_bins=B, f_oh=F)
+    ops, kw = _level_inputs(Rp, R, num_bin, B, Sp, nch, seed, quant_bits,
+                            packed)
+    bins_T, leaf_T, gh_T, W, tbl = ops
+    pk, nch, F = kw["packed"], kw["nch"], len(num_bin)
+    dev = bins_T.device
+    fm = None
+    if masked:
+        fm = torch.arange(F, device=dev) % 2 == 0
+        fm[0] = True
+        fm[pk.feat_order[0] if pk is not None else 0] = True
+    rkw = dict(num_bins=B, f_oh=F, packed=pk)
+    variant = fl.variant_name(quant_bits, packed, masked)
     n0 = dict(fl.launches)
-    hist_k, leaf_k = fl.level_pass(bins_T, leaf_T, gh_T, W, tbl, nch=nch,
-                                   **kw)
-    hist_p, leaf_p = fl.level_pass_plain(bins_T, leaf_T, gh_T, W, tbl,
-                                         nch=nch, **kw)
-    route_k = fl.route_pass(bins_T, leaf_T, W, tbl, **kw)
-    route_p = fl.route_pass_plain(bins_T, leaf_T, W, tbl, **kw)
+    v0 = dict(fl.variant_launches)
+    hist_k, leaf_k = fl.level_pass(*ops, fm, **kw)
+    route_k = fl.route_pass(bins_T, leaf_T, W, tbl, **rkw)
+    launched = {k: fl.launches[k] - n0[k] for k in n0
+                if fl.launches[k] != n0[k]}
+    launched.update({k: fl.variant_launches[k] - v0[k] for k in v0
+                     if fl.variant_launches[k] != v0[k]})
+    hist_p, leaf_p = fl.level_pass_plain(*ops, fm, **kw)
+    route_p = fl.route_pass_plain(bins_T, leaf_T, W, tbl, **rkw)
     torch.cuda.synchronize()
-    leaf_err = int((leaf_k - leaf_p).abs().max())
-    route_err = int((route_k - route_p).abs().max())
-    if leaf_err:
-        raise AssertionError(f"level_pass new_leaf differs (B={B} Sp={Sp})")
-    if route_err:
-        raise AssertionError(f"route_pass new_leaf differs (B={B} Sp={Sp})")
-    # per channel plane: atomics reorder the f32 sums, so the tolerance is
-    # relative to the plane's largest magnitude; the weight channel counts
-    # rows and must be exact
-    rel = 0.0
-    abs_err = 0.0
-    for ch in range(nch):
-        k = hist_k[:, ch * Sp:(ch + 1) * Sp]
-        p = hist_p[:, ch * Sp:(ch + 1) * Sp]
-        err = float((k - p).abs().max())
-        abs_err = max(abs_err, err)
-        if ch == nch - 1:
-            if err != 0.0:
-                raise AssertionError(f"weight channel differs by {err}")
-        else:
-            scale = float(p.abs().max()) or 1.0
-            rel = max(rel, err / scale)
-    if rel > 1e-5:
-        raise AssertionError(f"level_pass hist rel err {rel} > 1e-5")
+    if not torch.equal(leaf_k, leaf_p):
+        raise AssertionError(f"level_pass[{variant}] new_leaf differs "
+                             f"(B={B} Sp={Sp})")
+    if not torch.equal(route_k, route_p):
+        raise AssertionError(f"route_pass new_leaf differs (B={B} Sp={Sp} "
+                             f"packed={packed})")
+    out = {"variant": variant, "B": B, "Sp": Sp, "nch": nch,
+           "bins": str(bins_T.dtype).replace("torch.", ""),
+           "num_bin": sorted({int(v) for v in num_bin}), "FB": W.shape[1],
+           "launches": launched}
+    abs_err = float((hist_k.double() - hist_p.double()).abs().max())
+    if quant_bits:
+        if not torch.equal(hist_k, hist_p):
+            raise AssertionError(f"level_pass[{variant}] int32 planes "
+                                 f"differ by {abs_err} (Sp={Sp})")
+        # the same rows on the other layout: equal after unpacking
+        ops2, kw2 = _level_inputs(Rp, R, num_bin, B, Sp, nch, seed,
+                                  quant_bits, not packed)
+        hist2, leaf2 = fl.level_pass(*ops2, fm, **kw2)
+        pk_ = pk if packed else kw2["packed"]
+        hist_pk, hist_pd = (hist_k, hist2) if packed else (hist2, hist_k)
+        if not (torch.equal(fl.unpack_packed_flat(hist_pk, pk_), hist_pd)
+                and torch.equal(leaf2, leaf_k)):
+            raise AssertionError(f"level_pass[{variant}] packed differs "
+                                 "from padded after unpack")
+        out.update(tol="exact", packed_equals_padded_after_unpack=True)
+    else:
+        rel = 0.0
+        for ch in range(nch):
+            k = hist_k[:, ch * Sp:(ch + 1) * Sp]
+            p = hist_p[:, ch * Sp:(ch + 1) * Sp]
+            err = float((k - p).abs().max())
+            if ch == nch - 1:
+                if err != 0.0:
+                    raise AssertionError(f"level_pass[{variant}] weight "
+                                         f"channel differs by {err}")
+            else:
+                rel = max(rel, err / (float(p.abs().max()) or 1.0))
+        if rel > 1e-5:
+            raise AssertionError(f"level_pass[{variant}] hist rel err {rel}"
+                                 " > 1e-5")
+        out.update(hist_max_rel_err=rel, tol="rel 1e-5 of the plane max; "
+                   "weight channel exact")
+    if fm is not None:
+        if hist_k[~fl.expand_feature_mask(fm, F, B, pk)].any():
+            raise AssertionError(f"level_pass[{variant}] masked slabs not "
+                                 "zero")
+        out["masked_slabs_zero"] = True
 
-    C = nch * Sp
-    FB = F * B
-    # bytes each function must move: bins (F per row), leaf in/out, the nch
-    # channels, W, tbl, the histogram out; ops: F gather-adds per row plus
-    # F*nch adds per smaller-child row (this run's count)
-    bb = bins_T.element_size()
-    n_small = float(hist_p[:B, C - Sp:].sum())   # rows counted in feature 0
-    lvl_bytes = (Rp * (F * bb + 4 + 2 * nch + 4) + W.numel() * 2
-                 + tbl.numel() * 4 + FB * C * 4)
-    lvl_ops = Rp * F + n_small * F * nch
-    rt_bytes = Rp * (F * bb + 8) + W.numel() * 2 + tbl.numel() * 4
-    lvl_bound, lvl_by = bound(lvl_bytes, lvl_ops)
-    rt_bound, rt_by = bound(rt_bytes, Rp * F)
-    lvl_ms = cuda_ms(lambda: fl.level_pass(bins_T, leaf_T, gh_T, W, tbl,
-                                           nch=nch, **kw))
-    rt_ms = cuda_ms(lambda: fl.route_pass(bins_T, leaf_T, W, tbl, **kw))
-    out = {
-        "B": B, "bins": str(bins_T.dtype).replace("torch.", ""), "Sp": Sp,
-        "nch": nch,
-        "launches": {k: fl.launches[k] - n0[k] for k in n0},
-        "level_pass": {
-            "new_leaf_max_abs_err": leaf_err, "hist_max_abs_err": abs_err,
-            "hist_max_rel_err": rel, "tol_rel": 1e-5,
-            "weight_channel_exact": True,
-            "kernel_ms": lvl_ms,
-            "plain_ms": cuda_ms(lambda: fl.level_pass_plain(
-                bins_T, leaf_T, gh_T, W, tbl, nch=nch, **kw), reps=3,
-                warmup=1),
-            "library_ms": None, "bound_ms": lvl_bound, "bound_by": lvl_by},
-        "route_pass": {
-            "max_abs_err": route_err, "tol": 0, "kernel_ms": rt_ms,
-            "plain_ms": cuda_ms(lambda: fl.route_pass_plain(
-                bins_T, leaf_T, W, tbl, **kw), reps=3, warmup=1),
-            "library_ms": None, "bound_ms": rt_bound, "bound_by": rt_by},
-    }
+    # bytes each function must move: the leaf in and out of every row, the
+    # bins of the live kernel rows (masked ones add nothing) for rows in an
+    # active slot, the channels of the smaller-child rows, W, tbl, the
+    # layout tables, the histogram out; ops: a gather-add per live kernel
+    # row of each slotted row, nch adds per live kernel row of each
+    # smaller-child row (this run's counts)
+    K = bins_T.shape[0]
+    bb, chb = bins_T.element_size(), gh_T.element_size()
+    k_live = K if fm is None else int(fm[list(pk.feat_order)].sum()
+                                      if pk is not None else fm.sum())
+    in_slot = int(torch.isin(leaf_T[0], tbl[:, 0]).sum())
+    n_small = _n_small(leaf_T, leaf_p, tbl)
+    tables = W.numel() * 2 + tbl.numel() * 4 + (K * 8 if pk else 0)
+    lvl_bound, lvl_by = bound(
+        Rp * 8 + in_slot * k_live * bb + n_small * nch * chb + tables
+        + (K if fm is not None else 0) + hist_p.numel() * 4,
+        in_slot * k_live + n_small * k_live * nch)
+    rt_bound, rt_by = bound(Rp * 8 + in_slot * K * bb + tables, in_slot * K)
+    out.update(slotted_rows=in_slot, smaller_child_rows=n_small,
+               live_kernel_rows=k_live)
+    out["level_pass"] = {
+        "max_abs_err": abs_err,
+        "kernel_ms": cuda_ms(lambda: fl.level_pass(*ops, fm, **kw)),
+        "plain_ms": cuda_ms(lambda: fl.level_pass_plain(*ops, fm, **kw),
+                            reps=3, warmup=1),
+        "library_ms": None, "bound_ms": lvl_bound, "bound_by": lvl_by}
+    out["route_pass"] = {
+        "max_abs_err": 0, "tol": 0,
+        "kernel_ms": cuda_ms(lambda: fl.route_pass(bins_T, leaf_T, W, tbl,
+                                                   **rkw)),
+        "plain_ms": cuda_ms(lambda: fl.route_pass_plain(
+            bins_T, leaf_T, W, tbl, **rkw), reps=3, warmup=1),
+        "library_ms": None, "bound_ms": rt_bound, "bound_by": rt_by}
     return out
 
 
@@ -276,7 +378,8 @@ def check_epilogue(Rp, R, B, Sp, nch, kind, active, seed, L=255):
     import torch
     from lightgbm_tpu_torch.ops import fused_level as fl
     dev = torch.device(DEVICE)
-    bins_T, leaf_T, _, W, tbl = _level_inputs(Rp, R, B, Sp, nch, seed)
+    (bins_T, leaf_T, _, W, tbl), _ = _level_inputs(
+        Rp, R, np.full(FEATURES, B - 1, np.int32), B, Sp, nch, seed)
     if not active:
         W = torch.zeros_like(W)
         tbl = tbl.clone()
@@ -595,6 +698,117 @@ def run_frontier(lgb, params, ds, X, y):
     return launches
 
 
+def run_plane_cuts(lgb, params, X, y):
+    """Phase 6: train() on the mixed-cardinality rows, the runs of
+    PLANE_RUNS, each timed as phase 3 times the fused engine. Returns
+    each run's kernel and variant launches in its ROUNDS-round run."""
+    import torch
+    from lightgbm_tpu_torch.models import frontier2
+    from lightgbm_tpu_torch.ops import fused_level as fl
+    X = X.copy()
+    X[:, NARROW_FROM:] = np.floor(X[:, NARROW_FROM:] * 8.0) / 8.0
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(X, label=y, params=params).construct()
+    construct_s = time.perf_counter() - t0
+    nb = ds._inner.num_bin_per_feat
+    out = {}
+    for name, extra in PLANE_RUNS:
+        p = dict(params, **extra)
+
+        def timed_train(rounds):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ds.params = {}
+            b = lgb.train(p, ds, num_boost_round=rounds)
+            torch.cuda.synchronize()
+            return b, time.perf_counter() - t
+
+        timed_train(1)                    # warm-up
+        _, t_one = timed_train(1)
+        fl.reset_launch_counts()
+        frontier2.host_syncs["count"] = 0
+        bst, t_all = timed_train(ROUNDS)
+        launches = dict(fl.launches)
+        variants = {k: v for k, v in fl.variant_launches.items() if v}
+        syncs = frontier2.host_syncs["count"]
+        g = bst._gbdt
+        n_trees = bst.num_trees()
+        scores = bst.train_scores().float().cpu().numpy()
+        train_auc = auc(scores, y)
+        pred = bst.predict(X[:100_000], raw_score=True)
+        pred_err = float(np.abs(pred - scores[:100_000]).max())
+        ok_pred = bool(np.allclose(pred, scores[:100_000], rtol=1e-5,
+                                   atol=1e-5))
+        fb = (g.fused_packed.fb if g.fused_packed is not None
+              else g.fused_f_oh * g.fused_Bp)
+        res = {"phase": "plane_cuts_train", "run": name, "params": extra,
+               "rows": ROWS, "features": FEATURES,
+               "narrow_features_num_bin": sorted({int(v) for v in
+                                                  nb[NARROW_FROM:]}),
+               "construct_s": construct_s, "rounds": ROUNDS,
+               "trees": n_trees,
+               "sec_per_iter_after_first": (t_all - t_one) / (ROUNDS - 1),
+               "train_s": t_all, "train_auc": train_auc,
+               "quant_bits": g.quant_bits, "nch": g.fused_nch,
+               "launches": launches, "variant_launches": variants,
+               "launches_per_tree": {k: v / max(n_trees, 1)
+                                     for k, v in launches.items()},
+               "host_syncs_per_tree": syncs / max(n_trees, 1),
+               "flat_width": fb,
+               "padded_flat_width": g.fused_f_oh * g.fused_Bp,
+               "screening_active_features": g.screening_active_features(),
+               "predict_max_abs_err": pred_err,
+               "predict_tol": "rtol=1e-5 atol=1e-5",
+               "leaves": [m.num_leaves for m in bst.models]}
+        emit(res)
+        out[name] = res
+        if n_trees != ROUNDS:
+            raise AssertionError(f"run ({name}) trained {n_trees} trees")
+        if not ok_pred:
+            raise AssertionError(f"run ({name}) predict differs from the "
+                                 f"trainer's scores by {pred_err}")
+        if launches["epilogue_pass"] or launches["hist_pass"]:
+            raise AssertionError(f"run ({name}) left the megastep body")
+    # the megastep schedule: one n_sel read per scheduled level, one
+    # lookup per tree; a full tree (num_leaves leaves, as every tree of
+    # these rows grows on the card) takes a root pass plus one pass per
+    # level until the leaf budget is spent, the last of them route-only.
+    # quant8 (nch 3) has a wider slot cap, so one level fewer than (a).
+    # A rehearsal on the CPU at a few thousand rows grows smaller trees:
+    # there the passes are only bounded by the schedule
+    a = out["a"]
+    L = params["num_leaves"]
+    for name, r in out.items():
+        n = r["launches_per_tree"]
+        cap = fl.max_slot_cap(r["padded_flat_width"], r["nch"])
+        caps = frontier2.level_caps(L, -1, 3, cap)
+        full = frontier2.level_caps(L, -1, 0, cap)
+        if DEVICE == "cuda":
+            left = (n["level_pass"] != len(full) or n["route_pass"] != 1
+                    or r["host_syncs_per_tree"] != len(caps)
+                    or set(r["leaves"]) != {L})
+        else:
+            left = (n["route_pass"] > 1
+                    or n["level_pass"] + n["route_pass"] > 1 + len(caps)
+                    or r["host_syncs_per_tree"] > len(caps))
+        if left or n["table_lookup"] != 1:
+            raise AssertionError(
+                f"run ({name}) left the megastep schedule ({len(full)} "
+                f"passes and {len(caps)} syncs per {L}-leaf tree): {n}, "
+                f"{r['host_syncs_per_tree']} syncs, leaves {r['leaves']}")
+        if r["host_syncs_per_tree"] > a["host_syncs_per_tree"]:
+            raise AssertionError(f"run ({name}) makes more host syncs per "
+                                 "tree than run (a)")
+        if abs(r["train_auc"] - a["train_auc"]) > 0.05:
+            raise AssertionError(f"run ({name}) AUC {r['train_auc']} is "
+                                 f"not within 0.05 of run (a)'s")
+    b = out["b"]
+    if not b["flat_width"] < b["padded_flat_width"]:
+        raise AssertionError("adaptive bins did not pack the flat axis")
+    return {name: dict(r["launches"], **r["variant_launches"])
+            for name, r in out.items()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -607,6 +821,7 @@ def main() -> int:
     from lightgbm_tpu_torch.ops.layout import feature_layout
 
     # ---- 1. environment and build
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -631,7 +846,9 @@ def main() -> int:
         for nch in (fl.NCH_PRECISE, fl.NCH_FAST):
             cap = fl.max_slot_cap(FEATURES * B, nch)
             for Sp in sorted({8, cap}):
-                res = check_level(Rp, ROWS, B, Sp, nch, seed=B + Sp + nch)
+                res = check_level(Rp, ROWS, np.full(FEATURES, B - 1,
+                                                    np.int32), B, Sp,
+                                  seed=B + Sp + nch, nch=nch)
                 emit({"phase": "kernel_check", **res})
                 checks.append(res)
                 if B == 64 and nch == fl.NCH_PRECISE and Sp == cap:
@@ -662,6 +879,14 @@ def main() -> int:
                 emit({"phase": "kernel_check", "hist_pass": res})
                 if (B, S, bits) == (64, 64, 0):
                     hist_main = res
+    plane_main = {}
+    for Sp in (8, 64):
+        for i, (bits, packed, masked) in enumerate(PLANE_VARIANTS):
+            res = check_level(Rp, ROWS, PLANE_NUM_BIN, 64, Sp, seed=Sp + i,
+                              quant_bits=bits, packed=packed, masked=masked)
+            emit({"phase": "kernel_check", "plane": res})
+            if Sp == 64:
+                plane_main[res["variant"]] = res
 
     # ---- 3. end to end through lightgbm_tpu_torch.train
     X, y = _make_data(ROWS, FEATURES, seed=DATA_SEED)
@@ -741,7 +966,10 @@ def main() -> int:
     # ---- 5. the frontier-v1 engine through train()
     fr_launches = run_frontier(lgb, params, ds, X, y)
 
-    # ---- 6. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
+    # ---- 6. the histogram-plane cuts through train()
+    plane_launches = run_plane_cuts(lgb, params, X, y)
+
+    # ---- 7. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
     # the epilogue at Bp=64 int8, nch=5, binary, Sp=64; hist_pass at Bp=64,
     # Sp=64, f32). Launches: the train() run for the three kernels of its
     # path, update() run (a) for the epilogue, the frontier train() run for
@@ -749,8 +977,7 @@ def main() -> int:
     lv, rt = main_cfg["level_pass"], main_cfg["route_pass"]
     rows = []
     for name, r, err, n in (
-            ("level_pass", lv, lv["hist_max_abs_err"],
-             launches["level_pass"]),
+            ("level_pass", lv, lv["max_abs_err"], launches["level_pass"]),
             ("route_pass", rt, rt["max_abs_err"], launches["route_pass"]),
             ("table_lookup", lookup, lookup["max_abs_err"],
              launches["table_lookup"]),
@@ -766,9 +993,31 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
+    # the variants at Sp=64 on the mixed layout, each with the launches of
+    # the phase-6 run that takes it on every level_pass (VARIANT_RUNS); the
+    # packed route_pass with run (b)'s
+    variant_rows = [("level_pass", v, run, "level_pass:" + v)
+                    for v, run in VARIANT_RUNS.items()]
+    variant_rows.append(("route_pass", "quant16+packed+fmask", "b",
+                         "route_pass:packed"))
+    for kernel, check, run, counter in variant_rows:
+        r = plane_main[check][kernel]
+        n = plane_launches[run].get(counter, 0)
+        if n <= 0 or n != plane_launches[run][kernel]:
+            raise AssertionError(f"run ({run}) launched {kernel} "
+                                 f"{plane_launches[run][kernel]} times, "
+                                 f"{n} of them as {counter}")
+        name = kernel + "[" + counter.split(":")[1] + "]"
+        rows.append({"name": name, "route": "cuda",
+                     "source": SOURCES[kernel], "replaces": REPLACES[kernel],
+                     "launches": n, "max_abs_err": r["max_abs_err"],
+                     "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"]})
     emit({"kernels": rows})
+    emit({"phase": "done", "smoke_s": time.perf_counter() - t_start})
 
-    # ---- 7. the result line
+    # ---- 8. the result line
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

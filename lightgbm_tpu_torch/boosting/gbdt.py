@@ -44,10 +44,19 @@ int16 above (padded rows sit at leaf -1 and carry zero gradients);
 ``_init_frontier`` keeps it row-major, ``bins_i32`` [num_data, Fp] int32,
 with no row padding.
 
+The histogram-plane cuts (``gbdt.py:2107-2161`` of the JAX package) run on
+the fused engine's megastep body, alone or together:
+``tpu_quantized_grad`` 8 or 16 (``pack_gh_quant`` with the dither seed of
+``_quant_seed``; int32 histograms), ``tpu_adaptive_bins`` (``bins_T``'s rows
+permuted into a ``PackedLayout``) and ``tpu_gain_screening`` (a per-tree
+top-k mask over an EMA of realized split gains, composed with the
+feature_fraction mask and applied in the kernel). The epilogue body does
+not take them (its kernel is f32 and padded), and on the frontier engine
+they are dropped with a log line, as in the JAX package.
+
 Not ported yet (they raise or are absent): GOSS, feature_fraction_bynode,
 init scores, valid sets, callbacks, multiclass, categorical features, EFB,
-quantized gradients, adaptive bins, screening, monotone and interaction
-constraints, distributed learners, DART/RF.
+monotone and interaction constraints, distributed learners, DART/RF.
 """
 from __future__ import annotations
 
@@ -62,10 +71,12 @@ from ..models.frontier import grow_tree_frontier, leaf_value_lookup
 from ..models.frontier2 import grow_tree_fused, tree_score_delta
 from ..models.learner import FeatureMeta
 from ..models.tree import HostTree, TreeArrays
-from ..ops.fused_level import NCH_FAST, NCH_PRECISE, epilogue_pass, pack_gh
-from ..ops.layout import feature_layout
+from ..ops.fused_level import (NCH_FAST, NCH_PRECISE, epilogue_pass,
+                               pack_gh, pack_gh_quant)
+from ..ops.layout import feature_layout, packed_feature_layout
 from ..ops.pallas_histogram import pad_feature_layout
 from ..ops.predict import route_binned_rows_to_leaves, tree_depth
+from ..ops.quantize import QNCH
 from ..ops.split import SplitParams
 from ..utils import log
 from ..utils import random as ref_random
@@ -93,9 +104,6 @@ _UNPORTED = (
      "feature_fraction_bynode"),
     ("interaction_constraints", bool, "interaction constraints"),
     ("linear_tree", bool, "linear trees"),
-    ("tpu_quantized_grad", lambda v: int(v) != 0, "quantized gradients"),
-    ("tpu_adaptive_bins", bool, "adaptive bins"),
-    ("tpu_gain_screening", bool, "gain screening"),
     ("forcedsplits_filename", bool, "forced splits"),
     ("cegb_penalty_split", lambda v: float(v) != 0.0, "CEGB"),
     ("cegb_penalty_feature_lazy", bool, "CEGB"),
@@ -176,10 +184,29 @@ class GBDT:
             log.fatal("unknown tpu_engine=%r (auto, fused, frontier or xla)",
                       engine)
         self.use_frontier = engine == "frontier"
+        self._setup_plane_cuts(config)
         if self.use_frontier:
             self._init_frontier(train_data)
         else:
             self._init_fused(train_data)
+
+    def _setup_plane_cuts(self, config: Config) -> None:
+        """The histogram-plane cuts (gbdt.py:2107-2161): fused-engine
+        features, each gated on its own; the frontier engine drops them
+        and trains unchanged."""
+        qb = int(config.tpu_quantized_grad or 0)
+        if qb not in (0, 8, 16):
+            log.fatal("tpu_quantized_grad must be 0, 8 or 16; got %s", qb)
+        adaptive = bool(config.tpu_adaptive_bins)
+        scr = bool(config.tpu_gain_screening)
+        if self.use_frontier and (qb or adaptive or scr):
+            log.info("tpu_quantized_grad, tpu_adaptive_bins and "
+                     "tpu_gain_screening require the fused engine; "
+                     "training without them")
+            qb, adaptive, scr = 0, False, False
+        self.quant_bits = qb
+        self.use_adaptive_bins = adaptive
+        self.use_screening = scr
 
     def _init_frontier(self, train_data: BinnedDataset) -> None:
         """Feature-padded int32 row-major bin matrix and padded feature
@@ -209,15 +236,31 @@ class GBDT:
         # int8 covers bins <= 127; larger max_bin needs int16
         dtype = torch.int8 if Bp <= 128 else torch.int16
         bins_T = torch.zeros((Fp, Rp), dtype=dtype, device=self.device)
+        self.fused_packed = None
         if F:
-            bins_T[:F, :R] = train_data.bins_dev.t().to(dtype)
+            src = train_data.bins_dev.t()
+            if self.use_adaptive_bins:
+                # each feature's slab at its own pow2 width, bins_T's rows
+                # in the layout's width-class order (the logical order
+                # comes back at the plane decode)
+                self.fused_packed = packed_feature_layout(
+                    train_data.num_bin_per_feat, self.max_bins, f_oh=F_oh)
+                src = src[list(self.fused_packed.feat_order)]
+            bins_T[:src.shape[0], :R] = src.to(dtype)
         self.fused_bins_T = bins_T
         self.fused_f_oh = F_oh
         self.fused_Bp = Bp
         self.fused_Rp = Rp
-        self.fused_nch = (NCH_FAST if self.config.tpu_hist_precision == "bf16"
-                          else NCH_PRECISE)
+        if self.quant_bits:      # the quantized channel layout overrides
+            self.fused_nch = QNCH[self.quant_bits]
+        elif self.config.tpu_hist_precision == "bf16":
+            self.fused_nch = NCH_FAST
+        else:
+            self.fused_nch = NCH_PRECISE
         self.fused_meta = self._padded_meta(train_data, F_oh, 0)
+        # gain screening: the EMA of each feature's realized split gains
+        self._gain_ema = torch.zeros(F_oh, dtype=torch.float32,
+                                     device=self.device)
 
     def _padded_meta(self, train_data: BinnedDataset, width: int,
                      pad_num_bin: int) -> FeatureMeta:
@@ -327,15 +370,71 @@ class GBDT:
     def _pad_rows(self, x: torch.Tensor) -> torch.Tensor:
         return torch.nn.functional.pad(x, (0, self.fused_Rp - self.num_data))
 
+    # ------------------------------------------- histogram-plane cuts
+    def _screening_keep_k(self) -> int:
+        F = self.train_data.num_features
+        ratio = float(self.config.tpu_screening_keep_ratio)
+        return max(1, min(F, int(round(F * ratio))))
+
+    def _screening_explore(self, it: int) -> bool:
+        """Warm-up and exploration rounds keep every feature eligible, so a
+        feature useless early but decisive late re-enters the mask."""
+        cfg = self.config
+        if it < int(cfg.tpu_screening_warmup):
+            return True
+        p = int(cfg.tpu_screening_explore_period)
+        return p > 0 and it % p == 0
+
+    def _screening_mask(self, explore: bool):
+        """EMA-FS screening mask [F_oh] on the device (gbdt.py:148): the
+        top ``keep_k`` real features by gain EMA, ties kept; None when
+        every feature is eligible (an exploration round, or nothing to
+        cut)."""
+        F = self.train_data.num_features
+        keep_k = self._screening_keep_k()
+        if explore or F <= 0 or keep_k >= F:
+            return None
+        kth = torch.sort(self._gain_ema[:F]).values[F - keep_k]
+        return self._gain_ema >= kth
+
+    def screening_active_features(self) -> int:
+        """How many features the gain EMA keeps eligible outside an
+        exploration round (the JAX package's
+        ``screening.active_features`` gauge); a host read."""
+        F = self.train_data.num_features
+        m = self._screening_mask(False) if self.use_screening else None
+        return F if m is None else int(m[:F].sum())
+
+    def _update_gain_ema(self, tree: TreeArrays) -> None:
+        """Once per iteration, from the tree's realized split gains
+        (gbdt.py:164, 3432-3438); unused nodes (feature -1, gain 0) add
+        nothing."""
+        sf = tree.split_feature
+        sg = tree.split_gain.to(torch.float32)
+        ok = (sf >= 0) & torch.isfinite(sg) & (sg > 0)
+        F_oh = self._gain_ema.shape[0]
+        gains = torch.zeros_like(self._gain_ema).index_add_(
+            0, sf.clamp(0, F_oh - 1).long(), torch.where(ok, sg, 0.0))
+        a = float(self.config.tpu_screening_ema_alpha)
+        self._gain_ema = a * self._gain_ema + (1.0 - a) * gains
+
+    def _quant_seed(self, it: int) -> int:
+        """Stochastic-rounding dither seed of iteration ``it``'s (first)
+        tree, the JAX package's stream, so identical reruns are
+        byte-identical."""
+        return (it * self.num_tree_per_iteration) & 0xFFFFFFFF
+
     # ------------------------------------------------------ iteration bodies
-    def _grow(self, gh_T, fmask, root_hist=None, defer=False):
+    def _grow(self, gh_T, fmask, root_hist=None, defer=False, scales=None):
         return grow_tree_fused(
             self.fused_bins_T, gh_T, self.fused_meta, fmask, self.params,
             self.max_leaves, self.fused_Bp, self.fused_f_oh,
             num_rows=self.num_data, nch=self.fused_nch,
             max_depth=int(self.config.max_depth),
             extra_levels=int(self.config.tpu_extra_levels),
-            root_hist=root_hist, defer_final_route=defer)
+            root_hist=root_hist, defer_final_route=defer,
+            quant_bits=self.quant_bits, packed=self.fused_packed,
+            mask_onehot=self.use_screening, gh_scales=scales)
 
     def arm_megastep(self, on: bool = True) -> None:
         """Permission from a training loop (``engine.train``) to run the
@@ -346,11 +445,16 @@ class GBDT:
     def _use_epilogue(self) -> bool:
         """The epilogue body applies: an objective with a closed form the
         kernel implements (binary, l2), ``tpu_fused_epilogue``, one tree
-        per iteration (the serial learner is the only one ported)."""
+        per iteration (the serial learner is the only one ported), and no
+        histogram-plane cut (its kernel builds f32 padded root histograms,
+        and screening's mask must reach the next root; gbdt.py:3487)."""
         return bool(self._epi_spec is not None
                     and not self.use_frontier
                     and self.config.tpu_fused_epilogue
-                    and self.num_tree_per_iteration == 1)
+                    and self.num_tree_per_iteration == 1
+                    and not self.quant_bits
+                    and not self.use_adaptive_bins
+                    and not self.use_screening)
 
     def train_one_iter(self) -> bool:
         """One boosting iteration; True when training must stop (no split
@@ -367,17 +471,30 @@ class GBDT:
 
     def _fused_iter_body(self) -> bool:
         """The megastep body: gradients from the scores, times the bag
-        weights, gh pack, fused growth, score delta (the serial branch of
-        the JAX package's ``_make_fused_tree_loop``)."""
+        weights, gh pack (quantized under ``tpu_quantized_grad``), fused
+        growth under the feature mask (and the screening mask), score
+        delta, and the gain EMA's update (the serial branch of the JAX
+        package's ``_make_fused_tree_loop``, ``grow_k_trees``)."""
         n = self.num_data
         init_score = self._boost_from_average()
         self._bagging(self.iter)
         fmask = self._feature_mask_pad()
+        if self.use_screening:
+            smask = self._screening_mask(self._screening_explore(self.iter))
+            if smask is not None:
+                fmask = fmask & smask
         grad, hess = self.objective.get_gradients(self.scores)
         w = self.bag_weight
-        gh_T = pack_gh(*[self._pad_rows(x) for x in
-                         (grad[0] * w, hess[0] * w, w)], self.fused_nch)
-        tree, row_leaf = self._grow(gh_T, fmask)
+        gh = [self._pad_rows(x) for x in (grad[0] * w, hess[0] * w, w)]
+        scales = None
+        if self.quant_bits:
+            gh_T, scales = pack_gh_quant(*gh, self.quant_bits,
+                                         seed=self._quant_seed(self.iter))
+        else:
+            gh_T = pack_gh(*gh, self.fused_nch)
+        tree, row_leaf = self._grow(gh_T, fmask, scales=scales)
+        if self.use_screening:
+            self._update_gain_ema(tree)
         stop = self._finish_iter(tree, init_score)
         if not stop:
             self.scores[0] += tree_score_delta(tree, row_leaf,

@@ -11,6 +11,9 @@
 //                                  feature f goes LEFT under slot k's split
 //   tbl    [Sp, 128] int32         col 0 leaf_of_slot (-2 = inactive),
 //                                  col 1 right_delta, col 2 small_is_left
+//   ktab   [2, K] int32 or null    packed layout: each kernel row's flat
+//                                  offset, then its slab width
+//   kmask  [K] uint8 or null       gain screening: 0 = row's slab masked
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,21 +54,52 @@ __device__ inline int find_slot(const SlotTables& t, int leaf, int Sp) {
   return -1;
 }
 
-// D = sum_f W[k, f*B + bin_f]: the TPU kernel's W @ one-hot contraction for
-// one row and one slot. W is 0/1 and non-zero only on the slot's split
+// Where each kernel row (a row of bins_T) puts its one-hot slab on the flat
+// axis of W and of the histogram. Padded layout (off == nullptr): row f's
+// slab starts at f*B, B wide. Packed layout (tpu_adaptive_bins): row j's
+// slab starts at off[j] and is width[j] wide; a bin at or past the width
+// has no position there, as in the TPU kernel's one-hot. A row whose mask
+// entry is 0 (gain screening) has an all-zero slab: it adds nothing to the
+// routing sum or to the histogram.
+struct RowLayout {
+  const int* off;        // [K] or nullptr (padded)
+  const int* width;      // [K], read only when off is set
+  const uint8_t* mask;   // [K] 0/1 or nullptr (no row masked)
+  int B;
+
+  // Flat position of bin b of kernel row j, or -1 when its slab holds none.
+  __device__ inline int64_t pos(int j, int b) const {
+    if (mask != nullptr && mask[j] == 0) return -1;
+    if (off == nullptr) return static_cast<int64_t>(j) * B + b;
+    return b < width[j] ? static_cast<int64_t>(off[j]) + b : -1;
+  }
+};
+
+// D = sum_j W[k, pos(j, bin_j)]: the TPU kernel's W @ one-hot contraction
+// for one row and one slot. W is 0/1 and non-zero only on the slot's split
 // feature, so D is exactly 0 or 1; the row goes left iff D > 0.5. Missing-
 // bin routing is already encoded in W.
 template <typename BinT>
 __device__ inline bool goes_left(const BinT* __restrict__ bins, int64_t Rp,
                                  int64_t r,
                                  const __nv_bfloat16* __restrict__ Wk,
-                                 int F_oh, int B) {
+                                 int K, const RowLayout& lay) {
   float D = 0.0f;
-  for (int f = 0; f < F_oh; ++f) {
-    const int b = static_cast<int>(bins[f * Rp + r]);
-    D += __bfloat162float(Wk[f * B + b]);
+  for (int j = 0; j < K; ++j) {
+    const int64_t p = lay.pos(j, static_cast<int>(bins[j * Rp + r]));
+    if (p >= 0) D += __bfloat162float(Wk[p]);
   }
   return D > 0.5f;
+}
+
+// The padded layout with no mask (epilogue_pass routes only on it).
+template <typename BinT>
+__device__ inline bool goes_left(const BinT* __restrict__ bins, int64_t Rp,
+                                 int64_t r,
+                                 const __nv_bfloat16* __restrict__ Wk,
+                                 int F_oh, int B) {
+  return goes_left(bins, Rp, r, Wk, F_oh, RowLayout{nullptr, nullptr,
+                                                    nullptr, B});
 }
 
 }  // namespace lgbt

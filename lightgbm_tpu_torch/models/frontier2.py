@@ -19,6 +19,14 @@ Differences from the JAX grower, all of them PyTorch's idiom:
   (the JAX package used one-hot HIGHEST-precision matmuls only because TPU
   gathers are slow);
 - ``num_leaves`` is a host int.
+
+The histogram-plane cuts ride the same schedule (the JAX grower's
+``quant_bits``, ``packed``, ``mask_onehot`` and ``gh_scales``): every level
+histogram is decoded onto the padded logical layout in f32 before anything
+reads it (``decode``), so split search, pools and subtraction are those of
+the f32 padded path; route tables are built on that layout and re-indexed
+onto the packed flat axis; the level caps stay derived from the padded
+``f_oh * Bp``, so the packed layout grows the same tree.
 """
 from __future__ import annotations
 
@@ -27,8 +35,8 @@ from typing import List, Tuple
 import torch
 
 from ..ops.fused_level import (NCH_PRECISE, build_route_table, hist_planes,
-                               level_pass, max_slot_cap, route_pass,
-                               table_lookup)
+                               level_pass, max_slot_cap, pack_route_table,
+                               route_pass, table_lookup)
 from ..ops.split import (BestSplit, SplitParams, best_split_cm,
                          calculate_leaf_output)
 from .learner import (NEG_INF, FeatureMeta, _masked_gain, _masked_scatter,
@@ -78,7 +86,9 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
                     f_oh: int, num_rows: int = 0, nch: int = NCH_PRECISE,
                     max_depth: int = -1, extra_levels: int = 3,
                     root_hist: torch.Tensor = None,
-                    defer_final_route: bool = False):
+                    defer_final_route: bool = False, quant_bits: int = 0,
+                    packed=None, mask_onehot: bool = False,
+                    gh_scales: torch.Tensor = None):
     """Grow one tree with fused level passes.
 
     Args:
@@ -98,18 +108,44 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
       defer_final_route: the route-only pass (the one that spends the leaf
         budget, or the last scheduled one) records its splits in the tree
         but routes no rows; its tables are returned for ``epilogue_pass``.
+      quant_bits: 8 or 16 when ``gh_T`` is the int8 block of
+        ``pack_gh_quant`` (``nch`` = ``quantize.QNCH[quant_bits]``) and
+        ``gh_scales`` its [2] scales; the int32 histograms are decoded
+        through them.
+      packed: the adaptive layout (``ops/layout.PackedLayout``); ``bins_T``'s
+        rows are then in ``packed.feat_order``.
+      mask_onehot: gain screening — the kernel zeroes the slabs of the
+        features ``feature_mask`` leaves out (logical feature 0 and the
+        first kernel row's feature stay live: the leaf totals and the root
+        pass's every-row-left trick read them).
 
     Returns (TreeArrays, row_leaf [Rp] int32; padding rows stay at -1).
     With ``defer_final_route``: (tree, row_leaf before the final route,
-    W_last [Sp_max, F_oh*Bp], tbl_last [Sp_max, 128]), padded to the widest
+    W_last [Sp_max, FB], tbl_last [Sp_max, 128]), padded to the widest
     level; an all-inactive table (leaf_of_slot -2) routes nothing.
     """
     Fp, Rp = bins_T.shape
     dev = bins_T.device
     L = num_leaves
     B = max_bins
+    # caps from the PADDED flat width: the packed layout grows the same tree
     caps = level_caps(L, max_depth, extra_levels,
                       slot_cap=max_slot_cap(f_oh * B, nch))
+    kern_fb = packed.fb if packed is not None else f_oh * B
+
+    def decode(hist, Sp_):
+        """Kernel histogram -> (g, h, c) f32 planes on the padded logical
+        layout: the packed re-index (exact) and the int32 -> f32 rescale,
+        before any split search."""
+        return hist_planes(hist, nch, Sp_, f_oh, B, packed=packed,
+                           quant_bits=quant_bits, scales=gh_scales)
+
+    kmask = None
+    if mask_onehot:
+        keep0 = packed.feat_order[0] if packed is not None else 0
+        kmask = feature_mask.clone()
+        kmask[0] = True
+        kmask[keep0] = True
     R = num_rows or Rp
     leaf_T = torch.where(torch.arange(Rp, device=dev)[None, :] < R, 0, -1) \
         .to(torch.int32)
@@ -119,21 +155,23 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
     pool_h = torch.zeros_like(pool_g)
     pool_c = torch.zeros_like(pool_g)
 
-    # ---- root pass: slot 0 collects the full-data histogram (W0[0, bins of
-    # column 0] = 1 sends every row "left" on slot 0); skipped when the
-    # previous iteration's epilogue already built it
+    # ---- root pass: slot 0 collects the full-data histogram (W0[0, the
+    # first kernel row's slab] = 1 sends every row "left" on slot 0);
+    # skipped when the previous iteration's epilogue already built it
     Sp0 = 8
     if root_hist is not None:
         hist0 = root_hist
     else:
-        W0 = torch.zeros((Sp0, f_oh * B), dtype=torch.bfloat16, device=dev)
-        W0[0, :B] = 1
+        w0_span = packed.widths[0] if packed is not None else B
+        W0 = torch.zeros((Sp0, kern_fb), dtype=torch.bfloat16, device=dev)
+        W0[0, :w0_span] = 1
         tbl0 = torch.zeros((Sp0, 128), dtype=torch.int32, device=dev)
         tbl0[1:, 0] = -2
         tbl0[0, 2] = 1
-        hist0, _ = level_pass(bins_T, leaf_T, gh_T, W0, tbl0, num_bins=B,
-                              f_oh=f_oh, nch=nch)
-    g0, h0, c0 = hist_planes(hist0, nch, Sp0, f_oh, B)
+        hist0, _ = level_pass(bins_T, leaf_T, gh_T, W0, tbl0, kmask,
+                              num_bins=B, f_oh=f_oh, nch=nch,
+                              quant_bits=quant_bits, packed=packed)
+    g0, h0, c0 = decode(hist0, Sp0)
     pool_g[0] = g0[0]
     pool_h[0] = h0[0]
     pool_c[0] = c0[0]
@@ -161,7 +199,7 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
     # deferred final-route tables, padded to the widest level. At most one
     # route-only pass fires per tree: after it no level selects a split
     Sp_max = max([8] + [max(8, c) for c in caps])
-    deferred = ([torch.zeros((Sp_max, f_oh * B), dtype=torch.bfloat16,
+    deferred = ([torch.zeros((Sp_max, kern_fb), dtype=torch.bfloat16,
                              device=dev),
                  torch.zeros((Sp_max, 128), dtype=torch.int32, device=dev)]
                 if defer_final_route else None)
@@ -171,7 +209,8 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
     for li, S_d in enumerate(caps):
         state = _one_level(state, bins_T, gh_T, meta, feature_mask, params,
                            L, B, f_oh, S_d, nch, max_depth,
-                           li == len(caps) - 1, deferred)
+                           li == len(caps) - 1, deferred, decode, kmask,
+                           quant_bits, packed)
     tree, leaf_T = state[0], state[1]
     if deferred is not None:
         return tree, leaf_T[0], deferred[0], deferred[1]
@@ -179,7 +218,8 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
 
 
 def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B, f_oh,
-               S_d, nch, max_depth, is_last, deferred=None):
+               S_d, nch, max_depth, is_last, deferred, decode, kmask,
+               quant_bits, packed):
     (tree, leaf_T, pool_g, pool_h, pool_c, best, lpn, lil) = state
     dev = bins_T.device
     Sp = max(8, S_d)
@@ -223,6 +263,8 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B, f_oh,
     delta_s = torch.where(lof_on, new_s - lof_safe, 0)
     W = build_route_table(feat_s, thr_s, dl_s, meta.num_bin,
                           meta.missing_type, meta.default_bin, Sp, f_oh, B)
+    if packed is not None:
+        W = pack_route_table(W, packed)
     tbl = torch.zeros((Sp, 128), dtype=torch.int32, device=dev)
     tbl[:, 0] = lof
     tbl[:, 1] = delta_s.to(torch.int32)
@@ -235,11 +277,13 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B, f_oh,
         deferred[1][:Sp] = tbl
         leaf_T2 = leaf_T
     elif route_only:
-        leaf_T2 = route_pass(bins_T, leaf_T, W, tbl, num_bins=B, f_oh=f_oh)
+        leaf_T2 = route_pass(bins_T, leaf_T, W, tbl, num_bins=B, f_oh=f_oh,
+                             packed=packed)
     else:
-        hist, leaf_T2 = level_pass(bins_T, leaf_T, gh_T, W, tbl, num_bins=B,
-                                   f_oh=f_oh, nch=nch)
-        sm_g, sm_h, sm_c = hist_planes(hist, nch, Sp, f_oh, B)
+        hist, leaf_T2 = level_pass(bins_T, leaf_T, gh_T, W, tbl, kmask,
+                                   num_bins=B, f_oh=f_oh, nch=nch,
+                                   quant_bits=quant_bits, packed=packed)
+        sm_g, sm_h, sm_c = decode(hist, Sp)
         # ---- sibling by subtraction from the parent pool
         par_g, par_h, par_c = pool_g[lof_safe], pool_h[lof_safe], \
             pool_c[lof_safe]

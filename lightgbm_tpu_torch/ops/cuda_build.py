@@ -41,10 +41,11 @@ _c = ctypes
 _P = _c.c_void_p
 # C signatures: (argtypes, restype int)
 SIGNATURES = {
-    "lgbt_level_pass": [_P, _c.c_int, _P, _P, _P, _P, _P, _P, _c.c_longlong,
-                        _c.c_int, _c.c_int, _c.c_int, _c.c_int, _P],
-    "lgbt_route_pass": [_P, _c.c_int, _P, _P, _P, _P, _c.c_longlong,
-                        _c.c_int, _c.c_int, _c.c_int, _P],
+    "lgbt_level_pass": [_P, _c.c_int, _P, _P, _c.c_int, _P, _P, _P, _P, _P,
+                        _P, _c.c_longlong, _c.c_int, _c.c_int,
+                        _c.c_longlong, _c.c_int, _c.c_int, _P],
+    "lgbt_route_pass": [_P, _c.c_int, _P, _P, _P, _P, _P, _c.c_longlong,
+                        _c.c_int, _c.c_int, _c.c_longlong, _c.c_int, _P],
     "lgbt_table_lookup": [_P, _P, _P, _c.c_longlong, _c.c_int, _P],
     "lgbt_epilogue_pass": [_P, _c.c_int, _P, _P, _P, _P, _c.c_int, _P, _P,
                            _P, _P, _P, _P, _c.c_longlong, _c.c_int,

@@ -12,20 +12,38 @@ contracts are the JAX package's, so the same inputs give the same outputs:
 - ``tbl`` [Sp, 128] int32: col 0 leaf_of_slot (-2 inactive), col 1
   right_delta, col 2 small_is_left.
 
+The histogram-plane cuts change three things, each independently:
+
+- ``quant_bits`` 8 or 16 (``tpu_quantized_grad``): ``gh_T`` is the int8
+  block of :func:`pack_gh_quant` and the histogram sums it in int32,
+  exactly (integer sums do not depend on order);
+- ``packed`` (``tpu_adaptive_bins``, ``ops/layout.PackedLayout``):
+  ``bins_T``'s rows are in ``packed.feat_order`` and the flat axis is
+  ``packed.fb`` wide; kernel row ``j``'s slab starts at
+  ``packed.flat_offsets[j]`` (:func:`pack_route_table`,
+  :func:`unpack_packed_flat`);
+- ``fmask`` (``tpu_gain_screening``): a per-logical-feature [F_oh] bool
+  mask; a masked feature's one-hot slab is zeroed, so it adds nothing to
+  the histogram and nothing to the routing sum.
+
 Four kernels, each written by hand in CUDA C++ for sm_90a
 (``lightgbm_tpu_torch/csrc``): :func:`level_pass`, :func:`route_pass`,
 :func:`table_lookup` and :func:`epilogue_pass`. Each wrapper checks its
 inputs, allocates its outputs, launches on the current stream without
-synchronising and counts the launch in ``launches``. On a CPU tensor it
-runs the plain PyTorch version beside it (``*_plain``), which the CPU tests
-hold against the JAX package; on a CUDA tensor it launches the kernel or
-raises.
+synchronising and counts the launch in ``launches`` (and the cuts it ran
+with in ``variant_launches``). On a CPU tensor it runs the plain PyTorch
+version beside it (``*_plain``), which the CPU tests hold against the JAX
+package; on a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
+
+from . import quantize
+from .layout import PackedLayout
 
 NCH_PRECISE = 5   # g_hi, g_lo, h_hi, h_lo, w
 NCH_FAST = 3      # g, h, w
@@ -37,12 +55,30 @@ TBL_COLS = 128
 launches: Dict[str, int] = {"level_pass": 0, "route_pass": 0,
                             "table_lookup": 0, "epilogue_pass": 0,
                             "hist_pass": 0}
+
+
+def variant_name(quant_bits: int = 0, packed: bool = False,
+                 fmask: bool = False) -> str:
+    """The histogram-plane cuts a pass runs with, e.g. ``quant16+packed+
+    fmask``; ``f32`` for none (the padded f32 pass)."""
+    cuts = ([f"quant{quant_bits}"] if quant_bits else []) \
+        + ["packed"] * bool(packed) + ["fmask"] * bool(fmask)
+    return "+".join(cuts) or "f32"
+
+
+# launches of the histogram-plane variants among those, each under the
+# exact combination of cuts it ran with
+variant_launches: Dict[str, int] = dict.fromkeys(
+    ["level_pass:" + variant_name(q, p, m) for q in (0, 8, 16)
+     for p in (False, True) for m in (False, True) if q or p or m]
+    + ["route_pass:packed"], 0)
 EPILOGUE_KINDS = ("binary", "l2")
 
 
 def reset_launch_counts() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, variant_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def max_slot_cap(FB: int, nch: int, budget: int = 4 * 1024 * 1024) -> int:
@@ -74,12 +110,97 @@ def pack_gh(grad: torch.Tensor, hess: torch.Tensor, weight: torch.Tensor,
     return torch.stack(rows, 0)
 
 
-def hist_planes(hist: torch.Tensor, nch: int, Sp: int, F_oh: int, B: int):
+def pack_gh_quant(grad: torch.Tensor, hess: torch.Tensor,
+                  weight: torch.Tensor, bits: int,
+                  seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantized sibling of :func:`pack_gh` (``tpu_quantized_grad``):
+    ([8, R] int8 channel block, [2] f32 scales). bits=8 packs (g, h, w);
+    bits=16 the hi/lo split (g_hi, g_lo, h_hi, h_lo, w) of
+    ``ops/quantize.py``. ``weight`` is a 0/1 in-bag mask; zero-weight rows
+    encode exactly zero."""
+    scales = quantize.quant_scales(grad, hess, bits)
+    qg, qh = quantize.quantize_gh(grad, hess, scales, bits, seed)
+    rows = quantize.encode_channels(qg, qh, weight, bits)
+    z = torch.zeros_like(rows[0])
+    return torch.stack(rows + [z] * (8 - len(rows)), 0), scales
+
+
+_layout_cache: Dict[Tuple[PackedLayout, str], Dict[str, torch.Tensor]] = {}
+
+
+def layout_tensors(packed: PackedLayout,
+                   device) -> Dict[str, torch.Tensor]:
+    """The packed layout's index maps as tensors on ``device``, made once
+    per (layout, device): ``ktab`` [2, K] int32 (each kernel row's flat
+    offset, then its slab width — the kernels' table), ``order`` [K] (the
+    logical feature of each kernel row), and the flat maps of
+    ops/layout.py."""
+    key = (packed, str(torch.device(device)))
+    if key not in _layout_cache:
+        def t(a, dt=torch.int64):
+            return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+        _layout_cache[key] = {
+            "ktab": t(np.stack([packed.flat_offsets,
+                                np.asarray(packed.widths, np.int64)]),
+                      torch.int32).contiguous(),
+            "order": t(packed.feat_order),
+            "packed_to_padded": t(packed.packed_to_padded),
+            "packed_valid": t(packed.packed_valid, torch.bool),
+            "padded_to_packed": t(packed.padded_to_packed),
+            "padded_valid": t(packed.padded_valid, torch.bool),
+            "feat_of_packed": t(packed.feat_of_packed)}
+    return _layout_cache[key]
+
+
+def pack_route_table(W: torch.Tensor, packed: PackedLayout) -> torch.Tensor:
+    """Padded-layout route table [Sp, F_oh*Bp] -> packed layout
+    [Sp, packed.fb] (class-padding columns zero)."""
+    lt = layout_tensors(packed, W.device)
+    Wp = W[:, lt["packed_to_padded"]]
+    return torch.where(lt["packed_valid"][None, :], Wp,
+                       torch.zeros((), dtype=W.dtype, device=W.device))
+
+
+def unpack_packed_flat(hist: torch.Tensor,
+                       packed: PackedLayout) -> torch.Tensor:
+    """[packed.fb, X] kernel histogram -> [F_oh*Bp, X] padded flat layout
+    (an exact gather: the per-(feature, bin) sums are the padded layout's,
+    re-indexed)."""
+    lt = layout_tensors(packed, hist.device)
+    out = hist[lt["padded_to_packed"]]
+    return torch.where(lt["padded_valid"][:, None], out,
+                       torch.zeros((), dtype=hist.dtype,
+                                   device=hist.device))
+
+
+def expand_feature_mask(fm: torch.Tensor, F_oh: int, B: int,
+                        packed: PackedLayout = None) -> torch.Tensor:
+    """Per-feature bool mask [F_oh] -> per-flat-position bool [FB] in the
+    kernel layout (class and feature padding positions False)."""
+    if packed is None:
+        return fm[:F_oh].repeat_interleave(B)
+    lt = layout_tensors(packed, fm.device)
+    return fm[lt["feat_of_packed"]] & lt["packed_valid"]
+
+
+def hist_planes(hist: torch.Tensor, nch: int, Sp: int, F_oh: int, B: int,
+                packed: PackedLayout = None, quant_bits: int = 0,
+                scales: torch.Tensor = None):
     """[FB, nch*Sp] kernel output -> (grad, hess, cnt) planes [Sp, F_oh, B]
-    in float32 (hi/lo recombined when nch=5)."""
+    in float32 (hi/lo recombined when nch=5). ``packed`` re-indexes a
+    packed-layout histogram onto the padded layout first (exact);
+    ``quant_bits`` decodes the int32 sums through the one f32 rescale
+    (``ops/quantize.decode_sums``)."""
+    if packed is not None:
+        hist = unpack_packed_flat(hist, packed)
+
     def plane(c):
         return hist[:, c * Sp:(c + 1) * Sp]
-    if nch == NCH_PRECISE:
+    if quant_bits:
+        g, h, c = quantize.decode_sums(
+            [plane(i) for i in range(quantize.QNCH[quant_bits])], scales,
+            quant_bits)
+    elif nch == NCH_PRECISE:
         g = plane(0) + plane(1)
         h = plane(2) + plane(3)
         c = plane(4)
@@ -121,7 +242,8 @@ def build_route_table(feature: torch.Tensor, threshold: torch.Tensor,
 
 
 # ---------------------------------------------------------------- checks
-def _check_route_inputs(bins_T, leaf_T, W, tbl, num_bins, f_oh):
+def _check_route_inputs(bins_T, leaf_T, W, tbl, num_bins, f_oh,
+                        packed=None):
     if bins_T.dim() != 2 or bins_T.dtype not in (torch.int8, torch.int16):
         raise ValueError("bins_T must be a 2-D int8 or int16 tensor; got "
                          f"{tuple(bins_T.shape)} {bins_T.dtype}")
@@ -138,13 +260,32 @@ def _check_route_inputs(bins_T, leaf_T, W, tbl, num_bins, f_oh):
         raise ValueError("tbl must be [Sp, 128] int32")
     if not 1 <= Sp <= MAX_SLOTS:
         raise ValueError(f"Sp={Sp} outside [1, {MAX_SLOTS}]")
-    if tuple(W.shape) != (Sp, f_oh * num_bins) or W.dtype != torch.bfloat16:
-        raise ValueError(f"W must be [{Sp}, {f_oh * num_bins}] bfloat16")
+    if packed is not None:
+        _check_packed(packed, num_bins, f_oh)
+    FB = packed.fb if packed is not None else f_oh * num_bins
+    if tuple(W.shape) != (Sp, FB) or W.dtype != torch.bfloat16:
+        raise ValueError(f"W must be [{Sp}, {FB}] bfloat16")
     dev = bins_T.device
     for name, t in (("leaf_T", leaf_T), ("W", W), ("tbl", tbl)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, bins_T on {dev}")
     return Rp, Sp
+
+
+def _check_packed(packed: PackedLayout, num_bins: int, f_oh: int) -> None:
+    """A packed layout the kernels can take: one slab (offset, width) per
+    kernel row, each inside [0, fb) and on the logical layout's f_oh/Bp."""
+    K = len(packed.feat_order)
+    if len(packed.widths) != K or sum(c for _, c in packed.classes) != K:
+        raise ValueError(f"packed layout: {len(packed.widths)} slab widths "
+                         f"and {sum(c for _, c in packed.classes)} class "
+                         f"members for {K} kernel rows")
+    if (packed.f_oh, packed.bp) != (f_oh, num_bins):
+        raise ValueError(f"packed layout is for f_oh={packed.f_oh}, "
+                         f"Bp={packed.bp}; got f_oh={f_oh}, Bp={num_bins}")
+    if K > f_oh or packed.fb % 128 or (K and int(
+            packed.flat_offsets[-1]) + packed.widths[-1] > packed.fb):
+        raise ValueError("packed layout: slabs do not fit its flat width")
 
 
 def _require_cuda(*tensors):
@@ -165,7 +306,18 @@ def _raise_on(rc: int, name: str) -> None:
 
 
 # ----------------------------------------------------------- plain versions
-def _route_plain(bins_T, leaf_T, W, tbl, num_bins, f_oh):
+def _kernel_rows(num_bins, f_oh, packed):
+    """(flat offset, slab width or None) of each kernel row: the padded
+    layout's f*Bp with no width check, or the packed layout's table (a bin
+    at or past its slab's width has no one-hot position there)."""
+    if packed is None:
+        return [(f * num_bins, None) for f in range(f_oh)]
+    return [(int(o), int(w)) for o, w in zip(packed.flat_offsets,
+                                             packed.widths)]
+
+
+def _route_plain(bins_T, leaf_T, W, tbl, num_bins, f_oh, packed=None,
+                 fmask=None):
     """(slot per row or -1, goes-left per row, new_leaf [1, Rp])."""
     Rp = bins_T.shape[1]
     leaf = leaf_T[0]
@@ -175,44 +327,67 @@ def _route_plain(bins_T, leaf_T, W, tbl, num_bins, f_oh):
     slot = torch.where(hit, member.to(torch.int8).argmax(0),
                        torch.full_like(leaf, -1, dtype=torch.int64))
     k = slot.clamp(min=0)
-    FB = f_oh * num_bins
-    Wf = W.reshape(-1).float()
+    FB = W.shape[1]
+    Wf = W.float()
+    if fmask is not None:       # a masked slab's one-hot is zero
+        Wf = Wf * expand_feature_mask(fmask, f_oh, num_bins, packed)
+    Wf = Wf.reshape(-1)
     D = torch.zeros(Rp, dtype=torch.float32, device=bins_T.device)
-    for f in range(f_oh):
-        D += Wf[k * FB + f * num_bins + bins_T[f].long()]
+    for j, (off, width) in enumerate(_kernel_rows(num_bins, f_oh, packed)):
+        b = bins_T[j].long()
+        if width is None:
+            D += Wf[k * FB + off + b]
+        else:
+            D += torch.where(b < width, Wf[k * FB + off + b.clamp(
+                max=width - 1)], 0.0)
     left = D > 0.5
     delta = tbl[:, 1][k]
     new_leaf = torch.where(hit & ~left, leaf + delta, leaf)
     return slot, left, new_leaf[None, :].to(torch.int32)
 
 
-def level_pass_plain(bins_T, leaf_T, gh_T, W, tbl, *, num_bins: int,
-                     f_oh: int, nch: int = NCH_PRECISE):
-    """Plain PyTorch version of :func:`level_pass` (routing by gathering W
-    at the row's slot; the smaller-child histogram by ``index_add_`` over
-    the flat (f*Bp + bin, ch*Sp + k) index, in f32)."""
+def level_pass_plain(bins_T, leaf_T, gh_T, W, tbl, fmask=None, *,
+                     num_bins: int, f_oh: int, nch: int = NCH_PRECISE,
+                     quant_bits: int = 0, packed: PackedLayout = None):
+    """Plain PyTorch version of :func:`level_pass`: routing by gathering W
+    at the row's slot, the smaller-child histogram by ``index_add_`` over
+    the flat (slab offset + bin, ch*Sp + k) index — f32 sums of the bf16
+    channels, or exact int32 sums of the int8 channels under
+    ``quant_bits``; a masked feature's slab adds nothing."""
     Sp = tbl.shape[0]
     slot, left, new_leaf = _route_plain(bins_T, leaf_T, W, tbl, num_bins,
-                                        f_oh)
+                                        f_oh, packed, fmask)
     small_left = tbl[:, 2] > 0
     in_small = (slot >= 0) & (left == small_left[slot.clamp(min=0)])
     rows = torch.nonzero(in_small).squeeze(1)
     k = slot[rows]
     C = nch * Sp
-    FB = f_oh * num_bins
-    hist = torch.zeros(FB * C, dtype=torch.float32, device=bins_T.device)
-    vals = gh_T[:nch, rows].float()                               # [nch, n]
+    FB = W.shape[1]
+    acc = torch.int32 if quant_bits else torch.float32
+    hist = torch.zeros(FB * C, dtype=acc, device=bins_T.device)
+    vals = gh_T[:nch, rows].to(acc)                               # [nch, n]
     ch_off = (torch.arange(nch, device=bins_T.device) * Sp)[:, None]
-    for f in range(f_oh):
-        cell = (f * num_bins + bins_T[f, rows].long()) * C + k     # [n]
+    for j, (off, width) in enumerate(_kernel_rows(num_bins, f_oh, packed)):
+        b = bins_T[j, rows].long()
+        v = vals
+        if width is not None:
+            v = vals * (b < width).to(acc)
+            b = b.clamp(max=width - 1)
+        cell = (off + b) * C + k                                   # [n]
         hist.index_add_(0, (cell[None, :] + ch_off).reshape(-1),
-                        vals.reshape(-1))
-    return hist.reshape(FB, C), new_leaf
+                        v.reshape(-1))
+    hist = hist.reshape(FB, C)
+    if fmask is not None:
+        keep = expand_feature_mask(fmask, f_oh, num_bins, packed)
+        hist = torch.where(keep[:, None], hist,
+                           torch.zeros((), dtype=acc, device=hist.device))
+    return hist, new_leaf
 
 
-def route_pass_plain(bins_T, leaf_T, W, tbl, *, num_bins: int, f_oh: int):
+def route_pass_plain(bins_T, leaf_T, W, tbl, *, num_bins: int, f_oh: int,
+                     packed: PackedLayout = None):
     """Plain PyTorch version of :func:`route_pass`."""
-    return _route_plain(bins_T, leaf_T, W, tbl, num_bins, f_oh)[2]
+    return _route_plain(bins_T, leaf_T, W, tbl, num_bins, f_oh, packed)[2]
 
 
 def table_lookup_plain(idx_T, table):
@@ -260,59 +435,112 @@ def epilogue_pass_plain(bins_T, leaf_T, W, tbl, leaf_values, score_T, ops_T,
 
 
 # ---------------------------------------------------------------- wrappers
+def _kernel_layout(packed, fmask, f_oh, device):
+    """The kernels' per-kernel-row tables: ([2, K] int32 offsets and
+    widths or None, [K] uint8 mask or None, K)."""
+    if packed is None:
+        ktab, K = None, f_oh
+        kmask = fmask[:f_oh] if fmask is not None else None
+    else:
+        lt = layout_tensors(packed, device)
+        ktab, K = lt["ktab"], len(packed.feat_order)
+        kmask = fmask[lt["order"]] if fmask is not None else None
+    if kmask is not None:
+        kmask = kmask.to(torch.uint8).contiguous()
+    return ktab, kmask, K
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def level_pass(bins_T: torch.Tensor, leaf_T: torch.Tensor,
-               gh_T: torch.Tensor, W: torch.Tensor, tbl: torch.Tensor, *,
-               num_bins: int, f_oh: int, nch: int = NCH_PRECISE
+               gh_T: torch.Tensor, W: torch.Tensor, tbl: torch.Tensor,
+               fmask: torch.Tensor = None, *, num_bins: int, f_oh: int,
+               nch: int = NCH_PRECISE, quant_bits: int = 0,
+               packed: PackedLayout = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One fused route + smaller-child histogram pass over all rows.
 
-    Returns (hist [F_oh*Bp, nch*Sp] float32, new_leaf [1, Rp] int32).
-    ``num_bins`` is the padded Bp. Every row of a selected leaf moves to its
-    child; rows in the smaller child (``tbl`` col 2) add their nch channels
-    into ``hist[f*Bp + bin_f, ch*Sp + k]`` for every feature f < f_oh.
+    Returns (hist [FB, nch*Sp], new_leaf [1, Rp] int32); FB is
+    ``packed.fb`` or ``f_oh * num_bins``, and hist is float32, or int32
+    under ``quant_bits`` (8 or 16; ``gh_T`` then holds the int8 channels
+    of :func:`pack_gh_quant` and ``nch`` is ``quantize.QNCH[quant_bits]``).
+    ``num_bins`` is the padded Bp. Every row of a selected leaf moves to
+    its child; rows in the smaller child (``tbl`` col 2) add their nch
+    channels into ``hist[slab_j + bin_j, ch*Sp + k]`` for every kernel row
+    j (slab_j = j*Bp, or ``packed.flat_offsets[j]`` with ``bins_T``'s rows
+    in ``packed.feat_order``). ``fmask`` [f_oh] bool (gain screening)
+    zeroes the slabs of the features it masks in both the routing sum and
+    the histogram; the JAX package passes the same mask expanded to
+    [FB, 128].
     """
-    Rp, Sp = _check_route_inputs(bins_T, leaf_T, W, tbl, num_bins, f_oh)
-    if nch not in (NCH_PRECISE, NCH_FAST):
-        raise ValueError(f"nch must be 3 or 5; got {nch}")
-    if tuple(gh_T.shape) != (8, Rp) or gh_T.dtype != torch.bfloat16:
-        raise ValueError("gh_T must be [8, Rp] bfloat16")
-    if gh_T.device != bins_T.device:
+    Rp, Sp = _check_route_inputs(bins_T, leaf_T, W, tbl, num_bins, f_oh,
+                                 packed)
+    if quant_bits not in (0, 8, 16):
+        raise ValueError(f"quant_bits must be 0, 8 or 16; got {quant_bits}")
+    allowed = ((quantize.QNCH[quant_bits],) if quant_bits
+               else (NCH_PRECISE, NCH_FAST))
+    if nch not in allowed:
+        raise ValueError(f"nch={nch} does not fit quant_bits={quant_bits}")
+    gh_dt = torch.int8 if quant_bits else torch.bfloat16
+    if tuple(gh_T.shape) != (8, Rp) or gh_T.dtype != gh_dt:
+        raise ValueError(f"gh_T must be [8, Rp] {gh_dt} with "
+                         f"quant_bits={quant_bits}; got "
+                         f"{tuple(gh_T.shape)} {gh_T.dtype}")
+    dev = bins_T.device
+    if gh_T.device != dev:
         raise ValueError("gh_T and bins_T are on different devices")
-    if bins_T.device.type == "cpu":
-        return level_pass_plain(bins_T, leaf_T, gh_T, W, tbl,
-                                num_bins=num_bins, f_oh=f_oh, nch=nch)
+    if fmask is not None and (tuple(fmask.shape) != (f_oh,)
+                              or fmask.dtype != torch.bool
+                              or fmask.device != dev):
+        raise ValueError(f"fmask must be [{f_oh}] bool on {dev}")
+    if dev.type == "cpu":
+        return level_pass_plain(bins_T, leaf_T, gh_T, W, tbl, fmask,
+                                num_bins=num_bins, f_oh=f_oh, nch=nch,
+                                quant_bits=quant_bits, packed=packed)
     _require_cuda(bins_T, leaf_T, gh_T, W, tbl)
     from .cuda_build import library
-    hist = torch.zeros((f_oh * num_bins, nch * Sp), dtype=torch.float32,
-                       device=bins_T.device)
+    ktab, kmask, K = _kernel_layout(packed, fmask, f_oh, dev)
+    FB = W.shape[1]
+    hist = torch.zeros((FB, nch * Sp), device=dev,
+                       dtype=torch.int32 if quant_bits else torch.float32)
     new_leaf = torch.empty_like(leaf_T)
     rc = library().lgbt_level_pass(
         bins_T.data_ptr(), bins_T.element_size(), leaf_T.data_ptr(),
-        gh_T.data_ptr(), W.data_ptr(), tbl.data_ptr(), hist.data_ptr(),
-        new_leaf.data_ptr(), Rp, f_oh, num_bins, Sp, nch,
-        _stream(bins_T.device))
+        gh_T.data_ptr(), int(bool(quant_bits)), W.data_ptr(), tbl.data_ptr(),
+        _ptr(ktab), _ptr(kmask), hist.data_ptr(), new_leaf.data_ptr(), Rp,
+        K, num_bins, FB, Sp, nch, _stream(dev))
     _raise_on(rc, "level_pass")
     launches["level_pass"] += 1
+    variant = variant_name(quant_bits, packed is not None, fmask is not None)
+    if variant != "f32":
+        variant_launches["level_pass:" + variant] += 1
     return hist, new_leaf
 
 
 def route_pass(bins_T: torch.Tensor, leaf_T: torch.Tensor, W: torch.Tensor,
-               tbl: torch.Tensor, *, num_bins: int, f_oh: int
-               ) -> torch.Tensor:
-    """Row -> leaf update only (same W/tbl contract as level_pass)."""
-    Rp, Sp = _check_route_inputs(bins_T, leaf_T, W, tbl, num_bins, f_oh)
+               tbl: torch.Tensor, *, num_bins: int, f_oh: int,
+               packed: PackedLayout = None) -> torch.Tensor:
+    """Row -> leaf update only (same W/tbl/packed contract as level_pass;
+    routing never masks features)."""
+    Rp, Sp = _check_route_inputs(bins_T, leaf_T, W, tbl, num_bins, f_oh,
+                                 packed)
     if bins_T.device.type == "cpu":
         return route_pass_plain(bins_T, leaf_T, W, tbl, num_bins=num_bins,
-                                f_oh=f_oh)
+                                f_oh=f_oh, packed=packed)
     _require_cuda(bins_T, leaf_T, W, tbl)
     from .cuda_build import library
+    ktab, _, K = _kernel_layout(packed, None, f_oh, bins_T.device)
     new_leaf = torch.empty_like(leaf_T)
     rc = library().lgbt_route_pass(
         bins_T.data_ptr(), bins_T.element_size(), leaf_T.data_ptr(),
-        W.data_ptr(), tbl.data_ptr(), new_leaf.data_ptr(), Rp, f_oh,
-        num_bins, Sp, _stream(bins_T.device))
+        W.data_ptr(), tbl.data_ptr(), _ptr(ktab), new_leaf.data_ptr(), Rp,
+        K, num_bins, W.shape[1], Sp, _stream(bins_T.device))
     _raise_on(rc, "route_pass")
     launches["route_pass"] += 1
+    if packed is not None:
+        variant_launches["route_pass:packed"] += 1
     return new_leaf
 
 

@@ -3,14 +3,17 @@
 the card.
 
     python3 scripts/torch_profile.py [--rows 1000000] [--rounds 3]
-                                     [--path train update frontier]
+                                     [--path train update frontier mixed cuts]
 
 Trains chip_smoke.py's configuration (1,000,000 x 28 rows of bench.py's
 synthetic data, max_bin=63, num_leaves=255) with ``Booster.update()``,
 once per ``--path`` in one process: ``train`` runs the fused engine's
 megastep body (what ``train()`` runs), ``update`` its epilogue body (what
 a bare ``update()`` loop runs), ``frontier`` the frontier-v1 engine
-(``tpu_engine="frontier"``, the same body for both). Each warms up two
+(``tpu_engine="frontier"``, the same body for both), ``mixed`` the megastep
+body on chip_smoke.py's mixed-cardinality rows (columns 14-27 floored to 8
+levels) and ``cuts`` the same with the histogram-plane cuts of its run (b)
+(quant16, gain screening, adaptive bins). Each warms up two
 iterations, then traces ``--rounds`` more with ``torch.profiler`` and
 prints one JSON line: the wall time per iteration, the device time summed
 over all kernels, the device's busy share (device time over wall time),
@@ -28,6 +31,8 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
@@ -37,8 +42,10 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--path", nargs="+",
-                    choices=("train", "update", "frontier"),
-                    default=["train", "update", "frontier"])
+                    choices=("train", "update", "frontier", "mixed",
+                             "cuts"),
+                    default=["train", "update", "frontier", "mixed",
+                             "cuts"])
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -57,12 +64,24 @@ def main() -> int:
               "learning_rate": 0.1, "min_data_in_leaf": 1, "verbose": -1,
               "device_type": "cuda"}
     ds = lgb.Dataset(X, label=y, params=params).construct()
+    ds_mixed = None
     for path in args.path:
-        p = dict(params, tpu_engine="frontier") if path == "frontier" \
-            else params
+        p, d = params, ds
+        if path == "frontier":
+            p = dict(params, tpu_engine="frontier")
+        elif path in ("mixed", "cuts"):
+            if ds_mixed is None:
+                Xm = X.copy()
+                Xm[:, cs.NARROW_FROM:] = np.floor(
+                    Xm[:, cs.NARROW_FROM:] * 8.0) / 8.0
+                ds_mixed = lgb.Dataset(Xm, label=y,
+                                       params=params).construct()
+            d = ds_mixed
+            if path == "cuts":
+                p = dict(params, **cs.KNOBS)
         print(json.dumps(dict(path=path, nvidia_smi=smi, **profile_path(
-            lgb, frontier2, p, ds, path == "train", args.rounds))),
-            flush=True)
+            lgb, frontier2, p, d, path in ("train", "mixed", "cuts"),
+            args.rounds))), flush=True)
     return 0
 
 
@@ -100,9 +119,13 @@ def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int):
                  / 1e3 / rounds
                  for k in ("level_pass", "route_pass", "table_lookup",
                            "epilogue_pass", "hist_pass")}
+    g = bst._gbdt
     return {
         "rows": ds._inner.num_data, "iterations": rounds,
-        "engine": "frontier" if bst._gbdt.use_frontier else "fused",
+        "engine": "frontier" if g.use_frontier else "fused",
+        "quant_bits": g.quant_bits,
+        "adaptive_bins": getattr(g, "fused_packed", None) is not None,
+        "gain_screening": g.use_screening,
         "epilogue_body": bool(not megastep and bst._gbdt._use_epilogue()),
         "wall_ms_per_iter": wall * 1e3 / rounds,
         "device_ms_per_iter": dev_total_us / 1e3 / rounds,

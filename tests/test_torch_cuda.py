@@ -12,6 +12,7 @@ import torch
 
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.ops import fused_level as tfl
+from lightgbm_tpu_torch.ops import layout as tlayout
 from lightgbm_tpu_torch.ops import pallas_histogram as tph
 from lightgbm_tpu_torch.ops import quantize as tq
 from lightgbm_tpu_torch.ops.layout import feature_layout
@@ -301,6 +302,159 @@ def test_cuda_frontier_training_matches_cpu(cuda_device):
     np.testing.assert_allclose(bg.train_scores().cpu().numpy(),
                                bc.train_scores().numpy(), rtol=1e-5,
                                atol=1e-6)
+    np.testing.assert_allclose(bg.predict(X, raw_score=True),
+                               bc.predict(X, raw_score=True), rtol=1e-5,
+                               atol=1e-6)
+
+
+# ------------------------------------------------ histogram-plane cuts
+PLANE_NUM_BIN = np.array([9] * 4 + [63] * 4 + [8] * 3, np.int32)
+
+
+def _plane_operands(R, quant_bits, packed, Sp=8, seed=0):
+    """Level operands on a mixed-cardinality layout (the narrow features
+    first, so the packed layout permutes bins_T's rows): rows in leaves
+    0..2, three active slots, gh from pack_gh or pack_gh_quant."""
+    rng = np.random.RandomState(seed)
+    F = len(PLANE_NUM_BIN)
+    F_oh, Bp = feature_layout(F, 63)
+    pk = (tlayout.packed_feature_layout(PLANE_NUM_BIN, 63, f_oh=F_oh)
+          if packed else None)
+    order = np.asarray(pk.feat_order) if packed else np.arange(F)
+    bins = np.stack([rng.randint(0, nb, R) for nb in PLANE_NUM_BIN])
+    bins_T = np.zeros((max(F_oh, 8), R), np.int8)
+    bins_T[:F] = bins[order]
+    t = torch.as_tensor
+    zeros = np.zeros(F, np.int32)
+    feat = np.array([5, 1, 9] + [-1] * (Sp - 3), np.int32)
+    thr = np.array([40, 3, 4] + [0] * (Sp - 3), np.int32)
+    W = tfl.build_route_table(t(feat), t(thr), t(np.zeros(Sp, bool)),
+                              t(PLANE_NUM_BIN), t(zeros), t(zeros), Sp,
+                              F_oh, Bp)
+    if packed:
+        W = tfl.pack_route_table(W, pk)
+    tbl = np.zeros((Sp, 128), np.int32)
+    tbl[:, 0] = [0, 1, 2] + [-2] * (Sp - 3)
+    tbl[:3, 1] = 3
+    tbl[:3, 2] = [1, 0, 1]
+    g = t(rng.randn(R).astype(np.float32))
+    h = t(rng.rand(R).astype(np.float32))
+    w = t((rng.rand(R) < 0.8).astype(np.float32))
+    if quant_bits:
+        gh, scales = tfl.pack_gh_quant(g * w, h * w, w, quant_bits, seed=5)
+        nch = tq.QNCH[quant_bits]
+    else:
+        gh, scales, nch = tfl.pack_gh(g * w, h * w, w, 5), None, 5
+    leaf = t(rng.randint(0, 3, R).astype(np.int32)[None, :])
+    ops = (t(bins_T), leaf, gh, W, t(tbl))
+    return ops, dict(num_bins=Bp, f_oh=F_oh, nch=nch, quant_bits=quant_bits,
+                     packed=pk)
+
+
+@pytest.mark.parametrize("quant_bits,packed,masked", [
+    (8, False, False), (16, False, False), (0, True, False),
+    (16, True, False), (0, False, True), (8, True, True)],
+    ids=["quant8", "quant16", "packed-f32", "packed-quant16", "fmask-f32",
+         "packed-quant8-fmask"])
+def test_level_pass_cut_variants_match_plain(cuda_device, quant_bits,
+                                             packed, masked):
+    ops, kw = _plane_operands(5000, quant_bits, packed, seed=quant_bits)
+    fm = None
+    if masked:           # slot 1 splits on feature 1: its rows go right
+        fm = torch.ones(kw["f_oh"], dtype=torch.bool)
+        fm[[1, 6]] = False
+    n0 = dict(tfl.variant_launches)
+    hist_c, leaf_c = tfl.level_pass(
+        *[a.to(cuda_device) for a in ops],
+        None if fm is None else fm.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    hist_p, leaf_p = tfl.level_pass_plain(*ops, fm, **kw)
+    ran = {k: tfl.variant_launches[k] - n0[k] for k in n0}
+    variant = "level_pass:" + tfl.variant_name(quant_bits, packed, masked)
+    assert ran == {k: int(k == variant) for k in n0}
+    assert torch.equal(leaf_c.cpu(), leaf_p)
+    assert hist_c.dtype == hist_p.dtype and hist_c.shape == hist_p.shape
+    if quant_bits:                   # int32 sums: bit for bit
+        assert torch.equal(hist_c.cpu(), hist_p)
+    else:
+        np.testing.assert_allclose(hist_c.cpu().numpy(), hist_p.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        w = slice((kw["nch"] - 1) * 8, kw["nch"] * 8)
+        assert torch.equal(hist_c[:, w].cpu(), hist_p[:, w])
+    if masked:
+        keep = tfl.expand_feature_mask(fm, kw["f_oh"], kw["num_bins"],
+                                       kw["packed"])
+        assert not hist_c.cpu()[~keep].any()
+
+
+def test_route_pass_packed_matches_plain(cuda_device):
+    (bins, leaf, _, W, tbl), kw = _plane_operands(5000, 0, True, seed=3)
+    kw = dict(num_bins=kw["num_bins"], f_oh=kw["f_oh"], packed=kw["packed"])
+    out = tfl.route_pass(bins.to(cuda_device), leaf.to(cuda_device),
+                         W.to(cuda_device), tbl.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    want = tfl.route_pass_plain(bins, leaf, W, tbl, **kw)
+    assert torch.equal(out.cpu(), want) and (want != leaf).any()
+
+
+def test_quant16_packed_equals_padded(cuda_device):
+    """The packed layout re-indexes the padded one: its int32 planes,
+    unpacked, are the padded kernel's, bit for bit, on every real feature
+    (the padding feature, F_oh = 12 > 11, exists in the padded layout
+    only)."""
+    out = {}
+    for packed in (False, True):
+        ops, kw = _plane_operands(5000, 16, packed, seed=7)
+        hist, leaf = tfl.level_pass(*[a.to(cuda_device) for a in ops],
+                                    **kw)
+        if packed:
+            hist = tfl.unpack_packed_flat(hist, kw["packed"])
+        out[packed] = (hist.cpu(), leaf.cpu())
+    torch.cuda.synchronize()
+    real = len(PLANE_NUM_BIN) * kw["num_bins"]
+    assert torch.equal(out[True][0][:real], out[False][0][:real])
+    assert out[False][0][:real].any() and not out[True][0][real:].any()
+    assert torch.equal(out[True][1], out[False][1])
+
+
+def test_cut_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    import dataclasses
+    ops, kw = _plane_operands(1024, 8, True)
+    bins, leaf, gh, W, tbl = [a.to(cuda_device) for a in ops]
+    with pytest.raises(ValueError):        # int8 gh_T with quant_bits 0
+        tfl.level_pass(bins, leaf, gh, W, tbl, **dict(kw, quant_bits=0))
+    bad = dataclasses.replace(kw["packed"],
+                              widths=kw["packed"].widths[:-1])
+    with pytest.raises(ValueError):        # a slab table one row short
+        tfl.level_pass(bins, leaf, gh, W, tbl, **dict(kw, packed=bad))
+    with pytest.raises(ValueError):
+        tfl.route_pass(bins, leaf, W, tbl, num_bins=kw["num_bins"],
+                       f_oh=kw["f_oh"], packed=bad)
+
+
+def test_cuda_cuts_training_matches_cpu(cuda_device):
+    """train() with all three cuts on the card against the same on the
+    CPU: the int32 histograms are exact, so the trees are equal."""
+    rng = np.random.RandomState(3)
+    X = rng.rand(5000, 8)
+    X[:, :4] = np.floor(X[:, :4] * 8.0) / 8.0
+    y = (X[:, 5] + 0.5 * X[:, 1] + 0.1 * rng.randn(5000) > 0.8) \
+        .astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+         "verbose": -1, "tpu_quantized_grad": 16,
+         "tpu_adaptive_bins": True, "tpu_gain_screening": True,
+         "tpu_screening_warmup": 1, "tpu_screening_explore_period": 3}
+    bc = lt.train(dict(p, device_type="cpu"), lt.Dataset(X, label=y), 4)
+    tfl.reset_launch_counts()
+    bg = lt.train(dict(p, device_type="cuda"), lt.Dataset(X, label=y), 4)
+    n = dict(tfl.variant_launches)
+    assert n["level_pass:quant16+packed+fmask"] \
+        == tfl.launches["level_pass"] > 0
+    assert n["route_pass:packed"] == tfl.launches["route_pass"]
+    assert bg._gbdt.fused_packed is not None
+    for a, b in zip(bc.models, bg.models):
+        np.testing.assert_array_equal(a.split_feature, b.split_feature)
+        np.testing.assert_array_equal(a.threshold_bin, b.threshold_bin)
     np.testing.assert_allclose(bg.predict(X, raw_score=True),
                                bc.predict(X, raw_score=True), rtol=1e-5,
                                atol=1e-6)
