@@ -22,7 +22,9 @@ non-zero (it prints no result line then):
    ``route_pass`` at Rp = 1,001,472, F_oh = 28, Bp = 64, Sp in {8, 64} on
    the mixed-cardinality layout of phase 6 (14 features of 63 bins, 14 of
    8), each quantized plane also against the other layout's after
-   unpacking; with the errors, their tolerances and the times;
+   unpacking; with the errors, their tolerances, each kernel's device
+   time per launch (``cuda_ms``: a CUDA graph of 20 calls replayed),
+   each ``level_pass`` stage's time alone and its histogram tile;
 3. end to end through ``lightgbm_tpu_torch.train`` on 1,000,000 x 28 rows
    of ``bench.py``'s synthetic binary data (seed 1), the Higgs-shaped
    configuration (max_bin=63, num_leaves=255, learning_rate=0.1,
@@ -52,9 +54,9 @@ non-zero (it prints no result line then):
    card exactly the megastep schedule of a full 255-leaf tree), host
    syncs per tree, AUC (within 0.05 of run a), predict agreement, the
    packed flat width against F_oh * Bp, the features screening keeps;
-7. the ``kernels`` line: every ported kernel and variant with its launches
-   on the main path where it runs, error, time, plain time, bound and
-   library time;
+7. the ``kernels`` line: every ported kernel and variant with its
+   wrapper calls and CUDA kernel launches on the main path where it runs,
+   error, time per launch, plain time, bound and library time;
 8. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package. It exits non-zero when no CUDA
@@ -132,8 +134,62 @@ def _make_data(n_rows: int, n_feat: int, seed: int = 0):
     return X, y
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
-    """Median of per-call CUDA-event times (ms)."""
+# timings that could not be captured in a CUDA graph (see cuda_ms)
+timing_notes = []
+
+
+def cuda_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time per launch (ms): ``reps`` calls of ``fn`` captured in one
+    CUDA graph, replayed ``replays`` times between two CUDA events; the
+    median replay over ``reps``. The wrappers launch on the current stream
+    and allocate only through torch, so they capture, and their host time
+    (argument checks, allocation, the ctypes call) stays out of the window.
+    A function that cannot be captured is timed as ``reps`` back-to-back
+    calls between two events instead, and ``timing_notes`` says so."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):          # the library, attributes, allocator
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        run = graph.replay
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        timing_notes.append(f"{getattr(fn, '__name__', fn)}: not capturable "
+                            f"({str(e).splitlines()[0][:120]}); timed as "
+                            f"{reps} back-to-back calls between two events")
+
+        def run():
+            for _ in range(reps):
+                fn()
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del graph
+    return float(np.median(times))
+
+
+def call_ms(fn, reps: int = 20, warmup: int = 2) -> float:
+    """Median of per-call CUDA-event times (ms): one event pair around one
+    host call, so the window holds the call's host time too. The plain
+    versions are timed so (they sync on the host), and table_lookup and
+    its yardstick also so, beside their graph times, to show what the
+    host's share of one call is."""
     import torch
     for _ in range(warmup):
         fn()
@@ -149,10 +205,55 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+# the template instances' arguments in ptxas's mangled names
+_MANGLED_TYPES = {"a": "int8", "s": "int16", "13__nv_bfloat16": "bf16"}
+
+
+def ptxas_summary(report: str):
+    """Each kernel instance of nvcc's ``-Xptxas -v`` report: registers,
+    static shared memory bytes and spill bytes."""
+    import re
+    out = []
+    for block in report.split("Compiling entry function")[1:]:
+        m = re.search(r"lgbt\d+(\w+?_kernel)(?:I(a|s|13__nv_bfloat16)"
+                      r"(a|s|13__nv_bfloat16)?E)?", block)
+        used = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$",
+                         block, re.M)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        if not (m and used):
+            continue
+        args = [_MANGLED_TYPES[t] for t in m.groups()[1:] if t]
+        out.append({"kernel": m.group(1) + (f"<{','.join(args)}>"
+                                            if args else ""),
+                    "registers": int(used.group(1)),
+                    "smem_bytes": int(used.group(2) or 0),
+                    "spill_bytes": int(spill.group(1)) + int(spill.group(2))
+                    if spill else 0})
+    return out
+
+
 def bound(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_stages(launches, cuda, run) -> None:
+    """Every level_pass call launched the four CUDA kernels of its three
+    stages, as the C entry reports each launch (``cuda_launches``)."""
+    from lightgbm_tpu_torch.ops import fused_level as fl
+    got = {k: cuda[k] for k in fl.LEVEL_KERNELS}
+    if got != dict.fromkeys(fl.LEVEL_KERNELS, launches["level_pass"]):
+        raise AssertionError(f"{run}: {launches['level_pass']} level_pass "
+                             f"calls launched the CUDA kernels {got}")
+
+
+def kernel_cuda_launches(name, cuda):
+    """The CUDA kernel launches of one wrapper in a run's counts."""
+    from lightgbm_tpu_torch.ops import fused_level as fl
+    return {k: cuda[k] for k in (fl.LEVEL_KERNELS if name == "level_pass"
+                                 else (name,))}
 
 
 def _level_inputs(Rp, R, num_bin, B, Sp, nch, seed, quant_bits=0,
@@ -214,6 +315,25 @@ def _level_inputs(Rp, R, num_bin, B, Sp, nch, seed, quant_bits=0,
     return (bins.contiguous(), leaf[None, :], gh_T, W, t(tbl)), kw
 
 
+def _route_slabs(W, K, B, pk, keep):
+    """[Sp] int64: how many kernel rows' slabs of each W row hold a
+    non-zero (outside ``keep``, if given, nothing routes)."""
+    import torch
+    dev = W.device
+    owner = torch.full((W.shape[1],), -1, dtype=torch.long, device=dev)
+    for j in range(K):
+        st, w = (int(pk.flat_offsets[j]), pk.widths[j]) if pk is not None \
+            else (j * B, B)
+        owner[st:st + w] = j
+    nz = W != 0
+    if keep is not None:
+        nz &= keep[None, :]
+    hit = torch.zeros((W.shape[0], K + 1), dtype=torch.bool, device=dev)
+    rows, cols = torch.nonzero(nz, as_tuple=True)
+    hit[rows, owner[cols] + 1] = True
+    return hit[:, 1:].sum(1)
+
+
 def _n_small(leaf_T, new_leaf, tbl) -> int:
     """Rows this level histograms: in an active slot's leaf and on the
     side of its smaller child."""
@@ -248,12 +368,15 @@ def check_level(Rp, R, num_bin, B, Sp, seed, nch=5, quant_bits=0,
     variant = fl.variant_name(quant_bits, packed, masked)
     n0 = dict(fl.launches)
     v0 = dict(fl.variant_launches)
+    c0 = dict(fl.cuda_launches)
     hist_k, leaf_k = fl.level_pass(*ops, fm, **kw)
     route_k = fl.route_pass(bins_T, leaf_T, W, tbl, **rkw)
     launched = {k: fl.launches[k] - n0[k] for k in n0
                 if fl.launches[k] != n0[k]}
     launched.update({k: fl.variant_launches[k] - v0[k] for k in v0
                      if fl.variant_launches[k] != v0[k]})
+    cuda_launched = {k: fl.cuda_launches[k] - c0[k] for k in c0
+                     if fl.cuda_launches[k] != c0[k]}
     hist_p, leaf_p = fl.level_pass_plain(*ops, fm, **kw)
     route_p = fl.route_pass_plain(bins_T, leaf_T, W, tbl, **rkw)
     torch.cuda.synchronize()
@@ -266,7 +389,7 @@ def check_level(Rp, R, num_bin, B, Sp, seed, nch=5, quant_bits=0,
     out = {"variant": variant, "B": B, "Sp": Sp, "nch": nch,
            "bins": str(bins_T.dtype).replace("torch.", ""),
            "num_bin": sorted({int(v) for v in num_bin}), "FB": W.shape[1],
-           "launches": launched}
+           "launches": launched, "cuda_launches": cuda_launched}
     abs_err = float((hist_k.double() - hist_p.double()).abs().max())
     if quant_bits:
         if not torch.equal(hist_k, hist_p):
@@ -306,37 +429,76 @@ def check_level(Rp, R, num_bin, B, Sp, seed, nch=5, quant_bits=0,
                                  "zero")
         out["masked_slabs_zero"] = True
 
-    # bytes each function must move: the leaf in and out of every row, the
-    # bins of the live kernel rows (masked ones add nothing) for rows in an
-    # active slot, the channels of the smaller-child rows, W, tbl, the
-    # layout tables, the histogram out; ops: a gather-add per live kernel
-    # row of each slotted row, nch adds per live kernel row of each
-    # smaller-child row (this run's counts)
+    # bytes each function must move on this run's rows (each read once):
+    # the leaf in and the new leaf out of every row; for each slotted row
+    # the bins of the kernel rows its slot's W row routes on (one, the
+    # split slab, as the grower builds W; masked slabs route nothing); the
+    # nch channels of the smaller-child rows (to find the live ones); the
+    # remaining live bins of the marked rows (smaller child, a non-zero
+    # channel); W, tbl, the layout tables and the mask; the histogram out.
+    # ops: one compare per routing bin, nch adds per live kernel row of
+    # each marked row. route_pass: the leaf in and out, the routing bins
+    # (unmasked), W, tbl and the layout tables.
     K = bins_T.shape[0]
     bb, chb = bins_T.element_size(), gh_T.element_size()
     k_live = K if fm is None else int(fm[list(pk.feat_order)].sum()
                                       if pk is not None else fm.sum())
-    in_slot = int(torch.isin(leaf_T[0], tbl[:, 0]).sum())
+    keep = (fl.expand_feature_mask(fm, F, B, pk) if fm is not None
+            else torch.ones(W.shape[1], dtype=torch.bool, device=dev))
+    route_slabs = _route_slabs(W, K, B, pk, None)          # [Sp]
+    mark_slabs = _route_slabs(W, K, B, pk, keep)
+    slot = torch.full_like(leaf_T[0], -1)
+    for k in range(Sp):
+        slot[leaf_T[0] == tbl[k, 0]] = k
+    in_slot = int((slot >= 0).sum())
+    per_slot = torch.bincount(slot[slot >= 0].long(), minlength=Sp)
     n_small = _n_small(leaf_T, leaf_p, tbl)
+    marked = fl.level_mark_plain(*ops, fm, **kw)[2].long()  # per slot
+    n_marked = int(marked.sum())
+    route_bins = int((per_slot * route_slabs).sum())
+    mark_bins = int((per_slot * mark_slabs).sum())
+    hist_bins = int((marked * (k_live - mark_slabs)).sum())
     tables = W.numel() * 2 + tbl.numel() * 4 + (K * 8 if pk else 0)
     lvl_bound, lvl_by = bound(
-        Rp * 8 + in_slot * k_live * bb + n_small * nch * chb + tables
+        Rp * 8 + (mark_bins + hist_bins) * bb + n_small * nch * chb + tables
         + (K if fm is not None else 0) + hist_p.numel() * 4,
-        in_slot * k_live + n_small * k_live * nch)
-    rt_bound, rt_by = bound(Rp * 8 + in_slot * K * bb + tables, in_slot * K)
+        mark_bins + n_marked * k_live * nch)
+    rt_bound, rt_by = bound(Rp * 8 + route_bins * bb + tables, route_bins)
+    out.update(marked_rows=n_marked, routing_bins=mark_bins)
     out.update(slotted_rows=in_slot, smaller_child_rows=n_small,
                live_kernel_rows=k_live)
+    # the histogram stage's tile: Kg kernel rows per group, Cw columns,
+    # the widest slab's bins down each band; the staging record's bytes
+    K_rows = len(pk.feat_order) if pk is not None else F
+    width = max(pk.widths) if pk is not None else B
+    Kg, Cw = fl.hist_groups(K_rows, width, nch, fl._smem_budget(dev))
+    out["hist_tile"] = {"Kg": Kg, "Cw": Cw, "width": width,
+                        "groups": -(-K_rows // Kg),
+                        "bytes": -(-Kg // Cw) * width * Cw * nch * 4,
+                        "record_bytes": fl.record_layout(
+                            K_rows, bb, nch, chb)[1]}
     out["level_pass"] = {
         "max_abs_err": abs_err,
         "kernel_ms": cuda_ms(lambda: fl.level_pass(*ops, fm, **kw)),
-        "plain_ms": cuda_ms(lambda: fl.level_pass_plain(*ops, fm, **kw),
+        "plain_ms": call_ms(lambda: fl.level_pass_plain(*ops, fm, **kw),
                             reps=3, warmup=1),
         "library_ms": None, "bound_ms": lvl_bound, "bound_by": lvl_by}
+    # each stage alone, through its own wrapper (level_mark's includes the
+    # memset of its 3*Sp counts and tables, level_partition's one
+    # Sp-element copy of the counts)
+    _, row_slot, counts = fl.level_mark(*ops, fm, **kw)
+    stage = fl.level_partition(bins_T, gh_T, row_slot, counts, **kw)
+    out["level_pass"]["stages_ms"] = {
+        "level_mark": cuda_ms(lambda: fl.level_mark(*ops, fm, **kw)),
+        "level_partition": cuda_ms(lambda: fl.level_partition(
+            bins_T, gh_T, row_slot, counts, **kw)),
+        "level_hist": cuda_ms(lambda: fl.level_hist(
+            stage, counts, fm, bin_bytes=bins_T.element_size(), **kw))}
     out["route_pass"] = {
         "max_abs_err": 0, "tol": 0,
         "kernel_ms": cuda_ms(lambda: fl.route_pass(bins_T, leaf_T, W, tbl,
                                                    **rkw)),
-        "plain_ms": cuda_ms(lambda: fl.route_pass_plain(
+        "plain_ms": call_ms(lambda: fl.route_pass_plain(
             bins_T, leaf_T, W, tbl, **rkw), reps=3, warmup=1),
         "library_ms": None, "bound_ms": rt_bound, "bound_by": rt_by}
     return out
@@ -358,15 +520,29 @@ def check_lookup(Rp, R, L, seed):
     err = float((out_k - out_p).abs().max())
     if err != 0.0:
         raise AssertionError(f"table_lookup differs by {err}")
-    flat = idx_T[0].clamp(min=0).long()
+    # the library yardstick computes the kernel's function: one
+    # torch.take into the table with a zero appended at index L, through
+    # an int64 index prepared beforehand with rows outside [0, L) mapped
+    # to L (it reads 8 B of index per row, the kernel 4)
+    table0 = torch.cat([table, table.new_zeros(1)])
+    flat = torch.where((idx_T[0] >= 0) & (idx_T[0] < L), idx_T[0],
+                       L).long()
+    out_lib = torch.take(table0, flat)
+    if not torch.equal(out_lib, out_p[0]):
+        raise AssertionError("the torch.take yardstick differs from the "
+                             "plain version")
     b, by = bound(Rp * 8 + L * 4, 0)
-    kernel_ms = cuda_ms(lambda: fl.table_lookup(idx_T, table))
     return {
         "Rp": Rp, "L": L, "max_abs_err": err, "tol": 0,
         "launches": fl.launches["table_lookup"] - n0,
-        "kernel_ms": kernel_ms,
-        "plain_ms": cuda_ms(lambda: fl.table_lookup_plain(idx_T, table)),
-        "library_ms": cuda_ms(lambda: torch.take(table, flat)),
+        "kernel_ms": cuda_ms(lambda: fl.table_lookup(idx_T, table)),
+        "kernel_ms_per_call": call_ms(lambda: fl.table_lookup(idx_T,
+                                                              table)),
+        "plain_ms": call_ms(lambda: fl.table_lookup_plain(idx_T, table)),
+        "library_ms": cuda_ms(lambda: torch.take(table0, flat)),
+        "library_ms_per_call": call_ms(lambda: torch.take(table0, flat)),
+        "library_call": "torch.take(table ++ [0], int64 index with rows "
+                        "outside [0, L) mapped to L, prepared beforehand)",
         "bound_ms": b, "bound_by": by}
 
 
@@ -480,7 +656,7 @@ def check_epilogue(Rp, R, B, Sp, nch, kind, active, seed, L=255):
         "hist_rel_err_of_plane_max": hist_rel_max,
         "weight_channel_exact": True,
         "kernel_ms": cuda_ms(lambda: fl.epilogue_pass(*args, **kw)),
-        "plain_ms": cuda_ms(lambda: fl.epilogue_pass_plain(*args, **kw),
+        "plain_ms": call_ms(lambda: fl.epilogue_pass_plain(*args, **kw),
                             reps=3, warmup=1),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
@@ -568,9 +744,9 @@ def check_hist(R, Fp, B, S, quant_bits, seed):
         "rel_err_of_abs_sum": rel_sum,
         "tol": "exact" if quant_bits else "1e-5 of abs sum; w exact",
         "kernel_ms": cuda_ms(lambda: ph.hist_pass(bins, gh, slot, **kw)),
-        "plain_ms": cuda_ms(lambda: ph.hist_pass_plain(bins, gh, slot, **kw),
+        "plain_ms": call_ms(lambda: ph.hist_pass_plain(bins, gh, slot, **kw),
                             reps=3, warmup=1),
-        "library_ms": cuda_ms(library, reps=5, warmup=1),
+        "library_ms": cuda_ms(library, reps=5),
         "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -589,8 +765,8 @@ def run_updates(lgb, params, ds, X, y, megastep=False):
     """bench.py's loop on the card: Booster(params, train_set), warm-up
     updates, then UPDATES timed ones, each ending in a synchronize; on the
     megastep body (what train() runs) when ``megastep``, else on the
-    epilogue body. Returns (the phase's JSON, the kernels' launches in the
-    timed run)."""
+    epilogue body. Returns (the phase's JSON, the wrappers' launches and
+    the CUDA kernels' launches in the timed run)."""
     import torch
     from lightgbm_tpu_torch.models import frontier2
     from lightgbm_tpu_torch.ops import fused_level as fl
@@ -609,6 +785,7 @@ def run_updates(lgb, params, ds, X, y, megastep=False):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = dict(fl.launches)
+    cuda = dict(fl.cuda_launches)
     syncs = frontier2.host_syncs["count"]
     n_trees = bst.num_trees()
     scores = bst.train_scores().float().cpu().numpy()
@@ -623,6 +800,7 @@ def run_updates(lgb, params, ds, X, y, megastep=False):
            "trees": n_trees, "sec_per_iter": float(np.mean(times)),
            "sec_per_iter_median": float(np.median(times)),
            "train_auc": train_auc, "launches": launches,
+           "cuda_launches": cuda,
            "host_syncs_per_tree": syncs / UPDATES,
            "predict_max_abs_err": pred_err,
            "predict_tol": "rtol=1e-5 atol=1e-5",
@@ -637,12 +815,14 @@ def run_updates(lgb, params, ds, X, y, megastep=False):
     if not ok_pred:
         raise AssertionError(f"update() predict differs from the "
                              f"trainer's scores by {pred_err}")
-    return res, launches
+    check_stages(launches, cuda, "update()")
+    return res, launches, cuda
 
 
 def run_frontier(lgb, params, ds, X, y):
     """train() on the frontier-v1 engine, timed as phase 3 times the fused
-    engine; returns the kernels' launches in the ROUNDS-round run."""
+    engine; returns the wrappers' and the CUDA kernels' launches in the
+    ROUNDS-round run."""
     import torch
     from lightgbm_tpu_torch.models import frontier2
     from lightgbm_tpu_torch.ops import fused_level as fl
@@ -662,6 +842,7 @@ def run_frontier(lgb, params, ds, X, y):
     frontier2.host_syncs["count"] = 0
     bst, t_all = timed_train(ROUNDS)
     launches = dict(fl.launches)
+    cuda = dict(fl.cuda_launches)
     syncs = frontier2.host_syncs["count"]
     n_trees = bst.num_trees()
     scores = bst.train_scores().float().cpu().numpy()
@@ -676,6 +857,7 @@ def run_frontier(lgb, params, ds, X, y):
           "trees": n_trees,
           "sec_per_iter_after_first": (t_all - t_one) / (ROUNDS - 1),
           "train_s": t_all, "train_auc": train_auc, "launches": launches,
+          "cuda_launches": cuda,
           "hist_pass_per_tree": launches["hist_pass"] / max(n_trees, 1),
           "host_syncs_per_tree": syncs / max(n_trees, 1),
           "predict_max_abs_err": pred_err,
@@ -695,13 +877,15 @@ def run_frontier(lgb, params, ds, X, y):
     if not ok_pred:
         raise AssertionError(f"frontier predict differs from the trainer's "
                              f"scores by {pred_err}")
-    return launches
+    check_stages(launches, cuda, "frontier train()")
+    return launches, cuda
 
 
 def run_plane_cuts(lgb, params, X, y):
     """Phase 6: train() on the mixed-cardinality rows, the runs of
     PLANE_RUNS, each timed as phase 3 times the fused engine. Returns
-    each run's kernel and variant launches in its ROUNDS-round run."""
+    each run's kernel and variant launches in its ROUNDS-round run, and
+    its CUDA kernels' launches under ``cuda:<kernel>``."""
     import torch
     from lightgbm_tpu_torch.models import frontier2
     from lightgbm_tpu_torch.ops import fused_level as fl
@@ -729,6 +913,7 @@ def run_plane_cuts(lgb, params, X, y):
         frontier2.host_syncs["count"] = 0
         bst, t_all = timed_train(ROUNDS)
         launches = dict(fl.launches)
+        cuda = dict(fl.cuda_launches)
         variants = {k: v for k, v in fl.variant_launches.items() if v}
         syncs = frontier2.host_syncs["count"]
         g = bst._gbdt
@@ -751,6 +936,7 @@ def run_plane_cuts(lgb, params, X, y):
                "train_s": t_all, "train_auc": train_auc,
                "quant_bits": g.quant_bits, "nch": g.fused_nch,
                "launches": launches, "variant_launches": variants,
+               "cuda_launches": cuda,
                "launches_per_tree": {k: v / max(n_trees, 1)
                                      for k, v in launches.items()},
                "host_syncs_per_tree": syncs / max(n_trees, 1),
@@ -769,6 +955,7 @@ def run_plane_cuts(lgb, params, X, y):
                                  f"trainer's scores by {pred_err}")
         if launches["epilogue_pass"] or launches["hist_pass"]:
             raise AssertionError(f"run ({name}) left the megastep body")
+        check_stages(launches, cuda, f"run ({name})")
     # the megastep schedule: one n_sel read per scheduled level, one
     # lookup per tree; a full tree (num_leaves leaves, as every tree of
     # these rows grows on the card) takes a root pass plus one pass per
@@ -805,7 +992,9 @@ def run_plane_cuts(lgb, params, X, y):
     b = out["b"]
     if not b["flat_width"] < b["padded_flat_width"]:
         raise AssertionError("adaptive bins did not pack the flat axis")
-    return {name: dict(r["launches"], **r["variant_launches"])
+    return {name: dict(r["launches"], **r["variant_launches"],
+                       **{"cuda:" + k: v
+                          for k, v in r["cuda_launches"].items()})
             for name, r in out.items()}
 
 
@@ -830,8 +1019,7 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_build.library()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in str(cuda_build.build_info.get(
-        "ptxas", "")).splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = ptxas_summary(str(cuda_build.build_info.get("ptxas", "")))
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
@@ -918,6 +1106,7 @@ def main() -> int:
     frontier2.host_syncs["count"] = 0
     bst, t_all = timed_train(ROUNDS)      # the main path
     launches = dict(fl.launches)
+    cuda = dict(fl.cuda_launches)
     syncs = frontier2.host_syncs["count"]
     n_trees = bst.num_trees()
     scores = bst.train_scores().float().cpu().numpy()
@@ -931,7 +1120,8 @@ def main() -> int:
            "construct_s": construct_s,
            "sec_per_iter_after_first": (t_all - t_one) / (ROUNDS - 1),
            "train_s": t_all, "train_auc": train_auc,
-           "launches": launches, "host_syncs_per_tree": syncs / n_trees,
+           "launches": launches, "cuda_launches": cuda,
+           "host_syncs_per_tree": syncs / n_trees,
            "predict_max_abs_err": pred_err, "predict_tol":
            "rtol=1e-5 atol=1e-5", "leaves": [m.num_leaves
                                               for m in bst.models]}
@@ -947,24 +1137,25 @@ def main() -> int:
     if not ok_pred:
         raise AssertionError(f"predict differs from the trainer's scores "
                              f"by {pred_err}")
+    check_stages(launches, cuda, "train()")
 
     # ---- 4. the loop bench.py times: Booster(params, train_set).update(),
     # on the epilogue body (a) and, in turns with it, the megastep body
     # train() runs (m); then (b) with bagging and feature_fraction
     bagged = {"bagging_fraction": 0.5, "bagging_freq": 1,
               "feature_fraction": 0.8}
-    upd_launches = None
+    upd_launches = upd_cuda = None
     for name, extra, megastep in (("m", {}, True), ("a", {}, False),
                                   ("a", {}, False), ("m", {}, True),
                                   ("b", bagged, False)):
-        res, n_launch = run_updates(lgb, dict(params, **extra), ds, X, y,
-                                    megastep)
+        res, n_launch, n_cuda = run_updates(lgb, dict(params, **extra), ds,
+                                            X, y, megastep)
         emit({"phase": "update_path", "run": name, "params": extra, **res})
-        if name == "a":
-            upd_launches = upd_launches or n_launch
+        if name == "a" and upd_launches is None:
+            upd_launches, upd_cuda = n_launch, n_cuda
 
     # ---- 5. the frontier-v1 engine through train()
-    fr_launches = run_frontier(lgb, params, ds, X, y)
+    fr_launches, fr_cuda = run_frontier(lgb, params, ds, X, y)
 
     # ---- 6. the histogram-plane cuts through train()
     plane_launches = run_plane_cuts(lgb, params, X, y)
@@ -976,23 +1167,32 @@ def main() -> int:
     # hist_pass
     lv, rt = main_cfg["level_pass"], main_cfg["route_pass"]
     rows = []
-    for name, r, err, n in (
-            ("level_pass", lv, lv["max_abs_err"], launches["level_pass"]),
-            ("route_pass", rt, rt["max_abs_err"], launches["route_pass"]),
+    for name, r, err, n, n_cuda in (
+            ("level_pass", lv, lv["max_abs_err"], launches["level_pass"],
+             cuda),
+            ("route_pass", rt, rt["max_abs_err"], launches["route_pass"],
+             cuda),
             ("table_lookup", lookup, lookup["max_abs_err"],
-             launches["table_lookup"]),
+             launches["table_lookup"], cuda),
             ("epilogue_pass", epi_main,
              max(epi_main["hist_max_abs_err"], epi_main["gh_max_abs_err"],
                  epi_main["new_score_max_abs_err"]),
-             upd_launches["epilogue_pass"]),
+             upd_launches["epilogue_pass"], upd_cuda),
             ("hist_pass", hist_main, hist_main["max_abs_err"],
-             fr_launches["hist_pass"])):
-        rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                     "replaces": REPLACES[name], "launches": n,
-                     "max_abs_err": err, "ms": r["kernel_ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"]})
+             fr_launches["hist_pass"], fr_cuda)):
+        row = {"name": name, "route": "cuda", "source": SOURCES[name],
+               "replaces": REPLACES[name], "launches": n,
+               "cuda_launches": kernel_cuda_launches(name, n_cuda),
+               "max_abs_err": err, "ms": r["kernel_ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if name == "table_lookup":
+            row.update({k: r[k] for k in ("kernel_ms_per_call",
+                                          "library_ms_per_call",
+                                          "library_call")})
+        if name == "level_pass":
+            row["stages_ms"] = r["stages_ms"]
+        rows.append(row)
     # the variants at Sp=64 on the mixed layout, each with the launches of
     # the phase-6 run that takes it on every level_pass (VARIANT_RUNS); the
     # packed route_pass with run (b)'s
@@ -1008,12 +1208,21 @@ def main() -> int:
                                  f"{plane_launches[run][kernel]} times, "
                                  f"{n} of them as {counter}")
         name = kernel + "[" + counter.split(":")[1] + "]"
+        run_cuda = {k[5:]: v for k, v in plane_launches[run].items()
+                    if k.startswith("cuda:")}
         rows.append({"name": name, "route": "cuda",
                      "source": SOURCES[kernel], "replaces": REPLACES[kernel],
-                     "launches": n, "max_abs_err": r["max_abs_err"],
+                     "launches": n,
+                     "cuda_launches": kernel_cuda_launches(kernel, run_cuda),
+                     "max_abs_err": r["max_abs_err"],
                      "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
+    emit({"phase": "timing", "ms": "device time per launch: a CUDA graph "
+          "of 20 wrapper calls replayed 5 times between two events, "
+          "median", "plain_ms": "median of 20 (3 for the plain level, route, "
+          "epilogue and hist passes) one-call event pairs, host included",
+          "not_captured": timing_notes})
     emit({"kernels": rows})
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start})
 

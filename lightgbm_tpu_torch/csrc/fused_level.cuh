@@ -1,6 +1,7 @@
 // Shared device code of the fused-level kernels (level_pass.cu,
-// route_pass.cu, table_lookup.cu): the per-level slot tables and the
-// table-driven row routing of lightgbm_tpu/ops/fused_level.py.
+// route_pass.cu, epilogue_pass.cu, table_lookup.cu): the per-level slot
+// tables, the table-driven row routing of lightgbm_tpu/ops/fused_level.py
+// and the scan of per-slot counts.
 //
 // Layouts (the JAX package's, unchanged):
 //   bins_T [Fp, Rp] int8 or int16  feature-major, so thread r reading
@@ -20,12 +21,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace lgbt {
 
 constexpr int kMaxSlots = 128;
 constexpr int kTblCols = 128;
 constexpr int kMaxChannels = 8;
 constexpr int kThreads = 256;
+constexpr int kMaxDevices = 64;
 
 struct SlotTables {
   int leaf[kMaxSlots];
@@ -69,11 +73,57 @@ struct RowLayout {
 
   // Flat position of bin b of kernel row j, or -1 when its slab holds none.
   __device__ inline int64_t pos(int j, int b) const {
-    if (mask != nullptr && mask[j] == 0) return -1;
+    if (!live(j)) return -1;
     if (off == nullptr) return static_cast<int64_t>(j) * B + b;
     return b < width[j] ? static_cast<int64_t>(off[j]) + b : -1;
   }
+  // The same, split for a loop that keeps one kernel row: whether row j
+  // adds anything, where its slab starts, how wide it is, and whether bin
+  // b has a position in a slab that wide (padded: always).
+  __device__ inline bool live(int j) const {
+    return mask == nullptr || mask[j] != 0;
+  }
+  __device__ inline int64_t start(int j) const {
+    return off == nullptr ? static_cast<int64_t>(j) * B
+                          : static_cast<int64_t>(off[j]);
+  }
+  __device__ inline int width_of(int j) const {
+    return off == nullptr ? B : width[j];
+  }
+  __device__ inline bool in_slab(int b, int w) const {
+    return off == nullptr || b < w;
+  }
 };
+
+// Exclusive scan of the Sp <= kMaxSlots per-slot counts into s_off[0..Sp]
+// (s_off[Sp] = the total), by the block's first warp: each lane sums four
+// counts, then a warp scan. The caller syncs before reading s_off.
+__device__ inline void slot_offsets(const int* counts, int Sp, int* s_off) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  int c[4];
+  int sum = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int k = lane * 4 + q;
+    c[q] = k < Sp ? counts[k] : 0;
+    sum += c[q];
+  }
+  int incl = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  int run = incl - sum;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int k = lane * 4 + q;
+    if (k < Sp) s_off[k] = run;
+    run += c[q];
+  }
+  if (lane == 31) s_off[Sp] = incl;
+}
 
 // D = sum_j W[k, pos(j, bin_j)]: the TPU kernel's W @ one-hot contraction
 // for one row and one slot. W is 0/1 and non-zero only on the slot's split
@@ -100,6 +150,31 @@ __device__ inline bool goes_left(const BinT* __restrict__ bins, int64_t Rp,
                                  int F_oh, int B) {
   return goes_left(bins, Rp, r, Wk, F_oh, RowLayout{nullptr, nullptr,
                                                     nullptr, B});
+}
+
+// The current device, its SM count and opt-in shared memory per block,
+// read once per device (kMaxDevices at most).
+inline cudaError_t device_limits(int* dev, int* sms, int* smem_optin) {
+  static int s_sms[kMaxDevices] = {}, s_optin[kMaxDevices] = {};
+  static std::mutex lock;
+  cudaError_t e = cudaGetDevice(dev);
+  if (e != cudaSuccess) return e;
+  if (*dev < 0 || *dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(lock);
+  if (s_sms[*dev] == 0) {
+    int n = 0, optin = 0;
+    e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, *dev);
+    if (e == cudaSuccess) {
+      e = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, *dev);
+    }
+    if (e != cudaSuccess) return e;
+    s_sms[*dev] = n;
+    s_optin[*dev] = optin;
+  }
+  *sms = s_sms[*dev];
+  *smem_optin = s_optin[*dev];
+  return cudaSuccess;
 }
 
 }  // namespace lgbt

@@ -42,8 +42,11 @@ _P = _c.c_void_p
 # C signatures: (argtypes, restype int)
 SIGNATURES = {
     "lgbt_level_pass": [_P, _c.c_int, _P, _P, _c.c_int, _P, _P, _P, _P, _P,
-                        _P, _c.c_longlong, _c.c_int, _c.c_int,
-                        _c.c_longlong, _c.c_int, _c.c_int, _P],
+                        _P, _P, _P, _P, _c.c_longlong, _c.c_int, _c.c_int,
+                        _c.c_longlong, _c.c_int, _c.c_int, _c.c_int,
+                        _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+                        _P, _c.POINTER(_c.c_int)],
+    "lgbt_device_limits": [_c.POINTER(_c.c_int), _c.POINTER(_c.c_int)],
     "lgbt_route_pass": [_P, _c.c_int, _P, _P, _P, _P, _P, _c.c_longlong,
                         _c.c_int, _c.c_int, _c.c_longlong, _c.c_int, _P],
     "lgbt_table_lookup": [_P, _P, _P, _c.c_longlong, _c.c_int, _P],
@@ -90,6 +93,9 @@ def build() -> Path:
     lib = out_dir / LIB_NAME
     if lib.is_file():
         build_info.setdefault("seconds", 0.0)
+        report = out_dir / "ptxas.txt"
+        if report.is_file():
+            build_info.setdefault("ptxas", report.read_text())
         return lib
     nvcc = nvcc_path()
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)

@@ -29,14 +29,22 @@ The histogram-plane cuts change three things, each independently:
 Four kernels, each written by hand in CUDA C++ for sm_90a
 (``lightgbm_tpu_torch/csrc``): :func:`level_pass`, :func:`route_pass`,
 :func:`table_lookup` and :func:`epilogue_pass`. Each wrapper checks its
-inputs, allocates its outputs, launches on the current stream without
-synchronising and counts the launch in ``launches`` (and the cuts it ran
-with in ``variant_launches``). On a CPU tensor it runs the plain PyTorch
+inputs, allocates its outputs and scratch, launches on the current stream
+without synchronising and counts the call in ``launches`` (and the cuts it
+ran with in ``variant_launches``) and each CUDA kernel it launched in
+``cuda_launches``. ``level_pass`` runs three stages per call: mark (route
++ smaller-child slot + per-slot counts; two CUDA kernels, the first of
+which finds each slot's split slab in W), partition (each marked row's
+bins and channels copied, as one staging record, into its slot's bucket)
+and the slot-tiled shared-memory histogram over the records; each stage
+also has a wrapper of its own (:func:`level_mark`, :func:`level_partition`,
+:func:`level_hist`). On a CPU tensor a wrapper runs the plain PyTorch
 version beside it (``*_plain``), which the CPU tests hold against the JAX
 package; on a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
@@ -73,10 +81,25 @@ variant_launches: Dict[str, int] = dict.fromkeys(
      for p in (False, True) for m in (False, True) if q or p or m]
     + ["route_pass:packed"], 0)
 EPILOGUE_KINDS = ("binary", "l2")
+# the stages of level_pass, in order, and the CUDA kernels of each
+LEVEL_STAGES = ("level_mark", "level_partition", "level_hist")
+STAGE_KERNELS = {"level_mark": ("level_slabs", "level_mark"),
+                 "level_partition": ("level_partition",),
+                 "level_hist": ("level_hist",)}
+LEVEL_KERNELS = sum(STAGE_KERNELS.values(), ())
+# CUDA kernel launches since the last reset, by kernel, as the C entries
+# report them: a level_pass call launches each of LEVEL_KERNELS once, every
+# other wrapper its one kernel
+cuda_launches: Dict[str, int] = dict.fromkeys(
+    LEVEL_KERNELS + ("route_pass", "table_lookup", "epilogue_pass",
+                     "hist_pass"), 0)
+# bytes of a block's opt-in shared memory left to the level_hist kernel's
+# static arrays (the slot offsets); the rest holds its histogram tile
+HIST_STATIC_SMEM = 1024
 
 
 def reset_launch_counts() -> None:
-    for counts in (launches, variant_launches):
+    for counts in (launches, variant_launches, cuda_launches):
         for k in counts:
             counts[k] = 0
 
@@ -346,29 +369,25 @@ def _route_plain(bins_T, leaf_T, W, tbl, num_bins, f_oh, packed=None,
     return slot, left, new_leaf[None, :].to(torch.int32)
 
 
-def level_pass_plain(bins_T, leaf_T, gh_T, W, tbl, fmask=None, *,
-                     num_bins: int, f_oh: int, nch: int = NCH_PRECISE,
-                     quant_bits: int = 0, packed: PackedLayout = None):
-    """Plain PyTorch version of :func:`level_pass`: routing by gathering W
-    at the row's slot, the smaller-child histogram by ``index_add_`` over
-    the flat (slab offset + bin, ch*Sp + k) index — f32 sums of the bf16
-    channels, or exact int32 sums of the int8 channels under
-    ``quant_bits``; a masked feature's slab adds nothing."""
-    Sp = tbl.shape[0]
-    slot, left, new_leaf = _route_plain(bins_T, leaf_T, W, tbl, num_bins,
-                                        f_oh, packed, fmask)
+def _smaller_child(slot, left, tbl):
+    """Rows in an active slot's leaf, on the side of its smaller child."""
     small_left = tbl[:, 2] > 0
-    in_small = (slot >= 0) & (left == small_left[slot.clamp(min=0)])
-    rows = torch.nonzero(in_small).squeeze(1)
-    k = slot[rows]
+    return (slot >= 0) & (left == small_left[slot.clamp(min=0)])
+
+
+def _hist_plain(bins, vals, k, fmask, *, Sp, FB, num_bins, f_oh, nch,
+                quant_bits, packed):
+    """[FB, nch*Sp] histogram of n rows — their bins [>=K, n] in kernel-row
+    order, channels [nch, n], slots k [n] — by ``index_add_`` over the
+    flat (slab offset + bin, ch*Sp + k) index."""
     C = nch * Sp
-    FB = W.shape[1]
     acc = torch.int32 if quant_bits else torch.float32
-    hist = torch.zeros(FB * C, dtype=acc, device=bins_T.device)
-    vals = gh_T[:nch, rows].to(acc)                               # [nch, n]
-    ch_off = (torch.arange(nch, device=bins_T.device) * Sp)[:, None]
+    dev = bins.device
+    hist = torch.zeros(FB * C, dtype=acc, device=dev)
+    vals = vals.to(acc)
+    ch_off = (torch.arange(nch, device=dev) * Sp)[:, None]
     for j, (off, width) in enumerate(_kernel_rows(num_bins, f_oh, packed)):
-        b = bins_T[j, rows].long()
+        b = bins[j].long()
         v = vals
         if width is not None:
             v = vals * (b < width).to(acc)
@@ -381,7 +400,116 @@ def level_pass_plain(bins_T, leaf_T, gh_T, W, tbl, fmask=None, *,
         keep = expand_feature_mask(fmask, f_oh, num_bins, packed)
         hist = torch.where(keep[:, None], hist,
                            torch.zeros((), dtype=acc, device=hist.device))
+    return hist
+
+
+def level_pass_plain(bins_T, leaf_T, gh_T, W, tbl, fmask=None, *,
+                     num_bins: int, f_oh: int, nch: int = NCH_PRECISE,
+                     quant_bits: int = 0, packed: PackedLayout = None):
+    """Plain PyTorch version of :func:`level_pass`: routing by gathering W
+    at the row's slot, the smaller-child histogram by ``index_add_`` over
+    the flat (slab offset + bin, ch*Sp + k) index — f32 sums of the bf16
+    channels, or exact int32 sums of the int8 channels under
+    ``quant_bits``; a masked feature's slab adds nothing."""
+    slot, left, new_leaf = _route_plain(bins_T, leaf_T, W, tbl, num_bins,
+                                        f_oh, packed, fmask)
+    rows = torch.nonzero(_smaller_child(slot, left, tbl)).squeeze(1)
+    hist = _hist_plain(bins_T[:, rows], gh_T[:nch, rows], slot[rows], fmask,
+                       Sp=tbl.shape[0], FB=W.shape[1], num_bins=num_bins,
+                       f_oh=f_oh, nch=nch, quant_bits=quant_bits,
+                       packed=packed)
     return hist, new_leaf
+
+
+def level_mark_plain(bins_T, leaf_T, gh_T, W, tbl, fmask=None, *,
+                     num_bins: int, f_oh: int, nch: int = NCH_PRECISE,
+                     quant_bits: int = 0, packed: PackedLayout = None):
+    """Plain PyTorch version of :func:`level_mark` (stage 1 of
+    :func:`level_pass`): (new_leaf [1, Rp] int32, row_slot [Rp] int8 — the
+    slot of each smaller-child row with a non-zero channel, else -1 —,
+    counts [Sp] int32 of those rows per slot)."""
+    slot, left, new_leaf = _route_plain(bins_T, leaf_T, W, tbl, num_bins,
+                                        f_oh, packed, fmask)
+    marked = _smaller_child(slot, left, tbl) & (gh_T[:nch] != 0).any(0)
+    row_slot = torch.where(marked, slot, -1).to(torch.int8)
+    counts = torch.bincount(slot[marked], minlength=tbl.shape[0])
+    return new_leaf, row_slot, counts.to(torch.int32)
+
+
+def record_layout(K: int, bin_bytes: int, nch: int,
+                  ch_bytes: int) -> Tuple[int, int]:
+    """(channel offset, record bytes) of the staging records the partition
+    stage writes, one per marked row: its K bins (kernel-row order) from
+    byte 0, its nch channels from the next 4-byte boundary, zeros to a
+    multiple of 16 bytes (48 B at K=28, int8 bins, nch=5 bf16)."""
+    ch_off = -(-K * bin_bytes // 4) * 4
+    return ch_off, -(-(ch_off + nch * ch_bytes) // 16) * 16
+
+
+def _records(bins_T, gh_T, rows, K, nch):
+    """[n, record bytes] uint8 staging records of ``rows``."""
+    bb, cb = bins_T.element_size(), gh_T.element_size()
+    ch_off, nbytes = record_layout(K, bb, nch, cb)
+    out = torch.zeros((rows.numel(), nbytes), dtype=torch.uint8,
+                      device=bins_T.device)
+    out[:, :K * bb] = bins_T[:K, rows].t().contiguous().view(torch.uint8)
+    out[:, ch_off:ch_off + nch * cb] = \
+        gh_T[:nch, rows].t().contiguous().view(torch.uint8)
+    return out
+
+
+def _kernel_row_count(f_oh, packed):
+    return f_oh if packed is None else len(packed.feat_order)
+
+
+def partition_order_plain(row_slot, counts):
+    """[Rp] int32: the marked rows grouped by slot, slot 0's bucket first
+    (bucket k spans the exclusive scan of ``counts``), rows ascending
+    within a bucket, then -1 — the order of :func:`level_partition_plain`'s
+    records."""
+    key = torch.where(row_slot >= 0, row_slot.long(), MAX_SLOTS)
+    order = torch.argsort(key, stable=True).to(torch.int32)
+    order[int(counts.sum()):] = -1
+    return order
+
+
+def level_partition_plain(bins_T, gh_T, row_slot, counts, *,
+                          num_bins: int, f_oh: int, nch: int = NCH_PRECISE,
+                          quant_bits: int = 0, packed: PackedLayout = None):
+    """Plain PyTorch version of :func:`level_partition` (stage 2): stage
+    [Rp, record bytes] uint8 — the staging record (:func:`record_layout`)
+    of row ``partition_order_plain(row_slot, counts)[q]`` at position q,
+    zeros past the last bucket."""
+    n = int(counts.sum())
+    rows = partition_order_plain(row_slot, counts)[:n].long()
+    recs = _records(bins_T, gh_T, rows, _kernel_row_count(f_oh, packed), nch)
+    stage = torch.zeros((row_slot.shape[0], recs.shape[1]),
+                        dtype=torch.uint8, device=recs.device)
+    stage[:n] = recs
+    return stage
+
+
+def level_hist_plain(stage, counts, fmask=None, *, bin_bytes: int,
+                     num_bins: int, f_oh: int, nch: int = NCH_PRECISE,
+                     quant_bits: int = 0, packed: PackedLayout = None):
+    """Plain PyTorch version of :func:`level_hist` (stage 3): the
+    [FB, nch*Sp] histogram of each slot's bucket of staging records."""
+    Sp = counts.shape[0]
+    n = int(counts.sum())
+    K = _kernel_row_count(f_oh, packed)
+    ch_dt = torch.int8 if quant_bits else torch.bfloat16
+    ch_off, _ = record_layout(K, bin_bytes, nch, ch_dt.itemsize)
+    rec = stage[:n]
+    bins = rec[:, :K * bin_bytes].contiguous().view(
+        torch.int8 if bin_bytes == 1 else torch.int16).t()
+    vals = rec[:, ch_off:ch_off + nch * ch_dt.itemsize].contiguous() \
+        .view(ch_dt).t()
+    k = torch.repeat_interleave(torch.arange(Sp, device=stage.device),
+                                counts.long())
+    FB = packed.fb if packed is not None else f_oh * num_bins
+    return _hist_plain(bins, vals, k, fmask, Sp=Sp, FB=FB,
+                       num_bins=num_bins, f_oh=f_oh, nch=nch,
+                       quant_bits=quant_bits, packed=packed)
 
 
 def route_pass_plain(bins_T, leaf_T, W, tbl, *, num_bins: int, f_oh: int,
@@ -454,6 +582,105 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _check_level_inputs(bins_T, leaf_T, gh_T, W, tbl, fmask, num_bins,
+                        f_oh, nch, quant_bits, packed):
+    Rp, Sp = _check_route_inputs(bins_T, leaf_T, W, tbl, num_bins, f_oh,
+                                 packed)
+    _check_channels(gh_T, Rp, nch, quant_bits, bins_T.device)
+    if fmask is not None and (tuple(fmask.shape) != (f_oh,)
+                              or fmask.dtype != torch.bool
+                              or fmask.device != bins_T.device):
+        raise ValueError(f"fmask must be [{f_oh}] bool on {bins_T.device}")
+    return Rp, Sp
+
+
+def _check_channels(gh_T, Rp, nch, quant_bits, dev):
+    if quant_bits not in (0, 8, 16):
+        raise ValueError(f"quant_bits must be 0, 8 or 16; got {quant_bits}")
+    allowed = ((quantize.QNCH[quant_bits],) if quant_bits
+               else (NCH_PRECISE, NCH_FAST))
+    if nch not in allowed:
+        raise ValueError(f"nch={nch} does not fit quant_bits={quant_bits}")
+    gh_dt = torch.int8 if quant_bits else torch.bfloat16
+    if tuple(gh_T.shape) != (8, Rp) or gh_T.dtype != gh_dt:
+        raise ValueError(f"gh_T must be [8, Rp] {gh_dt} with "
+                         f"quant_bits={quant_bits}; got "
+                         f"{tuple(gh_T.shape)} {gh_T.dtype}")
+    if gh_T.device != dev:
+        raise ValueError("gh_T and bins_T are on different devices")
+
+
+_smem_budgets: Dict[int, int] = {}
+
+
+def _smem_budget(device) -> int:
+    """Bytes of shared memory a level_hist block may give its tile: the
+    card's opt-in limit per block (227 KB on the H100) less the kernel's
+    static arrays; read once per device."""
+    idx = torch.device(device).index or 0
+    if idx not in _smem_budgets:
+        import ctypes
+        from .cuda_build import library
+        sms, optin = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            _raise_on(library().lgbt_device_limits(ctypes.byref(sms),
+                                                   ctypes.byref(optin)),
+                      "device_limits")
+        _smem_budgets[idx] = optin.value - HIST_STATIC_SMEM
+    return _smem_budgets[idx]
+
+
+@functools.lru_cache(maxsize=None)
+def hist_groups(K: int, width: int, nch: int, budget: int) -> Tuple[int, int]:
+    """(Kg, Cw) of the level_hist kernel's shared-memory tile: Cw columns,
+    one per kernel row, so the 32 lanes of a warp add into 32 different
+    banks (32, unless one band of 32 columns of ``width`` bins — the
+    widest slab — does not fit), and Kg kernel rows per group (grid.y cuts
+    the K rows into groups of Kg): the most rows whose tile, ceil(Kg/Cw)
+    bands of width x Cw cells of nch 4-byte sums, fits ``budget`` bytes.
+    One group of 28 at K=28, Bp=64, nch=5 (40,960 B) and at Bp=256
+    (163,840 B)."""
+    column = width * nch * 4
+    Cw = max(1, min(32, budget // column))
+    return min(K, max(1, budget // (column * Cw)) * Cw), Cw
+
+
+def _level_launch(stages, bins_T, leaf_T, gh_T, W, tbl, fmask, *, hist,
+                  new_leaf, row_slot, counts, stage, num_bins, f_oh, nch,
+                  quant_bits, packed, FB, Sp, Rp, bin_bytes):
+    """Launch the level_pass stages in ``stages`` (LEVEL_STAGES names) on
+    the current stream and count in ``cuda_launches`` the kernels the C
+    entry reports launched (one bit each, in LEVEL_KERNELS order)."""
+    import ctypes
+    from .cuda_build import library
+    dev = counts.device
+    ktab, kmask, K = _kernel_layout(packed, fmask, f_oh, dev)
+    width = max(packed.widths) if packed is not None else num_bins
+    Kg, Cw = hist_groups(K, width, nch, _smem_budget(dev))
+    ch_off, rec_bytes = record_layout(K, bin_bytes, nch,
+                                      1 if quant_bits else 2)
+    mask = sum(1 << LEVEL_STAGES.index(st) for st in stages)
+    done = ctypes.c_int(0)
+    rc = library().lgbt_level_pass(
+        _ptr(bins_T), bin_bytes, _ptr(leaf_T), _ptr(gh_T),
+        int(bool(quant_bits)), _ptr(W), _ptr(tbl), _ptr(ktab), _ptr(kmask),
+        _ptr(hist), _ptr(new_leaf), _ptr(row_slot), counts.data_ptr(),
+        _ptr(stage), Rp, K, num_bins, FB, Sp, nch, Kg, Cw, width, ch_off,
+        rec_bytes, mask, _stream(dev), ctypes.byref(done))
+    for i, kern in enumerate(LEVEL_KERNELS):
+        if done.value >> i & 1:
+            cuda_launches[kern] += 1
+    _raise_on(rc, "level_pass")
+
+
+def _stage_buffer(K, bins_T, nch, quant_bits):
+    """[Rp, record bytes] uint8 scratch for the staging records."""
+    _, rec_bytes = record_layout(K, bins_T.element_size(), nch,
+                                 1 if quant_bits else 2)
+    return torch.empty((bins_T.shape[1], rec_bytes), dtype=torch.uint8,
+                       device=bins_T.device)
+
+
 def level_pass(bins_T: torch.Tensor, leaf_T: torch.Tensor,
                gh_T: torch.Tensor, W: torch.Tensor, tbl: torch.Tensor,
                fmask: torch.Tensor = None, *, num_bins: int, f_oh: int,
@@ -474,49 +701,139 @@ def level_pass(bins_T: torch.Tensor, leaf_T: torch.Tensor,
     zeroes the slabs of the features it masks in both the routing sum and
     the histogram; the JAX package passes the same mask expanded to
     [FB, 128].
+
+    On the card it launches the three stages (:func:`level_mark`,
+    :func:`level_partition`, :func:`level_hist`) back to back with no host
+    sync; the per-slot counts never leave the device.
     """
-    Rp, Sp = _check_route_inputs(bins_T, leaf_T, W, tbl, num_bins, f_oh,
-                                 packed)
-    if quant_bits not in (0, 8, 16):
-        raise ValueError(f"quant_bits must be 0, 8 or 16; got {quant_bits}")
-    allowed = ((quantize.QNCH[quant_bits],) if quant_bits
-               else (NCH_PRECISE, NCH_FAST))
-    if nch not in allowed:
-        raise ValueError(f"nch={nch} does not fit quant_bits={quant_bits}")
-    gh_dt = torch.int8 if quant_bits else torch.bfloat16
-    if tuple(gh_T.shape) != (8, Rp) or gh_T.dtype != gh_dt:
-        raise ValueError(f"gh_T must be [8, Rp] {gh_dt} with "
-                         f"quant_bits={quant_bits}; got "
-                         f"{tuple(gh_T.shape)} {gh_T.dtype}")
+    Rp, Sp = _check_level_inputs(bins_T, leaf_T, gh_T, W, tbl, fmask,
+                                 num_bins, f_oh, nch, quant_bits, packed)
     dev = bins_T.device
-    if gh_T.device != dev:
-        raise ValueError("gh_T and bins_T are on different devices")
-    if fmask is not None and (tuple(fmask.shape) != (f_oh,)
-                              or fmask.dtype != torch.bool
-                              or fmask.device != dev):
-        raise ValueError(f"fmask must be [{f_oh}] bool on {dev}")
     if dev.type == "cpu":
         return level_pass_plain(bins_T, leaf_T, gh_T, W, tbl, fmask,
                                 num_bins=num_bins, f_oh=f_oh, nch=nch,
                                 quant_bits=quant_bits, packed=packed)
     _require_cuda(bins_T, leaf_T, gh_T, W, tbl)
-    from .cuda_build import library
-    ktab, kmask, K = _kernel_layout(packed, fmask, f_oh, dev)
     FB = W.shape[1]
-    hist = torch.zeros((FB, nch * Sp), device=dev,
+    C = nch * Sp
+    hist = torch.zeros((FB, C), device=dev,
                        dtype=torch.int32 if quant_bits else torch.float32)
     new_leaf = torch.empty_like(leaf_T)
-    rc = library().lgbt_level_pass(
-        bins_T.data_ptr(), bins_T.element_size(), leaf_T.data_ptr(),
-        gh_T.data_ptr(), int(bool(quant_bits)), W.data_ptr(), tbl.data_ptr(),
-        _ptr(ktab), _ptr(kmask), hist.data_ptr(), new_leaf.data_ptr(), Rp,
-        K, num_bins, FB, Sp, nch, _stream(dev))
-    _raise_on(rc, "level_pass")
+    # the per-slot counts, the partition's cursors and the slab table
+    _level_launch(LEVEL_STAGES, bins_T, leaf_T, gh_T, W, tbl, fmask,
+                  hist=hist, new_leaf=new_leaf,
+                  row_slot=torch.empty(Rp, dtype=torch.int8, device=dev),
+                  counts=torch.zeros(3 * Sp, dtype=torch.int32, device=dev),
+                  stage=_stage_buffer(_kernel_row_count(f_oh, packed),
+                                      bins_T, nch, quant_bits),
+                  num_bins=num_bins, f_oh=f_oh, nch=nch,
+                  quant_bits=quant_bits, packed=packed, FB=FB, Sp=Sp, Rp=Rp,
+                  bin_bytes=bins_T.element_size())
     launches["level_pass"] += 1
     variant = variant_name(quant_bits, packed is not None, fmask is not None)
     if variant != "f32":
         variant_launches["level_pass:" + variant] += 1
     return hist, new_leaf
+
+
+def level_mark(bins_T: torch.Tensor, leaf_T: torch.Tensor,
+               gh_T: torch.Tensor, W: torch.Tensor, tbl: torch.Tensor,
+               fmask: torch.Tensor = None, *, num_bins: int, f_oh: int,
+               nch: int = NCH_PRECISE, quant_bits: int = 0,
+               packed: PackedLayout = None):
+    """Stage 1 of :func:`level_pass` alone (same operands): (new_leaf
+    [1, Rp] int32, row_slot [Rp] int8, counts [Sp] int32), as
+    :func:`level_mark_plain` describes."""
+    Rp, Sp = _check_level_inputs(bins_T, leaf_T, gh_T, W, tbl, fmask,
+                                 num_bins, f_oh, nch, quant_bits, packed)
+    dev = bins_T.device
+    if dev.type == "cpu":
+        return level_mark_plain(bins_T, leaf_T, gh_T, W, tbl, fmask,
+                                num_bins=num_bins, f_oh=f_oh, nch=nch,
+                                quant_bits=quant_bits, packed=packed)
+    _require_cuda(bins_T, leaf_T, gh_T, W, tbl)
+    new_leaf = torch.empty_like(leaf_T)
+    row_slot = torch.empty(Rp, dtype=torch.int8, device=dev)
+    counts = torch.zeros(3 * Sp, dtype=torch.int32, device=dev)
+    _level_launch(LEVEL_STAGES[:1], bins_T, leaf_T, gh_T, W, tbl, fmask,
+                  hist=None, new_leaf=new_leaf, row_slot=row_slot,
+                  counts=counts, stage=None, num_bins=num_bins,
+                  f_oh=f_oh, nch=nch, quant_bits=quant_bits, packed=packed,
+                  FB=W.shape[1], Sp=Sp, Rp=Rp,
+                  bin_bytes=bins_T.element_size())
+    return new_leaf, row_slot, counts[:Sp]
+
+
+def _check_stage_operands(row_slot, counts, Rp):
+    if row_slot is not None and (tuple(row_slot.shape) != (Rp,)
+                                 or row_slot.dtype != torch.int8):
+        raise ValueError(f"row_slot must be [{Rp}] int8")
+    if counts.dim() != 1 or counts.dtype != torch.int32 \
+            or not 1 <= counts.shape[0] <= MAX_SLOTS:
+        raise ValueError(f"counts must be [Sp] int32, Sp <= {MAX_SLOTS}")
+
+
+def level_partition(bins_T: torch.Tensor, gh_T: torch.Tensor,
+                    row_slot: torch.Tensor, counts: torch.Tensor, *,
+                    num_bins: int, f_oh: int, nch: int = NCH_PRECISE,
+                    quant_bits: int = 0, packed: PackedLayout = None
+                    ) -> torch.Tensor:
+    """Stage 2 of :func:`level_pass` alone: the staging records as
+    :func:`level_partition_plain` describes, from :func:`level_mark`'s
+    ``row_slot`` and ``counts``; on the card the order inside a bucket is
+    arbitrary and the rows past the last bucket are unset."""
+    if bins_T.dim() != 2 or bins_T.dtype not in (torch.int8, torch.int16):
+        raise ValueError("bins_T must be a 2-D int8 or int16 tensor")
+    Rp = bins_T.shape[1]
+    _check_stage_operands(row_slot, counts, Rp)
+    _check_channels(gh_T, Rp, nch, quant_bits, bins_T.device)
+    kw = dict(num_bins=num_bins, f_oh=f_oh, nch=nch, quant_bits=quant_bits,
+              packed=packed)
+    if bins_T.device.type == "cpu":
+        return level_partition_plain(bins_T, gh_T, row_slot, counts, **kw)
+    _require_cuda(bins_T, gh_T, row_slot, counts)
+    Sp = counts.shape[0]
+    cnt = torch.zeros(2 * Sp, dtype=torch.int32, device=bins_T.device)
+    cnt[:Sp] = counts
+    stage = _stage_buffer(_kernel_row_count(f_oh, packed), bins_T, nch,
+                          quant_bits)
+    _level_launch(LEVEL_STAGES[1:2], bins_T, None, gh_T, None, None, None,
+                  hist=None, new_leaf=None, row_slot=row_slot, counts=cnt,
+                  stage=stage, FB=0, Sp=Sp, Rp=Rp,
+                  bin_bytes=bins_T.element_size(), **kw)
+    return stage
+
+
+def level_hist(stage: torch.Tensor, counts: torch.Tensor,
+               fmask: torch.Tensor = None, *, bin_bytes: int, num_bins: int,
+               f_oh: int, nch: int = NCH_PRECISE, quant_bits: int = 0,
+               packed: PackedLayout = None) -> torch.Tensor:
+    """Stage 3 of :func:`level_pass` alone: the [FB, nch*Sp] histogram of
+    each slot's bucket of :func:`level_partition`'s staging records
+    (``bin_bytes`` 1 or 2: the bins' width in them)."""
+    _check_stage_operands(None, counts, None)
+    K = _kernel_row_count(f_oh, packed)
+    _, rec_bytes = record_layout(K, bin_bytes, nch, 1 if quant_bits else 2)
+    if stage.dim() != 2 or stage.shape[1] != rec_bytes \
+            or stage.dtype != torch.uint8:
+        raise ValueError(f"stage must be [Rp, {rec_bytes}] uint8")
+    if packed is not None:
+        _check_packed(packed, num_bins, f_oh)
+    kw = dict(num_bins=num_bins, f_oh=f_oh, nch=nch, quant_bits=quant_bits,
+              packed=packed)
+    if stage.device.type == "cpu":
+        return level_hist_plain(stage, counts, fmask, bin_bytes=bin_bytes,
+                                **kw)
+    _require_cuda(stage, counts)
+    Sp = counts.shape[0]
+    FB = packed.fb if packed is not None else f_oh * num_bins
+    hist = torch.zeros((FB, nch * Sp), device=stage.device,
+                       dtype=torch.int32 if quant_bits else torch.float32)
+    _level_launch(LEVEL_STAGES[2:], None, None, None, None, None, fmask,
+                  hist=hist, new_leaf=None, row_slot=None, counts=counts,
+                  stage=stage, FB=FB, Sp=Sp, Rp=stage.shape[0],
+                  bin_bytes=bin_bytes, **kw)
+    return hist
 
 
 def route_pass(bins_T: torch.Tensor, leaf_T: torch.Tensor, W: torch.Tensor,
@@ -539,6 +856,7 @@ def route_pass(bins_T: torch.Tensor, leaf_T: torch.Tensor, W: torch.Tensor,
         K, num_bins, W.shape[1], Sp, _stream(bins_T.device))
     _raise_on(rc, "route_pass")
     launches["route_pass"] += 1
+    cuda_launches["route_pass"] += 1
     if packed is not None:
         variant_launches["route_pass:packed"] += 1
     return new_leaf
@@ -564,6 +882,7 @@ def table_lookup(idx_T: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         table.shape[0], _stream(idx_T.device))
     _raise_on(rc, "table_lookup")
     launches["table_lookup"] += 1
+    cuda_launches["table_lookup"] += 1
     return out
 
 
@@ -627,4 +946,5 @@ def epilogue_pass(bins_T: torch.Tensor, leaf_T: torch.Tensor,
         EPILOGUE_KINDS.index(kind), float(sigmoid), _stream(dev))
     _raise_on(rc, "epilogue_pass")
     launches["epilogue_pass"] += 1
+    cuda_launches["epilogue_pass"] += 1
     return hist, new_score, gh_T

@@ -30,7 +30,8 @@ from typing import Tuple
 import torch
 
 from . import quantize
-from .fused_level import _raise_on, _require_cuda, _stream, launches
+from .fused_level import (_raise_on, _require_cuda, _stream, cuda_launches,
+                          launches)
 from .layout import feature_layout
 
 NUM_CH = 3
@@ -111,6 +112,7 @@ def hist_pass(bins_i32: torch.Tensor, gh: torch.Tensor,
         _stream(bins_i32.device))
     _raise_on(rc, "hist_pass")
     launches["hist_pass"] += 1
+    cuda_launches["hist_pass"] += 1
     return out
 
 

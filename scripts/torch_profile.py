@@ -17,10 +17,12 @@ levels) and ``cuts`` the same with the histogram-plane cuts of its run (b)
 iterations, then traces ``--rounds`` more with ``torch.profiler`` and
 prints one JSON line: the wall time per iteration, the device time summed
 over all kernels, the device's busy share (device time over wall time),
-the device launches per iteration, each of the port's CUDA kernels' device
-ms per iteration, the kernels ranked by device time, and the grower's host
-syncs per tree. Also prints the card's name and power limit. Needs a CUDA
-device.
+the device launches per iteration, each of the port's kernels' device ms
+per iteration (``level_pass`` as the sum of its four CUDA kernels, each
+also on its own), the port's CUDA kernel launches per iteration
+(``ops.fused_level.cuda_launches``), the kernels ranked by device time,
+and the grower's host syncs per tree. Also prints the card's name and
+power limit. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -88,6 +90,7 @@ def main() -> int:
 def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int):
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from lightgbm_tpu_torch.ops import fused_level as fl
     ds.params = {}   # a Booster keeps its params in its Dataset: no leaks
     bst = lgb.Booster(params=params, train_set=ds)
     bst._gbdt.arm_megastep(megastep)
@@ -95,6 +98,7 @@ def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int):
         bst.update()
     torch.cuda.synchronize()
     frontier2.host_syncs["count"] = 0
+    fl.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -116,9 +120,9 @@ def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int):
     rows.sort(reverse=True)
     dev_total_us = sum(r[0] for r in rows)
     kernel_ms = {k: sum(d for d, key, _ in rows if f"{k}_kernel" in key)
-                 / 1e3 / rounds
-                 for k in ("level_pass", "route_pass", "table_lookup",
-                           "epilogue_pass", "hist_pass")}
+                 / 1e3 / rounds for k in fl.cuda_launches}
+    kernel_ms = {"level_pass": sum(kernel_ms[k] for k in fl.LEVEL_KERNELS),
+                 **kernel_ms}
     g = bst._gbdt
     return {
         "rows": ds._inner.num_data, "iterations": rounds,
@@ -133,6 +137,8 @@ def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int):
         "host_syncs_per_tree": frontier2.host_syncs["count"] / rounds,
         "device_launches_per_iter": sum(r[2] for r in rows) / rounds,
         "kernel_ms_per_iter": kernel_ms,
+        "cuda_launches_per_iter": {k: v / rounds
+                                   for k, v in fl.cuda_launches.items()},
         "top_device_ops": [{"name": k[:80], "calls_per_iter": c / rounds,
                             "ms_per_iter": d / 1e3 / rounds}
                            for d, k, c in rows[:15]]}

@@ -16,6 +16,7 @@ from lightgbm_tpu_torch.ops import layout as tlayout
 from lightgbm_tpu_torch.ops import pallas_histogram as tph
 from lightgbm_tpu_torch.ops import quantize as tq
 from lightgbm_tpu_torch.ops.layout import feature_layout
+from torch_parity import level_operands
 
 pytestmark = pytest.mark.cuda
 
@@ -458,3 +459,169 @@ def test_cuda_cuts_training_matches_cpu(cuda_device):
     np.testing.assert_allclose(bg.predict(X, raw_score=True),
                                bc.predict(X, raw_score=True), rtol=1e-5,
                                atol=1e-6)
+
+
+# ------------------------------------------- level_pass stages (slot tiles)
+# (R, Rp, num_bin, Bp, Sp, operand keywords): the dynamic shared-memory
+# tile (Bp=256 int16, Sp=64: 143,360 B), a layout wide enough to need two
+# feature groups (64 features of 256 bins), Sp=128 with nch=3, the root
+# (one slot, every row), the mixed 8-bin rows at Sp=8 (hot cells), Rp not
+# a multiple of any block's rows, and the cuts
+STAGE_SHAPES = {
+    "bp256-sp64": (40000, 40960, [255] * 28, 256, 64, {}),
+    "two-groups": (20000, 20480, [255] * 64, 256, 8, {}),
+    "sp128-nch3": (60000, 61440, [63] * 28, 64, 128, dict(nch=3)),
+    "root": (50000, 51200, [63] * 28, 64, 1, {}),
+    "root-quant16-packed-masked": (50000, 51200, [63] * 14 + [8] * 14, 64, 1,
+                                   dict(quant_bits=16, packed=True,
+                                        masked=True)),
+    "mixed-sp8": (60000, 61440, [63] * 14 + [8] * 14, 64, 8, {}),
+    "mixed-sp8-quant8": (60000, 61440, [63] * 14 + [8] * 14, 64, 8,
+                         dict(quant_bits=8)),
+    "ragged-rp": (12001, 12345, [63] * 28, 64, 16, dict(masked=True)),
+    "quant16-packed-masked": (60000, 61440, [63] * 14 + [8] * 14, 64, 64,
+                              dict(quant_bits=16, packed=True, masked=True)),
+}
+
+
+def _assert_hist_close(got, want, nch, Sp, quant):
+    """int32 planes exact; f32 within 1e-5 of each plane's largest
+    magnitude (atomics reorder the sums), the weight channel exact."""
+    if quant:
+        assert torch.equal(got, want)
+        return
+    for ch in range(nch):
+        g, w = got[:, ch * Sp:(ch + 1) * Sp], want[:, ch * Sp:(ch + 1) * Sp]
+        if ch == nch - 1:
+            assert torch.equal(g, w), "weight channel"
+        else:
+            scale = float(w.abs().max()) or 1.0
+            assert float((g - w).abs().max()) <= 1e-5 * scale, ch
+
+
+@pytest.mark.parametrize("shape", list(STAGE_SHAPES))
+def test_level_stages_match_plain(cuda_device, shape):
+    R, Rp, num_bin, Bp, Sp, extra = STAGE_SHAPES[shape]
+    ops, fm, kw = level_operands(R, Rp, num_bin, Bp, Sp, seed=Sp + Bp,
+                                 device=cuda_device, **extra)
+    nch, quant = kw["nch"], kw["quant_bits"]
+    n0, c0 = dict(tfl.launches), dict(tfl.cuda_launches)
+    # stage 1
+    mark_k = tfl.level_mark(*ops, fm, **kw)
+    mark_p = tfl.level_mark_plain(*ops, fm, **kw)
+    for name, a, b in zip(("new_leaf", "row_slot", "counts"), mark_k,
+                          mark_p):
+        assert torch.equal(a, b), name
+    new_leaf, row_slot, counts = mark_p
+    n = int(counts.sum())
+    assert n > 0
+    # stage 2: each slot's bucket holds the same records (the order
+    # inside a bucket is the kernel's own), compared sorted bytewise
+    stage_k = tfl.level_partition(ops[0], ops[2], row_slot, counts, **kw)
+    stage_p = tfl.level_partition_plain(ops[0], ops[2], row_slot, counts,
+                                        **kw)
+    rec_k, rec_p = stage_k[:n].cpu().numpy(), stage_p[:n].cpu().numpy()
+    off = np.concatenate([[0], np.cumsum(counts.cpu().numpy())])
+    for k in range(Sp):
+        a, b = rec_k[off[k]:off[k + 1]], rec_p[off[k]:off[k + 1]]
+        assert np.array_equal(a[np.lexsort(a.T[::-1])],
+                              b[np.lexsort(b.T[::-1])]), k
+    # stage 3 on the kernel's records
+    bb = dict(bin_bytes=ops[0].element_size())
+    hist_k = tfl.level_hist(stage_k, counts, fm, **bb, **kw)
+    hist_p = tfl.level_hist_plain(stage_k, counts, fm, **bb, **kw)
+    _assert_hist_close(hist_k, hist_p, nch, Sp, quant)
+    # the three stages in one wrapper call
+    hist_l, leaf_l = tfl.level_pass(*ops, fm, **kw)
+    hist_r, leaf_r = tfl.level_pass_plain(*ops, fm, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(leaf_l, leaf_r)
+    _assert_hist_close(hist_l, hist_r, nch, Sp, quant)
+    assert hist_r.abs().sum() > 0
+    if fm is not None:
+        keep = tfl.expand_feature_mask(fm, kw["f_oh"], Bp, kw["packed"])
+        assert not hist_l[~keep].any()
+    assert {k: tfl.launches[k] - n0[k] for k in n0}["level_pass"] == 1
+    assert {k: tfl.cuda_launches[k] - c0[k] for k in c0
+            if k.startswith("level_")} == {"level_slabs": 2,
+                                           "level_mark": 2,
+                                           "level_partition": 2,
+                                           "level_hist": 2}
+
+
+def test_level_hist_groups_on_the_card(cuda_device):
+    """The wide layout really runs as two feature groups."""
+    F_oh = 64
+    budget = tfl._smem_budget(cuda_device)
+    assert budget >= 200 * 1024          # the H100 opts into 227 KB
+    assert tfl.hist_groups(F_oh, 256, 5, budget) == (32, 32)
+    assert tfl.hist_groups(28, 256, 5, budget) == (28, 32)
+
+
+def test_level_pass_refused_launch_raises(cuda_device, monkeypatch):
+    """A histogram tile larger than the card lets a block have: the launch
+    is refused and the wrapper raises; the plain versions are never run."""
+    ops, fm, kw = level_operands(4000, 4096, [255] * 64, 256, 8, seed=1,
+                                 device=cuda_device)
+
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+    monkeypatch.setattr(tfl, "_smem_budget", lambda dev: 1 << 20)
+    for name in ("level_pass_plain", "level_mark_plain",
+                 "level_partition_plain", "level_hist_plain", "_hist_plain"):
+        monkeypatch.setattr(tfl, name, plain)
+    assert tfl.hist_groups(64, 256, 5, 1 << 20) == (64, 32)   # 327,680 B
+    c0 = dict(tfl.cuda_launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tfl.level_pass(*ops, fm, **kw)
+    # the C entry reports the kernels launched before the refusal
+    assert {k: tfl.cuda_launches[k] - c0[k] for k in tfl.LEVEL_KERNELS} \
+        == {"level_slabs": 1, "level_mark": 1, "level_partition": 1,
+            "level_hist": 0}
+    monkeypatch.undo()
+    torch.cuda.synchronize()            # the context is still sound
+    hist, leaf = tfl.level_pass(*ops, fm, **kw)
+    hist_p, leaf_p = tfl.level_pass_plain(*ops, fm, **kw)
+    assert torch.equal(leaf, leaf_p)
+    _assert_hist_close(hist, hist_p, kw["nch"], 8, False)
+
+
+@pytest.mark.parametrize("R,L,offset", [(1_001_472, 255, 0), (1001, 255, 1),
+                                        (4099, 5000, 0), (3, 255, 0)])
+def test_table_lookup_matches_plain(cuda_device, R, L, offset):
+    """Four rows per thread on aligned pointers, a scalar tail, an
+    unaligned index view (all scalar), and a table too large to stage."""
+    rng = np.random.RandomState(R)
+    idx = rng.randint(-1, L + 2, R + offset).astype(np.int32)
+    idx_T = torch.as_tensor(idx[None, :], device=cuda_device)[:, offset:]
+    table = torch.as_tensor(rng.randn(L).astype(np.float32),
+                            device=cuda_device)
+    out = tfl.table_lookup(idx_T, table)
+    assert torch.equal(out, tfl.table_lookup_plain(idx_T, table))
+
+
+def test_level_mark_routes_any_route_table(cuda_device):
+    """The mark kernel reads one slab per slot where the slot's W row is
+    non-zero on one kernel row only (as the grower builds it); a row that
+    spans two slabs takes the full sum, an all-zero row sends every row
+    right. Both against the plain version's full sum."""
+    ops, fm, kw = level_operands(30000, 30720, [63] * 28, 64, 8, seed=4,
+                                 device=cuda_device)
+    bins_T, leaf_T, gh_T, W, tbl = ops
+    W = W.clone()
+    j0 = int(W[0].view(-1, 64).float().sum(1).nonzero()[0])
+    j2 = (j0 + 5) % 28
+    W[0, j2 * 64:j2 * 64 + 20] = 1           # slot 0: two slabs
+    W[2] = 0                                 # slot 2: none
+    ops = (bins_T, leaf_T, gh_T, W, tbl)
+    for a, b in zip(tfl.level_mark(*ops, fm, **kw),
+                    tfl.level_mark_plain(*ops, fm, **kw)):
+        assert torch.equal(a, b)
+    hist, leaf = tfl.level_pass(*ops, fm, **kw)
+    hist_p, leaf_p = tfl.level_pass_plain(*ops, fm, **kw)
+    assert torch.equal(leaf, leaf_p)
+    _assert_hist_close(hist, hist_p, kw["nch"], 8, False)
+    moved = leaf_p != leaf_T
+    assert bool(moved[leaf_T == 0].any()) and bool((~moved)[leaf_T == 0]
+                                                   .any())
+    assert bool(moved[leaf_T == 2].all())

@@ -118,3 +118,81 @@ def assert_update_matches_jax(data, params, trees=UPDATES):
     np.testing.assert_allclose(bt.train_scores().numpy(),
                                np.asarray(bj._gbdt.scores)[0], rtol=1e-5,
                                atol=1e-6)
+
+
+def level_operands(R, Rp, num_bin, Bp, Sp, *, nch=5, quant_bits=0,
+                   packed=False, masked=False, seed=0, device="cpu"):
+    """Operands of one ``level_pass`` from a numpy seed, on ``device``.
+
+    Feature f's bins lie in [0, num_bin[f]); rows R..Rp-1 are padding (leaf
+    -1, bins 0, channels 0); ~30% of the real rows have zero channels (out
+    of the bag). With Sp >= 3 the slots are leaves 0..Sp-2 on random
+    splits with missing types None/Zero/NaN, slot 1's leaf holds no row
+    (an empty slot) and slot Sp-1 is inactive (-2). Sp = 1 is the root
+    pass: every real row in leaf 0, sent left over the first kernel row's
+    slab into the smaller child. ``quant_bits`` packs the int8 channels
+    (nch from QNCH), ``packed`` lays the rows out on the adaptive layout,
+    ``masked`` turns every odd feature off but logical feature 0 and the
+    first kernel row's feature (the grower's rule).
+
+    Returns ((bins_T, leaf_T, gh_T, W, tbl), fmask or None, the level
+    wrappers' keywords).
+    """
+    import torch
+    from lightgbm_tpu_torch.ops import fused_level as tfl
+    from lightgbm_tpu_torch.ops import layout as tlayout
+    from lightgbm_tpu_torch.ops.quantize import QNCH
+    rng = np.random.RandomState(seed)
+    t = torch.as_tensor
+    nb = np.asarray(num_bin, np.int32)
+    F = len(nb)
+    F_oh, _ = tlayout.feature_layout(F, Bp)
+    pk = (tlayout.packed_feature_layout(nb, Bp - 1, f_oh=F_oh)
+          if packed else None)
+    order = np.asarray(pk.feat_order) if packed else np.arange(F)
+    bins = np.zeros((max(F_oh, 8), Rp), np.int64)
+    bins[:F, :R] = np.stack([rng.randint(0, n, R) for n in nb])[order]
+    w = (rng.rand(Rp) >= 0.3).astype(np.float32)
+    w[R:] = 0
+    g = t(rng.randn(Rp).astype(np.float32) * w)
+    h = t(rng.rand(Rp).astype(np.float32) * 0.25 * w)
+    if quant_bits:
+        nch = QNCH[quant_bits]
+        gh, _ = tfl.pack_gh_quant(g, h, t(w), quant_bits, seed=seed)
+    else:
+        gh = tfl.pack_gh(g, h, t(w), nch)
+    tbl = np.zeros((Sp, 128), np.int32)
+    if Sp == 1:
+        leaf = np.zeros(Rp, np.int32)
+        W = torch.zeros((1, pk.fb if packed else F_oh * Bp),
+                        dtype=torch.bfloat16)
+        W[0, :pk.widths[0] if packed else Bp] = 1
+        tbl[0, 2] = 1
+    else:
+        lof = np.arange(Sp, dtype=np.int32)
+        lof[-1] = -2
+        live = [k for k in range(Sp - 1) if k != 1] or [0]
+        leaf = rng.choice(live, Rp).astype(np.int32)
+        feat = np.where(lof >= 0, rng.randint(0, F, Sp), -1).astype(np.int32)
+        thr = (rng.rand(Sp) * (nb[np.maximum(feat, 0)] - 1)).astype(np.int32)
+        W = tfl.build_route_table(
+            t(feat), t(thr), t(rng.rand(Sp) < 0.5), t(nb),
+            t(rng.randint(0, 3, F).astype(np.int32)),
+            t((rng.rand(F) * (nb - 1)).astype(np.int32)), Sp, F_oh, Bp)
+        if packed:
+            W = tfl.pack_route_table(W, pk)
+        tbl[:, 0] = lof
+        tbl[:, 1] = np.where(lof >= 0, Sp, 0)
+        tbl[:, 2] = rng.randint(0, 2, Sp)
+    leaf[R:] = -1
+    fm = None
+    if masked:
+        fm = torch.arange(F_oh) % 2 == 0
+        fm[int(order[0])] = True
+    dev = torch.device(device)
+    ops = (t(bins).to(torch.int8 if Bp <= 128 else torch.int16),
+           t(leaf)[None, :], gh, W, t(tbl))
+    ops = tuple(a.to(dev).contiguous() for a in ops)
+    kw = dict(num_bins=Bp, f_oh=F_oh, nch=nch, quant_bits=quant_bits,
+              packed=pk)
+    return ops, None if fm is None else fm.to(dev), kw
