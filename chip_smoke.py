@@ -7,13 +7,20 @@ Phases, one JSON line each; any failure raises and the script exits
 non-zero (it prints no result line then):
 
 1. environment and build: the card's name and power limit (nvidia-smi),
-   torch and CUDA versions; the CUDA kernels built from ``csrc/``;
+   torch and CUDA versions; the CUDA kernels built from ``csrc/``, with
+   each kernel instance's registers, spills and shared memory (ptxas);
+   then the instructions the epilogue's histogram stage compiled to
+   (cuobjdump: no matrix instruction, no atomic; PERF.md has the
+   tensor-core design it replaced);
 2. each kernel against its plain PyTorch version on the card, at the
    slices' shapes: Rp = 1,001,472 rows, 28 features, Bp=64 with int8 bins
    and Bp=256 with int16 bins, Sp in {8, max_slot_cap}, nch in {5, 3}, a
-   255-entry lookup table; ``epilogue_pass`` also for kind binary and l2
-   and once with an all-inactive deferred table, with ~30% zero bag
-   weights; ``hist_pass`` at R = 1,000,000 rows, Fp = 28, Bp in {64, 256},
+   255-entry lookup table; ``route_pass`` also on a route table with a
+   row over two slabs and an all-zero row; ``epilogue_pass`` also for
+   kind binary and l2, on such a route table for each Bp and nch, and
+   once with an all-inactive deferred table, with ~30% zero bag weights,
+   and each of its CUDA kernels timed alone at the main shape;
+   ``hist_pass`` at R = 1,000,000 rows, Fp = 28, Bp in {64, 256},
    S in {8, 64}, f32 (nch 3) and quantized to 8 bits (nch 3) and 16 bits
    (nch 5), ~30% of rows at slot -1 with non-zero gh; the histogram-plane
    variants of ``level_pass`` (quantized to 8 and 16 bits, packed,
@@ -55,8 +62,11 @@ non-zero (it prints no result line then):
    syncs per tree, AUC (within 0.05 of run a), predict agreement, the
    packed flat width against F_oh * Bp, the features screening keeps;
 7. the ``kernels`` line: every ported kernel and variant with its
-   wrapper calls and CUDA kernel launches on the main path where it runs,
-   error, time per launch, plain time, bound and library time;
+   wrapper calls and CUDA kernel launches on the main path where it runs
+   (every level_pass, route_pass and epilogue_pass call in phases 3-6
+   held to one launch of each of its CUDA kernels), error, time per
+   launch, plain time, bound and library time, and per-kernel times of
+   ``level_pass`` and ``epilogue_pass``;
 8. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package. It exits non-zero when no CUDA
@@ -205,8 +215,19 @@ def call_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-# the template instances' arguments in ptxas's mangled names
-_MANGLED_TYPES = {"a": "int8", "s": "int16", "13__nv_bfloat16": "bf16"}
+# the template instances' arguments in ptxas's mangled names (an int
+# argument as its value, a bool as true or false)
+_MANGLED_TYPES = {"a": "int8", "s": "int16", "13__nv_bfloat16": "bf16",
+                  "f": "f32", "i": "int32"}
+_MANGLED = r"(a|s|f|i|13__nv_bfloat16|L[ib]\d+E)"
+
+
+def _demangled_arg(t: str) -> str:
+    if t.startswith("Li"):
+        return t[2:-1]
+    if t.startswith("Lb"):
+        return "true" if t[2] == "1" else "false"
+    return _MANGLED_TYPES[t]
 
 
 def ptxas_summary(report: str):
@@ -215,15 +236,15 @@ def ptxas_summary(report: str):
     import re
     out = []
     for block in report.split("Compiling entry function")[1:]:
-        m = re.search(r"lgbt\d+(\w+?_kernel)(?:I(a|s|13__nv_bfloat16)"
-                      r"(a|s|13__nv_bfloat16)?E)?", block)
+        m = re.search(r"lgbt\d+(\w+?_kernel)(?:I" + _MANGLED + _MANGLED
+                      + "?" + _MANGLED + r"?E)?", block)
         used = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$",
                          block, re.M)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", block)
         if not (m and used):
             continue
-        args = [_MANGLED_TYPES[t] for t in m.groups()[1:] if t]
+        args = [_demangled_arg(t) for t in m.groups()[1:] if t]
         out.append({"kernel": m.group(1) + (f"<{','.join(args)}>"
                                             if args else ""),
                     "registers": int(used.group(1)),
@@ -240,20 +261,72 @@ def bound(nbytes: float, ops: float):
 
 
 def check_stages(launches, cuda, run) -> None:
-    """Every level_pass call launched the four CUDA kernels of its three
-    stages, as the C entry reports each launch (``cuda_launches``)."""
+    """Every level_pass, route_pass and epilogue_pass call launched each
+    CUDA kernel of its stages once (level_pass exactly its four), as the C
+    entries report each launch (``cuda_launches``)."""
     from lightgbm_tpu_torch.ops import fused_level as fl
-    got = {k: cuda[k] for k in fl.LEVEL_KERNELS}
-    if got != dict.fromkeys(fl.LEVEL_KERNELS, launches["level_pass"]):
-        raise AssertionError(f"{run}: {launches['level_pass']} level_pass "
-                             f"calls launched the CUDA kernels {got}")
+    for wrapper, kernels in (("level_pass", fl.LEVEL_KERNELS),
+                             ("route_pass", fl.ROUTE_KERNELS),
+                             ("epilogue_pass", fl.EPILOGUE_KERNELS)):
+        got = {k: cuda[k] for k in kernels}
+        if got != dict.fromkeys(kernels, launches[wrapper]):
+            raise AssertionError(f"{run}: {launches[wrapper]} {wrapper} "
+                                 f"calls launched the CUDA kernels {got}")
 
 
 def kernel_cuda_launches(name, cuda):
     """The CUDA kernel launches of one wrapper in a run's counts."""
     from lightgbm_tpu_torch.ops import fused_level as fl
-    return {k: cuda[k] for k in (fl.LEVEL_KERNELS if name == "level_pass"
-                                 else (name,))}
+    kernels = {"level_pass": fl.LEVEL_KERNELS,
+               "route_pass": fl.ROUTE_KERNELS,
+               "epilogue_pass": fl.EPILOGUE_KERNELS}.get(name, (name,))
+    return {k: cuda[k] for k in kernels}
+
+
+def odd_route_table(W, slabs, seed):
+    """The route table with slot 0's row spread over a second kernel row's
+    slab and slot 2's row all zero (``slabs``: each kernel row's offset
+    and width): any 0/1 W must route as the full W @ one-hot sum does,
+    though the grower's has one slab per row."""
+    W = W.clone()
+    K = len(slabs)
+    j0 = next(j for j, (o, w) in enumerate(slabs) if bool(W[0, o:o + w].any()))
+    o, w = slabs[(j0 + 1 + seed % (K - 1)) % K]
+    W[0, o:o + max(1, w // 2)] = 1
+    W[2] = 0
+    return W
+
+
+def kernel_slabs(K, B, pk):
+    """(offset, width) of each kernel row's slab on the flat axis."""
+    if pk is not None:
+        return [(int(o), int(w)) for o, w in zip(pk.flat_offsets, pk.widths)]
+    return [(j * B, B) for j in range(K)]
+
+
+def sass_hist_ops(lib_path):
+    """How many tensor-core (HMMA), shared-atomic (ATOMS), global-atomic
+    (RED, ATOMG) and shared load/store and f32 add instructions each
+    epilogue_hist_kernel instance of the built library holds (cuobjdump
+    -sass): the root histogram's adds as compiled."""
+    import re
+    from pathlib import Path
+    from lightgbm_tpu_torch.ops import cuda_build
+    tool = str(Path(cuda_build.nvcc_path()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for block in sass.split("Function : ")[1:]:
+        m = re.match(r"\S*epilogue_hist_kernelI(a|s)Li(\d)E", block)
+        if not m:
+            continue
+        ops = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                         block, re.M)
+        out[f"epilogue_hist_kernel<{_MANGLED_TYPES[m.group(1)]},"
+            f"{m.group(2)}>"] = {
+            op: ops.count(op) for op in ("HMMA", "ATOMS", "RED", "ATOMG",
+                                         "LDS", "STS", "FADD", "LDGSTS")}
+    return out
 
 
 def _level_inputs(Rp, R, num_bin, B, Sp, nch, seed, quant_bits=0,
@@ -386,10 +459,20 @@ def check_level(Rp, R, num_bin, B, Sp, seed, nch=5, quant_bits=0,
     if not torch.equal(route_k, route_p):
         raise AssertionError(f"route_pass new_leaf differs (B={B} Sp={Sp} "
                              f"packed={packed})")
+    # any 0/1 route table: a row over two slabs, an all-zero row
+    K_rows = len(pk.feat_order) if pk is not None else F
+    W_odd = odd_route_table(W, kernel_slabs(K_rows, B, pk), seed)
+    if not torch.equal(fl.route_pass(bins_T, leaf_T, W_odd, tbl, **rkw),
+                       fl.route_pass_plain(bins_T, leaf_T, W_odd, tbl,
+                                           **rkw)):
+        raise AssertionError(f"route_pass new_leaf differs on a W over "
+                             f"several slabs (B={B} Sp={Sp} packed={packed})")
     out = {"variant": variant, "B": B, "Sp": Sp, "nch": nch,
            "bins": str(bins_T.dtype).replace("torch.", ""),
            "num_bin": sorted({int(v) for v in num_bin}), "FB": W.shape[1],
-           "launches": launched, "cuda_launches": cuda_launched}
+           "launches": launched, "cuda_launches": cuda_launched,
+           "route_pass_equal_on": ["grower W", "W with a row over two "
+                                   "slabs and an all-zero row"]}
     abs_err = float((hist_k.double() - hist_p.double()).abs().max())
     if quant_bits:
         if not torch.equal(hist_k, hist_p):
@@ -469,7 +552,6 @@ def check_level(Rp, R, num_bin, B, Sp, seed, nch=5, quant_bits=0,
                live_kernel_rows=k_live)
     # the histogram stage's tile: Kg kernel rows per group, Cw columns,
     # the widest slab's bins down each band; the staging record's bytes
-    K_rows = len(pk.feat_order) if pk is not None else F
     width = max(pk.widths) if pk is not None else B
     Kg, Cw = fl.hist_groups(K_rows, width, nch, fl._smem_budget(dev))
     out["hist_tile"] = {"Kg": Kg, "Cw": Cw, "width": width,
@@ -546,17 +628,22 @@ def check_lookup(Rp, R, L, seed):
         "bound_ms": b, "bound_by": by}
 
 
-def check_epilogue(Rp, R, B, Sp, nch, kind, active, seed, L=255):
+def check_epilogue(Rp, R, B, Sp, nch, kind, table, seed, L=255,
+                   stages=False):
     """epilogue_pass against its plain version: rows in Sp leaves before
-    the deferred route (or an all-inactive table), a 255-entry leaf-value
-    table (routed leaves past it add 0), ~30% zero bag weights, padding
-    rows at leaf -1 with zero operands and bag."""
+    the deferred route — ``table`` "grower" (the grower's W), "odd" (a W
+    row over two slabs and an all-zero row) or "inactive" (an all-inactive
+    table) —, a 255-entry leaf-value table (routed leaves past it add 0),
+    ~30% zero bag weights, padding rows at leaf -1 with zero operands and
+    bag. ``stages`` also times each of its CUDA kernels alone."""
     import torch
     from lightgbm_tpu_torch.ops import fused_level as fl
     dev = torch.device(DEVICE)
     (bins_T, leaf_T, _, W, tbl), _ = _level_inputs(
         Rp, R, np.full(FEATURES, B - 1, np.int32), B, Sp, nch, seed)
-    if not active:
+    if table == "odd":
+        W = odd_route_table(W, kernel_slabs(FEATURES, B, None), seed)
+    elif table == "inactive":
         W = torch.zeros_like(W)
         tbl = tbl.clone()
         tbl[:, 0] = -2
@@ -576,10 +663,16 @@ def check_epilogue(Rp, R, B, Sp, nch, kind, active, seed, L=255):
     args = (bins_T, leaf_T, W, tbl, lv, t(score), t(ops), t(bag))
     kw = dict(num_bins=B, f_oh=FEATURES, nch=nch, kind=kind, sigmoid=1.0)
     n0 = fl.launches["epilogue_pass"]
+    c0 = dict(fl.cuda_launches)
     hist_k, score_k, gh_k = fl.epilogue_pass(*args, **kw)
+    launched = fl.launches["epilogue_pass"] - n0
+    cuda_launched = {k: fl.cuda_launches[k] - c0[k]
+                     for k in fl.EPILOGUE_KERNELS}
     hist_p, score_p, gh_p = fl.epilogue_pass_plain(*args, **kw)
     torch.cuda.synchronize()
-    launched = fl.launches["epilogue_pass"] - n0
+    if launched != 1 or set(cuda_launched.values()) != {1}:
+        raise AssertionError(f"epilogue_pass launched {launched} calls, "
+                             f"CUDA kernels {cuda_launched}")
 
     def rel(a, b):
         return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
@@ -644,10 +737,23 @@ def check_epilogue(Rp, R, B, Sp, nch, kind, active, seed, L=255):
               + tbl.numel() * 4 + L * 4 + hist_p.numel() * 4)
     nops = in_slot * FEATURES + Rp * 20 + nonzero * FEATURES * nch
     b_ms, b_by = bound(nbytes, nops)
+    out = {}
+    if stages:
+        # each CUDA kernel alone on the same inputs, into one set of
+        # buffers filled by a whole call first (the pass reads the slab
+        # table, the reduce the partial histograms)
+        buf = fl.epilogue_buffers(bins_T, Sp, num_bins=B, f_oh=FEATURES,
+                                  nch=nch)
+        fl._epilogue_launch(fl.EPILOGUE_KERNELS, *args, buf, **kw)
+
+        def stage(kernel):
+            return lambda: fl._epilogue_launch((kernel,), *args, buf, **kw)
+        out["stages_ms"] = {k: cuda_ms(stage(k)) for k in fl.EPILOGUE_KERNELS}
+        out["row_blocks"] = buf["blocks"]
     return {
         "B": B, "bins": str(bins_T.dtype).replace("torch.", ""), "Sp": Sp,
-        "nch": nch, "kind": kind, "deferred_table": "active" if active
-        else "inactive", "launches": launched,
+        "nch": nch, "kind": kind, "deferred_table": table,
+        "launches": launched, "cuda_launches": cuda_launched, **out,
         "new_score_max_abs_err": score_err, "new_score_tol": "rtol=1e-6",
         "gh_max_abs_err": gh_err, "gh_max_rel_err": rel(dec_k, dec_p),
         "gh_tol": "rtol=4e-5 atol=1e-7",
@@ -1025,6 +1131,16 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0),
           "build_s": build_s, "nvcc_build_s": cuda_build.build_info.get(
               "seconds"), "ptxas": ptxas})
+    # what the epilogue's histogram stage compiled to: its adds are plain
+    # shared-memory loads, f32 adds and stores (no matrix instruction, no
+    # atomic); PERF.md has the tensor-core design it replaced
+    sass = sass_hist_ops(cuda_build.build())
+    emit({"phase": "sass", "epilogue_hist_kernel": sass})
+    if len(sass) != 10 or any(n["ATOMS"] or n["RED"] or n["ATOMG"]
+                             or not (n["LDS"] and n["STS"] and n["FADD"])
+                             for n in sass.values()):
+        raise AssertionError(f"the epilogue's histogram stage compiled to "
+                             f"other instructions than expected: {sass}")
 
     # ---- 2. kernels against their plain versions at the slice's shapes
     Rp = ((ROWS + 2047) // 2048) * 2048
@@ -1049,14 +1165,20 @@ def main() -> int:
             cap = fl.max_slot_cap(FEATURES * B, nch)
             for kind in ("binary", "l2"):
                 for Sp in sorted({8, cap}):
-                    res = check_epilogue(Rp, ROWS, B, Sp, nch, kind, True,
+                    main = (B, nch, kind, Sp) == (64, fl.NCH_PRECISE,
+                                                  "binary", cap)
+                    res = check_epilogue(Rp, ROWS, B, Sp, nch, kind,
+                                         "grower", stages=main,
                                          seed=B + Sp + nch + len(kind))
                     emit({"phase": "kernel_check", "epilogue_pass": res})
-                    if (B, nch, kind, Sp) == (64, fl.NCH_PRECISE, "binary",
-                                              cap):
+                    if main:
                         epi_main = res
-    res = check_epilogue(Rp, ROWS, 64, 64, fl.NCH_PRECISE, "binary", False,
-                         seed=3)
+            res = check_epilogue(Rp, ROWS, B, cap, nch,
+                                 "binary" if nch == fl.NCH_PRECISE else "l2",
+                                 "odd", seed=B + nch + 5)
+            emit({"phase": "kernel_check", "epilogue_pass": res})
+    res = check_epilogue(Rp, ROWS, 64, 64, fl.NCH_PRECISE, "binary",
+                         "inactive", seed=3)
     emit({"phase": "kernel_check", "epilogue_pass": res})
     hist_main = None
     for B in (64, 256):
@@ -1190,7 +1312,7 @@ def main() -> int:
             row.update({k: r[k] for k in ("kernel_ms_per_call",
                                           "library_ms_per_call",
                                           "library_call")})
-        if name == "level_pass":
+        if name in ("level_pass", "epilogue_pass"):
             row["stages_ms"] = r["stages_ms"]
         rows.append(row)
     # the variants at Sp=64 on the mixed layout, each with the launches of

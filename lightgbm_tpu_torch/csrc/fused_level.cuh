@@ -1,7 +1,7 @@
 // Shared device code of the fused-level kernels (level_pass.cu,
 // route_pass.cu, epilogue_pass.cu, table_lookup.cu): the per-level slot
 // tables, the table-driven row routing of lightgbm_tpu/ops/fused_level.py
-// and the scan of per-slot counts.
+// (in full, or through the slab table), and the scan of per-slot counts.
 //
 // Layouts (the JAX package's, unchanged):
 //   bins_T [Fp, Rp] int8 or int16  feature-major, so thread r reading
@@ -56,6 +56,51 @@ __device__ inline int find_slot(const SlotTables& t, int leaf, int Sp) {
     if (t.leaf[k] == leaf) return k;
   }
   return -1;
+}
+
+// The same lookup through an open-addressing hash of the active slots'
+// leaves, for kernels whose rows would otherwise scan all Sp slots (the
+// scan's cost grows with Sp: PERF.md). kSlotHash >= 2 * kMaxSlots keeps
+// the load at most one half, so a lookup takes about two probes.
+constexpr int kSlotHash = 2 * kMaxSlots;
+constexpr int kNoKey = -1;       // row leaves are >= -1; -1 matches no slot
+
+struct SlotHash {
+  int key[kSlotHash];
+  int slot[kSlotHash];
+};
+
+__device__ inline int slot_hash_home(int leaf) {
+  return static_cast<int>((static_cast<uint32_t>(leaf) * 2654435761u) >>
+                          (32 - 8)) & (kSlotHash - 1);
+}
+
+// Fill h from the staged tables t (all threads; ends in __syncthreads()).
+// Inactive slots (leaf -2) are left out: no row sits in leaf -2.
+__device__ inline void build_slot_hash(SlotHash& h, const SlotTables& t,
+                                       int Sp) {
+  for (int i = threadIdx.x; i < kSlotHash; i += blockDim.x) h.key[i] = kNoKey;
+  __syncthreads();
+  for (int k = threadIdx.x; k < Sp; k += blockDim.x) {
+    const int leaf = t.leaf[k];
+    if (leaf < 0) continue;
+    int i = slot_hash_home(leaf);
+    while (atomicCAS(&h.key[i], kNoKey, leaf) != kNoKey) {
+      i = (i + 1) & (kSlotHash - 1);     // selected leaves are distinct
+    }
+    h.slot[i] = k;
+  }
+  __syncthreads();
+}
+
+// find_slot through the hash: the slot whose leaf this row sits in, or -1.
+__device__ inline int hash_slot(const SlotHash& h, int leaf) {
+  if (leaf < 0) return -1;
+  for (int i = slot_hash_home(leaf);; i = (i + 1) & (kSlotHash - 1)) {
+    const int key = h.key[i];
+    if (key == leaf) return h.slot[i];
+    if (key == kNoKey) return -1;
+  }
 }
 
 // Where each kernel row (a row of bins_T) puts its one-hot slab on the flat
@@ -142,15 +187,33 @@ __device__ inline bool goes_left(const BinT* __restrict__ bins, int64_t Rp,
   return D > 0.5f;
 }
 
-// The padded layout with no mask (epilogue_pass routes only on it).
+// The slab table (launch_slabs): for each W row k, the one kernel row j
+// whose slab holds a non-zero, or one of these.
+constexpr int kNoSlab = -1;      // W row all zero: every row goes right
+constexpr int kManySlabs = -2;   // non-zero on several slabs: full sum
+
+// goes_left through the slab table: a W row non-zero on one slab js (as
+// the grower builds it) reads one bin and one W entry; one over several
+// slabs takes the full sum; an all-zero one sends the row right. Equal to
+// goes_left for any 0/1 W.
 template <typename BinT>
-__device__ inline bool goes_left(const BinT* __restrict__ bins, int64_t Rp,
+__device__ inline bool slab_left(const BinT* __restrict__ bins, int64_t Rp,
                                  int64_t r,
                                  const __nv_bfloat16* __restrict__ Wk,
-                                 int F_oh, int B) {
-  return goes_left(bins, Rp, r, Wk, F_oh, RowLayout{nullptr, nullptr,
-                                                    nullptr, B});
+                                 int js, int K, const RowLayout& lay) {
+  if (js >= 0) {
+    const int64_t p = lay.pos(js, static_cast<int>(bins[js * Rp + r]));
+    return p >= 0 && __bfloat162float(Wk[p]) > 0.5f;
+  }
+  return js == kManySlabs && goes_left(bins, Rp, r, Wk, K, lay);
 }
+
+// Launch level_slabs_kernel (level_pass.cu): slab_of[k] for the Sp rows of
+// W, one block per row, on `stream`. level_pass, route_pass and
+// epilogue_pass each start with it.
+cudaError_t launch_slabs(const __nv_bfloat16* W, const RowLayout& lay,
+                         int* slab_of, int K, int64_t FB, int Sp,
+                         cudaStream_t stream);
 
 // The current device, its SM count and opt-in shared memory per block,
 // read once per device (kMaxDevices at most).

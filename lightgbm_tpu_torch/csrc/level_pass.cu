@@ -83,9 +83,6 @@ template <> struct Acc<int8_t> {
   static __device__ int of(int8_t v) { return static_cast<int>(v); }
 };
 
-constexpr int kNoSlab = -1;      // W row all zero: every row goes right
-constexpr int kManySlabs = -2;   // non-zero on several slabs: full sum
-
 // slab_of[k]: the one kernel row whose slab of W row k holds a non-zero,
 // or kNoSlab / kManySlabs. Block k scans W row k, a warp per kernel row.
 __global__ void __launch_bounds__(kThreads)
@@ -118,6 +115,13 @@ level_slabs_kernel(const __nv_bfloat16* __restrict__ W, RowLayout lay,
   }
 }
 
+cudaError_t launch_slabs(const __nv_bfloat16* W, const RowLayout& lay,
+                         int* slab_of, int K, int64_t FB, int Sp,
+                         cudaStream_t stream) {
+  level_slabs_kernel<<<Sp, kThreads, 0, stream>>>(W, lay, slab_of, K, FB);
+  return cudaGetLastError();
+}
+
 template <typename BinT, typename ChT>
 __global__ void __launch_bounds__(kThreads)
 level_mark_kernel(const BinT* __restrict__ bins,
@@ -146,15 +150,8 @@ level_mark_kernel(const BinT* __restrict__ bins,
     if (k < 0) {
       new_leaf[r] = lf;
     } else {
-      const __nv_bfloat16* Wk = W + k * FB;
-      const int js = s_slab[k];
-      bool left;
-      if (js >= 0) {
-        const int64_t p = lay.pos(js, static_cast<int>(bins[js * Rp + r]));
-        left = p >= 0 && __bfloat162float(Wk[p]) > 0.5f;
-      } else {
-        left = js == kManySlabs && goes_left(bins, Rp, r, Wk, K, lay);
-      }
+      const bool left = slab_left(bins, Rp, r, W + k * FB, s_slab[k], K,
+                                  lay);
       new_leaf[r] = left ? lf : lf + t.delta[k];
       if (left == (t.small_left[k] != 0)) {
         bool live = false;   // a row whose channels are all zero adds 0
@@ -364,8 +361,7 @@ cudaError_t launch_mark(const void* bins, const void* leaf, const void* gh,
                         int Sp, int nch, cudaStream_t stream,
                         int* launched) {
   const __nv_bfloat16* Wb = static_cast<const __nv_bfloat16*>(W);
-  level_slabs_kernel<<<Sp, kThreads, 0, stream>>>(Wb, lay, slab_of, K, FB);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_slabs(Wb, lay, slab_of, K, FB, Sp, stream);
   if (e != cudaSuccess) return e;
   *launched |= kSlabsBit;
   const unsigned grid = static_cast<unsigned>((Rp + kMarkRows - 1) /

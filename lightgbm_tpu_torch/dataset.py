@@ -7,8 +7,12 @@ ConstructBinMappersFromTextData) and the same binning, so both packages bin
 a matrix identically. The binned ``[num_data, num_used_features]`` matrix
 is kept on the host and, as ``bins_dev``, on the training device.
 
-Categorical features, EFB bundles, sparse input and monotone constraints
-are not ported yet and raise.
+Categorical features, sparse input and monotone constraints are not ported
+yet and raise. Exclusive feature bundling is not ported either: where the
+JAX package's fused engine bundles mutually exclusive columns
+(``enable_bundle``, on by default), the port trains on the unbundled
+columns, which gives the same trees (tests/test_torch_efb_gap.py); the
+bundling itself is ROADMAP Queue A item 6.
 """
 from __future__ import annotations
 

@@ -47,13 +47,19 @@ SIGNATURES = {
                         _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
                         _P, _c.POINTER(_c.c_int)],
     "lgbt_device_limits": [_c.POINTER(_c.c_int), _c.POINTER(_c.c_int)],
-    "lgbt_route_pass": [_P, _c.c_int, _P, _P, _P, _P, _P, _c.c_longlong,
-                        _c.c_int, _c.c_int, _c.c_longlong, _c.c_int, _P],
+    "lgbt_route_pass": [_P, _c.c_int, _P, _P, _P, _P, _P, _P,
+                        _c.c_longlong, _c.c_int, _c.c_int, _c.c_longlong,
+                        _c.c_int, _P, _c.POINTER(_c.c_int)],
     "lgbt_table_lookup": [_P, _P, _P, _c.c_longlong, _c.c_int, _P],
     "lgbt_epilogue_pass": [_P, _c.c_int, _P, _P, _P, _P, _c.c_int, _P, _P,
-                           _P, _P, _P, _P, _c.c_longlong, _c.c_int,
+                           _P, _P, _P, _P, _P, _P, _c.c_longlong, _c.c_int,
                            _c.c_int, _c.c_int, _c.c_int, _c.c_int,
-                           _c.c_float, _P],
+                           _c.c_float, _c.c_int, _c.c_int, _c.c_int, _P,
+                           _c.POINTER(_c.c_int)],
+    "lgbt_epilogue_blocks": [_c.c_int, _c.c_int, _c.c_int, _c.c_int,
+                             _c.c_longlong, _c.c_int,
+                             _c.POINTER(_c.c_longlong),
+                             _c.POINTER(_c.c_int)],
     "lgbt_hist_pass": [_P, _P, _P, _P, _c.c_longlong, _c.c_int, _c.c_int,
                        _c.c_int, _c.c_int, _c.c_int, _P],
 }

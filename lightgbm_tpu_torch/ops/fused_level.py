@@ -38,7 +38,13 @@ which finds each slot's split slab in W), partition (each marked row's
 bins and channels copied, as one staging record, into its slot's bucket)
 and the slot-tiled shared-memory histogram over the records; each stage
 also has a wrapper of its own (:func:`level_mark`, :func:`level_partition`,
-:func:`level_hist`). On a CPU tensor a wrapper runs the plain PyTorch
+:func:`level_hist`). :func:`route_pass` is two CUDA kernels (the slab table
+of W, then the route reading one bin and one W entry per routed row) and
+:func:`epilogue_pass` four (the slab table; route, score, gradients and
+pack; the root histogram's per-block partials; their reduce), each stage
+with a plain version of its own (:func:`slab_table_plain`,
+:func:`route_slabs_plain`, :func:`epilogue_rows_plain`,
+:func:`root_hist_plain`). On a CPU tensor a wrapper runs the plain PyTorch
 version beside it (``*_plain``), which the CPU tests hold against the JAX
 package; on a CUDA tensor it launches the kernel or raises.
 """
@@ -57,6 +63,9 @@ NCH_PRECISE = 5   # g_hi, g_lo, h_hi, h_lo, w
 NCH_FAST = 3      # g, h, w
 MAX_SLOTS = 128
 TBL_COLS = 128
+# the widest layout whose one-channel histogram tile (32 features x Bp f32)
+# and staging fit a block's shared memory on the card
+MAX_CARD_BINS = 1024
 
 # launches of each kernel since the last reset (CPU calls never count);
 # ``hist_pass`` is counted by ops/pallas_histogram.py
@@ -87,15 +96,24 @@ STAGE_KERNELS = {"level_mark": ("level_slabs", "level_mark"),
                  "level_partition": ("level_partition",),
                  "level_hist": ("level_hist",)}
 LEVEL_KERNELS = sum(STAGE_KERNELS.values(), ())
+# the CUDA kernels of route_pass (slab table, route) and of epilogue_pass
+# (slab table; route, score, gradients and pack; each block's partial root
+# histogram; the reduce of the partials), in launch order
+ROUTE_KERNELS = ("route_slabs", "route_pass")
+EPILOGUE_KERNELS = ("epilogue_slabs", "epilogue_pass", "epilogue_hist",
+                    "epilogue_reduce")
 # CUDA kernel launches since the last reset, by kernel, as the C entries
-# report them: a level_pass call launches each of LEVEL_KERNELS once, every
-# other wrapper its one kernel
+# report them: a level_pass call launches each of LEVEL_KERNELS once, a
+# route_pass call each of ROUTE_KERNELS, an epilogue_pass call each of
+# EPILOGUE_KERNELS, table_lookup and hist_pass their one kernel
 cuda_launches: Dict[str, int] = dict.fromkeys(
-    LEVEL_KERNELS + ("route_pass", "table_lookup", "epilogue_pass",
-                     "hist_pass"), 0)
+    LEVEL_KERNELS + ROUTE_KERNELS + ("table_lookup",) + EPILOGUE_KERNELS
+    + ("hist_pass",), 0)
 # bytes of a block's opt-in shared memory left to the level_hist kernel's
 # static arrays (the slot offsets); the rest holds its histogram tile
 HIST_STATIC_SMEM = 1024
+# the slab table's codes for a W row non-zero on no slab or on several
+SLAB_NONE, SLAB_MANY = -1, -2
 
 
 def reset_launch_counts() -> None:
@@ -514,8 +532,53 @@ def level_hist_plain(stage, counts, fmask=None, *, bin_bytes: int,
 
 def route_pass_plain(bins_T, leaf_T, W, tbl, *, num_bins: int, f_oh: int,
                      packed: PackedLayout = None):
-    """Plain PyTorch version of :func:`route_pass`."""
+    """Plain PyTorch version of :func:`route_pass`: the full W @ one-hot
+    sum over every kernel row, as the TPU kernel takes it."""
     return _route_plain(bins_T, leaf_T, W, tbl, num_bins, f_oh, packed)[2]
+
+
+def slab_table_plain(W, *, num_bins: int, f_oh: int,
+                     packed: PackedLayout = None):
+    """Plain PyTorch version of the slab-table kernel that
+    :func:`level_pass`, :func:`route_pass` and :func:`epilogue_pass` start
+    with: [Sp] int32, for each W row the one kernel row whose slab holds a
+    non-zero, ``SLAB_NONE`` when none does, ``SLAB_MANY`` when several do."""
+    nz = W != 0
+    hit = torch.stack([nz[:, off:off + (num_bins if width is None
+                                        else width)].any(1)
+                       for off, width in _kernel_rows(num_bins, f_oh,
+                                                      packed)], 1)
+    n = hit.sum(1)
+    first = hit.to(torch.int8).argmax(1)
+    return torch.where(n == 1, first, torch.where(
+        n == 0, SLAB_NONE, SLAB_MANY)).to(torch.int32)
+
+
+def route_slabs_plain(bins_T, leaf_T, W, tbl, slab_of, *, num_bins: int,
+                      f_oh: int, packed: PackedLayout = None):
+    """Plain PyTorch version of the route kernel after the slab table
+    (``slab_of`` from :func:`slab_table_plain`): a row of a selected leaf
+    whose slot's W row is non-zero on one slab reads that slab's bin and
+    one W entry; on several slabs it takes the full sum, on none it goes
+    right. Equal to :func:`route_pass_plain` for any 0/1 W."""
+    slot, left_full, _ = _route_plain(bins_T, leaf_T, W, tbl, num_bins,
+                                      f_oh, packed)
+    k = slot.clamp(min=0)
+    rows = _kernel_rows(num_bins, f_oh, packed)
+    dev = bins_T.device
+    off = torch.tensor([o for o, _ in rows], device=dev)
+    width = torch.tensor([num_bins if w is None else w for _, w in rows],
+                         device=dev)
+    js = slab_of.long()[k]
+    j = js.clamp(min=0)
+    b = bins_T[:len(rows)].long().gather(0, j[None, :])[0]
+    inside = b < width[j]
+    p = (off[j] + b.clamp(max=width[j] - 1)).clamp(max=W.shape[1] - 1)
+    one = inside & (W.float()[k, p] > 0.5)
+    left = torch.where(js >= 0, one, (js == SLAB_MANY) & left_full)
+    leaf = leaf_T[0]
+    new_leaf = torch.where((slot >= 0) & ~left, leaf + tbl[:, 1][k], leaf)
+    return new_leaf[None, :].to(torch.int32)
 
 
 def table_lookup_plain(idx_T, table):
@@ -527,15 +590,13 @@ def table_lookup_plain(idx_T, table):
                                              device=table.device))
 
 
-def epilogue_pass_plain(bins_T, leaf_T, W, tbl, leaf_values, score_T, ops_T,
-                        bag_T, *, num_bins: int, f_oh: int,
+def epilogue_rows_plain(new_leaf, leaf_values, score_T, ops_T, bag_T, *,
                         nch: int = NCH_PRECISE, kind: str = "binary",
                         sigmoid: float = 1.0):
-    """Plain PyTorch version of :func:`epilogue_pass`: the deferred route,
-    the leaf-value lookup, the gradients, ``pack_gh`` and the root
-    histogram by ``index_add_`` of the bf16 channels in f32."""
-    new_leaf = route_pass_plain(bins_T, leaf_T, W, tbl, num_bins=num_bins,
-                                f_oh=f_oh)
+    """The element-wise part of :func:`epilogue_pass` after the route:
+    (new_score [1, Rp] f32, gh_T [8, Rp] bf16) — the leaf-value lookup,
+    the gradients from the updated score times the bag weights, and
+    ``pack_gh``."""
     score2 = score_T + table_lookup_plain(new_leaf, leaf_values)
     # the closed forms from the updated score (ref: binary_objective.hpp:
     # 107-136, regression_objective.hpp:127-141); zero operand rows give
@@ -549,7 +610,15 @@ def epilogue_pass_plain(bins_T, leaf_T, W, tbl, leaf_values, score_T, ops_T,
         g, h = (score2 - op0) * op1, op1
     g = g * bag_T
     h = h * bag_T
-    gh_T = pack_gh(g[0], h[0], bag_T[0], nch)
+    return score2, pack_gh(g[0], h[0], bag_T[0], nch)
+
+
+def root_hist_plain(bins_T, gh_T, *, num_bins: int, f_oh: int,
+                    nch: int = NCH_PRECISE):
+    """The next tree's root histogram [F_oh*Bp, nch*8] f32 (slot 0 of each
+    8-column channel block live) by ``index_add_`` of the bf16 channels in
+    f32, row by row: the plain version of the epilogue's histogram and
+    reduce kernels, which sum the same values in another order."""
     FB = f_oh * num_bins
     C = nch * 8
     hist = torch.zeros(FB * C, dtype=torch.float32, device=bins_T.device)
@@ -559,7 +628,24 @@ def epilogue_pass_plain(bins_T, leaf_T, W, tbl, leaf_values, score_T, ops_T,
         cell = (f * num_bins + bins_T[f].long()) * C              # [Rp]
         hist.index_add_(0, (cell[None, :] + ch_off).reshape(-1),
                         vals.reshape(-1))
-    return hist.reshape(FB, C), score2, gh_T
+    return hist.reshape(FB, C)
+
+
+def epilogue_pass_plain(bins_T, leaf_T, W, tbl, leaf_values, score_T, ops_T,
+                        bag_T, *, num_bins: int, f_oh: int,
+                        nch: int = NCH_PRECISE, kind: str = "binary",
+                        sigmoid: float = 1.0):
+    """Plain PyTorch version of :func:`epilogue_pass`: the deferred route
+    (:func:`route_pass_plain`), :func:`epilogue_rows_plain` and the root
+    histogram by ``index_add_`` (:func:`root_hist_plain`)."""
+    new_leaf = route_pass_plain(bins_T, leaf_T, W, tbl, num_bins=num_bins,
+                                f_oh=f_oh)
+    score2, gh_T = epilogue_rows_plain(new_leaf, leaf_values, score_T, ops_T,
+                                       bag_T, nch=nch, kind=kind,
+                                       sigmoid=sigmoid)
+    hist = root_hist_plain(bins_T, gh_T, num_bins=num_bins, f_oh=f_oh,
+                           nch=nch)
+    return hist, score2, gh_T
 
 
 # ---------------------------------------------------------------- wrappers
@@ -610,15 +696,14 @@ def _check_channels(gh_T, Rp, nch, quant_bits, dev):
         raise ValueError("gh_T and bins_T are on different devices")
 
 
-_smem_budgets: Dict[int, int] = {}
+_limits: Dict[int, Tuple[int, int]] = {}
 
 
-def _smem_budget(device) -> int:
-    """Bytes of shared memory a level_hist block may give its tile: the
-    card's opt-in limit per block (227 KB on the H100) less the kernel's
-    static arrays; read once per device."""
+def _device_limits(device) -> Tuple[int, int]:
+    """(SM count, opt-in shared memory bytes per block) of the card, read
+    once per device (132 and 227 KB on the H100)."""
     idx = torch.device(device).index or 0
-    if idx not in _smem_budgets:
+    if idx not in _limits:
         import ctypes
         from .cuda_build import library
         sms, optin = ctypes.c_int(0), ctypes.c_int(0)
@@ -626,8 +711,22 @@ def _smem_budget(device) -> int:
             _raise_on(library().lgbt_device_limits(ctypes.byref(sms),
                                                    ctypes.byref(optin)),
                       "device_limits")
-        _smem_budgets[idx] = optin.value - HIST_STATIC_SMEM
-    return _smem_budgets[idx]
+        _limits[idx] = (sms.value, optin.value)
+    return _limits[idx]
+
+
+def _smem_budget(device) -> int:
+    """Bytes of shared memory a level_hist block may give its tile: the
+    card's opt-in limit per block less the kernel's static arrays."""
+    return _device_limits(device)[1] - HIST_STATIC_SMEM
+
+
+def _count_kernels(names, bits: int) -> None:
+    """Count in ``cuda_launches`` the kernels a C entry reports launched:
+    bit i of ``bits`` for ``names[i]``."""
+    for i, kern in enumerate(names):
+        if bits >> i & 1:
+            cuda_launches[kern] += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -667,9 +766,7 @@ def _level_launch(stages, bins_T, leaf_T, gh_T, W, tbl, fmask, *, hist,
         _ptr(hist), _ptr(new_leaf), _ptr(row_slot), counts.data_ptr(),
         _ptr(stage), Rp, K, num_bins, FB, Sp, nch, Kg, Cw, width, ch_off,
         rec_bytes, mask, _stream(dev), ctypes.byref(done))
-    for i, kern in enumerate(LEVEL_KERNELS):
-        if done.value >> i & 1:
-            cuda_launches[kern] += 1
+    _count_kernels(LEVEL_KERNELS, done.value)
     _raise_on(rc, "level_pass")
 
 
@@ -840,23 +937,30 @@ def route_pass(bins_T: torch.Tensor, leaf_T: torch.Tensor, W: torch.Tensor,
                tbl: torch.Tensor, *, num_bins: int, f_oh: int,
                packed: PackedLayout = None) -> torch.Tensor:
     """Row -> leaf update only (same W/tbl/packed contract as level_pass;
-    routing never masks features)."""
+    routing never masks features). On the card two CUDA kernels
+    (``ROUTE_KERNELS``): the slab table of W (:func:`slab_table_plain`),
+    then the route through it (:func:`route_slabs_plain`)."""
     Rp, Sp = _check_route_inputs(bins_T, leaf_T, W, tbl, num_bins, f_oh,
                                  packed)
     if bins_T.device.type == "cpu":
         return route_pass_plain(bins_T, leaf_T, W, tbl, num_bins=num_bins,
                                 f_oh=f_oh, packed=packed)
     _require_cuda(bins_T, leaf_T, W, tbl)
+    import ctypes
     from .cuda_build import library
-    ktab, _, K = _kernel_layout(packed, None, f_oh, bins_T.device)
+    dev = bins_T.device
+    ktab, _, K = _kernel_layout(packed, None, f_oh, dev)
     new_leaf = torch.empty_like(leaf_T)
+    slab_of = torch.empty(Sp, dtype=torch.int32, device=dev)
+    done = ctypes.c_int(0)
     rc = library().lgbt_route_pass(
         bins_T.data_ptr(), bins_T.element_size(), leaf_T.data_ptr(),
-        W.data_ptr(), tbl.data_ptr(), _ptr(ktab), new_leaf.data_ptr(), Rp,
-        K, num_bins, W.shape[1], Sp, _stream(bins_T.device))
+        W.data_ptr(), tbl.data_ptr(), _ptr(ktab), slab_of.data_ptr(),
+        new_leaf.data_ptr(), Rp, K, num_bins, W.shape[1], Sp, _stream(dev),
+        ctypes.byref(done))
+    _count_kernels(ROUTE_KERNELS, done.value)
     _raise_on(rc, "route_pass")
     launches["route_pass"] += 1
-    cuda_launches["route_pass"] += 1
     if packed is not None:
         variant_launches["route_pass:packed"] += 1
     return new_leaf
@@ -909,6 +1013,14 @@ def epilogue_pass(bins_T: torch.Tensor, leaf_T: torch.Tensor,
     Returns (hist [F_oh*Bp, nch*8] f32 in the root ``level_pass`` layout —
     slot 0 of each 8-column channel block live, slots 1-7 zero —,
     new_score [1, Rp] f32, gh_T [8, Rp] bf16).
+
+    On the card four CUDA kernels (``EPILOGUE_KERNELS``): the slab table of
+    W (:func:`slab_table_plain`); the route through it, the score, the
+    gradients and the pack (:func:`route_slabs_plain`,
+    :func:`epilogue_rows_plain`); each block's partial root histogram; and
+    the fixed-order reduce of the partials (:func:`root_hist_plain` sums
+    the same values in another order). ``num_bins`` is at most
+    ``MAX_CARD_BINS`` there.
     """
     Rp, Sp = _check_route_inputs(bins_T, leaf_T, W, tbl, num_bins, f_oh)
     if nch not in (NCH_PRECISE, NCH_FAST):
@@ -932,19 +1044,75 @@ def epilogue_pass(bins_T: torch.Tensor, leaf_T: torch.Tensor,
                                    f_oh=f_oh, nch=nch, kind=kind,
                                    sigmoid=sigmoid)
     _require_cuda(bins_T, leaf_T, W, tbl, leaf_values, score_T, ops_T, bag_T)
+    if num_bins > MAX_CARD_BINS:
+        raise ValueError(f"the epilogue kernel takes at most {MAX_CARD_BINS} "
+                         f"bins; got {num_bins}")
+    buf = epilogue_buffers(bins_T, Sp, num_bins=num_bins, f_oh=f_oh,
+                           nch=nch)
+    _epilogue_launch(EPILOGUE_KERNELS, bins_T, leaf_T, W, tbl, leaf_values,
+                     score_T, ops_T, bag_T, buf, num_bins=num_bins,
+                     f_oh=f_oh, nch=nch, kind=kind, sigmoid=sigmoid)
+    launches["epilogue_pass"] += 1
+    return buf["hist"], buf["new_score"], buf["gh_T"]
+
+
+@functools.lru_cache(maxsize=64)
+def _epilogue_blocks(dev_index: int, bin_bytes: int, num_bins: int,
+                     f_oh: int, nch: int, Rp: int,
+                     smem_limit: int) -> Tuple[int, int]:
+    """(row blocks, f32 partials) of the epilogue's hist kernel."""
+    import ctypes
     from .cuda_build import library
-    hist = torch.zeros((f_oh * num_bins, nch * 8), dtype=torch.float32,
-                       device=dev)
-    new_score = torch.empty_like(score_T)
-    gh_T = torch.empty((8, Rp), dtype=torch.bfloat16, device=dev)
+    blocks, floats = ctypes.c_int(0), ctypes.c_longlong(0)
+    with torch.cuda.device(dev_index):
+        _raise_on(library().lgbt_epilogue_blocks(
+            bin_bytes, num_bins, f_oh, nch, Rp, smem_limit,
+            ctypes.byref(floats), ctypes.byref(blocks)), "epilogue_pass")
+    return blocks.value, floats.value
+
+
+def epilogue_buffers(bins_T, Sp, *, num_bins: int, f_oh: int,
+                     nch: int) -> Dict[str, object]:
+    """The outputs and scratch of one :func:`epilogue_pass` launch on the
+    card: hist, new_score, gh_T, the hist kernel's per-block f32 partial
+    histograms and its row blocks, the [Sp] slab table, and the shared
+    memory a block may use (the card's opt-in limit)."""
+    dev = bins_T.device
+    Rp = bins_T.shape[1]
+    smem_limit = _device_limits(dev)[1]
+    blocks, floats = _epilogue_blocks(dev.index or 0, bins_T.element_size(),
+                                      num_bins, f_oh, nch, Rp, smem_limit)
+    FB = f_oh * num_bins
+    return {"hist": torch.empty((FB, nch * 8), dtype=torch.float32,
+                                device=dev),
+            "new_score": torch.empty((1, Rp), dtype=torch.float32,
+                                     device=dev),
+            "gh_T": torch.empty((8, Rp), dtype=torch.bfloat16, device=dev),
+            "part": torch.empty(floats, dtype=torch.float32, device=dev),
+            "slab_of": torch.empty(Sp, dtype=torch.int32, device=dev),
+            "blocks": blocks, "smem_limit": smem_limit}
+
+
+def _epilogue_launch(kernels, bins_T, leaf_T, W, tbl, leaf_values, score_T,
+                     ops_T, bag_T, buf, *, num_bins, f_oh, nch, kind,
+                     sigmoid) -> None:
+    """Launch the epilogue's CUDA kernels named in ``kernels`` (of
+    EPILOGUE_KERNELS; the pass reads the slab table, the reduce the
+    partials, that ``buf`` holds from earlier stages) on the current
+    stream, and count those the C entry reports launched."""
+    import ctypes
+    from .cuda_build import library
+    stages = sum(1 << EPILOGUE_KERNELS.index(k) for k in kernels)
+    done = ctypes.c_int(0)
     rc = library().lgbt_epilogue_pass(
         bins_T.data_ptr(), bins_T.element_size(), leaf_T.data_ptr(),
         W.data_ptr(), tbl.data_ptr(), leaf_values.data_ptr(),
         leaf_values.shape[0], score_T.data_ptr(), ops_T.data_ptr(),
-        bag_T.data_ptr(), hist.data_ptr(), new_score.data_ptr(),
-        gh_T.data_ptr(), Rp, f_oh, num_bins, Sp, nch,
-        EPILOGUE_KINDS.index(kind), float(sigmoid), _stream(dev))
+        bag_T.data_ptr(), buf["hist"].data_ptr(),
+        buf["new_score"].data_ptr(), buf["gh_T"].data_ptr(),
+        buf["part"].data_ptr(), buf["slab_of"].data_ptr(),
+        bins_T.shape[1], f_oh, num_bins, tbl.shape[0], nch,
+        EPILOGUE_KINDS.index(kind), float(sigmoid), buf["smem_limit"],
+        buf["blocks"], stages, _stream(bins_T.device), ctypes.byref(done))
+    _count_kernels(EPILOGUE_KERNELS, done.value)
     _raise_on(rc, "epilogue_pass")
-    launches["epilogue_pass"] += 1
-    cuda_launches["epilogue_pass"] += 1
-    return hist, new_score, gh_T

@@ -18,8 +18,10 @@ iterations, then traces ``--rounds`` more with ``torch.profiler`` and
 prints one JSON line: the wall time per iteration, the device time summed
 over all kernels, the device's busy share (device time over wall time),
 the device launches per iteration, each of the port's kernels' device ms
-per iteration (``level_pass`` as the sum of its four CUDA kernels, each
-also on its own), the port's CUDA kernel launches per iteration
+per iteration (``level_pass``, ``route_pass`` and ``epilogue_pass`` as the
+sums of their CUDA kernels, each also on its own; the slab-table kernel
+they share is split by launches), the port's CUDA kernel launches per
+iteration
 (``ops.fused_level.cuda_launches``), the kernels ranked by device time,
 and the grower's host syncs per tree. Also prints the card's name and
 power limit. Needs a CUDA device.
@@ -119,9 +121,22 @@ def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int):
             rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     dev_total_us = sum(r[0] for r in rows)
-    kernel_ms = {k: sum(d for d, key, _ in rows if f"{k}_kernel" in key)
-                 / 1e3 / rounds for k in fl.cuda_launches}
+    def func_ms(name):
+        return sum(d for d, key, _ in rows if name in key) / 1e3 / rounds
+    # level_pass, route_pass and epilogue_pass each start with the same
+    # slab-table kernel (level_slabs_kernel): its time is shared out by
+    # launches
+    slabs = [k for k in fl.cuda_launches if k.endswith("_slabs")]
+    n_slabs = sum(fl.cuda_launches[k] for k in slabs) or 1
+    slab_ms = func_ms("level_slabs_kernel")
+    kernel_ms = {k: (slab_ms * fl.cuda_launches[k] / n_slabs
+                     if k in slabs else func_ms(f"{k}_kernel"))
+                 for k in fl.cuda_launches}
     kernel_ms = {"level_pass": sum(kernel_ms[k] for k in fl.LEVEL_KERNELS),
+                 "route_pass (all)": sum(kernel_ms[k]
+                                         for k in fl.ROUTE_KERNELS),
+                 "epilogue_pass (all)": sum(kernel_ms[k]
+                                            for k in fl.EPILOGUE_KERNELS),
                  **kernel_ms}
     g = bst._gbdt
     return {

@@ -16,7 +16,7 @@ from lightgbm_tpu_torch.ops import layout as tlayout
 from lightgbm_tpu_torch.ops import pallas_histogram as tph
 from lightgbm_tpu_torch.ops import quantize as tq
 from lightgbm_tpu_torch.ops.layout import feature_layout
-from torch_parity import level_operands
+from torch_parity import kernel_slabs, level_operands, odd_route_table
 
 pytestmark = pytest.mark.cuda
 
@@ -129,8 +129,7 @@ def _epilogue_operands(R, F, B, nch, kind, seed):
 
 @pytest.mark.parametrize("nch,B,F,kind", [
     (5, 16, 5, "binary"), (3, 16, 5, "l2"), (5, 256, 5, "l2"),
-    # a [64*256, 40] f32 histogram exceeds a block's shared memory: the
-    # kernel adds straight into global memory
+    # 64 features at Bp=256: two feature groups on grid.y
     (5, 256, 64, "binary")])
 def test_epilogue_kernel_matches_plain(cuda_device, nch, B, F, kind):
     ops, F_oh = _epilogue_operands(4096, F, B, nch, kind, seed=B + F)
@@ -625,3 +624,156 @@ def test_level_mark_routes_any_route_table(cuda_device):
     assert bool(moved[leaf_T == 0].any()) and bool((~moved)[leaf_T == 0]
                                                    .any())
     assert bool(moved[leaf_T == 2].all())
+
+
+@pytest.mark.parametrize("packed,odd,Rp,offset", [
+    (False, False, 30720, 0), (False, True, 30003, 0),
+    (True, False, 30001, 1), (True, True, 30720, 0)])
+def test_route_pass_routes_any_route_table(cuda_device, packed, odd, Rp,
+                                           offset):
+    """route_pass reads one slab per slot through its slab table: the
+    grower's W, a W row over two slabs and an all-zero one route as the
+    plain version's full sum; Rp not a multiple of 4 and a leaf view off
+    16-byte alignment take the scalar path. Two CUDA kernels per call."""
+    ops, _, kw = level_operands(Rp - 7, Rp, [63] * 14 + [8] * 14, 64, 8,
+                                packed=packed, seed=Rp + odd,
+                                device=cuda_device)
+    bins_T, leaf_T, _, W, tbl = ops
+    if odd:
+        W = odd_route_table(W, kernel_slabs(kw), Rp)
+    if offset:
+        store = torch.empty(Rp + offset, dtype=torch.int32,
+                            device=cuda_device)
+        leaf_T = store[offset:].view(1, Rp)
+        leaf_T.copy_(ops[1])
+    rkw = dict(num_bins=64, f_oh=kw["f_oh"], packed=kw["packed"])
+    n0, c0 = dict(tfl.launches), dict(tfl.cuda_launches)
+    got = tfl.route_pass(bins_T, leaf_T, W, tbl, **rkw)
+    want = tfl.route_pass_plain(bins_T, leaf_T, W, tbl, **rkw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool((want != leaf_T).any())
+    assert tfl.launches["route_pass"] - n0["route_pass"] == 1
+    assert {k: tfl.cuda_launches[k] - c0[k] for k in tfl.ROUTE_KERNELS} \
+        == {"route_slabs": 1, "route_pass": 1}
+    slab_of = tfl.slab_table_plain(W, **rkw)
+    if odd:
+        assert slab_of[0] == tfl.SLAB_MANY and slab_of[2] == tfl.SLAB_NONE
+
+
+def _epilogue_card_operands(R, Rp, B, nch, kind, table, seed, dev):
+    """level_operands' rows and route (Sp = 8) with a 255-entry leaf-value
+    table (routed leaves past it add 0), scores, the kind's operand rows
+    and ~30% zero bag weights; ``table`` grower, odd (two slabs and an
+    all-zero row) or inactive (every slot -2, W zero)."""
+    (bins_T, leaf_T, _, W, tbl), _, kw = level_operands(
+        R, Rp, [B - 1] * 28, B, 8, nch=nch, seed=seed, device=dev)
+    if table == "odd":
+        W = odd_route_table(W, kernel_slabs(kw), seed)
+    elif table == "inactive":
+        W = torch.zeros_like(W)
+        tbl = tbl.clone()
+        tbl[:, 0] = -2
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    score = np.zeros((1, Rp), np.float32)
+    score[0, :R] = rng.randn(R)
+    ops = np.zeros((8, Rp), np.float32)
+    ops[0, :R] = (np.where(rng.rand(R) < 0.4, 1.0, -1.0)
+                  if kind == "binary" else rng.randn(R) * 3.0)
+    ops[1, :R] = rng.uniform(0.5, 2.0, R)
+    bag = np.zeros((1, Rp), np.float32)
+    bag[0, :R] = rng.rand(R) >= 0.3
+    lv = t((rng.randn(255) * 0.1).astype(np.float32))
+    args = (bins_T, leaf_T, W, tbl, lv, t(score), t(ops), t(bag))
+    return args, dict(num_bins=B, f_oh=kw["f_oh"], nch=nch, kind=kind)
+
+
+def _assert_epilogue_close(got, want, bins_T, B, f_oh, nch):
+    """chip_smoke.py's tolerances: new_score rtol 1e-6; decoded channels
+    rtol 4e-5, atol 1e-7 (the card's expf against torch's exp); rows >= nch
+    zero; g/h planes within 1e-5 of the plane's largest per-cell sum of
+    |channel|, the weight channel exact, slots 1-7 zero."""
+    (hist_k, score_k, gh_k), (hist_p, score_p, gh_p) = got, want
+    assert torch.allclose(score_k, score_p, rtol=1e-6, atol=0)
+
+    def decoded(gh):
+        x = gh.float()
+        if nch == tfl.NCH_PRECISE:
+            return torch.stack([x[0] + x[1], x[2] + x[3], x[4]])
+        return x[:3]
+    assert torch.allclose(decoded(gh_k), decoded(gh_p), rtol=4e-5, atol=1e-7)
+    assert not gh_k[nch:].any()
+    live = torch.zeros(nch * 8, dtype=torch.bool, device=hist_k.device)
+    live[::8] = True
+    assert not hist_k[:, ~live].any()
+    abs_sum = tfl.root_hist_plain(bins_T, gh_p.float().abs().to(
+        torch.bfloat16), num_bins=B, f_oh=f_oh, nch=nch)
+    for c in range(nch - 1):
+        err = float((hist_k[:, 8 * c] - hist_p[:, 8 * c]).abs().max())
+        assert err <= 1e-5 * float(abs_sum[:, 8 * c].max()), c
+    assert torch.equal(hist_k[:, 8 * (nch - 1)], hist_p[:, 8 * (nch - 1)])
+
+
+@pytest.mark.parametrize("B,nch,kind,table,R,Rp", [
+    (64, 5, "binary", "grower", 30000, 30720),
+    (64, 3, "l2", "odd", 29990, 30003),
+    (16, 5, "l2", "odd", 4000, 4099),
+    (256, 5, "l2", "odd", 12000, 12345),
+    (256, 3, "binary", "grower", 20000, 20480),
+    (64, 5, "binary", "inactive", 5000, 5120)])
+def test_epilogue_pass_any_route_table(cuda_device, B, nch, kind, table, R,
+                                       Rp):
+    """The epilogue's kernels against the plain version on the grower's W,
+    a W with a row over two slabs and an all-zero row, and an inactive
+    table; Rp not a multiple of the 256-row chunk or of 8 (the staging's
+    plain-load path); Bp 16, 64 and 256 (int16, channel groups on
+    grid.z). Four CUDA kernels per call, and the fixed-order reduce gives
+    the same histogram bits every call."""
+    args, kw = _epilogue_card_operands(R, Rp, B, nch, kind, table,
+                                       seed=B + nch + Rp, dev=cuda_device)
+    n0, c0 = dict(tfl.launches), dict(tfl.cuda_launches)
+    got = tfl.epilogue_pass(*args, **kw)
+    want = tfl.epilogue_pass_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert tfl.launches["epilogue_pass"] - n0["epilogue_pass"] == 1
+    assert {k: tfl.cuda_launches[k] - c0[k] for k in tfl.EPILOGUE_KERNELS} \
+        == dict.fromkeys(tfl.EPILOGUE_KERNELS, 1)
+    _assert_epilogue_close(got, want, args[0], B, kw["f_oh"], nch)
+    again = tfl.epilogue_pass(*args, **kw)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    if table != "grower":
+        moved = tfl.route_pass_plain(*args[:4], num_bins=B, f_oh=kw["f_oh"])
+        if table == "inactive":
+            assert torch.equal(moved, args[1])
+        else:
+            rows = args[1][0] == 2
+            assert torch.equal(moved[0, rows],
+                               args[1][0, rows] + args[3][2, 1])
+
+
+def test_epilogue_pass_refused_launch_raises(cuda_device, monkeypatch):
+    """Histogram tiles sized for more shared memory than the card lets a
+    block have: the hist kernel's launch is refused and the wrapper raises
+    before it launches anything; the plain versions are never run, and the
+    card is sound afterwards."""
+    args, kw = _epilogue_card_operands(3000, 3072, 64, 5, "binary", "grower",
+                                       seed=1, dev=cuda_device)
+
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+    sms = tfl._device_limits(cuda_device)[0]
+    monkeypatch.setattr(tfl, "_device_limits", lambda dev: (sms, 1 << 20))
+    for name in ("epilogue_pass_plain", "route_pass_plain",
+                 "root_hist_plain", "epilogue_rows_plain"):
+        monkeypatch.setattr(tfl, name, plain)
+    c0 = dict(tfl.cuda_launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tfl.epilogue_pass(*args, **kw)
+    assert all(tfl.cuda_launches[k] == c0[k] for k in tfl.EPILOGUE_KERNELS)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    got = tfl.epilogue_pass(*args, **kw)
+    _assert_epilogue_close(got, tfl.epilogue_pass_plain(*args, **kw),
+                           args[0], 64, kw["f_oh"], 5)

@@ -120,6 +120,29 @@ def assert_update_matches_jax(data, params, trees=UPDATES):
                                atol=1e-6)
 
 
+def kernel_slabs(kw):
+    """(flat offset, width) of each kernel row's slab, from the level
+    wrappers' keywords (``num_bins``, ``f_oh``, ``packed``)."""
+    pk = kw["packed"]
+    if pk is not None:
+        return [(int(o), int(w)) for o, w in zip(pk.flat_offsets, pk.widths)]
+    B = kw["num_bins"]
+    return [(j * B, B) for j in range(kw["f_oh"])]
+
+
+def odd_route_table(W, slabs, seed=0):
+    """The grower's route table (one slab per W row) with slot 0's row
+    spread over a second kernel row's slab and slot 2's row all zero: any
+    0/1 W must route as the full W @ one-hot sum does."""
+    W = W.clone()
+    K = len(slabs)
+    j0 = next(j for j, (o, w) in enumerate(slabs) if bool(W[0, o:o + w].any()))
+    o, w = slabs[(j0 + 1 + seed % (K - 1)) % K]
+    W[0, o:o + max(1, w // 2)] = 1
+    W[2] = 0
+    return W
+
+
 def level_operands(R, Rp, num_bin, Bp, Sp, *, nch=5, quant_bits=0,
                    packed=False, masked=False, seed=0, device="cpu"):
     """Operands of one ``level_pass`` from a numpy seed, on ``device``.
