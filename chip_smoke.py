@@ -11,7 +11,9 @@ non-zero (it prints no result line then):
    each kernel instance's registers, spills and shared memory (ptxas);
    then the instructions the epilogue's histogram stage compiled to
    (cuobjdump: no matrix instruction, no atomic; PERF.md has the
-   tensor-core design it replaced);
+   tensor-core design it replaced), and the atomics of every kernel of
+   ``hist_pass`` (none in the f32 instances, native integer shared-memory
+   adds in the int32 ones: no compare-and-swap loop, no global atomic);
 2. each kernel against its plain PyTorch version on the card, at the
    slices' shapes: Rp = 1,001,472 rows, 28 features, Bp=64 with int8 bins
    and Bp=256 with int16 bins, Sp in {8, max_slot_cap}, nch in {5, 3}, a
@@ -22,7 +24,10 @@ non-zero (it prints no result line then):
    and each of its CUDA kernels timed alone at the main shape;
    ``hist_pass`` at R = 1,000,000 rows, Fp = 28, Bp in {64, 256},
    S in {8, 64}, f32 (nch 3) and quantized to 8 bits (nch 3) and 16 bits
-   (nch 5), ~30% of rows at slot -1 with non-zero gh; the histogram-plane
+   (nch 5), ~30% of rows at slot -1 with non-zero gh, and the root level
+   (S = 8, every row in slot 0), each called twice (the same bits), its
+   CUDA kernels counted per call and, at the main shape, each timed
+   alone; the histogram-plane
    variants of ``level_pass`` (quantized to 8 and 16 bits, packed,
    masked, and all three at once as run (b) of phase 6 runs them; f32
    padded on the same rows as their yardstick) and the packed
@@ -49,9 +54,10 @@ non-zero (it prints no result line then):
 5. the frontier-v1 engine end to end: ``train()`` with
    ``tpu_engine="frontier"`` on the same dataset and parameters, 10 rounds:
    sec/iter after the first round, AUC (> 0.75), leaves per tree,
-   ``hist_pass`` launches (> 0) and no launch of the fused engine's
-   kernels, host syncs per tree, and ``Booster.predict`` against the
-   trainer's scores;
+   ``hist_pass`` calls (10 per 255-leaf tree, each one launch of each of
+   its CUDA kernels) and no launch of the fused engine's kernels, host
+   syncs per tree (9), and ``Booster.predict`` against the trainer's
+   scores;
 6. the histogram-plane cuts end to end (``plane_cuts_train``): ``train()``
    on the same rows with columns 14-27 floored to 8 levels (bench.py's
    all-cuts leg), 10 rounds each of (a) f32 with no cuts, (b) quant16 +
@@ -63,10 +69,10 @@ non-zero (it prints no result line then):
    packed flat width against F_oh * Bp, the features screening keeps;
 7. the ``kernels`` line: every ported kernel and variant with its
    wrapper calls and CUDA kernel launches on the main path where it runs
-   (every level_pass, route_pass and epilogue_pass call in phases 3-6
-   held to one launch of each of its CUDA kernels), error, time per
-   launch, plain time, bound and library time, and per-kernel times of
-   ``level_pass`` and ``epilogue_pass``;
+   (every level_pass, route_pass, epilogue_pass and hist_pass call in
+   phases 3-6 held to one launch of each of its CUDA kernels), error,
+   time per launch, plain time, bound and library time, and per-kernel
+   times of ``level_pass``, ``epilogue_pass`` and ``hist_pass``;
 8. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package. It exits non-zero when no CUDA
@@ -261,13 +267,15 @@ def bound(nbytes: float, ops: float):
 
 
 def check_stages(launches, cuda, run) -> None:
-    """Every level_pass, route_pass and epilogue_pass call launched each
-    CUDA kernel of its stages once (level_pass exactly its four), as the C
-    entries report each launch (``cuda_launches``)."""
+    """Every level_pass, route_pass, epilogue_pass and hist_pass call
+    launched each CUDA kernel of its stages once, as the C entries report
+    each launch (``cuda_launches``; hist_pass: at most 512 slots, one
+    window)."""
     from lightgbm_tpu_torch.ops import fused_level as fl
     for wrapper, kernels in (("level_pass", fl.LEVEL_KERNELS),
                              ("route_pass", fl.ROUTE_KERNELS),
-                             ("epilogue_pass", fl.EPILOGUE_KERNELS)):
+                             ("epilogue_pass", fl.EPILOGUE_KERNELS),
+                             ("hist_pass", fl.HIST_KERNELS)):
         got = {k: cuda[k] for k in kernels}
         if got != dict.fromkeys(kernels, launches[wrapper]):
             raise AssertionError(f"{run}: {launches[wrapper]} {wrapper} "
@@ -279,7 +287,8 @@ def kernel_cuda_launches(name, cuda):
     from lightgbm_tpu_torch.ops import fused_level as fl
     kernels = {"level_pass": fl.LEVEL_KERNELS,
                "route_pass": fl.ROUTE_KERNELS,
-               "epilogue_pass": fl.EPILOGUE_KERNELS}.get(name, (name,))
+               "epilogue_pass": fl.EPILOGUE_KERNELS,
+               "hist_pass": fl.HIST_KERNELS}.get(name, (name,))
     return {k: cuda[k] for k in kernels}
 
 
@@ -327,6 +336,40 @@ def sass_hist_ops(lib_path):
             op: ops.count(op) for op in ("HMMA", "ATOMS", "RED", "ATOMG",
                                          "LDS", "STS", "FADD", "LDGSTS")}
     return out
+
+
+def sass_hist_pass_atomics(lib_path):
+    """Every atomic instruction (with its modifiers) of each kernel of
+    hist_pass in the built library (cuobjdump -sass), by mangled name."""
+    import re
+    from pathlib import Path
+    from lightgbm_tpu_torch.ops import cuda_build
+    tool = str(Path(cuda_build.nvcc_path()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        if not re.search(r"lgbt\d+hist_(count|scan|bucket|tiles|reduce)_"
+                         r"kernel", name):
+            continue
+        out[name] = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?"
+                               r"((?:ATOM|RED)[A-Z0-9_.]*)", block, re.M)
+    return out
+
+
+def hist_atomics_ok(atomics) -> bool:
+    """hist_pass adds with no f32 atomic: none in its f32 instances (their
+    tiles are private to a warp), and in the int32 ones (AccT = int,
+    ``IiL`` in the mangled tile kernel) only native shared-memory integer
+    adds — no compare-and-swap loop (ATOMS.CAST.SPIN), no global atomic."""
+    for name, ops in atomics.items():
+        int32 = "hist_tiles_kernelIi" in name
+        for op in ops:
+            if not (int32 and op.startswith("ATOMS.") and "CAS" not in op
+                    and "CAST" not in op):
+                return False
+    return bool(atomics)
 
 
 def _level_inputs(Rp, R, num_bin, B, Sp, nch, seed, quant_bits=0,
@@ -767,10 +810,13 @@ def check_epilogue(Rp, R, B, Sp, nch, kind, table, seed, L=255,
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def check_hist(R, Fp, B, S, quant_bits, seed):
+def check_hist(R, Fp, B, S, quant_bits, seed, slots="random",
+               stages=False):
     """hist_pass against its plain version: int32 bins [R, Fp] in [0, B-1),
-    slots in [0, S) with ~30% of rows at -1 (their gh non-zero), gh as f32
-    (g, h, w) or the int8 channels of ``quant_bits``."""
+    slots in [0, S) with ~30% of rows at -1 (their gh non-zero), or every
+    row in slot 0 (``slots="root"``, the root level), gh as f32 (g, h, w)
+    or the int8 channels of ``quant_bits``. Called twice: the same bits.
+    ``stages`` also times each of its CUDA kernels alone."""
     import torch
     from lightgbm_tpu_torch.ops import fused_level as fl
     from lightgbm_tpu_torch.ops import pallas_histogram as ph
@@ -782,6 +828,8 @@ def check_hist(R, Fp, B, S, quant_bits, seed):
     slot = torch.randint(0, S, (R,), generator=gen, device=dev,
                          dtype=torch.int32)
     slot[torch.rand(R, generator=gen, device=dev) < 0.3] = -1
+    if slots == "root":
+        slot.zero_()
     g = torch.randn(R, generator=gen, device=dev)
     h = torch.rand(R, generator=gen, device=dev) * 0.25
     w = torch.ones(R, device=dev)
@@ -795,10 +843,21 @@ def check_hist(R, Fp, B, S, quant_bits, seed):
     nch = gh.shape[1]
     kw = dict(S=S, Bp=B, nch=nch, quant=bool(quant_bits))
     n0 = fl.launches["hist_pass"]
+    c0 = {k: fl.cuda_launches[k] for k in fl.HIST_KERNELS}
     out_k = ph.hist_pass(bins, gh, slot, **kw)
     launched = fl.launches["hist_pass"] - n0
+    cuda_launched = {k: fl.cuda_launches[k] - c0[k] for k in fl.HIST_KERNELS}
+    out_again = ph.hist_pass(bins, gh, slot, **kw)
     out_p = ph.hist_pass_plain(bins, gh, slot, **kw)
     torch.cuda.synchronize()
+    if launched != 1 or set(cuda_launched.values()) != {1}:
+        raise AssertionError(f"hist_pass launched {launched} calls, CUDA "
+                             f"kernels {cuda_launched}")
+    same_bits = bool(torch.equal(out_k.view(torch.int32),
+                                 out_again.view(torch.int32)))
+    if not same_bits:
+        raise AssertionError(f"hist_pass gave other bits on a second call "
+                             f"(B={B} S={S} quant{quant_bits})")
     abs_err = float((out_k - out_p).abs().max())
     rel_sum = 0.0
     if quant_bits:
@@ -842,10 +901,27 @@ def check_hist(R, Fp, B, S, quant_bits, seed):
                                       out_p):
         raise AssertionError("the index_add_ yardstick differs from the "
                              "plain version")
+    out = {}
+    if stages:
+        # each CUDA kernel alone on the same inputs, into one set of
+        # buffers a whole call filled first (a kernel reads what the
+        # earlier ones wrote)
+        lkw = dict(Bp=B, nch=nch, quant=bool(quant_bits))
+        buf = ph.hist_buffers(bins, S=S, **lkw)
+        ph._hist_launch(fl.HIST_KERNELS, bins, gh, slot, buf, **lkw)
+
+        def stage(kernel):
+            return lambda: ph._hist_launch((kernel,), bins, gh, slot, buf,
+                                           **lkw)
+        out["stages_ms"] = {k: cuda_ms(stage(k)) for k in fl.HIST_KERNELS}
+        out.update(tile_blocks=buf["blocks"],
+                   channels_per_block=buf["channels_per_block"],
+                   adding_warps=buf["warps"])
     return {
-        "R": R, "Fp": Fp, "Bp": B, "S": S, "nch": nch,
+        "R": R, "Fp": Fp, "Bp": B, "S": S, "nch": nch, "slots": slots,
         "variant": f"quant{quant_bits}" if quant_bits else "f32",
         "slotted_rows": n_slot, "launches": launched,
+        "cuda_launches": cuda_launched, "same_bits_twice": same_bits, **out,
         "max_abs_err": abs_err,
         "rel_err_of_abs_sum": rel_sum,
         "tol": "exact" if quant_bits else "1e-5 of abs sum; w exact",
@@ -980,6 +1056,20 @@ def run_frontier(lgb, params, ds, X, y):
         if (n > 0) != (name in FRONTIER_KERNELS):
             raise AssertionError(f"kernel {name} launched {n} times on the "
                                  "frontier train() path")
+    # a full tree: the root and one histogram per level, one n_sel read per
+    # level (frontier.level_count); smaller trees (a rehearsal on the CPU
+    # at a few thousand rows) take fewer
+    from lightgbm_tpu_torch.models.frontier import level_count
+    L = params["num_leaves"]
+    levels = level_count(L, -1, 64)
+    per_tree = launches["hist_pass"] / max(n_trees, 1)
+    if DEVICE == "cuda" and (per_tree != levels + 1
+                             or syncs / max(n_trees, 1) != levels
+                             or {m.num_leaves for m in bst.models} != {L}):
+        raise AssertionError(f"frontier trees left the schedule: "
+                             f"{per_tree} hist_pass calls and "
+                             f"{syncs / max(n_trees, 1)} syncs per tree "
+                             f"({levels + 1} and {levels} for {L} leaves)")
     if not ok_pred:
         raise AssertionError(f"frontier predict differs from the trainer's "
                              f"scores by {pred_err}")
@@ -1135,12 +1225,18 @@ def main() -> int:
     # shared-memory loads, f32 adds and stores (no matrix instruction, no
     # atomic); PERF.md has the tensor-core design it replaced
     sass = sass_hist_ops(cuda_build.build())
-    emit({"phase": "sass", "epilogue_hist_kernel": sass})
+    hist_atomics = sass_hist_pass_atomics(cuda_build.build())
+    emit({"phase": "sass", "epilogue_hist_kernel": sass,
+          "hist_pass_atomics": hist_atomics})
     if len(sass) != 10 or any(n["ATOMS"] or n["RED"] or n["ATOMG"]
                              or not (n["LDS"] and n["STS"] and n["FADD"])
                              for n in sass.values()):
         raise AssertionError(f"the epilogue's histogram stage compiled to "
                              f"other instructions than expected: {sass}")
+    if not hist_atomics_ok(hist_atomics):
+        raise AssertionError(f"hist_pass compiled to other atomics than "
+                             f"native integer shared-memory adds: "
+                             f"{hist_atomics}")
 
     # ---- 2. kernels against their plain versions at the slice's shapes
     Rp = ((ROWS + 2047) // 2048) * 2048
@@ -1184,11 +1280,14 @@ def main() -> int:
     for B in (64, 256):
         for S in (8, 64):
             for bits in (0, 8, 16):
+                main = (B, S, bits) == (64, 64, 0)
                 res = check_hist(ROWS, FEATURES, B, S, bits,
-                                 seed=B + S + bits)
+                                 seed=B + S + bits, stages=main)
                 emit({"phase": "kernel_check", "hist_pass": res})
-                if (B, S, bits) == (64, 64, 0):
+                if main:
                     hist_main = res
+    res = check_hist(ROWS, FEATURES, 64, 8, 0, seed=72, slots="root")
+    emit({"phase": "kernel_check", "hist_pass": res})
     plane_main = {}
     for Sp in (8, 64):
         for i, (bits, packed, masked) in enumerate(PLANE_VARIANTS):
@@ -1312,7 +1411,7 @@ def main() -> int:
             row.update({k: r[k] for k in ("kernel_ms_per_call",
                                           "library_ms_per_call",
                                           "library_call")})
-        if name in ("level_pass", "epilogue_pass"):
+        if name in ("level_pass", "epilogue_pass", "hist_pass"):
             row["stages_ms"] = r["stages_ms"]
         rows.append(row)
     # the variants at Sp=64 on the mixed layout, each with the launches of

@@ -60,8 +60,12 @@ SIGNATURES = {
                              _c.c_longlong, _c.c_int,
                              _c.POINTER(_c.c_longlong),
                              _c.POINTER(_c.c_int)],
-    "lgbt_hist_pass": [_P, _P, _P, _P, _c.c_longlong, _c.c_int, _c.c_int,
-                       _c.c_int, _c.c_int, _c.c_int, _P],
+    "lgbt_hist_pass": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _c.c_longlong,
+                       _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+                       _c.c_int, _c.c_int, _c.c_int, _P,
+                       _c.POINTER(_c.c_int)],
+    "lgbt_hist_plan": [_c.c_longlong, _c.c_int, _c.c_int, _c.c_int,
+                       _c.c_int, _c.c_int, _c.POINTER(_c.c_longlong)],
 }
 
 _lib: Optional[ctypes.CDLL] = None

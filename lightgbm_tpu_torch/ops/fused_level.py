@@ -102,13 +102,19 @@ LEVEL_KERNELS = sum(STAGE_KERNELS.values(), ())
 ROUTE_KERNELS = ("route_slabs", "route_pass")
 EPILOGUE_KERNELS = ("epilogue_slabs", "epilogue_pass", "epilogue_hist",
                     "epilogue_reduce")
+# the CUDA kernels of hist_pass (ops/pallas_histogram.py), in launch order:
+# per-block slot counts, their scan into bucket offsets, the slot buckets,
+# the per-warp tiles' partial slices, their reduce into the output
+HIST_KERNELS = ("hist_count", "hist_scan", "hist_bucket", "hist_tiles",
+                "hist_reduce")
 # CUDA kernel launches since the last reset, by kernel, as the C entries
 # report them: a level_pass call launches each of LEVEL_KERNELS once, a
 # route_pass call each of ROUTE_KERNELS, an epilogue_pass call each of
-# EPILOGUE_KERNELS, table_lookup and hist_pass their one kernel
+# EPILOGUE_KERNELS, a hist_pass call each of HIST_KERNELS once per window
+# of slots (one up to 512 slots), table_lookup its one kernel
 cuda_launches: Dict[str, int] = dict.fromkeys(
     LEVEL_KERNELS + ROUTE_KERNELS + ("table_lookup",) + EPILOGUE_KERNELS
-    + ("hist_pass",), 0)
+    + HIST_KERNELS, 0)
 # bytes of a block's opt-in shared memory left to the level_hist kernel's
 # static arrays (the slot offsets); the rest holds its histogram tile
 HIST_STATIC_SMEM = 1024

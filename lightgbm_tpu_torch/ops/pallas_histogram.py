@@ -2,10 +2,14 @@
 
 PyTorch counterpart of ``lightgbm_tpu/ops/pallas_histogram.py`` (the
 module keeps the JAX module's name so a reader finds the counterpart; it
-holds no Pallas). The TPU kernel ``_hist_kernel`` becomes the CUDA kernel
-``csrc/hist_pass.cu`` behind :func:`hist_pass`, with its plain PyTorch
-version :func:`hist_pass_plain` beside it. On a CPU tensor the wrapper
-runs the plain version; on a CUDA tensor it launches the kernel or raises.
+holds no Pallas). The TPU kernel ``_hist_kernel`` becomes five CUDA
+kernels (``csrc/hist_pass.cu``, ``fused_level.HIST_KERNELS``: per-slot
+row counts, their scan, slot buckets, shared-memory tiles, a fixed-order
+reduce) behind :func:`hist_pass`, with its plain PyTorch version
+:func:`hist_pass_plain` beside it and plain versions of the stages
+(:func:`hist_bucket_plain`, :func:`hist_tiles_plain`,
+:func:`hist_reduce_plain`). On a CPU tensor the wrapper runs the plain
+version; on a CUDA tensor it launches the kernels or raises.
 
 Contract (``pallas_histogram.py:60-132``): for every row r whose slot
 ``row_slot[r] = s`` lies in [0, Sp), every feature f < Fp and channel
@@ -25,13 +29,14 @@ f32 or int32. Any R.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Dict, Tuple
 
 import torch
 
 from . import quantize
-from .fused_level import (_raise_on, _require_cuda, _stream, cuda_launches,
-                          launches)
+from .fused_level import (HIST_KERNELS, _count_kernels, _raise_on,
+                          _require_cuda, _stream, launches)
 from .layout import feature_layout
 
 NUM_CH = 3
@@ -82,8 +87,7 @@ def hist_pass_plain(bins_i32: torch.Tensor, gh: torch.Tensor,
     rows = torch.nonzero((row_slot >= 0) & (row_slot < Sp)).squeeze(1)
     s = row_slot[rows].long()
     b = bins_i32[rows].long()                                     # [n, Fp]
-    vals = (gh[rows].to(torch.int32) if quant
-            else gh[rows].to(torch.bfloat16).float())             # [n, nch]
+    vals = _values(gh[rows], quant)                               # [n, nch]
     cell = (s[:, None] * Fp + torch.arange(Fp, device=dev)) * Bp + b
     ok = (b >= 0) & (b < Bp)
     out = torch.zeros((Sp * Fp * Bp, nch), dtype=acc, device=dev)
@@ -92,28 +96,176 @@ def hist_pass_plain(bins_i32: torch.Tensor, gh: torch.Tensor,
     return out.t().reshape(nch, Sp, Fp, Bp)
 
 
+def _values(gh: torch.Tensor, quant: bool) -> torch.Tensor:
+    """The channel values the histogram adds: int8 widened to int32, or f32
+    rounded to bf16 (nearest even) and back."""
+    return gh.to(torch.int32) if quant else gh.to(torch.bfloat16).float()
+
+
+# ------------------------------------------- the card's stages, plainly
+# On the card hist_pass is five CUDA kernels (``fused_level.HIST_KERNELS``,
+# ``csrc/hist_pass.cu``): count the live rows per slot and block, scan the
+# counts into bucket offsets, write the rows into slot buckets, add each
+# block's share of the bucketed rows into per-slot partial slices, and
+# reduce the slices. The three plain versions below model the buckets, the
+# slices and the reduce; composed they give hist_pass_plain (exactly for
+# int32 sums and the f32 weight channel).
+
+def hist_bucket_plain(gh: torch.Tensor, row_slot: torch.Tensor, *, S: int,
+                      quant: bool = False):
+    """(slot_off [Sp+1] int32, brow [n] int32): the rows that add anything
+    (slot in [0, Sp), a channel non-zero as the histogram takes it) in
+    bucket order — by slot, then by row, the card's fixed order — and
+    where each slot's bucket starts (slot_off[Sp] = n)."""
+    Sp = _round_up(max(S, 8), 8)
+    live = ((row_slot >= 0) & (row_slot < Sp)
+            & (_values(gh, quant) != 0).any(1))
+    rows = torch.nonzero(live).squeeze(1)
+    slots = row_slot[rows].long()
+    brow = rows[torch.sort(slots, stable=True).indices].to(torch.int32)
+    counts = torch.bincount(slots, minlength=Sp)
+    slot_off = torch.zeros(Sp + 1, dtype=torch.int64, device=gh.device)
+    slot_off[1:] = torch.cumsum(counts, 0)
+    return slot_off.to(torch.int32), brow
+
+
+def _share(n: int, blocks: int) -> int:
+    """Bucketed rows per tile block: each block x takes [x*share,
+    (x+1)*share) of the n (at least 1, so an empty bucket divides)."""
+    return max(1, -(-n // blocks))
+
+
+def hist_tiles_plain(bins_i32: torch.Tensor, gh: torch.Tensor,
+                     brow: torch.Tensor, slot_off: torch.Tensor, *, Bp: int,
+                     nch: int, blocks: int,
+                     quant: bool = False) -> torch.Tensor:
+    """The partial slices [blocks + Sp - 1, nch, Fp, Bp]: ``blocks`` blocks
+    take even shares of the bucketed rows, and block x adds its rows of
+    slot k into slice x + k (a slice no block holds rows for stays 0)."""
+    R, Fp = bins_i32.shape
+    Sp = slot_off.numel() - 1
+    dev = bins_i32.device
+    n = brow.numel()
+    e = torch.arange(n, device=dev)
+    k = torch.searchsorted(slot_off[1:].long(), e, right=True)
+    sl = e // _share(n, blocks) + k
+    rows = brow.long()
+    b = bins_i32[rows].long()                                     # [n, Fp]
+    cell = (sl[:, None] * Fp + torch.arange(Fp, device=dev)) * Bp + b
+    ok = (b >= 0) & (b < Bp)
+    src = _values(gh[rows], quant)[:, None, :].expand(-1, Fp, -1)
+    part = torch.zeros(((blocks + Sp - 1) * Fp * Bp, nch),
+                       dtype=torch.int32 if quant else torch.float32,
+                       device=dev)
+    part.index_add_(0, cell[ok], src[ok])
+    return part.reshape(blocks + Sp - 1, Fp, Bp, nch).permute(0, 3, 1, 2)
+
+
+def hist_reduce_plain(part: torch.Tensor, slot_off: torch.Tensor, *,
+                      blocks: int) -> torch.Tensor:
+    """out [nch, Sp, Fp, Bp]: slot k's cells are the sum, in block order,
+    of slices x + k of the blocks x that hold rows of slot k (none: 0)."""
+    Sp = slot_off.numel() - 1
+    off = [int(v) for v in slot_off]
+    share = _share(off[-1], blocks)
+    out = part.new_zeros((part.shape[1], Sp) + tuple(part.shape[2:]))
+    for k in range(Sp):
+        if off[k + 1] > off[k]:
+            for x in range(off[k] // share, (off[k + 1] - 1) // share + 1):
+                out[:, k] += part[x + k]
+    return out
+
+
+# --------------------------------------------------------- on the card
+HIST_WINDOW = 512     # slots per launch of the card's kernels
+
+
+@functools.lru_cache(maxsize=64)
+def _hist_plan(dev_index: int, R: int, Fp: int, Bp: int, Sw: int, nch: int,
+               quant: bool) -> Tuple[int, ...]:
+    """(cnt int32s, record bytes, partial elements, tile blocks, channels
+    per tile block, adding warps) of one window of Sw slots."""
+    import ctypes
+    from .cuda_build import library
+    sizes = (ctypes.c_longlong * 6)()
+    with torch.cuda.device(dev_index):
+        _raise_on(library().lgbt_hist_plan(R, Fp, Bp, Sw, nch, int(quant),
+                                           sizes), "hist_pass")
+    return tuple(sizes)
+
+
+def hist_buffers(bins_i32: torch.Tensor, *, S: int, Bp: int, nch: int,
+                 quant: bool = False) -> Dict[str, object]:
+    """The output and scratch of one :func:`hist_pass` call on the card,
+    sized for its widest window: the per-block slot counts and their scan,
+    the slot offsets, the bucketed rows' records (channel pack, then row
+    index), the tile blocks' partial slices; and the tile kernel's
+    shape."""
+    R, Fp = bins_i32.shape
+    dev = bins_i32.device
+    Sp = _round_up(max(S, 8), 8)
+    Sw = min(Sp, HIST_WINDOW)
+    n_cnt, rec, n_part, blocks, cn, warps = _hist_plan(
+        dev.index or 0, R, Fp, Bp, Sw, nch, bool(quant))
+    acc = torch.int32 if quant else torch.float32
+
+    def empty(n, dtype):
+        return torch.empty(max(n, 1), dtype=dtype, device=dev)
+    return {"out": torch.empty((nch, Sp, Fp, Bp), dtype=acc, device=dev),
+            "cnt": empty(n_cnt, torch.int32),
+            "off": empty(n_cnt, torch.int32),
+            "slot_off": empty(Sw + 1, torch.int32),
+            "recs": empty(R * rec // 4, torch.int32), "rec": rec,
+            "part": empty(n_part, acc), "blocks": blocks,
+            "channels_per_block": cn, "warps": warps}
+
+
+def bucket_rows(buf: Dict[str, object], n: int) -> torch.Tensor:
+    """The row indices of the first n bucketed records of ``buf``."""
+    words = buf["rec"] // 4
+    return buf["recs"][:n * words].view(n, words)[:, words // 2]
+
+
+def _hist_launch(kernels, bins_i32, gh, row_slot, buf, *, Bp: int,
+                 nch: int, quant: bool, lo: int = 0) -> None:
+    """Launch the CUDA kernels named in ``kernels`` (of HIST_KERNELS; a
+    later one reads what ``buf`` holds from the earlier) for the window of
+    slots [lo, lo + HIST_WINDOW) on the current stream, and count those
+    the C entry reports launched."""
+    import ctypes
+    from .cuda_build import library
+    R, Fp = bins_i32.shape
+    Sp = buf["out"].shape[1]
+    stages = sum(1 << HIST_KERNELS.index(k) for k in kernels)
+    done = ctypes.c_int(0)
+    rc = library().lgbt_hist_pass(
+        bins_i32.data_ptr(), gh.data_ptr(), row_slot.data_ptr(),
+        buf["out"].data_ptr(), buf["cnt"].data_ptr(),
+        buf["off"].data_ptr(), buf["slot_off"].data_ptr(),
+        buf["recs"].data_ptr(), buf["part"].data_ptr(), R, Fp, Bp, Sp, lo,
+        min(HIST_WINDOW, Sp - lo), nch, int(bool(quant)), stages,
+        _stream(bins_i32.device), ctypes.byref(done))
+    _count_kernels(HIST_KERNELS, done.value)
+    _raise_on(rc, "hist_pass")
+
+
 def hist_pass(bins_i32: torch.Tensor, gh: torch.Tensor,
               row_slot: torch.Tensor, *, S: int, Bp: int, nch: int,
               quant: bool = False) -> torch.Tensor:
     """The slot-keyed histogram (module docstring): [nch, Sp, Fp, Bp] f32,
-    or int32 when ``quant``."""
+    or int32 when ``quant``. On the card: the five kernels of
+    ``HIST_KERNELS`` per window of up to ``HIST_WINDOW`` slots, any Bp."""
     R, Fp, Sp = _check(bins_i32, gh, row_slot, S, Bp, nch, quant)
     if bins_i32.device.type == "cpu":
         return hist_pass_plain(bins_i32, gh, row_slot, S=S, Bp=Bp, nch=nch,
                                quant=quant)
     _require_cuda(bins_i32, gh, row_slot)
-    from .cuda_build import library
-    out = torch.zeros((nch, Sp, Fp, Bp),
-                      dtype=torch.int32 if quant else torch.float32,
-                      device=bins_i32.device)
-    rc = library().lgbt_hist_pass(
-        bins_i32.data_ptr(), gh.data_ptr(), row_slot.data_ptr(),
-        out.data_ptr(), R, Fp, Bp, Sp, nch, int(bool(quant)),
-        _stream(bins_i32.device))
-    _raise_on(rc, "hist_pass")
+    buf = hist_buffers(bins_i32, S=S, Bp=Bp, nch=nch, quant=quant)
+    for lo in range(0, Sp, HIST_WINDOW):
+        _hist_launch(HIST_KERNELS, bins_i32, gh, row_slot, buf, Bp=Bp,
+                     nch=nch, quant=quant, lo=lo)
     launches["hist_pass"] += 1
-    cuda_launches["hist_pass"] += 1
-    return out
+    return buf["out"]
 
 
 def build_histograms_pallas(bins_i32: torch.Tensor, gh3: torch.Tensor,

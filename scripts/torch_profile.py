@@ -18,10 +18,10 @@ iterations, then traces ``--rounds`` more with ``torch.profiler`` and
 prints one JSON line: the wall time per iteration, the device time summed
 over all kernels, the device's busy share (device time over wall time),
 the device launches per iteration, each of the port's kernels' device ms
-per iteration (``level_pass``, ``route_pass`` and ``epilogue_pass`` as the
-sums of their CUDA kernels, each also on its own; the slab-table kernel
-they share is split by launches), the port's CUDA kernel launches per
-iteration
+per iteration (``level_pass``, ``route_pass``, ``epilogue_pass`` and
+``hist_pass`` as the sums of their CUDA kernels, each also on its own; the
+slab-table kernel the first three share is split by launches), the port's
+CUDA kernel launches per iteration
 (``ops.fused_level.cuda_launches``), the kernels ranked by device time,
 and the grower's host syncs per tree. Also prints the card's name and
 power limit. Needs a CUDA device.
@@ -137,6 +137,8 @@ def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int):
                                          for k in fl.ROUTE_KERNELS),
                  "epilogue_pass (all)": sum(kernel_ms[k]
                                             for k in fl.EPILOGUE_KERNELS),
+                 "hist_pass (all)": sum(kernel_ms[k]
+                                        for k in fl.HIST_KERNELS),
                  **kernel_ms}
     g = bst._gbdt
     return {

@@ -210,18 +210,33 @@ def test_cuda_update_matches_cpu(cuda_device):
                                atol=1e-6)
 
 
-def _hist_operands(R, F, B, S, quant_bits, seed):
-    """[R, Fp] int32 bins, ~30% of rows at slot -1 with non-zero gh, and
-    gh as f32 (g, h, w) or the int8 channels of ``quant_bits``."""
+def _hist_operands(R, F, B, S, quant_bits, seed, slots="random", nch=3):
+    """[R, Fp] int32 bins, gh as f32 (g, h, w and nch - 3 more random
+    channels) or the int8 channels of ``quant_bits``, and the slots:
+    ``random`` in [0, S) with ~30% of rows
+    at -1 (their gh non-zero); ``root`` every row in slot 0 (the root
+    level); ``none`` every row at -1; ``odd`` random, with ~2% of the bins
+    outside [0, Bp), ~10% of the rows' channels all zero and ~2% of the
+    slots past Sp."""
     rng = np.random.RandomState(seed)
     Fp, Bp = tph.pad_feature_layout(F, B)
     bins = np.zeros((R, Fp), np.int32)
     bins[:, :F] = rng.randint(0, B, (R, F))
     slot = rng.randint(0, S, R).astype(np.int32)
     slot[rng.rand(R) < 0.3] = -1
+    if slots == "root":
+        slot[:] = 0
+    elif slots == "none":
+        slot[:] = -1
+    gh = np.stack([rng.randn(R), rng.rand(R), np.ones(R)]
+                  + [rng.randn(R) for _ in range(nch - 3)], 1)
+    if slots == "odd":
+        odd = rng.rand(R, Fp) < 0.02
+        bins[odd] = rng.choice([-1, Bp, Bp + 5, 1 << 20], odd.sum())
+        gh[rng.rand(R) < 0.1] = 0.0
+        slot[rng.rand(R) < 0.02] = 1 << 16
     t = torch.as_tensor
-    gh = t(np.stack([rng.randn(R), rng.rand(R), np.ones(R)], 1)
-           .astype(np.float32))
+    gh = t(gh.astype(np.float32))
     if quant_bits:
         g, h = gh[:, 0], gh[:, 1]
         scales = tq.quant_scales(g, h, quant_bits)
@@ -231,39 +246,79 @@ def _hist_operands(R, F, B, S, quant_bits, seed):
     return t(bins), gh, t(slot), Bp
 
 
-@pytest.mark.parametrize("R,F,B,S,bits", [
-    (5000, 28, 64, 64, 0),    # 7 shared-memory feature groups of 4
-    (3001, 28, 64, 8, 0),     # every feature in one group
-    (5000, 28, 64, 64, 8),
-    (4099, 28, 64, 13, 16),
-    # one feature's [5, 64, 256] int32 slab (320 KB) exceeds a block's
-    # shared memory: the kernel adds straight into global memory
-    (5000, 28, 256, 64, 16),
-    (5000, 5, 256, 64, 0),
+@pytest.mark.parametrize("R,F,B,S,bits,slots", [
+    (5000, 28, 64, 64, 0, "random"),    # the deep levels' shape
+    (3001, 28, 64, 8, 0, "random"),
+    (5000, 28, 64, 64, 8, "random"),
+    (4099, 28, 64, 13, 16, "random"),
+    # Bp=256, nch=5: a block takes 3 (then 2) of the channels; every add
+    # stays in shared memory
+    (5000, 28, 256, 64, 16, "random"),
+    (5000, 5, 256, 64, 0, "random"),
+    (6000, 28, 64, 8, 0, "root"),       # the root level: one slot
+    (6000, 28, 64, 8, 16, "root"),
+    (2500, 28, 64, 64, 0, "none"),      # no row slotted
+    (0, 28, 64, 8, 0, "random"),        # no row
+    (3000, 70, 64, 16, 0, "odd"),       # three feature groups of 32
+    (3000, 70, 64, 16, 8, "odd"),
+    (3000, 6, 1024, 8, 0, "random"),    # MAX_CARD_BINS: one bin group
+    (3000, 6, 2048, 8, 16, "random"),   # two bin groups
+    (1500, 7, 16, 1100, 0, "random"),   # three windows of slots
+    (4000, 28, 64, 64, 0, "random5"),   # f32, 5 channels: 32-byte records
 ])
-def test_hist_pass_matches_plain(cuda_device, R, F, B, S, bits):
-    bins, gh, slot, Bp = _hist_operands(R, F, B, S, bits, seed=R + B + S)
+def test_hist_pass_matches_plain(cuda_device, R, F, B, S, bits, slots):
+    nch = 5 if slots == "random5" else 3
+    bins, gh, slot, Bp = _hist_operands(R, F, B, S, bits, seed=R + B + S,
+                                        slots=slots.rstrip("5"), nch=nch)
     quant = bool(bits)
     nch = gh.shape[1]
     kw = dict(S=S, Bp=Bp, nch=nch, quant=quant)
+    windows = -(-max(S, 8) // tph.HIST_WINDOW)
     n0 = tfl.launches["hist_pass"]
-    out_c = tph.hist_pass(bins.to(cuda_device), gh.to(cuda_device),
-                          slot.to(cuda_device), **kw)
+    c0 = {k: tfl.cuda_launches[k] for k in tfl.HIST_KERNELS}
+    args = (bins.to(cuda_device), gh.to(cuda_device), slot.to(cuda_device))
+    out_c = tph.hist_pass(*args, **kw)
     torch.cuda.synchronize()
     assert tfl.launches["hist_pass"] - n0 == 1
+    assert {k: tfl.cuda_launches[k] - c0[k] for k in tfl.HIST_KERNELS} \
+        == dict.fromkeys(tfl.HIST_KERNELS, windows)
+    # the same bits on a second call: a fixed summation order
+    assert torch.equal(tph.hist_pass(*args, **kw), out_c)
     out_p = tph.hist_pass_plain(bins, gh, slot, **kw)
     assert out_c.shape == out_p.shape and out_c.dtype == out_p.dtype
     if quant:       # integer sums: exact
         assert torch.equal(out_c.cpu(), out_p)
         return
-    # atomics reorder the f32 sums; the weight channel counts rows exactly
+    # the f32 sums in another order; the weight channel counts rows exactly
     for c in range(2):
         np.testing.assert_allclose(
             out_c[c].cpu().numpy(), out_p[c].numpy(), rtol=1e-5,
             atol=1e-5 * float(out_p[c].abs().max()))
     assert torch.equal(out_c[2].cpu(), out_p[2])
-    # unslotted rows added nothing
-    assert float(out_p[2].sum()) == (slot >= 0).sum().item() * bins.shape[1]
+    if slots != "odd":      # unslotted rows added nothing
+        assert float(out_p[2].sum()) == (slot >= 0).sum().item() * \
+            bins.shape[1]
+    for c in range(3, nch):
+        np.testing.assert_allclose(
+            out_c[c].cpu().numpy(), out_p[c].numpy(), rtol=1e-5,
+            atol=1e-5 * float(out_p[c].abs().max()))
+
+
+@pytest.mark.parametrize("bits", [0, 16])
+def test_hist_buckets_match_the_plain_order(cuda_device, bits):
+    """The card's slot buckets list each slot's live rows in row order,
+    as hist_bucket_plain does, and its offsets are the plain ones."""
+    S = 13
+    bins, gh, slot, Bp = _hist_operands(20000, 28, 64, S, bits, seed=4,
+                                        slots="odd")
+    args = [a.to(cuda_device) for a in (bins, gh, slot)]
+    kw = dict(Bp=Bp, nch=gh.shape[1], quant=bool(bits))
+    buf = tph.hist_buffers(args[0], S=S, **kw)
+    tph._hist_launch(tfl.HIST_KERNELS[:3], *args, buf, **kw)
+    off_p, brow_p = tph.hist_bucket_plain(gh, slot, S=S, quant=bool(bits))
+    torch.cuda.synchronize()
+    assert torch.equal(buf["slot_off"].cpu(), off_p)
+    assert torch.equal(tph.bucket_rows(buf, brow_p.numel()).cpu(), brow_p)
 
 
 def test_hist_pass_on_cuda_never_runs_the_plain_version(cuda_device,
