@@ -67,13 +67,35 @@ non-zero (it prints no result line then):
    card exactly the megastep schedule of a full 255-leaf tree), host
    syncs per tree, AUC (within 0.05 of run a), predict agreement, the
    packed flat width against F_oh * Bp, the features screening keeps;
-7. the ``kernels`` line: every ported kernel and variant with its
+7. valid sets, metrics, callbacks, early stopping and ``cv`` through
+   ``train()`` (``eval_train``), on phase 3's dataset and a valid set of
+   250,000 rows from the same labelling function (binned against it),
+   ``metric=["binary_logloss", "auc"]``: (a) bench.py's eval leg
+   (``early_stopping_round=25``, ``log_evaluation(1)``,
+   ``record_evaluation``) on the megastep body, 10 rounds: sec/iter,
+   launches and host syncs per tree beside phase 3's, the device time of
+   one valid update and of one evaluation of the metrics, the last
+   recorded values against a float64 recomputation from ``predict``
+   (rtol 1e-5), valid AUC > 0.75, the valid scores against ``predict``;
+   (b) ``early_stopping(3)`` on the valid set and a copy with permuted
+   labels, 30 rounds: the best iteration the callback's rule gives on the
+   recorded curves, best + 3 trees, ``model_to_string`` and ``predict``
+   keeping the best; (c) a numpy logloss ``feval`` (the classic loop, the
+   epilogue body): equal to ``binary_logloss`` within rtol 1e-6; (d)
+   ``tpu_engine="frontier"`` with the valid set: ``hist_pass`` launched,
+   valid scores against ``predict``; (e) ``init_model`` = run (a)'s
+   booster, 5 more rounds: the valid scores against the sum of both
+   boosters' predictions; (f) ``cv``, 3 stratified folds, 5 rounds: the
+   result keys and lengths, each mean the mean of the folds'
+   ``eval_valid``;
+8. the ``kernels`` line: every ported kernel and variant with its
    wrapper calls and CUDA kernel launches on the main path where it runs
    (every level_pass, route_pass, epilogue_pass and hist_pass call in
-   phases 3-6 held to one launch of each of its CUDA kernels), error,
+   phases 3-7 held to one launch of each of its CUDA kernels), its
+   launches in phase 7's runs (a), (c) and (d), error,
    time per launch, plain time, bound and library time, and per-kernel
    times of ``level_pass``, ``epilogue_pass`` and ``hist_pass``;
-8. the last line: ``{"ok": true, "device": {...}}``.
+9. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package. It exits non-zero when no CUDA
 device is present.
@@ -98,6 +120,7 @@ ROUNDS = 10
 DATA_SEED = 1
 DEVICE = "cuda"   # the card; a rehearsal on the CPU may set "cpu"
 UPDATES = 10
+VALID_ROWS = 250_000     # phase 7's valid set
 WARMUP_UPDATES = 2
 TRAIN_PATH_KERNELS = ("level_pass", "route_pass", "table_lookup")
 FRONTIER_KERNELS = ("hist_pass",)
@@ -141,11 +164,22 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def _make_data(n_rows: int, n_feat: int, seed: int = 0):
-    # the synthetic binary data of bench.py (copied, not imported)
+def _make_data(n_rows: int, n_feat: int, seed: int = 0,
+               with_w: bool = False):
+    # the synthetic binary data of bench.py (copied, not imported); with
+    # ``with_w`` also the labelling function's weights
     rng = np.random.RandomState(seed)
     X = rng.rand(n_rows, n_feat).astype(np.float32)
     w = rng.randn(n_feat).astype(np.float32)
+    y = (X @ w + 0.5 * rng.randn(n_rows) > 0).astype(np.float32)
+    return (X, y, w) if with_w else (X, y)
+
+
+def _valid_rows(n_rows: int, w: np.ndarray, seed: int):
+    """Rows drawn from the labelling function ``w`` of a _make_data
+    draw."""
+    rng = np.random.RandomState(seed)
+    X = rng.rand(n_rows, len(w)).astype(np.float32)
     y = (X @ w + 0.5 * rng.randn(n_rows) > 0).astype(np.float32)
     return X, y
 
@@ -943,6 +977,258 @@ def auc(scores: np.ndarray, y: np.ndarray) -> float:
                  / (n_pos * n_neg))
 
 
+def auc_ties(scores: np.ndarray, y: np.ndarray) -> float:
+    """AUC in float64 with tied scores credited one half (the trapezoid
+    over groups of equal scores)."""
+    order = np.argsort(-scores, kind="stable")
+    s, pos = scores[order], (y[order] > 0).astype(np.float64)
+    start = np.concatenate([[True], s[1:] != s[:-1]])
+    gid = np.cumsum(start) - 1
+    g_pos = np.bincount(gid, weights=pos)
+    g_neg = np.bincount(gid) - g_pos
+    before = np.concatenate([[0.0], np.cumsum(g_pos)[:-1]])
+    return float(np.sum(g_neg * (before + 0.5 * g_pos))
+                 / (pos.sum() * (len(y) - pos.sum())))
+
+
+def logloss(raw: np.ndarray, y: np.ndarray) -> float:
+    """Binary logloss in float64 of raw scores."""
+    p = np.clip(1.0 / (1.0 + np.exp(-raw)), 1e-15, 1.0 - 1e-15)
+    return float(-np.mean(np.where(y > 0, np.log(p), np.log(1.0 - p))))
+
+
+def es_rule(ev, rounds: int):
+    """The early_stopping callback's rule on recorded curves: the first
+    (iteration, curve) at which a curve has not improved for ``rounds``
+    iterations gives its best iteration (1-based); None if none stops."""
+    curves = [(vals, m == "auc") for name in ev for m, vals in
+              ev[name].items()]
+    best = [(None, 0)] * len(curves)
+    for i in range(len(curves[0][0])):
+        for j, (vals, bigger) in enumerate(curves):
+            v, (b, bi) = vals[i], best[j]
+            if b is None or (v > b if bigger else v < b):
+                best[j] = (v, i)
+            if i - best[j][1] >= rounds:
+                return best[j][1] + 1
+    return None
+
+
+def run_eval_train(lgb, params, ds, X, y, w, e2e):
+    """Phase 7: valid sets, metrics, callbacks, early stopping and cv
+    through train() on the card (runs a-f). Returns the wrappers' launches
+    of runs (a), (c) and (d) (each with the CUDA kernels' under
+    ``cuda:<kernel>``)."""
+    import torch
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.models import frontier2
+    from lightgbm_tpu_torch.ops import fused_level as fl
+    metric = ["binary_logloss", "auc"]
+    t0 = time.perf_counter()
+    Xv, yv = _valid_rows(VALID_ROWS, w, seed=DATA_SEED + 100)
+    dv = lgb.Dataset(Xv, label=yv, reference=ds).construct()
+    yp = np.random.RandomState(7).permutation(yv)
+    dp = lgb.Dataset(Xv, label=yp, reference=ds).construct()
+    construct_s = time.perf_counter() - t0
+    out = {}
+
+    def counted(fn):
+        """fn() with the launch and host-sync counts set to 0 just before
+        and read just after."""
+        torch.cuda.synchronize()
+        fl.reset_launch_counts()
+        frontier2.host_syncs["count"] = 0
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        return res, dt, dict(fl.launches), dict(fl.cuda_launches), \
+            frontier2.host_syncs["count"]
+
+    def train(p, rounds, valid, names, callbacks=(), **kw):
+        ds.params = {}      # each run trains on its own parameters alone
+        ev = {}
+        bst = lgb.train(p, ds, rounds, valid_sets=valid, valid_names=names,
+                        callbacks=[lgb.record_evaluation(ev), *callbacks],
+                        **kw)
+        return bst, ev
+
+    def check_predict(bst, run, i=0):
+        pred = bst.predict(Xv, raw_score=True, num_iteration=-1)
+        got = bst.valid_scores(i).float().cpu().numpy()
+        err = float(np.abs(pred - got).max())
+        if not np.allclose(got, pred, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"run ({run}) valid scores differ from "
+                                 f"predict by {err}")
+        return pred, err
+
+    # (a) bench.py's eval leg on the megastep body
+    pa = dict(params, metric=metric, early_stopping_round=25)
+
+    def run_a(rounds):
+        return train(pa, rounds, [dv], ["valid"],
+                     [lgb.log_evaluation(1)])
+    stash = {}
+    upd = GBDT._update_valid_from_tree
+
+    def keep_tree(self, tree):
+        stash["tree"], stash["gbdt"] = tree, self
+        return upd(self, tree)
+    GBDT._update_valid_from_tree = keep_tree
+    try:
+        run_a(1)                              # warm-up
+        _, t_one, *_ = counted(lambda: run_a(1))
+        (bst, ev), t_all, launches, cuda, syncs = counted(
+            lambda: run_a(ROUNDS))
+    finally:
+        GBDT._update_valid_from_tree = upd
+    n_trees = bst.num_trees()
+    pred, pred_err = check_predict(bst, "a")
+    want = {"binary_logloss": logloss(pred, yv), "auc": auc_ties(pred, yv)}
+    got = {m: ev["valid"][m][-1] for m in metric}
+    # the device time of one iteration's valid update (every valid row
+    # routed through the last device tree) and of its metrics, each a CUDA
+    # graph replayed (cuda_ms), on the trained state
+    g = stash["gbdt"]
+    vs0 = g.valid_scores[0].clone()
+    upd_ms = cuda_ms(lambda: g._update_valid_from_tree(stash["tree"]))
+    g.valid_scores[0].copy_(vs0)
+    eval_ms = cuda_ms(lambda: g.eval_metric_set(
+        "valid", g.valid_metrics[0], g.valid_scores[0]))
+    res = {"phase": "eval_train", "run": "a", "body": "megastep",
+           "valid_rows": VALID_ROWS, "construct_valid_s": construct_s,
+           "metric": metric, "rounds": ROUNDS, "trees": n_trees,
+           "curve_lengths": {m: len(v) for m, v in ev["valid"].items()},
+           "valid_last": got, "valid_last_float64_from_predict": want,
+           "valid_auc": got["auc"],
+           "sec_per_iter_after_first": (t_all - t_one) / (ROUNDS - 1),
+           "phase3_sec_per_iter_after_first":
+               e2e["sec_per_iter_after_first"],
+           "launches_per_tree": {k: v / max(n_trees, 1)
+                                 for k, v in launches.items()},
+           "phase3_launches_per_tree": {k: v / e2e["trees"] for k, v in
+                                        e2e["launches"].items()},
+           "host_syncs_per_tree": syncs / max(n_trees, 1),
+           "phase3_host_syncs_per_tree": e2e["host_syncs_per_tree"],
+           "eval_fetches_per_iter": 1,
+           "valid_update_device_ms_per_iter": upd_ms,
+           "metrics_device_ms_per_iter": eval_ms,
+           "predict_max_abs_err": pred_err,
+           "predict_tol": "rtol=1e-5 atol=1e-5", "best_iteration":
+               bst.best_iteration, "launches": launches,
+           "cuda_launches": cuda}
+    emit(res)
+    if n_trees != ROUNDS or set(res["curve_lengths"].values()) != {ROUNDS}:
+        raise AssertionError(f"run (a): {n_trees} trees, curves "
+                             f"{res['curve_lengths']}")
+    if not got["auc"] > 0.75:
+        raise AssertionError(f"run (a) valid AUC {got['auc']} <= 0.75")
+    for m in metric:
+        if not np.isclose(got[m], want[m], rtol=1e-5, atol=0):
+            raise AssertionError(f"run (a) recorded {m} {got[m]} is not "
+                                 f"the float64 {want[m]} within rtol 1e-5")
+    for name in TRAIN_PATH_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"run (a) never launched {name}")
+    if launches["epilogue_pass"] or launches["hist_pass"]:
+        raise AssertionError("run (a) left the megastep body")
+    check_stages(launches, cuda, "run (a)")
+    out["a"] = dict(launches, **{"cuda:" + k: v for k, v in cuda.items()})
+
+    # (b) early stopping on [valid, permuted]
+    rounds_b = 30
+    bst_b, ev_b = train(dict(params, metric=metric), rounds_b,
+                        [dv, dp], ["valid", "permuted"],
+                        [lgb.early_stopping(3, verbose=False)])
+    rule = es_rule(ev_b, 3)
+    text_trees = lgb.Booster(model_str=bst_b.model_to_string()).num_trees()
+    by_default = bst_b.predict(Xv[:10_000], raw_score=True)
+    at_best = bst_b.predict(Xv[:10_000], raw_score=True,
+                            num_iteration=bst_b.best_iteration)
+    emit({"phase": "eval_train", "run": "b", "rounds": rounds_b,
+          "trees": bst_b.num_trees(), "best_iteration": bst_b.best_iteration,
+          "rule_best_iteration": rule, "model_text_trees": text_trees,
+          "best_score": {k: dict(v) for k, v in bst_b.best_score.items()}})
+    if not (bst_b.num_trees() < rounds_b and rule is not None
+            and bst_b.best_iteration == rule
+            and bst_b.num_trees() == rule + 3 and text_trees == rule
+            and np.array_equal(by_default, at_best)):
+        raise AssertionError(f"run (b): {bst_b.num_trees()} trees, best "
+                             f"{bst_b.best_iteration}, rule {rule}, model "
+                             f"text {text_trees} trees")
+
+    # (c) feval: the classic loop, the epilogue body
+    def np_logloss(score, data):
+        return "np_logloss", logloss(score, data.get_label()), False
+    (bst_c, ev_c), _, launches, cuda, _ = counted(lambda: train(
+        dict(params, metric=metric), ROUNDS, [dv], ["valid"],
+        feval=np_logloss))
+    dev_ll, np_ll = ev_c["valid"]["binary_logloss"], ev_c["valid"][
+        "np_logloss"]
+    emit({"phase": "eval_train", "run": "c", "body": "epilogue",
+          "trees": bst_c.num_trees(), "valid_binary_logloss": dev_ll,
+          "feval_np_logloss": np_ll, "launches": launches,
+          "cuda_launches": cuda})
+    if launches["epilogue_pass"] <= 0 or len(np_ll) != ROUNDS:
+        raise AssertionError("run (c) never launched epilogue_pass")
+    if not np.allclose(np_ll, dev_ll, rtol=1e-6, atol=0):
+        raise AssertionError("run (c): feval and binary_logloss differ "
+                             "beyond rtol 1e-6")
+    check_stages(launches, cuda, "run (c)")
+    out["c"] = dict(launches, **{"cuda:" + k: v for k, v in cuda.items()})
+
+    # (d) the frontier body with a valid set
+    (bst_d, ev_d), _, launches, cuda, _ = counted(lambda: train(
+        dict(params, metric=metric, tpu_engine="frontier"), ROUNDS, [dv],
+        ["valid"]))
+    _, err_d = check_predict(bst_d, "d")
+    emit({"phase": "eval_train", "run": "d", "engine": "frontier",
+          "trees": bst_d.num_trees(), "valid_auc": ev_d["valid"]["auc"][-1],
+          "predict_max_abs_err": err_d, "launches": launches,
+          "cuda_launches": cuda})
+    if launches["hist_pass"] <= 0 or bst_d.num_trees() != ROUNDS:
+        raise AssertionError("run (d) never launched hist_pass")
+    check_stages(launches, cuda, "run (d)")
+    out["d"] = dict(launches, **{"cuda:" + k: v for k, v in cuda.items()})
+
+    # (e) continued training from run (a)'s booster
+    bst_e, ev_e = train(dict(params, metric=metric), 5, [dv], ["valid"],
+                        init_model=bst)
+    both = (bst.predict(Xv, raw_score=True, num_iteration=-1)
+            + bst_e.predict(Xv, raw_score=True))
+    got_e = bst_e.valid_scores(0).float().cpu().numpy()
+    err_e = float(np.abs(got_e - both).max())
+    emit({"phase": "eval_train", "run": "e", "trees": bst_e.num_trees(),
+          "valid_auc": ev_e["valid"]["auc"][-1],
+          "valid_scores_vs_both_predicts_max_abs_err": err_e})
+    if bst_e.num_trees() != 5 or not np.allclose(got_e, both, rtol=1e-5,
+                                                 atol=1e-5):
+        raise AssertionError(f"run (e): valid scores differ from the sum "
+                             f"of both boosters' predictions by {err_e}")
+
+    # (f) cv: 3 stratified folds, 5 rounds
+    ds.params = {}
+    t = time.perf_counter()
+    cvres = lgb.cv(dict(params, metric=metric), ds, num_boost_round=5,
+                   nfold=3, stratified=True, return_cvbooster=True)
+    cv_s = time.perf_counter() - t
+    folds = cvres.pop("cvbooster").eval_valid()
+    keys = {f"valid {m}-{s}" for m in metric for s in ("mean", "stdv")}
+    means = {m: float(np.mean([[v for _, n, v, _ in f if n == m][0]
+                               for f in folds])) for m in metric}
+    emit({"phase": "eval_train", "run": "f", "nfold": 3, "cv_s": cv_s,
+          "results_last": {k: v[-1] for k, v in cvres.items()},
+          "fold_eval_valid_means": means})
+    if set(cvres) != keys or {len(v) for v in cvres.values()} != {5}:
+        raise AssertionError(f"run (f): cv result {sorted(cvres)}")
+    for m in metric:
+        if cvres[f"valid {m}-mean"][-1] != means[m]:
+            raise AssertionError(f"run (f): the {m} mean is not the mean of "
+                                 "the folds' eval_valid")
+    ds.params = {}
+    return out
+
+
 def run_updates(lgb, params, ds, X, y, megastep=False):
     """bench.py's loop on the card: Booster(params, train_set), warm-up
     updates, then UPDATES timed ones, each ending in a synchronize; on the
@@ -1298,7 +1584,7 @@ def main() -> int:
                 plane_main[res["variant"]] = res
 
     # ---- 3. end to end through lightgbm_tpu_torch.train
-    X, y = _make_data(ROWS, FEATURES, seed=DATA_SEED)
+    X, y, w = _make_data(ROWS, FEATURES, seed=DATA_SEED, with_w=True)
     params = {"objective": "binary", "max_bin": 63, "num_leaves": 255,
               "learning_rate": 0.1, "min_data_in_leaf": 1,
               "min_sum_hessian_in_leaf": 1e-3, "verbose": -1,
@@ -1381,11 +1667,14 @@ def main() -> int:
     # ---- 6. the histogram-plane cuts through train()
     plane_launches = run_plane_cuts(lgb, params, X, y)
 
-    # ---- 7. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
+    # ---- 7. valid sets, metrics, callbacks, early stopping and cv
+    eval_launches = run_eval_train(lgb, params, ds, X, y, w, e2e)
+
+    # ---- 8. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
     # the epilogue at Bp=64 int8, nch=5, binary, Sp=64; hist_pass at Bp=64,
     # Sp=64, f32). Launches: the train() run for the three kernels of its
     # path, update() run (a) for the epilogue, the frontier train() run for
-    # hist_pass
+    # hist_pass; and each kernel's in phase 7's runs (a), (c) and (d)
     lv, rt = main_cfg["level_pass"], main_cfg["route_pass"]
     rows = []
     for name, r, err, n, n_cuda in (
@@ -1413,6 +1702,8 @@ def main() -> int:
                                           "library_call")})
         if name in ("level_pass", "epilogue_pass", "hist_pass"):
             row["stages_ms"] = r["stages_ms"]
+        row["eval_train_launches"] = {run: eval_launches[run][name]
+                                      for run in ("a", "c", "d")}
         rows.append(row)
     # the variants at Sp=64 on the mixed layout, each with the launches of
     # the phase-6 run that takes it on every level_pass (VARIANT_RUNS); the
@@ -1447,7 +1738,7 @@ def main() -> int:
     emit({"kernels": rows})
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start})
 
-    # ---- 8. the result line
+    # ---- 9. the result line
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

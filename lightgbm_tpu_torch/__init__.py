@@ -1,23 +1,33 @@
 """lightgbm_tpu_torch: the PyTorch / CUDA port of lightgbm_tpu.
 
-Trains and predicts the fused-engine GBDT on an NVIDIA H100 (sm_90a) with
-hand-written CUDA kernels for the level, route and leaf-lookup passes
-(``csrc/``), and everything around them in plain PyTorch. The JAX package
-``lightgbm_tpu`` stays the reference; this package imports nothing of it
-and no JAX.
+Trains, evaluates and predicts the GBDT of the JAX package's fused and
+frontier-v1 engines on an NVIDIA H100 (sm_90a) through five hand-written
+CUDA kernels (``csrc/``: the level, route, epilogue, leaf-lookup and
+frontier histogram passes), and everything around them in plain PyTorch.
+The JAX package ``lightgbm_tpu`` stays the reference; this package
+imports nothing of it and no JAX.
 
     import lightgbm_tpu_torch as lgb
     ds = lgb.Dataset(X, label=y)
-    bst = lgb.train({"objective": "binary"}, ds, num_boost_round=10)
+    dv = lgb.Dataset(Xv, label=yv, reference=ds)
+    bst = lgb.train({"objective": "binary", "metric": ["auc"]}, ds,
+                    num_boost_round=100, valid_sets=[dv],
+                    callbacks=[lgb.early_stopping(10),
+                               lgb.log_evaluation(1)])
     bst.predict(X)
+    lgb.cv({"objective": "binary"}, ds, num_boost_round=10, nfold=3)
 
 ``device_type`` defaults to ``"cuda"``; ``"cpu"`` runs the kernels' plain
 PyTorch versions (the CPU tests use it).
 """
 from .basic import Booster, Dataset
+from .callback import (EarlyStopException, early_stopping, log_evaluation,
+                       record_evaluation, reset_parameter)
 from .config import Config
-from .engine import train
+from .engine import CVBooster, cv, train
 from .utils.log import LightGBMError
 
-__all__ = ["Booster", "Config", "Dataset", "LightGBMError", "train"]
+__all__ = ["Booster", "CVBooster", "Config", "Dataset", "EarlyStopException",
+           "LightGBMError", "cv", "early_stopping", "log_evaluation",
+           "record_evaluation", "reset_parameter", "train"]
 __version__ = "0.1.0"

@@ -1,15 +1,19 @@
 """User-facing Dataset and Booster.
 
-PyTorch counterpart of ``lightgbm_tpu/basic.py`` on the main path:
-``Dataset(X, label=...)`` -> ``train`` or ``Booster(params, train_set)``
-with ``update()`` / ``rollback_one_iter()`` -> ``Booster.predict(X)`` /
-``Booster.model_to_string()``, plus loading a model text
-(``Booster(model_str=...)``). Training and prediction run on
-``device_type`` (default ``"cuda"``; ``"cpu"`` runs the kernels' plain
-PyTorch versions).
+PyTorch counterpart of ``lightgbm_tpu/basic.py``: ``Dataset(X, label=...,
+reference=..., init_score=...)`` (valid sets bin with their reference's
+mappers; ``create_valid``, ``subset``, the field accessors) -> ``train``
+or ``Booster(params, train_set)`` with ``add_valid``, ``update()`` /
+``update(fobj=...)``, ``rollback_one_iter()``, ``eval_train`` /
+``eval_valid`` / ``eval`` and ``reset_parameter`` -> ``Booster.predict(X)``
+/ ``model_to_string()`` / ``save_model``, plus loading a model text
+(``Booster(model_str=...)`` or ``model_file=``). Training, evaluation and
+prediction run on ``device_type`` (default ``"cuda"``; ``"cpu"`` runs the
+kernels' plain PyTorch versions).
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -19,6 +23,7 @@ from .boosting.gbdt import GBDT
 from .config import Config, resolve_device
 from .dataset import BinnedDataset
 from .io import model_io
+from .metric import create_metric, default_metric_for_objective
 from .models.tree import HostTree
 from .objective import create_objective, create_objective_from_string
 from .ops.predict import predict_raw
@@ -37,16 +42,22 @@ def _to_2d_numpy(data) -> np.ndarray:
 
 
 class Dataset:
-    """Training dataset with lazy construction (ref: basic.py:1122)."""
+    """Training or validation dataset with lazy construction (ref:
+    basic.py:1122). With ``reference`` (the training Dataset) the rows bin
+    with the reference's mappers."""
 
-    def __init__(self, data, label=None, weight=None, feature_name="auto",
+    def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
+                 weight=None, init_score=None, feature_name="auto",
                  params: Optional[Dict[str, Any]] = None):
         self.data = data
         self.label = label
+        self.reference = reference
         self.weight = weight
+        self.init_score = init_score
         self.feature_name = feature_name
         self.params = dict(params) if params else {}
         self._inner: Optional[BinnedDataset] = None
+        self.used_indices: Optional[np.ndarray] = None
 
     def construct(self) -> "Dataset":
         if self._inner is not None:
@@ -54,15 +65,99 @@ class Dataset:
         cfg = Config(self.params)
         names = (list(self.feature_name)
                  if self.feature_name not in ("auto", None) else None)
+        ref_inner = (self.reference.construct()._inner
+                     if self.reference is not None else None)
+        # rows binned against a reference live on the reference's device
+        device = (ref_inner.device if ref_inner is not None
+                  else resolve_device(cfg.device_type))
         inner = BinnedDataset.from_data(
-            _to_2d_numpy(self.data), cfg, resolve_device(cfg.device_type),
-            feature_names=names)
+            _to_2d_numpy(self.data), cfg, device, feature_names=names,
+            reference=ref_inner)
         if self.label is not None:
             inner.metadata.set_label(np.asarray(self.label))
         if self.weight is not None:
             inner.metadata.set_weight(np.asarray(self.weight))
+        if self.init_score is not None:
+            inner.metadata.set_init_score(np.asarray(self.init_score))
         self._inner = inner
         return self
+
+    # ------------------------------------------------------------------
+    def set_label(self, label) -> "Dataset":
+        self.label = label
+        if self._inner is not None and label is not None:
+            self._inner.metadata.set_label(np.asarray(label))
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        if self._inner is not None:
+            self._inner.metadata.set_weight(
+                None if weight is None else np.asarray(weight))
+        return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = init_score
+        if self._inner is not None:
+            self._inner.metadata.set_init_score(
+                None if init_score is None else np.asarray(init_score))
+        return self
+
+    def set_field(self, field_name: str, data) -> "Dataset":
+        """(ref: basic.py Dataset.set_field); ``group`` is not ported yet
+        (ranking, ROADMAP Queue A item 4)."""
+        setter = {"label": self.set_label, "weight": self.set_weight,
+                  "init_score": self.set_init_score}.get(field_name)
+        if setter is None:
+            raise ValueError(f"Unknown field name: {field_name}")
+        return setter(data)
+
+    def get_field(self, field_name: str):
+        md = self.construct()._inner.metadata
+        if field_name == "group":
+            return None     # no query data without the ranking objectives
+        if field_name not in ("label", "weight", "init_score"):
+            raise ValueError(f"Unknown field name: {field_name}")
+        return getattr(md, field_name)
+
+    def get_label(self):
+        return self.get_field("label")
+
+    def get_weight(self):
+        return self.get_field("weight")
+
+    def get_init_score(self):
+        return self.get_field("init_score")
+
+    def num_data(self) -> int:
+        return self.construct()._inner.num_data
+
+    def num_feature(self) -> int:
+        return self.construct()._inner.num_total_features
+
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """Row subset sharing the bin mappers: the binned rows are sliced,
+        not rebinned (ref: basic.py Dataset.subset)."""
+        self.construct()
+        sub = Dataset.__new__(Dataset)
+        sub.used_indices = np.asarray(used_indices)
+        sub.data = (None if self.data is None
+                    else _to_2d_numpy(self.data)[sub.used_indices])
+        sub.label = sub.weight = sub.init_score = None
+        sub.reference = self
+        sub.feature_name = self.feature_name
+        sub.params = dict(self.params)
+        if params:
+            sub.params.update(params)
+        sub._inner = self._inner.subset(sub.used_indices)
+        return sub
+
+    def create_valid(self, data, label=None, weight=None, init_score=None,
+                     params=None) -> "Dataset":
+        """A validation Dataset binned with this one's mappers (ref:
+        basic.py Dataset.create_valid)."""
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       init_score=init_score, params=params or self.params)
 
 
 class Booster:
@@ -70,14 +165,18 @@ class Booster:
 
     def __init__(self, params: Optional[Dict[str, Any]] = None,
                  train_set: Optional[Dataset] = None,
+                 model_file: Optional[str] = None,
                  model_str: Optional[str] = None):
         self.params = dict(params) if params else {}
         self.best_iteration = -1
+        self.best_score: Dict[str, Dict[str, float]] = {}
         self._gbdt: Optional[GBDT] = None
         self.models: List[HostTree] = []
         self.objective = None
         self.config: Optional[Config] = None
         self.train_set: Optional[Dataset] = None
+        self.valid_sets: List[Dataset] = []
+        self.name_valid_sets: List[str] = []
         self.loaded_parameter = ""
         self.num_class = 1
         self.num_tree_per_iteration = 1
@@ -89,6 +188,9 @@ class Booster:
         self.device = None
         if train_set is not None:
             self._init_train(train_set)
+        elif model_file is not None:
+            with open(model_file, "r") as fh:
+                self._load_model_string(fh.read())
         elif model_str is not None:
             self._load_model_string(model_str)
 
@@ -108,49 +210,164 @@ class Booster:
             if inner.metadata.label is None:
                 raise ValueError("Label should not be None")
             self.objective.init(inner.metadata, inner.num_data, self.device)
+        train_metrics = []
+        if self.config.is_provide_training_metric:
+            train_metrics = self._make_metrics(inner)
         self._gbdt = GBDT()
-        self._gbdt.init(self.config, inner, self.objective)
+        self._gbdt.init(self.config, inner, self.objective, train_metrics)
         self.models = self._gbdt.models
         self.max_feature_idx = inner.num_total_features - 1
         self.feature_names = inner.feature_names
         self.feature_infos = inner.feature_infos()
 
-    def update(self) -> bool:
+    def _make_metrics(self, inner: BinnedDataset) -> List:
+        """The configured metrics (the objective's own by default), bound
+        to ``inner``'s labels and weights."""
+        names = [str(m) for m in self.config.metric]
+        if not names:
+            default = default_metric_for_objective(self.config.objective)
+            names = [default] if default else []
+        metrics = []
+        for name in names:
+            m = create_metric(name, self.config)
+            if m is not None:
+                m.init(inner.metadata, inner.num_data)
+                metrics.append(m)
+        return metrics
+
+    # ------------------------------------------------------------------
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        """Evaluate ``data`` (binned with the training set's mappers) after
+        every iteration (ref: basic.py Booster.add_valid)."""
+        if self._gbdt is None:
+            raise LightGBMError("Booster was not trained with a train_set")
+        if data.reference is not self.train_set:
+            data.reference = self.train_set
+        data.construct()
+        self._gbdt.add_valid_data(data._inner, name,
+                                  self._make_metrics(data._inner))
+        self.valid_sets.append(data)
+        self.name_valid_sets.append(name)
+        return self
+
+    def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
         """One boosting iteration; True when training stopped (ref:
-        basic.py:2936 Booster.update). Takes the epilogue body wherever it
-        applies (binary or L2 with ``tpu_fused_epilogue``; see
-        ``boosting/gbdt.py``)."""
-        return self._gbdt.train_one_iter()
+        basic.py:2936 Booster.update). Without ``fobj`` it takes the
+        epilogue body wherever it applies (binary or L2 with
+        ``tpu_fused_epilogue``; see ``boosting/gbdt.py``); ``fobj(scores,
+        train_set) -> (grad, hess)`` needs ``objective="none"``."""
+        if train_set is not None and train_set is not self.train_set:
+            raise LightGBMError("Replacing train_set is not supported yet")
+        if fobj is None:
+            return self._gbdt.train_one_iter()
+        if self.objective is not None:
+            raise LightGBMError(
+                "Cannot use custom objective when the booster was created "
+                "with a built-in objective; set objective='none'")
+        grad, hess = fobj(self._gbdt.scores.double().cpu().numpy()
+                          .reshape(-1), self.train_set)
+        return self._gbdt.train_one_iter(np.asarray(grad, np.float32),
+                                         np.asarray(hess, np.float32))
 
     def rollback_one_iter(self) -> "Booster":
-        """Remove the last iteration's tree and its training-score
-        contribution."""
+        """Remove the last iteration's tree and its training- and
+        valid-score contributions."""
         self._gbdt.rollback_one_iter()
         return self
 
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """(ref: basic.py Booster.reset_parameter -> gbdt.cpp ResetConfig)"""
+        self.params.update(params)
+        if self._gbdt is not None:
+            self.config.update(params)
+            self._gbdt.reset_config(self.config)
+        return self
+
+    def current_iteration(self) -> int:
+        return (self._gbdt.iter if self._gbdt is not None
+                else len(self.models) // max(1, self.num_tree_per_iteration))
+
     def num_trees(self) -> int:
         return len(self.models)
+
+    def num_model_per_iteration(self) -> int:
+        return self.num_tree_per_iteration
 
     def train_scores(self) -> torch.Tensor:
         """The trainer's accumulated raw scores [n] (float32, device)."""
         return self._gbdt.scores[0]
 
+    def valid_scores(self, i: int = 0) -> torch.Tensor:
+        """Valid set ``i``'s accumulated raw scores [n] (float32, device)."""
+        return self._gbdt.valid_scores[i][0]
+
     # ------------------------------------------------------------------
-    def predict(self, data, num_iteration: Optional[int] = None,
+    def eval_train(self, feval=None) -> List:
+        """[(name, metric, value, is_higher_better)] on the training set."""
+        return self._eval_set("training", None, feval)
+
+    def eval_valid(self, feval=None) -> List:
+        out = []
+        for i, name in enumerate(self.name_valid_sets):
+            out.extend(self._eval_set(name, i, feval))
+        return out
+
+    def eval(self, data: Dataset, name: str, feval=None) -> List:
+        if data is self.train_set:
+            return self.eval_train(feval)
+        for i, vs in enumerate(self.valid_sets):
+            if vs is data:
+                return self._eval_set(self.name_valid_sets[i], i, feval)
+        raise LightGBMError("Data should be added with add_valid first")
+
+    def _eval_set(self, name: str, valid_idx: Optional[int], feval) -> List:
+        """The metrics' device forms on the live device scores, host forms
+        and ``feval`` on one float64 host copy, and one batched fetch of
+        every device scalar at the end."""
+        g = self._gbdt
+        if valid_idx is None:
+            score_dev, metrics = g.scores, g.training_metrics
+            dataset = self.train_set
+        else:
+            score_dev = g.valid_scores[valid_idx]
+            metrics = g.valid_metrics[valid_idx]
+            dataset = self.valid_sets[valid_idx]
+        out = g.eval_metric_set(name, metrics, score_dev)
+        if feval is not None:
+            host_score = score_dev.double().cpu().numpy().reshape(-1)
+            for f in (feval if isinstance(feval, list) else [feval]):
+                ret = f(host_score, dataset)
+                for mn, v, hb in (ret if isinstance(ret, list) else [ret]):
+                    out.append((name, mn, v, hb))
+        dev = [v for (_, _, v, _) in out if isinstance(v, torch.Tensor)]
+        fetched = iter(torch.stack(dev).cpu().tolist() if dev else [])
+        return [(d, n, next(fetched) if isinstance(v, torch.Tensor)
+                 else float(v), b) for (d, n, v, b) in out]
+
+    # ------------------------------------------------------------------
+    def predict(self, data, start_iteration: int = 0,
+                num_iteration: Optional[int] = None,
                 raw_score: bool = False) -> np.ndarray:
         """Predictions on raw features, routed in float64 on the device
-        (ref: basic.py:3449 Booster.predict)."""
+        (ref: basic.py:3449 Booster.predict). ``num_iteration=None`` means
+        the early-stopped best iteration where there is one, an explicit
+        value <= 0 every iteration."""
         X = torch.as_tensor(_to_2d_numpy(data).astype(np.float64),
                             device=self._predict_device())
         k = self.num_tree_per_iteration
         if k != 1 or self.average_output:
             raise NotImplementedError("multiclass and averaged-output "
                                       "models are not ported yet")
+        if num_iteration is None:
+            num_iteration = (self.best_iteration
+                             if self.best_iteration > 0 else -1)
         total = len(self.models) // k
-        if num_iteration is None or num_iteration <= 0:
-            num_iteration = total
-        hi = min(num_iteration, total) * k
-        raw = predict_raw(self.models[:hi], X, k).cpu().numpy()
+        if num_iteration <= 0:
+            num_iteration = total - start_iteration
+        num_iteration = min(num_iteration, total - start_iteration)
+        lo = start_iteration * k
+        hi = (start_iteration + num_iteration) * k
+        raw = predict_raw(self.models[lo:hi], X, k).cpu().numpy()
         if not raw_score and self.objective is not None:
             return np.asarray(self.objective.convert_output(raw[0]))
         return raw[0]
@@ -162,9 +379,26 @@ class Booster:
         return self.device
 
     # ------------------------------------------------------------------
-    def model_to_string(self, num_iteration: Optional[int] = None) -> str:
-        return model_io.save_model_to_string(
-            self, 0, -1 if num_iteration is None else num_iteration)
+    def model_to_string(self, start_iteration: int = 0,
+                        num_iteration: Optional[int] = None) -> str:
+        """The model text; ``num_iteration=None`` keeps the early-stopped
+        best iteration where there is one, <= 0 every iteration."""
+        if num_iteration is None:
+            num_iteration = (self.best_iteration
+                             if self.best_iteration > 0 else -1)
+        return model_io.save_model_to_string(self, start_iteration,
+                                             num_iteration)
+
+    def save_model(self, filename: str, start_iteration: int = 0,
+                   num_iteration: Optional[int] = None) -> "Booster":
+        """Write ``model_to_string`` to ``filename`` through a temporary
+        file and a rename, so a crash never leaves a truncated model."""
+        text = self.model_to_string(start_iteration, num_iteration)
+        tmp = f"{filename}.tmp{os.getpid()}"
+        with open(tmp, "w") as fh:
+            fh.write(text)
+        os.replace(tmp, filename)
+        return self
 
     def _load_model_string(self, model_str: str) -> None:
         header, trees, params = model_io.parse_model_string(model_str)

@@ -1,0 +1,585 @@
+"""Evaluation metrics.
+
+PyTorch counterpart of ``lightgbm_tpu/metric/__init__.py`` (ref:
+src/metric/metric.cpp:17 CreateMetric; the regression, binary and
+xentropy hpp families). Every metric has two forms:
+
+- ``eval(score, objective)``: the host form, numpy in float64 on a copied
+  ``[k, n]`` score matrix, as the JAX package's;
+- ``eval_device(score_dev, objective, cache)``: the device form, torch on
+  the scores' device with f32 reductions, the mirror of the JAX package's
+  ``eval_device``/``loss_jnp`` (and of what ``metric/traced.py``'s
+  builders compute inside its megastep scan). It returns 0-d tensors (the
+  caller fetches every scalar of an eval call at once), or None where the
+  JAX package has no device form either; the host form then runs.
+
+``auc`` on the device is the tie-grouped trapezoid of the JAX package's
+``_weighted_auc_jnp``: a stable descending sort, group ids at distinct
+scores, per-group sums by ``scatter_add``.
+
+Multiclass and ranking metrics (``multi_logloss``, ``multi_error``,
+``auc_mu``, ``ndcg``, ``map``) are not ported yet (ROADMAP Queue A item
+4) and raise.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..utils import log
+
+K_EPSILON = 1e-15
+
+# metric-name aliases (ref: config.cpp ParseMetrics + docs/Parameters.rst)
+METRIC_ALIASES = {
+    "l2": "l2", "mean_squared_error": "l2", "mse": "l2",
+    "regression": "l2", "regression_l2": "l2",
+    "l2_root": "rmse", "root_mean_squared_error": "rmse", "rmse": "rmse",
+    "l1": "l1", "mean_absolute_error": "l1", "mae": "l1",
+    "regression_l1": "l1",
+    "quantile": "quantile", "huber": "huber", "fair": "fair",
+    "poisson": "poisson",
+    "mape": "mape", "mean_absolute_percentage_error": "mape",
+    "gamma": "gamma", "gamma_deviance": "gamma_deviance",
+    "tweedie": "tweedie",
+    "binary_logloss": "binary_logloss", "binary": "binary_logloss",
+    "binary_error": "binary_error",
+    "auc": "auc", "average_precision": "average_precision",
+    "auc_mu": "auc_mu",
+    "multi_logloss": "multi_logloss", "multiclass": "multi_logloss",
+    "softmax": "multi_logloss", "multiclassova": "multi_logloss",
+    "multiclass_ova": "multi_logloss", "ova": "multi_logloss",
+    "ovr": "multi_logloss",
+    "multi_error": "multi_error",
+    "cross_entropy": "cross_entropy", "xentropy": "cross_entropy",
+    "cross_entropy_lambda": "cross_entropy_lambda",
+    "xentlambda": "cross_entropy_lambda",
+    "kullback_leibler": "kullback_leibler", "kldiv": "kullback_leibler",
+    "ndcg": "ndcg", "lambdarank": "ndcg", "rank_xendcg": "ndcg",
+    "xendcg": "ndcg", "xe_ndcg": "ndcg", "xe_ndcg_mart": "ndcg",
+    "xendcg_mart": "ndcg",
+    "map": "map", "mean_average_precision": "map",
+}
+
+_UNPORTED = ("multi_logloss", "multi_error", "auc_mu", "ndcg", "map")
+
+
+class Metric:
+    """Base metric (ref: include/LightGBM/metric.h:28)."""
+
+    names: List[str] = []
+    is_bigger_better = False
+
+    def __init__(self, config: Config):
+        self.config = config
+
+    def init(self, metadata, num_data: int) -> None:
+        self.num_data = num_data
+        self.label = metadata.label
+        self.weight = metadata.weight
+        if self.weight is not None:
+            self.sum_weights = float(np.sum(self.weight))
+        else:
+            self.sum_weights = float(num_data)
+        self._dev = None          # (device, label, weight) on the device
+
+    def eval(self, score: np.ndarray, objective) -> List[float]:
+        raise NotImplementedError
+
+    def has_device_form(self, objective) -> bool:
+        """Whether ``eval_device`` evaluates under ``objective`` (the JAX
+        package's ``metric/traced.py`` builds a traced form exactly for
+        these)."""
+        return False
+
+    def eval_device(self, score_dev: torch.Tensor, objective, cache=None):
+        """0-d f32 tensors on the scores' device, one per name, or None
+        when this metric has no device form (the host form runs)."""
+        return None
+
+    @staticmethod
+    def _converts_on_device(objective) -> bool:
+        return objective is None or objective.convert_output_torch(
+            torch.zeros(1)) is not None
+
+    def _converted_row(self, score_dev, objective, cache):
+        """Objective-converted [n] score row, shared across one eval set's
+        metrics through ``cache``; None when the objective has no device
+        conversion."""
+        if cache is not None and "converted_row" in cache:
+            return cache["converted_row"]
+        s = score_dev[0]
+        if objective is not None:
+            s = objective.convert_output_torch(s)
+        if cache is not None and s is not None:
+            cache["converted_row"] = s
+        return s
+
+    def _dev_label_weight(self, device):
+        if self._dev is None or self._dev[0] != device:
+            w = (torch.as_tensor(self.weight, device=device)
+                 if self.weight is not None else None)
+            self._dev = (device, torch.as_tensor(self.label, device=device),
+                         w)
+        return self._dev[1], self._dev[2]
+
+
+def _weighted_sum(pt, weight):
+    return torch.sum(pt * weight) if weight is not None else torch.sum(pt)
+
+
+# ---------------------------------------------------------------------------
+# Regression metrics (ref: src/metric/regression_metric.hpp)
+# ---------------------------------------------------------------------------
+class _RegressionMetric(Metric):
+    """Weighted pointwise loss averaged over rows
+    (ref: regression_metric.hpp:22-113)."""
+
+    convert = True  # run objective.convert_output on scores first
+
+    def loss(self, label, score):
+        raise NotImplementedError
+
+    def loss_torch(self, label, score):
+        """Device mirror of ``loss``, or None (no device form)."""
+        return None
+
+    def average(self, sum_loss, sum_weights):
+        return sum_loss / sum_weights
+
+    def average_torch(self, sum_loss, sum_weights):
+        return sum_loss / sum_weights
+
+    def eval(self, score, objective):
+        s = score[0]
+        if self.convert and objective is not None:
+            s = objective.convert_output(s)
+        pt = self.loss(self.label, s)
+        if self.weight is not None:
+            sum_loss = float(np.sum(pt * self.weight))
+        else:
+            sum_loss = float(np.sum(pt))
+        return [self.average(sum_loss, self.sum_weights)]
+
+    def has_device_form(self, objective) -> bool:
+        return (type(self).loss_torch is not _RegressionMetric.loss_torch
+                and (not self.convert or self._converts_on_device(objective)))
+
+    def eval_device(self, score_dev, objective, cache=None):
+        if not self.has_device_form(objective):
+            return None
+        s = (self._converted_row(score_dev, objective, cache)
+             if self.convert else score_dev[0])
+        label, weight = self._dev_label_weight(score_dev.device)
+        sum_loss = _weighted_sum(self.loss_torch(label, s), weight)
+        return [self.average_torch(sum_loss, self.sum_weights)]
+
+
+class L2Metric(_RegressionMetric):
+    names = ["l2"]
+
+    def loss(self, label, score):
+        d = score - label
+        return d * d
+
+    def loss_torch(self, label, score):
+        d = score - label
+        return d * d
+
+
+class RMSEMetric(L2Metric):
+    names = ["rmse"]
+
+    def average(self, sum_loss, sum_weights):
+        return float(np.sqrt(sum_loss / sum_weights))
+
+    def average_torch(self, sum_loss, sum_weights):
+        return torch.sqrt(sum_loss / sum_weights)
+
+
+class L1Metric(_RegressionMetric):
+    names = ["l1"]
+
+    def loss(self, label, score):
+        return np.abs(score - label)
+
+    def loss_torch(self, label, score):
+        return torch.abs(score - label)
+
+
+class QuantileMetric(_RegressionMetric):
+    names = ["quantile"]
+
+    def loss(self, label, score):
+        delta = label - score
+        a = self.config.alpha
+        return np.where(delta < 0, (a - 1.0) * delta, a * delta)
+
+    def loss_torch(self, label, score):
+        delta = label - score
+        a = self.config.alpha
+        return torch.where(delta < 0, (a - 1.0) * delta, a * delta)
+
+
+class HuberLossMetric(_RegressionMetric):
+    names = ["huber"]
+
+    def loss(self, label, score):
+        diff = score - label
+        a = self.config.alpha
+        return np.where(np.abs(diff) <= a, 0.5 * diff * diff,
+                        a * (np.abs(diff) - 0.5 * a))
+
+    def loss_torch(self, label, score):
+        diff = score - label
+        a = self.config.alpha
+        return torch.where(torch.abs(diff) <= a, 0.5 * diff * diff,
+                           a * (torch.abs(diff) - 0.5 * a))
+
+
+class FairLossMetric(_RegressionMetric):
+    names = ["fair"]
+
+    def loss(self, label, score):
+        x = np.abs(score - label)
+        c = self.config.fair_c
+        return c * x - c * c * np.log1p(x / c)
+
+
+class PoissonMetric(_RegressionMetric):
+    names = ["poisson"]
+
+    def loss(self, label, score):
+        s = np.maximum(score, 1e-10)
+        return s - label * np.log(s)
+
+
+class MAPEMetric(_RegressionMetric):
+    names = ["mape"]
+
+    def loss(self, label, score):
+        return np.abs(label - score) / np.maximum(1.0, np.abs(label))
+
+    def loss_torch(self, label, score):
+        return torch.abs(label - score) / torch.clamp(torch.abs(label),
+                                                      min=1.0)
+
+
+class GammaMetric(_RegressionMetric):
+    names = ["gamma"]
+
+    def loss(self, label, score):
+        # ref: regression_metric.hpp:261-272 (negative gamma log-likelihood)
+        psi = 1.0
+        theta = -1.0 / np.maximum(score, 1e-300)
+        b = -np.log(np.maximum(-theta, 1e-300))
+        c = (1.0 / psi * np.log(np.maximum(label / psi, 1e-300))
+             - np.log(np.maximum(label, 1e-300)))
+        return -((label * theta - b) / psi + c)
+
+
+class GammaDevianceMetric(_RegressionMetric):
+    names = ["gamma_deviance"]
+
+    def loss(self, label, score):
+        tmp = label / (score + 1e-9)
+        return tmp - np.log(np.maximum(tmp, 1e-300)) - 1.0
+
+    def average(self, sum_loss, sum_weights):
+        return sum_loss * 2.0
+
+
+class TweedieMetric(_RegressionMetric):
+    names = ["tweedie"]
+
+    def loss(self, label, score):
+        rho = self.config.tweedie_variance_power
+        s = np.maximum(score, 1e-10)
+        a = label * np.exp((1.0 - rho) * np.log(s)) / (1.0 - rho)
+        b = np.exp((2.0 - rho) * np.log(s)) / (2.0 - rho)
+        return -a + b
+
+
+# ---------------------------------------------------------------------------
+# Binary metrics (ref: src/metric/binary_metric.hpp)
+# ---------------------------------------------------------------------------
+class _BinaryMetric(Metric):
+    def loss(self, label, prob):
+        raise NotImplementedError
+
+    def loss_torch(self, label, prob):
+        raise NotImplementedError
+
+    def eval(self, score, objective):
+        s = score[0]
+        if objective is not None:
+            s = objective.convert_output(s)
+        pt = self.loss(self.label, s)
+        if self.weight is not None:
+            sum_loss = float(np.sum(pt * self.weight))
+        else:
+            sum_loss = float(np.sum(pt))
+        return [sum_loss / self.sum_weights]
+
+    def has_device_form(self, objective) -> bool:
+        return self._converts_on_device(objective)
+
+    def eval_device(self, score_dev, objective, cache=None):
+        if not self.has_device_form(objective):
+            return None
+        s = self._converted_row(score_dev, objective, cache)
+        label, weight = self._dev_label_weight(score_dev.device)
+        sum_loss = _weighted_sum(self.loss_torch(label, s), weight)
+        return [sum_loss / self.sum_weights]
+
+
+class BinaryLoglossMetric(_BinaryMetric):
+    names = ["binary_logloss"]
+
+    def loss(self, label, prob):
+        # ref: binary_metric.hpp:119-130
+        p = np.clip(np.where(label > 0, prob, 1.0 - prob), K_EPSILON, None)
+        return -np.log(p)
+
+    def loss_torch(self, label, prob):
+        p = torch.clamp(torch.where(label > 0, prob, 1.0 - prob),
+                        min=K_EPSILON)
+        return -torch.log(p)
+
+
+class BinaryErrorMetric(_BinaryMetric):
+    names = ["binary_error"]
+
+    def loss(self, label, prob):
+        # ref: binary_metric.hpp:143-149
+        return np.where(prob <= 0.5, (label > 0), (label <= 0)) \
+            .astype(np.float64)
+
+    def loss_torch(self, label, prob):
+        return torch.where(prob <= 0.5, label > 0, label <= 0) \
+            .to(torch.float32)
+
+
+def _weighted_auc(label: np.ndarray, score: np.ndarray,
+                  weight: Optional[np.ndarray]) -> float:
+    """AUC with tie handling (ref: binary_metric.hpp:159-268 AUCMetric::Eval
+    — trapezoid accumulation over score-sorted groups)."""
+    pos = (label > 0).astype(np.float64)
+    w = weight.astype(np.float64) if weight is not None else \
+        np.ones_like(pos)
+    order = np.argsort(-score, kind="stable")
+    sp = pos[order]
+    sw = w[order]
+    ss = score[order]
+    new_group = np.concatenate([[True], ss[1:] != ss[:-1]])
+    gid = np.cumsum(new_group) - 1
+    n_groups = gid[-1] + 1 if len(gid) else 0
+    g_pos = np.zeros(n_groups)
+    g_all = np.zeros(n_groups)
+    np.add.at(g_pos, gid, sp * sw)
+    np.add.at(g_all, gid, sw)
+    g_neg = g_all - g_pos
+    cum_pos_before = np.concatenate([[0.0], np.cumsum(g_pos)[:-1]])
+    # ties contribute half
+    s_area = np.sum(g_neg * (cum_pos_before + 0.5 * g_pos))
+    total_pos = float(np.sum(sp * sw))
+    total_neg = float(np.sum(sw)) - total_pos
+    if total_pos <= 0 or total_neg <= 0:
+        log.warning("AUC is undefined with only one class present")
+        return 1.0
+    return float(s_area / (total_pos * total_neg))
+
+
+def _weighted_auc_torch(label: torch.Tensor, score: torch.Tensor,
+                        weight: Optional[torch.Tensor]) -> torch.Tensor:
+    """Device mirror of ``_weighted_auc``: the same tie-grouped trapezoid
+    with f32 sums; a 0-d tensor."""
+    n = score.shape[0]
+    pos = (label > 0).to(torch.float32)
+    w = weight if weight is not None else torch.ones_like(pos)
+    order = torch.argsort(-score, stable=True)
+    sp = pos[order] * w[order]
+    sw = w[order]
+    ss = score[order]
+    new_group = torch.ones(n, dtype=torch.int32, device=score.device)
+    new_group[1:] = (ss[1:] != ss[:-1]).to(torch.int32)
+    gid = torch.cumsum(new_group, 0) - 1
+    g_pos = torch.zeros(n, dtype=torch.float32, device=score.device) \
+        .scatter_add_(0, gid, sp)
+    g_all = torch.zeros(n, dtype=torch.float32, device=score.device) \
+        .scatter_add_(0, gid, sw)
+    g_neg = g_all - g_pos
+    cum_pos_before = torch.zeros_like(g_pos)
+    cum_pos_before[1:] = torch.cumsum(g_pos, 0)[:-1]
+    s_area = torch.sum(g_neg * (cum_pos_before + 0.5 * g_pos))
+    total_pos = torch.sum(sp)
+    total_neg = torch.sum(sw) - total_pos
+    # the one-class case matches the host form's 1.0
+    return torch.where((total_pos <= 0) | (total_neg <= 0),
+                       torch.ones((), device=score.device),
+                       s_area / (total_pos * total_neg))
+
+
+class AUCMetric(Metric):
+    names = ["auc"]
+    is_bigger_better = True
+
+    def eval(self, score, objective):
+        return [_weighted_auc(self.label, score[0], self.weight)]
+
+    def has_device_form(self, objective) -> bool:
+        return True
+
+    def eval_device(self, score_dev, objective, cache=None):
+        label, weight = self._dev_label_weight(score_dev.device)
+        return [_weighted_auc_torch(label, score_dev[0], weight)]
+
+
+class AveragePrecisionMetric(Metric):
+    """ref: binary_metric.hpp:270-380 (weighted average precision)."""
+
+    names = ["average_precision"]
+    is_bigger_better = True
+
+    def eval(self, score, objective):
+        w = (self.weight.astype(np.float64) if self.weight is not None
+             else np.ones(self.num_data))
+        pos = (self.label > 0).astype(np.float64)
+        order = np.argsort(-score[0], kind="stable")
+        sp = pos[order] * w[order]
+        sw = w[order]
+        ss = score[0][order]
+        new_group = np.concatenate([[True], ss[1:] != ss[:-1]])
+        gid = np.cumsum(new_group) - 1
+        n_groups = gid[-1] + 1
+        g_pos = np.zeros(n_groups)
+        g_all = np.zeros(n_groups)
+        np.add.at(g_pos, gid, sp)
+        np.add.at(g_all, gid, sw)
+        cum_pos = np.cumsum(g_pos)
+        cum_all = np.cumsum(g_all)
+        total_pos = cum_pos[-1]
+        if total_pos <= 0:
+            log.warning("Average precision is undefined with no positives")
+            return [1.0]
+        precision = cum_pos / cum_all
+        recall_delta = g_pos / total_pos
+        return [float(np.sum(precision * recall_delta))]
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy metrics (ref: src/metric/xentropy_metric.hpp)
+# ---------------------------------------------------------------------------
+def _xent(label, prob):
+    # soft labels in [0, 1] (ref: xentropy_metric.hpp:33 XentLoss)
+    p = np.clip(prob, K_EPSILON, 1.0 - K_EPSILON)
+    return -(label * np.log(p) + (1.0 - label) * np.log(1.0 - p))
+
+
+def _stable_sigmoid(s):
+    # saturated raw scores would overflow np.exp
+    return 1.0 / (1.0 + np.exp(-np.clip(s, -500.0, 500.0)))
+
+
+class CrossEntropyMetric(Metric):
+    names = ["cross_entropy"]
+
+    def eval(self, score, objective):
+        pt = _xent(self.label, _stable_sigmoid(score[0]))
+        if self.weight is not None:
+            return [float(np.sum(pt * self.weight) / self.sum_weights)]
+        return [float(np.sum(pt) / self.sum_weights)]
+
+
+class CrossEntropyLambdaMetric(Metric):
+    names = ["cross_entropy_lambda"]
+
+    def eval(self, score, objective):
+        # ref: xentropy_metric.hpp:196-226 — the lambda parameterization
+        s = score[0]
+        w = self.weight if self.weight is not None else 1.0
+        hhat = np.logaddexp(0.0, s)   # log(1+e^s) without overflow
+        z = 1.0 - np.exp(-w * hhat)
+        z = np.clip(z, K_EPSILON, 1.0 - K_EPSILON)
+        pt = _xent(self.label, z)
+        return [float(np.sum(pt) / self.num_data)]
+
+
+class KullbackLeiblerDivergence(Metric):
+    """KL(label || sigmoid(score)) = xentropy minus label entropy
+    (ref: xentropy_metric.hpp:249-320)."""
+
+    names = ["kullback_leibler"]
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        # float64 before the clip: a float32 label rounds 1 - 1e-15 back
+        # to exactly 1.0
+        lab = np.clip(np.asarray(self.label, np.float64), K_EPSILON,
+                      1.0 - K_EPSILON)
+        ent = -(self.label * np.log(lab)
+                + (1.0 - self.label) * np.log(1.0 - lab))
+        # entropy is zero for hard 0/1 labels
+        ent = np.where((self.label <= 0.0) | (self.label >= 1.0), 0.0, ent)
+        if self.weight is not None:
+            self.presum_label_entropy = float(np.sum(ent * self.weight)
+                                              / self.sum_weights)
+        else:
+            self.presum_label_entropy = float(np.mean(ent))
+
+    def eval(self, score, objective):
+        pt = _xent(self.label, _stable_sigmoid(score[0]))
+        if self.weight is not None:
+            xent = float(np.sum(pt * self.weight) / self.sum_weights)
+        else:
+            xent = float(np.mean(pt))
+        return [xent - self.presum_label_entropy]
+
+
+# ---------------------------------------------------------------------------
+_REGISTRY = {
+    "l2": L2Metric, "rmse": RMSEMetric, "l1": L1Metric,
+    "quantile": QuantileMetric, "huber": HuberLossMetric,
+    "fair": FairLossMetric, "poisson": PoissonMetric, "mape": MAPEMetric,
+    "gamma": GammaMetric, "gamma_deviance": GammaDevianceMetric,
+    "tweedie": TweedieMetric,
+    "binary_logloss": BinaryLoglossMetric, "binary_error": BinaryErrorMetric,
+    "auc": AUCMetric, "average_precision": AveragePrecisionMetric,
+    "cross_entropy": CrossEntropyMetric,
+    "cross_entropy_lambda": CrossEntropyLambdaMetric,
+    "kullback_leibler": KullbackLeiblerDivergence,
+}
+
+
+def create_metric(name: str, config: Config) -> Optional[Metric]:
+    """Factory (ref: src/metric/metric.cpp:17 Metric::CreateMetric)."""
+    raw = name.strip().lower()
+    if raw in ("", "none", "null", "na", "custom"):
+        return None
+    resolved = METRIC_ALIASES.get(raw.split("@", 1)[0], raw)
+    if resolved in _UNPORTED:
+        log.fatal("metric %s is not ported to lightgbm_tpu_torch yet "
+                  "(multiclass and ranking metrics: ROADMAP Queue A item 4)",
+                  name)
+    cls = _REGISTRY.get(resolved)
+    if cls is None:
+        log.fatal("Unknown metric type name: %s", name)
+    return cls(config)
+
+
+def default_metric_for_objective(objective_name: str) -> str:
+    """Objective's eponymous metric (ref: config.cpp objective->metric map)."""
+    mapping = {
+        "regression": "l2", "regression_l1": "l1", "huber": "huber",
+        "fair": "fair", "poisson": "poisson", "quantile": "quantile",
+        "mape": "mape", "gamma": "gamma", "tweedie": "tweedie",
+        "binary": "binary_logloss",
+        "multiclass": "multi_logloss", "multiclassova": "multi_logloss",
+        "cross_entropy": "cross_entropy",
+        "cross_entropy_lambda": "cross_entropy_lambda",
+        "lambdarank": "ndcg", "rank_xendcg": "ndcg",
+    }
+    return mapping.get(objective_name, "")

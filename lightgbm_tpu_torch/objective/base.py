@@ -9,7 +9,10 @@ depends on:
 - ``get_gradients(score) -> (grad, hess)``: float32 tensors shaped like
   ``score`` (``[k, n]``).
 - ``boost_from_score(class_id)``: initial score (host scalar).
-- ``convert_output(raw)``: raw score -> output space (numpy).
+- ``convert_output(raw)``: raw score -> output space (numpy);
+  ``convert_output_torch(raw)`` the same on the device (f32), or None
+  where the objective has no device form (the metrics then evaluate on
+  the host);
 - ``gradient_operands()`` / ``gradients_from(score, operands)``: the
   gradients as a function of the score and per-row operand tensors, so the
   boosting code can compute them on a padded score row;
@@ -65,6 +68,9 @@ class ObjectiveFunction:
 
     def convert_output(self, raw):
         return raw
+
+    def convert_output_torch(self, raw):
+        return None
 
     def to_string(self) -> str:
         return self.name

@@ -96,5 +96,8 @@ class BinaryLogloss(ObjectiveFunction):
     def convert_output(self, raw):
         return 1.0 / (1.0 + np.exp(-self.sigmoid * raw))
 
+    def convert_output_torch(self, raw):
+        return 1.0 / (1.0 + torch.exp(-self.sigmoid * raw))
+
     def to_string(self):
         return f"{self.name} sigmoid:{self.sigmoid:g}"

@@ -63,5 +63,10 @@ class RegressionL2Loss(ObjectiveFunction):
             return np.sign(raw) * raw * raw
         return raw
 
+    def convert_output_torch(self, raw):
+        if self.sqrt:
+            return torch.sign(raw) * raw * raw
+        return raw
+
     def to_string(self):
         return self.name + (" sqrt" if self.sqrt else "")

@@ -10,8 +10,11 @@ thresholds are float64, so routing is bit-identical to the host walk
 (``HostTree.predict_rows``). Categorical nodes are not ported yet.
 
 :func:`route_binned_rows_to_leaves` is the same walk on the training bins
-(``route_rows_to_leaves`` of the JAX package), which ``rollback_one_iter``
-uses to subtract a tree from the training scores.
+(``route_rows_to_leaves`` of the JAX package), and :func:`add_tree_score`
+adds one tree's leaf values to a score row through it: the per-tree
+valid-score update, and ``rollback_one_iter``'s subtraction. The JAX
+package computes these outside any Pallas kernel, in plain XLA; here they
+are plain torch.
 """
 from __future__ import annotations
 
@@ -75,7 +78,7 @@ def route_binned_rows_to_leaves(bins: torch.Tensor,
     for _ in range(max_steps):
         is_internal = node >= 0
         nd = node.clamp(min=0)
-        f = split_feature[nd]
+        f = split_feature[nd].long()
         b = torch.gather(bins, 1, f[:, None])[:, 0].long()
         mt = missing_type[f]
         missing = (((mt == 1) & (b == default_bin[f]))
@@ -85,6 +88,22 @@ def route_binned_rows_to_leaves(bins: torch.Tensor,
         nxt = torch.where(go_left, left_child[nd], right_child[nd])
         node = torch.where(is_internal, nxt, node)
     return torch.where(node < 0, ~node, torch.zeros_like(node))
+
+
+def add_tree_score(score: torch.Tensor, bins: torch.Tensor,
+                   leaf_value: torch.Tensor, split_feature: torch.Tensor,
+                   threshold_bin: torch.Tensor, default_left: torch.Tensor,
+                   left_child: torch.Tensor, right_child: torch.Tensor,
+                   num_bin: torch.Tensor, missing_type: torch.Tensor,
+                   default_bin: torch.Tensor,
+                   max_steps: int) -> torch.Tensor:
+    """``score + leaf_value[route(row)]`` for one tree on binned rows
+    (``add_tree_score`` of the JAX package's ``ops/predict.py``); a new
+    tensor, ``score`` [R] and ``leaf_value`` [L] of one dtype."""
+    leaves = route_binned_rows_to_leaves(
+        bins, split_feature, threshold_bin, default_left, left_child,
+        right_child, num_bin, missing_type, default_bin, max_steps)
+    return score + leaf_value[leaves]
 
 
 def tree_depth(left: np.ndarray, right: np.ndarray) -> int:

@@ -3,7 +3,8 @@
 the card.
 
     python3 scripts/torch_profile.py [--rows 1000000] [--rounds 3]
-                                     [--path train update frontier mixed cuts]
+                                     [--path train update frontier mixed cuts
+                                             eval]
 
 Trains chip_smoke.py's configuration (1,000,000 x 28 rows of bench.py's
 synthetic data, max_bin=63, num_leaves=255) with ``Booster.update()``,
@@ -13,7 +14,10 @@ a bare ``update()`` loop runs), ``frontier`` the frontier-v1 engine
 (``tpu_engine="frontier"``, the same body for both), ``mixed`` the megastep
 body on chip_smoke.py's mixed-cardinality rows (columns 14-27 floored to 8
 levels) and ``cuts`` the same with the histogram-plane cuts of its run (b)
-(quant16, gain screening, adaptive bins). Each warms up two
+(quant16, gain screening, adaptive bins), and ``eval`` the megastep body
+with chip_smoke.py's 250,000-row valid set and ``metric=["binary_logloss",
+"auc"]``, each iteration followed by ``eval_valid()`` as ``train()`` does
+with callbacks (its phase 7 run a). Each warms up two
 iterations, then traces ``--rounds`` more with ``torch.profiler`` and
 prints one JSON line: the wall time per iteration, the device time summed
 over all kernels, the device's busy share (device time over wall time),
@@ -47,9 +51,9 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--path", nargs="+",
                     choices=("train", "update", "frontier", "mixed",
-                             "cuts"),
+                             "cuts", "eval"),
                     default=["train", "update", "frontier", "mixed",
-                             "cuts"])
+                             "cuts", "eval"])
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -63,15 +67,20 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    X, y = cs._make_data(args.rows, cs.FEATURES, seed=cs.DATA_SEED)
+    X, y, w = cs._make_data(args.rows, cs.FEATURES, seed=cs.DATA_SEED,
+                            with_w=True)
     params = {"objective": "binary", "max_bin": 63, "num_leaves": 255,
               "learning_rate": 0.1, "min_data_in_leaf": 1, "verbose": -1,
               "device_type": "cuda"}
     ds = lgb.Dataset(X, label=y, params=params).construct()
     ds_mixed = None
     for path in args.path:
-        p, d = params, ds
-        if path == "frontier":
+        p, d, valid = params, ds, None
+        if path == "eval":
+            p = dict(params, metric=["binary_logloss", "auc"])
+            Xv, yv = cs._valid_rows(cs.VALID_ROWS, w, seed=cs.DATA_SEED + 100)
+            valid = lgb.Dataset(Xv, label=yv, reference=ds)
+        elif path == "frontier":
             p = dict(params, tpu_engine="frontier")
         elif path in ("mixed", "cuts"):
             if ds_mixed is None:
@@ -84,20 +93,28 @@ def main() -> int:
             if path == "cuts":
                 p = dict(params, **cs.KNOBS)
         print(json.dumps(dict(path=path, nvidia_smi=smi, **profile_path(
-            lgb, frontier2, p, d, path in ("train", "mixed", "cuts"),
-            args.rounds))), flush=True)
+            lgb, frontier2, p, d, path in ("train", "mixed", "cuts", "eval"),
+            args.rounds, valid))), flush=True)
     return 0
 
 
-def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int):
+def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int,
+                 valid=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from lightgbm_tpu_torch.ops import fused_level as fl
     ds.params = {}   # a Booster keeps its params in its Dataset: no leaks
     bst = lgb.Booster(params=params, train_set=ds)
+    if valid is not None:
+        bst.add_valid(valid, "valid")
     bst._gbdt.arm_megastep(megastep)
-    for _ in range(2):
+
+    def step():
         bst.update()
+        if valid is not None:
+            bst.eval_valid()        # one fetch of the metric scalars
+    for _ in range(2):
+        step()
     torch.cuda.synchronize()
     frontier2.host_syncs["count"] = 0
     fl.reset_launch_counts()
@@ -105,7 +122,7 @@ def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(rounds):
-            bst.update()
+            step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only (kernels, memsets, copies): the CPU-side op
@@ -143,6 +160,7 @@ def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int):
     g = bst._gbdt
     return {
         "rows": ds._inner.num_data, "iterations": rounds,
+        "valid_rows": valid._inner.num_data if valid is not None else 0,
         "engine": "frontier" if g.use_frontier else "fused",
         "quant_bits": g.quant_bits,
         "adaptive_bins": getattr(g, "fused_packed", None) is not None,

@@ -84,6 +84,8 @@ def _port_modules():
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, in a fresh process:
     neither jax nor lightgbm_tpu ends up in sys.modules."""
+    assert {"lightgbm_tpu_torch.metric", "lightgbm_tpu_torch.callback",
+            "lightgbm_tpu_torch.engine"} <= set(_port_modules())
     code = (
         "import importlib, json, sys\n"
         f"for m in {_port_modules()!r} + ['chip_smoke']:\n"

@@ -832,3 +832,107 @@ def test_epilogue_pass_refused_launch_raises(cuda_device, monkeypatch):
     got = tfl.epilogue_pass(*args, **kw)
     _assert_epilogue_close(got, tfl.epilogue_pass_plain(*args, **kw),
                            args[0], 64, kw["f_oh"], 5)
+
+
+# ------------------------------------------------ valid sets and metrics
+def _valid_fixture():
+    """Binary rows, a valid set from the same labelling function and the
+    same valid rows with their labels permuted (nothing to learn)."""
+    rng = np.random.RandomState(4)
+    X = rng.randn(6000, 8)
+    X[rng.rand(6000) < 0.05, 2] = np.nan
+    y = (X[:, 0] + 0.5 * np.nan_to_num(X[:, 2]) + 0.3 * rng.randn(6000)
+         > 0).astype(float)
+    return X[:4000], y[:4000], X[4000:], y[4000:], \
+        np.random.RandomState(5).permutation(y[4000:])
+
+
+def test_add_tree_score_on_cuda_matches_cpu(cuda_device):
+    """One valid-score update of a grown tree, routed on the card and on
+    the CPU: the same leaves, so the same f32 sums."""
+    from lightgbm_tpu_torch.ops.predict import add_tree_score
+    X, y, Xv, yv, _ = _valid_fixture()
+    p = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+         "verbose": -1, "device_type": "cpu"}
+    ds = lt.Dataset(X, label=y)
+    bst = lt.train(p, ds, 2)
+    dv = lt.Dataset(Xv, label=yv, reference=ds).construct()
+    g = bst._gbdt
+    ht = bst.models[-1]
+    ni = ht.num_internal
+    inner = [ds._inner.used_features.index(int(f))
+             for f in ht.split_feature[:ni]]
+    args = [np.asarray(ht.leaf_value, np.float32), np.asarray(inner),
+            ht.threshold_bin[:ni], (ht.decision_type[:ni] & 2) != 0,
+            ht.left_child[:ni], ht.right_child[:ni],
+            g.fused_meta.num_bin, g.fused_meta.missing_type,
+            g.fused_meta.default_bin]
+    score = np.random.RandomState(0).randn(len(yv)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        t = [torch.as_tensor(np.asarray(a), device=dev) for a in args]
+        out[str(dev)] = add_tree_score(
+            torch.as_tensor(score, device=dev),
+            dv._inner.bins_dev.to(dev), t[0], *t[1:], 12).cpu()
+    assert torch.equal(out["cpu"], out[str(cuda_device)])
+
+
+@pytest.mark.parametrize("name,objective", [
+    ("binary_logloss", "binary"), ("binary_error", "binary"),
+    ("auc", "binary"), ("l2", "regression"), ("rmse", "regression"),
+    ("l1", "regression"), ("huber", "regression"), ("quantile", "regression"),
+    ("mape", "regression")])
+def test_eval_device_on_cuda_matches_host(cuda_device, name, objective):
+    """Each metric's device form on the card (f32 sums) against its host
+    form (float64) on the same 250,000 rows, with and without weights."""
+    from lightgbm_tpu_torch.dataset import Metadata
+    from lightgbm_tpu_torch.metric import create_metric
+    from lightgbm_tpu_torch.objective import create_objective
+    n = 250_000
+    rng = np.random.RandomState(len(name))
+    score = rng.randn(1, n)
+    label = ((score[0] + rng.randn(n) > 0).astype(np.float64)
+             if objective == "binary" else rng.uniform(0.1, 3.0, n))
+    for w in (None, rng.uniform(0.5, 2.0, n)):
+        md = Metadata(n)
+        md.set_label(label)
+        md.set_weight(w)
+        cfg = lt.Config({"objective": objective})
+        obj = create_objective(cfg)
+        obj.init(md, n, cuda_device)
+        m = create_metric(name, cfg)
+        m.init(md, n)
+        got = m.eval_device(torch.as_tensor(score.astype(np.float32),
+                                            device=cuda_device), obj, {})
+        assert got[0].device.type == "cuda"
+        np.testing.assert_allclose([float(v) for v in got],
+                                   m.eval(score, obj), rtol=1e-5)
+
+
+def test_cuda_early_stopping_matches_cpu(cuda_device):
+    """train() with a valid set and a label-permuted one, early_stopping(3):
+    the same best iteration, tree count and curves on the card as on the
+    CPU, and the card's valid scores equal predict."""
+    X, y, Xv, yv, yp = _valid_fixture()
+    p = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+         "verbose": -1, "metric": ["binary_logloss", "auc"]}
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        ds = lt.Dataset(X, label=y)
+        valid = [lt.Dataset(Xv, label=yv, reference=ds),
+                 lt.Dataset(Xv, label=yp, reference=ds)]
+        ev = {}
+        bst = lt.train(dict(p, device_type=dev), ds, 40, valid_sets=valid,
+                       callbacks=[lt.early_stopping(3, verbose=False),
+                                  lt.record_evaluation(ev)])
+        runs[dev] = (bst, ev)
+    (bc, ec), (bg, eg) = runs["cpu"], runs["cuda"]
+    assert 0 < bg.best_iteration == bc.best_iteration < 37
+    assert bg.num_trees() == bc.num_trees() == bg.best_iteration + 3
+    for name in ec:
+        for m in ec[name]:
+            np.testing.assert_allclose(eg[name][m], ec[name][m], rtol=1e-4)
+    np.testing.assert_allclose(bg.valid_scores(0).cpu().numpy(),
+                               bg.predict(Xv, raw_score=True,
+                                          num_iteration=-1),
+                               rtol=1e-5, atol=1e-5)

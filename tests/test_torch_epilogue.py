@@ -230,10 +230,12 @@ def test_port_bodies_train_identically(data, params):
     assert on._gbdt._use_epilogue() and not off._gbdt._use_epilogue()
     np.testing.assert_array_equal(on.predict(X, raw_score=True),
                                   off.predict(X, raw_score=True))
-    # train() arms the megastep body unless tpu_megastep=False
+    # train() runs the megastep body unless tpu_megastep=False (it leaves
+    # no epilogue carry), and disarms it on return, as the JAX package's
+    # train() does
     tr = lt.train(dict(p, num_iterations=UPDATES),
                   lt.Dataset(X, label=label))
-    assert tr._gbdt._megastep_armed and tr._gbdt._epi_carry is None
+    assert not tr._gbdt._megastep_armed and tr._gbdt._epi_carry is None
     np.testing.assert_array_equal(tr.predict(X, raw_score=True),
                                   off.predict(X, raw_score=True))
 
