@@ -88,14 +88,39 @@ non-zero (it prints no result line then):
    boosters' predictions; (f) ``cv``, 3 stratified folds, 5 rounds: the
    result keys and lengths, each mean the mean of the folds'
    ``eval_valid``;
-8. the ``kernels`` line: every ported kernel and variant with its
+8. multiclass, GOSS, per-node feature masks and the pointwise objectives
+   through ``train()`` (``class_train``) on phase 3's dataset, its labels
+   from the same draw's score z: (a) ``multiclass``, 5 classes (the
+   quintiles of z), 10 rounds on the megastep body with
+   ``metric=["multi_logloss", "multi_error"]`` on phase 7's valid rows:
+   the recorded valid ``multi_logloss`` against a float64 recomputation
+   from ``predict`` (rtol 1e-5), ``predict`` [250000, 5] with rows summing
+   to 1 within 1e-6; (b) ``multiclassova``, 5 rounds; (c) GOSS
+   (top_rate 0.2, other_rate 0.1), binary, 15 rounds on the synchronous
+   body: the bag holds every row for 10 iterations (1/learning_rate),
+   then the rows at or above the top 20% threshold of |g·h| (300,000
+   where no rows tie at it) plus 100,000 of the rest, recounted from the
+   gradients; (d)
+   ``feature_fraction_bynode=0.5`` with interaction constraints
+   [[0..13], [14..27]], binary, 10 rounds: every root-to-leaf path within
+   one group, phase 3's host syncs per tree; (e) ``regression_l1`` (leaf
+   renewal on the synchronous body), 10 rounds; (f) ``cross_entropy`` on
+   sigmoid(z), 10 rounds (megastep body). Each: sec/iter after the first
+   iteration, wrapper calls and CUDA launches per tree (1 ``route_pass``
+   and 1 ``table_lookup`` each, and 9 ``level_pass`` for a tree that fills
+   its 255 leaves in the scheduled levels, up to 11 where a level selects
+   fewer splits than its cap), host syncs per tree, and training AUC >
+   0.75 (binary runs) or a training loss that falls from the first
+   iteration to the last;
+9. the ``kernels`` line: every ported kernel and variant with its
    wrapper calls and CUDA kernel launches on the main path where it runs
    (every level_pass, route_pass, epilogue_pass and hist_pass call in
-   phases 3-7 held to one launch of each of its CUDA kernels), its
-   launches in phase 7's runs (a), (c) and (d), error,
-   time per launch, plain time, bound and library time, and per-kernel
-   times of ``level_pass``, ``epilogue_pass`` and ``hist_pass``;
-9. the last line: ``{"ok": true, "device": {...}}``.
+   phases 3-8 held to one launch of each of its CUDA kernels), its
+   launches in phase 7's runs (a), (c) and (d) and in phase 8's runs,
+   error, time per launch, plain time, bound and library time, and
+   per-kernel times of ``level_pass``, ``epilogue_pass`` and
+   ``hist_pass``;
+10. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package. It exits non-zero when no CUDA
 device is present.
@@ -120,7 +145,8 @@ ROUNDS = 10
 DATA_SEED = 1
 DEVICE = "cuda"   # the card; a rehearsal on the CPU may set "cpu"
 UPDATES = 10
-VALID_ROWS = 250_000     # phase 7's valid set
+VALID_ROWS = 250_000     # phase 7's and phase 8's valid set
+CLASS_GROUPS = [list(range(14)), list(range(14, 28))]   # phase 8 run (d)
 WARMUP_UPDATES = 2
 TRAIN_PATH_KERNELS = ("level_pass", "route_pass", "table_lookup")
 FRONTIER_KERNELS = ("hist_pass",)
@@ -1069,19 +1095,19 @@ def run_eval_train(lgb, params, ds, X, y, w, e2e):
         return train(pa, rounds, [dv], ["valid"],
                      [lgb.log_evaluation(1)])
     stash = {}
-    upd = GBDT._update_valid_from_tree
+    upd = GBDT._update_valid_from_trees
 
-    def keep_tree(self, tree):
-        stash["tree"], stash["gbdt"] = tree, self
-        return upd(self, tree)
-    GBDT._update_valid_from_tree = keep_tree
+    def keep_tree(self, trees):
+        stash["trees"], stash["gbdt"] = trees, self
+        return upd(self, trees)
+    GBDT._update_valid_from_trees = keep_tree
     try:
         run_a(1)                              # warm-up
         _, t_one, *_ = counted(lambda: run_a(1))
         (bst, ev), t_all, launches, cuda, syncs = counted(
             lambda: run_a(ROUNDS))
     finally:
-        GBDT._update_valid_from_tree = upd
+        GBDT._update_valid_from_trees = upd
     n_trees = bst.num_trees()
     pred, pred_err = check_predict(bst, "a")
     want = {"binary_logloss": logloss(pred, yv), "auc": auc_ties(pred, yv)}
@@ -1091,7 +1117,7 @@ def run_eval_train(lgb, params, ds, X, y, w, e2e):
     # graph replayed (cuda_ms), on the trained state
     g = stash["gbdt"]
     vs0 = g.valid_scores[0].clone()
-    upd_ms = cuda_ms(lambda: g._update_valid_from_tree(stash["tree"]))
+    upd_ms = cuda_ms(lambda: g._update_valid_from_trees(stash["trees"]))
     g.valid_scores[0].copy_(vs0)
     eval_ms = cuda_ms(lambda: g.eval_metric_set(
         "valid", g.valid_metrics[0], g.valid_scores[0]))
@@ -1225,6 +1251,233 @@ def run_eval_train(lgb, params, ds, X, y, w, e2e):
         if cvres[f"valid {m}-mean"][-1] != means[m]:
             raise AssertionError(f"run (f): the {m} mean is not the mean of "
                                  "the folds' eval_valid")
+    ds.params = {}
+    return out
+
+
+def _class_rows(n_rows: int, n_feat: int, seed: int):
+    """``_make_data``'s draw (the same X and labelling weights) with the
+    score z its binary label thresholds at 0."""
+    rng = np.random.RandomState(seed)
+    X = rng.rand(n_rows, n_feat).astype(np.float32)
+    w = rng.randn(n_feat).astype(np.float32)
+    z = X @ w + 0.5 * rng.randn(n_rows)
+    return X, z, w
+
+
+def _valid_z(n_rows: int, w: np.ndarray, seed: int):
+    """``_valid_rows``'s draw with its score z."""
+    rng = np.random.RandomState(seed)
+    X = rng.rand(n_rows, len(w)).astype(np.float32)
+    return X, X @ w + 0.5 * rng.randn(n_rows)
+
+
+def class_loss(objective: str, raw: np.ndarray, y: np.ndarray) -> float:
+    """Float64 training loss of raw predictions ([n] or [n, k])."""
+    if objective == "multiclass":
+        m = raw - raw.max(1, keepdims=True)
+        logp = m - np.log(np.exp(m).sum(1, keepdims=True))
+        return float(-np.mean(logp[np.arange(len(y)), y.astype(int)]))
+    if objective == "multiclassova":
+        onehot = y.astype(int)[:, None] == np.arange(raw.shape[1])
+        p = np.clip(1.0 / (1.0 + np.exp(-raw)), 1e-15, 1.0 - 1e-15)
+        return float(-np.mean(np.where(onehot, np.log(p), np.log(1 - p))))
+    if objective == "regression_l1":
+        return float(np.mean(np.abs(y - raw)))
+    p = np.clip(1.0 / (1.0 + np.exp(-raw)), 1e-15, 1.0 - 1e-15)
+    return float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+
+
+def class_runs(z: np.ndarray):
+    """Phase 8's runs: (name, extra params, labels, rounds, body). Labels
+    from the draw's score z: quintiles (5 balanced classes), z itself (L1),
+    sigmoid(z) (cross_entropy), z > 0 (the binary runs)."""
+    cuts = np.quantile(z, [0.2, 0.4, 0.6, 0.8])
+    y_mc = np.digitize(z, cuts).astype(np.float32)
+    y_bin = (z > 0).astype(np.float32)
+    return cuts, [
+        ("a", {"objective": "multiclass", "num_class": 5,
+               "metric": ["multi_logloss", "multi_error"]}, y_mc, 10,
+         "megastep"),
+        ("b", {"objective": "multiclassova", "num_class": 5}, y_mc, 5,
+         "megastep"),
+        ("c", {"objective": "binary", "boosting": "goss", "top_rate": 0.2,
+               "other_rate": 0.1}, y_bin, 15, "sync"),
+        ("d", {"objective": "binary", "feature_fraction_bynode": 0.5,
+               "interaction_constraints": CLASS_GROUPS}, y_bin, 10, "sync"),
+        ("e", {"objective": "regression_l1"}, z.astype(np.float32), 10,
+         "sync"),
+        ("f", {"objective": "cross_entropy"},
+         (1.0 / (1.0 + np.exp(-z))).astype(np.float32), 10, "megastep")]
+
+
+def _root_to_leaf_features(tree, node=0, path=()):
+    if node < 0:
+        yield set(path)
+        return
+    f = int(tree.split_feature[node])
+    yield from _root_to_leaf_features(tree, int(tree.left_child[node]),
+                                      path + (f,))
+    yield from _root_to_leaf_features(tree, int(tree.right_child[node]),
+                                      path + (f,))
+
+
+def run_class_train(lgb, params, ds, y, z, w, e2e):
+    """Phase 8: multiclass, multiclassova, GOSS, per-node feature masks,
+    L1 leaf renewal and cross_entropy through train() on phase 3's
+    dataset (its labels swapped per run, its bins kept). Returns each
+    run's wrapper launches (with the CUDA kernels' under ``cuda:<k>``)."""
+    import torch
+    from lightgbm_tpu_torch.boosting.gbdt import GOSS, abs_gh_class_sum
+    from lightgbm_tpu_torch.models import frontier2
+    from lightgbm_tpu_torch.ops import fused_level as fl
+    cuts, runs = class_runs(z)
+    Xv, zv = _valid_z(VALID_ROWS, w, seed=DATA_SEED + 100)
+    yv_mc = np.digitize(zv, cuts).astype(np.float32)
+    Xs = ds.data[:100_000]
+    out = {}
+    goss_bagging = GOSS._bagging
+    for name, extra, labels, rounds, body in runs:
+        ds.set_label(labels)
+        ds.params = {}
+        valid, names = None, None
+        if name == "a":
+            valid = [lgb.Dataset(Xv, label=yv_mc, reference=ds)]
+            names = ["valid"]
+        stamps, ev, bag_cnt, bag_want = [], {}, [], []
+
+        def stamp(env):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        def record_bag(self, it, grad=None, hess=None):
+            n = self.num_data
+            if it >= int(1.0 / self.config.learning_rate):
+                # the rows at or above the top_rate quantile of |g·h|
+                # (ties included), plus other_rate * n of the rest
+                g = abs_gh_class_sum(grad, hess).cpu().numpy()
+                top_k, other_k = int(n * 0.2), int(n * 0.1)
+                top = int((g >= np.partition(g, n - top_k)[n - top_k])
+                          .sum())
+                bag_want.append(top + min(other_k, n - top))
+            else:
+                bag_want.append(n)
+            res = goss_bagging(self, it, grad, hess)
+            bag_cnt.append(self.bag_cnt)
+            return res
+        GOSS._bagging = record_bag
+        try:
+            torch.cuda.synchronize()
+            fl.reset_launch_counts()
+            frontier2.host_syncs["count"] = 0
+            bst = lgb.train(dict(params, **extra), ds, rounds,
+                            valid_sets=valid, valid_names=names,
+                            callbacks=[stamp, lgb.record_evaluation(ev)])
+            torch.cuda.synchronize()
+        finally:
+            GOSS._bagging = goss_bagging
+        launches, cuda = dict(fl.launches), dict(fl.cuda_launches)
+        syncs = frontier2.host_syncs["count"]
+        g = bst._gbdt
+        k = g.num_tree_per_iteration
+        n_trees = bst.num_trees()
+        got_body = "megastep" if g._fast_path_reason() is None else "sync"
+        res = {"phase": "class_train", "run": name,
+               "params": {a: b for a, b in extra.items()
+                          if a != "interaction_constraints"},
+               "body": got_body, "rounds": rounds,
+               "trees_per_iter": k, "trees": n_trees,
+               "leaves": sorted({m.num_leaves for m in bst.models}),
+               "sec_per_iter_after_first":
+                   (stamps[-1] - stamps[0]) / (rounds - 1),
+               "phase3_sec_per_iter_after_first":
+                   e2e["sec_per_iter_after_first"],
+               "launches_per_tree": {a: v / max(n_trees, 1)
+                                     for a, v in launches.items()},
+               "cuda_launches_per_tree": {a: v / max(n_trees, 1)
+                                          for a, v in cuda.items()},
+               "host_syncs_per_tree": syncs / max(n_trees, 1),
+               "phase3_host_syncs_per_tree": e2e["host_syncs_per_tree"]}
+        if extra["objective"] == "binary":
+            res["train_auc"] = auc(bst.train_scores().float().cpu().numpy(),
+                                   labels)
+            ok_quality = res["train_auc"] > 0.75
+        else:
+            obj = extra["objective"]
+            first = class_loss(obj, bst.predict(Xs, raw_score=True,
+                                                num_iteration=1),
+                               labels[:100_000])
+            last = class_loss(obj, bst.predict(Xs, raw_score=True,
+                                               num_iteration=-1),
+                              labels[:100_000])
+            res["train_loss_after_1_and_all"] = [first, last]
+            ok_quality = last < first
+        if name == "a":
+            prob = bst.predict(Xv)
+            p_true = np.clip(prob[np.arange(len(yv_mc)),
+                                  yv_mc.astype(int)], 1e-15, None)
+            want = float(-np.mean(np.log(p_true.astype(np.float64))))
+            got = ev["valid"]["multi_logloss"][-1]
+            res.update({"predict_shape": list(prob.shape),
+                        "predict_row_sum_max_err":
+                            float(np.abs(prob.sum(1) - 1.0).max()),
+                        "valid_multi_logloss": ev["valid"]["multi_logloss"],
+                        "valid_multi_error_last":
+                            ev["valid"]["multi_error"][-1],
+                        "valid_last_float64_from_predict": want})
+            if not (prob.shape == (VALID_ROWS, 5)
+                    and res["predict_row_sum_max_err"] <= 1e-6
+                    and np.isclose(got, want, rtol=1e-5, atol=0)
+                    and ev["valid"]["multi_logloss"][-1]
+                    < ev["valid"]["multi_logloss"][0]):
+                raise AssertionError(f"run (a): predict {prob.shape}, rows "
+                                     f"sum to 1 within "
+                                     f"{res['predict_row_sum_max_err']}, "
+                                     f"recorded {got}, float64 {want}")
+        if name == "c":
+            n = ds.num_data()
+            start = int(1.0 / params["learning_rate"])
+            res["bag_cnt"] = bag_cnt
+            res["bag_cnt_recomputed"] = bag_want
+            if not (bag_cnt[:start] == [n] * start and bag_cnt == bag_want
+                    and len(bag_cnt) == rounds
+                    and all(c < n for c in bag_cnt[start:])):
+                raise AssertionError(f"run (c): bag counts {bag_cnt}, "
+                                     f"recomputed {bag_want}")
+        if name == "d":
+            paths = [p for t in bst.models
+                     for p in _root_to_leaf_features(t)]
+            res["paths_in_one_group"] = sum(
+                any(p <= set(gr) for gr in CLASS_GROUPS) for p in paths)
+            res["paths"] = len(paths)
+            if res["paths_in_one_group"] != len(paths) \
+                    or res["host_syncs_per_tree"] \
+                    != e2e["host_syncs_per_tree"]:
+                raise AssertionError(f"run (d): {res['paths_in_one_group']} "
+                                     f"of {len(paths)} paths in one group, "
+                                     f"{res['host_syncs_per_tree']} host "
+                                     f"syncs per tree")
+        emit(res)
+        if not ok_quality:
+            raise AssertionError(f"run ({name}) did not learn: {res}")
+        if got_body != body or n_trees != k * rounds \
+                or res["leaves"] != [255]:
+            raise AssertionError(f"run ({name}): body {got_body}, "
+                                 f"{n_trees} trees of {res['leaves']} "
+                                 f"leaves")
+        # a full 255-leaf tree takes 9 level passes (the root, 8 levels)
+        # and one route-only pass; a level that selects fewer splits than
+        # its cap (a leaf under min_sum_hessian_in_leaf) adds a pass
+        if not (launches["route_pass"] == launches["table_lookup"]
+                == n_trees and launches["epilogue_pass"] == 0
+                and launches["hist_pass"] == 0
+                and 9 * n_trees <= launches["level_pass"] <= 11 * n_trees):
+            raise AssertionError(f"run ({name}) launched {launches} for "
+                                 f"{n_trees} trees")
+        check_stages(launches, cuda, f"run ({name})")
+        out[name] = dict(launches,
+                         **{"cuda:" + a: v for a, v in cuda.items()})
+    ds.set_label(y)
     ds.params = {}
     return out
 
@@ -1584,7 +1837,8 @@ def main() -> int:
                 plane_main[res["variant"]] = res
 
     # ---- 3. end to end through lightgbm_tpu_torch.train
-    X, y, w = _make_data(ROWS, FEATURES, seed=DATA_SEED, with_w=True)
+    X, z, w = _class_rows(ROWS, FEATURES, seed=DATA_SEED)
+    y = (z > 0).astype(np.float32)     # _make_data's labels
     params = {"objective": "binary", "max_bin": 63, "num_leaves": 255,
               "learning_rate": 0.1, "min_data_in_leaf": 1,
               "min_sum_hessian_in_leaf": 1e-3, "verbose": -1,
@@ -1670,11 +1924,15 @@ def main() -> int:
     # ---- 7. valid sets, metrics, callbacks, early stopping and cv
     eval_launches = run_eval_train(lgb, params, ds, X, y, w, e2e)
 
-    # ---- 8. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
+    # ---- 8. multiclass, GOSS, node masks and the pointwise objectives
+    class_launches = run_class_train(lgb, params, ds, y, z, w, e2e)
+
+    # ---- 9. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
     # the epilogue at Bp=64 int8, nch=5, binary, Sp=64; hist_pass at Bp=64,
     # Sp=64, f32). Launches: the train() run for the three kernels of its
     # path, update() run (a) for the epilogue, the frontier train() run for
-    # hist_pass; and each kernel's in phase 7's runs (a), (c) and (d)
+    # hist_pass; and each kernel's in phase 7's runs (a), (c) and (d) and
+    # in every run of phase 8
     lv, rt = main_cfg["level_pass"], main_cfg["route_pass"]
     rows = []
     for name, r, err, n, n_cuda in (
@@ -1704,6 +1962,8 @@ def main() -> int:
             row["stages_ms"] = r["stages_ms"]
         row["eval_train_launches"] = {run: eval_launches[run][name]
                                       for run in ("a", "c", "d")}
+        row["class_train_launches"] = {run: v[name]
+                                       for run, v in class_launches.items()}
         rows.append(row)
     # the variants at Sp=64 on the mixed layout, each with the launches of
     # the phase-6 run that takes it on every level_pass (VARIANT_RUNS); the
@@ -1738,7 +1998,7 @@ def main() -> int:
     emit({"kernels": rows})
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start})
 
-    # ---- 9. the result line
+    # ---- 10. the result line
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -3,7 +3,10 @@
 Trains, evaluates and predicts the GBDT of the JAX package's fused and
 frontier-v1 engines on an NVIDIA H100 (sm_90a) through five hand-written
 CUDA kernels (``csrc/``: the level, route, epilogue, leaf-lookup and
-frontier histogram passes), and everything around them in plain PyTorch.
+frontier histogram passes), and everything around them in plain PyTorch:
+the binary, regression, multiclass and cross-entropy objectives, GOSS,
+bagging, per-tree and per-node feature sampling, interaction constraints,
+valid sets, metrics, callbacks and ``cv``.
 The JAX package ``lightgbm_tpu`` stays the reference; this package
 imports nothing of it and no JAX.
 
@@ -16,6 +19,8 @@ imports nothing of it and no JAX.
                                lgb.log_evaluation(1)])
     bst.predict(X)
     lgb.cv({"objective": "binary"}, ds, num_boost_round=10, nfold=3)
+    lgb.train({"objective": "multiclass", "num_class": 3}, ds3).predict(X)
+    # -> [n, 3]
 
 ``device_type`` defaults to ``"cuda"``; ``"cpu"`` runs the kernels' plain
 PyTorch versions (the CPU tests use it).

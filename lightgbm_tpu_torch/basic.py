@@ -9,7 +9,8 @@ or ``Booster(params, train_set)`` with ``add_valid``, ``update()`` /
 / ``model_to_string()`` / ``save_model``, plus loading a model text
 (``Booster(model_str=...)`` or ``model_file=``). Training, evaluation and
 prediction run on ``device_type`` (default ``"cuda"``; ``"cpu"`` runs the
-kernels' plain PyTorch versions).
+kernels' plain PyTorch versions). A model with k trees per iteration
+(multiclass, multiclassova) predicts ``[n, k]``.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .boosting import create_boosting
 from .boosting.gbdt import GBDT
 from .config import Config, resolve_device
 from .dataset import BinnedDataset
@@ -213,9 +215,11 @@ class Booster:
         train_metrics = []
         if self.config.is_provide_training_metric:
             train_metrics = self._make_metrics(inner)
-        self._gbdt = GBDT()
+        self._gbdt = create_boosting(self.config)
         self._gbdt.init(self.config, inner, self.objective, train_metrics)
         self.models = self._gbdt.models
+        self.num_class = max(1, int(self.config.num_class))
+        self.num_tree_per_iteration = self._gbdt.num_tree_per_iteration
         self.max_feature_idx = inner.num_total_features - 1
         self.feature_names = inner.feature_names
         self.feature_infos = inner.feature_infos()
@@ -255,7 +259,8 @@ class Booster:
         basic.py:2936 Booster.update). Without ``fobj`` it takes the
         epilogue body wherever it applies (binary or L2 with
         ``tpu_fused_epilogue``; see ``boosting/gbdt.py``); ``fobj(scores,
-        train_set) -> (grad, hess)`` needs ``objective="none"``."""
+        train_set) -> (grad, hess)`` needs ``objective="none"`` and takes
+        and returns ``k * n`` values, class-major."""
         if train_set is not None and train_set is not self.train_set:
             raise LightGBMError("Replacing train_set is not supported yet")
         if fobj is None:
@@ -294,12 +299,16 @@ class Booster:
         return self.num_tree_per_iteration
 
     def train_scores(self) -> torch.Tensor:
-        """The trainer's accumulated raw scores [n] (float32, device)."""
-        return self._gbdt.scores[0]
+        """The trainer's accumulated raw scores (float32, device): [n], or
+        [k, n] with k trees per iteration."""
+        s = self._gbdt.scores
+        return s[0] if s.shape[0] == 1 else s
 
     def valid_scores(self, i: int = 0) -> torch.Tensor:
-        """Valid set ``i``'s accumulated raw scores [n] (float32, device)."""
-        return self._gbdt.valid_scores[i][0]
+        """Valid set ``i``'s accumulated raw scores (float32, device): [n],
+        or [k, n] with k trees per iteration."""
+        s = self._gbdt.valid_scores[i]
+        return s[0] if s.shape[0] == 1 else s
 
     # ------------------------------------------------------------------
     def eval_train(self, feval=None) -> List:
@@ -351,13 +360,15 @@ class Booster:
         """Predictions on raw features, routed in float64 on the device
         (ref: basic.py:3449 Booster.predict). ``num_iteration=None`` means
         the early-stopped best iteration where there is one, an explicit
-        value <= 0 every iteration."""
+        value <= 0 every iteration. [n], or [n, k] with k trees per
+        iteration (the objective's softmax or per-class sigmoid applied
+        unless ``raw_score``)."""
         X = torch.as_tensor(_to_2d_numpy(data).astype(np.float64),
                             device=self._predict_device())
         k = self.num_tree_per_iteration
-        if k != 1 or self.average_output:
-            raise NotImplementedError("multiclass and averaged-output "
-                                      "models are not ported yet")
+        if self.average_output:
+            raise NotImplementedError("averaged-output (RF) models are not "
+                                      "ported yet (ROADMAP Queue A item 7)")
         if num_iteration is None:
             num_iteration = (self.best_iteration
                              if self.best_iteration > 0 else -1)
@@ -368,9 +379,12 @@ class Booster:
         lo = start_iteration * k
         hi = (start_iteration + num_iteration) * k
         raw = predict_raw(self.models[lo:hi], X, k).cpu().numpy()
+        # (the JAX package's finalize_raw_predictions)
         if not raw_score and self.objective is not None:
+            if k > 1:
+                return self.objective.convert_output(raw.T)
             return np.asarray(self.objective.convert_output(raw[0]))
-        return raw[0]
+        return raw[0] if k == 1 else raw.T
 
     def _predict_device(self):
         if self.device is None:

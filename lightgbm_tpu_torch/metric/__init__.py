@@ -17,9 +17,11 @@ xentropy hpp families). Every metric has two forms:
 ``_weighted_auc_jnp``: a stable descending sort, group ids at distinct
 scores, per-group sums by ``scatter_add``.
 
-Multiclass and ranking metrics (``multi_logloss``, ``multi_error``,
-``auc_mu``, ``ndcg``, ``map``) are not ported yet (ROADMAP Queue A item
-4) and raise.
+The multiclass metrics (``multi_logloss``, ``multi_error`` with
+``multi_error_top_k``, ``auc_mu`` with ``auc_mu_weights``) take the
+``[k, n]`` scores and have a host form only, as in the JAX package's
+per-iteration evaluation. The ranking metrics (``ndcg``, ``map``) are not
+ported yet (ROADMAP Queue A item 4) and raise.
 """
 from __future__ import annotations
 
@@ -64,7 +66,7 @@ METRIC_ALIASES = {
     "map": "map", "mean_average_precision": "map",
 }
 
-_UNPORTED = ("multi_logloss", "multi_error", "auc_mu", "ndcg", "map")
+_UNPORTED = ("ndcg", "map")
 
 
 class Metric:
@@ -540,6 +542,89 @@ class KullbackLeiblerDivergence(Metric):
 
 
 # ---------------------------------------------------------------------------
+# Multiclass metrics (ref: src/metric/multiclass_metric.hpp), host only
+# ---------------------------------------------------------------------------
+class MultiSoftmaxLoglossMetric(Metric):
+    names = ["multi_logloss"]
+
+    def eval(self, score, objective):
+        # score: [num_class, n], converted by the objective where one is set
+        k, n = score.shape
+        if objective is not None:
+            probs = objective.convert_output(score.T)  # [n, k]
+        else:
+            m = score - np.max(score, axis=0, keepdims=True)
+            e = np.exp(m)
+            probs = (e / np.sum(e, axis=0, keepdims=True)).T
+        li = self.label.astype(np.int64)
+        p = np.clip(probs[np.arange(n), li], K_EPSILON, None)
+        pt = -np.log(p)
+        if self.weight is not None:
+            return [float(np.sum(pt * self.weight) / self.sum_weights)]
+        return [float(np.sum(pt) / self.sum_weights)]
+
+
+class MultiErrorMetric(Metric):
+    names = ["multi_error"]
+
+    def eval(self, score, objective):
+        k, n = score.shape
+        li = self.label.astype(np.int64)
+        top_k = int(self.config.multi_error_top_k)
+        # an error iff more than top_k classes score at least the true
+        # class, itself included (ref: multiclass_metric.hpp:142-151)
+        true_score = score[li, np.arange(n)]
+        num_larger = np.sum(score >= true_score[None, :], axis=0)
+        err = (num_larger > top_k).astype(np.float64)
+        if self.weight is not None:
+            return [float(np.sum(err * self.weight) / self.sum_weights)]
+        return [float(np.sum(err) / self.sum_weights)]
+
+
+class AucMuMetric(Metric):
+    """AUC-mu (ref: multiclass_metric.hpp:183-337): the pairwise class
+    separability averaged over all class pairs, under the auc_mu_weights
+    decision matrix when one is given."""
+
+    names = ["auc_mu"]
+    is_bigger_better = True
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        self.num_class = int(self.config.num_class)
+        aw = self.config.auc_mu_weights
+        nc = self.num_class
+        if aw:
+            W = np.asarray(aw, dtype=np.float64).reshape(nc, nc)
+        else:
+            W = np.ones((nc, nc)) - np.eye(nc)
+        self.W = W
+
+    def eval(self, score, objective):
+        nc, n = score.shape
+        li = self.label.astype(np.int64)
+        w = (self.weight.astype(np.float64) if self.weight is not None
+             else np.ones(n))
+        total = 0.0
+        cnt = 0
+        for i in range(nc):
+            for j in range(i + 1, nc):
+                mask = (li == i) | (li == j)
+                if not mask.any() or not ((li == i).any()
+                                          and (li == j).any()):
+                    cnt += 1
+                    continue
+                # the decision value from the weight matrix's rows
+                # (ref: :252-276); class i should score the lower value
+                v = (self.W[i, j] * score[j, mask]
+                     - self.W[j, i] * score[i, mask])
+                lab = (li[mask] == i).astype(np.float64)
+                total += _weighted_auc(lab, -v, w[mask])
+                cnt += 1
+        return [total / max(cnt, 1)]
+
+
+# ---------------------------------------------------------------------------
 _REGISTRY = {
     "l2": L2Metric, "rmse": RMSEMetric, "l1": L1Metric,
     "quantile": QuantileMetric, "huber": HuberLossMetric,
@@ -551,6 +636,8 @@ _REGISTRY = {
     "cross_entropy": CrossEntropyMetric,
     "cross_entropy_lambda": CrossEntropyLambdaMetric,
     "kullback_leibler": KullbackLeiblerDivergence,
+    "multi_logloss": MultiSoftmaxLoglossMetric,
+    "multi_error": MultiErrorMetric, "auc_mu": AucMuMetric,
 }
 
 
@@ -562,7 +649,7 @@ def create_metric(name: str, config: Config) -> Optional[Metric]:
     resolved = METRIC_ALIASES.get(raw.split("@", 1)[0], raw)
     if resolved in _UNPORTED:
         log.fatal("metric %s is not ported to lightgbm_tpu_torch yet "
-                  "(multiclass and ranking metrics: ROADMAP Queue A item 4)",
+                  "(ranking metrics: ROADMAP Queue A item 4)",
                   name)
     cls = _REGISTRY.get(resolved)
     if cls is None:

@@ -27,6 +27,14 @@ reads it (``decode``), so split search, pools and subtraction are those of
 the f32 padded path; route tables are built on that layout and re-indexed
 onto the packed flat axis; the level caps stay derived from the padded
 ``f_oh * Bp``, so the packed layout grows the same tree.
+
+Per-node feature masks (``node_masks``: interaction constraints and
+``feature_fraction_bynode``) narrow the split search of the root and of
+every fresh child, as the JAX grower's ``use_node_masks`` does: each leaf
+carries the bitmask of the constraint groups its path still allows, and
+each child draws its by-node sample from the Threefry key folded with its
+creating node's id and side. The masks are device tensors; they add no host
+read.
 """
 from __future__ import annotations
 
@@ -39,8 +47,9 @@ from ..ops.fused_level import (NCH_PRECISE, build_route_table, hist_planes,
                                route_pass, table_lookup)
 from ..ops.split import (BestSplit, SplitParams, best_split_cm,
                          calculate_leaf_output)
-from .learner import (NEG_INF, FeatureMeta, _masked_gain, _masked_scatter,
-                      meta_is_cat)
+from .learner import (NEG_INF, FeatureMeta, NodeMaskCfg, _masked_gain,
+                      _masked_scatter, meta_is_cat, node_feature_mask,
+                      update_leaf_groups)
 from .tree import TreeArrays, empty_tree
 
 # host reads of device values made by the grower since the last reset
@@ -88,7 +97,8 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
                     root_hist: torch.Tensor = None,
                     defer_final_route: bool = False, quant_bits: int = 0,
                     packed=None, mask_onehot: bool = False,
-                    gh_scales: torch.Tensor = None):
+                    gh_scales: torch.Tensor = None,
+                    node_masks: NodeMaskCfg = None):
     """Grow one tree with fused level passes.
 
     Args:
@@ -118,6 +128,8 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
         features ``feature_mask`` leaves out (logical feature 0 and the
         first kernel row's feature stay live: the leaf totals and the root
         pass's every-row-left trick read them).
+      node_masks: the per-node feature masks (``learner.NodeMaskCfg`` sized
+        f_oh, its key already folded with the iteration), or None.
 
     Returns (TreeArrays, row_leaf [Rp] int32; padding rows stay at -1).
     With ``defer_final_route``: (tree, row_leaf before the final route,
@@ -183,9 +195,15 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
     tree.leaf_count[0] = root_c
     tree.leaf_weight[0] = root_h
 
+    leaf_groups = torch.full((L,), -1, dtype=torch.int32, device=dev)
+    root_mask = feature_mask[None, :]
+    if node_masks is not None:
+        root_mask = root_mask & node_feature_mask(
+            node_masks, leaf_groups[:1],
+            torch.zeros(1, dtype=torch.int32, device=dev))
     root_best = best_split_cm(
         g0[:1], h0[:1], c0[:1], meta.num_bin, meta.missing_type,
-        meta.default_bin, feature_mask[None, :], meta_is_cat(meta), params,
+        meta.default_bin, root_mask, meta_is_cat(meta), params,
         tree.leaf_value[:1])
     best = BestSplit(*[torch.cat([a[:1], torch.zeros((L - 1,) + a.shape[1:],
                                                       dtype=a.dtype,
@@ -205,12 +223,13 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
                 if defer_final_route else None)
     if deferred is not None:
         deferred[1][:, 0] = -2
-    state = (tree, leaf_T, pool_g, pool_h, pool_c, best, lpn, lil)
+    state = (tree, leaf_T, pool_g, pool_h, pool_c, best, lpn, lil,
+             leaf_groups)
     for li, S_d in enumerate(caps):
         state = _one_level(state, bins_T, gh_T, meta, feature_mask, params,
                            L, B, f_oh, S_d, nch, max_depth,
                            li == len(caps) - 1, deferred, decode, kmask,
-                           quant_bits, packed)
+                           quant_bits, packed, node_masks)
     tree, leaf_T = state[0], state[1]
     if deferred is not None:
         return tree, leaf_T[0], deferred[0], deferred[1]
@@ -219,8 +238,9 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
 
 def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B, f_oh,
                S_d, nch, max_depth, is_last, deferred, decode, kmask,
-               quant_bits, packed):
-    (tree, leaf_T, pool_g, pool_h, pool_c, best, lpn, lil) = state
+               quant_bits, packed, node_masks):
+    (tree, leaf_T, pool_g, pool_h, pool_c, best, lpn, lil,
+     leaf_groups) = state
     dev = bins_T.device
     Sp = max(8, S_d)
     slots = torch.arange(L, dtype=torch.int32, device=dev)
@@ -342,6 +362,13 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B, f_oh,
         leaf_depth=upd2(tree.leaf_depth, new_depth, new_depth),
     )
 
+    if node_masks is not None:
+        leaf_groups2 = update_leaf_groups(node_masks, leaf_groups,
+                                          best.feature, selected, slots,
+                                          new_of_leaf)
+    else:
+        leaf_groups2 = leaf_groups
+
     if route_only:
         # no split search will ever run again; bar the fresh leaves (and
         # the reused parent slots) from re-selection
@@ -349,7 +376,7 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B, f_oh,
         g2 = _masked_scatter(best.gain, slots, neg, selected)
         g2 = _masked_scatter(g2, new_of_leaf, neg, selected)
         return (tree2, leaf_T2, pool_g, pool_h, pool_c,
-                best._replace(gain=g2), lpn2, lil2)
+                best._replace(gain=g2), lpn2, lil2, leaf_groups2)
 
     # ---- best splits for the 2*Sp fresh children only; each child's own
     # post-split output is the parent_output of its prospective children
@@ -357,16 +384,24 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B, f_oh,
     zero = torch.zeros((), device=dev)
     left_out = torch.where(lof_on, best.left_output[lof_safe], zero)
     right_out = torch.where(lof_on, best.right_output[lof_safe], zero)
+    ch_mask = feature_mask[None, :]
+    if node_masks is not None:
+        ch_groups = torch.cat([leaf_groups2[lof_safe], leaf_groups2[new_s]])
+        # per-node sampling identity: the creating node's id and side bit
+        node = node_of_leaf[lof_safe]
+        ch_ids = torch.cat([2 * (node + 1) + 1, 2 * (node + 1)])
+        ch_mask = ch_mask & node_feature_mask(node_masks, ch_groups, ch_ids)
     bs = best_split_cm(
         torch.cat([left_g, right_g]), torch.cat([left_h, right_h]),
         torch.cat([left_c, right_c]), meta.num_bin, meta.missing_type,
-        meta.default_bin, feature_mask[None, :], meta_is_cat(meta), params,
+        meta.default_bin, ch_mask, meta_is_cat(meta), params,
         torch.cat([left_out, right_out]))
     left_bs = BestSplit(*[a[:Sp] for a in bs])
     right_bs = BestSplit(*[a[Sp:] for a in bs])
     best2 = _merge_best_many(best, lof_safe, left_bs, lof_on)
     best2 = _merge_best_many(best2, new_s, right_bs, lof_on)
-    return (tree2, leaf_T2, pool_g, pool_h, pool_c, best2, lpn2, lil2)
+    return (tree2, leaf_T2, pool_g, pool_h, pool_c, best2, lpn2, lil2,
+            leaf_groups2)
 
 
 def tree_score_delta(tree: TreeArrays, row_leaf: torch.Tensor, shrinkage,

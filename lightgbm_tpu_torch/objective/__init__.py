@@ -1,7 +1,11 @@
 """Objective functions (gradient/hessian producers).
 
-PyTorch counterpart of ``lightgbm_tpu/objective`` for the objectives this
-port has: ``binary`` and ``regression`` (L2). Others raise.
+PyTorch counterpart of ``lightgbm_tpu/objective``: ``binary``, the
+regression losses (``regression``, ``regression_l1``, ``huber``, ``fair``,
+``poisson``, ``quantile``, ``mape``, ``gamma``, ``tweedie``), ``multiclass``
+and ``multiclassova``, ``cross_entropy`` and ``cross_entropy_lambda``. The
+ranking objectives (``lambdarank``, ``rank_xendcg``) are not ported yet
+(ROADMAP Queue A item 4) and raise.
 """
 from __future__ import annotations
 
@@ -11,12 +15,38 @@ from ..config import Config
 from ..utils import log
 from .base import ObjectiveFunction
 from .binary import BinaryLogloss
-from .regression import RegressionL2Loss
+from .multiclass import MulticlassOVA, MulticlassSoftmax
+from .regression import (RegressionFairLoss, RegressionGammaLoss,
+                         RegressionHuberLoss, RegressionL1Loss,
+                         RegressionL2Loss, RegressionMAPELoss,
+                         RegressionPoissonLoss, RegressionQuantileLoss,
+                         RegressionTweedieLoss)
+from .xentropy import CrossEntropy, CrossEntropyLambda
 
 _REGISTRY = {
     "regression": RegressionL2Loss,
+    "regression_l1": RegressionL1Loss,
+    "huber": RegressionHuberLoss,
+    "fair": RegressionFairLoss,
+    "poisson": RegressionPoissonLoss,
+    "quantile": RegressionQuantileLoss,
+    "mape": RegressionMAPELoss,
+    "gamma": RegressionGammaLoss,
+    "tweedie": RegressionTweedieLoss,
     "binary": BinaryLogloss,
+    "multiclass": MulticlassSoftmax,
+    "multiclassova": MulticlassOVA,
+    "cross_entropy": CrossEntropy,
+    "cross_entropy_lambda": CrossEntropyLambda,
 }
+_RANKING = ("lambdarank", "rank_xendcg")
+
+
+def _unported(name: str) -> None:
+    if name in _RANKING:
+        log.fatal("objective %s is not ported to lightgbm_tpu_torch yet "
+                  "(ranking: ROADMAP Queue A item 4)", name)
+    log.fatal("Unknown objective type name: %s", name)
 
 
 def create_objective(config: Config) -> Optional[ObjectiveFunction]:
@@ -27,8 +57,7 @@ def create_objective(config: Config) -> Optional[ObjectiveFunction]:
         return None
     cls = _REGISTRY.get(name)
     if cls is None:
-        log.fatal("objective %s is not ported to lightgbm_tpu_torch yet "
-                  "(available: %s)", name, ", ".join(sorted(_REGISTRY)))
+        _unported(name)
     return cls(config)
 
 
@@ -41,8 +70,7 @@ def create_objective_from_string(s: str) -> Optional[ObjectiveFunction]:
     name = tokens[0]
     cls = _REGISTRY.get(name)
     if cls is None:
-        log.fatal("objective %s is not ported to lightgbm_tpu_torch yet",
-                  name)
+        _unported(name)
     params = {}
     for tok in tokens[1:]:
         if ":" in tok:

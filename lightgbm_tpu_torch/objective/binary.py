@@ -17,6 +17,7 @@ class BinaryLogloss(ObjectiveFunction):
     (ref: binary_objective.hpp:21-222)."""
 
     name = "binary"
+    traced_gradients = True
 
     def __init__(self, config):
         super().__init__(config)
@@ -92,6 +93,9 @@ class BinaryLogloss(ObjectiveFunction):
         log.info("[%s:BoostFromScore]: pavg=%f -> initscore=%f",
                  self.name, pavg, initscore)
         return float(initscore)
+
+    def class_need_train(self, class_id):
+        return self.need_train
 
     def convert_output(self, raw):
         return 1.0 / (1.0 + np.exp(-self.sigmoid * raw))

@@ -1,5 +1,6 @@
 """Reference-parity pseudo-random streams (a numpy copy of
-``lightgbm_tpu/utils/random.py``).
+``lightgbm_tpu/utils/random.py``, and a torch copy of the Threefry
+generator of ``jax.random``).
 
 The reference drives every sampling decision (bagging membership, by-tree
 column subsets, ...) off one small LCG (ref: include/LightGBM/utils/random.h:18
@@ -13,6 +14,10 @@ The per-block bagging draw matrix is computed closed-form: the k-step LCG
 jump is x_k = A_k * x0 + C_k (mod 2^32) with A_k = a^k and
 C_k = c * (a^{k-1} + ... + 1), so one [block_size, n_blocks] broadcast
 yields every row's draw without a Python loop.
+
+``feature_fraction_bynode`` draws from ``jax.random`` in the JAX package;
+``prng_key``, ``fold_in`` and ``uniform`` below give its bits (see the
+Threefry section).
 """
 from __future__ import annotations
 
@@ -121,3 +126,73 @@ class BlockBaggingStreams:
         self.state = (self._jump_a[self._cnt] * self.state
                       + self._jump_c[self._cnt])
         return draws.T.reshape(-1)[:self.num_data]
+
+
+# ---------------------------------------------------------------------------
+# Counter-based Threefry-2x32 (the generator behind the JAX package's
+# ``jax.random``: ``PRNGKey``, ``fold_in`` and ``uniform`` under the
+# partitionable bit layout). feature_fraction_bynode draws its per-node
+# feature samples from it, so the port keeps a copy that gives the same
+# bits. uint32 words live in int64 tensors masked to 32 bits, so the draws
+# run on the training device with no host round trip.
+# ---------------------------------------------------------------------------
+_M32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """The Threefry-2x32 hash (20 rounds) of the counter words ``(x0, x1)``
+    under the key ``(k0, k1)``; every argument an int64 tensor (or int)
+    holding uint32 values, broadcast together. Returns two such tensors."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def prng_key(seed: int, device=None):
+    """``jax.random.PRNGKey(seed)`` with 64-bit values off (the JAX
+    package's default): the key words ``(0, seed mod 2**32)`` as a [2]
+    int64 tensor."""
+    import torch
+    return torch.tensor([0, int(seed) & _M32], dtype=torch.int64,
+                        device=device)
+
+
+def fold_in(key, data):
+    """``jax.random.fold_in``: the hash of the counter ``(0, data)`` under
+    ``key`` ([..., 2] int64; ``data`` an int or an int tensor that
+    broadcasts against ``key[..., 0]``). Returns [..., 2] keys."""
+    import torch
+    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _M32
+    y0, y1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    return torch.stack(torch.broadcast_tensors(y0, y1), -1)
+
+
+def random_bits(key, n: int):
+    """``jax.random.bits(key, (n,), uint32)`` under the partitionable
+    layout: element i hashes the counter ``(0, i)`` and xors the two
+    words. ``key`` [..., 2] -> [..., n] int64."""
+    import torch
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[..., 0:1], key[..., 1:2], torch.zeros_like(i),
+                          i)
+    return y0 ^ y1
+
+
+def uniform(key, n: int):
+    """``jax.random.uniform(key, (n,))`` in float32 on [0, 1): the top 23
+    bits as the mantissa of a float in [1, 2), minus 1."""
+    import torch
+    bits = (random_bits(key, n) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0

@@ -4,7 +4,7 @@ the card.
 
     python3 scripts/torch_profile.py [--rows 1000000] [--rounds 3]
                                      [--path train update frontier mixed cuts
-                                             eval]
+                                             eval class]
 
 Trains chip_smoke.py's configuration (1,000,000 x 28 rows of bench.py's
 synthetic data, max_bin=63, num_leaves=255) with ``Booster.update()``,
@@ -17,18 +17,25 @@ levels) and ``cuts`` the same with the histogram-plane cuts of its run (b)
 (quant16, gain screening, adaptive bins), and ``eval`` the megastep body
 with chip_smoke.py's 250,000-row valid set and ``metric=["binary_logloss",
 "auc"]``, each iteration followed by ``eval_valid()`` as ``train()`` does
-with callbacks (its phase 7 run a). Each warms up two
-iterations, then traces ``--rounds`` more with ``torch.profiler`` and
-prints one JSON line: the wall time per iteration, the device time summed
-over all kernels, the device's busy share (device time over wall time),
-the device launches per iteration, each of the port's kernels' device ms
-per iteration (``level_pass``, ``route_pass``, ``epilogue_pass`` and
-``hist_pass`` as the sums of their CUDA kernels, each also on its own; the
-slab-table kernel the first three share is split by launches), the port's
-CUDA kernel launches per iteration
-(``ops.fused_level.cuda_launches``), the kernels ranked by device time,
-and the grower's host syncs per tree. Also prints the card's name and
-power limit. Needs a CUDA device.
+with callbacks (its phase 7 run a), and ``class`` chip_smoke.py's phase 8
+runs but (b), one JSON line each: (a) ``multiclass`` with 5 classes on
+the megastep body (5 trees per iteration), (c) GOSS on the synchronous
+body (warmed up past iteration 1/learning_rate, so every traced iteration
+samples), (d) by-node sampling with interaction constraints and (e)
+``regression_l1`` with its leaf renewal, both on the synchronous body,
+and (f) ``cross_entropy`` on the megastep body. Each warms up two
+iterations (GOSS ten), then traces ``--rounds`` more with
+``torch.profiler`` and prints one JSON line: the wall time per
+iteration, the device time summed over all kernels, the device's busy
+share (device time over wall time), the device launches per iteration,
+each of the port's kernels' device ms per iteration (``level_pass``,
+``route_pass``, ``epilogue_pass`` and ``hist_pass`` as the sums of their
+CUDA kernels, each also on its own; the slab-table kernel the first three
+share is split by launches), the port's CUDA kernel launches per
+iteration (``ops.fused_level.cuda_launches``), the kernels ranked by
+device time, and the host syncs per tree (the grower's, GOSS's copy of
+|g·h|, leaf renewal's copies). Also prints the card's name and power
+limit. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -51,9 +58,9 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--path", nargs="+",
                     choices=("train", "update", "frontier", "mixed",
-                             "cuts", "eval"),
+                             "cuts", "eval", "class"),
                     default=["train", "update", "frontier", "mixed",
-                             "cuts", "eval"])
+                             "cuts", "eval", "class"])
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -67,14 +74,28 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    X, y, w = cs._make_data(args.rows, cs.FEATURES, seed=cs.DATA_SEED,
-                            with_w=True)
+    X, z, w = cs._class_rows(args.rows, cs.FEATURES, seed=cs.DATA_SEED)
+    y = (z > 0).astype(np.float32)     # _make_data's labels
     params = {"objective": "binary", "max_bin": 63, "num_leaves": 255,
               "learning_rate": 0.1, "min_data_in_leaf": 1, "verbose": -1,
               "device_type": "cuda"}
     ds = lgb.Dataset(X, label=y, params=params).construct()
     ds_mixed = None
     for path in args.path:
+        if path == "class":
+            for run, extra, labels, _, _ in cs.class_runs(z)[1]:
+                if run == "b":
+                    continue
+                ds.set_label(labels)
+                print(json.dumps(dict(
+                    path=path, run=run, objective=extra["objective"],
+                    boosting=extra.get("boosting", "gbdt"), nvidia_smi=smi,
+                    **profile_path(lgb, frontier2, dict(params, **extra),
+                                   ds, True, args.rounds,
+                                   warmup=10 if run == "c" else 2))),
+                    flush=True)
+            ds.set_label(y)
+            continue
         p, d, valid = params, ds, None
         if path == "eval":
             p = dict(params, metric=["binary_logloss", "auc"])
@@ -99,7 +120,7 @@ def main() -> int:
 
 
 def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int,
-                 valid=None):
+                 valid=None, warmup: int = 2):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from lightgbm_tpu_torch.ops import fused_level as fl
@@ -113,7 +134,7 @@ def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int,
         bst.update()
         if valid is not None:
             bst.eval_valid()        # one fetch of the metric scalars
-    for _ in range(2):
+    for _ in range(warmup):
         step()
     torch.cuda.synchronize()
     frontier2.host_syncs["count"] = 0
@@ -158,8 +179,13 @@ def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int,
                                         for k in fl.HIST_KERNELS),
                  **kernel_ms}
     g = bst._gbdt
+    k = g.num_tree_per_iteration
     return {
         "rows": ds._inner.num_data, "iterations": rounds,
+        "trees_per_iter": k,
+        "body": ("sync" if g._fast_path_reason() is not None else
+                 "epilogue" if not megastep and g._use_epilogue() else
+                 "megastep"),
         "valid_rows": valid._inner.num_data if valid is not None else 0,
         "engine": "frontier" if g.use_frontier else "fused",
         "quant_bits": g.quant_bits,
@@ -169,7 +195,7 @@ def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int,
         "wall_ms_per_iter": wall * 1e3 / rounds,
         "device_ms_per_iter": dev_total_us / 1e3 / rounds,
         "device_busy_share": dev_total_us / 1e6 / wall,
-        "host_syncs_per_tree": frontier2.host_syncs["count"] / rounds,
+        "host_syncs_per_tree": frontier2.host_syncs["count"] / (rounds * k),
         "device_launches_per_iter": sum(r[2] for r in rows) / rounds,
         "kernel_ms_per_iter": kernel_ms,
         "cuda_launches_per_iter": {k: v / rounds

@@ -60,10 +60,10 @@ def test_default_device_raises_without_cuda():
         lt.Dataset(X, label=y, params={"device_type": "cuda"}).construct()
 
 
-@pytest.mark.parametrize("params", [{"boosting": "goss"},
-                                    {"feature_fraction_bynode": 0.5},
-                                    {"objective": "multiclass",
-                                     "num_class": 3}])
+@pytest.mark.parametrize("params", [{"boosting": "dart"},
+                                    {"boosting": "rf"},
+                                    {"linear_tree": True},
+                                    {"objective": "lambdarank"}])
 def test_unported_options_raise(params):
     X = np.random.RandomState(0).randn(64, 3)
     y = (X[:, 0] > 0).astype(float)
@@ -85,7 +85,10 @@ def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, in a fresh process:
     neither jax nor lightgbm_tpu ends up in sys.modules."""
     assert {"lightgbm_tpu_torch.metric", "lightgbm_tpu_torch.callback",
-            "lightgbm_tpu_torch.engine"} <= set(_port_modules())
+            "lightgbm_tpu_torch.engine", "lightgbm_tpu_torch.boosting",
+            "lightgbm_tpu_torch.objective.multiclass",
+            "lightgbm_tpu_torch.objective.xentropy",
+            "lightgbm_tpu_torch.utils.random"} <= set(_port_modules())
     code = (
         "import importlib, json, sys\n"
         f"for m in {_port_modules()!r} + ['chip_smoke']:\n"

@@ -936,3 +936,72 @@ def test_cuda_early_stopping_matches_cpu(cuda_device):
                                bg.predict(Xv, raw_score=True,
                                           num_iteration=-1),
                                rtol=1e-5, atol=1e-5)
+
+
+def _class_fixture(n=6000, seed=3):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 8)
+    X[rng.rand(n) < 0.05, 2] = np.nan
+    z = X[:, 0] + 0.5 * np.nan_to_num(X[:, 2]) - 0.4 * X[:, 5] \
+        + 0.3 * rng.randn(n)
+    return X, z
+
+
+def _train_both(p, X, y, rounds):
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tfl.reset_launch_counts()
+        bst = lt.train(dict(p, device_type=dev), lt.Dataset(X, label=y),
+                       rounds)
+        out[dev] = (bst, dict(tfl.launches))
+    return out
+
+
+def _assert_same_structure(bc, bg):
+    assert bc.num_trees() == bg.num_trees()
+    for a, b in zip(bc.models, bg.models):
+        np.testing.assert_array_equal(a.split_feature, b.split_feature)
+        np.testing.assert_array_equal(a.threshold_bin, b.threshold_bin)
+
+
+def test_cuda_multiclass_megastep_matches_cpu(cuda_device):
+    """The k-class megastep body (3 classes) on the card against the CPU:
+    the same trees, [n, 3] predictions within rtol 1e-5, and per tree one
+    route_pass and one table_lookup launched on the card."""
+    X, z = _class_fixture()
+    y = np.digitize(z, np.quantile(z, [1 / 3, 2 / 3])).astype(float)
+    p = {"objective": "multiclass", "num_class": 3, "num_leaves": 31,
+         "max_bin": 63, "verbose": -1}
+    out = _train_both(p, X, y, 4)
+    (bc, _), (bg, n) = out["cpu"], out["cuda"]
+    assert bg.num_trees() == 12 and bg._gbdt._fast_path_reason() is None
+    assert n["route_pass"] == n["table_lookup"] == 12
+    assert n["level_pass"] > 12 and n["epilogue_pass"] == 0
+    _assert_same_structure(bc, bg)
+    got = bg.predict(X)
+    assert got.shape == (6000, 3)
+    np.testing.assert_allclose(got, bc.predict(X), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("params,label", [
+    ({"objective": "binary", "boosting": "goss", "learning_rate": 0.5},
+     "binary"),
+    ({"objective": "binary", "feature_fraction_bynode": 0.5,
+      "interaction_constraints": [[0, 1, 2, 3], [4, 5, 6, 7]]}, "binary"),
+    ({"objective": "regression_l1"}, "regression"),
+], ids=["goss", "node-masks", "l1-renewal"])
+def test_cuda_sync_body_matches_cpu(cuda_device, params, label):
+    """The synchronous body on the card (GOSS sampling from iteration 2,
+    node masks, L1 leaf renewal) against the CPU: the same trees and
+    predictions, and per tree one route_pass and one table_lookup."""
+    X, z = _class_fixture()
+    y = (z > 0).astype(float) if label == "binary" else z
+    p = dict(params, num_leaves=31, max_bin=63, verbose=-1)
+    out = _train_both(p, X, y, 4)
+    (bc, _), (bg, n) = out["cpu"], out["cuda"]
+    assert bg._gbdt._fast_path_reason() is not None
+    assert n["route_pass"] == n["table_lookup"] == bg.num_trees() == 4
+    _assert_same_structure(bc, bg)
+    np.testing.assert_allclose(bg.predict(X, raw_score=True),
+                               bc.predict(X, raw_score=True), rtol=1e-5,
+                               atol=1e-5)

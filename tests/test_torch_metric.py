@@ -130,8 +130,18 @@ def test_aliases_and_defaults_match_jax():
     assert t_create_metric("none", cfg) is None
 
 
-@pytest.mark.parametrize("name", ["multi_logloss", "multi_error", "auc_mu",
-                                  "ndcg", "map", "ndcg@3", "softmax"])
+@pytest.mark.parametrize("name", ["ndcg", "map", "ndcg@3", "lambdarank",
+                                  "rank_xendcg", "mean_average_precision",
+                                  "xendcg"])
 def test_unported_metrics_raise(name):
     with pytest.raises(lt.LightGBMError, match="Queue A item 4"):
         t_create_metric(name, TConfig({}))
+
+
+@pytest.mark.parametrize("name", ["multi_logloss", "multi_error", "auc_mu",
+                                  "softmax"])
+def test_multiclass_metrics_are_host_only(name):
+    cfg = {"num_class": 3}
+    m = t_create_metric(name, TConfig(cfg))
+    assert m.names == j_create_metric(name, JConfig(cfg)).names
+    assert not m.has_device_form(None)
