@@ -34,7 +34,9 @@ non-zero (it prints no result line then):
    ``route_pass`` at Rp = 1,001,472, F_oh = 28, Bp = 64, Sp in {8, 64} on
    the mixed-cardinality layout of phase 6 (14 features of 63 bins, 14 of
    8), each quantized plane also against the other layout's after
-   unpacking; with the errors, their tolerances, each kernel's device
+   unpacking; ``level_pass``, ``route_pass`` and ``epilogue_pass`` also on
+   a categorical route table (every active row a bin set with holes
+   inside its slab, bin 0 out); with the errors, their tolerances, each kernel's device
    time per launch (``cuda_ms``: a CUDA graph of 20 calls replayed),
    each ``level_pass`` stage's time alone and its histogram tile;
 3. end to end through ``lightgbm_tpu_torch.train`` on 1,000,000 x 28 rows
@@ -112,15 +114,41 @@ non-zero (it prints no result line then):
    fewer splits than its cap), host syncs per tree, and training AUC >
    0.75 (binary runs) or a training loss that falls from the first
    iteration to the last;
-9. the ``kernels`` line: every ported kernel and variant with its
+9. ranking (``rank_train``) on MS-LTR-shaped queries: 1,000,000
+   documents x 136 standard normal features in ~8,300 queries of 1-240
+   documents, grades 0-4 (52/32/13/2/1%) from a score on the features,
+   phase 3's tree parameters, a 200,000-document valid set with
+   ``metric=["ndcg", "map"]`` at ``eval_at=[1, 3, 5, 10]``: (a)
+   ``lambdarank`` and (b) ``rank_xendcg``, 10 rounds each on the megastep
+   body: sec/iter, launches and CUDA launches per tree (the level
+   schedule of ``max_slot_cap`` at 136 features: 19 ``level_pass``, 1
+   ``route_pass`` and 1 ``table_lookup`` for a full tree, up to 3 more
+   level passes where a level selects fewer splits than its cap), host
+   syncs per tree, the recorded valid NDCG@10 per round against a
+   float64 recomputation from ``predict`` (rtol 1e-5); (c) ``cv`` with 3
+   query-aligned folds, 3 rounds: every fold's test rows whole queries;
+10. categorical splits (``cat_train``) on phase 3's rows with columns 0-3
+   as category codes (3, 12, 31 and 60 categories, each column's bucket
+   through a fixed permutation), ``categorical_feature=[0, 1, 2, 3]``:
+   (a) ``train()``, binary, 10 rounds (megastep body: ``level_pass``,
+   ``route_pass``, ``table_lookup``); (b) the bare ``update()`` loop, 10
+   rounds (epilogue body: ``level_pass``, ``epilogue_pass``); (c)
+   ``multiclass``, 5 classes, 3 rounds: categorical splits per tree
+   (> 0 on every tree of a and b), launches per tree, ``predict`` on the
+   raw values against the trainer's scores (rtol, atol 1e-5), the model
+   text round trip; then ``level_pass``, ``route_pass`` (also against the
+   full W @ one-hot sum) and ``epilogue_pass`` against their plain
+   versions on the route tables of the first trees of (a) and (b) whose W
+   holds a categorical row with holes;
+11. the ``kernels`` line: every ported kernel and variant with its
    wrapper calls and CUDA kernel launches on the main path where it runs
    (every level_pass, route_pass, epilogue_pass and hist_pass call in
-   phases 3-8 held to one launch of each of its CUDA kernels), its
-   launches in phase 7's runs (a), (c) and (d) and in phase 8's runs,
-   error, time per launch, plain time, bound and library time, and
-   per-kernel times of ``level_pass``, ``epilogue_pass`` and
+   phases 3-10 held to one launch of each of its CUDA kernels), its
+   launches in phase 7's runs (a), (c) and (d), in phase 8's, 9's and
+   10's runs, error, time per launch, plain time, bound and library time,
+   and per-kernel times of ``level_pass``, ``epilogue_pass`` and
    ``hist_pass``;
-10. the last line: ``{"ok": true, "device": {...}}``.
+12. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package. It exits non-zero when no CUDA
 device is present.
@@ -170,6 +198,22 @@ PLANE_VARIANTS = ((0, False, False), (8, False, False), (16, False, False),
                   (0, True, False), (0, False, True), (16, True, True))
 VARIANT_RUNS = {"quant8": "c", "quant16": "d", "packed": "e", "fmask": "f",
                 "quant16+packed+fmask": "b"}
+# phase 9: MS-LTR-shaped ranking (BASELINE.md's MS-LTR row, the
+# reference's docs/Experiments.rst:150): 136 dense features, queries of
+# 1-240 documents, grades 0-4 in MSLR-WEB30K's 52/32/13/2/1% skew, cut from
+# its 2,270,296 documents to fit the smoke's time limit
+RANK_DOCS = 1_000_000
+RANK_VALID_DOCS = 200_000
+RANK_FEATURES = 136
+RANK_MAX_DOCS = 240
+RANK_GRADES = (0.52, 0.84, 0.97, 0.99)
+RANK_EVAL_AT = [1, 3, 5, 10]
+RANK_CV_ROUNDS = 3
+# phase 10: columns 0-3 of phase 3's rows as category codes; 3 categories
+# is under max_cat_to_onehot=4 (one-vs-rest splits), the others take the
+# sorted-subset scan
+CAT_CARDINALITIES = (3, 12, 31, 60)
+CAT_CLASS_ROUNDS = 3
 REPLACES = {
     "level_pass": "lightgbm_tpu/ops/fused_level.py:402",
     "route_pass": "lightgbm_tpu/ops/fused_level.py:575",
@@ -518,6 +562,85 @@ def _n_small(leaf_T, new_leaf, tbl) -> int:
     return int((member & (left == (tbl[:, 2] > 0)[:, None])).any(0).sum())
 
 
+def cat_route_table(W, slabs, tbl, seed):
+    """The grower's route table with every active slot's row replaced by a
+    categorical left set on its own slab: a random set of bins with holes
+    inside the slab, bin 0 (NaN/other) always out, as
+    ``best_categorical_split_cm`` makes them."""
+    import torch
+    W = W.clone()
+    gen = torch.Generator(device=W.device).manual_seed(seed)
+    for k in range(W.shape[0]):
+        if int(tbl[k, 0]) < 0:
+            continue
+        o, w = next((o, w) for o, w in slabs if bool(W[k, o:o + w].any()))
+        keep = torch.rand(w, generator=gen, device=W.device) < 0.4
+        keep[:4] = torch.tensor([False, True, False, True])   # slabs >= 4
+        W[k, o:o + w] = keep.to(W.dtype)
+    return W
+
+
+def has_holes(W, slabs):
+    """[Sp] bool: the W row's non-zero bins on one slab leave bin 0 out and
+    are not one run (a categorical left set, never a threshold's)."""
+    import torch
+    out = torch.zeros(W.shape[0], dtype=torch.bool, device=W.device)
+    for o, w in slabs:
+        nz = W[:, o:o + w] != 0
+        cnt = nz.sum(1)
+        idx = torch.arange(w, device=W.device)
+        first = torch.where(nz, idx, w).min(1).values
+        last = torch.where(nz, idx, -1).max(1).values
+        out |= (cnt > 0) & (first > 0) & (last - first + 1 > cnt)
+    return out
+
+
+def level_hist_rel_err(hist_k, hist_p, Sp, nch, what):
+    """The largest f32 plane error over the plane's largest magnitude
+    (atomics reorder the sums: held to 1e-5); the weight channel (the
+    last) exact."""
+    rel = 0.0
+    for ch in range(nch):
+        k = hist_k[:, ch * Sp:(ch + 1) * Sp]
+        p = hist_p[:, ch * Sp:(ch + 1) * Sp]
+        err = float((k - p).abs().max())
+        if ch == nch - 1:
+            if err != 0.0:
+                raise AssertionError(f"{what}: weight channel differs by "
+                                     f"{err}")
+        else:
+            rel = max(rel, err / (float(p.abs().max()) or 1.0))
+    if rel > 1e-5:
+        raise AssertionError(f"{what}: hist rel err {rel} > 1e-5")
+    return rel
+
+
+def check_level_tables(ops, fm, kw, what):
+    """level_pass and route_pass against their plain versions on one set
+    of operands (route_pass_plain is the full W @ one-hot sum): new
+    leaves equal, f32 planes as ``level_hist_rel_err`` holds them, int32
+    planes exact. Returns the f32 planes' relative error (0 for int32)."""
+    import torch
+    from lightgbm_tpu_torch.ops import fused_level as fl
+    bins_T, leaf_T, gh_T, W, tbl = ops
+    rkw = {k: kw[k] for k in ("num_bins", "f_oh", "packed")}
+    hist_k, leaf_k = fl.level_pass(*ops, fm, **kw)
+    hist_p, leaf_p = fl.level_pass_plain(*ops, fm, **kw)
+    route_k = fl.route_pass(bins_T, leaf_T, W, tbl, **rkw)
+    route_p = fl.route_pass_plain(bins_T, leaf_T, W, tbl, **rkw)
+    torch.cuda.synchronize()
+    # (a masked slab routes nothing in level_pass; route_pass takes no
+    # mask)
+    if not (torch.equal(leaf_k, leaf_p) and torch.equal(route_k, route_p)
+            and (fm is not None or torch.equal(route_k, leaf_p))):
+        raise AssertionError(f"{what}: new leaves differ")
+    if kw["quant_bits"]:
+        if not torch.equal(hist_k, hist_p):
+            raise AssertionError(f"{what}: int32 planes differ")
+        return 0.0
+    return level_hist_rel_err(hist_k, hist_p, W.shape[0], kw["nch"], what)
+
+
 def check_level(Rp, R, num_bin, B, Sp, seed, nch=5, quant_bits=0,
                 packed=False, masked=False):
     """level_pass and route_pass against their plain versions on the card,
@@ -570,12 +693,22 @@ def check_level(Rp, R, num_bin, B, Sp, seed, nch=5, quant_bits=0,
                                            **rkw)):
         raise AssertionError(f"route_pass new_leaf differs on a W over "
                              f"several slabs (B={B} Sp={Sp} packed={packed})")
+    # categorical left sets: holes inside each slab, bin 0 out
+    slabs = kernel_slabs(K_rows, B, pk)
+    W_cat = cat_route_table(W, slabs, tbl, seed)
+    if not bool(has_holes(W_cat, slabs)[tbl[:, 0] >= 0].all()):
+        raise AssertionError("cat_route_table made a row without holes")
+    cat_rel = check_level_tables((bins_T, leaf_T, gh_T, W_cat, tbl), fm, kw,
+                                 f"level_pass[{variant}] on a categorical "
+                                 f"W (B={B} Sp={Sp})")
     out = {"variant": variant, "B": B, "Sp": Sp, "nch": nch,
            "bins": str(bins_T.dtype).replace("torch.", ""),
            "num_bin": sorted({int(v) for v in num_bin}), "FB": W.shape[1],
            "launches": launched, "cuda_launches": cuda_launched,
            "route_pass_equal_on": ["grower W", "W with a row over two "
-                                   "slabs and an all-zero row"]}
+                                   "slabs and an all-zero row",
+                                   "categorical W (holes, bin 0 out)"],
+           "categorical_W_hist_max_rel_err": cat_rel}
     abs_err = float((hist_k.double() - hist_p.double()).abs().max())
     if quant_bits:
         if not torch.equal(hist_k, hist_p):
@@ -593,20 +726,8 @@ def check_level(Rp, R, num_bin, B, Sp, seed, nch=5, quant_bits=0,
                                  "from padded after unpack")
         out.update(tol="exact", packed_equals_padded_after_unpack=True)
     else:
-        rel = 0.0
-        for ch in range(nch):
-            k = hist_k[:, ch * Sp:(ch + 1) * Sp]
-            p = hist_p[:, ch * Sp:(ch + 1) * Sp]
-            err = float((k - p).abs().max())
-            if ch == nch - 1:
-                if err != 0.0:
-                    raise AssertionError(f"level_pass[{variant}] weight "
-                                         f"channel differs by {err}")
-            else:
-                rel = max(rel, err / (float(p.abs().max()) or 1.0))
-        if rel > 1e-5:
-            raise AssertionError(f"level_pass[{variant}] hist rel err {rel}"
-                                 " > 1e-5")
+        rel = level_hist_rel_err(hist_k, hist_p, Sp, nch,
+                                 f"level_pass[{variant}]")
         out.update(hist_max_rel_err=rel, tol="rel 1e-5 of the plane max; "
                    "weight channel exact")
     if fm is not None:
@@ -746,6 +867,8 @@ def check_epilogue(Rp, R, B, Sp, nch, kind, table, seed, L=255,
         Rp, R, np.full(FEATURES, B - 1, np.int32), B, Sp, nch, seed)
     if table == "odd":
         W = odd_route_table(W, kernel_slabs(FEATURES, B, None), seed)
+    elif table == "categorical":
+        W = cat_route_table(W, kernel_slabs(FEATURES, B, None), tbl, seed)
     elif table == "inactive":
         W = torch.zeros_like(W)
         tbl = tbl.clone()
@@ -767,15 +890,87 @@ def check_epilogue(Rp, R, B, Sp, nch, kind, table, seed, L=255,
     kw = dict(num_bins=B, f_oh=FEATURES, nch=nch, kind=kind, sigmoid=1.0)
     n0 = fl.launches["epilogue_pass"]
     c0 = dict(fl.cuda_launches)
-    hist_k, score_k, gh_k = fl.epilogue_pass(*args, **kw)
+    errs, gh_p = compare_epilogue(args, kw)
     launched = fl.launches["epilogue_pass"] - n0
     cuda_launched = {k: fl.cuda_launches[k] - c0[k]
                      for k in fl.EPILOGUE_KERNELS}
-    hist_p, score_p, gh_p = fl.epilogue_pass_plain(*args, **kw)
-    torch.cuda.synchronize()
     if launched != 1 or set(cuda_launched.values()) != {1}:
         raise AssertionError(f"epilogue_pass launched {launched} calls, "
                              f"CUDA kernels {cuda_launched}")
+
+    # bytes: bins, leaf, score in/out, the two operand rows, bag, the 8
+    # bf16 channels out, W, tbl, leaf values, the [FB, nch*8] histogram;
+    # ops: the route's gather-adds for rows in a selected leaf, ~20 flops
+    # of gradient and pack per row, F*nch adds per row with a non-zero
+    # channel (this run's counts)
+    bb = bins_T.element_size()
+    in_slot = int((leaf_T[0][:, None] == tbl[:, 0][None, :]).any(1).sum())
+    nonzero = int((gh_p[:nch].float() != 0).any(0).sum())
+    nbytes = (Rp * (FEATURES * bb + 4 + 8 + 8 + 4 + 16) + W.numel() * 2
+              + tbl.numel() * 4 + L * 4 + FEATURES * B * nch * 8 * 4)
+    nops = in_slot * FEATURES + Rp * 20 + nonzero * FEATURES * nch
+    b_ms, b_by = bound(nbytes, nops)
+    out = {}
+    if stages:
+        # each CUDA kernel alone on the same inputs, into one set of
+        # buffers filled by a whole call first (the pass reads the slab
+        # table, the reduce the partial histograms)
+        buf = fl.epilogue_buffers(bins_T, Sp, num_bins=B, f_oh=FEATURES,
+                                  nch=nch)
+        fl._epilogue_launch(fl.EPILOGUE_KERNELS, *args, buf, **kw)
+
+        def stage(kernel):
+            return lambda: fl._epilogue_launch((kernel,), *args, buf, **kw)
+        out["stages_ms"] = {k: cuda_ms(stage(k)) for k in fl.EPILOGUE_KERNELS}
+        out["row_blocks"] = buf["blocks"]
+    return {
+        "B": B, "bins": str(bins_T.dtype).replace("torch.", ""), "Sp": Sp,
+        "nch": nch, "kind": kind, "deferred_table": table,
+        "launches": launched, "cuda_launches": cuda_launched, **out, **errs,
+        "kernel_ms": cuda_ms(lambda: fl.epilogue_pass(*args, **kw)),
+        "plain_ms": call_ms(lambda: fl.epilogue_pass_plain(*args, **kw),
+                            reps=3, warmup=1),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _root_hist64(bins_T, gh, B, F, nch, absolute=False):
+    """[F*B, nch] float64 root histogram of the channels ``gh`` (or of their
+    magnitudes): every row's value added to its bin's cell of each
+    feature."""
+    import torch
+    dev = bins_T.device
+    out = torch.zeros(F * B * nch, dtype=torch.float64, device=dev)
+    vals = gh[:nch].double()
+    if absolute:
+        vals = vals.abs()
+    for f in range(F):
+        cell = (f * B + bins_T[f].long()) * nch
+        out.index_add_(0, (cell[None, :] + torch.arange(
+            nch, device=dev)[:, None]).reshape(-1), vals.reshape(-1))
+    return out.reshape(F * B, nch)
+
+
+def compare_epilogue(args, kw, float64_hist=False):
+    """epilogue_pass against its plain version on one set of operands:
+    new scores within rtol 1e-6, decoded channels within rtol 4e-5, atol
+    1e-7, histogram slots 1-7 zero, the weight channel exact, the g/h
+    planes within 1e-5 of each plane's largest sum of |values| per cell,
+    against the plain version's planes, or with ``float64_hist`` against
+    the float64 sum of the kernel's own channels (the plain version's f32
+    sums are then held to the same bar against theirs where they meet it,
+    and reported). The float64 reference serves real trees' operands:
+    at a tree's first epilogue every row holds the init score, so a hot
+    cell adds hundreds of thousands of equal values, and one f32
+    accumulator in any order drifts from the sum by more than the bar.
+    Returns (the errors, the plain channels)."""
+    import torch
+    from lightgbm_tpu_torch.ops import fused_level as fl
+    bins_T = args[0]
+    dev = bins_T.device
+    B, F, nch = kw["num_bins"], kw["f_oh"], kw["nch"]
+    hist_k, score_k, gh_k = fl.epilogue_pass(*args, **kw)
+    hist_p, score_p, gh_p = fl.epilogue_pass_plain(*args, **kw)
+    torch.cuda.synchronize()
 
     def rel(a, b):
         return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
@@ -803,20 +998,17 @@ def check_epilogue(Rp, R, B, Sp, nch, kind, table, seed, L=255,
     live[::8] = True
     if hist_k[:, ~live].abs().max() != 0:
         raise AssertionError("epilogue hist slots 1-7 are not zero")
-    FB = FEATURES * B
-    abs_hist = torch.zeros(FB * nch, dtype=torch.float64, device=dev)
-    vals = gh_p[:nch].double().abs()
-    for f in range(FEATURES):
-        cell = (f * B + bins_T[f].long()) * nch
-        abs_hist.index_add_(0, (cell[None, :] + torch.arange(
-            nch, device=dev)[:, None]).reshape(-1), vals.reshape(-1))
-    abs_hist = abs_hist.reshape(FB, nch)
+    abs_hist = _root_hist64(bins_T, gh_p, B, F, nch, absolute=True)
+    ref_k = _root_hist64(bins_T, gh_k, B, F, nch) if float64_hist else None
+    ref_p = _root_hist64(bins_T, gh_p, B, F, nch) if float64_hist else None
     hist_abs_err = 0.0
     hist_rel_sum = 0.0
     hist_rel_max = 0.0
+    plain_rel_sum = 0.0
     for c in range(nch):
         k, p = hist_k[:, 8 * c], hist_p[:, 8 * c]
-        err = float((k - p).abs().max())
+        want = ref_k[:, c] if float64_hist else p.double()
+        err = float((k.double() - want).abs().max())
         hist_abs_err = max(hist_abs_err, err)
         if c == nch - 1:
             if err != 0.0:
@@ -824,50 +1016,28 @@ def check_epilogue(Rp, R, B, Sp, nch, kind, table, seed, L=255,
                                      f"{err}")
             continue
         hist_rel_sum = max(hist_rel_sum, err / float(abs_hist[:, c].max()))
-        hist_rel_max = max(hist_rel_max, err / (float(p.abs().max()) or 1.0))
-    if hist_rel_sum > 1e-5:
-        raise AssertionError(f"epilogue hist rel err {hist_rel_sum} > 1e-5")
-
-    # bytes: bins, leaf, score in/out, the two operand rows, bag, the 8
-    # bf16 channels out, W, tbl, leaf values, the [FB, nch*8] histogram;
-    # ops: the route's gather-adds for rows in a selected leaf, ~20 flops
-    # of gradient and pack per row, F*nch adds per row with a non-zero
-    # channel (this run's counts)
-    bb = bins_T.element_size()
-    in_slot = int((leaf_T[0][:, None] == tbl[:, 0][None, :]).any(1).sum())
-    nonzero = int((gh_p[:nch].float() != 0).any(0).sum())
-    nbytes = (Rp * (FEATURES * bb + 4 + 8 + 8 + 4 + 16) + W.numel() * 2
-              + tbl.numel() * 4 + L * 4 + hist_p.numel() * 4)
-    nops = in_slot * FEATURES + Rp * 20 + nonzero * FEATURES * nch
-    b_ms, b_by = bound(nbytes, nops)
-    out = {}
-    if stages:
-        # each CUDA kernel alone on the same inputs, into one set of
-        # buffers filled by a whole call first (the pass reads the slab
-        # table, the reduce the partial histograms)
-        buf = fl.epilogue_buffers(bins_T, Sp, num_bins=B, f_oh=FEATURES,
-                                  nch=nch)
-        fl._epilogue_launch(fl.EPILOGUE_KERNELS, *args, buf, **kw)
-
-        def stage(kernel):
-            return lambda: fl._epilogue_launch((kernel,), *args, buf, **kw)
-        out["stages_ms"] = {k: cuda_ms(stage(k)) for k in fl.EPILOGUE_KERNELS}
-        out["row_blocks"] = buf["blocks"]
-    return {
-        "B": B, "bins": str(bins_T.dtype).replace("torch.", ""), "Sp": Sp,
-        "nch": nch, "kind": kind, "deferred_table": table,
-        "launches": launched, "cuda_launches": cuda_launched, **out,
+        hist_rel_max = max(hist_rel_max, err / (float(want.abs().max())
+                                                or 1.0))
+        if float64_hist:
+            plain_rel_sum = max(plain_rel_sum, float(
+                (p.double() - ref_p[:, c]).abs().max())
+                / float(abs_hist[:, c].max()))
+    out = {
         "new_score_max_abs_err": score_err, "new_score_tol": "rtol=1e-6",
         "gh_max_abs_err": gh_err, "gh_max_rel_err": rel(dec_k, dec_p),
         "gh_tol": "rtol=4e-5 atol=1e-7",
+        "hist_reference": ("float64 sum of the kernel's channels"
+                           if float64_hist else "the plain version"),
         "hist_max_abs_err": hist_abs_err,
         "hist_rel_err_of_abs_sum": hist_rel_sum, "hist_tol": 1e-5,
         "hist_rel_err_of_plane_max": hist_rel_max,
-        "weight_channel_exact": True,
-        "kernel_ms": cuda_ms(lambda: fl.epilogue_pass(*args, **kw)),
-        "plain_ms": call_ms(lambda: fl.epilogue_pass_plain(*args, **kw),
-                            reps=3, warmup=1),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        "weight_channel_exact": True}
+    if float64_hist:
+        out["plain_hist_rel_err_of_abs_sum_vs_float64"] = plain_rel_sum
+    if hist_rel_sum > 1e-5:
+        raise AssertionError(f"epilogue hist rel err {hist_rel_sum} > 1e-5: "
+                             f"{out}")
+    return out, gh_p
 
 
 def check_hist(R, Fp, B, S, quant_bits, seed, slots="random",
@@ -1482,6 +1652,408 @@ def run_class_train(lgb, params, ds, y, z, w, e2e):
     return out
 
 
+def level_schedule(num_leaves: int, slot_cap: int, extra_levels: int = 3):
+    """(level passes, route passes, host syncs) of one tree that selects
+    every level's cap: the root pass, a level pass per scheduled level
+    until the one that spends the leaf budget (a route-only pass), and one
+    n_sel read per scheduled level (``models/frontier2.py``)."""
+    from lightgbm_tpu_torch.models.frontier2 import level_caps
+    caps = level_caps(num_leaves, -1, extra_levels, slot_cap)
+    nl, passes = 1, 1
+    for c in caps:
+        n_sel = min(c, num_leaves - nl)
+        if n_sel == 0:
+            break
+        nl += n_sel
+        if nl == num_leaves:
+            return passes, 1, len(caps)
+        passes += 1
+    return passes, 1, len(caps)
+
+
+def _rank_rows(n_docs: int, seed: int, w: np.ndarray):
+    """MS-LTR-shaped queries: sizes uniform in 1-240 until ``n_docs``
+    documents (the last query cut to fit), 136 standard normal features
+    (float32), and the score z = x·w + a per-query offset + noise that
+    grades them."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, RANK_MAX_DOCS + 1, n_docs // 60)
+    ends = np.cumsum(sizes)
+    q = int(np.searchsorted(ends, n_docs))
+    sizes = sizes[:q + 1].copy()
+    sizes[-1] -= int(ends[q] - n_docs)
+    X = rng.standard_normal((n_docs, RANK_FEATURES), dtype=np.float32)
+    z = (X @ w + 0.5 * np.repeat(rng.standard_normal(len(sizes)), sizes)
+         + 0.5 * rng.standard_normal(n_docs))
+    return X, z, sizes
+
+
+def rank_data(n_docs: int, n_valid: int):
+    """Phase 9's training and valid queries: (X, y, sizes, Xv, yv, sv), the
+    grades cut at the training score's RANK_GRADES quantiles."""
+    w = (np.random.default_rng(DATA_SEED + 300)
+         .standard_normal(RANK_FEATURES) / np.sqrt(RANK_FEATURES)) \
+        .astype(np.float32)
+    X, z, sizes = _rank_rows(n_docs, DATA_SEED, w)
+    cuts = np.quantile(z, RANK_GRADES)
+    Xv, zv, sv = _rank_rows(n_valid, DATA_SEED + 200, w)
+    return (X, np.digitize(z, cuts).astype(np.float32), sizes, Xv,
+            np.digitize(zv, cuts).astype(np.float32), sv)
+
+
+def ndcg_at(score, label, sizes, k: int) -> float:
+    """Mean NDCG@k over the queries in float64 (gain 2^l - 1, discount
+    1/log2(2 + position), documents by descending score with ties in row
+    order; a query with no relevant document counts 1)."""
+    qid = np.repeat(np.arange(len(sizes)), sizes)
+    pos = np.arange(len(qid)) - np.repeat(np.cumsum(sizes) - sizes, sizes)
+    disc = np.where(pos < k, 1.0 / np.log2(2.0 + pos), 0.0)
+    gain = 2.0 ** np.asarray(label, np.float64) - 1.0
+
+    def dcg(key):
+        order = np.lexsort((-np.asarray(key, np.float64), qid))
+        return np.bincount(qid, weights=gain[order] * disc,
+                           minlength=len(sizes))
+    got, ideal = dcg(score), dcg(label)
+    safe = np.where(ideal > 0, ideal, 1.0)
+    return float(np.mean(np.where(ideal > 0, got / safe, 1.0)))
+
+
+def _timed_run(fn):
+    """(result, seconds) of ``fn()`` between two synchronizes."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _run_counts():
+    """Reset the wrappers' and the grower's counters; returns a reader of
+    (launches, CUDA launches, host syncs) since."""
+    from lightgbm_tpu_torch.models import frontier2
+    from lightgbm_tpu_torch.ops import fused_level as fl
+    fl.reset_launch_counts()
+    frontier2.host_syncs["count"] = 0
+    return lambda: (dict(fl.launches), dict(fl.cuda_launches),
+                    frontier2.host_syncs["count"])
+
+
+def run_rank_train(lgb, base, e2e):
+    """Phase 9: lambdarank (a) and rank_xendcg (b), 10 rounds each on the
+    megastep body, then cv with 3 query-aligned folds (c), on MS-LTR-shaped
+    queries with a 200,000-document valid set and ndcg/map at 1, 3, 5, 10.
+    Returns each run's wrapper launches (the CUDA kernels' under
+    ``cuda:<k>``)."""
+    import torch
+    from lightgbm_tpu_torch.ops import fused_level as fl
+    from lightgbm_tpu_torch.ops.layout import feature_layout
+    X, y, sizes, Xv, yv, sv = rank_data(RANK_DOCS, RANK_VALID_DOCS)
+    params = dict(base, metric=["ndcg", "map"], eval_at=RANK_EVAL_AT)
+    ds, construct_s = _timed_run(lambda: lgb.Dataset(
+        X, label=y, group=sizes, params=params).construct())
+    dv = lgb.Dataset(Xv, label=yv, group=sv, reference=ds)
+    F_oh, Bp = feature_layout(ds._inner.num_features, ds._inner.max_num_bin)
+    cap = fl.max_slot_cap(F_oh * Bp, fl.NCH_PRECISE)
+    want_level, want_route, want_syncs = level_schedule(255, cap)
+    shape = {"docs": RANK_DOCS, "queries": len(sizes),
+             "docs_per_query": [int(sizes.min()), int(sizes.max())],
+             "features": RANK_FEATURES, "F_oh": F_oh, "Bp": Bp,
+             "slot_cap": cap, "valid_docs": RANK_VALID_DOCS,
+             "valid_queries": len(sv),
+             "grade_counts": np.bincount(y.astype(int),
+                                         minlength=5).tolist(),
+             "construct_s": construct_s,
+             "predicted_per_tree": {"level_pass": want_level,
+                                    "route_pass": want_route,
+                                    "table_lookup": 1,
+                                    "host_syncs": want_syncs}}
+    emit({"phase": "rank_train", "run": "shape", **shape})
+    out = {}
+    for run, obj in (("a", "lambdarank"), ("b", "rank_xendcg")):
+        ds.params = {}
+        stamps, ev = [], {}
+
+        def stamp(env):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        counts = _run_counts()
+        bst, train_s = _timed_run(lambda: lgb.train(
+            dict(params, objective=obj), ds, ROUNDS, valid_sets=[dv],
+            valid_names=["valid"],
+            callbacks=[stamp, lgb.record_evaluation(ev)]))
+        launches, cuda, syncs = counts()
+        g = bst._gbdt
+        n_trees = bst.num_trees()
+        recorded = ev["valid"]["ndcg@10"]
+        want = [ndcg_at(bst.predict(Xv, raw_score=True, num_iteration=i + 1),
+                        yv, sv, 10) for i in range(ROUNDS)]
+        err = float(np.max(np.abs(np.asarray(recorded) - want)
+                           / np.abs(want)))
+        res = {"phase": "rank_train", "run": run, "objective": obj,
+               "body": "megastep" if g._fast_path_reason() is None
+               else "sync", "rounds": ROUNDS, "trees": n_trees,
+               "leaves": sorted({m.num_leaves for m in bst.models}),
+               "train_s": train_s,
+               "sec_per_iter_after_first":
+                   (stamps[-1] - stamps[0]) / (ROUNDS - 1),
+               "phase3_sec_per_iter_after_first":
+                   e2e["sec_per_iter_after_first"],
+               "launches_per_tree": {k: v / n_trees
+                                     for k, v in launches.items()},
+               "cuda_launches_per_tree": {k: v / n_trees
+                                          for k, v in cuda.items()},
+               "host_syncs_per_tree": syncs / n_trees,
+               "valid_ndcg@10": recorded,
+               "valid_ndcg@10_float64_from_predict": want,
+               "valid_ndcg@10_max_rel_err": err,
+               "valid_map@10_last": ev["valid"]["map@10"][-1],
+               "valid_last": {k: v[-1] for k, v in ev["valid"].items()}}
+        emit(res)
+        if not (res["body"] == "megastep" and n_trees == ROUNDS
+                and res["leaves"] == [255] and err <= 1e-5
+                and recorded[-1] > recorded[0]):
+            raise AssertionError(f"rank run ({run}): {res}")
+        if not (launches["route_pass"] == launches["table_lookup"]
+                == n_trees and launches["epilogue_pass"] == 0
+                and launches["hist_pass"] == 0
+                and want_level * n_trees <= launches["level_pass"]
+                <= (want_level + 3) * n_trees):
+            raise AssertionError(f"rank run ({run}) launched {launches} for "
+                                 f"{n_trees} trees")
+        check_stages(launches, cuda, f"rank run ({run})")
+        out[run] = dict(launches, **{"cuda:" + k: v for k, v in cuda.items()})
+
+    # (c) cv: whole queries per fold
+    ds.params = {}
+    counts = _run_counts()
+    cvr, cv_s = _timed_run(lambda: lgb.cv(
+        dict(params, objective="lambdarank"), ds, RANK_CV_ROUNDS, nfold=3,
+        return_cvbooster=True))
+    launches, cuda, syncs = counts()
+    boosters = cvr["cvbooster"].boosters
+    n_trees = sum(b.num_trees() for b in boosters)
+    qb = np.concatenate([[0], np.cumsum(sizes)])
+    whole, covered = [], np.zeros(RANK_DOCS, np.int64)
+    for b in boosters:
+        te = np.asarray(b.valid_sets[0].used_indices)
+        covered[te] += 1
+        q = np.searchsorted(qb, te, side="right") - 1
+        uq = np.unique(q)
+        whole.append(bool(np.array_equal(np.bincount(q)[uq], sizes[uq])))
+    res = {"phase": "rank_train", "run": "c", "objective": "lambdarank",
+           "nfold": 3, "rounds": RANK_CV_ROUNDS, "trees": n_trees,
+           "cv_s": cv_s, "sec_per_round": cv_s / RANK_CV_ROUNDS,
+           "folds_hold_whole_queries": whole,
+           "every_doc_in_one_test_fold": bool((covered == 1).all()),
+           "launches_per_tree": {k: v / n_trees for k, v in launches.items()},
+           "host_syncs_per_tree": syncs / n_trees,
+           "valid_ndcg@10_mean": cvr["valid ndcg@10-mean"]}
+    emit(res)
+    if not (all(whole) and res["every_doc_in_one_test_fold"]
+            and n_trees == 3 * RANK_CV_ROUNDS
+            and launches["route_pass"] == n_trees):
+        raise AssertionError(f"rank run (c): {res}")
+    check_stages(launches, cuda, "rank run (c)")
+    out["c"] = dict(launches, **{"cuda:" + k: v for k, v in cuda.items()})
+    return out
+
+
+def _cat_codes(X: np.ndarray, seed: int) -> np.ndarray:
+    """Columns 0-3 of the uniform rows as category codes (3, 12, 31 and 60
+    categories): the column's bucket through a fixed permutation, so the
+    codes carry the draw's signal in no numerical order."""
+    rng = np.random.RandomState(seed)
+    Xc = X.copy()
+    for j, n in enumerate(CAT_CARDINALITIES):
+        bucket = np.minimum((X[:, j] * n).astype(np.int64), n - 1)
+        Xc[:, j] = rng.permutation(n)[bucket]
+    return Xc
+
+
+def _capture_holes(module, name, w_arg, K, B, store):
+    """Wrap ``module.name`` (a level or epilogue wrapper) so that its first
+    call is kept in ``store[name + ":any"]`` and its first call whose route
+    table has an active categorical row with holes in ``store[name]``
+    (operands cloned, with the count of such rows); returns the undo."""
+    orig = getattr(module, name)
+
+    def keep(args, kw, rows):
+        return ([a.clone() if hasattr(a, "clone") else a for a in args],
+                dict(kw), rows)
+
+    def wrapper(*args, **kw):
+        if name + ":any" not in store:
+            store[name + ":any"] = keep(args, kw, 0)
+        if name not in store:
+            W, tbl = args[w_arg], args[w_arg + 1]
+            rows = has_holes(W, kernel_slabs(K, B, None)) & (tbl[:, 0] >= 0)
+            if bool(rows.any()):
+                store[name] = keep(args, kw, int(rows.sum()))
+        return orig(*args, **kw)
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, orig)
+
+
+def run_cat_train(lgb, params, X, y, z, e2e):
+    """Phase 10: categorical splits on phase 3's rows with columns 0-3 as
+    category codes: (a) train(), binary, on the megastep body; (b) the bare
+    update() loop on the epilogue body; (c) multiclass, 5 classes; then
+    level_pass, route_pass and epilogue_pass against their plain versions
+    on the route tables of the first categorical trees whose W holds a row
+    with holes (epilogue_pass on run b's deferred table where it has such
+    a row, else on run b's first level table with that level's rows and
+    the epilogue's own score, operand and bag rows). Returns each run's
+    wrapper launches and the check."""
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    from lightgbm_tpu_torch.models import frontier2
+    from lightgbm_tpu_torch.ops.layout import feature_layout
+    Xc = _cat_codes(X, DATA_SEED + 400)
+    cats = list(range(len(CAT_CARDINALITIES)))
+    ds, construct_s = _timed_run(lambda: lgb.Dataset(
+        Xc, label=y, categorical_feature=cats, params=params).construct())
+    K, B = feature_layout(ds._inner.num_features, ds._inner.max_num_bin)
+    cuts, _ = class_runs(z)
+    y_mc = np.digitize(z, cuts).astype(np.float32)
+    store = {}
+    undo = [_capture_holes(frontier2, "level_pass", 3, K, B, store),
+            _capture_holes(gbdt_mod, "epilogue_pass", 2, K, B, store)]
+    out, n_rows = {}, 100_000
+    try:
+        for run, extra, labels, rounds in (
+                ("a", {}, y, ROUNDS), ("b", {}, y, UPDATES),
+                ("c", {"objective": "multiclass", "num_class": 5}, y_mc,
+                 CAT_CLASS_ROUNDS)):
+            ds.set_label(labels)
+            ds.params = {}
+            p = dict(params, **extra)
+            if run == "b":
+                def fit():
+                    b = lgb.Booster(params=p, train_set=ds)
+                    for _ in range(rounds):
+                        b.update()
+                    return b
+            else:
+                def fit():
+                    return lgb.train(p, ds, rounds)
+            counts = _run_counts()
+            bst, train_s = _timed_run(fit)
+            launches, cuda, syncs = counts()
+            g = bst._gbdt
+            k = g.num_tree_per_iteration
+            n_trees = bst.num_trees()
+            cat_splits = [int((m.decision_type[:m.num_internal] & 1).sum())
+                          for m in bst.models]
+            scores = bst.train_scores().float().cpu().numpy()
+            raw = bst.predict(Xc[:n_rows], raw_score=True)
+            want = scores[..., :n_rows] if k == 1 else scores[:, :n_rows].T
+            pred_err = float(np.abs(raw - want).max())
+            again = lgb.Booster(params={"device_type": DEVICE},
+                                model_str=bst.model_to_string())
+            text_equal = bool(np.array_equal(
+                again.predict(Xc[:n_rows], raw_score=True), raw))
+            res = {"phase": "cat_train", "run": run,
+                   "objective": p["objective"],
+                   "body": ("epilogue" if run == "b" and g._use_epilogue()
+                            else "megastep"), "rounds": rounds,
+                   "trees": n_trees, "construct_s": construct_s,
+                   "leaves": sorted({m.num_leaves for m in bst.models}),
+                   "categorical_splits_per_tree": cat_splits,
+                   "train_s": train_s, "sec_per_iter": train_s / rounds,
+                   "phase3_sec_per_iter_after_first":
+                       e2e["sec_per_iter_after_first"],
+                   "launches_per_tree": {a: v / n_trees
+                                         for a, v in launches.items()},
+                   "cuda_launches_per_tree": {a: v / n_trees
+                                              for a, v in cuda.items()},
+                   "host_syncs_per_tree": syncs / n_trees,
+                   "predict_max_abs_err": pred_err,
+                   "predict_tol": "rtol=1e-5 atol=1e-5",
+                   "model_text_round_trip_equal": text_equal}
+            if k == 1:
+                res["train_auc"] = auc(scores, labels)
+                ok_quality = res["train_auc"] > 0.75
+            else:
+                first = class_loss("multiclass", bst.predict(
+                    Xc[:n_rows], raw_score=True, num_iteration=1),
+                    labels[:n_rows])
+                last = class_loss("multiclass", raw, labels[:n_rows])
+                res["train_loss_after_1_and_all"] = [first, last]
+                ok_quality = last < first
+            emit(res)
+            if not (ok_quality and text_equal and n_trees == k * rounds
+                    and np.allclose(raw, want, rtol=1e-5, atol=1e-5)
+                    and (run == "c" or min(cat_splits) > 0)
+                    and sum(cat_splits) > 0):
+                raise AssertionError(f"cat run ({run}): {res}")
+            lv = launches["level_pass"]
+            if run == "b":
+                ok = (launches["epilogue_pass"] == n_trees
+                      and launches["route_pass"] == 0
+                      and launches["table_lookup"] == 0
+                      and 8 * n_trees <= lv <= 10 * n_trees)
+            else:
+                ok = (launches["route_pass"] == launches["table_lookup"]
+                      == n_trees and launches["epilogue_pass"] == 0
+                      and 9 * n_trees <= lv <= 11 * n_trees)
+            if not ok or launches["hist_pass"]:
+                raise AssertionError(f"cat run ({run}) launched {launches} "
+                                     f"for {n_trees} trees")
+            check_stages(launches, cuda, f"cat run ({run})")
+            out[run] = dict(launches,
+                            **{"cuda:" + a: v for a, v in cuda.items()})
+            if "level_pass" in store:       # each run's first such table
+                store["level_pass@" + run] = store.pop("level_pass")
+    finally:
+        for u in undo:
+            u()
+        ds.set_label(y)
+        ds.params = {}
+    # the kernels on a real categorical tree's route tables
+    missing = {"level_pass@a", "level_pass@b", "epilogue_pass:any"} \
+        - set(store)
+    if missing:
+        raise AssertionError(f"no route table with holes reached "
+                             f"{sorted(missing)}")
+    rel = {}
+    for run in ("a", "b"):
+        args, kw, rows = store["level_pass@" + run]
+        ops, fm = tuple(args[:5]), args[5] if len(args) > 5 else None
+        rel[run] = check_level_tables(ops, fm, kw, f"level_pass on run "
+                                      f"({run})'s categorical W")
+    if "epilogue_pass" in store:
+        eargs, ekw, erows = store["epilogue_pass"]
+        etable = "the deferred table of run (b)"
+    else:
+        eargs, ekw, _ = store["epilogue_pass:any"]
+        largs, _, erows = store["level_pass@b"]
+        eargs = [eargs[0], largs[1], largs[3], largs[4]] + eargs[4:]
+        etable = "run (b)'s first level table with holes"
+    errs, _ = compare_epilogue(tuple(eargs), ekw, float64_hist=True)
+    args, kw, rows = store["level_pass@a"]
+    ops = tuple(args[:5])
+    W = ops[3]
+    k0 = int(np.nonzero((has_holes(W, kernel_slabs(K, B, None))
+                         & (ops[4][:, 0] >= 0)).cpu().numpy())[0][0])
+    j0 = int(W[k0].nonzero()[0]) // B
+    check = {"phase": "cat_train", "run": "kernel_check",
+             "level_pass_W_rows_with_holes": rows,
+             "epilogue_pass_W_rows_with_holes": erows,
+             "epilogue_pass_table": etable,
+             "example_row_feature": j0,
+             "example_row_left_bins": (W[k0, j0 * B:(j0 + 1) * B]
+                                       .nonzero()[:, 0].tolist()),
+             "level_pass_hist_max_rel_err": rel,
+             "level_pass_tol": "rel 1e-5 of the plane max; weight "
+                               "channel exact; new leaves equal",
+             "route_pass_equal_to_full_sum": True,
+             "epilogue_pass": errs}
+    emit(check)
+    out["kernel_check"] = check
+    return out
+
+
 def run_updates(lgb, params, ds, X, y, megastep=False):
     """bench.py's loop on the card: Booster(params, train_set), warm-up
     updates, then UPDATES timed ones, each ending in a synchronize; on the
@@ -1808,10 +2380,11 @@ def main() -> int:
                     emit({"phase": "kernel_check", "epilogue_pass": res})
                     if main:
                         epi_main = res
-            res = check_epilogue(Rp, ROWS, B, cap, nch,
-                                 "binary" if nch == fl.NCH_PRECISE else "l2",
-                                 "odd", seed=B + nch + 5)
-            emit({"phase": "kernel_check", "epilogue_pass": res})
+            for table in ("odd", "categorical"):
+                res = check_epilogue(Rp, ROWS, B, cap, nch,
+                                     "binary" if nch == fl.NCH_PRECISE
+                                     else "l2", table, seed=B + nch + 5)
+                emit({"phase": "kernel_check", "epilogue_pass": res})
     res = check_epilogue(Rp, ROWS, 64, 64, fl.NCH_PRECISE, "binary",
                          "inactive", seed=3)
     emit({"phase": "kernel_check", "epilogue_pass": res})
@@ -1927,12 +2500,18 @@ def main() -> int:
     # ---- 8. multiclass, GOSS, node masks and the pointwise objectives
     class_launches = run_class_train(lgb, params, ds, y, z, w, e2e)
 
-    # ---- 9. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
+    # ---- 9. ranking: lambdarank, rank_xendcg, ndcg/map, query folds
+    rank_launches = run_rank_train(lgb, params, e2e)
+
+    # ---- 10. categorical splits through the same kernels
+    cat_launches = run_cat_train(lgb, params, X, y, z, e2e)
+
+    # ---- 11. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
     # the epilogue at Bp=64 int8, nch=5, binary, Sp=64; hist_pass at Bp=64,
     # Sp=64, f32). Launches: the train() run for the three kernels of its
     # path, update() run (a) for the epilogue, the frontier train() run for
     # hist_pass; and each kernel's in phase 7's runs (a), (c) and (d) and
-    # in every run of phase 8
+    # in every run of phases 8, 9 and 10
     lv, rt = main_cfg["level_pass"], main_cfg["route_pass"]
     rows = []
     for name, r, err, n, n_cuda in (
@@ -1964,6 +2543,10 @@ def main() -> int:
                                       for run in ("a", "c", "d")}
         row["class_train_launches"] = {run: v[name]
                                        for run, v in class_launches.items()}
+        row["rank_train_launches"] = {run: v[name]
+                                      for run, v in rank_launches.items()}
+        row["cat_train_launches"] = {run: cat_launches[run][name]
+                                     for run in ("a", "b", "c")}
         rows.append(row)
     # the variants at Sp=64 on the mixed layout, each with the launches of
     # the phase-6 run that takes it on every level_pass (VARIANT_RUNS); the
@@ -1998,7 +2581,7 @@ def main() -> int:
     emit({"kernels": rows})
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start})
 
-    # ---- 10. the result line
+    # ---- 12. the result line
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

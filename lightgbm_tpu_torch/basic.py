@@ -1,8 +1,10 @@
 """User-facing Dataset and Booster.
 
 PyTorch counterpart of ``lightgbm_tpu/basic.py``: ``Dataset(X, label=...,
-reference=..., init_score=...)`` (valid sets bin with their reference's
-mappers; ``create_valid``, ``subset``, the field accessors) -> ``train``
+reference=..., group=..., init_score=..., categorical_feature=...)`` (valid
+sets bin with their reference's mappers; ``create_valid``, ``subset``, the
+field accessors; ``group`` holds per-query sizes for the ranking
+objectives, ``categorical_feature`` column indices or names) -> ``train``
 or ``Booster(params, train_set)`` with ``add_valid``, ``update()`` /
 ``update(fobj=...)``, ``rollback_one_iter()``, ``eval_train`` /
 ``eval_valid`` / ``eval`` and ``reset_parameter`` -> ``Booster.predict(X)``
@@ -49,14 +51,17 @@ class Dataset:
     with the reference's mappers."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
-                 weight=None, init_score=None, feature_name="auto",
+                 weight=None, group=None, init_score=None,
+                 feature_name="auto", categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None):
         self.data = data
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
+        self.categorical_feature = categorical_feature
         self.params = dict(params) if params else {}
         self._inner: Optional[BinnedDataset] = None
         self.used_indices: Optional[np.ndarray] = None
@@ -65,8 +70,7 @@ class Dataset:
         if self._inner is not None:
             return self
         cfg = Config(self.params)
-        names = (list(self.feature_name)
-                 if self.feature_name not in ("auto", None) else None)
+        cats, names = self._resolve_cats_names()
         ref_inner = (self.reference.construct()._inner
                      if self.reference is not None else None)
         # rows binned against a reference live on the reference's device
@@ -74,15 +78,37 @@ class Dataset:
                   else resolve_device(cfg.device_type))
         inner = BinnedDataset.from_data(
             _to_2d_numpy(self.data), cfg, device, feature_names=names,
-            reference=ref_inner)
+            reference=ref_inner, categorical_feature=cats)
         if self.label is not None:
             inner.metadata.set_label(np.asarray(self.label))
         if self.weight is not None:
             inner.metadata.set_weight(np.asarray(self.weight))
+        if self.group is not None:
+            inner.metadata.set_group(np.asarray(self.group))
         if self.init_score is not None:
             inner.metadata.set_init_score(np.asarray(self.init_score))
         self._inner = inner
         return self
+
+    def _resolve_cats_names(self):
+        """(categorical column indices, feature names or None): names in
+        ``categorical_feature`` resolve through ``feature_name`` or a
+        pandas frame's columns (the JAX package's
+        ``Dataset._resolve_cats_names``)."""
+        names = None
+        if self.feature_name not in ("auto", None):
+            names = list(self.feature_name)
+        elif hasattr(self.data, "columns"):
+            names = [str(c) for c in self.data.columns]
+        cats = []
+        if self.categorical_feature not in ("auto", None):
+            for c in self.categorical_feature:
+                if isinstance(c, str):
+                    if names and c in names:
+                        cats.append(names.index(c))
+                else:
+                    cats.append(int(c))
+        return cats, names
 
     # ------------------------------------------------------------------
     def set_label(self, label) -> "Dataset":
@@ -98,6 +124,14 @@ class Dataset:
                 None if weight is None else np.asarray(weight))
         return self
 
+    def set_group(self, group) -> "Dataset":
+        """Per-query sizes, in row order (ref: basic.py
+        Dataset.set_group)."""
+        self.group = group
+        if self._inner is not None and group is not None:
+            self._inner.metadata.set_group(np.asarray(group))
+        return self
+
     def set_init_score(self, init_score) -> "Dataset":
         self.init_score = init_score
         if self._inner is not None:
@@ -106,18 +140,20 @@ class Dataset:
         return self
 
     def set_field(self, field_name: str, data) -> "Dataset":
-        """(ref: basic.py Dataset.set_field); ``group`` is not ported yet
-        (ranking, ROADMAP Queue A item 4)."""
+        """(ref: basic.py Dataset.set_field)"""
         setter = {"label": self.set_label, "weight": self.set_weight,
+                  "group": self.set_group,
                   "init_score": self.set_init_score}.get(field_name)
         if setter is None:
             raise ValueError(f"Unknown field name: {field_name}")
         return setter(data)
 
     def get_field(self, field_name: str):
+        """``group`` returns the cumulative query boundaries [Q+1], as
+        the JAX package's does (``get_group`` gives the sizes)."""
         md = self.construct()._inner.metadata
         if field_name == "group":
-            return None     # no query data without the ranking objectives
+            return md.query_boundaries
         if field_name not in ("label", "weight", "init_score"):
             raise ValueError(f"Unknown field name: {field_name}")
         return getattr(md, field_name)
@@ -130,6 +166,12 @@ class Dataset:
 
     def get_init_score(self):
         return self.get_field("init_score")
+
+    def get_group(self):
+        """Per-query sizes (ref: basic.py get_group diffs the
+        boundaries)."""
+        boundaries = self.get_field("group")
+        return None if boundaries is None else np.diff(boundaries)
 
     def num_data(self) -> int:
         return self.construct()._inner.num_data
@@ -145,21 +187,23 @@ class Dataset:
         sub.used_indices = np.asarray(used_indices)
         sub.data = (None if self.data is None
                     else _to_2d_numpy(self.data)[sub.used_indices])
-        sub.label = sub.weight = sub.init_score = None
+        sub.label = sub.weight = sub.group = sub.init_score = None
         sub.reference = self
         sub.feature_name = self.feature_name
+        sub.categorical_feature = self.categorical_feature
         sub.params = dict(self.params)
         if params:
             sub.params.update(params)
         sub._inner = self._inner.subset(sub.used_indices)
         return sub
 
-    def create_valid(self, data, label=None, weight=None, init_score=None,
-                     params=None) -> "Dataset":
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
         """A validation Dataset binned with this one's mappers (ref:
         basic.py Dataset.create_valid)."""
         return Dataset(data, label=label, reference=self, weight=weight,
-                       init_score=init_score, params=params or self.params)
+                       group=group, init_score=init_score,
+                       params=params or self.params)
 
 
 class Booster:

@@ -91,10 +91,22 @@ come from the port's Threefry (``utils/random.py``), keyed on
 the frontier-v1 engine degrades to the fused one with a log line, as the
 JAX package's ``_setup_engine`` does.
 
+Categorical features (``train_data.is_categorical``) join the fused
+grower's split search (``cat_idx``); their splits route through the same
+kernels by the W rows of their left bin sets. ``_to_host_tree`` turns a
+bin-space left set into the category-value bitset of the model text
+(``cat_boundaries``, ``cat_threshold``), and every routing of a host tree
+on bins (valid sets, rollback, ``add_valid``) decodes the bitset back
+into bins through the training mappers. Under categorical features the
+frontier-v1 engine degrades to the fused one with a log line, as the JAX
+package's ``_setup_engine`` does. The ranking objectives train on the
+megastep or synchronous body like any other objective (their gradients
+are ``[1, n]``; they have no epilogue form).
+
 Not ported yet (``_UNPORTED`` and ``create_boosting`` raise, each naming
 its ROADMAP item): DART and RF, distributed learners, linear trees, forced
-splits, CEGB; categorical features, EFB and monotone constraints
-(``dataset.py``); resilience checkpoints.
+splits, CEGB; EFB and monotone constraints (``dataset.py``); resilience
+checkpoints.
 """
 from __future__ import annotations
 
@@ -133,7 +145,12 @@ def split_params_from_config(config: Config) -> SplitParams:
         min_data_in_leaf=int(config.min_data_in_leaf),
         min_sum_hessian_in_leaf=float(config.min_sum_hessian_in_leaf),
         min_gain_to_split=float(config.min_gain_to_split),
-        path_smooth=float(config.path_smooth))
+        path_smooth=float(config.path_smooth),
+        max_cat_to_onehot=int(config.max_cat_to_onehot),
+        max_cat_threshold=int(config.max_cat_threshold),
+        cat_l2=float(config.cat_l2),
+        cat_smooth=float(config.cat_smooth),
+        min_data_per_group=int(config.min_data_per_group))
 
 
 _UNPORTED = (
@@ -308,7 +325,8 @@ class GBDT:
         if engine not in ("auto", "fused", "frontier"):
             log.fatal("unknown tpu_engine=%r (auto, fused, frontier or xla)",
                       engine)
-        if engine == "frontier" and self.use_node_masks:
+        has_cat = bool(np.any(train_data.is_categorical))
+        if engine == "frontier" and (has_cat or self.use_node_masks):
             log.warning("tpu_engine=frontier supports neither categorical "
                         "features, monotone bounds, nor interaction/bynode "
                         "constraints; using the fused engine")
@@ -399,16 +417,21 @@ class GBDT:
         the real features."""
         F = train_data.num_features
 
-        def pad(a, fill=0):
-            out = np.full(width, fill, np.int32)
+        def pad(a, fill=0, dtype=np.int32):
+            out = np.full(width, fill, dtype)
             out[:F] = a
             return torch.as_tensor(out, device=self.device)
         self.fmask_full = torch.arange(width, device=self.device) < F
+        # the categorical features' indices: None turns their scan off
+        cat = np.nonzero(train_data.is_categorical)[0]
+        self.cat_idx = (torch.as_tensor(cat, device=self.device)
+                        if len(cat) else None)
         return FeatureMeta(
             num_bin=pad(train_data.num_bin_per_feat, pad_num_bin),
             missing_type=pad(train_data.missing_types),
             default_bin=pad(train_data.default_bins()),
-            monotone=pad(np.zeros(F, np.int32)))
+            monotone=pad(np.zeros(F, np.int32)),
+            is_cat=pad(train_data.is_categorical, False, bool))
 
     # ------------------------------------------------------------------
     def _boost_from_average(self, class_id: int = 0) -> float:
@@ -593,7 +616,7 @@ class GBDT:
             root_hist=root_hist, defer_final_route=defer,
             quant_bits=self.quant_bits, packed=self.fused_packed,
             mask_onehot=self.use_screening, gh_scales=scales,
-            node_masks=node_masks)
+            node_masks=node_masks, cat_idx=self.cat_idx)
 
     def arm_megastep(self, on: bool = True) -> None:
         """Permission from a training loop (``engine.train``) to run the
@@ -922,18 +945,21 @@ class GBDT:
             if tree.num_leaves <= 1:
                 continue
             lv = tree.leaf_value * shrink
+            cat = ((tree.cat_flag, tree.cat_mask) if self.cat_idx is not None
+                   else (None, None))
             for vd, vs in zip(self.valid_data, self.valid_scores):
                 vs[tid] = add_tree_score(
                     vs[tid], vd.bins_dev, lv, tree.split_feature,
                     tree.threshold_bin, tree.default_left, tree.left_child,
                     tree.right_child, m.num_bin, m.missing_type,
-                    m.default_bin, steps)
+                    m.default_bin, steps, *cat)
 
     def _add_host_tree(self, score: torch.Tensor, bins: torch.Tensor,
                        ht: HostTree, scale: float = 1.0) -> torch.Tensor:
         """``score + scale * leaf_value[route(row)]`` of a host tree on
         binned rows, its leaf values as f32 (gbdt.py:3077
-        ``_add_tree_to_score``)."""
+        ``_add_tree_to_score``); categorical nodes route through their
+        bitsets decoded into bins (``_host_cat_bins``)."""
         lv = torch.as_tensor(np.asarray(ht.leaf_value, np.float32),
                              device=self.device)
         if scale != 1.0:
@@ -948,12 +974,35 @@ class GBDT:
             return torch.as_tensor(np.asarray(a), dtype=dt,
                                    device=self.device)
         meta = self.frontier_meta if self.use_frontier else self.fused_meta
+        cat = self._host_cat_bins(ht, inner)
         return add_tree_score(
             score, bins, lv, t(inner), t(ht.threshold_bin[:ni]),
             t((ht.decision_type[:ni] & 2) != 0, torch.bool),
             t(ht.left_child[:ni]), t(ht.right_child[:ni]),
             meta.num_bin, meta.missing_type, meta.default_bin,
-            tree_depth(ht.left_child, ht.right_child))
+            tree_depth(ht.left_child, ht.right_child),
+            *([] if cat is None else [t(a, torch.bool) for a in cat]))
+
+    def _host_cat_bins(self, ht: HostTree, inner: List[int]):
+        """(cat_flag [N], cat_mask [N, Bp]) of a host tree in bin space:
+        bin b of a categorical node goes left iff its category's bit is
+        set (gbdt.py:5223-5235, ``_device_tree_from_host``); None when no
+        node is categorical."""
+        ni = ht.num_internal
+        flag = (np.asarray(ht.decision_type[:ni]) & 1) != 0
+        if not flag.any():
+            return None
+        ds = self.train_data
+        Bp = self.frontier_Bp if self.use_frontier else self.fused_Bp
+        mask = np.zeros((ni, Bp), bool)
+        for i in np.nonzero(flag)[0]:
+            words = ht.cat_bitset(i)
+            m = ds.mappers[ds.real_feature_index(inner[i])]
+            for b, c in enumerate(m.bin_2_categorical):
+                if c >= 0 and c // 32 < len(words) \
+                        and (words[c // 32] >> (c % 32)) & 1:
+                    mask[i, b] = True
+        return flag, mask
 
     def rollback_one_iter(self) -> None:
         """Drop the last iteration's k trees and subtract them from the
@@ -1051,8 +1100,10 @@ class GBDT:
 
     # ------------------------------------------------------------------
     def _to_host_tree(self, tree: TreeArrays) -> HostTree:
-        """Device TreeArrays -> HostTree with real thresholds
-        (gbdt.py _to_host_tree, numerical splits)."""
+        """Device TreeArrays -> HostTree with real thresholds; a
+        categorical node's bin-space left set becomes the bitset of its
+        category values (gbdt.py:2860-2929; ref: tree.cpp
+        Tree::SplitCategorical cat_boundaries_)."""
         ds = self.train_data
         nl = int(tree.num_leaves)
         ni = max(0, nl - 1)
@@ -1062,19 +1113,40 @@ class GBDT:
         sf_inner = host["split_feature"][:ni]
         tb = host["threshold_bin"][:ni]
         dl = host["default_left"][:ni]
+        cat_flag = host["cat_flag"][:ni]
+        cat_mask = host["cat_mask"][:ni]
         ht.split_feature = np.array(
             [ds.real_feature_index(int(f)) if f >= 0 else 0
              for f in sf_inner], np.int32)
         thr = np.zeros(ni, np.float64)
         dt = np.zeros(ni, np.int32)
+        cat_boundaries = [0]
+        cat_threshold: List[int] = []
         for i in range(ni):
             f = int(sf_inner[i])
             if f < 0:
                 continue
             m = ds.mappers[ds.real_feature_index(f)]
+            if bool(cat_flag[i]):
+                cats = [int(m.bin_2_categorical[b])
+                        for b in np.nonzero(cat_mask[i])[0]
+                        if b < len(m.bin_2_categorical)
+                        and m.bin_2_categorical[b] >= 0]
+                words = [0] * ((max(cats) // 32 + 1) if cats else 1)
+                for c in cats:
+                    words[c // 32] |= 1 << (c % 32)
+                thr[i] = len(cat_boundaries) - 1   # index into boundaries
+                cat_threshold.extend(words)
+                cat_boundaries.append(len(cat_threshold))
+                dt[i] = HostTree.make_decision_type(True, False,
+                                                    int(m.missing_type))
+                continue
             thr[i] = m.bin_to_value(int(tb[i]))
             dt[i] = HostTree.make_decision_type(False, bool(dl[i]),
                                                 int(m.missing_type))
+        if len(cat_boundaries) > 1:
+            ht.cat_boundaries = cat_boundaries
+            ht.cat_threshold = cat_threshold
         ht.threshold = thr
         ht.threshold_bin = tb.astype(np.int32)
         ht.decision_type = dt

@@ -26,18 +26,15 @@ _F32 = ("split_gain", "internal_value", "internal_count", "internal_weight",
 def tree_arrays_from_numpy(d: Dict[str, np.ndarray],
                            device="cpu") -> TreeArrays:
     """A dict of numpy arrays with the JAX package's ``TreeArrays`` fields
-    (``jax.device_get(tree)._asdict()``) -> this port's ``TreeArrays``.
-    Categorical splits are not ported yet and raise."""
-    if "cat_flag" in d and np.any(np.asarray(d["cat_flag"])):
-        raise NotImplementedError("categorical splits are not ported to "
-                                  "lightgbm_tpu_torch yet")
+    (``jax.device_get(tree)._asdict()``) -> this port's ``TreeArrays``,
+    categorical nodes (``cat_flag``, ``cat_mask``) included."""
     out = {"num_leaves": int(np.asarray(d["num_leaves"]))}
     for k in _I32:
         out[k] = torch.as_tensor(np.asarray(d[k], np.int32), device=device)
     for k in _F32:
         out[k] = torch.as_tensor(np.asarray(d[k], np.float32), device=device)
-    out["default_left"] = torch.as_tensor(np.asarray(d["default_left"], bool),
-                                          device=device)
+    for k in ("default_left", "cat_flag", "cat_mask"):
+        out[k] = torch.as_tensor(np.asarray(d[k], bool), device=device)
     return TreeArrays(**out)
 
 

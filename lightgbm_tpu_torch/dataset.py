@@ -9,8 +9,14 @@ is kept on the host and, as ``bins_dev``, on the training device. A valid
 set bins against its training set's mappers (``reference``), and a row
 subset (``subset``, the folds of ``cv``) slices the binned rows.
 
-Categorical features, sparse input and monotone constraints are not ported
-yet and raise. Exclusive feature bundling is not ported either: where the
+Categorical features (``categorical_feature``: the count-sorted vocabulary
+of ``binning.py``, bin 0 the NaN/other catch-all) bin as the JAX package's
+do, and ``is_categorical`` marks them per used feature. Query groups
+(``Metadata.set_group``) are kept as cumulative ``query_boundaries``; a row
+subset re-encodes them from its rows' queries in row order.
+
+Sparse input and monotone constraints are not ported yet and raise.
+Exclusive feature bundling is not ported either: where the
 JAX package's fused engine bundles mutually exclusive columns
 (``enable_bundle``, on by default), the port trains on the unbundled
 columns, which gives the same trees (tests/test_torch_efb_gap.py); the
@@ -18,24 +24,26 @@ bundling itself is ROADMAP Queue A item 6.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .binning import BIN_NUMERICAL, BinMapper, effective_bin_counts
+from .binning import (BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper,
+                      effective_bin_counts)
 from .config import Config
 from .utils import log
 
 
 class Metadata:
-    """Label / weight / init-score holder (ref:
+    """Label / weight / query-boundary / init-score holder (ref:
     include/LightGBM/dataset.h:42, src/io/metadata.cpp)."""
 
     def __init__(self, num_data: int):
         self.num_data = num_data
         self.label: Optional[np.ndarray] = None
         self.weight: Optional[np.ndarray] = None
+        self.query_boundaries: Optional[np.ndarray] = None  # int32 [Q+1]
         self.init_score: Optional[np.ndarray] = None
 
     def set_label(self, label) -> None:
@@ -53,6 +61,23 @@ class Metadata:
                   f"weight size {weight.size} != num_data {self.num_data}")
         log.check(bool(np.all(weight >= 0)), "weights should be non-negative")
         self.weight = weight
+
+    def set_group(self, group) -> None:
+        """``group``: per-query sizes in row order (like the reference's
+        query file), kept as cumulative boundaries (ref: metadata.cpp
+        query_boundaries_)."""
+        if group is None:
+            self.query_boundaries = None
+            return
+        group = np.asarray(group, dtype=np.int64).reshape(-1)
+        log.check(int(group.sum()) == self.num_data,
+                  "sum of group sizes != num_data")
+        self.query_boundaries = np.concatenate(
+            [[0], np.cumsum(group)]).astype(np.int32)
+
+    def num_queries(self) -> int:
+        return (0 if self.query_boundaries is None
+                else len(self.query_boundaries) - 1)
 
     def set_init_score(self, init_score) -> None:
         """Kept in float64 (the trainer rounds it to f32 scores)."""
@@ -74,6 +99,23 @@ class Metadata:
             k = self.init_score.size // self.num_data
             out.set_init_score(self.init_score.reshape(
                 k, self.num_data)[:, rows].reshape(-1))
+        if self.query_boundaries is not None and len(rows):
+            # run-length encode the rows' query ids in row order, so the
+            # group sizes stay aligned with the (possibly unsorted) rows
+            # (lightgbm_tpu/dataset.py:635-655); whole-query folds keep
+            # every query whole
+            row_query = np.searchsorted(self.query_boundaries, rows,
+                                        side="right") - 1
+            starts = np.nonzero(np.concatenate(
+                [[True], row_query[1:] != row_query[:-1]]))[0]
+            seen = row_query[starts]
+            if len(np.unique(seen)) != len(seen):
+                log.warning(
+                    "subset rows interleave query groups: a query's "
+                    "rows are not contiguous in the subset, so it "
+                    "is split into multiple groups — sort subset "
+                    "indices by query to avoid this")
+            out.set_group(np.diff(np.concatenate([starts, [len(rows)]])))
         return out
 
 
@@ -105,14 +147,17 @@ class BinnedDataset:
         self.max_num_bin = 1
         self.num_bin_per_feat = np.zeros(0, np.int32)
         self.missing_types = np.zeros(0, np.int32)
+        self.is_categorical = np.zeros(0, bool)
 
     @classmethod
     def from_data(cls, data: np.ndarray, config: Config, device,
                   feature_names: Optional[List[str]] = None,
-                  reference: Optional["BinnedDataset"] = None
+                  reference: Optional["BinnedDataset"] = None,
+                  categorical_feature: Sequence[int] = ()
                   ) -> "BinnedDataset":
         """Build from a dense float matrix: sample rows, construct one
-        mapper per feature, bin every row, and place the bins on
+        mapper per feature (categorical for the column indices in
+        ``categorical_feature``), bin every row, and place the bins on
         ``device``. With ``reference``, its mappers and used features are
         reused instead, so validation rows bin as the training rows do
         (ref: dataset_loader.cpp:282 LoadFromFileAlignWithOtherDataset)."""
@@ -120,9 +165,6 @@ class BinnedDataset:
         data = np.asarray(data)
         if data.ndim != 2:
             log.fatal("data must be 2-dimensional")
-        if config.categorical_feature:
-            log.fatal("categorical features are not ported to "
-                      "lightgbm_tpu_torch yet")
         if config.monotone_constraints and any(
                 int(m) != 0 for m in config.monotone_constraints):
             log.fatal("monotone constraints are not ported to "
@@ -142,6 +184,7 @@ class BinnedDataset:
             self._finalize_feature_arrays()
             self._place(self.bin_rows(data), device)
             return self
+        cat_set = set(int(c) for c in categorical_feature)
         sample_idx = _sample_rows(n, config.bin_construct_sample_cnt,
                                   config.data_random_seed)
         sample = np.asarray(data[sample_idx], dtype=np.float64)
@@ -162,7 +205,8 @@ class BinnedDataset:
                        min_split_data=config.min_data_in_leaf
                        if config.feature_pre_filter else 0,
                        pre_filter=config.feature_pre_filter,
-                       bin_type=BIN_NUMERICAL,
+                       bin_type=(BIN_CATEGORICAL if j in cat_set
+                                 else BIN_NUMERICAL),
                        use_missing=config.use_missing,
                        zero_as_missing=config.zero_as_missing)
             self.mappers.append(m)
@@ -182,6 +226,8 @@ class BinnedDataset:
                             if self.used_features else 1)
         self.missing_types = np.array([m.missing_type for m in used],
                                       np.int32)
+        self.is_categorical = np.array(
+            [m.bin_type == BIN_CATEGORICAL for m in used], bool)
 
     def _place(self, bins: np.ndarray, device) -> None:
         """Keep the host bins and a copy on ``device``."""
@@ -230,6 +276,15 @@ class BinnedDataset:
 
     def feature_infos(self) -> List[str]:
         """Per-original-feature info strings for the model text format
-        (ref: gbdt_model_text.cpp feature_infos ``[min:max]``)."""
-        return ["none" if m.is_trivial else f"[{m.min_val:g}:{m.max_val:g}]"
-                for m in self.mappers]
+        (ref: gbdt_model_text.cpp feature_infos: ``[min:max]``, or a
+        categorical feature's categories)."""
+        infos = []
+        for m in self.mappers:
+            if m.is_trivial:
+                infos.append("none")
+            elif m.bin_type == BIN_CATEGORICAL:
+                cats = sorted(m.bin_2_categorical[1:])
+                infos.append("[" + ":".join(str(c) for c in cats) + "]")
+            else:
+                infos.append(f"[{m.min_val:g}:{m.max_val:g}]")
+        return infos

@@ -19,8 +19,13 @@ callback is one the JAX package's megastep replays (``log_evaluation``,
 ``tpu_megastep=False`` never arms the megastep. Metrics evaluate inline
 after every iteration on either body.
 
-Not ported yet (they raise): ``resume_from`` and resilience checkpoints
-(ROADMAP Queue A item 10), ``categorical_feature`` (item 5).
+``categorical_feature`` (column indices or names) is set on the training
+Dataset, as the JAX package's ``train`` sets it. ``cv`` folds a Dataset
+with query groups by whole queries (``folds.split(groups=...)`` gets each
+row's query id).
+
+Not ported yet (it raises): ``resume_from`` and resilience checkpoints
+(ROADMAP Queue A item 10).
 """
 from __future__ import annotations
 
@@ -44,14 +49,10 @@ _ES_ALIASES = ("early_stopping_round", "early_stopping_rounds",
                "early_stopping", "n_iter_no_change")
 
 
-def _refuse_unported(params: Dict[str, Any], resume_from,
-                     categorical_feature) -> None:
+def _refuse_unported(params: Dict[str, Any], resume_from) -> None:
     if resume_from or params.get("resume") or params.get("resume_from"):
         log.fatal("resume_from (resilience checkpoints) is not ported to "
                   "lightgbm_tpu_torch yet (ROADMAP Queue A item 10)")
-    if categorical_feature not in ("auto", None):
-        log.fatal("categorical features are not ported to "
-                  "lightgbm_tpu_torch yet (ROADMAP Queue A item 5)")
 
 
 def _predictor(init_model, device_type: str) -> Optional[Booster]:
@@ -99,7 +100,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
           resume_from: Optional[str] = None) -> Booster:
     """Train a booster (ref: engine.py:25)."""
     params = dict(params) if params else {}
-    _refuse_unported(params, resume_from, categorical_feature)
+    _refuse_unported(params, resume_from)
     # round-count aliases in params win, as in the JAX package
     for alias in _ROUND_ALIASES:
         if alias in params:
@@ -115,6 +116,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
             early_stopping_round = int(params[alias])
     if feature_name != "auto":
         train_set.feature_name = feature_name
+    if categorical_feature != "auto":
+        train_set.categorical_feature = categorical_feature
 
     # continued training: the init model's raw predictions are init scores
     device_type = Config(dict(train_set.params, **params)).device_type
@@ -220,8 +223,10 @@ class CVBooster:
 
 def _make_n_folds(full_data: Dataset, folds, nfold: int, params: Dict,
                   seed: int, stratified: bool, shuffle: bool):
-    """(train_idx, test_idx) per fold (ref: engine.py:323); no query
-    groups, which need the ranking objectives (ROADMAP Queue A item 4)."""
+    """(train_idx, test_idx) per fold (ref: engine.py:323): a splitter
+    gets each row's query id as ``groups``; without ``folds``, a Dataset
+    with query groups folds by whole queries
+    (lightgbm_tpu/engine.py:339-380)."""
     full_data = full_data.construct()
     num_data = full_data.num_data()
     if folds is not None:
@@ -230,8 +235,11 @@ def _make_n_folds(full_data: Dataset, folds, nfold: int, params: Dict,
                 "folds should be a generator or iterator of (train_idx, "
                 "test_idx) tuples or scikit-learn splitter object")
         if hasattr(folds, "split"):
+            group_info = full_data.get_field("group")
+            flattened = (None if group_info is None else np.repeat(
+                np.arange(len(group_info) - 1), np.diff(group_info)))
             folds = folds.split(X=np.empty(num_data),
-                                y=full_data.get_label(), groups=None)
+                                y=full_data.get_label(), groups=flattened)
         return list(folds)
     rng = np.random.RandomState(seed)
     if stratified:
@@ -244,6 +252,20 @@ def _make_n_folds(full_data: Dataset, folds, nfold: int, params: Dict,
             test_folds[idx] = np.arange(len(idx)) % nfold
         return [(np.nonzero(test_folds != f)[0],
                  np.nonzero(test_folds == f)[0]) for f in range(nfold)]
+    group_info = full_data.get_field("group")
+    if group_info is not None:
+        # whole queries per fold (ref: engine.py group-aware kfold)
+        gidx = np.arange(len(group_info) - 1)
+        if shuffle:
+            rng.shuffle(gidx)
+        bounds = np.asarray(group_info)
+        out = []
+        for split in np.array_split(gidx, nfold):
+            test_mask = np.zeros(num_data, bool)
+            for g in split:
+                test_mask[bounds[g]:bounds[g + 1]] = True
+            out.append((np.nonzero(~test_mask)[0], np.nonzero(test_mask)[0]))
+        return out
     idx = np.arange(num_data)
     if shuffle:
         rng.shuffle(idx)
@@ -262,9 +284,12 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
     """Cross-validation (ref: engine.py:399): one booster per fold on row
     subsets that share the training set's bins, each ``update()``d once
     per round; the result holds each metric's mean and standard deviation
-    over the folds per round."""
+    over the folds per round. Query groups fold by whole queries;
+    categorical features come from ``train_set``'s own
+    ``categorical_feature`` (the argument is not read, as in the JAX
+    package's ``cv``)."""
     params = dict(params) if params else {}
-    _refuse_unported(params, None, categorical_feature)
+    _refuse_unported(params, None)
     if init_model is not None:
         log.warning("cv ignores init_model, as the JAX package's cv does")
     for alias in _ROUND_ALIASES:

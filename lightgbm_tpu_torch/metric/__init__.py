@@ -20,8 +20,13 @@ scores, per-group sums by ``scatter_add``.
 The multiclass metrics (``multi_logloss``, ``multi_error`` with
 ``multi_error_top_k``, ``auc_mu`` with ``auc_mu_weights``) take the
 ``[k, n]`` scores and have a host form only, as in the JAX package's
-per-iteration evaluation. The ranking metrics (``ndcg``, ``map``) are not
-ported yet (ROADMAP Queue A item 4) and raise.
+per-iteration evaluation.
+
+The ranking metrics need query groups: ``ndcg`` (``eval_at``, or
+``ndcg@k``) has the JAX package's device form (``metric/traced.py``
+``_ndcg_builder``: one lexsort by query then descending score, per-slot
+discounts and per-query ideal DCGs precomputed on the host, segment sums
+by ``index_add_``); ``map`` has a host form only, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..utils import log
+from ..utils import dcg, log
 
 K_EPSILON = 1e-15
 
@@ -66,9 +71,6 @@ METRIC_ALIASES = {
     "map": "map", "mean_average_precision": "map",
 }
 
-_UNPORTED = ("ndcg", "map")
-
-
 class Metric:
     """Base metric (ref: include/LightGBM/metric.h:28)."""
 
@@ -82,6 +84,7 @@ class Metric:
         self.num_data = num_data
         self.label = metadata.label
         self.weight = metadata.weight
+        self.query_boundaries = metadata.query_boundaries
         if self.weight is not None:
             self.sum_weights = float(np.sum(self.weight))
         else:
@@ -625,6 +628,130 @@ class AucMuMetric(Metric):
 
 
 # ---------------------------------------------------------------------------
+# Rank metrics (ref: src/metric/rank_metric.hpp, map_metric.hpp)
+# ---------------------------------------------------------------------------
+class NDCGMetric(Metric):
+    """NDCG@k for each k of ``eval_at`` (ref: rank_metric.hpp); a query
+    whose labels are all zero counts as perfect."""
+
+    is_bigger_better = True
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.eval_at = [int(k) for k in (config.eval_at or [1, 2, 3, 4, 5])]
+        self.names = [f"ndcg@{k}" for k in self.eval_at]
+        self.label_gain = dcg.default_label_gain(config.label_gain)
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        if self.query_boundaries is None:
+            log.fatal("The NDCG metric requires query information")
+        dcg.check_label(self.label, len(self.label_gain))
+        qb = self.query_boundaries
+        self.num_queries = len(qb) - 1
+        # per-query ideal DCGs, -1 for an all-zero-label query
+        self.inv_max_dcgs = np.zeros((self.num_queries, len(self.eval_at)))
+        for q in range(self.num_queries):
+            lab = np.asarray(self.label)[qb[q]:qb[q + 1]]
+            for ki, k in enumerate(self.eval_at):
+                m = dcg.max_dcg_at_k(k, lab, self.label_gain)
+                self.inv_max_dcgs[q, ki] = 1.0 / m if m > 0 else -1.0
+        self._ops = None
+
+    def eval(self, score, objective):
+        qb = self.query_boundaries
+        result = np.zeros(len(self.eval_at))
+        for q in range(self.num_queries):
+            lab = self.label[qb[q]:qb[q + 1]]
+            sc = score[0][qb[q]:qb[q + 1]]
+            for ki, k in enumerate(self.eval_at):
+                if self.inv_max_dcgs[q, ki] <= 0:
+                    result[ki] += 1.0      # (ref: rank_metric.hpp:88-92)
+                else:
+                    d = dcg.dcg_at_k([k], lab, sc, self.label_gain)[0]
+                    result[ki] += d * self.inv_max_dcgs[q, ki]
+        return list(result / self.num_queries)
+
+    def has_device_form(self, objective) -> bool:
+        return self.num_queries > 0
+
+    def _device_ops(self, device):
+        """The static operands of ``_ndcg_builder`` on ``device``: each
+        row's gain, query id, the [n_k, n] discount of its slot after the
+        lexsort (zero past each cutoff), and the per-query ideal DCGs."""
+        if self._ops is not None and self._ops[0] == device:
+            return self._ops[1]
+        qb = np.asarray(self.query_boundaries, np.int64)
+        n = int(qb[-1])
+        sizes = np.diff(qb)
+        row_gain = self.label_gain[self.label.astype(np.int64)]
+        qid = np.repeat(np.arange(self.num_queries), sizes)
+        pos = np.arange(n, dtype=np.int64) - qb[qid]
+        disc = dcg.discounts(int(sizes.max()))
+        factor = np.stack([np.where(pos < k, disc[pos], 0.0)
+                           for k in self.eval_at])
+        degenerate = self.inv_max_dcgs <= 0
+        inv_max = np.where(degenerate, 0.0, self.inv_max_dcgs).T
+
+        def t(a, dt=torch.float32):
+            return torch.as_tensor(np.asarray(a), device=device).to(dt)
+        ops = (t(row_gain), t(qid, torch.int64), t(factor), t(inv_max),
+               t(degenerate.T, torch.bool))
+        self._ops = (device, ops)
+        return ops
+
+    def eval_device(self, score_dev, objective, cache=None):
+        row_gain, qid, factor, inv_max_t, degen_t = self._device_ops(
+            score_dev.device)
+        nq = self.num_queries
+        order = torch.sort(-score_dev[0], stable=True).indices
+        order = order[torch.sort(qid[order], stable=True).indices]
+        g_sorted = row_gain[order]
+        out = []
+        for ki in range(len(self.eval_at)):
+            dcg_q = torch.zeros(nq, dtype=torch.float32,
+                                device=score_dev.device).index_add_(
+                0, qid, g_sorted * factor[ki])
+            ndcg_q = torch.where(degen_t[ki], 1.0, dcg_q * inv_max_t[ki])
+            out.append(torch.sum(ndcg_q) / float(nq))
+        return out
+
+
+class MapMetric(Metric):
+    """MAP@k for each k of ``eval_at`` (ref: src/metric/map_metric.hpp);
+    a host form only, as in the JAX package."""
+
+    is_bigger_better = True
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.eval_at = [int(k) for k in (config.eval_at or [1, 2, 3, 4, 5])]
+        self.names = [f"map@{k}" for k in self.eval_at]
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        if self.query_boundaries is None:
+            log.fatal("The MAP metric requires query information")
+        self.num_queries = len(self.query_boundaries) - 1
+
+    def eval(self, score, objective):
+        qb = self.query_boundaries
+        result = np.zeros(len(self.eval_at))
+        for q in range(self.num_queries):
+            lab = (self.label[qb[q]:qb[q + 1]] > 0).astype(np.float64)
+            sc = score[0][qb[q]:qb[q + 1]]
+            rel = lab[np.argsort(-sc, kind="stable")]
+            cum_rel = np.cumsum(rel)
+            prec = cum_rel / np.arange(1, len(rel) + 1)
+            for ki, k in enumerate(self.eval_at):
+                kk = min(k, len(rel))
+                n_rel = cum_rel[kk - 1] if kk > 0 else 0
+                if n_rel > 0:
+                    result[ki] += float(np.sum((prec * rel)[:kk]) / n_rel)
+        return list(result / self.num_queries)
+
+
+# ---------------------------------------------------------------------------
 _REGISTRY = {
     "l2": L2Metric, "rmse": RMSEMetric, "l1": L1Metric,
     "quantile": QuantileMetric, "huber": HuberLossMetric,
@@ -638,6 +765,7 @@ _REGISTRY = {
     "kullback_leibler": KullbackLeiblerDivergence,
     "multi_logloss": MultiSoftmaxLoglossMetric,
     "multi_error": MultiErrorMetric, "auc_mu": AucMuMetric,
+    "ndcg": NDCGMetric, "map": MapMetric,
 }
 
 
@@ -646,11 +774,15 @@ def create_metric(name: str, config: Config) -> Optional[Metric]:
     raw = name.strip().lower()
     if raw in ("", "none", "null", "na", "custom"):
         return None
-    resolved = METRIC_ALIASES.get(raw.split("@", 1)[0], raw)
-    if resolved in _UNPORTED:
-        log.fatal("metric %s is not ported to lightgbm_tpu_torch yet "
-                  "(ranking metrics: ROADMAP Queue A item 4)",
-                  name)
+    # "ndcg@5" / "map@3" forms set eval_at inline
+    if "@" in raw:
+        base, ks = raw.split("@", 1)
+        base = METRIC_ALIASES.get(base, base)
+        if base in ("ndcg", "map"):
+            cfg = Config(dict(config.to_dict()))
+            cfg._values["eval_at"] = [int(k) for k in ks.split(",")]
+            return _REGISTRY[base](cfg)
+    resolved = METRIC_ALIASES.get(raw, raw)
     cls = _REGISTRY.get(resolved)
     if cls is None:
         log.fatal("Unknown metric type name: %s", name)

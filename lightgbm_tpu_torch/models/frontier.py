@@ -28,8 +28,8 @@ from __future__ import annotations
 import torch
 
 from ..ops.pallas_histogram import build_histograms_pallas_cm
-from ..ops.split import BestSplit, SplitParams, best_numerical_split_cm, \
-    calculate_leaf_output
+from ..ops.split import SplitParams, best_numerical_split_cm, \
+    calculate_leaf_output, map_split
 from .frontier2 import host_syncs
 from .learner import NEG_INF, FeatureMeta, _masked_gain, _masked_scatter
 from .tree import empty_tree
@@ -72,7 +72,7 @@ def grow_tree_frontier(bins_i32: torch.Tensor, gh3: torch.Tensor,
     B = max_bins
     S_cap = min(slot_cap, L)
 
-    tree = empty_tree(L, dev)
+    tree = empty_tree(L, B, dev)
     row_leaf = torch.zeros(R, dtype=torch.int32, device=dev)
     pool_g = torch.zeros((L, Fp, B), dtype=torch.float32, device=dev)
     pool_h = torch.zeros_like(pool_g)
@@ -95,9 +95,8 @@ def grow_tree_frontier(bins_i32: torch.Tensor, gh3: torch.Tensor,
     root_best = best_numerical_split_cm(
         g0[:1], h0[:1], c0[:1], meta.num_bin, meta.missing_type,
         meta.default_bin, feature_mask, params, tree.leaf_value[:1])
-    best = BestSplit(*[torch.cat([a, torch.zeros((L - 1,), dtype=a.dtype,
-                                                 device=dev)])
-                       for a in root_best])
+    best = map_split(lambda a: torch.cat(
+        [a, torch.zeros((L - 1,), dtype=a.dtype, device=dev)]), root_best)
     best = best._replace(gain=torch.cat(
         [root_best.gain, torch.full((L - 1,), NEG_INF, device=dev)]))
     lpn = torch.full((L,), -1, dtype=torch.int32, device=dev)  # leaf->parent
@@ -231,11 +230,10 @@ def _one_level(state, bins_i32, gh3, meta, feature_mask, params, L, B, S_d,
         *fresh, meta.num_bin, meta.missing_type, meta.default_bin,
         feature_mask, params,
         torch.cat([best.left_output[sel], best.right_output[sel]]))
-    best2 = []
-    for a, v in zip(best, bs):
+    def merge(a, v):
         a = a.clone()
         a[sel] = v[:n_sel]
         a[new] = v[n_sel:]
-        best2.append(a)
-    return (tree2, row_leaf2, pool_g, pool_h, pool_c, BestSplit(*best2),
-            lpn2, lil2)
+        return a
+    return (tree2, row_leaf2, pool_g, pool_h, pool_c,
+            map_split(merge, best, bs), lpn2, lil2)

@@ -1,7 +1,7 @@
 """Frontier grower v2 — one fused route + histogram pass per tree level.
 
 PyTorch counterpart of ``lightgbm_tpu/models/frontier2.py`` on the serial,
-numerical, unbundled path. Per level, one :func:`ops.fused_level.level_pass`
+unbundled path. Per level, one :func:`ops.fused_level.level_pass`
 routes every row and histograms the smaller child of each split; the
 sibling comes from the parent's pooled histogram by subtraction (ref:
 serial_tree_learner.cpp:283-323, 423-425), and the split search runs only
@@ -28,6 +28,12 @@ the f32 padded path; route tables are built on that layout and re-indexed
 onto the packed flat axis; the level caps stay derived from the padded
 ``f_oh * Bp``, so the packed layout grows the same tree.
 
+Categorical features (``cat_idx``, the JAX grower's static ``has_cat``)
+join the split search, and a categorical winner's ``cat_flag`` and left
+bin set ``cat_mask`` go into the level's route table and the tree (the
+JAX lines ``frontier2.py:430-450, 604-662, 724-753``); the kernels route
+such a W row as any other. The smaller-child choice is unchanged.
+
 Per-node feature masks (``node_masks``: interaction constraints and
 ``feature_fraction_bynode``) narrow the split search of the root and of
 every fresh child, as the JAX grower's ``use_node_masks`` does: each leaf
@@ -46,7 +52,7 @@ from ..ops.fused_level import (NCH_PRECISE, build_route_table, hist_planes,
                                level_pass, max_slot_cap, pack_route_table,
                                route_pass, table_lookup)
 from ..ops.split import (BestSplit, SplitParams, best_split_cm,
-                         calculate_leaf_output)
+                         calculate_leaf_output, map_split)
 from .learner import (NEG_INF, FeatureMeta, NodeMaskCfg, _masked_gain,
                       _masked_scatter, meta_is_cat, node_feature_mask,
                       update_leaf_groups)
@@ -77,8 +83,8 @@ def level_caps(num_leaves: int, max_depth: int, extra_levels: int,
 
 def _merge_best_many(best: BestSplit, idx, vals: BestSplit,
                      mask) -> BestSplit:
-    return BestSplit(*[_masked_scatter(a, idx, v, mask)
-                       for a, v in zip(best, vals)])
+    return map_split(lambda a, v: _masked_scatter(a, idx, v, mask), best,
+                     vals)
 
 
 def _pool_write(pool: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
@@ -98,7 +104,8 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
                     defer_final_route: bool = False, quant_bits: int = 0,
                     packed=None, mask_onehot: bool = False,
                     gh_scales: torch.Tensor = None,
-                    node_masks: NodeMaskCfg = None):
+                    node_masks: NodeMaskCfg = None,
+                    cat_idx: torch.Tensor = None):
     """Grow one tree with fused level passes.
 
     Args:
@@ -130,6 +137,8 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
         pass's every-row-left trick read them).
       node_masks: the per-node feature masks (``learner.NodeMaskCfg`` sized
         f_oh, its key already folded with the iteration), or None.
+      cat_idx: the categorical features' indices (``meta.is_cat``'s set,
+        known on the host), or None when there are none.
 
     Returns (TreeArrays, row_leaf [Rp] int32; padding rows stay at -1).
     With ``defer_final_route``: (tree, row_leaf before the final route,
@@ -162,7 +171,7 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
     leaf_T = torch.where(torch.arange(Rp, device=dev)[None, :] < R, 0, -1) \
         .to(torch.int32)
 
-    tree = empty_tree(L, dev)
+    tree = empty_tree(L, B, dev)
     pool_g = torch.zeros((L, f_oh, B), dtype=torch.float32, device=dev)
     pool_h = torch.zeros_like(pool_g)
     pool_c = torch.zeros_like(pool_g)
@@ -204,11 +213,10 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
     root_best = best_split_cm(
         g0[:1], h0[:1], c0[:1], meta.num_bin, meta.missing_type,
         meta.default_bin, root_mask, meta_is_cat(meta), params,
-        tree.leaf_value[:1])
-    best = BestSplit(*[torch.cat([a[:1], torch.zeros((L - 1,) + a.shape[1:],
-                                                      dtype=a.dtype,
-                                                      device=dev)])
-                       for a in root_best])
+        tree.leaf_value[:1], cat_idx=cat_idx)
+    best = map_split(lambda a: torch.cat(
+        [a[:1], torch.zeros((L - 1,) + a.shape[1:], dtype=a.dtype,
+                            device=dev)]), root_best)
     best = best._replace(gain=torch.cat(
         [best.gain[:1], torch.full((L - 1,), NEG_INF, device=dev)]))
 
@@ -229,7 +237,7 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
         state = _one_level(state, bins_T, gh_T, meta, feature_mask, params,
                            L, B, f_oh, S_d, nch, max_depth,
                            li == len(caps) - 1, deferred, decode, kmask,
-                           quant_bits, packed, node_masks)
+                           quant_bits, packed, node_masks, cat_idx)
     tree, leaf_T = state[0], state[1]
     if deferred is not None:
         return tree, leaf_T[0], deferred[0], deferred[1]
@@ -238,7 +246,7 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
 
 def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B, f_oh,
                S_d, nch, max_depth, is_last, deferred, decode, kmask,
-               quant_bits, packed, node_masks):
+               quant_bits, packed, node_masks, cat_idx):
     (tree, leaf_T, pool_g, pool_h, pool_c, best, lpn, lil,
      leaf_groups) = state
     dev = bins_T.device
@@ -281,8 +289,13 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B, f_oh,
     small_left_s = best.left_count[lof_safe] <= best.right_count[lof_safe]
     new_s = torch.where(lof_on, nl + torch.arange(Sp, device=dev), 0)
     delta_s = torch.where(lof_on, new_s - lof_safe, 0)
+    has_cat = cat_idx is not None
     W = build_route_table(feat_s, thr_s, dl_s, meta.num_bin,
-                          meta.missing_type, meta.default_bin, Sp, f_oh, B)
+                          meta.missing_type, meta.default_bin, Sp, f_oh, B,
+                          cat_flag=(best.cat_flag[lof_safe] & lof_on
+                                    if has_cat else None),
+                          cat_mask=(best.cat_mask[lof_safe]
+                                    if has_cat else None))
     if packed is not None:
         W = pack_route_table(W, packed)
     tbl = torch.zeros((Sp, 128), dtype=torch.int32, device=dev)
@@ -361,6 +374,9 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B, f_oh,
                          best.right_sum_hess),
         leaf_depth=upd2(tree.leaf_depth, new_depth, new_depth),
     )
+    if has_cat:
+        tree2 = tree2._replace(cat_flag=w(tree.cat_flag, best.cat_flag),
+                               cat_mask=w(tree.cat_mask, best.cat_mask))
 
     if node_masks is not None:
         leaf_groups2 = update_leaf_groups(node_masks, leaf_groups,
@@ -395,9 +411,9 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B, f_oh,
         torch.cat([left_g, right_g]), torch.cat([left_h, right_h]),
         torch.cat([left_c, right_c]), meta.num_bin, meta.missing_type,
         meta.default_bin, ch_mask, meta_is_cat(meta), params,
-        torch.cat([left_out, right_out]))
-    left_bs = BestSplit(*[a[:Sp] for a in bs])
-    right_bs = BestSplit(*[a[Sp:] for a in bs])
+        torch.cat([left_out, right_out]), cat_idx=cat_idx)
+    left_bs = map_split(lambda a: a[:Sp], bs)
+    right_bs = map_split(lambda a: a[Sp:], bs)
     best2 = _merge_best_many(best, lof_safe, left_bs, lof_on)
     best2 = _merge_best_many(best2, new_s, right_bs, lof_on)
     return (tree2, leaf_T2, pool_g, pool_h, pool_c, best2, lpn2, lil2,

@@ -8,12 +8,16 @@ include/LightGBM/tree.h:25, src/io/tree.cpp).  Two forms:
   device.  Child pointers follow the reference convention: ``>= 0`` is an
   internal node index, negative is ``~leaf_index`` (ref: tree.h
   left_child_/right_child_).  ``num_leaves`` is a host int: the grower
-  reads the per-level split count on the host anyway.
+  reads the per-level split count on the host anyway.  A categorical node
+  (``cat_flag``) sends left the bins of its ``cat_mask`` row.
 - ``HostTree``: the host-side object used for model text IO (a numpy copy
   of the JAX package's class, without its host prediction walk —
   ``ops/predict.py`` routes on the device).  Thresholds are
   converted from bin indices to real values with the dataset's BinMapper
-  upper bounds (ref: tree.h RealThreshold).
+  upper bounds (ref: tree.h RealThreshold); a categorical node's threshold
+  indexes ``cat_boundaries``, whose range of ``cat_threshold`` holds the
+  bitset of the category values that go left (ref: tree.h
+  CategoricalDecision, Common::FindInBitset).
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ class TreeArrays(NamedTuple):
     split_feature: torch.Tensor       # int32 [L-1] inner feature index
     threshold_bin: torch.Tensor       # int32 [L-1]
     default_left: torch.Tensor        # bool  [L-1]
+    cat_flag: torch.Tensor            # bool  [L-1] categorical split?
+    cat_mask: torch.Tensor            # bool  [L-1, B] bins routed left
     left_child: torch.Tensor          # int32 [L-1]
     right_child: torch.Tensor         # int32 [L-1]
     split_gain: torch.Tensor          # f32   [L-1]
@@ -41,7 +47,7 @@ class TreeArrays(NamedTuple):
     leaf_depth: torch.Tensor          # int32 [L]
 
 
-def empty_tree(max_leaves: int, device) -> TreeArrays:
+def empty_tree(max_leaves: int, max_bins: int, device) -> TreeArrays:
     L = max_leaves
     i32, f32 = torch.int32, torch.float32
 
@@ -52,6 +58,8 @@ def empty_tree(max_leaves: int, device) -> TreeArrays:
         split_feature=torch.full((L - 1,), -1, dtype=i32, device=device),
         threshold_bin=z(L - 1, i32),
         default_left=z(L - 1, torch.bool),
+        cat_flag=z(L - 1, torch.bool),
+        cat_mask=z((L - 1, max_bins), torch.bool),
         left_child=z(L - 1, i32),
         right_child=z(L - 1, i32),
         split_gain=z(L - 1, f32),
@@ -106,6 +114,13 @@ class HostTree:
             d |= 2
         d |= (missing_type & 3) << 2
         return d
+
+    def cat_bitset(self, node: int) -> List[int]:
+        """The 32-bit words of categorical ``node``'s left set: category c
+        goes left iff bit c % 32 of word c // 32 is set."""
+        ci = int(self.threshold[node])
+        return self.cat_threshold[self.cat_boundaries[ci]:
+                                  self.cat_boundaries[ci + 1]]
 
     @property
     def num_internal(self) -> int:

@@ -3,9 +3,9 @@
 PyTorch counterpart of ``lightgbm_tpu/objective``: ``binary``, the
 regression losses (``regression``, ``regression_l1``, ``huber``, ``fair``,
 ``poisson``, ``quantile``, ``mape``, ``gamma``, ``tweedie``), ``multiclass``
-and ``multiclassova``, ``cross_entropy`` and ``cross_entropy_lambda``. The
-ranking objectives (``lambdarank``, ``rank_xendcg``) are not ported yet
-(ROADMAP Queue A item 4) and raise.
+and ``multiclassova``, ``cross_entropy`` and ``cross_entropy_lambda``, and
+the ranking objectives ``lambdarank`` and ``rank_xendcg`` (which need query
+groups, ``Dataset(group=...)``).
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from ..utils import log
 from .base import ObjectiveFunction
 from .binary import BinaryLogloss
 from .multiclass import MulticlassOVA, MulticlassSoftmax
+from .rank import LambdarankNDCG, RankXENDCG
 from .regression import (RegressionFairLoss, RegressionGammaLoss,
                          RegressionHuberLoss, RegressionL1Loss,
                          RegressionL2Loss, RegressionMAPELoss,
@@ -38,14 +39,12 @@ _REGISTRY = {
     "multiclassova": MulticlassOVA,
     "cross_entropy": CrossEntropy,
     "cross_entropy_lambda": CrossEntropyLambda,
+    "lambdarank": LambdarankNDCG,
+    "rank_xendcg": RankXENDCG,
 }
-_RANKING = ("lambdarank", "rank_xendcg")
 
 
-def _unported(name: str) -> None:
-    if name in _RANKING:
-        log.fatal("objective %s is not ported to lightgbm_tpu_torch yet "
-                  "(ranking: ROADMAP Queue A item 4)", name)
+def _unknown(name: str) -> None:
     log.fatal("Unknown objective type name: %s", name)
 
 
@@ -57,7 +56,7 @@ def create_objective(config: Config) -> Optional[ObjectiveFunction]:
         return None
     cls = _REGISTRY.get(name)
     if cls is None:
-        _unported(name)
+        _unknown(name)
     return cls(config)
 
 
@@ -70,7 +69,7 @@ def create_objective_from_string(s: str) -> Optional[ObjectiveFunction]:
     name = tokens[0]
     cls = _REGISTRY.get(name)
     if cls is None:
-        _unported(name)
+        _unknown(name)
     params = {}
     for tok in tokens[1:]:
         if ":" in tok:

@@ -262,12 +262,16 @@ def hist_planes(hist: torch.Tensor, nch: int, Sp: int, F_oh: int, B: int,
 def build_route_table(feature: torch.Tensor, threshold: torch.Tensor,
                       default_left: torch.Tensor, num_bin: torch.Tensor,
                       missing_type: torch.Tensor, default_bin: torch.Tensor,
-                      Sp: int, F_oh: int, B: int) -> torch.Tensor:
+                      Sp: int, F_oh: int, B: int,
+                      cat_flag: torch.Tensor = None,
+                      cat_mask: torch.Tensor = None) -> torch.Tensor:
     """W [Sp, F_oh*B] bfloat16: W[k, f*B+b] = 1 iff a row with bin b of
-    feature f goes LEFT under slot k's numerical split. Missing bins ride
+    feature f goes LEFT under slot k's split. Missing bins ride
     default_left (ref: src/io/dense_bin.hpp Split); feature=-1 rows are
     all-zero (inactive slot). ``num_bin``/``missing_type``/``default_bin``
-    are per-feature [F] with F <= F_oh."""
+    are per-feature [F] with F <= F_oh. A categorical slot (``cat_flag``
+    [Sp]) sends left exactly the bins of its ``cat_mask`` [Sp, B] row, an
+    arbitrary set (lightgbm_tpu/ops/fused_level.py:280-318)."""
     dev = feature.device
     F = num_bin.shape[0]
     f_iota = torch.arange(F_oh, dtype=torch.int32, device=dev)[None, :, None]
@@ -284,6 +288,9 @@ def build_route_table(feature: torch.Tensor, threshold: torch.Tensor,
     is_missing = (((mt == 1) & (b_iota == db))
                   | ((mt == 2) & (b_iota == nb - 1)))
     go_left = torch.where(is_missing, dl, b_iota <= thr)
+    if cat_flag is not None:
+        go_left = torch.where(cat_flag[:, None, None], cat_mask[:, None, :],
+                              go_left)
     w = (f_iota == feat) & go_left & (feat >= 0)
     return w.reshape(Sp, F_oh * B).to(torch.bfloat16)
 

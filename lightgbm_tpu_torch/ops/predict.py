@@ -7,12 +7,17 @@ NumericalDecision) — ``missing_type`` per node from the decision_type
 bitfield, NaN treated as 0.0 unless the node's missing type is NaN, and the
 zero band ``|v| <= 1e-35`` missing for missing type Zero. Values and
 thresholds are float64, so routing is bit-identical to the host walk
-(``HostTree.predict_rows``). Categorical nodes are not ported yet.
+(``HostTree.predict_rows``). A categorical node (decision_type bit 0)
+sends a row left iff its value, truncated to an integer, is a category in
+the node's bitset (ref: tree.h CategoricalDecision): NaN, negative values
+and categories past the bitset go right (``lightgbm_tpu/ops/predict.py``
+``route_raw_rows_to_leaves``, ``models/tree.py`` ``_cat_decision``).
 
 :func:`route_binned_rows_to_leaves` is the same walk on the training bins
 (``route_rows_to_leaves`` of the JAX package), and :func:`add_tree_score`
 adds one tree's leaf values to a score row through it: the per-tree
-valid-score update, and ``rollback_one_iter``'s subtraction. The JAX
+valid-score update, and ``rollback_one_iter``'s subtraction. A categorical
+node there goes left iff its ``cat_mask`` row holds the row's bin. The JAX
 package computes these outside any Pallas kernel, in plain XLA; here they
 are plain torch.
 """
@@ -33,10 +38,14 @@ def route_raw_rows_to_leaves(values: torch.Tensor,
                              missing_type: torch.Tensor,
                              left_child: torch.Tensor,
                              right_child: torch.Tensor,
-                             max_steps: int) -> torch.Tensor:
+                             max_steps: int,
+                             cat_flag: torch.Tensor = None,
+                             cat_mask: torch.Tensor = None) -> torch.Tensor:
     """Leaf index per row for one tree (child >= 0 internal node, < 0 is
     ~leaf). ``values`` [R, F] float64; per-node arrays [N]; ``max_steps``
-    must be >= the tree's depth."""
+    must be >= the tree's depth. ``cat_flag`` [N] and ``cat_mask`` [N, C]
+    (indexed by the integer category value) route the categorical
+    nodes."""
     R = values.shape[0]
     node = torch.zeros(R, dtype=torch.int64, device=values.device)
     zero = torch.zeros((), dtype=values.dtype, device=values.device)
@@ -53,6 +62,14 @@ def route_raw_rows_to_leaves(values: torch.Tensor,
         v_eff = torch.where(nan_mask & (mt != 2), zero, v)
         go_left = torch.where(is_missing, default_left[nd],
                               v_eff <= threshold[nd])
+        if cat_flag is not None:
+            C = cat_mask.shape[1]
+            # range-checked before the cast; (-1, 0) truncates to 0 as the
+            # host walk's int cast does
+            bad = nan_mask | (v <= -1.0) | (v >= C)
+            iv = torch.where(bad, -1.0, v).to(torch.int64)
+            cat_left = cat_mask[nd, iv.clamp(0, C - 1)] & (iv >= 0)
+            go_left = torch.where(cat_flag[nd], cat_left, go_left)
         nxt = torch.where(go_left, left_child[nd], right_child[nd])
         node = torch.where(is_internal, nxt, node)
     return torch.where(node < 0, ~node, torch.zeros_like(node))
@@ -67,12 +84,17 @@ def route_binned_rows_to_leaves(bins: torch.Tensor,
                                 num_bin: torch.Tensor,
                                 missing_type: torch.Tensor,
                                 default_bin: torch.Tensor,
-                                max_steps: int) -> torch.Tensor:
+                                max_steps: int,
+                                cat_flag: torch.Tensor = None,
+                                cat_mask: torch.Tensor = None
+                                ) -> torch.Tensor:
     """Leaf index per row for one tree on binned rows ``bins`` [R, F]:
     ``split_feature`` holds inner feature indices; a row whose bin is the
     feature's missing bin (its default bin for missing type Zero, the last
     bin for NaN) follows ``default_left``, others go left iff
-    bin <= threshold_bin (ref: src/io/dense_bin.hpp Split)."""
+    bin <= threshold_bin (ref: src/io/dense_bin.hpp Split); a categorical
+    node (``cat_flag`` [N]) goes left iff its ``cat_mask`` [N, B] row holds
+    the bin."""
     R = bins.shape[0]
     node = torch.zeros(R, dtype=torch.int64, device=bins.device)
     for _ in range(max_steps):
@@ -85,6 +107,8 @@ def route_binned_rows_to_leaves(bins: torch.Tensor,
                    | ((mt == 2) & (b == num_bin[f] - 1)))
         go_left = torch.where(missing, default_left[nd],
                               b <= threshold_bin[nd])
+        if cat_flag is not None:
+            go_left = torch.where(cat_flag[nd], cat_mask[nd, b], go_left)
         nxt = torch.where(go_left, left_child[nd], right_child[nd])
         node = torch.where(is_internal, nxt, node)
     return torch.where(node < 0, ~node, torch.zeros_like(node))
@@ -96,13 +120,15 @@ def add_tree_score(score: torch.Tensor, bins: torch.Tensor,
                    left_child: torch.Tensor, right_child: torch.Tensor,
                    num_bin: torch.Tensor, missing_type: torch.Tensor,
                    default_bin: torch.Tensor,
-                   max_steps: int) -> torch.Tensor:
+                   max_steps: int, cat_flag: torch.Tensor = None,
+                   cat_mask: torch.Tensor = None) -> torch.Tensor:
     """``score + leaf_value[route(row)]`` for one tree on binned rows
     (``add_tree_score`` of the JAX package's ``ops/predict.py``); a new
     tensor, ``score`` [R] and ``leaf_value`` [L] of one dtype."""
     leaves = route_binned_rows_to_leaves(
         bins, split_feature, threshold_bin, default_left, left_child,
-        right_child, num_bin, missing_type, default_bin, max_steps)
+        right_child, num_bin, missing_type, default_bin, max_steps,
+        cat_flag, cat_mask)
     return score + leaf_value[leaves]
 
 
@@ -120,6 +146,24 @@ def tree_depth(left: np.ndarray, right: np.ndarray) -> int:
     return depth
 
 
+def cat_value_masks(tree):
+    """(cat_flag [N], cat_mask [N, C]) of a host tree's categorical nodes
+    over category values: cat_mask[i, c] iff bit c of node i's bitset is
+    set, C = 32 x the widest bitset; None when no node is categorical."""
+    ni = tree.num_internal
+    flag = (np.asarray(tree.decision_type[:ni]) & 1) != 0
+    if not flag.any():
+        return None
+    words = {i: tree.cat_bitset(i) for i in np.nonzero(flag)[0]}
+    C = 32 * max(len(w) for w in words.values())
+    mask = np.zeros((ni, C), bool)
+    for i, ws in words.items():
+        bits = np.asarray(ws, np.uint32)[:, None] >> np.arange(
+            32, dtype=np.uint32)[None, :]
+        mask[i, :32 * len(ws)] = (bits & 1).reshape(-1).astype(bool)
+    return flag, mask
+
+
 def predict_raw(models: List, X: torch.Tensor, k: int) -> torch.Tensor:
     """Raw scores [k, n] float64 of ``models`` (HostTrees) on ``X``
     [n, F] float64, summed in tree order like the JAX package's host walk
@@ -128,9 +172,6 @@ def predict_raw(models: List, X: torch.Tensor, k: int) -> torch.Tensor:
     dev = X.device
     raw = torch.zeros((k, n), dtype=torch.float64, device=dev)
     for i, t in enumerate(models):
-        if any(t.decision_type[:t.num_internal] & 1):
-            raise NotImplementedError("categorical splits are not ported "
-                                      "to lightgbm_tpu_torch yet")
         if getattr(t, "is_linear", False):
             raise NotImplementedError("linear trees are not ported to "
                                       "lightgbm_tpu_torch yet")
@@ -144,12 +185,15 @@ def predict_raw(models: List, X: torch.Tensor, k: int) -> torch.Tensor:
         def a(x, dt):
             return torch.as_tensor(np.asarray(x[:ni]), dtype=dt, device=dev)
         d = np.asarray(t.decision_type[:ni])
+        cat = cat_value_masks(t)
         leaves = route_raw_rows_to_leaves(
             X, a(t.split_feature, torch.int64),
             a(t.threshold, torch.float64),
             torch.as_tensor((d & 2) != 0, device=dev),
             torch.as_tensor((d >> 2) & 3, device=dev),
             a(t.left_child, torch.int64), a(t.right_child, torch.int64),
-            tree_depth(t.left_child, t.right_child))
+            tree_depth(t.left_child, t.right_child),
+            *([] if cat is None else
+              [torch.as_tensor(c, device=dev) for c in cat]))
         raw[i % k] += lv[leaves]
     return raw

@@ -1,7 +1,7 @@
 """Best-split search over histogram planes, on the device.
 
-PyTorch counterpart of ``lightgbm_tpu/ops/split.py`` (numerical branch):
-the reference's per-(leaf, feature) sequential threshold scan (ref:
+PyTorch counterpart of ``lightgbm_tpu/ops/split.py``: the reference's
+per-(leaf, feature) sequential threshold scan (ref:
 src/treelearner/feature_histogram.hpp:85 FindBestThreshold, :858-1090
 FindBestThresholdSequentially) done for a whole ``[slots, features, bins]``
 tensor at once with cumulative sums and an argmax.
@@ -18,7 +18,13 @@ Semantics (feature_histogram.hpp:158-200 FuncForNumricalL3):
   smallest threshold wins, within reverse the largest (scan orders).
   ``torch.argmax`` returns the first maximum, as ``jnp.argmax`` does.
 
-Categorical splits, monotone bounds and CEGB are not ported yet.
+Categorical features (``best_categorical_split_cm``, ref:
+feature_histogram.hpp:278-470) split one-vs-rest under
+``max_cat_to_onehot`` bins, else by the sorted-subset scan; a winner's
+left set is an explicit bin mask (``cat_mask``), bin 0 (NaN/other) never
+in it. ``best_split_cm`` takes the better of the two scans per slot.
+
+Monotone bounds and CEGB are not ported yet.
 """
 from __future__ import annotations
 
@@ -35,8 +41,8 @@ MISSING_NAN = 2
 
 
 class SplitParams(NamedTuple):
-    """Numerical split-finding hyper-parameters (the subset of the JAX
-    package's SplitParams that its numerical scan reads)."""
+    """Split-finding hyper-parameters (the subset of the JAX package's
+    SplitParams that its numerical and categorical scans read)."""
     lambda_l1: float = 0.0
     lambda_l2: float = 0.0
     max_delta_step: float = 0.0
@@ -44,6 +50,12 @@ class SplitParams(NamedTuple):
     min_sum_hessian_in_leaf: float = 1e-3
     min_gain_to_split: float = 0.0
     path_smooth: float = 0.0
+    # categorical split search (ref: config.h cat_l2/cat_smooth/...)
+    max_cat_to_onehot: int = 4
+    max_cat_threshold: int = 32
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    min_data_per_group: int = 100
 
 
 def threshold_l1(s, l1):
@@ -53,10 +65,12 @@ def threshold_l1(s, l1):
 
 
 def calculate_leaf_output(sum_grad, sum_hess, p: SplitParams,
-                          num_data=None, parent_output=0.0):
+                          num_data=None, parent_output=0.0, l2=None):
     """Closed-form Newton leaf value
-    (ref: feature_histogram.hpp:742 CalculateSplittedLeafOutput)."""
-    ret = -threshold_l1(sum_grad, p.lambda_l1) / (sum_hess + p.lambda_l2)
+    (ref: feature_histogram.hpp:742 CalculateSplittedLeafOutput).
+    ``l2`` overrides p.lambda_l2 (categorical splits add cat_l2)."""
+    ret = -threshold_l1(sum_grad, p.lambda_l1) / (
+        sum_hess + (p.lambda_l2 if l2 is None else l2))
     if p.max_delta_step > 0:
         ret = torch.clamp(ret, -p.max_delta_step, p.max_delta_step)
     if p.path_smooth > 0 and num_data is not None:
@@ -65,21 +79,24 @@ def calculate_leaf_output(sum_grad, sum_hess, p: SplitParams,
     return ret
 
 
-def leaf_gain_given_output(sum_grad, sum_hess, p: SplitParams, output):
+def leaf_gain_given_output(sum_grad, sum_hess, p: SplitParams, output,
+                           l2=None):
     # ref: feature_histogram.hpp:846 GetLeafGainGivenOutput
     sg = threshold_l1(sum_grad, p.lambda_l1)
-    return -(2.0 * sg * output + (sum_hess + p.lambda_l2) * output * output)
+    return -(2.0 * sg * output
+             + (sum_hess + (p.lambda_l2 if l2 is None else l2))
+             * output * output)
 
 
 def leaf_gain(sum_grad, sum_hess, p: SplitParams, num_data=None,
-              parent_output=0.0):
+              parent_output=0.0, l2=None):
     # ref: feature_histogram.hpp:828 GetLeafGain
     if p.max_delta_step <= 0 and p.path_smooth <= 0:
         sg = threshold_l1(sum_grad, p.lambda_l1)
-        return (sg * sg) / (sum_hess + p.lambda_l2)
+        return (sg * sg) / (sum_hess + (p.lambda_l2 if l2 is None else l2))
     out = calculate_leaf_output(sum_grad, sum_hess, p, num_data,
-                                parent_output)
-    return leaf_gain_given_output(sum_grad, sum_hess, p, out)
+                                parent_output, l2)
+    return leaf_gain_given_output(sum_grad, sum_hess, p, out, l2)
 
 
 class BestSplit(NamedTuple):
@@ -97,6 +114,16 @@ class BestSplit(NamedTuple):
     right_sum_grad: torch.Tensor
     right_sum_hess: torch.Tensor
     right_count: torch.Tensor
+    cat_flag: torch.Tensor       # bool  [S] categorical split? (None
+    cat_mask: torch.Tensor       # bool  [S, B] bins routed left   with no
+    #                              categorical feature: nothing reads them)
+
+
+def map_split(fn, *splits) -> BestSplit:
+    """``fn`` applied field by field across BestSplits; the categorical
+    fields of an all-numerical search stay None."""
+    return BestSplit(*[None if fs[0] is None else fn(*fs)
+                       for fs in zip(*splits)])
 
 
 def _take(a: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
@@ -234,16 +261,223 @@ def best_numerical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
         right_output=right_out,
         left_sum_grad=lg, left_sum_hess=lh - K_EPSILON, left_count=lc,
         right_sum_grad=rg, right_sum_hess=rh - K_EPSILON, right_count=rc,
+        cat_flag=None, cat_mask=None,
+    )
+
+
+def best_categorical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
+                              cnt: torch.Tensor,
+                              num_bin_per_feat: torch.Tensor,
+                              cat_feature_mask: torch.Tensor,
+                              params: SplitParams,
+                              parent_output: torch.Tensor,
+                              cat_idx: torch.Tensor = None) -> BestSplit:
+    """Best categorical split per slot (ref: feature_histogram.hpp:278-470
+    FindBestThresholdCategoricalInner; lightgbm_tpu/ops/split.py:412-625).
+
+    Two modes, per feature:
+    - one-vs-rest when ``num_bin <= max_cat_to_onehot`` (plain lambda_l2);
+    - otherwise the bins with count >= cat_smooth, sorted by
+      grad / (hess + cat_smooth), scanned from both ends up to
+      ``min(max_cat_threshold, (used + 1) // 2)`` categories, with
+      lambda_l2 + cat_l2 and min_data_per_group batching.
+
+    As in the JAX package, real counts (the count channel) replace the
+    reference's hessian-based estimate, and bin 0 (NaN/other) is never in
+    the left set. The scans are sequential over the sorted positions (a
+    group restarts where a candidate passes), as the JAX package's
+    ``lax.scan``; positions past ``max_cat_threshold`` are never
+    candidates, so the loop stops there.
+
+    Args:
+      grad/hess/cnt: [S, F, B] float32 planes.
+      num_bin_per_feat: [F] int32.
+      cat_feature_mask: [F] or [S, F] bool: the categorical features that
+        may be used.
+      parent_output: [S] f32.
+      cat_idx: the categorical features' indices, ascending (a host-known
+        set): the scan then runs on those planes only, with the same
+        result.
+
+    Returns a BestSplit whose winners are categorical (cat_flag True,
+    cat_mask the left bin set, default_left False, threshold 0).
+    """
+    if cat_idx is not None:
+        out = best_categorical_split_cm(
+            grad[:, cat_idx], hess[:, cat_idx], cnt[:, cat_idx],
+            num_bin_per_feat[cat_idx], cat_feature_mask[..., cat_idx],
+            params, parent_output)
+        f = out.feature
+        return out._replace(feature=torch.where(
+            f >= 0, cat_idx[f.clamp(min=0).long()].to(torch.int32), f))
+    S, F, B = grad.shape
+    p = params
+    dev = grad.device
+    l2_cat = p.lambda_l2 + p.cat_l2
+    eps = K_EPSILON
+    zero = torch.zeros((), dtype=grad.dtype, device=dev)
+    neg_inf = torch.full((), K_MIN_SCORE, dtype=grad.dtype, device=dev)
+
+    b_iota = torch.arange(B, dtype=torch.int32, device=dev)[None, None, :]
+    nb = num_bin_per_feat[None, :, None]
+    in_range = (b_iota >= 1) & (b_iota < nb)          # bin 0 = NaN/other
+
+    tot_g = grad.sum(2)                               # [S, F]
+    tot_h = hess.sum(2) + 2.0 * eps
+    tot_c = cnt.sum(2)
+    parent_out = parent_output[:, None]
+    min_gain_shift = (leaf_gain(tot_g, tot_h, p, tot_c, parent_out)
+                      + p.min_gain_to_split)          # [S, F]
+
+    # ---------------- one-vs-rest (ref :318-374)
+    lh1 = hess + eps
+    rg1 = tot_g[..., None] - grad
+    rh1 = tot_h[..., None] - lh1 - eps
+    rc1 = tot_c[..., None] - cnt
+    ok1 = (in_range
+           & (cnt >= p.min_data_in_leaf) & (lh1 >= p.min_sum_hessian_in_leaf)
+           & (rc1 >= p.min_data_in_leaf)
+           & (rh1 >= p.min_sum_hessian_in_leaf))
+    po3 = parent_out[..., None]
+    gains1 = (leaf_gain(grad, lh1, p, cnt, po3)
+              + leaf_gain(rg1, rh1, p, rc1, po3))
+    gains1 = torch.where(ok1 & (gains1 > min_gain_shift[..., None]), gains1,
+                         neg_inf)
+    t1 = torch.argmax(gains1, 2)                      # [S, F]
+    onehot_allowed = (num_bin_per_feat <= p.max_cat_to_onehot)[None, :]
+    g1 = torch.where(onehot_allowed, _take(gains1, t1, 2), neg_inf)
+
+    # ---------------- sorted subset (ref :376-473)
+    ok_bin = in_range & (cnt >= p.cat_smooth)
+    ratio = torch.where(ok_bin, grad / (hess + p.cat_smooth),
+                        torch.full((), float("inf"), device=dev))
+    order = torch.sort(ratio, dim=2, stable=True).indices  # filtered last
+    sorted3 = torch.stack([torch.gather(a, 2, order)
+                           for a in (grad, hess, cnt)])  # [3, S, F, B]
+    used = ok_bin.sum(2)                               # [S, F]
+    max_num_cat = torch.clamp((used + 1) // 2, max=p.max_cat_threshold)
+    P = min(B, p.max_cat_threshold)
+    tot3 = torch.stack([tot_g, tot_h, tot_c])
+
+    def scan_dir(seq3):
+        """Prefix scan over the first P sorted positions -> [S, F, P]
+        candidate gains (-inf where not a candidate)."""
+        sums = torch.zeros_like(tot3)
+        grp = torch.zeros_like(tot_c)
+        out = []
+        for i in range(P):
+            live = (used > i) & (max_num_cat > i)
+            sums = sums + torch.where(live, seq3[..., i], zero)
+            grp = grp + torch.where(live, seq3[2, ..., i], zero)
+            sum_g, sum_h, sum_c = sums
+            rg, rh, rc = tot3 - sums
+            rh = rh - eps
+            ok = (live
+                  & (sum_c >= p.min_data_in_leaf)
+                  & (sum_h + eps >= p.min_sum_hessian_in_leaf)
+                  & (rc >= p.min_data_in_leaf)
+                  & (rc >= p.min_data_per_group)
+                  & (rh >= p.min_sum_hessian_in_leaf)
+                  & (grp >= p.min_data_per_group))
+            gain = (leaf_gain(sum_g, sum_h + eps, p, sum_c, parent_out,
+                              l2_cat)
+                    + leaf_gain(rg, rh, p, rc, parent_out, l2_cat))
+            out.append(torch.where(ok & (gain > min_gain_shift), gain,
+                                   neg_inf))
+            grp = torch.where(ok, zero, grp)
+        return torch.stack(out, 2)
+
+    gains_fwd = scan_dir(sorted3)
+    # reverse: walk the valid region from its end (position used-1-i)
+    rev_idx = torch.clamp(
+        used[..., None] - 1 - torch.arange(P, device=dev)[None, None, :],
+        0, B - 1)
+    gains_rev = scan_dir(torch.gather(
+        sorted3, 3, rev_idx.expand(3, -1, -1, -1)))
+    i_fwd = torch.argmax(gains_fwd, 2)
+    i_rev = torch.argmax(gains_rev, 2)
+    g_fwd = _take(gains_fwd, i_fwd, 2)
+    g_rev = _take(gains_rev, i_rev, 2)
+
+    # ---------------- the modes per feature, then across features (fwd
+    # beats rev on ties: the reference replaces only on strictly greater)
+    use_rev = g_rev > g_fwd
+    g_feat = torch.where(onehot_allowed, g1,
+                         torch.where(use_rev, g_rev, g_fwd))
+    cfm = (cat_feature_mask[None, :] if cat_feature_mask.dim() == 1
+           else cat_feature_mask)
+    g_feat = torch.where(cfm, g_feat, neg_inf)
+    f_best = torch.argmax(g_feat, 1)                   # [S]
+    gain = _take(g_feat, f_best, 1)
+    valid = torch.isfinite(gain)
+
+    def take(a):
+        return _take(a, f_best, 1)
+
+    def take_b(a):                                     # [S, F, B] -> [S, B]
+        return torch.gather(a, 1, f_best[:, None, None].expand(S, 1, B))[:, 0]
+    is_onehot = onehot_allowed[0][f_best]
+    # the left set over bins [S, B]: one bin, or the first i_fwd + 1 /
+    # last i_rev + 1 of the sorted candidates
+    rank = torch.empty_like(order).scatter_(
+        2, order, torch.arange(B, device=dev).expand(S, F, B))
+    rank_b = take_b(rank)
+    okb_b = take_b(ok_bin)
+    mask_fwd = okb_b & (rank_b <= take(i_fwd)[:, None])
+    mask_rev = okb_b & (rank_b >= (take(used) - 1 - take(i_rev))[:, None])
+    mask_sorted = torch.where(take(use_rev)[:, None], mask_rev, mask_fwd)
+    mask_onehot = torch.arange(B, device=dev)[None, :] == take(t1)[:, None]
+    cat_mask = torch.where(is_onehot[:, None], mask_onehot, mask_sorted) \
+        & valid[:, None]
+
+    # the winner's left and right sums
+    lg = torch.where(cat_mask, take_b(grad), zero).sum(1)
+    lh = torch.where(cat_mask, take_b(hess), zero).sum(1) + eps
+    lc = torch.where(cat_mask, take_b(cnt), zero).sum(1)
+    rg = take(tot_g) - lg
+    rh = take(tot_h) - lh - eps
+    rc = take(tot_c) - lc
+    l2_out = torch.where(is_onehot, torch.tensor(p.lambda_l2, device=dev),
+                         torch.tensor(l2_cat, device=dev))
+    left_out = calculate_leaf_output(lg, lh, p, lc, parent_output, l2_out)
+    right_out = calculate_leaf_output(rg, rh, p, rc, parent_output, l2_out)
+    return BestSplit(
+        feature=torch.where(valid, f_best.to(torch.int32),
+                            torch.full_like(f_best, -1, dtype=torch.int32)),
+        threshold=torch.zeros(S, dtype=torch.int32, device=dev),
+        default_left=torch.zeros(S, dtype=torch.bool, device=dev),
+        gain=torch.where(valid, gain - take(min_gain_shift), neg_inf),
+        left_output=left_out,
+        right_output=right_out,
+        left_sum_grad=lg, left_sum_hess=lh - eps, left_count=lc,
+        right_sum_grad=rg, right_sum_hess=rh, right_count=rc,
+        cat_flag=valid,
+        cat_mask=cat_mask,
     )
 
 
 def best_split_cm(grad, hess, cnt, num_bin_per_feat, missing_type,
                   default_bin, feature_mask, is_cat, params: SplitParams,
-                  parent_output) -> BestSplit:
-    """Numerical best split per slot, with categorical features masked out
-    (the JAX package's combined scan; its categorical half is not ported
-    yet, so ``is_cat`` features are never chosen)."""
+                  parent_output, cat_idx=None) -> BestSplit:
+    """Combined numerical + categorical best split per slot (the JAX
+    package's ``best_split_cm``, ``lightgbm_tpu/ops/split.py:627-668``;
+    FindBestThreshold's dispatch on bin_type, ref:
+    feature_histogram.hpp:85). ``cat_idx`` (the categorical features'
+    indices, None when there are none: the JAX package's static
+    ``has_cat``) turns on the categorical scan; a categorical winner takes
+    the slot where its gain is strictly greater. Without it the result's
+    categorical fields are None."""
     ic = is_cat[None, :] if feature_mask.dim() == 2 else is_cat
-    return best_numerical_split_cm(
+    num = best_numerical_split_cm(
         grad, hess, cnt, num_bin_per_feat, missing_type, default_bin,
         feature_mask & ~ic, params, parent_output)
+    if cat_idx is None:
+        return num
+    cat = best_categorical_split_cm(
+        grad, hess, cnt, num_bin_per_feat, feature_mask & ic, params,
+        parent_output, cat_idx=cat_idx)
+    use_cat = cat.gain > num.gain
+    num = num._replace(cat_flag=torch.zeros_like(cat.cat_flag),
+                       cat_mask=torch.zeros_like(cat.cat_mask))
+    return map_split(lambda a, b: torch.where(
+        use_cat if a.dim() == 1 else use_cat[:, None], a, b), cat, num)

@@ -15,9 +15,9 @@ jump is x_k = A_k * x0 + C_k (mod 2^32) with A_k = a^k and
 C_k = c * (a^{k-1} + ... + 1), so one [block_size, n_blocks] broadcast
 yields every row's draw without a Python loop.
 
-``feature_fraction_bynode`` draws from ``jax.random`` in the JAX package;
-``prng_key``, ``fold_in`` and ``uniform`` below give its bits (see the
-Threefry section).
+``feature_fraction_bynode`` and ``rank_xendcg`` draw from ``jax.random`` in
+the JAX package; ``prng_key``, ``fold_in``, ``split`` and ``uniform`` below
+give its bits (see the Threefry section).
 """
 from __future__ import annotations
 
@@ -177,6 +177,15 @@ def fold_in(key, data):
     d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _M32
     y0, y1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
     return torch.stack(torch.broadcast_tensors(y0, y1), -1)
+
+
+def split(key, num: int = 2):
+    """``jax.random.split(key, num)`` under the partitionable layout: key i
+    hashes the counter ``(0, i)``, which is ``fold_in(key, i)``. ``key`` [2]
+    -> [num, 2]."""
+    import torch
+    return fold_in(key, torch.arange(num, dtype=torch.int64,
+                                     device=key.device))
 
 
 def random_bits(key, n: int):

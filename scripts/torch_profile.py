@@ -4,7 +4,7 @@ the card.
 
     python3 scripts/torch_profile.py [--rows 1000000] [--rounds 3]
                                      [--path train update frontier mixed cuts
-                                             eval class]
+                                             eval class rank cat]
 
 Trains chip_smoke.py's configuration (1,000,000 x 28 rows of bench.py's
 synthetic data, max_bin=63, num_leaves=255) with ``Booster.update()``,
@@ -23,7 +23,13 @@ the megastep body (5 trees per iteration), (c) GOSS on the synchronous
 body (warmed up past iteration 1/learning_rate, so every traced iteration
 samples), (d) by-node sampling with interaction constraints and (e)
 ``regression_l1`` with its leaf renewal, both on the synchronous body,
-and (f) ``cross_entropy`` on the megastep body. Each warms up two
+and (f) ``cross_entropy`` on the megastep body; ``rank`` chip_smoke.py's
+phase 9 run (a), ``lambdarank`` on its MS-LTR-shaped queries (1,000,000
+documents x 136 features, ``--rows`` documents) on the megastep body with
+its 200,000-document valid set and ``metric=["ndcg", "map"]``, each
+iteration followed by ``eval_valid()``; ``cat`` its phase 10 run (a), the
+megastep body on phase 3's rows with columns 0-3 as category codes
+(``categorical_feature=[0, 1, 2, 3]``). Each warms up two
 iterations (GOSS ten), then traces ``--rounds`` more with
 ``torch.profiler`` and prints one JSON line: the wall time per
 iteration, the device time summed over all kernels, the device's busy
@@ -58,9 +64,9 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--path", nargs="+",
                     choices=("train", "update", "frontier", "mixed",
-                             "cuts", "eval", "class"),
+                             "cuts", "eval", "class", "rank", "cat"),
                     default=["train", "update", "frontier", "mixed",
-                             "cuts", "eval", "class"])
+                             "cuts", "eval", "class", "rank", "cat"])
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -95,6 +101,25 @@ def main() -> int:
                                    warmup=10 if run == "c" else 2))),
                     flush=True)
             ds.set_label(y)
+            continue
+        if path == "rank":
+            Xr, yr, sr, Xv, yv, sv = cs.rank_data(args.rows,
+                                                  cs.RANK_VALID_DOCS)
+            p = dict(params, objective="lambdarank", metric=["ndcg", "map"],
+                     eval_at=cs.RANK_EVAL_AT)
+            d = lgb.Dataset(Xr, label=yr, group=sr, params=p).construct()
+            valid = lgb.Dataset(Xv, label=yv, group=sv, reference=d)
+            print(json.dumps(dict(path=path, nvidia_smi=smi, **profile_path(
+                lgb, frontier2, p, d, True, args.rounds, valid))),
+                flush=True)
+            continue
+        if path == "cat":
+            cats = list(range(len(cs.CAT_CARDINALITIES)))
+            d = lgb.Dataset(cs._cat_codes(X, cs.DATA_SEED + 400), label=y,
+                            categorical_feature=cats,
+                            params=params).construct()
+            print(json.dumps(dict(path=path, nvidia_smi=smi, **profile_path(
+                lgb, frontier2, params, d, True, args.rounds))), flush=True)
             continue
         p, d, valid = params, ds, None
         if path == "eval":

@@ -63,7 +63,7 @@ def test_default_device_raises_without_cuda():
 @pytest.mark.parametrize("params", [{"boosting": "dart"},
                                     {"boosting": "rf"},
                                     {"linear_tree": True},
-                                    {"objective": "lambdarank"}])
+                                    {"monotone_constraints": [1, 0, 0]}])
 def test_unported_options_raise(params):
     X = np.random.RandomState(0).randn(64, 3)
     y = (X[:, 0] > 0).astype(float)
@@ -88,6 +88,8 @@ def test_port_imports_no_jax():
             "lightgbm_tpu_torch.engine", "lightgbm_tpu_torch.boosting",
             "lightgbm_tpu_torch.objective.multiclass",
             "lightgbm_tpu_torch.objective.xentropy",
+            "lightgbm_tpu_torch.objective.rank",
+            "lightgbm_tpu_torch.utils.dcg",
             "lightgbm_tpu_torch.utils.random"} <= set(_port_modules())
     code = (
         "import importlib, json, sys\n"

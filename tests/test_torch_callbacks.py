@@ -239,10 +239,11 @@ def test_body_choice_follows_jax_engine(monkeypatch, case, body, blocker):
         assert bst._gbdt.megastep_eval_precheck(False)[1] == blocker
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"resume_from": "ckpt_3"}, "item 10"),
-    ({"categorical_feature": [1]}, "item 5")], ids=["resume", "categorical"])
-def test_unported_train_arguments_raise(kw, item):
+@pytest.mark.parametrize("kw,params,item", [
+    ({"resume_from": "ckpt_3"}, {}, "item 10"),
+    ({}, {"monotone_constraints": [1] + [0] * (X.shape[1] - 1)},
+     "monotone constraints are not ported")], ids=["resume", "monotone"])
+def test_unported_train_arguments_raise(kw, params, item):
     with pytest.raises(lt.LightGBMError, match=item):
-        lt.train(dict(PARAMS, device_type="cpu"), lt.Dataset(X, label=Y), 2,
-                 **kw)
+        lt.train(dict(PARAMS, device_type="cpu", **params),
+                 lt.Dataset(X, label=Y), 2, **kw)

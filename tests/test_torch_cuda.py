@@ -16,7 +16,8 @@ from lightgbm_tpu_torch.ops import layout as tlayout
 from lightgbm_tpu_torch.ops import pallas_histogram as tph
 from lightgbm_tpu_torch.ops import quantize as tq
 from lightgbm_tpu_torch.ops.layout import feature_layout
-from torch_parity import kernel_slabs, level_operands, odd_route_table
+from torch_parity import (cat_route_table, kernel_slabs, level_operands,
+                          odd_route_table)
 
 pytestmark = pytest.mark.cuda
 
@@ -725,6 +726,8 @@ def _epilogue_card_operands(R, Rp, B, nch, kind, table, seed, dev):
         R, Rp, [B - 1] * 28, B, 8, nch=nch, seed=seed, device=dev)
     if table == "odd":
         W = odd_route_table(W, kernel_slabs(kw), seed)
+    elif table == "categorical":
+        W = cat_route_table(W, kernel_slabs(kw), tbl, seed)
     elif table == "inactive":
         W = torch.zeros_like(W)
         tbl = tbl.clone()
@@ -776,7 +779,9 @@ def _assert_epilogue_close(got, want, bins_T, B, f_oh, nch):
     (16, 5, "l2", "odd", 4000, 4099),
     (256, 5, "l2", "odd", 12000, 12345),
     (256, 3, "binary", "grower", 20000, 20480),
-    (64, 5, "binary", "inactive", 5000, 5120)])
+    (64, 5, "binary", "inactive", 5000, 5120),
+    (64, 5, "binary", "categorical", 30000, 30720),
+    (256, 3, "l2", "categorical", 12000, 12345)])
 def test_epilogue_pass_any_route_table(cuda_device, B, nch, kind, table, R,
                                        Rp):
     """The epilogue's kernels against the plain version on the grower's W,
@@ -798,7 +803,7 @@ def test_epilogue_pass_any_route_table(cuda_device, B, nch, kind, table, R,
     again = tfl.epilogue_pass(*args, **kw)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
-    if table != "grower":
+    if table not in ("grower", "categorical"):
         moved = tfl.route_pass_plain(*args[:4], num_bins=B, f_oh=kw["f_oh"])
         if table == "inactive":
             assert torch.equal(moved, args[1])
@@ -1005,3 +1010,139 @@ def test_cuda_sync_body_matches_cpu(cuda_device, params, label):
     np.testing.assert_allclose(bg.predict(X, raw_score=True),
                                bc.predict(X, raw_score=True), rtol=1e-5,
                                atol=1e-5)
+
+
+# ------------------------------------------- categorical route tables
+@pytest.mark.parametrize("B,packed,nch", [(64, False, 5), (256, False, 3),
+                                          (64, True, 5)])
+def test_level_and_route_pass_categorical_route_table(cuda_device, B, packed,
+                                                      nch):
+    """level_pass and route_pass on a categorical route table (every
+    active row a bin set with holes inside its slab, bin 0 out) against
+    their plain versions: new leaves equal (route_pass_plain is the full
+    W @ one-hot sum), the histogram as test_kernels_match_plain holds it."""
+    nb = [B - 1] * 14 + [8] * 14 if packed else [B - 1] * 28
+    ops, fm, kw = level_operands(30000, 30720, nb, B, 8, nch=nch,
+                                 packed=packed, seed=B + nch,
+                                 device=cuda_device)
+    bins_T, leaf_T, gh_T, W, tbl = ops
+    W = cat_route_table(W, kernel_slabs(kw), tbl, seed=B)
+    ops = (bins_T, leaf_T, gh_T, W, tbl)
+    hist, leaf = tfl.level_pass(*ops, fm, **kw)
+    hist_p, leaf_p = tfl.level_pass_plain(*ops, fm, **kw)
+    rkw = dict(num_bins=B, f_oh=kw["f_oh"], packed=kw["packed"])
+    route = tfl.route_pass(bins_T, leaf_T, W, tbl, **rkw)
+    torch.cuda.synchronize()
+    assert torch.equal(leaf, leaf_p)
+    assert torch.equal(route, tfl.route_pass_plain(bins_T, leaf_T, W, tbl,
+                                                   **rkw))
+    assert torch.equal(route, leaf_p)
+    assert bool((leaf_p != leaf_T).any())
+    _assert_hist_close(hist, hist_p, nch, 8, False)
+
+
+# ------------------------------------------------ ranking, categorical
+def _rank_fixture(Q=300, seed=2):
+    """Queries of 1-240 documents (one of exactly 240: the chip run's
+    widest), grades 0-4."""
+    rng = np.random.RandomState(seed)
+    sizes = rng.randint(1, 241, Q)
+    sizes[0] = 240
+    n = int(sizes.sum())
+    X = rng.randn(n, 8)
+    z = X[:, 0] + 0.5 * X[:, 1] + 0.5 * rng.randn(n)
+    y = np.digitize(z, np.quantile(z, [0.52, 0.84, 0.97, 0.99]))
+    return X, y.astype(np.float32), sizes
+
+
+@pytest.mark.parametrize("objective", ["lambdarank", "rank_xendcg"])
+def test_rank_gradients_on_cuda_match_cpu(cuda_device, objective):
+    """The ranking gradients on the card against the CPU's at D = 240,
+    within rtol 1e-5, atol 1e-6 (the card's expf and its reduction order;
+    each lambda sums up to 30 x 240 pair terms)."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.dataset import Metadata
+    from lightgbm_tpu_torch.objective import create_objective
+    _, y, sizes = _rank_fixture()
+    md = Metadata(len(y))
+    md.set_label(y)
+    md.set_group(sizes)
+    rng = np.random.RandomState(1)
+    scores = [np.zeros(len(y), np.float32),
+              rng.randn(len(y)).astype(np.float32)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        obj = create_objective(Config({"objective": objective}))
+        obj.init(md, len(y), torch.device(dev))
+        assert obj._labels.shape[1] == 240
+        out[dev] = [obj.get_gradients(torch.as_tensor(s[None], device=dev))
+                    for s in scores]
+    for (gc, hc), (gg, hg) in zip(out["cpu"], out["cuda"]):
+        np.testing.assert_allclose(gg.cpu().numpy(), gc.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(hg.cpu().numpy(), hc.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_cuda_rank_training_matches_cpu(cuda_device):
+    """lambdarank on the megastep body with an ndcg valid set: the same
+    trees on the card as on the CPU, predictions within rtol 1e-5, the
+    device ndcg within 1e-6 of the CPU's."""
+    X, y, sizes = _rank_fixture()
+    p = {"objective": "lambdarank", "num_leaves": 31, "max_bin": 63,
+         "verbose": -1, "metric": "ndcg", "eval_at": [10]}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tfl.reset_launch_counts()
+        ds = lt.Dataset(X, label=y, group=sizes)
+        ev = {}
+        bst = lt.train(dict(p, device_type=dev), ds, 4, valid_sets=[ds],
+                       callbacks=[lt.record_evaluation(ev)])
+        out[dev] = (bst, dict(tfl.launches), ev)
+    (bc, _, ec), (bg, n, eg) = out["cpu"], out["cuda"]
+    assert n["route_pass"] == n["table_lookup"] == 4
+    _assert_same_structure(bc, bg)
+    np.testing.assert_allclose(bg.predict(X), bc.predict(X), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(eg["training"]["ndcg@10"],
+                               ec["training"]["ndcg@10"], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("megastep", [True, False],
+                         ids=["train", "update"])
+def test_cuda_categorical_training_matches_cpu(cuda_device, megastep):
+    """Categorical splits through train() (megastep body) and the update()
+    loop (epilogue body) on the card: the same trees and category bitsets
+    as on the CPU, predictions within rtol 1e-5."""
+    rng = np.random.RandomState(6)
+    n = 6000
+    X = rng.randn(n, 6)
+    X[:, 0] = rng.randint(0, 12, n)
+    X[:, 3] = rng.randint(0, 40, n)
+    y = (np.isin(X[:, 0], [1, 4, 7]) + 0.5 * np.isin(X[:, 3], [3, 9, 27])
+         + 0.3 * X[:, 1] + 0.2 * rng.randn(n) > 0.6).astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+         "verbose": -1, "min_data_per_group": 20, "cat_smooth": 1.0}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tfl.reset_launch_counts()
+        ds = lt.Dataset(X, label=y, categorical_feature=[0, 3])
+        if megastep:
+            bst = lt.train(dict(p, device_type=dev), ds, 4)
+        else:
+            bst = lt.Booster(dict(p, device_type=dev), ds)
+            for _ in range(4):
+                bst.update()
+        out[dev] = (bst, dict(tfl.launches))
+    (bc, _), (bg, n_l) = out["cpu"], out["cuda"]
+    if megastep:
+        assert n_l["route_pass"] == n_l["table_lookup"] == 4
+    else:
+        assert n_l["epilogue_pass"] == 4
+    assert all((m.decision_type & 1).any() for m in bg.models)
+    _assert_same_structure(bc, bg)
+    for a, b in zip(bc.models, bg.models):
+        np.testing.assert_array_equal(a.decision_type, b.decision_type)
+        assert a.cat_threshold == b.cat_threshold
+    np.testing.assert_allclose(bg.predict(X), bc.predict(X), rtol=1e-5,
+                               atol=1e-6)

@@ -133,9 +133,14 @@ def test_aliases_and_defaults_match_jax():
 @pytest.mark.parametrize("name", ["ndcg", "map", "ndcg@3", "lambdarank",
                                   "rank_xendcg", "mean_average_precision",
                                   "xendcg"])
-def test_unported_metrics_raise(name):
-    with pytest.raises(lt.LightGBMError, match="Queue A item 4"):
-        t_create_metric(name, TConfig({}))
+def test_ranking_metric_names_match_jax(name):
+    """The ranking metrics and their aliases resolve as the JAX package's
+    do (``ndcg@3`` sets eval_at inline)."""
+    cfg = {"eval_at": [1, 5]}
+    m = t_create_metric(name, TConfig(cfg))
+    j = j_create_metric(name, JConfig(cfg))
+    assert type(m).__name__ == type(j).__name__
+    assert m.names == j.names and m.is_bigger_better
 
 
 @pytest.mark.parametrize("name", ["multi_logloss", "multi_error", "auc_mu",

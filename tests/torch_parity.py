@@ -143,6 +143,23 @@ def odd_route_table(W, slabs, seed=0):
     return W
 
 
+def cat_route_table(W, slabs, tbl, seed=0):
+    """The grower's route table with every active slot's row replaced by a
+    categorical left set on its own slab: random bins with holes inside
+    the slab, bin 0 (NaN/other) always out (slabs of >= 4 bins)."""
+    import torch
+    W = W.clone()
+    gen = torch.Generator(device=W.device).manual_seed(seed)
+    for k in range(W.shape[0]):
+        if int(tbl[k, 0]) < 0:
+            continue
+        o, w = next((o, w) for o, w in slabs if bool(W[k, o:o + w].any()))
+        keep = torch.rand(w, generator=gen, device=W.device) < 0.4
+        keep[:4] = torch.tensor([False, True, False, True])
+        W[k, o:o + w] = keep.to(W.dtype)
+    return W
+
+
 def level_operands(R, Rp, num_bin, Bp, Sp, *, nch=5, quant_bits=0,
                    packed=False, masked=False, seed=0, device="cpu"):
     """Operands of one ``level_pass`` from a numpy seed, on ``device``.
