@@ -36,7 +36,13 @@ non-zero (it prints no result line then):
    8), each quantized plane also against the other layout's after
    unpacking; ``level_pass``, ``route_pass`` and ``epilogue_pass`` also on
    a categorical route table (every active row a bin set with holes
-   inside its slab, bin 0 out); with the errors, their tolerances, each kernel's device
+   inside its slab, bin 0 out); every f32 ``level_pass`` called twice on
+   the same inputs (the same plane bits); ``level_pass`` (f32 and
+   quantized to 16 bits), ``route_pass`` and ``epilogue_pass`` on bundle
+   columns at Bc_p in {256, 512, 4096, 16384} (int16 bins, route tables
+   from ``build_route_table_bundled`` with a categorical, a zero-missing
+   and a NaN-missing member, Sp = max_slot_cap); with the errors, their
+   tolerances, each kernel's device
    time per launch (``cuda_ms``: a CUDA graph of 20 calls replayed),
    each ``level_pass`` stage's time alone and its histogram tile;
 3. end to end through ``lightgbm_tpu_torch.train`` on 1,000,000 x 28 rows
@@ -140,15 +146,42 @@ non-zero (it prints no result line then):
    full W @ one-hot sum) and ``epilogue_pass`` against their plain
    versions on the route tables of the first trees of (a) and (b) whose W
    holds a categorical row with holes;
-11. the ``kernels`` line: every ported kernel and variant with its
+11. exclusive feature bundling and sparse input (``bundle_train``): (a)
+   an Allstate-shaped CSR draw (Ke et al. 2017, Table 1: 4,228 sparse
+   one-hot features): 1,000,000 rows of 28 dense columns and 30
+   categorical fields of 140 levels one-hot encoded (value 1.0), bundled
+   at ingestion (``Dataset`` on the CSR matrix), phase 3's parameters, 10
+   rounds through ``train()``: the bundle columns and Bc_p (int16 bins),
+   sec/iter, training AUC (> 0.75), launches and host syncs per tree,
+   ``Booster.predict`` on 100,000 CSR rows against the trainer's scores
+   (rtol, atol 1e-6), the model's split features logical column indices;
+   (b) dense default-on EFB, 500,000 rows of 28 dense and 512 mutually
+   exclusive columns, the bare ``update()`` loop (epilogue body) with a
+   100,000-row valid set: ``use_bundles``, the bundle columns, Bc and
+   Bc_p, ``epilogue_pass`` launched every update, valid AUC (> 0.75), and
+   ``rollback_one_iter`` after one more update restoring the training
+   and valid scores (within 1e-6: the last tree's f32 values are
+   subtracted, as in the JAX package); (c) 64 exclusive columns of 63 bins
+   and no dense column, one 4,033-bin bundle column (Bc_p = 4096), 5
+   updates: ``epilogue_pass`` on every update beyond the old 1024-bin
+   cap, training AUC (> ``WIDE_AUC_FLOOR``), ``predict`` within rtol,
+   atol 1e-6 of the trainer's scores; after each run its own operands
+   (``level_pass``'s ``CAPTURE_LEVEL_CALL``-th call, 11a's first
+   ``route_pass`` call, the second ``epilogue_pass`` call of 11b and
+   11c) through phase 2's bundled checks, with errors and times at the
+   run's own layout (88 columns at Bc_p 256, 102 at 512, 1 at 4096);
+12. the ``kernels`` line: every ported kernel and variant with its
    wrapper calls and CUDA kernel launches on the main path where it runs
    (every level_pass, route_pass, epilogue_pass and hist_pass call in
    phases 3-10 held to one launch of each of its CUDA kernels), its
    launches in phase 7's runs (a), (c) and (d), in phase 8's, 9's and
-   10's runs, error, time per launch, plain time, bound and library time,
+   10's and 11's runs, error, time per launch, plain time, bound and
+   library time, the bundled rows on each phase-11 run's own operands
+   with that run's launches and on phase 2's Bc_p = 16384 layout with
+   none,
    and per-kernel times of ``level_pass``, ``epilogue_pass`` and
    ``hist_pass``;
-12. the last line: ``{"ok": true, "device": {...}}``.
+13. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package. It exits non-zero when no CUDA
 device is present.
@@ -214,6 +247,20 @@ RANK_CV_ROUNDS = 3
 # sorted-subset scan
 CAT_CARDINALITIES = (3, 12, 31, 60)
 CAT_CLASS_ROUNDS = 3
+BUNDLE_WIDTHS = (256, 512, 4096, 16384)     # phase 2's bundled layouts
+SPARSE_ROWS = 1_000_000         # phase 11a: Allstate-shaped CSR draw
+SPARSE_DENSE = 28
+SPARSE_FIELDS, SPARSE_LEVELS = 30, 140      # 4,200 one-hot columns
+EFB_ROWS = 500_000              # phases 11b and 11c
+EFB_VALID_ROWS = 100_000
+EFB_EXCLUSIVE = 512             # phase 11b: 28 dense + 512 exclusive
+WIDE_MEMBERS = 64               # phase 11c: 64 x 63 bins -> one column
+WIDE_UPDATES = 5
+CAPTURE_LEVEL_CALL = 6          # phase 11: the level_pass call checked
+# each of 11c's 64 columns moves 1/65 of the rows, and a level-wise tree
+# of depth 8 tests at most 8 of them on a path: 0.70 after 3 updates at
+# 30,000 rows on the CPU, bundled or not
+WIDE_AUC_FLOOR = 0.6
 REPLACES = {
     "level_pass": "lightgbm_tpu/ops/fused_level.py:402",
     "route_pass": "lightgbm_tpu/ops/fused_level.py:575",
@@ -421,7 +468,8 @@ def sass_hist_ops(lib_path):
     """How many tensor-core (HMMA), shared-atomic (ATOMS), global-atomic
     (RED, ATOMG) and shared load/store and f32 add instructions each
     epilogue_hist_kernel instance of the built library holds (cuobjdump
-    -sass): the root histogram's adds as compiled."""
+    -sass; bin type x channels x bin groups, 20 instances): the root
+    histogram's adds as compiled."""
     import re
     from pathlib import Path
     from lightgbm_tpu_torch.ops import cuda_build
@@ -430,13 +478,13 @@ def sass_hist_ops(lib_path):
                           text=True, check=True).stdout
     out = {}
     for block in sass.split("Function : ")[1:]:
-        m = re.match(r"\S*epilogue_hist_kernelI(a|s)Li(\d)E", block)
+        m = re.match(r"\S*epilogue_hist_kernelI(a|s)Li(\d)ELb(\d)E", block)
         if not m:
             continue
         ops = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
                          block, re.M)
         out[f"epilogue_hist_kernel<{_MANGLED_TYPES[m.group(1)]},"
-            f"{m.group(2)}>"] = {
+            f"{m.group(2)},{'true' if m.group(3) == '1' else 'false'}>"] = {
             op: ops.count(op) for op in ("HMMA", "ATOMS", "RED", "ATOMG",
                                          "LDS", "STS", "FADD", "LDGSTS")}
     return out
@@ -678,7 +726,11 @@ def check_level(Rp, R, num_bin, B, Sp, seed, nch=5, quant_bits=0,
                      if fl.cuda_launches[k] != c0[k]}
     hist_p, leaf_p = fl.level_pass_plain(*ops, fm, **kw)
     route_p = fl.route_pass_plain(bins_T, leaf_T, W, tbl, **rkw)
+    hist_again, _ = fl.level_pass(*ops, fm, **kw)
     torch.cuda.synchronize()
+    if not torch.equal(hist_again, hist_k):
+        raise AssertionError(f"level_pass[{variant}] planes differ between "
+                             f"two calls (B={B} Sp={Sp})")
     if not torch.equal(leaf_k, leaf_p):
         raise AssertionError(f"level_pass[{variant}] new_leaf differs "
                              f"(B={B} Sp={Sp})")
@@ -708,7 +760,8 @@ def check_level(Rp, R, num_bin, B, Sp, seed, nch=5, quant_bits=0,
            "route_pass_equal_on": ["grower W", "W with a row over two "
                                    "slabs and an all-zero row",
                                    "categorical W (holes, bin 0 out)"],
-           "categorical_W_hist_max_rel_err": cat_rel}
+           "categorical_W_hist_max_rel_err": cat_rel,
+           "same_bits_on_two_calls": True}
     abs_err = float((hist_k.double() - hist_p.double()).abs().max())
     if quant_bits:
         if not torch.equal(hist_k, hist_p):
@@ -760,7 +813,8 @@ def check_level(Rp, R, num_bin, B, Sp, seed, nch=5, quant_bits=0,
     in_slot = int((slot >= 0).sum())
     per_slot = torch.bincount(slot[slot >= 0].long(), minlength=Sp)
     n_small = _n_small(leaf_T, leaf_p, tbl)
-    marked = fl.level_mark_plain(*ops, fm, **kw)[2].long()  # per slot
+    marked = fl.slot_counts(fl.level_mark_plain(*ops, fm, **kw)[2],
+                            Rp).long()                       # per slot
     n_marked = int(marked.sum())
     route_bins = int((per_slot * route_slabs).sum())
     mark_bins = int((per_slot * mark_slabs).sum())
@@ -774,13 +828,16 @@ def check_level(Rp, R, num_bin, B, Sp, seed, nch=5, quant_bits=0,
     out.update(marked_rows=n_marked, routing_bins=mark_bins)
     out.update(slotted_rows=in_slot, smaller_child_rows=n_small,
                live_kernel_rows=k_live)
-    # the histogram stage's tile: Kg kernel rows per group, Cw columns,
-    # the widest slab's bins down each band; the staging record's bytes
+    # the tiles stage's shape: Cw kernel rows per group (32 // Cw lanes
+    # each), Bw bins per bin group, nch x nr warps' private tiles; the
+    # staging record's bytes
     width = max(pk.widths) if pk is not None else B
-    Kg, Cw = fl.hist_groups(K_rows, width, nch, fl._smem_budget(dev))
-    out["hist_tile"] = {"Kg": Kg, "Cw": Cw, "width": width,
-                        "groups": -(-K_rows // Kg),
-                        "bytes": -(-Kg // Cw) * width * Cw * nch * 4,
+    Cw, Bw, nr = fl.level_tile_shape(K_rows, width, nch,
+                                     fl._smem_budget(dev))
+    out["hist_tile"] = {"Cw": Cw, "Bw": Bw, "record_lanes": nr,
+                        "width": width, "row_groups": -(-K_rows // Cw),
+                        "bin_groups": -(-width // Bw),
+                        "bytes": nch * nr * Bw * 32 * 4,
                         "record_bytes": fl.record_layout(
                             K_rows, bb, nch, chb)[1]}
     out["level_pass"] = {
@@ -790,8 +847,7 @@ def check_level(Rp, R, num_bin, B, Sp, seed, nch=5, quant_bits=0,
                             reps=3, warmup=1),
         "library_ms": None, "bound_ms": lvl_bound, "bound_by": lvl_by}
     # each stage alone, through its own wrapper (level_mark's includes the
-    # memset of its 3*Sp counts and tables, level_partition's one
-    # Sp-element copy of the counts)
+    # memset of its counts buffer, which the other two read as it is)
     _, row_slot, counts = fl.level_mark(*ops, fm, **kw)
     stage = fl.level_partition(bins_T, gh_T, row_slot, counts, **kw)
     out["level_pass"]["stages_ms"] = {
@@ -2305,6 +2361,555 @@ def run_plane_cuts(lgb, params, X, y):
             for name, r in out.items()}
 
 
+def _bundle_layout(Bc_p):
+    """A synthetic bundle layout whose widest column pads to ``Bc_p``:
+    (num_bin, missing_type, default_bin, most_freq_bin per logical
+    feature, the bundles, the categorical feature). 256: 6 dense
+    singletons of 63 bins and 10 bundles of six 40-bin members (241
+    bins); 512: 8 bundles of seven 63-bin members (442 bins, phase 11b's
+    layout); 4096: one bundle of 64 members of 63 bins (4,033, phase
+    11c's); 16384: one of 256 such members (16,129). Each layout has a
+    member with missing type Zero (default bin 5), one with NaN (the last
+    bin) and a categorical one."""
+    if Bc_p == 256:
+        nb = [63] * 6 + [40] * 60
+        bundles = [[f] for f in range(6)] + [list(range(6 + 6 * i,
+                                                        12 + 6 * i))
+                                             for i in range(10)]
+    else:
+        m, c = {512: (7, 8), 4096: (64, 1), 16384: (256, 1)}[Bc_p]
+        nb = [63] * (m * c)
+        bundles = [list(range(m * i, m * (i + 1))) for i in range(c)]
+    F = len(nb)
+    nb = np.asarray(nb, np.int32)
+    mt = np.zeros(F, np.int32)
+    db = np.zeros(F, np.int32)
+    mfb = np.zeros(F, np.int32)
+    mt[F - 1], db[F - 1] = 1, 5          # zero-missing member
+    mt[F - 2] = 2                        # NaN member: the last bin
+    return nb, mt, db, mfb, bundles, F - 3
+
+
+def _bundle_inputs(Rp, R, Bc_p, seed, quant_bits=0):
+    """Level-pass operands over bundle columns: each column's rows owned
+    by one member at random (or by none: bundle bin 0), the member's
+    logical bin uniform in [1, num_bin) encoded at its offset (ops/efb.py);
+    Sp = max_slot_cap(C_oh * Bc_p, nch) slots on random members, one
+    categorical (a random bin set, bin 0 out), the last slot inactive;
+    route table from build_route_table_bundled. Returns ((bins_T, leaf_T,
+    gh_T, W, tbl), the wrappers' keywords, the layout summary)."""
+    import torch
+    from lightgbm_tpu_torch.ops import efb
+    from lightgbm_tpu_torch.ops import fused_level as fl
+    from lightgbm_tpu_torch.ops.layout import feature_layout
+    from lightgbm_tpu_torch.ops.quantize import QNCH
+    dev = torch.device(DEVICE)
+    nb, mt, db, mfb, bundles, cat_f = _bundle_layout(Bc_p)
+    layout = efb.BundleLayout(bundles, nb)
+    C = layout.num_columns
+    C_oh, Bcp = feature_layout(C, max(layout.col_num_bin))
+    assert Bcp == Bc_p, (Bcp, Bc_p)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bins = torch.zeros((max(C_oh, 8), Rp), dtype=torch.int16, device=dev)
+    for ci, members in enumerate(bundles):
+        owner = torch.randint(-1 if len(members) > 1 else 0, len(members),
+                              (R,), generator=gen, device=dev)
+        m_nb = torch.as_tensor(nb[members], device=dev)
+        m_off = torch.as_tensor(layout.offset_of_feat[members], device=dev)
+        o = owner.clamp(min=0)
+        b = 1 + (torch.rand(R, generator=gen, device=dev)
+                 * (m_nb[o] - 1)).long()
+        bins[ci, :R] = torch.where(owner >= 0, m_off[o] + b, 0).to(
+            torch.int16)
+    nch = QNCH[quant_bits] if quant_bits else fl.NCH_PRECISE
+    Sp = fl.max_slot_cap(C_oh * Bc_p, nch)
+    leaf = torch.randint(0, Sp - 1, (Rp,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    leaf[R:] = -1
+    w = (torch.rand(Rp, generator=gen, device=dev) >= 0.3).float()
+    w[R:] = 0
+    g = torch.randn(Rp, generator=gen, device=dev) * w
+    h = torch.rand(Rp, generator=gen, device=dev) * 0.25 * w
+    if quant_bits:
+        gh_T, _ = fl.pack_gh_quant(g, h, w, quant_bits, seed=seed)
+    else:
+        gh_T = fl.pack_gh(g, h, w, nch)
+    rng = np.random.RandomState(seed)
+    F = len(nb)
+    feat = rng.randint(0, F, Sp).astype(np.int32)
+    feat[:3] = [cat_f, F - 1, F - 2]     # categorical, Zero, NaN members
+    feat[-1] = -1
+    thr = (rng.rand(Sp) * (nb[feat] - 1)).astype(np.int32)
+    dl = rng.rand(Sp) < 0.5
+    Bl = 64
+    cat_flag = np.zeros(Sp, bool)
+    cat_flag[0] = True
+    cat_mask = rng.rand(Sp, Bl) < 0.4
+    cat_mask[:, 0] = False
+    t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+    W = fl.build_route_table_bundled(
+        t(feat), t(thr), t(dl), t(nb), t(mt), t(db), t(mfb),
+        t(layout.col_of_feat), t(layout.offset_of_feat), C_oh, Bc_p,
+        cat_flag=t(cat_flag), cat_mask=t(cat_mask))
+    tbl = np.zeros((Sp, 128), np.int32)
+    tbl[:, 0] = np.where(feat >= 0, np.arange(Sp), -2)
+    tbl[:, 1] = np.where(feat >= 0, Sp, 0)
+    tbl[:, 2] = rng.randint(0, 2, Sp)
+    kw = dict(num_bins=Bc_p, f_oh=C_oh, nch=nch, quant_bits=quant_bits,
+              packed=None)
+    summary = {"logical_features": F, "bundle_columns": C, "C_oh": C_oh,
+               "Bc": max(layout.col_num_bin), "Bc_p": Bc_p, "Sp": Sp,
+               "FB": C_oh * Bc_p, "bins": "int16"}
+    return (bins.contiguous(), leaf[None, :], gh_T, W, t(tbl)), kw, summary
+
+
+def bundled_level_rows(ops, fm, kw, what):
+    """``level_pass`` f32 (``check_level_tables``: new leaves equal, planes
+    within 1e-5 of the plane max, the weight channel exact) and
+    ``route_pass`` against their plain versions on one set of bundled
+    operands, the f32 planes' bits equal on a second call, each active W
+    row's slab found (the owning column); each timed per launch, with
+    bounds from these operands' rows. Returns the fields and the rows."""
+    import torch
+    from lightgbm_tpu_torch.ops import fused_level as fl
+    bins_T, leaf_T, gh_T, W, tbl = ops
+    K, B, nch = kw["f_oh"], kw["num_bins"], kw["nch"]
+    Rp = bins_T.shape[1]
+    slab_k = fl.slab_table_plain(W, num_bins=B, f_oh=K)
+    if not bool((slab_k[tbl[:, 0] >= 0] >= 0).all()):
+        raise AssertionError(f"{what}: an active W row spans several slabs")
+    rel = check_level_tables(ops, fm, kw, what + " f32")
+    hist_a, _ = fl.level_pass(*ops, fm, **kw)
+    hist_b, _ = fl.level_pass(*ops, fm, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(hist_a, hist_b):
+        raise AssertionError(f"{what}: level_pass f32 planes differ between "
+                             "two calls")
+    hist_p, _ = fl.level_pass_plain(*ops, fm, **kw)
+    abs_err = float((hist_a.double() - hist_p.double()).abs().max())
+    # bytes: leaf in and out of every row, the routed bin of each slotted
+    # row, the K bins and nch channels of each marked row, W, tbl, the
+    # histogram out; ops: a compare per routed row, K*nch adds per marked
+    # row (these operands' counts)
+    in_slot = int((leaf_T[0][:, None] == tbl[:, 0][None, :]).any(1).sum())
+    marked = int(fl.level_mark_plain(*ops, fm, **kw)[2][-1])
+    lvl_b, lvl_by = bound(Rp * 8 + in_slot * 2 + marked * (K * 2 + nch * 2)
+                          + W.numel() * 2 + tbl.numel() * 4
+                          + hist_p.numel() * 4, in_slot + marked * K * nch)
+    rt_b, rt_by = bound(Rp * 8 + in_slot * 2 + W.numel() * 2, in_slot)
+    Cw, Bw, nr = fl.level_tile_shape(K, B, nch, fl._smem_budget(
+        bins_T.device))
+    rkw = dict(num_bins=B, f_oh=K)
+    out = {"C_oh": K, "Bc_p": B, "Sp": tbl.shape[0], "FB": W.shape[1],
+           "bins": str(bins_T.dtype).replace("torch.", ""),
+           "level_f32_hist_max_rel_err": rel, "level_f32_abs_err": abs_err,
+           "level_tol": "rel 1e-5 of the plane max; weight channel exact",
+           "same_bits_on_two_calls": True, "marked_rows": marked,
+           "slotted_rows": in_slot,
+           "hist_tile": {"Cw": Cw, "Bw": Bw, "record_lanes": nr,
+                         "row_groups": -(-K // Cw),
+                         "bin_groups": -(-B // Bw)},
+           "level_pass": {
+               "max_abs_err": abs_err,
+               "kernel_ms": cuda_ms(lambda: fl.level_pass(*ops, fm, **kw)),
+               "plain_ms": call_ms(lambda: fl.level_pass_plain(
+                   *ops, fm, **kw), reps=3, warmup=1),
+               "library_ms": None, "bound_ms": lvl_b, "bound_by": lvl_by},
+           "route_pass": {
+               "max_abs_err": 0,
+               "kernel_ms": cuda_ms(lambda: fl.route_pass(
+                   bins_T, leaf_T, W, tbl, **rkw)),
+               "plain_ms": call_ms(lambda: fl.route_pass_plain(
+                   bins_T, leaf_T, W, tbl, **rkw), reps=3, warmup=1),
+               "library_ms": None, "bound_ms": rt_b, "bound_by": rt_by}}
+    return out
+
+
+def bundled_epilogue_row(args, ekw, float64_hist=False):
+    """``epilogue_pass`` against its plain version on one set of bundled
+    operands (``compare_epilogue``), timed per launch, with the bound from
+    these operands' rows."""
+    from lightgbm_tpu_torch.ops import fused_level as fl
+    bins_T, leaf_T, W, tbl, lv = args[:5]
+    K, B, nch = ekw["f_oh"], ekw["num_bins"], ekw["nch"]
+    Rp = bins_T.shape[1]
+    n0 = fl.launches["epilogue_pass"]
+    errs, gh_p = compare_epilogue(tuple(args), ekw, float64_hist)
+    if fl.launches["epilogue_pass"] - n0 != 1:
+        raise AssertionError(f"bundled Bc_p={B}: epilogue_pass did not "
+                             "launch")
+    in_slot = int((leaf_T[0][:, None] == tbl[:, 0][None, :]).any(1).sum())
+    nonzero = int((gh_p[:nch].float() != 0).any(0).sum())
+    e_b, e_by = bound(Rp * (K * 2 + 4 + 8 + 8 + 4 + 16) + W.numel() * 2
+                      + tbl.numel() * 4 + lv.numel() * 4
+                      + K * B * nch * 8 * 4,
+                      in_slot + Rp * 20 + nonzero * K * nch)
+    return {**errs,
+            "max_abs_err": max(errs["hist_max_abs_err"],
+                               errs["gh_max_abs_err"],
+                               errs["new_score_max_abs_err"]),
+            "kernel_ms": cuda_ms(lambda: fl.epilogue_pass(*args, **ekw)),
+            "plain_ms": call_ms(lambda: fl.epilogue_pass_plain(*args, **ekw),
+                                reps=3, warmup=1),
+            "library_ms": None, "bound_ms": e_b, "bound_by": e_by}
+
+
+def check_bundled(Rp, R, Bc_p, seed):
+    """Phase 2 on a synthetic bundle layout of ``Bc_p`` bins
+    (``_bundle_inputs``): ``bundled_level_rows``, ``level_pass`` quantized
+    to 16 bits exact against its plain version, and ``epilogue_pass`` on
+    the same route table as its deferred table
+    (``bundled_epilogue_row``)."""
+    import torch
+    from lightgbm_tpu_torch.ops import fused_level as fl
+    ops, kw, out = _bundle_inputs(Rp, R, Bc_p, seed)
+    bins_T, leaf_T, gh_T, W, tbl = ops
+    what = f"bundled Bc_p={Bc_p}"
+    out.update(bundled_level_rows(ops, None, kw, what))
+    ops_q, kw_q, _ = _bundle_inputs(Rp, R, Bc_p, seed, quant_bits=16)
+    check_level_tables(ops_q, None, kw_q, what + " quant16")
+    out["level_tol"] += "; quant16 exact"
+    out["level_pass"]["quant16_ms"] = cuda_ms(
+        lambda: fl.level_pass(*ops_q, **kw_q))
+    # the epilogue on the same table (deferred), binary
+    dev = bins_T.device
+    rng = np.random.RandomState(seed + 1)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    L = 255
+    lv = t((rng.randn(L) * 0.1).astype(np.float32))
+    score = np.zeros((1, Rp), np.float32)
+    score[0, :R] = rng.randn(R)
+    opsr = np.zeros((8, Rp), np.float32)
+    opsr[0, :R] = np.where(rng.rand(R) < 0.4, 1.0, -1.0)
+    opsr[1, :R] = rng.uniform(0.5, 2.0, R)
+    bag = np.zeros((1, Rp), np.float32)
+    bag[0, :R] = rng.rand(R) >= 0.3
+    args = (bins_T, leaf_T, W, tbl, lv, t(score), t(opsr), t(bag))
+    ekw = dict(num_bins=Bc_p, f_oh=kw["f_oh"], nch=kw["nch"], kind="binary",
+               sigmoid=1.0)
+    out["epilogue_pass"] = bundled_epilogue_row(args, ekw)
+    return out
+
+
+def bundled_row(kernel, res, launches, launches_in):
+    """A kernels-line row of ``kernel`` on one bundled layout (``res``:
+    ``bundled_level_rows`` with the epilogue's row), its launches those
+    of the one run that gave it these operands."""
+    r = res[kernel]
+    Sp = r.get("Sp", res["Sp"])
+    return {"name": f"{kernel}[bundled C_oh={res['C_oh']} Bc_p="
+                    f"{res['Bc_p']} Sp={Sp}]",
+            "route": "cuda", "source": SOURCES[kernel],
+            "replaces": REPLACES[kernel], "launches": launches,
+            "launches_in": launches_in, "max_abs_err": r["max_abs_err"],
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]}
+
+
+def _capture_call(module, name, index, store):
+    """Wrap ``module.name`` (a kernel wrapper) so that the operands of its
+    call number ``index`` (from 0) are kept, cloned, in ``store[name]``
+    (the clones are queued on the stream: no host sync); returns the
+    undo."""
+    orig = getattr(module, name)
+    seen = [0]
+
+    def wrapper(*args, **kw):
+        if seen[0] == index:
+            store[name] = ([a.clone() if hasattr(a, "clone") else a
+                            for a in args], dict(kw))
+        seen[0] += 1
+        return orig(*args, **kw)
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, orig)
+
+
+def check_captured(store, run):
+    """Phase 11 run ``run``'s kernels against their plain versions on the
+    operands the run gave them (``_capture_call``): ``level_pass`` (and
+    ``route_pass`` on the level's table) through ``bundled_level_rows``;
+    the run's own ``route_pass`` call exact; ``epilogue_pass`` through
+    ``bundled_epilogue_row`` against the float64 sum (a tree's epilogue
+    sums many equal values: ``compare_epilogue``). Returns the fields and
+    rows, emitted as the run's kernel check."""
+    from lightgbm_tpu_torch.ops import fused_level as fl
+    import torch
+    if "level_pass" not in store:
+        raise AssertionError(f"11{run}: no level_pass call was captured")
+    args, kw = store.pop("level_pass")
+    ops, fm = tuple(args[:5]), args[5] if len(args) > 5 else None
+    out = bundled_level_rows(ops, fm, kw, f"11{run} level_pass")
+    if "route_pass" in store:
+        args, rkw = store.pop("route_pass")
+        got = fl.route_pass(*args, **rkw)
+        if not torch.equal(got, fl.route_pass_plain(*args, **rkw)):
+            raise AssertionError(f"11{run}: route_pass differs from its "
+                                 "plain version on the run's last level")
+        r = out["route_pass"]
+        r["kernel_ms"] = cuda_ms(lambda: fl.route_pass(*args, **rkw))
+        r["plain_ms"] = call_ms(lambda: fl.route_pass_plain(*args, **rkw),
+                                reps=3, warmup=1)
+        r["Sp"] = args[3].shape[0]
+        in_slot = int((args[1][0][:, None] == args[3][:, 0][None, :])
+                      .any(1).sum())
+        r["bound_ms"], r["bound_by"] = bound(
+            args[0].shape[1] * 8 + in_slot * 2 + args[2].numel() * 2,
+            in_slot)
+    if "epilogue_pass" in store:
+        args, ekw = store.pop("epilogue_pass")
+        out["epilogue_pass"] = bundled_epilogue_row(args, ekw,
+                                                    float64_hist=True)
+    emit({"phase": "bundle_train", "run": run, "kernel_check": out})
+    return out
+
+
+def _sparse_rows(n, seed):
+    """Phase 11a's Allstate-shaped CSR draw (Ke et al. 2017, Table 1:
+    Allstate, 4,228 sparse one-hot features): SPARSE_DENSE standard normal
+    columns, then SPARSE_FIELDS categorical fields of SPARSE_LEVELS levels,
+    one-hot encoded (one 1.0 per field and row); a binary label from two
+    dense columns and a few levels, with noise. Built as CSR directly."""
+    import scipy.sparse as sp
+    rng = np.random.RandomState(seed)
+    dense = rng.randn(n, SPARSE_DENSE).astype(np.float32)
+    levels = rng.randint(0, SPARSE_LEVELS, (n, SPARSE_FIELDS))
+    nnz = SPARSE_DENSE + SPARSE_FIELDS
+    indices = np.empty((n, nnz), np.int32)
+    indices[:, :SPARSE_DENSE] = np.arange(SPARSE_DENSE)
+    indices[:, SPARSE_DENSE:] = (SPARSE_DENSE + np.arange(SPARSE_FIELDS)
+                                 * SPARSE_LEVELS + levels)
+    data = np.ones((n, nnz), np.float32)
+    data[:, :SPARSE_DENSE] = dense
+    X = sp.csr_matrix((data.ravel(), indices.ravel(),
+                       np.arange(0, n * nnz + 1, nnz, dtype=np.int64)),
+                      shape=(n, SPARSE_DENSE + SPARSE_FIELDS * SPARSE_LEVELS))
+    z = (dense[:, 0] + 0.6 * dense[:, 1] + 1.0 * (levels[:, 0] < 30)
+         - 1.2 * (levels[:, 1] == 7) + 0.8 * (levels[:, 2] % 3 == 0)
+         + 0.5 * rng.randn(n))
+    return X, (z > 0).astype(np.float32)
+
+
+def _exclusive_rows(n, dense, members, seed):
+    """``dense`` standard normal columns and ``members`` mutually
+    exclusive ones (each row sets at most one, uniform in [0.5, 3)),
+    float32; a binary label from the dense columns and the exclusive
+    columns' values, with noise."""
+    rng = np.random.RandomState(seed)
+    X = np.zeros((n, dense + members), np.float32)
+    X[:, :dense] = rng.randn(n, dense)
+    owner = rng.randint(-1, members, n)
+    rows = np.nonzero(owner >= 0)[0]
+    vals = rng.uniform(0.5, 3.0, rows.size).astype(np.float32)
+    X[rows, dense + owner[rows]] = vals
+    sign = np.where(np.arange(members) % 3 == 0, 1.0, -0.7)
+    z = 0.5 * rng.randn(n)
+    if dense:
+        z += X[:, 0] + 0.5 * X[:, 1]
+    z[rows] += sign[owner[rows]] * (vals - 1.5) * 2.0
+    return X, (z > 0).astype(np.float32)
+
+
+def _bundle_summary_of(ds, params):
+    """The bundle layout a booster on ``ds`` trains with (phase 11's
+    fields), without training."""
+    import lightgbm_tpu_torch as lgb
+    ds.params = {}
+    return _bundle_summary(lgb.Booster(params=params, train_set=ds))
+
+
+def _bundle_summary(bst):
+    """The booster's bundle layout as phase 11 reports it."""
+    g = bst._gbdt
+    cols = int(g.bundle_bins_dev.shape[1]) if g.use_bundles else 0
+    return {"use_bundles": bool(g.use_bundles), "bundle_columns": cols,
+            "Bc": int(getattr(g, "bundle_col_bins", 0)),
+            "C_oh": int(g.fused_bundle_cols),
+            "Bc_p": int(g.fused_bundle_col_bins),
+            "bins_T": str(g.fused_bins_T.dtype).replace("torch.", ""),
+            "logical_features": int(g.train_data.num_features)}
+
+
+def run_bundle_train(lgb, params):
+    """Phase 11: exclusive feature bundling and sparse input on the card.
+    (a) the Allstate-shaped CSR draw through train() (megastep body,
+    prebundled at ingestion); (b) dense default-on EFB, 28 dense and 512
+    exclusive columns, through update() (epilogue body) with a valid set,
+    then a rollback; (c) 64 exclusive columns of 63 bins, one 4,033-bin
+    bundle column (Bc_p = 4096), through update(). Each run's kernels are
+    then held to their plain versions on the operands the run gave them
+    (``check_captured``: its CAPTURE_LEVEL_CALL-th level_pass call, 11a's
+    first route_pass call, the second epilogue_pass call of 11b and 11c).
+    Returns (each run's wrapper launches, each run's kernel check)."""
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    from lightgbm_tpu_torch.models import frontier2
+    out, checks = {}, {}
+
+    def captured(fit, kernels):
+        """fit() with the run's calls of ``kernels`` captured."""
+        store = {}
+        undo = [_capture_call(mod, name, index, store)
+                for mod, name, index in kernels]
+        try:
+            return _timed_run(fit), store
+        finally:
+            for u in undo:
+                u()
+    level = (frontier2, "level_pass", CAPTURE_LEVEL_CALL)
+    # (a) sparse-built, train()
+    (X, y), make_s = _timed_run(lambda: _sparse_rows(SPARSE_ROWS,
+                                                     DATA_SEED + 500))
+    ds, construct_s = _timed_run(lambda: lgb.Dataset(
+        X, label=y, params=params).construct())
+    counts = _run_counts()
+    (bst, t_all), store = captured(lambda: lgb.train(params, ds, ROUNDS),
+                                   [level, (frontier2, "route_pass", 0)])
+    launches, cuda, syncs = counts()
+    ds.params = {}
+    _, t_one = _timed_run(lambda: lgb.train(params, ds, 1))
+    n_trees = bst.num_trees()
+    scores = bst.train_scores().float().cpu().numpy()
+    train_auc = auc(scores, y)
+    n_rows = 100_000
+    raw = bst.predict(X[:n_rows], raw_score=True)
+    pred_err = float(np.abs(raw - scores[:n_rows]).max())
+    feats = sorted({int(f) for m in bst.models
+                    for f in m.split_feature[:m.num_internal]})
+    text = bst.model_to_string()
+    res = {"phase": "bundle_train", "run": "a", "input": "csr",
+           "rows": SPARSE_ROWS, "columns": X.shape[1], "nnz": int(X.nnz),
+           "make_s": make_s, "construct_s": construct_s,
+           **_bundle_summary(bst), "rounds": ROUNDS, "trees": n_trees,
+           "sec_per_iter_after_first": (t_all - t_one) / (ROUNDS - 1),
+           "train_s": t_all, "train_auc": train_auc, "auc_floor": 0.75,
+           "launches_per_tree": {k: v / n_trees for k, v in launches.items()
+                                 if v},
+           "cuda_launches_per_tree": {k: v / n_trees
+                                      for k, v in cuda.items() if v},
+           "host_syncs_per_tree": syncs / n_trees,
+           "predict_rows": n_rows, "predict_max_abs_err": pred_err,
+           "predict_tol": "rtol=1e-6 atol=1e-6",
+           "split_features": {"count": len(feats), "min": feats[0],
+                              "max": feats[-1], "one_hot": sum(
+                                  f >= SPARSE_DENSE for f in feats)},
+           "leaves": [m.num_leaves for m in bst.models]}
+    emit(res)
+    out["a"] = launches
+    if not (res["use_bundles"] and res["Bc_p"] == 256
+            and res["bins_T"] == "int16"
+            and res["bundle_columns"] < ds._inner.num_features):
+        raise AssertionError(f"11a bundled as {_bundle_summary(bst)}")
+    if n_trees != ROUNDS or not train_auc > 0.75:
+        raise AssertionError(f"11a: {n_trees} trees, AUC {train_auc}")
+    if not np.allclose(raw, scores[:n_rows], rtol=1e-6, atol=1e-6):
+        raise AssertionError(f"11a: predict on the CSR rows differs from "
+                             f"the trainer's scores by {pred_err}")
+    if feats[-1] >= X.shape[1] or not res["split_features"]["one_hot"] \
+            or f"max_feature_idx={X.shape[1] - 1}" not in text:
+        raise AssertionError(f"11a: split features {feats[:5]}..."
+                             f"{feats[-5:]} are not logical columns")
+    if launches["level_pass"] <= 0 or launches["route_pass"] <= 0:
+        raise AssertionError(f"11a launched {launches}")
+    check_stages(launches, cuda, "11a")
+    checks["a"] = check_captured(store, "a")
+    del X, ds, bst, store
+    # (b) dense default-on EFB, update() with a valid set, rollback
+    X, y = _exclusive_rows(EFB_ROWS, 28, EFB_EXCLUSIVE, DATA_SEED + 600)
+    Xv, yv = _exclusive_rows(EFB_VALID_ROWS, 28, EFB_EXCLUSIVE,
+                             DATA_SEED + 601)
+    ds, construct_s = _timed_run(lambda: lgb.Dataset(
+        X, label=y, params=params).construct())
+    dv = lgb.Dataset(Xv, label=yv, reference=ds)
+    p = dict(params, metric=["auc"])
+    counts = _run_counts()
+
+    def fit_b():
+        b = lgb.Booster(params=p, train_set=ds)
+        b.add_valid(dv, "valid")
+        for _ in range(UPDATES):
+            b.update()
+        return b
+    (bst, t_all), store = captured(fit_b, [
+        level, (gbdt_mod, "epilogue_pass", 1)])
+    launches, cuda, syncs = counts()
+    g = bst._gbdt
+    valid_auc = dict((m, v) for _, m, v, _ in bst.eval_valid())["auc"]
+    before = (g.scores.clone(), g.valid_scores[0].clone(), bst.num_trees())
+    bst.update()
+    bst.rollback_one_iter()
+    d_train = float((g.scores - before[0]).abs().max())
+    d_valid = float((g.valid_scores[0] - before[1]).abs().max())
+    res = {"phase": "bundle_train", "run": "b", "input": "dense",
+           "rows": EFB_ROWS, "valid_rows": EFB_VALID_ROWS,
+           "columns": X.shape[1], "construct_s": construct_s,
+           **_bundle_summary(bst), "body": "epilogue"
+           if g._use_epilogue() else "megastep", "updates": UPDATES,
+           "sec_per_iter": t_all / UPDATES, "valid_auc": valid_auc,
+           "auc_floor": 0.75,
+           "launches_per_tree": {k: v / UPDATES for k, v in launches.items()
+                                 if v},
+           "host_syncs_per_tree": syncs / UPDATES,
+           "rollback_train_max_abs_diff": d_train,
+           "rollback_valid_max_abs_diff": d_valid,
+           "rollback_bitwise": bool(d_train == 0.0 and d_valid == 0.0),
+           "rollback_tol": 1e-6, "leaves": [m.num_leaves
+                                            for m in bst.models]}
+    emit(res)
+    out["b"] = launches
+    if not (res["use_bundles"] and res["bundle_columns"] < X.shape[1]
+            and launches["epilogue_pass"] == UPDATES):
+        raise AssertionError(f"11b: {res}")
+    if not valid_auc > 0.75:
+        raise AssertionError(f"11b: valid AUC {valid_auc}")
+    if bst.num_trees() != before[2] or max(d_train, d_valid) > 1e-6:
+        raise AssertionError(f"11b: rollback left {bst.num_trees()} trees, "
+                             f"scores off by {d_train}, {d_valid}")
+    check_stages(launches, cuda, "11b")
+    checks["b"] = check_captured(store, "b")
+    del X, Xv, ds, dv, bst, store
+    # (c) the widest column: one bundle of 64 x 63 bins, update()
+    X, y = _exclusive_rows(EFB_ROWS, 0, WIDE_MEMBERS, DATA_SEED + 700)
+    ds = lgb.Dataset(X, label=y, params=params).construct()
+    counts = _run_counts()
+
+    def fit_c():
+        b = lgb.Booster(params=params, train_set=ds)
+        for _ in range(WIDE_UPDATES):
+            b.update()
+        return b
+    (bst, t_all), store = captured(fit_c, [
+        level, (gbdt_mod, "epilogue_pass", 1)])
+    launches, cuda, syncs = counts()
+    scores = bst.train_scores().float().cpu().numpy()
+    train_auc = auc(scores, y)
+    raw = bst.predict(X[:n_rows], raw_score=True)
+    pred_err = float(np.abs(raw - scores[:n_rows]).max())
+    res = {"phase": "bundle_train", "run": "c", "input": "dense",
+           "rows": EFB_ROWS, "columns": X.shape[1], **_bundle_summary(bst),
+           "updates": WIDE_UPDATES, "sec_per_iter": t_all / WIDE_UPDATES,
+           "train_auc": train_auc, "auc_floor": WIDE_AUC_FLOOR,
+           "launches_per_tree": {k: v / WIDE_UPDATES
+                                 for k, v in launches.items() if v},
+           "host_syncs_per_tree": syncs / WIDE_UPDATES,
+           "predict_max_abs_err": pred_err,
+           "predict_tol": "rtol=1e-6 atol=1e-6",
+           "leaves": [m.num_leaves for m in bst.models]}
+    emit(res)
+    out["c"] = launches
+    if not (res["use_bundles"] and res["Bc_p"] == 4096
+            and res["bundle_columns"] == 1
+            and launches["epilogue_pass"] == WIDE_UPDATES):
+        raise AssertionError(f"11c: {res}")
+    if not train_auc > WIDE_AUC_FLOOR:
+        raise AssertionError(f"11c: training AUC {train_auc}")
+    if not np.allclose(raw, scores[:n_rows], rtol=1e-6, atol=1e-6):
+        raise AssertionError(f"11c: predict differs from the trainer's "
+                             f"scores by {pred_err}")
+    check_stages(launches, cuda, "11c")
+    checks["c"] = check_captured(store, "c")
+    return out, checks
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2339,7 +2944,7 @@ def main() -> int:
     hist_atomics = sass_hist_pass_atomics(cuda_build.build())
     emit({"phase": "sass", "epilogue_hist_kernel": sass,
           "hist_pass_atomics": hist_atomics})
-    if len(sass) != 10 or any(n["ATOMS"] or n["RED"] or n["ATOMG"]
+    if len(sass) != 20 or any(n["ATOMS"] or n["RED"] or n["ATOMG"]
                              or not (n["LDS"] and n["STS"] and n["FADD"])
                              for n in sass.values()):
         raise AssertionError(f"the epilogue's histogram stage compiled to "
@@ -2400,6 +3005,11 @@ def main() -> int:
                     hist_main = res
     res = check_hist(ROWS, FEATURES, 64, 8, 0, seed=72, slots="root")
     emit({"phase": "kernel_check", "hist_pass": res})
+    bundled = {}
+    for i, Bc_p in enumerate(BUNDLE_WIDTHS):
+        res = check_bundled(Rp, ROWS, Bc_p, seed=90 + i)
+        emit({"phase": "kernel_check", "bundled": res})
+        bundled[Bc_p] = res
     plane_main = {}
     for Sp in (8, 64):
         for i, (bits, packed, masked) in enumerate(PLANE_VARIANTS):
@@ -2506,6 +3116,10 @@ def main() -> int:
     # ---- 10. categorical splits through the same kernels
     cat_launches = run_cat_train(lgb, params, X, y, z, e2e)
 
+    # ---- 11. exclusive feature bundling and sparse input
+    del X
+    bundle_launches, bundle_checks = run_bundle_train(lgb, params)
+
     # ---- 11. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
     # the epilogue at Bp=64 int8, nch=5, binary, Sp=64; hist_pass at Bp=64,
     # Sp=64, f32). Launches: the train() run for the three kernels of its
@@ -2547,7 +3161,22 @@ def main() -> int:
                                       for run, v in rank_launches.items()}
         row["cat_train_launches"] = {run: cat_launches[run][name]
                                      for run in ("a", "b", "c")}
+        row["bundle_train_launches"] = {run: bundle_launches[run][name]
+                                        for run in ("a", "b", "c")}
         rows.append(row)
+    # the kernels on bundle columns: each phase-11 run's own operands
+    # (check_captured) with that run's launches; phase 2's widest synthetic
+    # layout, which no run reaches, with none
+    for run, res in bundle_checks.items():
+        for kernel in ("level_pass", "route_pass", "epilogue_pass"):
+            if kernel not in res or (kernel == "route_pass" and run != "a"):
+                continue
+            rows.append(bundled_row(
+                kernel, res, bundle_launches[run][kernel],
+                f"phase 11 run {run}, on its own operands"))
+    wide = bundled[max(BUNDLE_WIDTHS)]
+    for kernel in ("level_pass", "route_pass", "epilogue_pass"):
+        rows.append(bundled_row(kernel, wide, 0, "none (phase 2 only)"))
     # the variants at Sp=64 on the mixed layout, each with the launches of
     # the phase-6 run that takes it on every level_pass (VARIANT_RUNS); the
     # packed route_pass with run (b)'s

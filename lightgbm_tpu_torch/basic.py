@@ -13,6 +13,12 @@ or ``Booster(params, train_set)`` with ``add_valid``, ``update()`` /
 prediction run on ``device_type`` (default ``"cuda"``; ``"cpu"`` runs the
 kernels' plain PyTorch versions). A model with k trees per iteration
 (multiclass, multiclassova) predicts ``[n, k]``.
+
+A scipy CSR/CSC matrix is taken as it is: ``Dataset`` bins it without
+densifying (``BinnedDataset.from_sparse``: bundled at ingestion), a row
+subset slices its rows, and ``Booster.predict`` densifies it in chunks of
+``_HOST_SPARSE_CHUNK_ROWS`` rows, each routed on the device. As in the JAX
+package, sparse input takes no categorical feature and no linear tree.
 """
 from __future__ import annotations
 
@@ -32,6 +38,17 @@ from .models.tree import HostTree
 from .objective import create_objective, create_objective_from_string
 from .ops.predict import predict_raw
 from .utils.log import LightGBMError  # noqa: F401  (re-exported)
+
+# rows of a sparse matrix densified at once by Booster.predict
+_HOST_SPARSE_CHUNK_ROWS = 65_536
+
+
+def _is_scipy_sparse(data) -> bool:
+    try:
+        import scipy.sparse as sp
+    except ImportError:  # pragma: no cover
+        return False
+    return sp.issparse(data)
 
 
 def _to_2d_numpy(data) -> np.ndarray:
@@ -76,9 +93,24 @@ class Dataset:
         # rows binned against a reference live on the reference's device
         device = (ref_inner.device if ref_inner is not None
                   else resolve_device(cfg.device_type))
-        inner = BinnedDataset.from_data(
-            _to_2d_numpy(self.data), cfg, device, feature_names=names,
-            reference=ref_inner, categorical_feature=cats)
+        if _is_scipy_sparse(self.data):
+            # CSR/CSC ingestion without densifying (lightgbm_tpu/basic.py:
+            # 211-233)
+            if cats:
+                raise LightGBMError(
+                    "categorical features are not supported for sparse "
+                    "input yet; densify those columns")
+            if bool(cfg.linear_tree):
+                raise LightGBMError(
+                    "linear_tree needs retained raw data and is not "
+                    "supported for sparse input")
+            inner = BinnedDataset.from_sparse(
+                self.data, cfg, device, feature_names=names,
+                reference=ref_inner)
+        else:
+            inner = BinnedDataset.from_data(
+                _to_2d_numpy(self.data), cfg, device, feature_names=names,
+                reference=ref_inner, categorical_feature=cats)
         if self.label is not None:
             inner.metadata.set_label(np.asarray(self.label))
         if self.weight is not None:
@@ -185,8 +217,12 @@ class Dataset:
         self.construct()
         sub = Dataset.__new__(Dataset)
         sub.used_indices = np.asarray(used_indices)
-        sub.data = (None if self.data is None
-                    else _to_2d_numpy(self.data)[sub.used_indices])
+        if self.data is None:
+            sub.data = None
+        elif _is_scipy_sparse(self.data):
+            sub.data = self.data.tocsr()[sub.used_indices]
+        else:
+            sub.data = _to_2d_numpy(self.data)[sub.used_indices]
         sub.label = sub.weight = sub.group = sub.init_score = None
         sub.reference = self
         sub.feature_name = self.feature_name
@@ -406,9 +442,8 @@ class Booster:
         the early-stopped best iteration where there is one, an explicit
         value <= 0 every iteration. [n], or [n, k] with k trees per
         iteration (the objective's softmax or per-class sigmoid applied
-        unless ``raw_score``)."""
-        X = torch.as_tensor(_to_2d_numpy(data).astype(np.float64),
-                            device=self._predict_device())
+        unless ``raw_score``). A scipy sparse matrix is densified
+        ``_HOST_SPARSE_CHUNK_ROWS`` rows at a time."""
         k = self.num_tree_per_iteration
         if self.average_output:
             raise NotImplementedError("averaged-output (RF) models are not "
@@ -422,7 +457,20 @@ class Booster:
         num_iteration = min(num_iteration, total - start_iteration)
         lo = start_iteration * k
         hi = (start_iteration + num_iteration) * k
-        raw = predict_raw(self.models[lo:hi], X, k).cpu().numpy()
+        dev = self._predict_device()
+        if _is_scipy_sparse(data):
+            csr = data.tocsr()
+            raw = np.zeros((k, csr.shape[0]), np.float64)
+            for c0 in range(0, csr.shape[0], _HOST_SPARSE_CHUNK_ROWS):
+                rows = slice(c0, c0 + _HOST_SPARSE_CHUNK_ROWS)
+                X = torch.as_tensor(csr[rows].toarray().astype(np.float64),
+                                    device=dev)
+                raw[:, rows] = predict_raw(self.models[lo:hi], X,
+                                           k).cpu().numpy()
+        else:
+            X = torch.as_tensor(_to_2d_numpy(data).astype(np.float64),
+                                device=dev)
+            raw = predict_raw(self.models[lo:hi], X, k).cpu().numpy()
         # (the JAX package's finalize_raw_predictions)
         if not raw_score and self.objective is not None:
             if k > 1:

@@ -103,9 +103,24 @@ package's ``_setup_engine`` does. The ranking objectives train on the
 megastep or synchronous body like any other objective (their gradients
 are ``[1, n]``; they have no epilogue form).
 
+Exclusive feature bundling (``_setup_bundles``, the JAX package's
+``gbdt.py:1222-1356``): where ``enable_bundle`` and ``tpu_enable_bundle``
+hold (both default on) and the fused engine trains — ``tpu_engine`` fused,
+or ``auto``, which in the port always resolves to the fused engine on the
+card as ``auto`` does on a TPU — mutually exclusive columns are bundled
+whenever that cuts the column count (``ops/efb.find_bundles`` at conflict
+rate 1e-4 under the adaptive width cap), and ``_init_fused`` stores the
+bundle columns as ``bins_T`` (int8 up to Bc_p = 128, int16 above). A
+sparse-built dataset (``BinnedDataset.prebundled``) brings its layout
+from ingestion, and replays of host trees on its training bins decode
+through ``_replay_bundle``. Under bundles the frontier engine degrades to
+fused, adaptive bins yield to the bundle layout, and gain screening keeps
+the full build (the mask acts at the split scan only), each as in the JAX
+package.
+
 Not ported yet (``_UNPORTED`` and ``create_boosting`` raise, each naming
 its ROADMAP item): DART and RF, distributed learners, linear trees, forced
-splits, CEGB; EFB and monotone constraints (``dataset.py``); resilience
+splits, CEGB; monotone constraints (``dataset.py``); resilience
 checkpoints.
 """
 from __future__ import annotations
@@ -120,8 +135,10 @@ from ..dataset import BinnedDataset
 from ..models.frontier import grow_tree_frontier, leaf_value_lookup
 from ..models.frontier2 import grow_tree_fused, level_caps, tree_score_delta
 from ..models.frontier2 import host_syncs
-from ..models.learner import FeatureMeta, NodeMaskCfg, make_node_mask_cfg
+from ..models.learner import (BundleCfg, FeatureMeta, NodeMaskCfg,
+                              make_node_mask_cfg)
 from ..models.tree import HostTree, TreeArrays
+from ..ops.efb import BundleLayout, encode_bundles, find_bundles
 from ..ops.fused_level import (NCH_FAST, NCH_PRECISE, epilogue_pass,
                                max_slot_cap, pack_gh, pack_gh_quant,
                                table_lookup)
@@ -200,6 +217,7 @@ class GBDT:
         self.class_need_train = [
             objective.class_need_train(i) if objective is not None else True
             for i in range(self.num_tree_per_iteration)]
+        self._setup_bundles(config, train_data)
         self._setup_node_masks(config, train_data)
         self._setup_engine(config, train_data)
         self._megastep_armed = False
@@ -266,12 +284,101 @@ class GBDT:
         score = self._initial_scores(valid_data.metadata,
                                      valid_data.num_data)
         k = self.num_tree_per_iteration
+        bundle = self._bundle_of(valid_data)
         for i, ht in enumerate(self.models):
             score[i % k] = self._add_host_tree(score[i % k],
-                                               valid_data.bins_dev, ht)
+                                               valid_data.bins_dev, ht,
+                                               bundle=bundle)
         self.valid_scores.append(score)
         self.valid_metrics.append(list(metrics))
         self.valid_names.append(name)
+
+    def _setup_bundles(self, config: Config,
+                       train_data: BinnedDataset) -> None:
+        """Exclusive feature bundling for the fused engine (gbdt.py:1222-
+        1323; ref: src/io/dataset.cpp FindGroups/FastFeatureBundling). A
+        sparse-built dataset brings its layout (the bundle matrix is its
+        storage). Otherwise on by default where the fused engine trains,
+        and engaged only where bundling cuts the column count, under the
+        adaptive width cap: uncapped (32767, the int16 ceiling of
+        ``bins_T``) first, then 8 and 4 x max_bin, until the padding to
+        the widest column at most doubles the stored bins."""
+        self.use_bundles = False
+        self._replay_bundle = None
+        pb = train_data.prebundled
+        if pb is not None:
+            mfb = np.asarray(train_data.most_freq_bins, np.int32)
+            self._install_bundle_layout(train_data, pb, train_data.bins, mfb)
+            t = lambda a: torch.as_tensor(np.asarray(a, np.int64),  # noqa
+                                          device=self.device)
+            self._replay_bundle = (t(pb.col_of_feat), t(pb.offset_of_feat),
+                                   t(mfb))
+            return
+        if not (bool(config.tpu_enable_bundle)
+                and bool(config.enable_bundle)):
+            return
+        if not config.was_set("tpu_enable_bundle") \
+                and str(config.tpu_engine) not in ("fused", "auto"):
+            return
+        bins_np = train_data.bins
+        mfb = np.asarray(train_data.most_freq_bins, np.int32)
+        F = train_data.num_features
+        masks = [bins_np[:, k] != mfb[k] for k in range(F)]
+        nb_all = [int(x) for x in train_data.num_bin_per_feat]
+        for cap in (32767, 8 * self.max_bins, 4 * self.max_bins):
+            bundles = find_bundles(masks, self.num_data,
+                                   max_conflict_rate=1e-4,
+                                   max_bundle_bins=cap,
+                                   num_bin_per_feat=nb_all)
+            if len(bundles) >= F:
+                return                         # nothing to gain
+            widths = [1 + sum(nb_all[f] for f in b) for b in bundles]
+            if len(bundles) * max(widths) <= 2 * sum(widths):
+                break                          # padding waste bounded
+        layout = BundleLayout(bundles, nb_all)
+        self._install_bundle_layout(train_data, layout,
+                                    encode_bundles(bins_np, mfb, layout), mfb)
+        log.info("EFB: %d features bundled into %d columns", F,
+                 layout.num_columns)
+
+    def _bundle_of(self, data: BinnedDataset):
+        """The replay decode for ``data``'s bins (gbdt.py:3095-3117
+        ``_train_bundle``/``_valid_bundle``): ``_replay_bundle`` where they
+        are the bundle columns of a sparse-built dataset (a row subset of
+        one, as cv's folds are, keeps its layout), None for logical
+        bins."""
+        return self._replay_bundle if data.prebundled is not None else None
+
+    def _install_bundle_layout(self, train_data: BinnedDataset,
+                               layout: BundleLayout, enc_np: np.ndarray,
+                               mfb_np: np.ndarray) -> None:
+        """``bundle_cfg`` and the device bundle matrix from a layout
+        (gbdt.py:1325-1356), for dense EFB and prebundled data alike; the
+        FixHistogram residual lands on each feature's most-frequent bin."""
+        nb = [int(x) for x in train_data.num_bin_per_feat]
+        Bc = max(layout.col_num_bin)
+        B = self.max_bins
+        F = train_data.num_features
+        flat_idx = np.zeros((F, B), np.int32)
+        valid = np.zeros((F, B), bool)
+        for f in range(F):
+            base = int(layout.col_of_feat[f]) * Bc \
+                + int(layout.offset_of_feat[f])
+            flat_idx[f, :nb[f]] = base + np.arange(nb[f])
+            valid[f, :nb[f]] = True
+
+        def t(a, dt=torch.int32):
+            return torch.as_tensor(np.asarray(a), dtype=dt,
+                                   device=self.device)
+        self.bundle_cfg = BundleCfg(
+            flat_idx=t(flat_idx), valid=t(valid, torch.bool),
+            default_bin=t(mfb_np), col_of_feat=t(layout.col_of_feat),
+            offset_of_feat=t(layout.offset_of_feat))
+        # int16 holds every bundle bin (the width cap is 32767)
+        self.bundle_bins_dev = torch.as_tensor(
+            np.asarray(enc_np).astype(np.int16), device=self.device)
+        self.bundle_col_bins = int(Bc)
+        self.use_bundles = True
 
     def _setup_node_masks(self, config: Config,
                           train_data: BinnedDataset) -> None:
@@ -326,6 +433,10 @@ class GBDT:
             log.fatal("unknown tpu_engine=%r (auto, fused, frontier or xla)",
                       engine)
         has_cat = bool(np.any(train_data.is_categorical))
+        if engine == "frontier" and self.use_bundles:
+            log.info("feature bundling is not wired into the frontier-v1 "
+                     "engine; using the fused engine")
+            engine = "fused"
         if engine == "frontier" and (has_cat or self.use_node_masks):
             log.warning("tpu_engine=frontier supports neither categorical "
                         "features, monotone bounds, nor interaction/bynode "
@@ -347,6 +458,11 @@ class GBDT:
             log.fatal("tpu_quantized_grad must be 0, 8 or 16; got %s", qb)
         adaptive = bool(config.tpu_adaptive_bins)
         scr = bool(config.tpu_gain_screening)
+        if adaptive and self.use_bundles:
+            # EFB already owns the packed flat axis (bundle columns)
+            log.info("tpu_adaptive_bins is subsumed by feature bundling; "
+                     "keeping the bundle layout")
+            adaptive = False
         if self.use_frontier and (qb or adaptive or scr):
             log.info("tpu_quantized_grad, tpu_adaptive_bins and "
                      "tpu_gain_screening require the fused engine; "
@@ -374,27 +490,63 @@ class GBDT:
 
     def _init_fused(self, train_data: BinnedDataset) -> None:
         """Transposed, padded bin matrix + f_oh-padded feature metadata for
-        the fused level kernels (gbdt.py _init_fused, unbundled
-        single-process branch)."""
+        the fused level kernels (gbdt.py _init_fused, single-process
+        branches). Under bundles ``bins_T`` holds the C_oh bundle columns
+        of Bc_p bins each (the kernel layout) while split search, pools
+        and route tables stay on the logical [F_oh, Bp] layout, decoded
+        through ``fused_bundle_cfg`` (its tables padded to F_oh, the
+        padding features invalid everywhere)."""
         F = train_data.num_features
         F_oh, Bp = feature_layout(F, self.max_bins)
         R = self.num_data
         Rp = ((R + ROW_BLOCK - 1) // ROW_BLOCK) * ROW_BLOCK
-        Fp = max(F_oh, 8)
-        # int8 covers bins <= 127; larger max_bin needs int16
-        dtype = torch.int8 if Bp <= 128 else torch.int16
-        bins_T = torch.zeros((Fp, Rp), dtype=dtype, device=self.device)
         self.fused_packed = None
-        if F:
-            src = train_data.bins_dev.t()
-            if self.use_adaptive_bins:
-                # each feature's slab at its own pow2 width, bins_T's rows
-                # in the layout's width-class order (the logical order
-                # comes back at the plane decode)
-                self.fused_packed = packed_feature_layout(
-                    train_data.num_bin_per_feat, self.max_bins, f_oh=F_oh)
-                src = src[list(self.fused_packed.feat_order)]
-            bins_T[:src.shape[0], :R] = src.to(dtype)
+        self.fused_bundle_cols = 0
+        self.fused_bundle_col_bins = 0
+        self.fused_bundle_cfg = None
+        if self.use_bundles:
+            n_cols = self.bundle_bins_dev.shape[1]
+            C_oh, Bc_p = feature_layout(n_cols, self.bundle_col_bins)
+            Fp = max(C_oh, 8)
+            dtype = torch.int8 if Bc_p <= 128 else torch.int16
+            bins_T = torch.zeros((Fp, Rp), dtype=dtype, device=self.device)
+            bins_T[:n_cols, :R] = self.bundle_bins_dev.t().to(dtype)
+            self.fused_bundle_cols = C_oh
+            self.fused_bundle_col_bins = Bc_p
+            bc = self.bundle_cfg
+            dev = self.device
+            b_i = torch.arange(Bp, dtype=torch.int32, device=dev)[None, :]
+            fi = torch.zeros((F_oh, Bp), dtype=torch.int32, device=dev)
+            va = torch.zeros((F_oh, Bp), dtype=torch.bool, device=dev)
+            db = torch.zeros(F_oh, dtype=torch.int32, device=dev)
+            cof = torch.full((F_oh,), -1, dtype=torch.int32, device=dev)
+            off = torch.zeros(F_oh, dtype=torch.int32, device=dev)
+            fi[:F] = torch.clamp(bc.col_of_feat[:, None] * Bc_p
+                                 + bc.offset_of_feat[:, None] + b_i,
+                                 max=C_oh * Bc_p - 1)
+            va[:F, :bc.valid.shape[1]] = bc.valid
+            db[:F] = bc.default_bin
+            cof[:F] = bc.col_of_feat
+            off[:F] = bc.offset_of_feat
+            self.fused_bundle_cfg = BundleCfg(
+                flat_idx=fi, valid=va, default_bin=db, col_of_feat=cof,
+                offset_of_feat=off)
+        else:
+            Fp = max(F_oh, 8)
+            # int8 covers bins <= 127; larger max_bin needs int16
+            dtype = torch.int8 if Bp <= 128 else torch.int16
+            bins_T = torch.zeros((Fp, Rp), dtype=dtype, device=self.device)
+            if F:
+                src = train_data.bins_dev.t()
+                if self.use_adaptive_bins:
+                    # each feature's slab at its own pow2 width, bins_T's
+                    # rows in the layout's width-class order (the logical
+                    # order comes back at the plane decode)
+                    self.fused_packed = packed_feature_layout(
+                        train_data.num_bin_per_feat, self.max_bins,
+                        f_oh=F_oh)
+                    src = src[list(self.fused_packed.feat_order)]
+                bins_T[:src.shape[0], :R] = src.to(dtype)
         self.fused_bins_T = bins_T
         self.fused_f_oh = F_oh
         self.fused_Bp = Bp
@@ -615,8 +767,11 @@ class GBDT:
             extra_levels=int(self.config.tpu_extra_levels),
             root_hist=root_hist, defer_final_route=defer,
             quant_bits=self.quant_bits, packed=self.fused_packed,
-            mask_onehot=self.use_screening, gh_scales=scales,
-            node_masks=node_masks, cat_idx=self.cat_idx)
+            mask_onehot=self.use_screening and not self.use_bundles,
+            gh_scales=scales, node_masks=node_masks, cat_idx=self.cat_idx,
+            bundle_cols=self.fused_bundle_cols,
+            bundle_col_bins=self.fused_bundle_col_bins,
+            bundle_cfg=self.fused_bundle_cfg)
 
     def arm_megastep(self, on: bool = True) -> None:
         """Permission from a training loop (``engine.train``) to run the
@@ -754,11 +909,11 @@ class GBDT:
                                                 dtype=torch.float32)
         else:
             lv = torch.zeros_like(tree.leaf_value)
+        k_F, k_B = self._kernel_layout()
         hist0, score2, gh_next = epilogue_pass(
             self.fused_bins_T, row_leaf[None, :], W_last, tbl_last, lv,
-            score_pad, ops, bag_next[None, :], num_bins=self.fused_Bp,
-            f_oh=self.fused_f_oh, nch=self.fused_nch, kind=kind,
-            sigmoid=float(sig))
+            score_pad, ops, bag_next[None, :], num_bins=k_B, f_oh=k_F,
+            nch=self.fused_nch, kind=kind, sigmoid=float(sig))
         self._epi_carry = (score2, hist0, gh_next)
         self.scores = score2[:, :n]
         return self._finish_fast_iter([tree], [init_score])
@@ -850,7 +1005,9 @@ class GBDT:
                                      device=self.device)
                 self.scores[tid] += lookup(lv, row_leaf)
                 for vd, vs in zip(self.valid_data, self.valid_scores):
-                    vs[tid] = self._add_host_tree(vs[tid], vd.bins_dev, ht)
+                    vs[tid] = self._add_host_tree(
+                        vs[tid], vd.bins_dev, ht,
+                        bundle=self._bundle_of(vd))
                 if abs(init_scores[tid]) > K_EPSILON:
                     ht.add_bias(init_scores[tid])
                 self.models.append(ht)
@@ -921,14 +1078,21 @@ class GBDT:
                 ht.leaf_value[leaf] = obj.renew_tree_output(
                     ht.leaf_value[leaf], residual[rows], rows)
 
+    def _kernel_layout(self) -> Tuple[int, int]:
+        """(kernel rows, bins per kernel row) of ``bins_T``: the bundle
+        columns and Bc_p under bundles, else F_oh and Bp (gbdt.py:3518)."""
+        if self.fused_bundle_cols:
+            return self.fused_bundle_cols, self.fused_bundle_col_bins
+        return self.fused_f_oh, self.fused_Bp
+
     def _fast_tree_depth_bound(self) -> int:
         """Routing steps that cover any tree of the fused grower: one per
-        scheduled level pass, plus one (gbdt.py:3238)."""
+        scheduled level pass, plus one (gbdt.py:3238-3249; the slot cap
+        from the kernel's flat width, bundle columns under bundles)."""
+        k_F, k_B = self._kernel_layout()
         caps = level_caps(self.max_leaves, int(self.config.max_depth),
                           int(self.config.tpu_extra_levels),
-                          slot_cap=max_slot_cap(
-                              self.fused_f_oh * self.fused_Bp,
-                              self.fused_nch))
+                          slot_cap=max_slot_cap(k_F * k_B, self.fused_nch))
         return len(caps) + 1
 
     def _update_valid_from_trees(self, trees: List[TreeArrays]) -> None:
@@ -952,14 +1116,17 @@ class GBDT:
                     vs[tid], vd.bins_dev, lv, tree.split_feature,
                     tree.threshold_bin, tree.default_left, tree.left_child,
                     tree.right_child, m.num_bin, m.missing_type,
-                    m.default_bin, steps, *cat)
+                    m.default_bin, steps, *cat, self._bundle_of(vd))
 
     def _add_host_tree(self, score: torch.Tensor, bins: torch.Tensor,
-                       ht: HostTree, scale: float = 1.0) -> torch.Tensor:
+                       ht: HostTree, scale: float = 1.0,
+                       bundle: tuple = None) -> torch.Tensor:
         """``score + scale * leaf_value[route(row)]`` of a host tree on
         binned rows, its leaf values as f32 (gbdt.py:3077
         ``_add_tree_to_score``); categorical nodes route through their
-        bitsets decoded into bins (``_host_cat_bins``)."""
+        bitsets decoded into bins (``_host_cat_bins``). ``bundle`` is
+        ``_replay_bundle`` where ``bins`` holds the bundle columns of a
+        sparse-built training set, None for logical bins."""
         lv = torch.as_tensor(np.asarray(ht.leaf_value, np.float32),
                              device=self.device)
         if scale != 1.0:
@@ -975,13 +1142,14 @@ class GBDT:
                                    device=self.device)
         meta = self.frontier_meta if self.use_frontier else self.fused_meta
         cat = self._host_cat_bins(ht, inner)
+        cat = (None, None) if cat is None else [t(a, torch.bool)
+                                                 for a in cat]
         return add_tree_score(
             score, bins, lv, t(inner), t(ht.threshold_bin[:ni]),
             t((ht.decision_type[:ni] & 2) != 0, torch.bool),
             t(ht.left_child[:ni]), t(ht.right_child[:ni]),
             meta.num_bin, meta.missing_type, meta.default_bin,
-            tree_depth(ht.left_child, ht.right_child),
-            *([] if cat is None else [t(a, torch.bool) for a in cat]))
+            tree_depth(ht.left_child, ht.right_child), *cat, bundle)
 
     def _host_cat_bins(self, ht: HostTree, inner: List[int]):
         """(cat_flag [N], cat_mask [N, Bp]) of a host tree in bin space:
@@ -1016,9 +1184,11 @@ class GBDT:
         for tid in range(k):
             ht = self.models[len(self.models) - k + tid]
             self.scores[tid] = self._add_host_tree(
-                self.scores[tid], self.train_data.bins_dev, ht, -1.0)
+                self.scores[tid], self.train_data.bins_dev, ht, -1.0,
+                self._bundle_of(self.train_data))
             for vd, vs in zip(self.valid_data, self.valid_scores):
-                vs[tid] = self._add_host_tree(vs[tid], vd.bins_dev, ht, -1.0)
+                vs[tid] = self._add_host_tree(vs[tid], vd.bins_dev, ht, -1.0,
+                                              self._bundle_of(vd))
         del self.models[-k:]
         self.iter -= 1
 

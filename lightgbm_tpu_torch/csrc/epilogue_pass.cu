@@ -77,6 +77,12 @@ constexpr int kLanes = 32;              // features per hist block
 constexpr int kMaxCn = 5;               // channels per hist block (nch <= 5)
 constexpr int kReduceSlices = 8;        // warps summing one output's blocks
 constexpr int kKindBinary = 0;          // 1 = l2
+// slabs up to kMaxEpiBins bins take one tile; wider ones (EFB bundle
+// columns, up to 32768 bins) bin groups of kEpiBinGroup bins (grid.z)
+constexpr int kMaxEpiBins = 1024;
+constexpr int kEpiBinGroup = 256;
+// layouts of at most this many features put the idle lanes on more rows
+constexpr int kMaxReplicaFeatures = 16;
 // the bits lgbt_epilogue_pass reports, one per kernel it launched
 constexpr int kEpiSlabsBit = 1, kEpiPassBit = 2, kEpiHistBit = 4,
               kEpiReduceBit = 8;
@@ -293,22 +299,24 @@ struct ChannelSplit {
 };
 
 // One adding warp's share of a staged chunk: quads q = i, i + n, ... of
-// rows, C channels from the channel rows at sc, into the warp's tile of B
-// bins. Four rows per step (one bin load and one 8-byte load per channel,
-// the next step's loaded before this step's tile stores: the buffer is
-// read-only here); two rows of one bin: the second store, of (old + v0) +
-// v1, wins; rows whose C channels are all zero are skipped by the whole
-// warp.
-template <typename BinT, int C>
-__device__ inline void add_chunk(float* tile, int B, const BinT* row,
-                                 const uint16_t* sc, int i, int n,
-                                 int lane) {
+// rows, C channels from the channel rows at sc, into the warp's tile of the
+// bins [b_lo, b_lo + Bw). Four rows per step (one bin load and one 8-byte
+// load per channel, the next step's loaded before this step's tile stores:
+// the buffer is read-only here); two rows of one bin: the second store, of
+// (old + v0) + v1, wins; rows whose C channels are all zero, or whose bin
+// lies outside the tile's bins, add nothing (kNarrow: the slab may be cut
+// into bin groups; without, every bin lies in the tile and the range
+// checks are compiled out).
+template <typename BinT, int C, bool kNarrow>
+__device__ inline void add_chunk(float* tile, int Bw, int b_lo,
+                                 const BinT* row, const uint16_t* sc, int i,
+                                 int n, int lane) {
   using Q = Quad<BinT>;
   constexpr int kVec = TileCell<C>::kVec;
   constexpr int kRest = TileCell<C>::kRest;
   using V = typename VecOf<kVec>::T;
   V* tv = reinterpret_cast<V*>(tile) + lane;
-  float* tr = tile + B * kLanes * kVec + lane;
+  float* tr = tile + Bw * kLanes * kVec + lane;
   uint2 w[C];
   typename Q::T bq{};
   int q = i;
@@ -345,8 +353,24 @@ __device__ inline void add_chunk(float* tile, int B, const BinT* row,
         v1[c] = __uint_as_float(x & 0xFFFF0000u);
       }
       if ((any & 0x7FFF7FFFu) == 0u) continue;  // both rows all +-0
-      const int b0 = Q::bin(bins4, 2 * h);
-      const int b1 = Q::bin(bins4, 2 * h + 1);
+      const int b0 = Q::bin(bins4, 2 * h) - (kNarrow ? b_lo : 0);
+      const int b1 = Q::bin(bins4, 2 * h + 1) - (kNarrow ? b_lo : 0);
+      const bool in0 = !kNarrow ||
+                       static_cast<unsigned>(b0) < static_cast<unsigned>(Bw);
+      const bool in1 = !kNarrow ||
+                       static_cast<unsigned>(b1) < static_cast<unsigned>(Bw);
+      if (kNarrow && in0 != in1) {             // one row of the two adds
+        const int o = (in0 ? b0 : b1) * kLanes;
+        V a = tv[o];
+#pragma unroll
+        for (int c = 0; c < kVec; ++c) {
+          at(a, c) = __fadd_rn(at(a, c), in0 ? v0[c] : v1[c]);
+        }
+        tv[o] = a;
+        if (kRest) tr[o] = __fadd_rn(tr[o], in0 ? v0[C - 1] : v1[C - 1]);
+        continue;
+      }
+      if (kNarrow && !in0) continue;
       const bool same = b0 == b1;
       const int o0 = b0 * kLanes, o1 = b1 * kLanes;
       V a0 = tv[o0], a1 = tv[o1];
@@ -371,28 +395,37 @@ __device__ inline void add_chunk(float* tile, int B, const BinT* row,
   }
 }
 
-// The sum over a group's n warps' tiles of sum c of (bin, lane f).
+// The sum over a group's n warps' tiles (of B bins) of sum c of (bin,
+// feature f): in warp order, each warp's R replica lanes of f (lanes f,
+// nf + f, ...) in lane order.
 template <int C>
 __device__ inline float group_sum(const float* tiles, int n, int B, int bin,
-                                  int c, int f) {
+                                  int c, int f, int nf, int R) {
   const int len = B * C * kLanes;
-  const int at = TileCell<C>::offset(B, bin, c, f);
   float sum = 0.0f;
-  for (int k = 0; k < n; ++k) sum += tiles[k * len + at];
+  for (int k = 0; k < n; ++k) {
+    for (int r = 0; r < R; ++r) {
+      sum += tiles[k * len + TileCell<C>::offset(B, bin, c, r * nf + f)];
+    }
+  }
   return sum;
 }
 
-// grid (row blocks, feature groups of kLanes, channel groups of CN);
-// part[((x * gy + y) * gz + z) * B*CN*32 + (bin*CN + c)*32 + f] is block
-// (x, y, z)'s sum of pack_gh row z*CN + c over feature y*32 + f (the last
-// group's rows past nch are zero). The block's adding warps: n per channel
-// group of ChannelSplit<CN>, the first group's n tiles, then the second's.
-template <typename BinT, int CN>
+// grid (row blocks, feature groups of kLanes, channel groups of CN x bin
+// groups of Bw: z = channel group * nbg + bin group);
+// part[((x * gy + y) * gz + z) * Bw*CN*32 + (bin*CN + c)*32 + f] is block
+// (x, y, z)'s sum of pack_gh row (z / nbg)*CN + c over feature y*32 + f
+// and bin (z % nbg)*Bw + bin (the last group's rows past nch are zero).
+// The block's adding warps: n per channel group of ChannelSplit<CN>, the
+// first group's n tiles, then the second's. kNarrow: bin groups (nbg >
+// 1) or lane replicas (few features) may be in use; without, neither is,
+// and the adds compile as for a slab of 32 features' bins.
+template <typename BinT, int CN, bool kNarrow>
 __global__ void __launch_bounds__(kHistMaxWarps * 32)
 epilogue_hist_kernel(const BinT* __restrict__ bins,
                      const uint16_t* __restrict__ gh,
-                     float* __restrict__ part, int64_t Rp, int F_oh, int B,
-                     bool vec) {
+                     float* __restrict__ part, int64_t Rp, int F_oh, int Bw,
+                     int nbg, bool vec) {
   using S = HistSmem<BinT>;
   using Split = ChannelSplit<CN>;
   constexpr int kC0 = Split::kC0;
@@ -405,13 +438,19 @@ epilogue_hist_kernel(const BinT* __restrict__ bins,
   const int wi = warp - grp * n;
   const int f0 = blockIdx.y * kLanes;
   const int nf = min(kLanes, F_oh - f0);
-  const int c0 = blockIdx.z * CN;
+  // fewer features than lanes (kNarrow): lane l adds feature l % nf for
+  // every R-th quad of the warp's share (R replicas), so every lane works
+  const int R = kNarrow ? kLanes / nf : 1;
+  const int rep = kNarrow ? lane / nf : (lane < nf ? 0 : 1);
+  const int c0 = blockIdx.z / nbg * CN;
+  const int b_lo = blockIdx.z % nbg * Bw;
+  const int B = Bw;                        // tile bins
   constexpr size_t kStage = S::kBinBytes + CN * kHistChunk * 2;
   float* tiles0 = reinterpret_cast<float*>(smem + 2 * kStage);
   float* tiles1 = tiles0 + n * B * kC0 * kLanes;
   const int all = n * B * CN * kLanes;
   for (int i = threadIdx.x; i < all; i += blockDim.x) tiles0[i] = 0.0f;
-  const bool on = lane < nf;
+  const bool on = rep < R;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kHistChunk;
   int64_t base = static_cast<int64_t>(blockIdx.x) * kHistChunk;
   if (base < Rp) {
@@ -427,17 +466,19 @@ epilogue_hist_kernel(const BinT* __restrict__ bins,
     cp_async_wait<1>();        // this thread's copies of this chunk
     __syncthreads();           // everyone's
     const unsigned char* buf = smem + (it & 1) * kStage;
-    const BinT* row = reinterpret_cast<const BinT*>(buf + lane * S::kRowBytes);
+    const BinT* row = reinterpret_cast<const BinT*>(
+        buf + (kNarrow ? lane % nf : lane) * S::kRowBytes);
     const uint16_t* sc =
         reinterpret_cast<const uint16_t*>(buf + S::kBinBytes);
     if (on) {
       if (grp == 0) {
-        add_chunk<BinT, kC0>(tiles0 + wi * B * kC0 * kLanes, B, row, sc, wi,
-                             n, lane);
+        add_chunk<BinT, kC0, kNarrow>(tiles0 + wi * B * kC0 * kLanes, B,
+                                      b_lo, row, sc, wi * R + rep, n * R,
+                                      lane);
       } else if (kC1 > 0) {
-        add_chunk<BinT, (kC1 > 0 ? kC1 : 1)>(
-            tiles1 + wi * B * kC1 * kLanes, B, row, sc + kC0 * kHistChunk,
-            wi, n, lane);
+        add_chunk<BinT, (kC1 > 0 ? kC1 : 1), kNarrow>(
+            tiles1 + wi * B * kC1 * kLanes, B, b_lo, row,
+            sc + kC0 * kHistChunk, wi * R + rep, n * R, lane);
       }
     }
     __syncthreads();           // this buffer is refilled next
@@ -453,9 +494,10 @@ epilogue_hist_kernel(const BinT* __restrict__ bins,
     const int bc = i >> 5;                 // bin * CN + c
     const int bin = bc / CN;
     const int c = bc - bin * CN;
-    out[i] = c < kC0 ? group_sum<kC0>(tiles0, n, B, bin, c, f)
-                     : group_sum<(kC1 > 0 ? kC1 : 1)>(tiles1, n, B, bin,
-                                                     c - kC0, f);
+    out[i] = f >= nf ? 0.0f
+             : c < kC0 ? group_sum<kC0>(tiles0, n, B, bin, c, f, nf, R)
+                       : group_sum<(kC1 > 0 ? kC1 : 1)>(tiles1, n, B, bin,
+                                                       c - kC0, f, nf, R);
   }
 }
 
@@ -467,11 +509,11 @@ epilogue_hist_kernel(const BinT* __restrict__ bins,
 __global__ void __launch_bounds__(32 * kReduceSlices)
 epilogue_reduce_kernel(const float* __restrict__ part,
                        float* __restrict__ hist, int gx, int gy, int gz,
-                       int cpg, int F_oh, int B, int nch) {
+                       int cpg, int F_oh, int B, int Bw, int nbg, int nch) {
   __shared__ float s_sum[kReduceSlices][32];
   const int lane = threadIdx.x & 31;
   const int slice = threadIdx.x >> 5;
-  const int64_t per_x = static_cast<int64_t>(B) * cpg * kLanes * gy * gz;
+  const int64_t per_x = static_cast<int64_t>(Bw) * cpg * kLanes * gy * gz;
   const int64_t o = static_cast<int64_t>(blockIdx.x) * 32 + lane;
   float sum = 0.0f;
   if (o < per_x) {
@@ -485,17 +527,17 @@ epilogue_reduce_kernel(const float* __restrict__ part,
 #pragma unroll
     for (int k = 0; k < kReduceSlices; ++k) total += s_sum[k][lane];
     // o = slab (y * gz + z), then (bin * cpg + c) * 32 + f within it
-    const int64_t slab = static_cast<int64_t>(B) * cpg * kLanes;
+    const int64_t slab = static_cast<int64_t>(Bw) * cpg * kLanes;
     const int yz = static_cast<int>(o / slab);
     const int y = yz / gz;
     const int z = yz - y * gz;
     const int in = static_cast<int>(o - yz * slab);
     const int fl = in % kLanes;
     const int c = in / kLanes % cpg;
-    const int bin = in / kLanes / cpg;
+    const int bin = z % nbg * Bw + in / kLanes / cpg;
     const int f = y * kLanes + fl;
-    const int ch = z * cpg + c;
-    if (f < F_oh && ch < nch) {
+    const int ch = z / nbg * cpg + c;
+    if (f < F_oh && ch < nch && bin < B) {
       hist[(static_cast<int64_t>(f) * B + bin) * C + 8 * ch] = total;
     }
   }
@@ -523,7 +565,9 @@ struct EpiArgs {
 // warps) whose tiles and staging fit smem_limit, the larger cpg on a tie;
 // then its grid.
 struct HistShape {
-  int cpg = 0, warps = 0, gx = 0, gy = 0, gz = 0;
+  int cpg = 0, warps = 0, gx = 0, gy = 0, gz = 0, bw = 0, nbg = 0;
+  bool narrow = false;   // bin groups, or so few features that lanes
+                         // take replicas (kMaxReplicaFeatures or fewer)
   size_t smem = 0;
 };
 
@@ -560,30 +604,41 @@ cudaError_t opt_in(Kernel kernel, LaunchCache* cache, std::mutex* lock,
 
 template <typename BinT>
 using HistKernel = void (*)(const BinT*, const uint16_t*, float*, int64_t,
-                            int, int, bool);
+                            int, int, int, bool);
 
-// The hist kernel instance for cn channels per block (1..kMaxCn).
-template <typename BinT>
-HistKernel<BinT> hist_kernel(int cn) {
+// The hist kernel instance for cn channels per block (1..kMaxCn), narrow
+// (bin groups or lane replicas) or not.
+template <typename BinT, bool kNarrow>
+HistKernel<BinT> hist_kernel_of(int cn) {
   switch (cn) {
-    case 1: return epilogue_hist_kernel<BinT, 1>;
-    case 2: return epilogue_hist_kernel<BinT, 2>;
-    case 3: return epilogue_hist_kernel<BinT, 3>;
-    case 4: return epilogue_hist_kernel<BinT, 4>;
-    default: return epilogue_hist_kernel<BinT, 5>;
+    case 1: return epilogue_hist_kernel<BinT, 1, kNarrow>;
+    case 2: return epilogue_hist_kernel<BinT, 2, kNarrow>;
+    case 3: return epilogue_hist_kernel<BinT, 3, kNarrow>;
+    case 4: return epilogue_hist_kernel<BinT, 4, kNarrow>;
+    default: return epilogue_hist_kernel<BinT, 5, kNarrow>;
   }
+}
+template <typename BinT>
+HistKernel<BinT> hist_kernel(int cn, bool narrow) {
+  return narrow ? hist_kernel_of<BinT, true>(cn)
+                : hist_kernel_of<BinT, false>(cn);
 }
 
 template <typename BinT>
 cudaError_t hist_shape(const EpiArgs& a, HistShape* hs) {
-  static LaunchCache cache[kMaxCn + 1][kMaxDevices];
+  static LaunchCache cache[2][kMaxCn + 1][kMaxDevices];
   static std::mutex lock;
   int dev = 0, sms = 0, optin = 0, occ = 0;
   cudaError_t e = device_limits(&dev, &sms, &optin);
   if (e != cudaSuccess) return e;
   HistShape best;
+  // tile bins: the whole slab up to kMaxEpiBins, else bin groups of
+  // kEpiBinGroup (grid.z), each over every row
+  best.bw = a.B <= kMaxEpiBins ? a.B : kEpiBinGroup;
+  best.nbg = (a.B + best.bw - 1) / best.bw;
+  best.narrow = best.nbg > 1 || a.F_oh <= kMaxReplicaFeatures;
   for (int cpg = std::min(a.nch, kMaxCn); cpg >= 1; --cpg) {
-    const size_t tile = static_cast<size_t>(a.B) * cpg * kLanes *
+    const size_t tile = static_cast<size_t>(best.bw) * cpg * kLanes *
                         sizeof(float);
     const size_t stage = 2 * HistSmem<BinT>::stage_bytes(cpg);
     if (stage + tile > static_cast<size_t>(a.smem_limit)) continue;
@@ -599,13 +654,14 @@ cudaError_t hist_shape(const EpiArgs& a, HistShape* hs) {
     }
   }
   if (best.cpg == 0) return cudaErrorInvalidConfiguration;
-  best.smem = HistSmem<BinT>::bytes(a.B, best.cpg,
+  best.smem = HistSmem<BinT>::bytes(best.bw, best.cpg,
                                     best.warps / (best.cpg > 1 ? 2 : 1));
-  e = opt_in(hist_kernel<BinT>(best.cpg), cache[best.cpg], &lock, dev,
+  e = opt_in(hist_kernel<BinT>(best.cpg, best.narrow),
+             cache[best.narrow][best.cpg], &lock, dev,
              best.warps * 32, best.smem, &occ);
   if (e != cudaSuccess) return e;
   best.gy = (a.F_oh + kLanes - 1) / kLanes;
-  best.gz = (a.nch + best.cpg - 1) / best.cpg;
+  best.gz = (a.nch + best.cpg - 1) / best.cpg * best.nbg;
   long long gx = static_cast<long long>(sms) * occ / (best.gy * best.gz);
   const long long chunks = (a.Rp + kHistChunk - 1) / kHistChunk;
   if (gx > chunks) gx = chunks;
@@ -660,19 +716,21 @@ cudaError_t run_epilogue(const EpiArgs& a, int stages, HistShape* shape) {
                      (a.Rp * sizeof(BinT)) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(gh) % 16 == 0 &&
                      a.Rp % 8 == 0;
-    hist_kernel<BinT>(hs.cpg)<<<dim3(hs.gx, hs.gy, hs.gz), hs.warps * 32,
+    hist_kernel<BinT>(hs.cpg, hs.narrow)<<<dim3(hs.gx, hs.gy, hs.gz),
+                                            hs.warps * 32,
                                 hs.smem, a.stream>>>(
-        bins, gh, static_cast<float*>(a.part), a.Rp, a.F_oh, a.B, vec);
+        bins, gh, static_cast<float*>(a.part), a.Rp, a.F_oh, hs.bw,
+        hs.nbg, vec);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
     *a.launched |= kEpiHistBit;
   }
   if (stages & kEpiReduceBit) {
-    const long long outs = static_cast<long long>(a.B) * hs.cpg * kLanes *
+    const long long outs = static_cast<long long>(hs.bw) * hs.cpg * kLanes *
                            hs.gy * hs.gz;
     epilogue_reduce_kernel<<<static_cast<unsigned>((outs + 31) / 32),
                              32 * kReduceSlices, 0, a.stream>>>(
         static_cast<const float*>(a.part), static_cast<float*>(a.hist),
-        hs.gx, hs.gy, hs.gz, hs.cpg, a.F_oh, a.B, a.nch);
+        hs.gx, hs.gy, hs.gz, hs.cpg, a.F_oh, a.B, hs.bw, hs.nbg, a.nch);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
     *a.launched |= kEpiReduceBit;
   }
@@ -725,7 +783,7 @@ extern "C" int lgbt_epilogue_blocks(int bin_bytes, int B, int F_oh, int nch,
       bin_bytes == 1 ? lgbt::run_epilogue<int8_t>(a, 0, &hs)
                      : lgbt::run_epilogue<int16_t>(a, 0, &hs);
   *blocks = hs.gx;
-  *floats = static_cast<long long>(hs.gx) * hs.gy * hs.gz * B * hs.cpg *
-            lgbt::kLanes;
+  *floats = static_cast<long long>(hs.gx) * hs.gy * hs.gz * hs.bw *
+            hs.cpg * lgbt::kLanes;
   return static_cast<int>(e);
 }

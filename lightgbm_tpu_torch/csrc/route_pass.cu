@@ -27,6 +27,10 @@
 // two probes), not a scan of all Sp slots, whose cost grew with Sp (PERF.md).
 // The grid is as many blocks as fit on the card, striding over the row
 // quads, so each block stages its tables once.
+//
+// No width limit: nothing here is sized by the slab width B (a bin is read
+// as an int, W indexed in int64, the slab table scans any width), so EFB
+// bundle columns of up to 32768 bins (int16) route as narrow slabs do.
 #include "fused_level.cuh"
 
 namespace lgbt {

@@ -14,7 +14,8 @@
 // (L <= kStagedEntries floats) is staged in each block's shared memory; a
 // larger one is read through L1. The grid is a few blocks per SM with a
 // grid-stride loop, and a scalar loop takes the rows past the last
-// multiple of four (all rows when a pointer is not 16-byte aligned).
+// multiple of four (all rows when a pointer is not 16-byte aligned). It
+// reads no bins, so bundle layouts do not change it.
 #include "fused_level.cuh"
 
 namespace lgbt {

@@ -15,12 +15,16 @@ do, and ``is_categorical`` marks them per used feature. Query groups
 (``Metadata.set_group``) are kept as cumulative ``query_boundaries``; a row
 subset re-encodes them from its rows' queries in row order.
 
-Sparse input and monotone constraints are not ported yet and raise.
-Exclusive feature bundling is not ported either: where the
-JAX package's fused engine bundles mutually exclusive columns
-(``enable_bundle``, on by default), the port trains on the unbundled
-columns, which gives the same trees (tests/test_torch_efb_gap.py); the
-bundling itself is ROADMAP Queue A item 6.
+A scipy CSR/CSC matrix (``from_sparse``, the JAX package's
+``dataset.py:122-160, 338-463``) is binned without ever making the dense
+[R, F] matrix: per-column mappers from the CSC sample, exclusive feature
+bundling on the sample rows (conflict rate 0, at most
+``tpu_max_bundle_bins`` bins a column), and the [R, C] bundle-column
+matrix encoded straight from the CSC columns. Such a dataset is
+``prebundled``: ``bins`` holds bundle columns and ``prebundled`` the
+``ops/efb.BundleLayout`` that decodes them. A valid set built against it
+(``reference``) stores exact logical bins, since it is only routed.
+Monotone constraints are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import torch
 from .binning import (BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper,
                       effective_bin_counts)
 from .config import Config
+from .ops.efb import BundleLayout, find_bundles
 from .utils import log
 
 
@@ -126,6 +131,48 @@ def _sample_rows(num_data: int, sample_cnt: int, seed: int) -> np.ndarray:
     return np.sort(rng.choice(num_data, size=sample_cnt, replace=False))
 
 
+def _encode_sparse_bundles(csc, mappers, used_features, layout,
+                           most_freq_bins, n: int) -> np.ndarray:
+    """[R, C] bundle-column matrix straight from CSC columns — the dense
+    [R, F] logical matrix is never made (lightgbm_tpu/dataset.py:122-160).
+    Bundle bin 0 = the row is default (most-frequent bin) in every member;
+    conflicts keep the first member's encoding (ops/efb.py)."""
+    C = layout.num_columns
+    dtype = np.uint16 if max(layout.col_num_bin) > 255 else np.uint8
+    out = np.zeros((n, C), dtype)
+    for ci, bundle in enumerate(layout.bundles):
+        col = np.zeros(n, np.int64)
+        taken = np.zeros(n, bool)
+        for k in bundle:
+            j = used_features[k]
+            m = mappers[j]
+            off = int(layout.offset_of_feat[k])
+            mfb = int(most_freq_bins[k])
+            lo, hi = csc.indptr[j], csc.indptr[j + 1]
+            rows_j = csc.indices[lo:hi]
+            bins_nz = m.value_to_bin(
+                np.asarray(csc.data[lo:hi], np.float64)).astype(np.int64)
+            zero_bin = int(m.value_to_bin(np.zeros(1))[0])
+            if zero_bin == mfb:
+                # implicit zeros are default: only the non-default
+                # non-zeros are stored
+                nd = bins_nz != mfb
+                sel = rows_j[nd]
+                keep = ~taken[sel]
+                col[sel[keep]] = off + bins_nz[nd][keep]
+                taken[sel[keep]] = True
+            else:
+                # zeros bin away from the most-frequent bin (e.g.
+                # zero_as_missing): this member expands densely
+                dense_bins = np.full(n, zero_bin, np.int64)
+                dense_bins[rows_j] = bins_nz
+                sel = np.nonzero((dense_bins != mfb) & ~taken)[0]
+                col[sel] = off + dense_bins[sel]
+                taken[sel] = True
+        out[:, ci] = col.astype(dtype)
+    return out
+
+
 class BinnedDataset:
     """The binned training matrix (counterpart of ``TpuDataset``).
 
@@ -148,6 +195,10 @@ class BinnedDataset:
         self.num_bin_per_feat = np.zeros(0, np.int32)
         self.missing_types = np.zeros(0, np.int32)
         self.is_categorical = np.zeros(0, bool)
+        self.most_freq_bins = np.zeros(0, np.int32)
+        # the bundle layout of a sparse-built dataset, whose ``bins`` are
+        # then bundle columns; None for logical bins
+        self.prebundled: Optional[BundleLayout] = None
 
     @classmethod
     def from_data(cls, data: np.ndarray, config: Config, device,
@@ -219,6 +270,105 @@ class BinnedDataset:
         self._place(self.bin_rows(data), device)
         return self
 
+    @classmethod
+    def from_sparse(cls, data, config: Config, device,
+                    feature_names: Optional[List[str]] = None,
+                    reference: Optional["BinnedDataset"] = None
+                    ) -> "BinnedDataset":
+        """Build from a scipy CSR/CSC matrix without making the dense
+        [R, F] float matrix (lightgbm_tpu/dataset.py:338-463; ref: the
+        reference's CSR/CSC dataset creation, c_api.cpp:398-520):
+        per-column mappers from the sample rows' non-zeros, bundling on the
+        sample rows at conflict rate 0, and the bundle-column matrix
+        encoded from the CSC columns (``prebundled``). With ``reference``
+        the rows are binned as exact logical bins against its mappers (a
+        valid set is only routed, never histogrammed)."""
+        import scipy.sparse as sp
+        self = cls()
+        csc = sp.csc_matrix(data)
+        csc.sort_indices()
+        if config.monotone_constraints and any(
+                int(m) != 0 for m in config.monotone_constraints):
+            log.fatal("monotone constraints are not ported to "
+                      "lightgbm_tpu_torch yet")
+        n, f = csc.shape
+        self.num_data = n
+        self.num_total_features = f
+        self.feature_names = (list(feature_names) if feature_names
+                              else [f"Column_{i}" for i in range(f)])
+        self.metadata = Metadata(n)
+        if reference is not None:
+            if f != reference.num_total_features:
+                log.fatal("the data has %d features but its reference has "
+                          "%d", f, reference.num_total_features)
+            self.mappers = reference.mappers
+            self.used_features = reference.used_features
+            self._finalize_feature_arrays()
+            dtype = np.uint8 if self.max_num_bin <= 256 else np.uint16
+            out = np.zeros((n, len(self.used_features)), dtype)
+            for k, j in enumerate(self.used_features):
+                m = self.mappers[j]
+                lo, hi = csc.indptr[j], csc.indptr[j + 1]
+                zero_bin = int(m.value_to_bin(np.zeros(1))[0])
+                col = np.full(n, zero_bin, dtype)
+                col[csc.indices[lo:hi]] = m.value_to_bin(
+                    np.asarray(csc.data[lo:hi], np.float64)).astype(dtype)
+                out[:, k] = col
+            self._place(out, device)
+            return self
+        # per-column mappers from the sample's non-zeros (zeros implicit,
+        # as the dense path's); one pass also collects each used column's
+        # sample rows that are not implicit zeros, for bundling
+        sample_idx = _sample_rows(n, config.bin_construct_sample_cnt,
+                                  config.data_random_seed)
+        n_sample = len(sample_idx)
+        sample_masks = []
+        for j in range(f):
+            lo, hi = csc.indptr[j], csc.indptr[j + 1]
+            rows_j = csc.indices[lo:hi]
+            pos = np.searchsorted(sample_idx, rows_j)
+            pos_c = np.minimum(pos, n_sample - 1)
+            hit = (pos < n_sample) & (sample_idx[pos_c] == rows_j)
+            nz = np.asarray(csc.data[lo:hi][hit], np.float64)
+            nz = nz[(np.abs(nz) > 1e-35) | np.isnan(nz)]
+            m = BinMapper()
+            m.find_bin(nz, total_sample_cnt=n_sample,
+                       max_bin=config.max_bin,
+                       min_data_in_bin=config.min_data_in_bin,
+                       min_split_data=(config.min_data_in_leaf
+                                       if config.feature_pre_filter else 0),
+                       pre_filter=config.feature_pre_filter,
+                       bin_type=BIN_NUMERICAL,
+                       use_missing=config.use_missing,
+                       zero_as_missing=config.zero_as_missing)
+            self.mappers.append(m)
+            if not m.is_trivial:
+                mask = np.zeros(n_sample, bool)
+                mask[pos_c[hit]] = True
+                sample_masks.append(mask)
+        self.used_features = [j for j in range(f)
+                              if not self.mappers[j].is_trivial]
+        if not self.used_features:
+            log.warning("There are no meaningful features which satisfy "
+                        "the provided configuration.")
+        self._finalize_feature_arrays()
+        # conflict-free bundling on the sample rows (the reference also
+        # bundles from its sample, dataset_loader.cpp FindGroups)
+        nb = [int(x) for x in self.num_bin_per_feat]
+        bundles = find_bundles(sample_masks, n_sample, max_conflict_rate=0.0,
+                               max_bundle_bins=int(config.tpu_max_bundle_bins),
+                               num_bin_per_feat=nb)
+        layout = BundleLayout(bundles, nb)
+        self.prebundled = layout
+        self._place(_encode_sparse_bundles(csc, self.mappers,
+                                           self.used_features, layout,
+                                           self.most_freq_bins, n), device)
+        log.info("Sparse EFB: %d used features -> %d bundle columns "
+                 "(max %d bins)", len(self.used_features),
+                 layout.num_columns,
+                 max(layout.col_num_bin) if layout.num_columns else 0)
+        return self
+
     def _finalize_feature_arrays(self) -> None:
         used = [self.mappers[j] for j in self.used_features]
         self.num_bin_per_feat = effective_bin_counts(used)
@@ -226,6 +376,8 @@ class BinnedDataset:
                             if self.used_features else 1)
         self.missing_types = np.array([m.missing_type for m in used],
                                       np.int32)
+        self.most_freq_bins = np.array([m.most_freq_bin for m in used],
+                                       np.int32)
         self.is_categorical = np.array(
             [m.bin_type == BIN_CATEGORICAL for m in used], bool)
 
@@ -249,6 +401,7 @@ class BinnedDataset:
         out.feature_names = self.feature_names
         out.metadata = self.metadata.subset(rows)
         out._finalize_feature_arrays()
+        out.prebundled = self.prebundled     # bundle rows slice as rows do
         out._place(self.bins[rows], self.device)
         return out
 

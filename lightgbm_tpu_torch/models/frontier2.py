@@ -1,7 +1,7 @@
 """Frontier grower v2 — one fused route + histogram pass per tree level.
 
-PyTorch counterpart of ``lightgbm_tpu/models/frontier2.py`` on the serial,
-unbundled path. Per level, one :func:`ops.fused_level.level_pass`
+PyTorch counterpart of ``lightgbm_tpu/models/frontier2.py`` on the serial
+path. Per level, one :func:`ops.fused_level.level_pass`
 routes every row and histograms the smaller child of each split; the
 sibling comes from the parent's pooled histogram by subtraction (ref:
 serial_tree_learner.cpp:283-323, 423-425), and the split search runs only
@@ -41,6 +41,16 @@ carries the bitmask of the constraint groups its path still allows, and
 each child draws its by-node sample from the Threefry key folded with its
 creating node's id and side. The masks are device tensors; they add no host
 read.
+
+Exclusive feature bundling (``bundle_cols > 0``, the JAX lines
+``frontier2.py:211-213, 281-284, 437-461, 498-502, 550-554``): ``bins_T``
+holds EFB bundle columns of ``bundle_col_bins`` bins, and the kernels run
+on that layout, while split search, pools and trees stay logical. Every
+kernel histogram is decoded by ``bundle_plane_views`` (the FixHistogram
+residual on each feature's most-frequent bin), route tables come from
+``build_route_table_bundled``, and the level caps from the bundle layout's
+flat width. The voting exchange (``frontier2.py:524-529``) waits for the
+distributed learners.
 """
 from __future__ import annotations
 
@@ -48,9 +58,10 @@ from typing import List, Tuple
 
 import torch
 
-from ..ops.fused_level import (NCH_PRECISE, build_route_table, hist_planes,
-                               level_pass, max_slot_cap, pack_route_table,
-                               route_pass, table_lookup)
+from ..ops.fused_level import (NCH_PRECISE, build_route_table,
+                               build_route_table_bundled, bundle_plane_views,
+                               hist_planes, level_pass, max_slot_cap,
+                               pack_route_table, route_pass, table_lookup)
 from ..ops.split import (BestSplit, SplitParams, best_split_cm,
                          calculate_leaf_output, map_split)
 from .learner import (NEG_INF, FeatureMeta, NodeMaskCfg, _masked_gain,
@@ -105,7 +116,8 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
                     packed=None, mask_onehot: bool = False,
                     gh_scales: torch.Tensor = None,
                     node_masks: NodeMaskCfg = None,
-                    cat_idx: torch.Tensor = None):
+                    cat_idx: torch.Tensor = None, bundle_cols: int = 0,
+                    bundle_col_bins: int = 0, bundle_cfg=None):
     """Grow one tree with fused level passes.
 
     Args:
@@ -139,6 +151,9 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
         f_oh, its key already folded with the iteration), or None.
       cat_idx: the categorical features' indices (``meta.is_cat``'s set,
         known on the host), or None when there are none.
+      bundle_cols, bundle_col_bins, bundle_cfg: the kernel layout when
+        ``bins_T`` holds EFB bundle columns (0 = unbundled) and the
+        ``learner.BundleCfg`` decode tables padded to f_oh x max_bins.
 
     Returns (TreeArrays, row_leaf [Rp] int32; padding rows stay at -1).
     With ``defer_final_route``: (tree, row_leaf before the final route,
@@ -149,17 +164,40 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
     dev = bins_T.device
     L = num_leaves
     B = max_bins
+    # the kernel layout: bundle columns under bundles
+    k_foh, k_B = (bundle_cols, bundle_col_bins) if bundle_cols else (f_oh, B)
     # caps from the PADDED flat width: the packed layout grows the same tree
     caps = level_caps(L, max_depth, extra_levels,
-                      slot_cap=max_slot_cap(f_oh * B, nch))
-    kern_fb = packed.fb if packed is not None else f_oh * B
+                      slot_cap=max_slot_cap(k_foh * k_B, nch))
+    kern_fb = packed.fb if packed is not None else k_foh * k_B
 
     def decode(hist, Sp_):
         """Kernel histogram -> (g, h, c) f32 planes on the padded logical
         layout: the packed re-index (exact) and the int32 -> f32 rescale,
-        before any split search."""
-        return hist_planes(hist, nch, Sp_, f_oh, B, packed=packed,
-                           quant_bits=quant_bits, scales=gh_scales)
+        before any split search; under bundles the logical views of the
+        bundle planes."""
+        g, h, c = hist_planes(hist, nch, Sp_, k_foh, k_B, packed=packed,
+                              quant_bits=quant_bits, scales=gh_scales)
+        if not bundle_cols:
+            return g, h, c
+        v = bundle_plane_views(torch.stack([g, h, c], -1),
+                               bundle_cfg.flat_idx, bundle_cfg.valid,
+                               bundle_cfg.default_bin)
+        return v[..., 0], v[..., 1], v[..., 2]
+
+    def route_table(feat_s, thr_s, dl_s, Sp, cat_flag, cat_mask):
+        """The level's W on the kernel layout."""
+        if bundle_cols:
+            return build_route_table_bundled(
+                feat_s, thr_s, dl_s, meta.num_bin, meta.missing_type,
+                meta.default_bin, bundle_cfg.default_bin,
+                bundle_cfg.col_of_feat, bundle_cfg.offset_of_feat,
+                bundle_cols, bundle_col_bins, cat_flag=cat_flag,
+                cat_mask=cat_mask)
+        W = build_route_table(feat_s, thr_s, dl_s, meta.num_bin,
+                              meta.missing_type, meta.default_bin, Sp, f_oh,
+                              B, cat_flag=cat_flag, cat_mask=cat_mask)
+        return pack_route_table(W, packed) if packed is not None else W
 
     kmask = None
     if mask_onehot:
@@ -183,14 +221,14 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
     if root_hist is not None:
         hist0 = root_hist
     else:
-        w0_span = packed.widths[0] if packed is not None else B
+        w0_span = packed.widths[0] if packed is not None else k_B
         W0 = torch.zeros((Sp0, kern_fb), dtype=torch.bfloat16, device=dev)
         W0[0, :w0_span] = 1
         tbl0 = torch.zeros((Sp0, 128), dtype=torch.int32, device=dev)
         tbl0[1:, 0] = -2
         tbl0[0, 2] = 1
         hist0, _ = level_pass(bins_T, leaf_T, gh_T, W0, tbl0, kmask,
-                              num_bins=B, f_oh=f_oh, nch=nch,
+                              num_bins=k_B, f_oh=k_foh, nch=nch,
                               quant_bits=quant_bits, packed=packed)
     g0, h0, c0 = decode(hist0, Sp0)
     pool_g[0] = g0[0]
@@ -235,18 +273,19 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
              leaf_groups)
     for li, S_d in enumerate(caps):
         state = _one_level(state, bins_T, gh_T, meta, feature_mask, params,
-                           L, B, f_oh, S_d, nch, max_depth,
+                           L, B, (k_foh, k_B), S_d, nch, max_depth,
                            li == len(caps) - 1, deferred, decode, kmask,
-                           quant_bits, packed, node_masks, cat_idx)
+                           quant_bits, packed, node_masks, cat_idx,
+                           route_table)
     tree, leaf_T = state[0], state[1]
     if deferred is not None:
         return tree, leaf_T[0], deferred[0], deferred[1]
     return tree, leaf_T[0]
 
 
-def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B, f_oh,
-               S_d, nch, max_depth, is_last, deferred, decode, kmask,
-               quant_bits, packed, node_masks, cat_idx):
+def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B,
+               kernel, S_d, nch, max_depth, is_last, deferred, decode, kmask,
+               quant_bits, packed, node_masks, cat_idx, route_table):
     (tree, leaf_T, pool_g, pool_h, pool_c, best, lpn, lil,
      leaf_groups) = state
     dev = bins_T.device
@@ -290,14 +329,10 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B, f_oh,
     new_s = torch.where(lof_on, nl + torch.arange(Sp, device=dev), 0)
     delta_s = torch.where(lof_on, new_s - lof_safe, 0)
     has_cat = cat_idx is not None
-    W = build_route_table(feat_s, thr_s, dl_s, meta.num_bin,
-                          meta.missing_type, meta.default_bin, Sp, f_oh, B,
-                          cat_flag=(best.cat_flag[lof_safe] & lof_on
-                                    if has_cat else None),
-                          cat_mask=(best.cat_mask[lof_safe]
-                                    if has_cat else None))
-    if packed is not None:
-        W = pack_route_table(W, packed)
+    W = route_table(feat_s, thr_s, dl_s, Sp,
+                    best.cat_flag[lof_safe] & lof_on if has_cat else None,
+                    best.cat_mask[lof_safe] if has_cat else None)
+    k_foh, k_B = kernel
     tbl = torch.zeros((Sp, 128), dtype=torch.int32, device=dev)
     tbl[:, 0] = lof
     tbl[:, 1] = delta_s.to(torch.int32)
@@ -310,11 +345,11 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B, f_oh,
         deferred[1][:Sp] = tbl
         leaf_T2 = leaf_T
     elif route_only:
-        leaf_T2 = route_pass(bins_T, leaf_T, W, tbl, num_bins=B, f_oh=f_oh,
-                             packed=packed)
+        leaf_T2 = route_pass(bins_T, leaf_T, W, tbl, num_bins=k_B,
+                             f_oh=k_foh, packed=packed)
     else:
         hist, leaf_T2 = level_pass(bins_T, leaf_T, gh_T, W, tbl, kmask,
-                                   num_bins=B, f_oh=f_oh, nch=nch,
+                                   num_bins=k_B, f_oh=k_foh, nch=nch,
                                    quant_bits=quant_bits, packed=packed)
         sm_g, sm_h, sm_c = decode(hist, Sp)
         # ---- sibling by subtraction from the parent pool

@@ -35,6 +35,36 @@ def meta_is_cat(meta: FeatureMeta) -> torch.Tensor:
     return meta.is_cat
 
 
+class BundleCfg(NamedTuple):
+    """Device tensors mapping logical features onto EFB bundle columns
+    (from ops/efb.BundleLayout; lightgbm_tpu/models/learner.py:191-209).
+
+    flat_idx: [F, B] int32 — index into the flattened [C*B_col] bundle
+      histogram of each (feature, bin); invalid bins point at slot 0 and
+      are masked by ``valid``.
+    valid: [F, B] bool.
+    default_bin: [F] int32 — each feature's most-frequent bin, which takes
+      the FixHistogram residual mass.
+    col_of_feat / offset_of_feat: [F] int32 — the routing decode.
+    """
+    flat_idx: torch.Tensor
+    valid: torch.Tensor
+    default_bin: torch.Tensor
+    col_of_feat: torch.Tensor
+    offset_of_feat: torch.Tensor
+
+
+def bundle_views(bundle_hist: torch.Tensor, cfg: BundleCfg) -> torch.Tensor:
+    """[S, C, Bc, ch] bundle histograms -> [S, F, B, ch] logical views with
+    the FixHistogram default-bin residual (ref: dataset.cpp:1265), through
+    ops/fused_level.bundle_plane_views. The JAX package's learner has the
+    same entry (its tests hold the two equal); the port's grower calls
+    bundle_plane_views on the flat plane directly."""
+    from ..ops.fused_level import bundle_plane_views
+    return bundle_plane_views(bundle_hist, cfg.flat_idx, cfg.valid,
+                              cfg.default_bin)
+
+
 def _masked_scatter(arr: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
                     mask: torch.Tensor) -> torch.Tensor:
     """``arr[idx[k]] = vals[k] where mask[k]``, out of place, without write

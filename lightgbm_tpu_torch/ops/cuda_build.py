@@ -42,10 +42,11 @@ _P = _c.c_void_p
 # C signatures: (argtypes, restype int)
 SIGNATURES = {
     "lgbt_level_pass": [_P, _c.c_int, _P, _P, _c.c_int, _P, _P, _P, _P, _P,
-                        _P, _P, _P, _P, _c.c_longlong, _c.c_int, _c.c_int,
-                        _c.c_longlong, _c.c_int, _c.c_int, _c.c_int,
+                        _P, _P, _P, _P, _P, _c.c_longlong, _c.c_int,
+                        _c.c_int, _c.c_longlong, _c.c_int, _c.c_int,
                         _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
-                        _P, _c.POINTER(_c.c_int)],
+                        _c.c_int, _c.c_int, _c.c_int, _P,
+                        _c.POINTER(_c.c_int)],
     "lgbt_device_limits": [_c.POINTER(_c.c_int), _c.POINTER(_c.c_int)],
     "lgbt_route_pass": [_P, _c.c_int, _P, _P, _P, _P, _P, _P,
                         _c.c_longlong, _c.c_int, _c.c_int, _c.c_longlong,

@@ -33,12 +33,17 @@ inputs, allocates its outputs and scratch, launches on the current stream
 without synchronising and counts the call in ``launches`` (and the cuts it
 ran with in ``variant_launches``) and each CUDA kernel it launched in
 ``cuda_launches``. ``level_pass`` runs three stages per call: mark (route
-+ smaller-child slot + per-slot counts; two CUDA kernels, the first of
-which finds each slot's split slab in W), partition (each marked row's
-bins and channels copied, as one staging record, into its slot's bucket)
-and the slot-tiled shared-memory histogram over the records; each stage
++ smaller-child slot + per-(slot, block) counts and their scan; three CUDA
+kernels, the first of which finds each slot's split slab in W), partition
+(each marked row's bins and channels copied, as one staging record, into
+its slot's bucket in row order) and the histogram over the records
+(private per-warp tiles in bin groups, summed in a fixed order: two CUDA
+kernels), so its f32 sums are the same bits on every call; each stage
 also has a wrapper of its own (:func:`level_mark`, :func:`level_partition`,
-:func:`level_hist`). :func:`route_pass` is two CUDA kernels (the slab table
+:func:`level_hist`). Bundled layouts (EFB, ``ops/efb.py``) are kernel rows
+of bundle columns: :func:`build_route_table_bundled` writes their route
+tables and :func:`bundle_plane_views` decodes their histograms; no kernel
+limits the slab width. :func:`route_pass` is two CUDA kernels (the slab table
 of W, then the route reading one bin and one W entry per routed row) and
 :func:`epilogue_pass` four (the slab table; route, score, gradients and
 pack; the root histogram's per-block partials; their reduce), each stage
@@ -63,9 +68,6 @@ NCH_PRECISE = 5   # g_hi, g_lo, h_hi, h_lo, w
 NCH_FAST = 3      # g, h, w
 MAX_SLOTS = 128
 TBL_COLS = 128
-# the widest layout whose one-channel histogram tile (32 features x Bp f32)
-# and staging fit a block's shared memory on the card
-MAX_CARD_BINS = 1024
 
 # launches of each kernel since the last reset (CPU calls never count);
 # ``hist_pass`` is counted by ops/pallas_histogram.py
@@ -92,9 +94,9 @@ variant_launches: Dict[str, int] = dict.fromkeys(
 EPILOGUE_KINDS = ("binary", "l2")
 # the stages of level_pass, in order, and the CUDA kernels of each
 LEVEL_STAGES = ("level_mark", "level_partition", "level_hist")
-STAGE_KERNELS = {"level_mark": ("level_slabs", "level_mark"),
+STAGE_KERNELS = {"level_mark": ("level_slabs", "level_mark", "level_scan"),
                  "level_partition": ("level_partition",),
-                 "level_hist": ("level_hist",)}
+                 "level_hist": ("level_tiles", "level_reduce")}
 LEVEL_KERNELS = sum(STAGE_KERNELS.values(), ())
 # the CUDA kernels of route_pass (slab table, route) and of epilogue_pass
 # (slab table; route, score, gradients and pack; each block's partial root
@@ -115,9 +117,13 @@ HIST_KERNELS = ("hist_count", "hist_scan", "hist_bucket", "hist_tiles",
 cuda_launches: Dict[str, int] = dict.fromkeys(
     LEVEL_KERNELS + ROUTE_KERNELS + ("table_lookup",) + EPILOGUE_KERNELS
     + HIST_KERNELS, 0)
-# bytes of a block's opt-in shared memory left to the level_hist kernel's
-# static arrays (the slot offsets); the rest holds its histogram tile
-HIST_STATIC_SMEM = 1024
+# bytes of a block's opt-in shared memory left to the level_tiles kernel's
+# static arrays (the slot offsets); the rest holds its histogram tiles
+HIST_STATIC_SMEM = 2048
+# rows per block of the level mark and partition kernels (kMarkRows), and
+# the fewest records worth a block of the level tiles kernel
+MARK_ROWS = 2048
+MIN_TILE_ROWS = 512
 # the slab table's codes for a W row non-zero on no slab or on several
 SLAB_NONE, SLAB_MANY = -1, -2
 
@@ -295,6 +301,83 @@ def build_route_table(feature: torch.Tensor, threshold: torch.Tensor,
     return w.reshape(Sp, F_oh * B).to(torch.bfloat16)
 
 
+def build_route_table_bundled(feature: torch.Tensor, threshold: torch.Tensor,
+                              default_left: torch.Tensor,
+                              num_bin: torch.Tensor,
+                              missing_type: torch.Tensor,
+                              default_bin: torch.Tensor,
+                              most_freq_bin: torch.Tensor,
+                              col_of_feat: torch.Tensor,
+                              offset_of_feat: torch.Tensor,
+                              C_cols: int, Bp: int,
+                              cat_flag: torch.Tensor = None,
+                              cat_mask: torch.Tensor = None) -> torch.Tensor:
+    """W [Sp, C_cols*Bp] bfloat16 for logical splits over EFB bundle
+    columns (lightgbm_tpu/ops/fused_level.py:323-371). A bundle bin bb of
+    column c decodes to logical feature f's bin ``bb - offset_f`` inside
+    f's window and to f's most-frequent bin outside it (rows default in
+    every member share bundle bin 0, ops/efb.py), so the owning column's
+    row is non-zero wherever that decoded bin goes left — one slab per W
+    row, other columns zero. Missing bins and categorical sets
+    (``cat_mask`` [Sp, B_logical]) apply to the DECODED bin."""
+    dev = feature.device
+    Sp = feature.shape[0]
+    c_iota = torch.arange(C_cols, dtype=torch.int32, device=dev)[None, :, None]
+    b_iota = torch.arange(Bp, dtype=torch.int32, device=dev)[None, None, :]
+    fs = feature.clamp(min=0).long()
+
+    def per_slot(a):
+        return a[fs][:, None, None]
+    nb, mt, db = per_slot(num_bin), per_slot(missing_type), \
+        per_slot(default_bin)
+    mfb, col, off = per_slot(most_freq_bin), per_slot(col_of_feat), \
+        per_slot(offset_of_feat)
+    thr = threshold[:, None, None]
+    dl = default_left[:, None, None]
+    in_window = (b_iota >= off) & (b_iota < off + nb)
+    logical_bin = torch.where(in_window, b_iota - off, mfb)
+    is_missing = (((mt == 1) & (logical_bin == db))
+                  | ((mt == 2) & (logical_bin == nb - 1)))
+    go_left = torch.where(is_missing, dl, logical_bin <= thr)
+    if cat_flag is not None:
+        B = cat_mask.shape[1]
+        lb = logical_bin.clamp(0, B - 1).long()
+        cat_left = cat_mask[torch.arange(Sp, device=dev)[:, None, None], lb]
+        go_left = torch.where(cat_flag[:, None, None], cat_left, go_left)
+    w = (c_iota == col) & go_left & (feature[:, None, None] >= 0)
+    return w.reshape(Sp, C_cols * Bp).to(torch.bfloat16)
+
+
+def bundle_plane_views(plane: torch.Tensor, flat_idx: torch.Tensor,
+                       valid: torch.Tensor,
+                       default_bin: torch.Tensor) -> torch.Tensor:
+    """Bundle histogram -> logical per-feature view with the FixHistogram
+    residual on each feature's most-frequent bin (ref:
+    src/io/dataset.cpp:1265; lightgbm_tpu/ops/fused_level.py:373-399).
+
+    plane: [Sp, C_cols, Bp] or [Sp, C_cols, Bp, ch]; returns the same rank
+    with (C_cols, Bp) -> (F, B). Slot totals come from column 0 — every
+    row lands in some bin of every column. Padding features (no valid
+    bins) stay all-zero."""
+    squeeze = plane.dim() == 3
+    if squeeze:
+        plane = plane[..., None]
+    Sp, C, Bp, ch = plane.shape
+    F, B = flat_idx.shape
+    flat = plane.reshape(Sp, C * Bp, ch)
+    view = flat[:, flat_idx.reshape(-1).long()].reshape(Sp, F, B, ch)
+    view = torch.where(valid[None, :, :, None], view,
+                       torch.zeros((), dtype=view.dtype, device=view.device))
+    totals = plane[:, 0].sum(1)                                 # [Sp, ch]
+    residual = totals[:, None, :] - view.sum(2)                 # [Sp, F, ch]
+    residual = residual * valid.any(1)[None, :, None].to(residual.dtype)
+    out = view.clone()
+    out[torch.arange(Sp, device=plane.device)[:, None],
+        torch.arange(F, device=plane.device)[None, :],
+        default_bin.long()[None, :]] += residual
+    return out[..., 0] if squeeze else out
+
+
 # ---------------------------------------------------------------- checks
 def _check_route_inputs(bins_T, leaf_T, W, tbl, num_bins, f_oh,
                         packed=None):
@@ -410,9 +493,12 @@ def _hist_plain(bins, vals, k, fmask, *, Sp, FB, num_bins, f_oh, nch,
                 quant_bits, packed):
     """[FB, nch*Sp] histogram of n rows — their bins [>=K, n] in kernel-row
     order, channels [nch, n], slots k [n] — by ``index_add_`` over the
-    flat (slab offset + bin, ch*Sp + k) index."""
+    flat (slab offset + bin, ch*Sp + k) index: exact int32 sums, or f32
+    channels summed in float64 and rounded once to f32 (an f32
+    ``index_add_`` drifts from the exact sum where ~10^5 equal values meet
+    in one cell)."""
     C = nch * Sp
-    acc = torch.int32 if quant_bits else torch.float32
+    acc = torch.int32 if quant_bits else torch.float64
     dev = bins.device
     hist = torch.zeros(FB * C, dtype=acc, device=dev)
     vals = vals.to(acc)
@@ -431,7 +517,7 @@ def _hist_plain(bins, vals, k, fmask, *, Sp, FB, num_bins, f_oh, nch,
         keep = expand_feature_mask(fmask, f_oh, num_bins, packed)
         hist = torch.where(keep[:, None], hist,
                            torch.zeros((), dtype=acc, device=hist.device))
-    return hist
+    return hist if quant_bits else hist.to(torch.float32)
 
 
 def level_pass_plain(bins_T, leaf_T, gh_T, W, tbl, fmask=None, *,
@@ -458,13 +544,30 @@ def level_mark_plain(bins_T, leaf_T, gh_T, W, tbl, fmask=None, *,
     """Plain PyTorch version of :func:`level_mark` (stage 1 of
     :func:`level_pass`): (new_leaf [1, Rp] int32, row_slot [Rp] int8 — the
     slot of each smaller-child row with a non-zero channel, else -1 —,
-    counts [Sp] int32 of those rows per slot)."""
+    counts, the mark stage's int32 counts buffer: the marked rows of each
+    (slot, block of MARK_ROWS rows) slot-major, their exclusive scan and
+    the Sp + 1 slot offsets, 2 * Sp * nb + Sp + 1 words; :func:`slot_counts`
+    reads the per-slot counts from it)."""
     slot, left, new_leaf = _route_plain(bins_T, leaf_T, W, tbl, num_bins,
                                         f_oh, packed, fmask)
     marked = _smaller_child(slot, left, tbl) & (gh_T[:nch] != 0).any(0)
     row_slot = torch.where(marked, slot, -1).to(torch.int8)
-    counts = torch.bincount(slot[marked], minlength=tbl.shape[0])
+    Sp, nb = tbl.shape[0], -(-leaf_T.shape[1] // MARK_ROWS)
+    rows = torch.nonzero(marked).squeeze(1)
+    cnt = torch.bincount(slot[rows].long() * nb + rows // MARK_ROWS,
+                         minlength=Sp * nb)
+    off = torch.cumsum(cnt, 0) - cnt
+    counts = torch.cat([cnt, off, off[::nb], cnt.sum()[None]])
     return new_leaf, row_slot, counts.to(torch.int32)
+
+
+def slot_counts(counts: torch.Tensor, Rp: int) -> torch.Tensor:
+    """[Sp] int32 marked rows per slot, the differences of the slot
+    offsets in the mark stage's counts buffer (:func:`level_mark_plain`)
+    over ``Rp`` rows."""
+    nb = -(-Rp // MARK_ROWS)
+    Sp = (counts.shape[0] - 1) // (2 * nb + 1)
+    return torch.diff(counts[2 * Sp * nb:]).to(torch.int32)
 
 
 def record_layout(K: int, bin_bytes: int, nch: int,
@@ -495,12 +598,12 @@ def _kernel_row_count(f_oh, packed):
 
 def partition_order_plain(row_slot, counts):
     """[Rp] int32: the marked rows grouped by slot, slot 0's bucket first
-    (bucket k spans the exclusive scan of ``counts``), rows ascending
-    within a bucket, then -1 — the order of :func:`level_partition_plain`'s
-    records."""
+    (bucket k starts at slot offset k of the counts buffer), rows
+    ascending within a bucket, then -1 — the order of
+    :func:`level_partition_plain`'s records."""
     key = torch.where(row_slot >= 0, row_slot.long(), MAX_SLOTS)
     order = torch.argsort(key, stable=True).to(torch.int32)
-    order[int(counts.sum()):] = -1
+    order[int(counts[-1]):] = -1
     return order
 
 
@@ -510,8 +613,9 @@ def level_partition_plain(bins_T, gh_T, row_slot, counts, *,
     """Plain PyTorch version of :func:`level_partition` (stage 2): stage
     [Rp, record bytes] uint8 — the staging record (:func:`record_layout`)
     of row ``partition_order_plain(row_slot, counts)[q]`` at position q,
-    zeros past the last bucket."""
-    n = int(counts.sum())
+    zeros past the last bucket; ``counts`` is :func:`level_mark_plain`'s
+    buffer."""
+    n = int(counts[-1])
     rows = partition_order_plain(row_slot, counts)[:n].long()
     recs = _records(bins_T, gh_T, rows, _kernel_row_count(f_oh, packed), nch)
     stage = torch.zeros((row_slot.shape[0], recs.shape[1]),
@@ -524,9 +628,11 @@ def level_hist_plain(stage, counts, fmask=None, *, bin_bytes: int,
                      num_bins: int, f_oh: int, nch: int = NCH_PRECISE,
                      quant_bits: int = 0, packed: PackedLayout = None):
     """Plain PyTorch version of :func:`level_hist` (stage 3): the
-    [FB, nch*Sp] histogram of each slot's bucket of staging records."""
-    Sp = counts.shape[0]
-    n = int(counts.sum())
+    [FB, nch*Sp] histogram of each slot's bucket of staging records
+    (``counts``: :func:`level_mark_plain`'s buffer)."""
+    per_slot = slot_counts(counts, stage.shape[0])
+    Sp = per_slot.shape[0]
+    n = int(counts[-1])
     K = _kernel_row_count(f_oh, packed)
     ch_dt = torch.int8 if quant_bits else torch.bfloat16
     ch_off, _ = record_layout(K, bin_bytes, nch, ch_dt.itemsize)
@@ -536,7 +642,7 @@ def level_hist_plain(stage, counts, fmask=None, *, bin_bytes: int,
     vals = rec[:, ch_off:ch_off + nch * ch_dt.itemsize].contiguous() \
         .view(ch_dt).t()
     k = torch.repeat_interleave(torch.arange(Sp, device=stage.device),
-                                counts.long())
+                                per_slot.long())
     FB = packed.fb if packed is not None else f_oh * num_bins
     return _hist_plain(bins, vals, k, fmask, Sp=Sp, FB=FB,
                        num_bins=num_bins, f_oh=f_oh, nch=nch,
@@ -630,18 +736,19 @@ def root_hist_plain(bins_T, gh_T, *, num_bins: int, f_oh: int,
                     nch: int = NCH_PRECISE):
     """The next tree's root histogram [F_oh*Bp, nch*8] f32 (slot 0 of each
     8-column channel block live) by ``index_add_`` of the bf16 channels in
-    f32, row by row: the plain version of the epilogue's histogram and
-    reduce kernels, which sum the same values in another order."""
+    float64, rounded once to f32: the plain version of the epilogue's
+    histogram and reduce kernels, which sum the same values in f32 in
+    another order."""
     FB = f_oh * num_bins
     C = nch * 8
-    hist = torch.zeros(FB * C, dtype=torch.float32, device=bins_T.device)
-    vals = gh_T[:nch].float()                                    # [nch, Rp]
+    hist = torch.zeros(FB * C, dtype=torch.float64, device=bins_T.device)
+    vals = gh_T[:nch].double()                                   # [nch, Rp]
     ch_off = (torch.arange(nch, device=bins_T.device) * 8)[:, None]
     for f in range(f_oh):
         cell = (f * num_bins + bins_T[f].long()) * C              # [Rp]
         hist.index_add_(0, (cell[None, :] + ch_off).reshape(-1),
                         vals.reshape(-1))
-    return hist.reshape(FB, C)
+    return hist.reshape(FB, C).to(torch.float32)
 
 
 def epilogue_pass_plain(bins_T, leaf_T, W, tbl, leaf_values, score_T, ops_T,
@@ -743,18 +850,45 @@ def _count_kernels(names, bits: int) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def hist_groups(K: int, width: int, nch: int, budget: int) -> Tuple[int, int]:
-    """(Kg, Cw) of the level_hist kernel's shared-memory tile: Cw columns,
-    one per kernel row, so the 32 lanes of a warp add into 32 different
-    banks (32, unless one band of 32 columns of ``width`` bins — the
-    widest slab — does not fit), and Kg kernel rows per group (grid.y cuts
-    the K rows into groups of Kg): the most rows whose tile, ceil(Kg/Cw)
-    bands of width x Cw cells of nch 4-byte sums, fits ``budget`` bytes.
-    One group of 28 at K=28, Bp=64, nch=5 (40,960 B) and at Bp=256
-    (163,840 B)."""
-    column = width * nch * 4
-    Cw = max(1, min(32, budget // column))
-    return min(K, max(1, budget // (column * Cw)) * Cw), Cw
+def level_tile_shape(K: int, width: int, nch: int,
+                     budget: int) -> Tuple[int, int, int]:
+    """(Cw, Bw, nr) of the level_tiles kernel: Cw kernel rows per tile (the
+    K rows cut into ceil(K / 32) even groups; a lane adds for kernel row l
+    % Cw and 32 // Cw lanes share a row as replicas), Bw bins per tile (the
+    widest slab ``width`` cut into bin groups of Bw: up to 64, wider slabs
+    into at most 16 groups where the tiles fit), and nr record lanes (the
+    block's nch * nr warps each own one channel's tile of Bw x 32 4-byte
+    sums, all within ``budget`` bytes, at most 32 warps). (28, 64, 5) at K
+    = 28, Bp = 64, nch = 5 on the H100."""
+    gy = -(-K // 32)
+    Cw = -(-K // gy)
+    tile = 32 * 4                                   # bytes per tile bin
+    Bw = min(width, max(64, 1 << max(0, (-(-width // 16) - 1).bit_length())))
+    while Bw > 1 and nch * Bw * tile > budget:
+        Bw //= 2
+    nr = max(1, min(budget // (nch * Bw * tile), 32 // nch))
+    return Cw, Bw, nr
+
+
+def _level_row_blocks(dev, Rp: int, K: int, width: int, nch: int,
+                      shape) -> int:
+    """Row blocks of the level_tiles kernel: enough to fill the card once
+    across the kernel-row and bin groups, at least MIN_TILE_ROWS rows
+    each."""
+    Cw, Bw, nr = shape
+    sms, optin = _device_limits(dev)
+    smem = nch * nr * Bw * 32 * 4 + HIST_STATIC_SMEM
+    per_sm = max(1, (optin + HIST_STATIC_SMEM) // smem)
+    groups = -(-K // Cw) * -(-width // Bw)
+    return max(1, min(-(-Rp // MIN_TILE_ROWS), sms * per_sm // groups))
+
+
+def _counts_buffer(Rp: int, Sp: int, dev) -> torch.Tensor:
+    """The level stages' int32 scratch: per-(slot, block) counts and their
+    offsets, the slot offsets and the slab table (lgbt_level_pass)."""
+    nb = -(-Rp // MARK_ROWS)
+    return torch.zeros(2 * Sp * nb + 2 * Sp + 1, dtype=torch.int32,
+                       device=dev)
 
 
 def _level_launch(stages, bins_T, leaf_T, gh_T, W, tbl, fmask, *, hist,
@@ -768,7 +902,17 @@ def _level_launch(stages, bins_T, leaf_T, gh_T, W, tbl, fmask, *, hist,
     dev = counts.device
     ktab, kmask, K = _kernel_layout(packed, fmask, f_oh, dev)
     width = max(packed.widths) if packed is not None else num_bins
-    Kg, Cw = hist_groups(K, width, nch, _smem_budget(dev))
+    shape = level_tile_shape(K, width, nch, _smem_budget(dev))
+    Cw, Bw, nr = shape
+    gx = _level_row_blocks(dev, Rp, K, width, nch, shape)
+    part = None
+    if "level_hist" in stages:
+        # the tiles' part slices: (gx + Sp) of [nch, Bw, Cw] per kernel-row
+        # group and bin group
+        slices = (gx + Sp) * -(-K // Cw) * -(-width // Bw)
+        part = torch.empty(slices * nch * Bw * Cw,
+                           dtype=torch.int32 if quant_bits
+                           else torch.float32, device=dev)
     ch_off, rec_bytes = record_layout(K, bin_bytes, nch,
                                       1 if quant_bits else 2)
     mask = sum(1 << LEVEL_STAGES.index(st) for st in stages)
@@ -777,8 +921,9 @@ def _level_launch(stages, bins_T, leaf_T, gh_T, W, tbl, fmask, *, hist,
         _ptr(bins_T), bin_bytes, _ptr(leaf_T), _ptr(gh_T),
         int(bool(quant_bits)), _ptr(W), _ptr(tbl), _ptr(ktab), _ptr(kmask),
         _ptr(hist), _ptr(new_leaf), _ptr(row_slot), counts.data_ptr(),
-        _ptr(stage), Rp, K, num_bins, FB, Sp, nch, Kg, Cw, width, ch_off,
-        rec_bytes, mask, _stream(dev), ctypes.byref(done))
+        _ptr(stage), _ptr(part), Rp, K, num_bins, FB, Sp, nch, Cw, Bw,
+        width, nr, gx, ch_off, rec_bytes, mask, _stream(dev),
+        ctypes.byref(done))
     _count_kernels(LEVEL_KERNELS, done.value)
     _raise_on(rc, "level_pass")
 
@@ -829,11 +974,10 @@ def level_pass(bins_T: torch.Tensor, leaf_T: torch.Tensor,
     hist = torch.zeros((FB, C), device=dev,
                        dtype=torch.int32 if quant_bits else torch.float32)
     new_leaf = torch.empty_like(leaf_T)
-    # the per-slot counts, the partition's cursors and the slab table
     _level_launch(LEVEL_STAGES, bins_T, leaf_T, gh_T, W, tbl, fmask,
                   hist=hist, new_leaf=new_leaf,
                   row_slot=torch.empty(Rp, dtype=torch.int8, device=dev),
-                  counts=torch.zeros(3 * Sp, dtype=torch.int32, device=dev),
+                  counts=_counts_buffer(Rp, Sp, dev),
                   stage=_stage_buffer(_kernel_row_count(f_oh, packed),
                                       bins_T, nch, quant_bits),
                   num_bins=num_bins, f_oh=f_oh, nch=nch,
@@ -852,8 +996,10 @@ def level_mark(bins_T: torch.Tensor, leaf_T: torch.Tensor,
                nch: int = NCH_PRECISE, quant_bits: int = 0,
                packed: PackedLayout = None):
     """Stage 1 of :func:`level_pass` alone (same operands): (new_leaf
-    [1, Rp] int32, row_slot [Rp] int8, counts [Sp] int32), as
-    :func:`level_mark_plain` describes."""
+    [1, Rp] int32, row_slot [Rp] int8, counts buffer), as
+    :func:`level_mark_plain` describes; on the card the counts buffer is
+    the one the kernels wrote, which :func:`level_partition` and
+    :func:`level_hist` take as it is."""
     Rp, Sp = _check_level_inputs(bins_T, leaf_T, gh_T, W, tbl, fmask,
                                  num_bins, f_oh, nch, quant_bits, packed)
     dev = bins_T.device
@@ -864,23 +1010,30 @@ def level_mark(bins_T: torch.Tensor, leaf_T: torch.Tensor,
     _require_cuda(bins_T, leaf_T, gh_T, W, tbl)
     new_leaf = torch.empty_like(leaf_T)
     row_slot = torch.empty(Rp, dtype=torch.int8, device=dev)
-    counts = torch.zeros(3 * Sp, dtype=torch.int32, device=dev)
+    counts = _counts_buffer(Rp, Sp, dev)
     _level_launch(LEVEL_STAGES[:1], bins_T, leaf_T, gh_T, W, tbl, fmask,
                   hist=None, new_leaf=new_leaf, row_slot=row_slot,
                   counts=counts, stage=None, num_bins=num_bins,
                   f_oh=f_oh, nch=nch, quant_bits=quant_bits, packed=packed,
                   FB=W.shape[1], Sp=Sp, Rp=Rp,
                   bin_bytes=bins_T.element_size())
-    return new_leaf, row_slot, counts[:Sp]
+    # the slab table after the slot offsets is the mark stage's own
+    return new_leaf, row_slot, counts[:-Sp]
 
 
-def _check_stage_operands(row_slot, counts, Rp):
+def _check_stage_operands(row_slot, counts, Rp) -> int:
+    """Check a later stage's ``row_slot`` and mark-stage counts buffer over
+    ``Rp`` rows; returns Sp."""
     if row_slot is not None and (tuple(row_slot.shape) != (Rp,)
                                  or row_slot.dtype != torch.int8):
         raise ValueError(f"row_slot must be [{Rp}] int8")
-    if counts.dim() != 1 or counts.dtype != torch.int32 \
-            or not 1 <= counts.shape[0] <= MAX_SLOTS:
-        raise ValueError(f"counts must be [Sp] int32, Sp <= {MAX_SLOTS}")
+    nb = -(-Rp // MARK_ROWS)
+    Sp, rest = divmod(counts.shape[0] - 1, 2 * nb + 1) \
+        if counts.dim() == 1 else (0, 1)
+    if counts.dtype != torch.int32 or rest or not 1 <= Sp <= MAX_SLOTS:
+        raise ValueError(f"counts must be level_mark's int32 buffer of "
+                         f"2 * Sp * {nb} + Sp + 1 words, Sp <= {MAX_SLOTS}")
+    return Sp
 
 
 def level_partition(bins_T: torch.Tensor, gh_T: torch.Tensor,
@@ -890,25 +1043,22 @@ def level_partition(bins_T: torch.Tensor, gh_T: torch.Tensor,
                     ) -> torch.Tensor:
     """Stage 2 of :func:`level_pass` alone: the staging records as
     :func:`level_partition_plain` describes, from :func:`level_mark`'s
-    ``row_slot`` and ``counts``; on the card the order inside a bucket is
-    arbitrary and the rows past the last bucket are unset."""
+    ``row_slot`` and counts buffer; on the card the rows past the last
+    bucket are unset."""
     if bins_T.dim() != 2 or bins_T.dtype not in (torch.int8, torch.int16):
         raise ValueError("bins_T must be a 2-D int8 or int16 tensor")
     Rp = bins_T.shape[1]
-    _check_stage_operands(row_slot, counts, Rp)
+    Sp = _check_stage_operands(row_slot, counts, Rp)
     _check_channels(gh_T, Rp, nch, quant_bits, bins_T.device)
     kw = dict(num_bins=num_bins, f_oh=f_oh, nch=nch, quant_bits=quant_bits,
               packed=packed)
     if bins_T.device.type == "cpu":
         return level_partition_plain(bins_T, gh_T, row_slot, counts, **kw)
     _require_cuda(bins_T, gh_T, row_slot, counts)
-    Sp = counts.shape[0]
-    cnt = torch.zeros(2 * Sp, dtype=torch.int32, device=bins_T.device)
-    cnt[:Sp] = counts
     stage = _stage_buffer(_kernel_row_count(f_oh, packed), bins_T, nch,
                           quant_bits)
     _level_launch(LEVEL_STAGES[1:2], bins_T, None, gh_T, None, None, None,
-                  hist=None, new_leaf=None, row_slot=row_slot, counts=cnt,
+                  hist=None, new_leaf=None, row_slot=row_slot, counts=counts,
                   stage=stage, FB=0, Sp=Sp, Rp=Rp,
                   bin_bytes=bins_T.element_size(), **kw)
     return stage
@@ -919,14 +1069,15 @@ def level_hist(stage: torch.Tensor, counts: torch.Tensor,
                f_oh: int, nch: int = NCH_PRECISE, quant_bits: int = 0,
                packed: PackedLayout = None) -> torch.Tensor:
     """Stage 3 of :func:`level_pass` alone: the [FB, nch*Sp] histogram of
-    each slot's bucket of :func:`level_partition`'s staging records
-    (``bin_bytes`` 1 or 2: the bins' width in them)."""
-    _check_stage_operands(None, counts, None)
+    each slot's bucket of :func:`level_partition`'s staging records, from
+    :func:`level_mark`'s counts buffer (``bin_bytes`` 1 or 2: the bins'
+    width in the records)."""
     K = _kernel_row_count(f_oh, packed)
     _, rec_bytes = record_layout(K, bin_bytes, nch, 1 if quant_bits else 2)
     if stage.dim() != 2 or stage.shape[1] != rec_bytes \
             or stage.dtype != torch.uint8:
         raise ValueError(f"stage must be [Rp, {rec_bytes}] uint8")
+    Sp = _check_stage_operands(None, counts, stage.shape[0])
     if packed is not None:
         _check_packed(packed, num_bins, f_oh)
     kw = dict(num_bins=num_bins, f_oh=f_oh, nch=nch, quant_bits=quant_bits,
@@ -935,7 +1086,6 @@ def level_hist(stage: torch.Tensor, counts: torch.Tensor,
         return level_hist_plain(stage, counts, fmask, bin_bytes=bin_bytes,
                                 **kw)
     _require_cuda(stage, counts)
-    Sp = counts.shape[0]
     FB = packed.fb if packed is not None else f_oh * num_bins
     hist = torch.zeros((FB, nch * Sp), device=stage.device,
                        dtype=torch.int32 if quant_bits else torch.float32)
@@ -1032,8 +1182,8 @@ def epilogue_pass(bins_T: torch.Tensor, leaf_T: torch.Tensor,
     gradients and the pack (:func:`route_slabs_plain`,
     :func:`epilogue_rows_plain`); each block's partial root histogram; and
     the fixed-order reduce of the partials (:func:`root_hist_plain` sums
-    the same values in another order). ``num_bins`` is at most
-    ``MAX_CARD_BINS`` there.
+    the same values in another order). Any ``num_bins`` runs there: slabs
+    wider than 1024 bins (EFB bundle columns) take bin groups.
     """
     Rp, Sp = _check_route_inputs(bins_T, leaf_T, W, tbl, num_bins, f_oh)
     if nch not in (NCH_PRECISE, NCH_FAST):
@@ -1057,9 +1207,6 @@ def epilogue_pass(bins_T: torch.Tensor, leaf_T: torch.Tensor,
                                    f_oh=f_oh, nch=nch, kind=kind,
                                    sigmoid=sigmoid)
     _require_cuda(bins_T, leaf_T, W, tbl, leaf_values, score_T, ops_T, bag_T)
-    if num_bins > MAX_CARD_BINS:
-        raise ValueError(f"the epilogue kernel takes at most {MAX_CARD_BINS} "
-                         f"bins; got {num_bins}")
     buf = epilogue_buffers(bins_T, Sp, num_bins=num_bins, f_oh=f_oh,
                            nch=nch)
     _epilogue_launch(EPILOGUE_KERNELS, bins_T, leaf_T, W, tbl, leaf_values,

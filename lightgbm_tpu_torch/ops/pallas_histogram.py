@@ -79,11 +79,12 @@ def hist_pass_plain(bins_i32: torch.Tensor, gh: torch.Tensor,
                     quant: bool = False) -> torch.Tensor:
     """Plain PyTorch version of :func:`hist_pass`: one ``index_add_`` of
     every (slotted row, feature) pair's channels into a flat
-    [Sp*Fp*Bp, nch] buffer."""
+    [Sp*Fp*Bp, nch] buffer — exact int32 sums, or the f32 channels summed
+    in float64 and rounded once to f32."""
     R, Fp = bins_i32.shape
     Sp = _round_up(max(S, 8), 8)
     dev = bins_i32.device
-    acc = torch.int32 if quant else torch.float32
+    acc = torch.int32 if quant else torch.float64
     rows = torch.nonzero((row_slot >= 0) & (row_slot < Sp)).squeeze(1)
     s = row_slot[rows].long()
     b = bins_i32[rows].long()                                     # [n, Fp]
@@ -91,8 +92,9 @@ def hist_pass_plain(bins_i32: torch.Tensor, gh: torch.Tensor,
     cell = (s[:, None] * Fp + torch.arange(Fp, device=dev)) * Bp + b
     ok = (b >= 0) & (b < Bp)
     out = torch.zeros((Sp * Fp * Bp, nch), dtype=acc, device=dev)
-    src = vals[:, None, :].expand(-1, Fp, -1)
+    src = vals[:, None, :].expand(-1, Fp, -1).to(acc)
     out.index_add_(0, cell[ok], src[ok])
+    out = out if quant else out.to(torch.float32)
     return out.t().reshape(nch, Sp, Fp, Bp)
 
 

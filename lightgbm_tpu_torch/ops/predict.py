@@ -17,7 +17,11 @@ and categories past the bitset go right (``lightgbm_tpu/ops/predict.py``
 (``route_rows_to_leaves`` of the JAX package), and :func:`add_tree_score`
 adds one tree's leaf values to a score row through it: the per-tree
 valid-score update, and ``rollback_one_iter``'s subtraction. A categorical
-node there goes left iff its ``cat_mask`` row holds the row's bin. The JAX
+node there goes left iff its ``cat_mask`` row holds the row's bin. On a
+sparse-built (prebundled) dataset the bins are EFB bundle columns, and
+``bundle`` = (col_of_feat, offset_of_feat, most_freq_bin) decodes each
+node's logical bin from its feature's column (``lightgbm_tpu/ops/
+predict.py:31-60``). The JAX
 package computes these outside any Pallas kernel, in plain XLA; here they
 are plain torch.
 """
@@ -86,22 +90,33 @@ def route_binned_rows_to_leaves(bins: torch.Tensor,
                                 default_bin: torch.Tensor,
                                 max_steps: int,
                                 cat_flag: torch.Tensor = None,
-                                cat_mask: torch.Tensor = None
-                                ) -> torch.Tensor:
+                                cat_mask: torch.Tensor = None,
+                                bundle: tuple = None) -> torch.Tensor:
     """Leaf index per row for one tree on binned rows ``bins`` [R, F]:
     ``split_feature`` holds inner feature indices; a row whose bin is the
     feature's missing bin (its default bin for missing type Zero, the last
     bin for NaN) follows ``default_left``, others go left iff
     bin <= threshold_bin (ref: src/io/dense_bin.hpp Split); a categorical
     node (``cat_flag`` [N]) goes left iff its ``cat_mask`` [N, B] row holds
-    the bin."""
+    the bin. ``bundle`` (col_of_feat, offset_of_feat, most_freq_bin), when
+    ``bins`` holds EFB bundle columns: a node's logical bin is its
+    column's value less the feature's offset inside the feature's window,
+    else (a bundle-default row) the feature's most-frequent bin."""
     R = bins.shape[0]
     node = torch.zeros(R, dtype=torch.int64, device=bins.device)
     for _ in range(max_steps):
         is_internal = node >= 0
         nd = node.clamp(min=0)
         f = split_feature[nd].long()
-        b = torch.gather(bins, 1, f[:, None])[:, 0].long()
+        if bundle is None:
+            b = torch.gather(bins, 1, f[:, None])[:, 0].long()
+        else:
+            col_of_feat, offset_of_feat, mfb = bundle
+            raw = torch.gather(bins, 1, col_of_feat[f][:, None].long())[:, 0] \
+                .long()
+            off = offset_of_feat[f].long()
+            in_win = (raw >= off) & (raw < off + num_bin[f])
+            b = torch.where(in_win, raw - off, mfb[f].long())
         mt = missing_type[f]
         missing = (((mt == 1) & (b == default_bin[f]))
                    | ((mt == 2) & (b == num_bin[f] - 1)))
@@ -121,14 +136,16 @@ def add_tree_score(score: torch.Tensor, bins: torch.Tensor,
                    num_bin: torch.Tensor, missing_type: torch.Tensor,
                    default_bin: torch.Tensor,
                    max_steps: int, cat_flag: torch.Tensor = None,
-                   cat_mask: torch.Tensor = None) -> torch.Tensor:
+                   cat_mask: torch.Tensor = None,
+                   bundle: tuple = None) -> torch.Tensor:
     """``score + leaf_value[route(row)]`` for one tree on binned rows
     (``add_tree_score`` of the JAX package's ``ops/predict.py``); a new
-    tensor, ``score`` [R] and ``leaf_value`` [L] of one dtype."""
+    tensor, ``score`` [R] and ``leaf_value`` [L] of one dtype. ``bundle``
+    as for :func:`route_binned_rows_to_leaves`."""
     leaves = route_binned_rows_to_leaves(
         bins, split_feature, threshold_bin, default_left, left_child,
         right_child, num_bin, missing_type, default_bin, max_steps,
-        cat_flag, cat_mask)
+        cat_flag, cat_mask, bundle)
     return score + leaf_value[leaves]
 
 

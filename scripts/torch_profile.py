@@ -4,7 +4,7 @@ the card.
 
     python3 scripts/torch_profile.py [--rows 1000000] [--rounds 3]
                                      [--path train update frontier mixed cuts
-                                             eval class rank cat]
+                                             eval class rank cat bundle]
 
 Trains chip_smoke.py's configuration (1,000,000 x 28 rows of bench.py's
 synthetic data, max_bin=63, num_leaves=255) with ``Booster.update()``,
@@ -29,11 +29,17 @@ documents x 136 features, ``--rows`` documents) on the megastep body with
 its 200,000-document valid set and ``metric=["ndcg", "map"]``, each
 iteration followed by ``eval_valid()``; ``cat`` its phase 10 run (a), the
 megastep body on phase 3's rows with columns 0-3 as category codes
-(``categorical_feature=[0, 1, 2, 3]``). Each warms up two
-iterations (GOSS ten), then traces ``--rounds`` more with
-``torch.profiler`` and prints one JSON line: the wall time per
-iteration, the device time summed over all kernels, the device's busy
-share (device time over wall time), the device launches per iteration,
+(``categorical_feature=[0, 1, 2, 3]``); ``bundle`` its phase 11 runs, one
+JSON line each: (a) the megastep body on the Allstate-shaped CSR draw
+(``--rows`` rows, 4,228 columns, bundled at ingestion), (b) the epilogue
+body on dense EFB (500,000 rows of 28 dense and 512 exclusive columns)
+and (c) the epilogue body on one 4,033-bin bundle column (500,000 rows of
+64 exclusive columns). Each warms up two iterations (GOSS ten), times
+``--rounds`` more untraced, then traces ``--rounds`` more with
+``torch.profiler`` and prints one JSON line: the wall time per iteration
+untraced and traced, the device time summed over all kernels, the
+device's busy share (device time over traced wall time), the device
+launches per iteration,
 each of the port's kernels' device ms per iteration (``level_pass``,
 ``route_pass``, ``epilogue_pass`` and ``hist_pass`` as the sums of their
 CUDA kernels, each also on its own; the slab-table kernel the first three
@@ -64,9 +70,11 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--path", nargs="+",
                     choices=("train", "update", "frontier", "mixed",
-                             "cuts", "eval", "class", "rank", "cat"),
+                             "cuts", "eval", "class", "rank", "cat",
+                             "bundle"),
                     default=["train", "update", "frontier", "mixed",
-                             "cuts", "eval", "class", "rank", "cat"])
+                             "cuts", "eval", "class", "rank", "cat",
+                             "bundle"])
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -112,6 +120,25 @@ def main() -> int:
             print(json.dumps(dict(path=path, nvidia_smi=smi, **profile_path(
                 lgb, frontier2, p, d, True, args.rounds, valid))),
                 flush=True)
+            continue
+        if path == "bundle":
+            for run, make, megastep in (
+                    ("a", lambda: cs._sparse_rows(args.rows,
+                                                  cs.DATA_SEED + 500), True),
+                    ("b", lambda: cs._exclusive_rows(
+                        cs.EFB_ROWS, 28, cs.EFB_EXCLUSIVE,
+                        cs.DATA_SEED + 600), False),
+                    ("c", lambda: cs._exclusive_rows(
+                        cs.EFB_ROWS, 0, cs.WIDE_MEMBERS,
+                        cs.DATA_SEED + 700), False)):
+                Xb, yb = make()
+                d = lgb.Dataset(Xb, label=yb, params=params).construct()
+                print(json.dumps(dict(
+                    path=path, run=run, nvidia_smi=smi,
+                    **cs._bundle_summary_of(d, params),
+                    **profile_path(lgb, frontier2, params, d, megastep,
+                                   args.rounds))), flush=True)
+                del Xb, d
             continue
         if path == "cat":
             cats = list(range(len(cs.CAT_CARDINALITIES)))
@@ -162,6 +189,11 @@ def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int,
     for _ in range(warmup):
         step()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):                 # untraced, as a caller runs it
+        step()
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
     frontier2.host_syncs["count"] = 0
     fl.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
@@ -218,6 +250,7 @@ def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int,
         "gain_screening": g.use_screening,
         "epilogue_body": bool(not megastep and bst._gbdt._use_epilogue()),
         "wall_ms_per_iter": wall * 1e3 / rounds,
+        "untraced_wall_ms_per_iter": untraced * 1e3 / rounds,
         "device_ms_per_iter": dev_total_us / 1e3 / rounds,
         "device_busy_share": dev_total_us / 1e6 / wall,
         "host_syncs_per_tree": frontier2.host_syncs["count"] / (rounds * k),

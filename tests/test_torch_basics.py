@@ -90,7 +90,8 @@ def test_port_imports_no_jax():
             "lightgbm_tpu_torch.objective.xentropy",
             "lightgbm_tpu_torch.objective.rank",
             "lightgbm_tpu_torch.utils.dcg",
-            "lightgbm_tpu_torch.utils.random"} <= set(_port_modules())
+            "lightgbm_tpu_torch.utils.random",
+            "lightgbm_tpu_torch.ops.efb"} <= set(_port_modules())
     code = (
         "import importlib, json, sys\n"
         f"for m in {_port_modules()!r} + ['chip_smoke']:\n"

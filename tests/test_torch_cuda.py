@@ -541,7 +541,8 @@ STAGE_SHAPES = {
 
 def _assert_hist_close(got, want, nch, Sp, quant):
     """int32 planes exact; f32 within 1e-5 of each plane's largest
-    magnitude (atomics reorder the sums), the weight channel exact."""
+    magnitude (the kernel sums in f32 in its own order, the plain version
+    in float64), the weight channel exact."""
     if quant:
         assert torch.equal(got, want)
         return
@@ -568,19 +569,14 @@ def test_level_stages_match_plain(cuda_device, shape):
                           mark_p):
         assert torch.equal(a, b), name
     new_leaf, row_slot, counts = mark_p
-    n = int(counts.sum())
+    n = int(counts[-1])
     assert n > 0
-    # stage 2: each slot's bucket holds the same records (the order
-    # inside a bucket is the kernel's own), compared sorted bytewise
+    # stage 2: each slot's bucket holds the same records in the same
+    # order (row order: the kernel's order is fixed)
     stage_k = tfl.level_partition(ops[0], ops[2], row_slot, counts, **kw)
     stage_p = tfl.level_partition_plain(ops[0], ops[2], row_slot, counts,
                                         **kw)
-    rec_k, rec_p = stage_k[:n].cpu().numpy(), stage_p[:n].cpu().numpy()
-    off = np.concatenate([[0], np.cumsum(counts.cpu().numpy())])
-    for k in range(Sp):
-        a, b = rec_k[off[k]:off[k + 1]], rec_p[off[k]:off[k + 1]]
-        assert np.array_equal(a[np.lexsort(a.T[::-1])],
-                              b[np.lexsort(b.T[::-1])]), k
+    assert torch.equal(stage_k[:n], stage_p[:n])
     # stage 3 on the kernel's records
     bb = dict(bin_bytes=ops[0].element_size())
     hist_k = tfl.level_hist(stage_k, counts, fm, **bb, **kw)
@@ -598,19 +594,20 @@ def test_level_stages_match_plain(cuda_device, shape):
         assert not hist_l[~keep].any()
     assert {k: tfl.launches[k] - n0[k] for k in n0}["level_pass"] == 1
     assert {k: tfl.cuda_launches[k] - c0[k] for k in c0
-            if k.startswith("level_")} == {"level_slabs": 2,
-                                           "level_mark": 2,
-                                           "level_partition": 2,
-                                           "level_hist": 2}
+            if k.startswith("level_")} == dict.fromkeys(tfl.LEVEL_KERNELS, 2)
+    # the same bits on a second call (no atomic orders an f32 sum)
+    hist_2, _ = tfl.level_pass(*ops, fm, **kw)
+    assert torch.equal(hist_2, hist_l)
 
 
 def test_level_hist_groups_on_the_card(cuda_device):
-    """The wide layout really runs as two feature groups."""
+    """The wide layout really runs as two kernel-row groups, and Bp=256
+    as four bin groups of 64, each with 25 warps' tiles."""
     F_oh = 64
     budget = tfl._smem_budget(cuda_device)
     assert budget >= 200 * 1024          # the H100 opts into 227 KB
-    assert tfl.hist_groups(F_oh, 256, 5, budget) == (32, 32)
-    assert tfl.hist_groups(28, 256, 5, budget) == (28, 32)
+    assert tfl.level_tile_shape(F_oh, 256, 5, budget) == (32, 64, 5)
+    assert tfl.level_tile_shape(28, 256, 5, budget) == (28, 64, 5)
 
 
 def test_level_pass_refused_launch_raises(cuda_device, monkeypatch):
@@ -625,14 +622,15 @@ def test_level_pass_refused_launch_raises(cuda_device, monkeypatch):
     for name in ("level_pass_plain", "level_mark_plain",
                  "level_partition_plain", "level_hist_plain", "_hist_plain"):
         monkeypatch.setattr(tfl, name, plain)
-    assert tfl.hist_groups(64, 256, 5, 1 << 20) == (64, 32)   # 327,680 B
+    Cw, Bw, nr = tfl.level_tile_shape(64, 256, 5, 1 << 20)
+    assert 5 * nr * Bw * 32 * 4 > 232448     # more than the H100's 227 KB
     c0 = dict(tfl.cuda_launches)
     with pytest.raises(RuntimeError, match="launch failed"):
         tfl.level_pass(*ops, fm, **kw)
     # the C entry reports the kernels launched before the refusal
     assert {k: tfl.cuda_launches[k] - c0[k] for k in tfl.LEVEL_KERNELS} \
-        == {"level_slabs": 1, "level_mark": 1, "level_partition": 1,
-            "level_hist": 0}
+        == {"level_slabs": 1, "level_mark": 1, "level_scan": 1,
+            "level_partition": 1, "level_tiles": 0, "level_reduce": 0}
     monkeypatch.undo()
     torch.cuda.synchronize()            # the context is still sound
     hist, leaf = tfl.level_pass(*ops, fm, **kw)
@@ -1146,3 +1144,132 @@ def test_cuda_categorical_training_matches_cpu(cuda_device, megastep):
         assert a.cat_threshold == b.cat_threshold
     np.testing.assert_allclose(bg.predict(X), bc.predict(X), rtol=1e-5,
                                atol=1e-6)
+
+
+def test_cuda_training_gives_the_same_model_twice(cuda_device):
+    """level_pass adds no f32 in a varying order (no atomic), so two
+    train() calls on one seed give the same model text: chip_smoke's
+    phase 3 configuration (bench.py's Higgs-shaped draw with seed 1,
+    max_bin 63, 255 leaves), cut to 250,000 rows and 5 rounds."""
+    rng = np.random.RandomState(1)
+    X = rng.rand(250_000, 28).astype(np.float32)
+    w = rng.randn(28).astype(np.float32)
+    y = (X @ w + 0.5 * rng.randn(250_000) > 0).astype(np.float32)
+    p = {"objective": "binary", "max_bin": 63, "num_leaves": 255,
+         "learning_rate": 0.1, "min_data_in_leaf": 1,
+         "min_sum_hessian_in_leaf": 1e-3, "verbose": -1,
+         "device_type": "cuda"}
+    texts = [lt.train(p, lt.Dataset(X, label=y), 5).model_to_string()
+             for _ in range(2)]
+    assert texts[0] == texts[1]
+
+
+@pytest.mark.parametrize("Bc_p", [256, 4096])
+def test_bundled_kernels_match_plain(cuda_device, Bc_p):
+    """level_pass, route_pass and epilogue_pass on bundle columns of Bc_p
+    bins (int16) and a bundled route table with a categorical member, as
+    the plain versions give them: new leaves equal, f32 planes within 1e-5
+    of each plane's largest magnitude with the weight channel exact, the
+    epilogue's scores and root histogram likewise."""
+    from lightgbm_tpu_torch.ops import efb
+    rng = np.random.RandomState(Bc_p)
+    if Bc_p == 256:
+        nb = np.array([63] * 4 + [40] * 18, np.int32)
+        bundles = [[f] for f in range(4)] + [list(range(4 + 6 * i,
+                                                        10 + 6 * i))
+                                             for i in range(3)]
+    else:
+        nb = np.full(64, 63, np.int32)
+        bundles = [list(range(64))]
+    layout = efb.BundleLayout(bundles, nb)
+    C_oh, Bcp = feature_layout(layout.num_columns, max(layout.col_num_bin))
+    assert Bcp == Bc_p
+    R, Rp = 50_000, 51_200
+    F = len(nb)
+    bins = np.zeros((max(C_oh, 8), Rp), np.int64)
+    for ci, members in enumerate(bundles):
+        owner = rng.randint(-1 if len(members) > 1 else 0, len(members), R)
+        o = np.maximum(owner, 0)
+        b = 1 + (rng.rand(R) * (nb[members][o] - 1)).astype(np.int64)
+        bins[ci, :R] = np.where(owner >= 0, layout.offset_of_feat[members][o]
+                                + b, 0)
+    Sp = 8
+    feat = rng.randint(0, F, Sp).astype(np.int32)
+    feat[-1] = -1
+    mt = np.zeros(F, np.int32)
+    mt[F - 1] = 2
+    t = lambda a: torch.as_tensor(np.asarray(a), device=cuda_device)  # noqa
+    cat_flag = np.zeros(Sp, bool)
+    cat_flag[0] = True
+    cat_mask = rng.rand(Sp, 64) < 0.4
+    W = tfl.build_route_table_bundled(
+        t(feat), t((rng.rand(Sp) * (nb[feat] - 1)).astype(np.int32)),
+        t(rng.rand(Sp) < 0.5), t(nb), t(mt), t(np.zeros(F, np.int32)),
+        t(np.zeros(F, np.int32)), t(layout.col_of_feat),
+        t(layout.offset_of_feat), C_oh, Bc_p, cat_flag=t(cat_flag),
+        cat_mask=t(cat_mask))
+    tbl = np.zeros((Sp, 128), np.int32)
+    tbl[:, 0] = np.where(feat >= 0, np.arange(Sp), -2)
+    tbl[:, 1] = np.where(feat >= 0, Sp, 0)
+    tbl[:, 2] = rng.randint(0, 2, Sp)
+    leaf = np.full((1, Rp), -1, np.int32)
+    leaf[0, :R] = rng.randint(0, Sp - 1, R)
+    g = np.zeros(Rp, np.float32)
+    h = np.zeros(Rp, np.float32)
+    wt = np.zeros(Rp, np.float32)
+    g[:R], h[:R], wt[:R] = rng.randn(R), rng.rand(R), 1.0
+    gh = tfl.pack_gh(t(g), t(h), t(wt), 5)
+    ops = (t(bins).to(torch.int16), t(leaf), gh, W, t(tbl))
+    kw = dict(num_bins=Bc_p, f_oh=C_oh, nch=5)
+    hist, new_leaf = tfl.level_pass(*ops, **kw)
+    hist_p, leaf_p = tfl.level_pass_plain(*ops, **kw)
+    assert torch.equal(new_leaf, leaf_p)
+    _assert_hist_close(hist, hist_p, 5, Sp, False)
+    assert torch.equal(tfl.route_pass(ops[0], ops[1], W, ops[4], **{
+        k: kw[k] for k in ("num_bins", "f_oh")}), leaf_p)
+    score = t(np.where(np.arange(Rp) < R, rng.randn(Rp), 0)
+              .astype(np.float32)[None, :])
+    opsr = np.zeros((8, Rp), np.float32)
+    opsr[0, :R] = np.where(rng.rand(R) < 0.4, 1.0, -1.0)
+    opsr[1, :R] = 1.0
+    lv = t((rng.randn(255) * 0.1).astype(np.float32))
+    args = (ops[0], ops[1], W, ops[4], lv, score, t(opsr), t(wt[None, :]))
+    ekw = dict(kw, kind="binary")
+    hist_e, score_e, gh_e = tfl.epilogue_pass(*args, **ekw)
+    hist_q, score_q, gh_q = tfl.epilogue_pass_plain(*args, **ekw)
+    torch.testing.assert_close(score_e, score_q, rtol=1e-6, atol=0)
+    live = hist_q[:, ::8]
+    for c in range(5):
+        scale = float(live[:, c].abs().max()) or 1.0
+        err = float((hist_e[:, 8 * c] - live[:, c]).abs().max())
+        assert err <= (0 if c == 4 else 1e-5 * scale), (c, err)
+
+
+def test_cuda_bundled_training_matches_cpu(cuda_device):
+    """A sparse-built dataset (CSR, bundled at ingestion) and dense EFB
+    train on the card as on the CPU: the same trees (leaf values within
+    1e-5) on train() and update()."""
+    import scipy.sparse as sp
+    rng = np.random.RandomState(3)
+    n = 20_000
+    dense = rng.randn(n, 3)
+    onehot = np.zeros((n, 24))
+    k = rng.randint(0, 24, n)
+    onehot[np.arange(n), k] = 1.0
+    X = np.hstack([dense, onehot])
+    y = (dense[:, 0] + 1.5 * (k < 6) + 0.3 * rng.randn(n) > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 15, "verbose": -1}
+    for data in (sp.csr_matrix(X), X):
+        models = []
+        for dev in ("cuda", "cpu"):
+            b = lt.Booster(dict(p, device_type=dev),
+                           lt.Dataset(data, label=y))
+            assert b._gbdt.use_bundles
+            for _ in range(3):
+                b.update()
+            models.append(b.models)
+        for a, c in zip(*models):
+            np.testing.assert_array_equal(a.split_feature, c.split_feature)
+            np.testing.assert_array_equal(a.left_child, c.left_child)
+            np.testing.assert_allclose(a.leaf_value, c.leaf_value,
+                                       rtol=1e-5, atol=1e-6)

@@ -52,12 +52,14 @@ def _operands(name, seed=3):
 
 
 def _stages(ops, fm, kw):
-    new_leaf, row_slot, counts = tfl.level_mark_plain(*ops, fm, **kw)
-    order = tfl.partition_order_plain(row_slot, counts)
-    stage = tfl.level_partition_plain(ops[0], ops[2], row_slot, counts,
-                                      **kw)
-    hist = tfl.level_hist_plain(stage, counts, fm,
+    """The three plain stages composed; ``counts`` per slot (the mark
+    stage's buffer is read by the other two)."""
+    new_leaf, row_slot, buf = tfl.level_mark_plain(*ops, fm, **kw)
+    order = tfl.partition_order_plain(row_slot, buf)
+    stage = tfl.level_partition_plain(ops[0], ops[2], row_slot, buf, **kw)
+    hist = tfl.level_hist_plain(stage, buf, fm,
                                 bin_bytes=ops[0].element_size(), **kw)
+    counts = tfl.slot_counts(buf, ops[0].shape[1])
     return new_leaf, row_slot, counts, order, stage, hist
 
 
@@ -115,6 +117,18 @@ def test_partition_groups_marked_rows_by_slot(name):
         slot_of[marked], minlength=Sp).to(torch.int32))
     n = int(counts.sum())
     assert n == int(marked.sum()) > 0
+    # the counts buffer: each (slot, block)'s marked rows slot-major, their
+    # exclusive scan, the slot offsets
+    buf = tfl.level_mark_plain(*ops, fm, **kw)[2]
+    nb = -(-RP // tfl.MARK_ROWS)
+    rows = torch.nonzero(marked).squeeze(1)
+    cnt = torch.bincount(slot_of[rows] * nb + rows // tfl.MARK_ROWS,
+                         minlength=Sp * nb)
+    assert buf.shape == (2 * Sp * nb + Sp + 1,) and buf.dtype == torch.int32
+    assert torch.equal(buf[:Sp * nb], cnt.to(torch.int32))
+    assert torch.equal(buf[Sp * nb:2 * Sp * nb],
+                       (torch.cumsum(cnt, 0) - cnt).to(torch.int32))
+    assert buf[-1] == n
     assert torch.equal(order[:n].sort().values,
                        torch.nonzero(marked).squeeze(1).to(torch.int32))
     assert bool((order[n:] == -1).all())
@@ -174,14 +188,15 @@ def test_record_layout(K, bin_bytes, nch, ch_bytes, want):
 
 
 @pytest.mark.parametrize("K,width,nch,budget,want", [
-    (28, 64, 5, 232448 - 1024, (28, 32)),      # one 40,960 B tile
-    (28, 256, 5, 232448 - 1024, (28, 32)),     # 163,840 B
-    (64, 256, 5, 232448 - 1024, (32, 32)),     # two groups
-    (64, 256, 3, 232448 - 1024, (64, 32)),
-    (28, 2048, 5, 232448 - 1024, (5, 5)),      # a band of 32 is too wide
-    (28, 64, 5, 10000, (7, 7)),
+    (28, 64, 5, 232448 - 2048, (28, 64, 5)),      # 25 warps of 8,192 B
+    (28, 256, 5, 232448 - 2048, (28, 64, 5)),     # four bin groups
+    (64, 256, 5, 232448 - 2048, (32, 64, 5)),     # two kernel-row groups
+    (64, 256, 3, 232448 - 2048, (32, 64, 9)),
+    (28, 2048, 5, 232448 - 2048, (28, 128, 2)),   # 16 bin groups
+    (28, 64, 5, 10000, (28, 8, 1)),
 ])
 def test_hist_groups_fit_the_budget(K, width, nch, budget, want):
-    Kg, Cw = tfl.hist_groups(K, width, nch, budget)
-    assert (Kg, Cw) == want
-    assert -(-Kg // Cw) * width * Cw * nch * 4 <= budget
+    Cw, Bw, nr = tfl.level_tile_shape(K, width, nch, budget)
+    assert (Cw, Bw, nr) == want
+    assert nch * nr * Bw * 32 * 4 <= budget and nch * nr <= 32
+    assert -(-K // Cw) * Cw >= K and Cw <= 32
