@@ -170,18 +170,41 @@ non-zero (it prints no result line then):
    ``route_pass`` call, the second ``epilogue_pass`` call of 11b and
    11c) through phase 2's bundled checks, with errors and times at the
    run's own layout (88 columns at Bc_p 256, 102 at 512, 1 at 4096);
-12. the ``kernels`` line: every ported kernel and variant with its
+12. monotone constraints and the rest of Booster and Dataset
+   (``mono_train``), on phase 3's rows binned again with
+   ``monotone_constraints`` = sign(w) on the 8 columns of largest |w| of
+   the labelling weights (``mono_constraints``): (a) the basic and (b)
+   the intermediate mode through ``train()`` (megastep body), 10 rounds,
+   and (c) ``monotone_penalty=2.0`` through the bare ``update()`` loop
+   (epilogue body, ``epilogue_pass`` on every update), each with
+   sec/iter, training AUC (> 0.75; the gap to phase 3's unconstrained
+   AUC recorded: the fences cap the trees below 255 leaves), launches
+   and host syncs per tree, and the worst step of ``predict`` along each
+   constrained column over a 200-point grid at 64 random rows (>= -1e-6
+   in the constraint's direction); (d) on 12a's model, 100,000 rows:
+   ``predict(pred_leaf=True)`` equal to the leaves the trainer routed
+   them to, ``pred_early_stop`` (rows never stopped equal to the full
+   prediction; the stopped rows counted), ``dump_model``'s tree count,
+   ``feature_importance`` (split counts summing to the splits), ``refit``
+   on 100,000 fresh rows (AUC > 0.75), and a ``save_binary`` /
+   ``Dataset(path)`` round trip of phase 3's Dataset (bins on the host
+   until a booster is built, then equal on the card) that trains one
+   round to the same model text; after each of (a)-(c) its own operands
+   (``level_pass``'s ``CAPTURE_LEVEL_CALL``-th call and the first
+   ``route_pass`` of (a) and (b), the second ``epilogue_pass`` of (c))
+   through phase 2's checks (``check_captured``);
+13. the ``kernels`` line: every ported kernel and variant with its
    wrapper calls and CUDA kernel launches on the main path where it runs
    (every level_pass, route_pass, epilogue_pass and hist_pass call in
-   phases 3-10 held to one launch of each of its CUDA kernels), its
-   launches in phase 7's runs (a), (c) and (d), in phase 8's, 9's and
-   10's and 11's runs, error, time per launch, plain time, bound and
-   library time, the bundled rows on each phase-11 run's own operands
+   phases 3-12 held to one launch of each of its CUDA kernels), its
+   launches in phase 7's runs (a), (c) and (d), in phase 8's, 9's,
+   10's, 11's and 12's runs, error, time per launch, plain time, bound
+   and library time, the bundled rows on each phase-11 run's own operands
    with that run's launches and on phase 2's Bc_p = 16384 layout with
-   none,
+   none, the ``mono`` rows on each phase-12 run's own operands,
    and per-kernel times of ``level_pass``, ``epilogue_pass`` and
    ``hist_pass``;
-13. the last line: ``{"ok": true, "device": {...}}``.
+14. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package. It exits non-zero when no CUDA
 device is present.
@@ -256,11 +279,17 @@ EFB_VALID_ROWS = 100_000
 EFB_EXCLUSIVE = 512             # phase 11b: 28 dense + 512 exclusive
 WIDE_MEMBERS = 64               # phase 11c: 64 x 63 bins -> one column
 WIDE_UPDATES = 5
-CAPTURE_LEVEL_CALL = 6          # phase 11: the level_pass call checked
+CAPTURE_LEVEL_CALL = 6          # phases 11, 12: the level_pass call checked
 # each of 11c's 64 columns moves 1/65 of the rows, and a level-wise tree
 # of depth 8 tests at most 8 of them on a path: 0.70 after 3 updates at
 # 30,000 rows on the CPU, bundled or not
 WIDE_AUC_FLOOR = 0.6
+MONO_COLUMNS = 8                # phase 12: the constrained columns
+MONO_BASE_ROWS = 64             # phase 12's monotonicity sweep: base rows
+MONO_GRID = 200                 # and grid points along each column
+MONO_PENALTY = 2.0              # phase 12c
+API_ROWS = 100_000              # phase 12d: pred_leaf, early stop, refit
+EARLY_STOP_FREQ = 2
 REPLACES = {
     "level_pass": "lightgbm_tpu/ops/fused_level.py:402",
     "route_pass": "lightgbm_tpu/ops/fused_level.py:575",
@@ -2591,13 +2620,14 @@ def check_bundled(Rp, R, Bc_p, seed):
     return out
 
 
-def bundled_row(kernel, res, launches, launches_in):
-    """A kernels-line row of ``kernel`` on one bundled layout (``res``:
-    ``bundled_level_rows`` with the epilogue's row), its launches those
-    of the one run that gave it these operands."""
+def bundled_row(kernel, res, launches, launches_in, tag="bundled"):
+    """A kernels-line row of ``kernel`` on one captured or synthetic layout
+    (``res``: ``bundled_level_rows`` with the epilogue's row), its
+    launches those of the one run that gave it these operands; ``tag``
+    names the layout's kind."""
     r = res[kernel]
     Sp = r.get("Sp", res["Sp"])
-    return {"name": f"{kernel}[bundled C_oh={res['C_oh']} Bc_p="
+    return {"name": f"{kernel}[{tag} C_oh={res['C_oh']} Bc_p="
                     f"{res['Bc_p']} Sp={Sp}]",
             "route": "cuda", "source": SOURCES[kernel],
             "replaces": REPLACES[kernel], "launches": launches,
@@ -2625,26 +2655,43 @@ def _capture_call(module, name, index, store):
     return lambda: setattr(module, name, orig)
 
 
-def check_captured(store, run):
-    """Phase 11 run ``run``'s kernels against their plain versions on the
-    operands the run gave them (``_capture_call``): ``level_pass`` (and
-    ``route_pass`` on the level's table) through ``bundled_level_rows``;
-    the run's own ``route_pass`` call exact; ``epilogue_pass`` through
-    ``bundled_epilogue_row`` against the float64 sum (a tree's epilogue
-    sums many equal values: ``compare_epilogue``). Returns the fields and
-    rows, emitted as the run's kernel check."""
+def captured(fit, kernels):
+    """((fit(), seconds), store): ``fit`` timed (``_timed_run``) with the
+    calls of ``kernels`` ((module, wrapper, call index) each) captured
+    into ``store`` (``_capture_call``)."""
+    store = {}
+    undo = [_capture_call(mod, name, index, store)
+            for mod, name, index in kernels]
+    try:
+        return _timed_run(fit), store
+    finally:
+        for u in undo:
+            u()
+
+
+def check_captured(store, run, phase="bundle_train", number=11):
+    """Phase ``number`` run ``run``'s kernels against their plain versions
+    on the operands the run gave them (``_capture_call``): ``level_pass``
+    (and ``route_pass`` on the level's table) through
+    ``bundled_level_rows``; the run's own ``route_pass`` call exact;
+    ``epilogue_pass`` through ``bundled_epilogue_row`` against the float64
+    sum (a tree's epilogue sums many equal values: ``compare_epilogue``).
+    Returns the fields and rows, emitted as the run's kernel check."""
     from lightgbm_tpu_torch.ops import fused_level as fl
     import torch
-    if "level_pass" not in store:
-        raise AssertionError(f"11{run}: no level_pass call was captured")
-    args, kw = store.pop("level_pass")
-    ops, fm = tuple(args[:5]), args[5] if len(args) > 5 else None
-    out = bundled_level_rows(ops, fm, kw, f"11{run} level_pass")
+    name = f"{number}{run}"
+    out = {}
+    if "level_pass" in store:
+        args, kw = store.pop("level_pass")
+        ops, fm = tuple(args[:5]), args[5] if len(args) > 5 else None
+        out = bundled_level_rows(ops, fm, kw, f"{name} level_pass")
+    elif "epilogue_pass" not in store:
+        raise AssertionError(f"{name}: no kernel call was captured")
     if "route_pass" in store:
         args, rkw = store.pop("route_pass")
         got = fl.route_pass(*args, **rkw)
         if not torch.equal(got, fl.route_pass_plain(*args, **rkw)):
-            raise AssertionError(f"11{run}: route_pass differs from its "
+            raise AssertionError(f"{name}: route_pass differs from its "
                                  "plain version on the run's last level")
         r = out["route_pass"]
         r["kernel_ms"] = cuda_ms(lambda: fl.route_pass(*args, **rkw))
@@ -2660,7 +2707,10 @@ def check_captured(store, run):
         args, ekw = store.pop("epilogue_pass")
         out["epilogue_pass"] = bundled_epilogue_row(args, ekw,
                                                     float64_hist=True)
-    emit({"phase": "bundle_train", "run": run, "kernel_check": out})
+        out.setdefault("C_oh", ekw["f_oh"])
+        out.setdefault("Bc_p", ekw["num_bins"])
+        out.setdefault("Sp", args[3].shape[0])
+    emit({"phase": phase, "run": run, "kernel_check": out})
     return out
 
 
@@ -2744,17 +2794,6 @@ def run_bundle_train(lgb, params):
     from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
     from lightgbm_tpu_torch.models import frontier2
     out, checks = {}, {}
-
-    def captured(fit, kernels):
-        """fit() with the run's calls of ``kernels`` captured."""
-        store = {}
-        undo = [_capture_call(mod, name, index, store)
-                for mod, name, index in kernels]
-        try:
-            return _timed_run(fit), store
-        finally:
-            for u in undo:
-                u()
     level = (frontier2, "level_pass", CAPTURE_LEVEL_CALL)
     # (a) sparse-built, train()
     (X, y), make_s = _timed_run(lambda: _sparse_rows(SPARSE_ROWS,
@@ -2907,6 +2946,250 @@ def run_bundle_train(lgb, params):
                              f"scores by {pred_err}")
     check_stages(launches, cuda, "11c")
     checks["c"] = check_captured(store, "c")
+    return out, checks
+
+
+def mono_constraints(w: np.ndarray) -> np.ndarray:
+    """sign(w) on the MONO_COLUMNS columns of largest |w|, 0 elsewhere:
+    ``_make_data``'s label rises with column j exactly when w[j] > 0."""
+    mono = np.zeros(len(w), np.int32)
+    top = np.argsort(-np.abs(w))[:MONO_COLUMNS]
+    mono[top] = np.sign(w[top]).astype(np.int32)
+    return mono
+
+
+def mono_worst_steps(bst, X, mono, seed):
+    """Per constrained column: the worst step of the raw prediction in the
+    constraint's direction along a MONO_GRID-point grid over [0, 1], at
+    MONO_BASE_ROWS random rows of X (one predict call)."""
+    rng = np.random.RandomState(seed)
+    base = X[rng.choice(len(X), MONO_BASE_ROWS, replace=False)]
+    grid = np.linspace(0.0, 1.0, MONO_GRID, dtype=np.float32)
+    cols = np.nonzero(mono)[0]
+    Xg = np.repeat(np.tile(base[None, :, None, :], (len(cols), 1, 1, 1)),
+                   MONO_GRID, axis=2)                 # [C, B, G, F]
+    for i, c in enumerate(cols):
+        Xg[i, :, :, c] = grid
+    raw = bst.predict(Xg.reshape(-1, X.shape[1]), raw_score=True)
+    steps = np.diff(raw.reshape(len(cols), MONO_BASE_ROWS, MONO_GRID),
+                    axis=2) * mono[cols][:, None, None]
+    return {int(c): float(v) for c, v in zip(cols, steps.min(axis=(1, 2)))}
+
+
+def _root_on_constrained(bst, mono) -> float:
+    """The share of the model's trees whose root splits on a constrained
+    column."""
+    roots = [int(m.split_feature[0]) for m in bst.models if m.num_leaves > 1]
+    return float(np.mean([mono[f] != 0 for f in roots])) if roots else 0.0
+
+
+def run_mono_train(lgb, params, ds, X, y, w, e2e):
+    """Phase 12: monotone constraints on phase 3's rows
+    (``mono_constraints(w)``) and the rest of the Booster and Dataset API.
+    (a) basic and (b) intermediate mode through train() (megastep body),
+    10 rounds; (c) ``monotone_penalty`` through the bare update() loop
+    (epilogue body); each with sec/iter, training AUC (> 0.75; its gap to
+    phase 3's recorded), launches and host syncs per tree, and the
+    worst step of predict along each constrained column
+    (``mono_worst_steps``, >= -1e-6). (d) on 12a's model: pred_leaf on
+    API_ROWS rows equal to the leaves the trainer routed them to,
+    pred_early_stop (the rows still active equal to the full prediction,
+    the stopped rows counted), dump_model, feature_importance, refit on
+    API_ROWS fresh rows, and a save_binary/load_binary round trip of phase
+    3's Dataset that trains one round to the same model text. After each
+    of (a)-(c), its kernels are held to their plain versions on its own
+    operands (``check_captured``: the CAPTURE_LEVEL_CALL-th level_pass and
+    the first route_pass of (a) and (b), the second epilogue_pass of (c)).
+    Returns (each run's wrapper launches, each run's kernel check)."""
+    import os
+    import tempfile
+    import torch
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    from lightgbm_tpu_torch.models import frontier2
+    from lightgbm_tpu_torch.ops.predict import predict_raw_early_stop
+    mono = mono_constraints(w)
+    out, checks, boosters = {}, {}, {}
+    level = (frontier2, "level_pass", CAPTURE_LEVEL_CALL)
+    # the constraints are the dataset's (given where it is binned, as in
+    # LightGBM): phase 3's rows binned again with them
+    dsm, construct_s = _timed_run(lambda: lgb.Dataset(
+        X, label=y, params=dict(params, monotone_constraints=mono.tolist()))
+        .construct())
+
+    def records(run, bst, launches, cuda, syncs, n_trees):
+        scores = bst.train_scores().float().cpu().numpy()
+        train_auc = auc(scores, y)
+        worst = mono_worst_steps(bst, X, mono, DATA_SEED + 1200)
+        return {"phase": "mono_train", "run": run,
+                "construct_s": construct_s,
+                "mono_mode": bst._gbdt.mono_mode,
+                "constraints": mono.tolist(), "train_auc": train_auc,
+                "phase3_train_auc": e2e["train_auc"],
+                "auc_gap_to_phase3": e2e["train_auc"] - train_auc,
+                "auc_floor": 0.75,
+                "launches_per_tree": {k: v / n_trees
+                                      for k, v in launches.items() if v},
+                "cuda_launches_per_tree": {k: v / n_trees
+                                           for k, v in cuda.items() if v},
+                "host_syncs_per_tree": syncs / n_trees,
+                "phase3_host_syncs_per_tree": e2e["host_syncs_per_tree"],
+                "worst_step_by_column": worst,
+                "worst_step": min(worst.values()), "worst_step_floor": -1e-6,
+                "root_on_constrained_share": _root_on_constrained(bst, mono),
+                "leaves": [m.num_leaves for m in bst.models]}
+
+    def gate(res, n_trees, want_trees, launches, cuda, name):
+        if n_trees != want_trees:
+            raise AssertionError(f"{name}: {n_trees} trees")
+        if not res["train_auc"] > 0.75:
+            raise AssertionError(f"{name}: training AUC {res['train_auc']}")
+        if not res["worst_step"] >= -1e-6:
+            raise AssertionError(f"{name}: predict breaks a constraint: "
+                                 f"{res['worst_step_by_column']}")
+        check_stages(launches, cuda, name)
+
+    # (a) basic and (b) intermediate through train(); (a) also records the
+    # leaves its trainer routed the first API_ROWS rows to
+    trainer_leaves = []
+    orig_grow = gbdt_mod.grow_tree_fused
+
+    def recording_grow(*a, **kw):
+        res = orig_grow(*a, **kw)
+        trainer_leaves.append(res[1][:API_ROWS].clone())
+        return res
+    for run, method in (("a", "basic"), ("b", "intermediate")):
+        p = dict(params, monotone_constraints_method=method)
+
+        def fit(rounds):
+            dsm.params = {}
+            return lgb.train(p, dsm, rounds)
+        _, t_one = _timed_run(lambda: fit(1))
+        counts = _run_counts()
+        if run == "a":
+            gbdt_mod.grow_tree_fused = recording_grow
+        try:
+            (bst, t_all), store = captured(lambda: fit(ROUNDS), [
+                level, (frontier2, "route_pass", 0)])
+        finally:
+            gbdt_mod.grow_tree_fused = orig_grow
+        launches, cuda, syncs = counts()
+        n_trees = bst.num_trees()
+        res = records(run, bst, launches, cuda, syncs, n_trees)
+        res.update({"body": "megastep", "rounds": ROUNDS,
+                    "sec_per_iter_after_first": (t_all - t_one)
+                    / (ROUNDS - 1), "train_s": t_all,
+                    "phase3_sec_per_iter_after_first":
+                    e2e["sec_per_iter_after_first"]})
+        emit(res)
+        gate(res, n_trees, ROUNDS, launches, cuda, f"12{run}")
+        if res["mono_mode"] != method:
+            raise AssertionError(f"12{run} trained in {res['mono_mode']}")
+        for name in TRAIN_PATH_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError(f"12{run}: {name} never launched")
+        out[run] = launches
+        boosters[run] = bst
+        checks[run] = check_captured(store, run, "mono_train", 12)
+    # (c) the penalty through the bare update() loop (epilogue body)
+    p = dict(params, monotone_penalty=MONO_PENALTY)
+
+    def fit_c():
+        dsm.params = {}
+        b = lgb.Booster(params=p, train_set=dsm)
+        for _ in range(UPDATES):
+            b.update()
+        return b
+    counts = _run_counts()
+    (bst, t_all), store = captured(fit_c, [(gbdt_mod, "epilogue_pass", 1)])
+    launches, cuda, syncs = counts()
+    res = records("c", bst, launches, cuda, syncs, UPDATES)
+    res.update({"body": "epilogue" if bst._gbdt._use_epilogue()
+                else "megastep", "updates": UPDATES,
+                "monotone_penalty": MONO_PENALTY,
+                "sec_per_iter": t_all / UPDATES})
+    emit(res)
+    gate(res, bst.num_trees(), UPDATES, launches, cuda, "12c")
+    if res["body"] != "epilogue" or launches["epilogue_pass"] != UPDATES:
+        raise AssertionError(f"12c: {res['body']} body, epilogue_pass "
+                             f"launched {launches['epilogue_pass']} times")
+    out["c"] = launches
+    checks["c"] = check_captured(store, "c", "mono_train", 12)
+    del bst, store
+    # (d) the rest of the Booster and Dataset API on 12a's model
+    bst = boosters["a"]
+    Xs = X[:API_ROWS]
+    leaves, leaf_s = _timed_run(lambda: bst.predict(Xs, pred_leaf=True))
+    routed = torch.stack(trainer_leaves, 1).cpu().numpy()
+    full = bst.predict(Xs, raw_score=True)
+    margin = float(np.median(np.abs(full)))
+    es, es_s = _timed_run(lambda: bst.predict(
+        Xs, raw_score=True, pred_early_stop=True,
+        pred_early_stop_freq=EARLY_STOP_FREQ,
+        pred_early_stop_margin=margin))
+    _, active = predict_raw_early_stop(
+        bst.models, torch.as_tensor(Xs.astype(np.float64), device=DEVICE),
+        1, EARLY_STOP_FREQ, margin)
+    active = active.cpu().numpy()
+    dump = bst.dump_model()
+    imp_split = bst.feature_importance("split")
+    imp_gain = bst.feature_importance("gain")
+    n_splits = sum(int((m.split_gain[:m.num_internal] > 0).sum())
+                   for m in bst.models)
+    Xr, zr = _valid_z(API_ROWS, w, DATA_SEED + 1300)
+    yr = (zr > 0).astype(np.float32)
+    refit, refit_s = _timed_run(lambda: bst.refit(Xr, yr, decay_rate=0.9))
+    refit_auc = auc(refit.predict(Xr, raw_score=True), yr)
+    tmp = tempfile.mkdtemp()
+    path = os.path.join(tmp, "phase3.bin")
+    try:
+        _, save_s = _timed_run(lambda: ds.save_binary(path))
+        loaded = lgb.Dataset(path, params={"device_type": DEVICE})
+        _, load_s = _timed_run(loaded.construct)
+        on_host = loaded._inner._bins_dev is None
+        ds.params = {}
+        want = lgb.train(params, ds, 1).model_to_string()
+        got = lgb.train(params, loaded, 1).model_to_string()
+        bins_equal = bool(torch.equal(loaded._inner.bins_dev,
+                                      ds._inner.bins_dev))
+        file_mb = os.path.getsize(path) / 2 ** 20
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+        os.rmdir(tmp)
+    res = {"phase": "mono_train", "run": "d", "rows": API_ROWS,
+           "pred_leaf_shape": list(leaves.shape), "pred_leaf_s": leaf_s,
+           "pred_leaf_equals_trainer": bool(np.array_equal(leaves, routed)),
+           "early_stop_freq": EARLY_STOP_FREQ, "early_stop_margin": margin,
+           "early_stop_s": es_s, "early_stopped_rows": int((~active).sum()),
+           "active_rows_equal_full": bool(np.array_equal(es[active],
+                                                         full[active])),
+           "dump_model_trees": len(dump["tree_info"]),
+           "num_trees": bst.num_trees(),
+           "importance_split": imp_split.astype(int).tolist(),
+           "importance_gain": [round(float(v), 3) for v in imp_gain],
+           "refit_rows": API_ROWS, "refit_s": refit_s,
+           "refit_auc": refit_auc,
+           "auc_before_refit": auc(bst.predict(Xr, raw_score=True), yr),
+           "cache_mb": file_mb, "save_binary_s": save_s,
+           "load_binary_s": load_s, "bins_on_host_until_train": on_host,
+           "cache_bins_equal": bins_equal,
+           "cache_model_text_equal": got == want}
+    emit(res)
+    if not (res["pred_leaf_equals_trainer"]
+            and routed.shape == leaves.shape == (API_ROWS, ROUNDS)):
+        raise AssertionError("12d: pred_leaf differs from the trainer's "
+                             "leaves")
+    if not (res["early_stopped_rows"] > 0 and res["active_rows_equal_full"]):
+        raise AssertionError(f"12d: early stop {res}")
+    if res["dump_model_trees"] != res["num_trees"] \
+            or int(imp_split.sum()) != n_splits \
+            or not np.isfinite(imp_gain).all():
+        raise AssertionError(f"12d: dump/importance {res}")
+    if not refit_auc > 0.75:
+        raise AssertionError(f"12d: refit AUC {refit_auc}")
+    if not (on_host and bins_equal and res["cache_model_text_equal"]):
+        raise AssertionError(f"12d: binary cache round trip {res}")
+    del dsm
     return out, checks
 
 
@@ -3120,7 +3403,14 @@ def main() -> int:
     del X
     bundle_launches, bundle_checks = run_bundle_train(lgb, params)
 
-    # ---- 11. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
+    # ---- 12. monotone constraints, and the rest of Booster and Dataset,
+    # on phase 3's rows (drawn again)
+    X, _, _ = _class_rows(ROWS, FEATURES, seed=DATA_SEED)
+    mono_launches, mono_checks = run_mono_train(lgb, params, ds, X, y, w,
+                                                e2e)
+    del X
+
+    # ---- 13. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
     # the epilogue at Bp=64 int8, nch=5, binary, Sp=64; hist_pass at Bp=64,
     # Sp=64, f32). Launches: the train() run for the three kernels of its
     # path, update() run (a) for the epilogue, the frontier train() run for
@@ -3163,6 +3453,8 @@ def main() -> int:
                                      for run in ("a", "b", "c")}
         row["bundle_train_launches"] = {run: bundle_launches[run][name]
                                         for run in ("a", "b", "c")}
+        row["mono_train_launches"] = {run: mono_launches[run][name]
+                                      for run in ("a", "b", "c")}
         rows.append(row)
     # the kernels on bundle columns: each phase-11 run's own operands
     # (check_captured) with that run's launches; phase 2's widest synthetic
@@ -3177,6 +3469,14 @@ def main() -> int:
     wide = bundled[max(BUNDLE_WIDTHS)]
     for kernel in ("level_pass", "route_pass", "epilogue_pass"):
         rows.append(bundled_row(kernel, wide, 0, "none (phase 2 only)"))
+    # the kernels on each phase-12 run's own operands, with its launches
+    for run, res in mono_checks.items():
+        for kernel in ("level_pass", "route_pass", "epilogue_pass"):
+            if kernel in res:
+                rows.append(bundled_row(
+                    kernel, res, mono_launches[run][kernel],
+                    f"phase 12 run {run}, on its own operands",
+                    tag="mono"))
     # the variants at Sp=64 on the mixed layout, each with the launches of
     # the phase-6 run that takes it on every level_pass (VARIANT_RUNS); the
     # packed route_pass with run (b)'s
@@ -3210,7 +3510,7 @@ def main() -> int:
     emit({"kernels": rows})
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start})
 
-    # ---- 12. the result line
+    # ---- 14. the result line
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

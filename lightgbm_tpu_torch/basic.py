@@ -19,9 +19,18 @@ densifying (``BinnedDataset.from_sparse``: bundled at ingestion), a row
 subset slices its rows, and ``Booster.predict`` densifies it in chunks of
 ``_HOST_SPARSE_CHUNK_ROWS`` rows, each routed on the device. As in the JAX
 package, sparse input takes no categorical feature and no linear tree.
+
+The rest of the JAX package's ``Booster`` and ``Dataset`` API: ``predict``
+with ``pred_leaf`` and ``pred_early_stop`` (both on the device;
+``pred_contrib`` raises), ``dump_model``, ``feature_importance``,
+``feature_name``, ``num_feature``, ``refit``, ``reset_training_data`` and
+``refit_by_leaf_preds``; ``Dataset.add_features_from``,
+``get_feature_name``, ``save_binary``, and ``Dataset(path)`` on a binary
+cache that either package wrote (``io/cache.py``).
 """
 from __future__ import annotations
 
+import json
 import os
 from typing import Any, Dict, List, Optional
 
@@ -30,13 +39,14 @@ import torch
 
 from .boosting import create_boosting
 from .boosting.gbdt import GBDT
+from .binning import mappers_digest
 from .config import Config, resolve_device
 from .dataset import BinnedDataset
 from .io import model_io
 from .metric import create_metric, default_metric_for_objective
 from .models.tree import HostTree
 from .objective import create_objective, create_objective_from_string
-from .ops.predict import predict_raw
+from .ops.predict import predict_leaf, predict_raw, predict_raw_early_stop
 from .utils.log import LightGBMError  # noqa: F401  (re-exported)
 
 # rows of a sparse matrix densified at once by Booster.predict
@@ -93,6 +103,10 @@ class Dataset:
         # rows binned against a reference live on the reference's device
         device = (ref_inner.device if ref_inner is not None
                   else resolve_device(cfg.device_type))
+        if isinstance(self.data, (str, os.PathLike)):
+            self._inner = BinnedDataset.load_binary(str(self.data), device)
+            self._apply_loaded(ref_inner)
+            return self
         if _is_scipy_sparse(self.data):
             # CSR/CSC ingestion without densifying (lightgbm_tpu/basic.py:
             # 211-233)
@@ -121,6 +135,37 @@ class Dataset:
             inner.metadata.set_init_score(np.asarray(self.init_score))
         self._inner = inner
         return self
+
+    def _apply_loaded(self, ref_inner) -> None:
+        """A binary cache's dataset (the JAX package's
+        ``_apply_explicit_metadata``): a valid set's cache must hold its
+        reference's mappers, and a reference-binned cache needs one; the
+        cached binning parameters fill the ones not given; metadata given
+        here overrides the cached."""
+        inner = self._inner
+        if ref_inner is not None:
+            if mappers_digest(ref_inner.mappers) \
+                    != mappers_digest(inner.mappers):
+                raise LightGBMError(
+                    "cached dataset was binned with different mappers "
+                    "than its reference dataset; rebuild the cache from "
+                    "text with reference= the training data")
+        elif inner.reference_binned:
+            raise LightGBMError(
+                "this dataset cache was binned against a reference "
+                "(validation) dataset; pass reference= the training "
+                "data, or rebuild the cache from text standalone")
+        for k, v in inner.dataset_params.items():
+            self.params.setdefault(k, v)
+        md = inner.metadata
+        if self.label is not None:
+            md.set_label(np.asarray(self.label))
+        if self.weight is not None:
+            md.set_weight(np.asarray(self.weight))
+        if self.group is not None:
+            md.set_group(np.asarray(self.group))
+        if self.init_score is not None:
+            md.set_init_score(np.asarray(self.init_score))
 
     def _resolve_cats_names(self):
         """(categorical column indices, feature names or None): names in
@@ -211,6 +256,24 @@ class Dataset:
     def num_feature(self) -> int:
         return self.construct()._inner.num_total_features
 
+    def get_feature_name(self) -> List[str]:
+        return self.construct()._inner.feature_names
+
+    def add_features_from(self, other: "Dataset") -> "Dataset":
+        """Append ``other``'s columns, mappers and constraints (ref:
+        basic.py Dataset.add_features_from); both constructed, with the
+        same rows."""
+        self.construct()
+        other.construct()
+        self._inner.add_features_from(other._inner)
+        return self
+
+    def save_binary(self, filename: str) -> "Dataset":
+        """Write the binned dataset as the JAX package's ``LGBMTPU2``
+        binary cache (``io/cache.py``); ``Dataset(filename)`` loads it."""
+        self.construct()._inner.save_binary(filename)
+        return self
+
     def subset(self, used_indices, params=None) -> "Dataset":
         """Row subset sharing the bin mappers: the binned rows are sliced,
         not rebinned (ref: basic.py Dataset.subset)."""
@@ -265,6 +328,8 @@ class Booster:
         self.max_feature_idx = 0
         self.feature_names: List[str] = []
         self.feature_infos: List[str] = []
+        self.monotone_constraints = None
+        self._objective_str = None
         self.label_index = 0
         self.average_output = False
         self.device = None
@@ -286,6 +351,13 @@ class Booster:
         train_set.construct()
         self.train_set = train_set
         inner = train_set._inner
+        # a dataset loaded from a binary cache brings the binning
+        # parameters it was built with: they fill the ones not given
+        restored = {k: v for k, v in inner.dataset_params.items()
+                    if not self.config.was_set(k)}
+        if restored:
+            self.config.update(restored)
+            train_set.params.update(restored)
         self.device = inner.device
         self.objective = create_objective(self.config)
         if self.objective is not None:
@@ -303,6 +375,8 @@ class Booster:
         self.max_feature_idx = inner.num_total_features - 1
         self.feature_names = inner.feature_names
         self.feature_infos = inner.feature_infos()
+        if inner.monotone_constraints is not None:
+            self.monotone_constraints = inner.monotone_constraints
 
     def _make_metrics(self, inner: BinnedDataset) -> List:
         """The configured metrics (the objective's own by default), bound
@@ -435,15 +509,27 @@ class Booster:
 
     # ------------------------------------------------------------------
     def predict(self, data, start_iteration: int = 0,
-                num_iteration: Optional[int] = None,
-                raw_score: bool = False) -> np.ndarray:
+                num_iteration: Optional[int] = None, raw_score: bool = False,
+                pred_leaf: bool = False, pred_contrib: bool = False,
+                pred_early_stop: bool = False,
+                pred_early_stop_freq: int = 10,
+                pred_early_stop_margin: float = 10.0,
+                **kwargs) -> np.ndarray:
         """Predictions on raw features, routed in float64 on the device
         (ref: basic.py:3449 Booster.predict). ``num_iteration=None`` means
         the early-stopped best iteration where there is one, an explicit
         value <= 0 every iteration. [n], or [n, k] with k trees per
         iteration (the objective's softmax or per-class sigmoid applied
-        unless ``raw_score``). A scipy sparse matrix is densified
-        ``_HOST_SPARSE_CHUNK_ROWS`` rows at a time."""
+        unless ``raw_score``). ``pred_leaf``: the int32 [n, trees] leaf of
+        every row in every tree. ``pred_early_stop``: a row stops taking
+        trees once its margin passes ``pred_early_stop_margin`` at a check
+        every ``pred_early_stop_freq`` iterations
+        (``ops.predict.predict_raw_early_stop``). A scipy sparse matrix is
+        densified ``_HOST_SPARSE_CHUNK_ROWS`` rows at a time."""
+        if pred_contrib:
+            raise NotImplementedError(
+                "pred_contrib (SHAP values) is not ported to "
+                "lightgbm_tpu_torch yet (ROADMAP Queue A item 7c)")
         k = self.num_tree_per_iteration
         if self.average_output:
             raise NotImplementedError("averaged-output (RF) models are not "
@@ -455,28 +541,43 @@ class Booster:
         if num_iteration <= 0:
             num_iteration = total - start_iteration
         num_iteration = min(num_iteration, total - start_iteration)
-        lo = start_iteration * k
-        hi = (start_iteration + num_iteration) * k
-        dev = self._predict_device()
-        if _is_scipy_sparse(data):
-            csr = data.tocsr()
-            raw = np.zeros((k, csr.shape[0]), np.float64)
-            for c0 in range(0, csr.shape[0], _HOST_SPARSE_CHUNK_ROWS):
-                rows = slice(c0, c0 + _HOST_SPARSE_CHUNK_ROWS)
-                X = torch.as_tensor(csr[rows].toarray().astype(np.float64),
-                                    device=dev)
-                raw[:, rows] = predict_raw(self.models[lo:hi], X,
-                                           k).cpu().numpy()
-        else:
-            X = torch.as_tensor(_to_2d_numpy(data).astype(np.float64),
-                                device=dev)
-            raw = predict_raw(self.models[lo:hi], X, k).cpu().numpy()
+        models = self.models[start_iteration * k:
+                             (start_iteration + num_iteration) * k]
+        n = data.shape[0] if _is_scipy_sparse(data) \
+            else _to_2d_numpy(data).shape[0]
+        if pred_leaf:
+            out = np.zeros((n, len(models)), np.int32)
+            for rows, X in self._predict_chunks(data):
+                out[rows] = predict_leaf(models, X).cpu().numpy()
+            return out
+        raw = np.zeros((k, n), np.float64)
+        for rows, X in self._predict_chunks(data):
+            if pred_early_stop:
+                raw[:, rows] = predict_raw_early_stop(
+                    models, X, k, int(pred_early_stop_freq),
+                    float(pred_early_stop_margin))[0].cpu().numpy()
+            else:
+                raw[:, rows] = predict_raw(models, X, k).cpu().numpy()
         # (the JAX package's finalize_raw_predictions)
         if not raw_score and self.objective is not None:
             if k > 1:
                 return self.objective.convert_output(raw.T)
             return np.asarray(self.objective.convert_output(raw[0]))
         return raw[0] if k == 1 else raw.T
+
+    def _predict_chunks(self, data):
+        """(row slice, float64 rows on the device): the whole matrix, or a
+        sparse matrix's rows ``_HOST_SPARSE_CHUNK_ROWS`` at a time."""
+        dev = self._predict_device()
+        if not _is_scipy_sparse(data):
+            X = _to_2d_numpy(data).astype(np.float64)
+            yield slice(0, X.shape[0]), torch.as_tensor(X, device=dev)
+            return
+        csr = data.tocsr()
+        for c0 in range(0, csr.shape[0], _HOST_SPARSE_CHUNK_ROWS):
+            rows = slice(c0, c0 + _HOST_SPARSE_CHUNK_ROWS)
+            yield rows, torch.as_tensor(
+                csr[rows].toarray().astype(np.float64), device=dev)
 
     def _predict_device(self):
         if self.device is None:
@@ -506,6 +607,150 @@ class Booster:
         os.replace(tmp, filename)
         return self
 
+    def dump_model(self, start_iteration: int = 0,
+                   num_iteration: Optional[int] = None) -> dict:
+        """The model as a dict (the JAX package's ``dump_model``; ref:
+        gbdt_model_text.cpp DumpModel)."""
+        if num_iteration is None:
+            num_iteration = (self.best_iteration
+                             if self.best_iteration > 0 else -1)
+        return json.loads(model_io.dump_model_json(self, start_iteration,
+                                                   num_iteration))
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        """[num_feature] split counts (``split``) or total gains
+        (``gain``) of the first ``iteration`` iterations' trees (all by
+        default)."""
+        models = self.models
+        if iteration is not None and iteration > 0:
+            models = models[:iteration * self.num_tree_per_iteration]
+        return model_io.feature_importance(
+            models, self.max_feature_idx + 1,
+            0 if importance_type == "split" else 1)
+
+    def feature_name(self) -> List[str]:
+        return self.feature_names
+
+    def num_feature(self) -> int:
+        return self.max_feature_idx + 1
+
+    def __copy__(self):
+        return self.__deepcopy__(None)
+
+    def __deepcopy__(self, memo):
+        booster = Booster(model_str=self.model_to_string(num_iteration=-1))
+        booster.params = dict(self.params)
+        return booster
+
+    def refit(self, data, label, decay_rate: float = 0.9, **kwargs):
+        """A copy whose leaf values are refitted on ``data`` (ref:
+        basic.py:3506 Booster.refit; the JAX package's ``refit``): tree by
+        tree, every leaf's value becomes ``decay_rate * old + (1 -
+        decay_rate) * -sum_g / (sum_h + lambda_l2) * shrinkage`` from the
+        objective's gradients at the float64 scores of the trees before it
+        (taken in f32), and the refitted tree's outputs join the scores.
+        Leaves are routed on the device."""
+        import copy
+        new = copy.deepcopy(self)
+        X = torch.as_tensor(_to_2d_numpy(data).astype(np.float64),
+                            device=new._predict_device())
+        label = np.asarray(label, np.float64).reshape(-1)
+        lambda_l2 = float(Config(self.params).lambda_l2)
+        obj = new.objective
+        k = self.num_tree_per_iteration
+        n = X.shape[0]
+        if obj is not None:
+            from .dataset import Metadata
+            md = Metadata(n)
+            md.set_label(label)
+            obj.init(md, n, X.device)
+        scores = torch.zeros((k, n), dtype=torch.float64, device=X.device)
+        for i, t in enumerate(new.models):
+            tid = i % k
+            leaves = predict_leaf([t], X)[:, 0].long()
+            if obj is not None:
+                g, h = obj.get_gradients(scores.to(torch.float32))
+                g, h = g[tid].double(), h[tid].double()
+            else:
+                g = scores[tid] - torch.as_tensor(label, device=X.device)
+                h = torch.ones_like(g)
+            L = t.num_leaves
+            z = torch.zeros(L, dtype=torch.float64, device=X.device)
+            sum_g = z.index_add(0, leaves, g).cpu().numpy()
+            sum_h = z.index_add(0, leaves, h).cpu().numpy()
+            hit = np.bincount(leaves.cpu().numpy(), minlength=L) > 0
+            new_out = np.where(sum_h > 0, -sum_g / np.where(
+                sum_h > 0, sum_h + lambda_l2, 1.0) * t.shrinkage, 0.0)
+            t.leaf_value[:L] = np.where(
+                hit, decay_rate * t.leaf_value[:L]
+                + (1.0 - decay_rate) * new_out, t.leaf_value[:L])
+            scores[tid] += torch.as_tensor(
+                t.leaf_value, dtype=torch.float64, device=X.device)[leaves]
+        return new
+
+    def reset_training_data(self, train_set: "Dataset") -> "Booster":
+        """Attach (or replace) the training data of a model (ref:
+        c_api.cpp:1631 LGBM_BoosterResetTrainingData, gbdt.cpp:686; the
+        JAX package's ``reset_training_data``): trees loaded or adopted
+        before become the init segment, whose scores are not replayed;
+        trees this booster trained stay trainable and their scores are
+        replayed on the new data through the bin router. The new data
+        must share the old one's bin mappers."""
+        old_g = self._gbdt
+        post = []
+        init_models = list(self.models)
+        if old_g is not None:
+            k = old_g.num_tree_per_iteration
+            n_init = old_g.num_init_iteration * k
+            init_models = init_models[:n_init]
+            post = old_g.models[n_init:]
+            train_set.construct()
+            if self.train_set is not None \
+                    and train_set is not self.train_set \
+                    and train_set._inner.feature_infos() \
+                    != self.train_set._inner.feature_infos():
+                raise ValueError(
+                    "Cannot reset training data, since new training data "
+                    "has different bin mappers")
+        # a loaded model carries its objective in the header: restore its
+        # name and sub-parameters ("binary sigmoid:2")
+        if "objective" not in self.params and self._objective_str:
+            toks = self._objective_str.split()
+            self.params["objective"] = toks[0]
+            for tok in toks[1:]:
+                if ":" in tok:
+                    key, v = tok.split(":", 1)
+                    self.params.setdefault(key, v)
+        if self.num_class > 1:
+            self.params.setdefault("num_class", self.num_class)
+        self._init_train(train_set)
+        g = self._gbdt
+        if init_models:
+            g.adopt_init_models(init_models)
+        k = g.num_tree_per_iteration
+        bundle = g._bundle_of(g.train_data)
+        for idx, ht in enumerate(post):
+            g.models.append(ht)
+            g.scores[idx % k] = g._add_host_tree(
+                g.scores[idx % k], g.train_data.bins_dev, ht, bundle=bundle)
+        g.iter = len(post) // k
+        self.models = g.models
+        return self
+
+    def refit_by_leaf_preds(self, leaf_preds: np.ndarray) -> "Booster":
+        """Refit every leaf value in place from a leaf-assignment matrix
+        [num_data, num_trees] (ref: c_api.cpp:1665 LGBM_BoosterRefit,
+        gbdt.cpp:287 RefitTree); needs training data
+        (``reset_training_data``)."""
+        if self._gbdt is None:
+            raise ValueError(
+                "BoosterRefit needs training data; call "
+                "reset_training_data()/LGBM_BoosterResetTrainingData first")
+        self._gbdt.refit_by_leaf_preds(np.asarray(leaf_preds, np.int32)
+                                       .reshape(self._gbdt.num_data, -1))
+        return self
+
     def _load_model_string(self, model_str: str) -> None:
         header, trees, params = model_io.parse_model_string(model_str)
         self.models = trees
@@ -518,5 +763,5 @@ class Booster:
         self.average_output = header.get("average_output", "0") == "1"
         self.feature_names = header.get("feature_names", "").split()
         self.feature_infos = header.get("feature_infos", "").split()
-        self.objective = create_objective_from_string(
-            header.get("objective", "none"))
+        self._objective_str = header.get("objective", "none")
+        self.objective = create_objective_from_string(self._objective_str)

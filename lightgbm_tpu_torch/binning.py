@@ -519,3 +519,54 @@ class BinMapper:
         if self.bin_type == BIN_CATEGORICAL:
             return float(self.bin_2_categorical[bin_idx])
         return float(self.bin_upper_bound[bin_idx])
+
+    # ------------------------------------------------------------------
+    def to_dict(self) -> dict:
+        """Plain-type state (the JAX package's ``BinMapper.to_dict``): the
+        binary cache's mapper record, readable by either package."""
+        return {
+            "num_bin": self.num_bin,
+            "missing_type": self.missing_type,
+            "is_trivial": self.is_trivial,
+            "sparse_rate": self.sparse_rate,
+            "bin_type": self.bin_type,
+            "min_val": self.min_val,
+            "max_val": self.max_val,
+            "default_bin": self.default_bin,
+            "most_freq_bin": self.most_freq_bin,
+            "bin_upper_bound": self.bin_upper_bound.tolist(),
+            "bin_2_categorical": list(self.bin_2_categorical),
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "BinMapper":
+        m = cls()
+        m.num_bin = d["num_bin"]
+        m.missing_type = d["missing_type"]
+        m.is_trivial = d["is_trivial"]
+        m.sparse_rate = d["sparse_rate"]
+        m.bin_type = d["bin_type"]
+        m.min_val = d["min_val"]
+        m.max_val = d["max_val"]
+        m.default_bin = d["default_bin"]
+        m.most_freq_bin = d["most_freq_bin"]
+        m.bin_upper_bound = np.asarray(d["bin_upper_bound"], dtype=np.float64)
+        m.bin_2_categorical = list(d.get("bin_2_categorical", []))
+        m.categorical_2_bin = {c: i for i, c in enumerate(m.bin_2_categorical)}
+        return m
+
+
+def mappers_digest(mappers: Sequence[BinMapper]) -> str:
+    """SHA-256 over every mapper's defining state (bounds at full float64
+    precision through repr, vocabularies, missing semantics; the JAX
+    package's ``binning.mappers_digest``): two datasets with one digest
+    bin every value alike. The binary cache's manifest records it."""
+    import hashlib
+    import json
+    h = hashlib.sha256()
+    for m in mappers:
+        d = m.to_dict()
+        d["bin_upper_bound"] = [repr(float(b)) for b in d["bin_upper_bound"]]
+        h.update(json.dumps(d, sort_keys=True, default=str).encode())
+        h.update(b"\x00")
+    return h.hexdigest()

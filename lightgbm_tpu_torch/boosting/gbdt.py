@@ -118,10 +118,18 @@ fused, adaptive bins yield to the bundle layout, and gain screening keeps
 the full build (the mask acts at the split scan only), each as in the JAX
 package.
 
+Monotone constraints (``monotone_constraints`` per original column,
+indexed by the used features into ``FeatureMeta.monotone``; the JAX
+package's ``gbdt.py:81-82, 321, 1990-2075``) run on every body of the
+fused engine: ``use_mono_bounds`` and ``mono_mode`` go to every
+``grow_tree_fused`` call. ``monotone_constraints_method`` ``basic`` and
+``intermediate`` are the grower's; ``advanced`` needs the leaf-wise grower
+and degrades to ``intermediate`` with the JAX package's warning, and the
+frontier-v1 engine degrades to the fused one.
+
 Not ported yet (``_UNPORTED`` and ``create_boosting`` raise, each naming
 its ROADMAP item): DART and RF, distributed learners, linear trees, forced
-splits, CEGB; monotone constraints (``dataset.py``); resilience
-checkpoints.
+splits, CEGB; resilience checkpoints.
 """
 from __future__ import annotations
 
@@ -144,9 +152,10 @@ from ..ops.fused_level import (NCH_FAST, NCH_PRECISE, epilogue_pass,
                                table_lookup)
 from ..ops.layout import feature_layout, packed_feature_layout
 from ..ops.pallas_histogram import pad_feature_layout
-from ..ops.predict import add_tree_score, tree_depth
+from ..ops.predict import (add_tree_score, route_binned_rows_to_leaves,
+                           tree_depth)
 from ..ops.quantize import QNCH
-from ..ops.split import SplitParams
+from ..ops.split import SplitParams, calculate_leaf_output
 from ..utils import log
 from ..utils import random as ref_random
 
@@ -163,6 +172,7 @@ def split_params_from_config(config: Config) -> SplitParams:
         min_sum_hessian_in_leaf=float(config.min_sum_hessian_in_leaf),
         min_gain_to_split=float(config.min_gain_to_split),
         path_smooth=float(config.path_smooth),
+        monotone_penalty=float(config.monotone_penalty),
         max_cat_to_onehot=int(config.max_cat_to_onehot),
         max_cat_threshold=int(config.max_cat_threshold),
         cat_l2=float(config.cat_l2),
@@ -207,6 +217,9 @@ class GBDT:
         self.params = split_params_from_config(config)
         self.models: List[HostTree] = []
         self.iter = 0
+        # iterations adopted from a model (reset_training_data): the init
+        # segment, never replayed onto the scores
+        self.num_init_iteration = 0
         md = train_data.metadata
         self.has_init_score = md.init_score is not None
         self.scores = self._initial_scores(md, self.num_data)
@@ -433,11 +446,26 @@ class GBDT:
             log.fatal("unknown tpu_engine=%r (auto, fused, frontier or xla)",
                       engine)
         has_cat = bool(np.any(train_data.is_categorical))
+        mono = self._monotone(train_data)
+        self.use_mono_bounds = bool(np.any(mono != 0))
+        self.mono_mode = "basic"
+        if self.use_mono_bounds:
+            method = str(config.monotone_constraints_method)
+            if method in ("intermediate", "advanced"):
+                self.mono_mode = method
+            if self.mono_mode == "advanced":
+                # the per-segment bound planes run on the leaf-wise grower
+                # only; both engines here grow depth-wise
+                log.warning("monotone_constraints_method=advanced (segment "
+                            "bound planes) runs on the leaf-wise grower; "
+                            "this configuration uses intermediate instead")
+                self.mono_mode = "intermediate"
         if engine == "frontier" and self.use_bundles:
             log.info("feature bundling is not wired into the frontier-v1 "
                      "engine; using the fused engine")
             engine = "fused"
-        if engine == "frontier" and (has_cat or self.use_node_masks):
+        if engine == "frontier" and (has_cat or self.use_node_masks
+                                     or self.use_mono_bounds):
             log.warning("tpu_engine=frontier supports neither categorical "
                         "features, monotone bounds, nor interaction/bynode "
                         "constraints; using the fused engine")
@@ -562,6 +590,15 @@ class GBDT:
         self._gain_ema = torch.zeros(F_oh, dtype=torch.float32,
                                      device=self.device)
 
+    @staticmethod
+    def _monotone(train_data: BinnedDataset) -> np.ndarray:
+        """[F] int32 direction of each used feature (the constraints are
+        given per original column)."""
+        mc = train_data.monotone_constraints
+        if mc is None:
+            return np.zeros(train_data.num_features, np.int32)
+        return np.asarray(mc, np.int32)[train_data.used_features]
+
     def _padded_meta(self, train_data: BinnedDataset, width: int,
                      pad_num_bin: int) -> FeatureMeta:
         """Feature metadata padded to the engine's feature width, padding
@@ -582,7 +619,7 @@ class GBDT:
             num_bin=pad(train_data.num_bin_per_feat, pad_num_bin),
             missing_type=pad(train_data.missing_types),
             default_bin=pad(train_data.default_bins()),
-            monotone=pad(np.zeros(F, np.int32)),
+            monotone=pad(self._monotone(train_data)),
             is_cat=pad(train_data.is_categorical, False, bool))
 
     # ------------------------------------------------------------------
@@ -771,7 +808,8 @@ class GBDT:
             gh_scales=scales, node_masks=node_masks, cat_idx=self.cat_idx,
             bundle_cols=self.fused_bundle_cols,
             bundle_col_bins=self.fused_bundle_col_bins,
-            bundle_cfg=self.fused_bundle_cfg)
+            bundle_cfg=self.fused_bundle_cfg,
+            use_mono_bounds=self.use_mono_bounds, mono_mode=self.mono_mode)
 
     def arm_megastep(self, on: bool = True) -> None:
         """Permission from a training loop (``engine.train``) to run the
@@ -1133,6 +1171,13 @@ class GBDT:
             lv = lv * scale
         if ht.num_leaves <= 1:
             return score + lv[0]
+        return score + lv[self._host_tree_leaves(bins, ht, bundle)]
+
+    def _host_tree_leaves(self, bins: torch.Tensor, ht: HostTree,
+                          bundle: tuple = None) -> torch.Tensor:
+        """[n] int64 leaf of every binned row in a host tree of more than
+        one leaf (the bin router, ``ops.predict``), as ``_add_host_tree``
+        routes them."""
         ni = ht.num_internal
         inner = [self.train_data.used_features.index(int(f))
                  for f in ht.split_feature[:ni]]
@@ -1144,8 +1189,8 @@ class GBDT:
         cat = self._host_cat_bins(ht, inner)
         cat = (None, None) if cat is None else [t(a, torch.bool)
                                                  for a in cat]
-        return add_tree_score(
-            score, bins, lv, t(inner), t(ht.threshold_bin[:ni]),
+        return route_binned_rows_to_leaves(
+            bins, t(inner), t(ht.threshold_bin[:ni]),
             t((ht.decision_type[:ni] & 2) != 0, torch.bool),
             t(ht.left_child[:ni]), t(ht.right_child[:ni]),
             meta.num_bin, meta.missing_type, meta.default_bin,
@@ -1191,6 +1236,75 @@ class GBDT:
                                               self._bundle_of(vd))
         del self.models[-k:]
         self.iter -= 1
+
+    def adopt_init_models(self, host_trees: List[HostTree]) -> None:
+        """Install already-trained trees as the init segment (the JAX
+        package's ``adopt_init_models``, gbdt.py:5254-5267): prepended to
+        the models, their scores not replayed, as the reference replays
+        only the iterations after the init ones (ref: gbdt.cpp:715)."""
+        k = self.num_tree_per_iteration
+        if len(host_trees) % k:
+            log.fatal("cannot adopt %d trees with %d trees per iteration",
+                      len(host_trees), k)
+        self.models[:0] = host_trees
+        self.num_init_iteration += len(host_trees) // k
+
+    def refit_by_leaf_preds(self, leaf_preds: np.ndarray) -> None:
+        """Refit every tree's leaf values on the training data from a
+        [num_data, num_models] leaf-assignment matrix (ref: gbdt.cpp:287
+        RefitTree, serial_tree_learner.cpp:212 FitByExistingTree; the JAX
+        package's gbdt.py:5269-5327): the scores start at the init score;
+        each iteration's gradients are the objective's at the f32 running
+        scores; each leaf's output is the Newton value of its float64
+        gradient sums (taken in f32, as the JAX package's
+        ``calculate_leaf_output`` on its device), blended with
+        ``refit_decay_rate``, and added back into the float64 scores."""
+        k = self.num_tree_per_iteration
+        n = self.num_data
+        n_models = len(self.models)
+        if leaf_preds.shape != (n, n_models):
+            log.fatal("leaf_preds shape %s does not match "
+                      "[num_data=%d, num_models=%d]",
+                      leaf_preds.shape, n, n_models)
+        decay = float(self.config.refit_decay_rate)
+        md = self.train_data.metadata
+        if md.init_score is not None:
+            init = np.asarray(md.init_score, np.float64)
+            scores = (init.reshape(k, n) if init.size == n * k
+                      else np.tile(init.reshape(1, n), (k, 1)))
+        else:
+            scores = np.zeros((k, n), np.float64)
+        for it in range(n_models // k):
+            if self.objective is not None:
+                g, h = self.objective.get_gradients(torch.as_tensor(
+                    scores.astype(np.float32), device=self.device))
+                g = g.double().cpu().numpy().reshape(k, n)
+                h = h.double().cpu().numpy().reshape(k, n)
+            else:
+                g = scores - np.asarray(md.label, np.float64)[None, :]
+                h = np.ones_like(g)
+            for tid in range(k):
+                mi = it * k + tid
+                ht = self.models[mi]
+                L = ht.num_leaves
+                lp = leaf_preds[:, mi]
+                if int(lp.max(initial=0)) >= L or int(lp.min(initial=0)) < 0:
+                    log.fatal("leaf_preds column %d references leaf %d of "
+                              "a %d-leaf tree", mi, int(lp.max()), L)
+                sum_g = np.bincount(lp, weights=g[tid], minlength=L)
+                # the kEpsilon floor of FitByExistingTree's sum_hess
+                sum_h = np.bincount(lp, weights=h[tid], minlength=L) + 1e-15
+                out = calculate_leaf_output(
+                    torch.as_tensor(sum_g, dtype=torch.float32),
+                    torch.as_tensor(sum_h, dtype=torch.float32),
+                    self.params).double().numpy()
+                new_vals = (decay * np.asarray(ht.leaf_value, np.float64)
+                            + (1.0 - decay) * out * float(ht.shrinkage))
+                ht.leaf_value[:] = new_vals[:len(ht.leaf_value)]
+                scores[tid] += new_vals[lp]
+        self.scores = torch.as_tensor(scores.astype(np.float32),
+                                      device=self.device)
+        self._epi_carry = None
 
     def reset_config(self, config: Config) -> None:
         """Re-derive the training state from an updated config (ref:

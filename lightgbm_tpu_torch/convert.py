@@ -4,7 +4,8 @@ Takes numpy arrays and model text only, so it needs no JAX: the tests fetch
 ``lightgbm_tpu``'s arrays with ``jax.device_get`` and hand the numpy dict
 over. A GBDT's weights are its trees and its bin mappers; the mappers come
 across as a model text's thresholds, or rebuilt from the same data (both
-packages bin identically).
+packages bin identically). Monotone constraints cross as the model text's
+``monotone_constraints=`` line and as ``FeatureMeta.monotone``.
 """
 from __future__ import annotations
 
@@ -53,5 +54,14 @@ def feature_meta_from_numpy(d: Dict[str, np.ndarray],
 
 def booster_from_model_string(s: str, device_type: str = "cuda") -> Booster:
     """Load a model text that the JAX package or LightGBM wrote into a
-    port ``Booster`` predicting on ``device_type``."""
-    return Booster(params={"device_type": device_type}, model_str=s)
+    port ``Booster`` predicting on ``device_type``; its
+    ``monotone_constraints=`` header line crosses too, so the port writes
+    it back out."""
+    bst = Booster(params={"device_type": device_type}, model_str=s)
+    for line in s.split("\n"):
+        if line.startswith("monotone_constraints="):
+            bst.monotone_constraints = np.asarray(
+                line.split("=", 1)[1].split(), np.int32)
+        elif line.startswith("Tree="):
+            break
+    return bst

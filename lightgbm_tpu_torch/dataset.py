@@ -24,11 +24,19 @@ matrix encoded straight from the CSC columns. Such a dataset is
 ``prebundled``: ``bins`` holds bundle columns and ``prebundled`` the
 ``ops/efb.BundleLayout`` that decodes them. A valid set built against it
 (``reference``) stores exact logical bins, since it is only routed.
-Monotone constraints are not ported yet and raise.
+
+``monotone_constraints`` are kept per original column, length-checked as
+the JAX package does (``dataset.py:261-264, 458-462``), and carried by row
+subsets and by sets binned against a reference; the trainer indexes them
+by the used features. ``add_features_from`` appends another dataset's
+columns (and constraints), and ``save_binary``/``load_binary`` write and
+read the JAX package's binary cache (``io/cache.py``): a file written by
+either package loads in the other.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import pickle
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,8 +44,17 @@ import torch
 from .binning import (BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper,
                       effective_bin_counts)
 from .config import Config
+from .io.cache import (CACHE_MAGIC, LEGACY_MAGIC, load_dataset_cache,
+                       read_magic, save_dataset_cache)
 from .ops.efb import BundleLayout, find_bundles
 from .utils import log
+
+# the binning-defining keys a binary cache carries (the JAX package's
+# dataset.py:30-39)
+_DATASET_DEFINING_KEYS = (
+    "max_bin", "max_bin_by_feature", "bin_construct_sample_cnt",
+    "min_data_in_bin", "use_missing", "zero_as_missing",
+    "feature_pre_filter", "min_data_in_leaf", "data_random_seed")
 
 
 class Metadata:
@@ -177,13 +194,15 @@ class BinnedDataset:
     """The binned training matrix (counterpart of ``TpuDataset``).
 
     ``bins``: host ``[num_data, num_used_features]`` uint8/uint16;
-    ``bins_dev``: the same matrix on ``device``; ``mappers`` holds one
-    BinMapper per original feature (trivial ones included, for model IO).
+    ``bins_dev``: the same matrix on ``device``, placed there on first use
+    (a dataset loaded from a binary cache reaches the card only when a
+    booster is built on it); ``mappers`` holds one BinMapper per original
+    feature (trivial ones included, for model IO).
     """
 
     def __init__(self):
         self.bins: Optional[np.ndarray] = None
-        self.bins_dev: Optional[torch.Tensor] = None
+        self._bins_dev: Optional[torch.Tensor] = None
         self.device = torch.device("cpu")
         self.mappers: List[BinMapper] = []
         self.used_features: List[int] = []
@@ -199,6 +218,12 @@ class BinnedDataset:
         # the bundle layout of a sparse-built dataset, whose ``bins`` are
         # then bundle columns; None for logical bins
         self.prebundled: Optional[BundleLayout] = None
+        # per original column, or None (no constraint)
+        self.monotone_constraints: Optional[np.ndarray] = None
+        # the binning parameters of the build, kept by the binary cache
+        self.dataset_params: Dict[str, Any] = {}
+        # binned against another dataset's mappers (a valid set)
+        self.reference_binned = False
 
     @classmethod
     def from_data(cls, data: np.ndarray, config: Config, device,
@@ -216,10 +241,6 @@ class BinnedDataset:
         data = np.asarray(data)
         if data.ndim != 2:
             log.fatal("data must be 2-dimensional")
-        if config.monotone_constraints and any(
-                int(m) != 0 for m in config.monotone_constraints):
-            log.fatal("monotone constraints are not ported to "
-                      "lightgbm_tpu_torch yet")
         n, f = data.shape
         self.num_data = n
         self.num_total_features = f
@@ -230,9 +251,7 @@ class BinnedDataset:
             if f != reference.num_total_features:
                 log.fatal("the data has %d features but its reference has "
                           "%d", f, reference.num_total_features)
-            self.mappers = reference.mappers
-            self.used_features = reference.used_features
-            self._finalize_feature_arrays()
+            self._adopt_reference(reference)
             self._place(self.bin_rows(data), device)
             return self
         cat_set = set(int(c) for c in categorical_feature)
@@ -268,6 +287,7 @@ class BinnedDataset:
                         "the provided configuration.")
         self._finalize_feature_arrays()
         self._place(self.bin_rows(data), device)
+        self._set_monotone(config, f)
         return self
 
     @classmethod
@@ -287,10 +307,6 @@ class BinnedDataset:
         self = cls()
         csc = sp.csc_matrix(data)
         csc.sort_indices()
-        if config.monotone_constraints and any(
-                int(m) != 0 for m in config.monotone_constraints):
-            log.fatal("monotone constraints are not ported to "
-                      "lightgbm_tpu_torch yet")
         n, f = csc.shape
         self.num_data = n
         self.num_total_features = f
@@ -301,9 +317,7 @@ class BinnedDataset:
             if f != reference.num_total_features:
                 log.fatal("the data has %d features but its reference has "
                           "%d", f, reference.num_total_features)
-            self.mappers = reference.mappers
-            self.used_features = reference.used_features
-            self._finalize_feature_arrays()
+            self._adopt_reference(reference)
             dtype = np.uint8 if self.max_num_bin <= 256 else np.uint16
             out = np.zeros((n, len(self.used_features)), dtype)
             for k, j in enumerate(self.used_features):
@@ -367,7 +381,27 @@ class BinnedDataset:
                  "(max %d bins)", len(self.used_features),
                  layout.num_columns,
                  max(layout.col_num_bin) if layout.num_columns else 0)
+        self._set_monotone(config, f)
         return self
+
+    def _adopt_reference(self, reference: "BinnedDataset") -> None:
+        """Bin with ``reference``'s mappers (a valid set)."""
+        self.mappers = reference.mappers
+        self.used_features = reference.used_features
+        self.monotone_constraints = reference.monotone_constraints
+        self.dataset_params = dict(reference.dataset_params)
+        self.reference_binned = True
+        self._finalize_feature_arrays()
+
+    def _set_monotone(self, config: Config, f: int) -> None:
+        """The build's binning parameters, and ``monotone_constraints``
+        per original column when given."""
+        self.dataset_params = {k: getattr(config, k)
+                               for k in _DATASET_DEFINING_KEYS}
+        if config.monotone_constraints:
+            mc = np.asarray(config.monotone_constraints, dtype=np.int32)
+            log.check(mc.size == f, "monotone_constraints length mismatch")
+            self.monotone_constraints = mc
 
     def _finalize_feature_arrays(self) -> None:
         used = [self.mappers[j] for j in self.used_features]
@@ -387,7 +421,13 @@ class BinnedDataset:
         self.device = torch.device(device)
         # widened so bins >= 128 stay positive in a signed tensor
         wide = np.int16 if bins.dtype == np.uint8 else np.int32
-        self.bins_dev = torch.from_numpy(bins.astype(wide)).to(self.device)
+        self._bins_dev = torch.from_numpy(bins.astype(wide)).to(self.device)
+
+    @property
+    def bins_dev(self) -> Optional[torch.Tensor]:
+        if self._bins_dev is None and self.bins is not None:
+            self._place(self.bins, self.device)
+        return self._bins_dev
 
     def subset(self, rows) -> "BinnedDataset":
         """A row subset sharing the mappers: the binned rows are sliced,
@@ -402,8 +442,89 @@ class BinnedDataset:
         out.metadata = self.metadata.subset(rows)
         out._finalize_feature_arrays()
         out.prebundled = self.prebundled     # bundle rows slice as rows do
+        out.monotone_constraints = self.monotone_constraints
+        out.dataset_params = dict(self.dataset_params)
         out._place(self.bins[rows], self.device)
         return out
+
+    def add_features_from(self, other: "BinnedDataset") -> None:
+        """Append ``other``'s features column-wise (ref: dataset.h
+        AddFeaturesFrom; lightgbm_tpu/dataset.py:506-533): its mappers and
+        binned columns become new features after this one's, its names
+        taking a ``_2`` suffix where they clash, its constraints (0 where
+        it has none) after this one's. Both hold the same rows."""
+        if other.num_data != self.num_data:
+            log.fatal("add_features_from: row counts differ (%d vs %d)"
+                      % (self.num_data, other.num_data))
+        if self.prebundled is not None or other.prebundled is not None:
+            log.fatal("add_features_from needs per-feature bins; a "
+                      "sparse-built dataset holds bundle columns")
+        base = len(self.mappers)
+        self.num_total_features += other.num_total_features
+        self.mappers = list(self.mappers) + list(other.mappers)
+        self.used_features = list(self.used_features) + [
+            base + j for j in other.used_features]
+        self.feature_names = list(self.feature_names) + [
+            n if n not in self.feature_names else f"{n}_2"
+            for n in other.feature_names]
+        dtype = (np.uint16 if max(self.max_num_bin, other.max_num_bin) > 256
+                 else self.bins.dtype)
+        bins = np.concatenate([np.asarray(self.bins, dtype),
+                               np.asarray(other.bins, dtype)], axis=1)
+        if self.monotone_constraints is not None \
+                or other.monotone_constraints is not None:
+            a = (self.monotone_constraints
+                 if self.monotone_constraints is not None
+                 else np.zeros(base, np.int32))
+            b = (other.monotone_constraints
+                 if other.monotone_constraints is not None
+                 else np.zeros(len(other.mappers), np.int32))
+            self.monotone_constraints = np.concatenate([a, b])
+        self._finalize_feature_arrays()
+        self._place(bins, self.device)
+
+    def save_binary(self, path: str) -> None:
+        """The binary cache of ``io/cache.py`` (the JAX package's v2
+        ``LGBMTPU2`` artifact)."""
+        save_dataset_cache(self, path)
+
+    @classmethod
+    def load_binary(cls, path: str, device) -> "BinnedDataset":
+        """A binary cache that either package wrote: the v2 ``LGBMTPU2``
+        artifact (bins mmapped, regions verified) or the JAX package's
+        v1 pickle (``LGBMTPU1``). The bins reach ``device`` on first
+        use."""
+        magic = read_magic(path)
+        self = cls()
+        if magic == CACHE_MAGIC:
+            bins, meta, manifest = load_dataset_cache(path)
+            self.num_total_features = int(manifest["num_total_features"])
+            self.reference_binned = bool(manifest.get("reference_binned",
+                                                      False))
+        else:
+            log.check(magic == LEGACY_MAGIC, f"{path} is not a "
+                      "lightgbm_tpu binary dataset file")
+            with open(path, "rb") as fh:
+                fh.read(8)
+                meta = pickle.load(fh)
+            bins = meta["bins"]
+            self.num_total_features = int(meta["num_total_features"])
+        self.bins = bins
+        self.num_data = int(bins.shape[0])
+        self.mappers = [BinMapper.from_dict(d) for d in meta["mappers"]]
+        self.used_features = list(meta["used_features"])
+        self.feature_names = list(meta.get("feature_names") or [])
+        self.metadata = Metadata(self.num_data)
+        if meta.get("label") is not None:
+            self.metadata.set_label(meta["label"])
+        self.metadata.weight = meta.get("weight")
+        self.metadata.query_boundaries = meta.get("query_boundaries")
+        self.metadata.init_score = meta.get("init_score")
+        self.monotone_constraints = meta.get("monotone_constraints")
+        self.dataset_params = dict(meta.get("dataset_params") or {})
+        self._finalize_feature_arrays()
+        self.device = torch.device(device)
+        return self
 
     def bin_rows(self, data: np.ndarray) -> np.ndarray:
         """Bin a [rows, num_total_features] float block against the mappers

@@ -1,5 +1,6 @@
 """Model text serialization in the LightGBM format (a copy of
-``lightgbm_tpu/io/model_io.py``, trimmed to the text writer and parser).
+``lightgbm_tpu/io/model_io.py``, trimmed to the text writer and parser,
+feature importance and the JSON dump).
 
 Behavioral analog of ref: src/boosting/gbdt_model_text.cpp (SaveModelToString
 :311, LoadModelFromString :421, DumpModel).  The text format is kept
@@ -9,6 +10,7 @@ the same cat_boundaries/cat_threshold encoding).
 """
 from __future__ import annotations
 
+import json
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -265,3 +267,77 @@ def parse_model_string(model_str: str) -> Tuple[Dict[str, str],
             params = model_str[start:end]
     return header, trees, params
 
+
+
+def dump_model_json(booster, start_iteration: int = 0,
+                    num_iteration: int = -1,
+                    importance_type: int = 0) -> str:
+    """JSON dump (ref: gbdt_model_text.cpp DumpModel)."""
+    models = booster.models
+    k = booster.num_tree_per_iteration
+    num_used = len(models)
+    if num_iteration > 0:
+        num_used = min((start_iteration + num_iteration) * k, num_used)
+
+    def node_json(tree: HostTree, node: int):
+        if node < 0:
+            leaf = ~node
+            return {
+                "leaf_index": int(leaf),
+                "leaf_value": float(tree.leaf_value[leaf]),
+                "leaf_weight": float(tree.leaf_weight[leaf])
+                if len(tree.leaf_weight) > leaf else 0.0,
+                "leaf_count": int(tree.leaf_count[leaf])
+                if len(tree.leaf_count) > leaf else 0,
+            }
+        d = int(tree.decision_type[node])
+        cat = bool(d & 1)
+        return {
+            "split_index": int(node),
+            "split_feature": int(tree.split_feature[node]),
+            "split_gain": float(tree.split_gain[node]),
+            "threshold": float(tree.threshold[node]),
+            "decision_type": "==" if cat else "<=",
+            "default_left": bool(d & 2),
+            "missing_type": ["None", "Zero", "NaN"][(d >> 2) & 3],
+            "internal_value": float(tree.internal_value[node]),
+            "internal_weight": float(tree.internal_weight[node]),
+            "internal_count": int(tree.internal_count[node]),
+            "left_child": node_json(tree, int(tree.left_child[node])),
+            "right_child": node_json(tree, int(tree.right_child[node])),
+        }
+
+    tree_infos = []
+    for i in range(start_iteration * k, num_used):
+        t = models[i]
+        tree_infos.append({
+            "tree_index": i,
+            "num_leaves": t.num_leaves,
+            "num_cat": len(t.cat_boundaries) - 1 if t.cat_threshold else 0,
+            "shrinkage": t.shrinkage,
+            "tree_structure": node_json(t, 0 if t.num_leaves > 1 else -1),
+        })
+    out = {
+        "name": "tree",
+        "version": MODEL_VERSION,
+        "num_class": booster.num_class,
+        "num_tree_per_iteration": booster.num_tree_per_iteration,
+        "label_index": getattr(booster, "label_index", 0),
+        "max_feature_idx": booster.max_feature_idx,
+        "objective": (booster.objective.to_string()
+                      if booster.objective is not None else "none"),
+        "average_output": bool(getattr(booster, "average_output", False)),
+        "feature_names": booster.feature_names,
+        "monotone_constraints": [],
+        "feature_infos": {},
+        "tree_info": tree_infos,
+    }
+    # nonzero importances keyed by feature name; the int truncation and
+    # the >0 drop are the reference's own (gbdt_model_text.cpp:105-107)
+    imp = feature_importance(models[start_iteration * k:num_used],
+                             booster.max_feature_idx + 1, importance_type)
+    names = booster.feature_names or [
+        f"Column_{i}" for i in range(booster.max_feature_idx + 1)]
+    out["feature_importances"] = {
+        names[i]: int(v) for i, v in enumerate(imp) if int(v) > 0}
+    return json.dumps(out, indent=2)

@@ -19,8 +19,9 @@ scores, per-group sums by ``scatter_add``.
 
 The multiclass metrics (``multi_logloss``, ``multi_error`` with
 ``multi_error_top_k``, ``auc_mu`` with ``auc_mu_weights``) take the
-``[k, n]`` scores and have a host form only, as in the JAX package's
-per-iteration evaluation.
+``[k, n]`` scores. ``multi_logloss`` (under the softmax and one-vs-all
+objectives, or none) and ``multi_error`` have the device forms of the JAX
+package's ``metric/traced.py:123-167``; ``auc_mu`` has a host form only.
 
 The ranking metrics need query groups: ``ndcg`` (``eval_at``, or
 ``ndcg@k``) has the JAX package's device form (``metric/traced.py``
@@ -545,10 +546,46 @@ class KullbackLeiblerDivergence(Metric):
 
 
 # ---------------------------------------------------------------------------
-# Multiclass metrics (ref: src/metric/multiclass_metric.hpp), host only
+# Multiclass metrics (ref: src/metric/multiclass_metric.hpp)
 # ---------------------------------------------------------------------------
-class MultiSoftmaxLoglossMetric(Metric):
+def _multiclass_probs_torch(objective, score):
+    """[k, n] class probabilities of [k, n] scores on the device, as the
+    host form's ``objective.convert_output`` gives them; None for an
+    objective with no such form (``metric/traced.py:123-134``)."""
+    if objective is None or objective.name in ("multiclass", "softmax"):
+        e = torch.exp(score - score.amax(0, keepdim=True))
+        return e / e.sum(0, keepdim=True)
+    if objective.name == "multiclassova":
+        return 1.0 / (1.0 + torch.exp(-float(objective.sigmoid) * score))
+    return None
+
+
+class _MulticlassMetric(Metric):
+    def _dev_class_weight(self, device):
+        """(int64 class labels, weights or None) on ``device``."""
+        if getattr(self, "_cls_dev", None) is None \
+                or self._cls_dev[0] != device:
+            label, weight = self._dev_label_weight(device)
+            self._cls_dev = (device, label.long(), weight)
+        return self._cls_dev[1], self._cls_dev[2]
+
+
+class MultiSoftmaxLoglossMetric(_MulticlassMetric):
     names = ["multi_logloss"]
+
+    def has_device_form(self, objective) -> bool:
+        return objective is None or objective.name in (
+            "multiclass", "softmax", "multiclassova")
+
+    def eval_device(self, score_dev, objective, cache=None):
+        if not self.has_device_form(objective):
+            return None
+        li, weight = self._dev_class_weight(score_dev.device)
+        probs = _multiclass_probs_torch(objective, score_dev)
+        n = score_dev.shape[1]
+        p = torch.clamp(probs[li, torch.arange(n, device=li.device)],
+                        min=K_EPSILON)
+        return [_weighted_sum(-torch.log(p), weight) / self.sum_weights]
 
     def eval(self, score, objective):
         # score: [num_class, n], converted by the objective where one is set
@@ -567,8 +604,20 @@ class MultiSoftmaxLoglossMetric(Metric):
         return [float(np.sum(pt) / self.sum_weights)]
 
 
-class MultiErrorMetric(Metric):
+class MultiErrorMetric(_MulticlassMetric):
     names = ["multi_error"]
+
+    def has_device_form(self, objective) -> bool:
+        return True
+
+    def eval_device(self, score_dev, objective, cache=None):
+        li, weight = self._dev_class_weight(score_dev.device)
+        n = score_dev.shape[1]
+        true_score = score_dev[li, torch.arange(n, device=li.device)]
+        num_larger = (score_dev >= true_score[None, :]).sum(0)
+        err = (num_larger > int(self.config.multi_error_top_k)) \
+            .to(torch.float32)
+        return [_weighted_sum(err, weight) / self.sum_weights]
 
     def eval(self, score, objective):
         k, n = score.shape

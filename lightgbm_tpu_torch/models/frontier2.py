@@ -51,6 +51,22 @@ residual on each feature's most-frequent bin), route tables come from
 ``build_route_table_bundled``, and the level caps from the bundle layout's
 flat width. The voting exchange (``frontier2.py:524-529``) waits for the
 distributed learners.
+
+Monotone constraints (``use_mono_bounds``, the JAX lines
+``frontier2.py:298-320, 379, 625-668, 692-765``) carry per-leaf output
+bounds ``leaf_lo``/``leaf_hi`` (-inf/+inf until a constraint binds) into
+every split search, which clips candidate outputs into them. ``mono_mode``
+picks how they grow: ``basic`` fences both children of a monotone split
+at the mid of their outputs (``mono_child_bounds``); ``intermediate``
+keeps each leaf's bin-space region (``reg_lo``/``reg_hi``, [L, F]) and
+runs the level's splits one at a time in slot order
+(``mono_inter_level_update``): each fresh child's output is clipped
+against its region-adjacent leaves and the other leaves' bounds tighten.
+A leaf whose bounds tightened without being split rescans its pooled
+histogram under them. The JAX grower gates that rescan with a
+``lax.cond`` on any such leaf; here it runs every intermediate level and
+the result is merged where a leaf's bounds changed, which gives the same
+splits with no second host read per level.
 """
 from __future__ import annotations
 
@@ -65,7 +81,8 @@ from ..ops.fused_level import (NCH_PRECISE, build_route_table,
 from ..ops.split import (BestSplit, SplitParams, best_split_cm,
                          calculate_leaf_output, map_split)
 from .learner import (NEG_INF, FeatureMeta, NodeMaskCfg, _masked_gain,
-                      _masked_scatter, meta_is_cat, node_feature_mask,
+                      _masked_scatter, meta_is_cat, mono_child_bounds,
+                      mono_inter_level_update, node_feature_mask,
                       update_leaf_groups)
 from .tree import TreeArrays, empty_tree
 
@@ -117,7 +134,9 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
                     gh_scales: torch.Tensor = None,
                     node_masks: NodeMaskCfg = None,
                     cat_idx: torch.Tensor = None, bundle_cols: int = 0,
-                    bundle_col_bins: int = 0, bundle_cfg=None):
+                    bundle_col_bins: int = 0, bundle_cfg=None,
+                    use_mono_bounds: bool = False,
+                    mono_mode: str = "basic"):
     """Grow one tree with fused level passes.
 
     Args:
@@ -154,6 +173,9 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
       bundle_cols, bundle_col_bins, bundle_cfg: the kernel layout when
         ``bins_T`` holds EFB bundle columns (0 = unbundled) and the
         ``learner.BundleCfg`` decode tables padded to f_oh x max_bins.
+      use_mono_bounds: ``meta.monotone`` holds a constraint; every split
+        search then runs under the leaves' output bounds.
+      mono_mode: ``basic`` or ``intermediate`` (the bounds' bookkeeping).
 
     Returns (TreeArrays, row_leaf [Rp] int32; padding rows stay at -1).
     With ``defer_final_route``: (tree, row_leaf before the final route,
@@ -243,6 +265,16 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
     tree.leaf_weight[0] = root_h
 
     leaf_groups = torch.full((L,), -1, dtype=torch.int32, device=dev)
+    mono = None
+    if use_mono_bounds:
+        # per-leaf output bounds, and the intermediate mode's bin-space
+        # regions over the logical features; padded features (num_bin 0)
+        # get a fake [0, 1) region so they always overlap
+        mono = (torch.full((L,), float("-inf"), device=dev),
+                torch.full((L,), float("inf"), device=dev),
+                torch.zeros((L, f_oh), dtype=torch.int32, device=dev),
+                torch.clamp(meta.num_bin, min=1).to(torch.int32)[None, :]
+                .expand(L, f_oh).clone())
     root_mask = feature_mask[None, :]
     if node_masks is not None:
         root_mask = root_mask & node_feature_mask(
@@ -251,7 +283,9 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
     root_best = best_split_cm(
         g0[:1], h0[:1], c0[:1], meta.num_bin, meta.missing_type,
         meta.default_bin, root_mask, meta_is_cat(meta), params,
-        tree.leaf_value[:1], cat_idx=cat_idx)
+        tree.leaf_value[:1], cat_idx=cat_idx,
+        **(_bounds_kw(meta, mono[0][:1], mono[1][:1], tree.leaf_depth[:1])
+           if mono is not None else {}))
     best = map_split(lambda a: torch.cat(
         [a[:1], torch.zeros((L - 1,) + a.shape[1:], dtype=a.dtype,
                             device=dev)]), root_best)
@@ -270,24 +304,32 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
     if deferred is not None:
         deferred[1][:, 0] = -2
     state = (tree, leaf_T, pool_g, pool_h, pool_c, best, lpn, lil,
-             leaf_groups)
+             leaf_groups, mono)
     for li, S_d in enumerate(caps):
         state = _one_level(state, bins_T, gh_T, meta, feature_mask, params,
                            L, B, (k_foh, k_B), S_d, nch, max_depth,
                            li == len(caps) - 1, deferred, decode, kmask,
                            quant_bits, packed, node_masks, cat_idx,
-                           route_table)
+                           route_table, mono_mode == "intermediate")
     tree, leaf_T = state[0], state[1]
     if deferred is not None:
         return tree, leaf_T[0], deferred[0], deferred[1]
     return tree, leaf_T[0]
 
 
+def _bounds_kw(meta, lo, hi, depth):
+    """The split search's monotone arguments for slots with bounds
+    ``lo``/``hi`` and depths ``depth``."""
+    return {"monotone": meta.monotone, "bound_lo": lo, "bound_hi": hi,
+            "leaf_depth": depth}
+
+
 def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B,
                kernel, S_d, nch, max_depth, is_last, deferred, decode, kmask,
-               quant_bits, packed, node_masks, cat_idx, route_table):
+               quant_bits, packed, node_masks, cat_idx, route_table, inter):
     (tree, leaf_T, pool_g, pool_h, pool_c, best, lpn, lil,
-     leaf_groups) = state
+     leaf_groups, mono) = state
+    inter = inter and mono is not None
     dev = bins_T.device
     Sp = max(8, S_d)
     slots = torch.arange(L, dtype=torch.int32, device=dev)
@@ -392,6 +434,31 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B,
         arr = _masked_scatter(arr, slots, lv, selected)
         return _masked_scatter(arr, new_of_leaf, rv, selected)
 
+    mono_changed = None
+    if inter:
+        # the level's splits one at a time in slot order: clipped child
+        # outputs replace the scan's, the bounds and regions follow
+        (new_leaf_value, leaf_lo2, leaf_hi2, reg_lo2, reg_hi2,
+         mono_changed) = mono_inter_level_update(
+            tree.leaf_value, mono[0], mono[1], mono[2], mono[3], selected,
+            k_of_leaf, best.feature, best.threshold, best.cat_flag,
+            best.left_output, best.right_output, meta.monotone, nl, n_sel)
+        mono2 = (leaf_lo2, leaf_hi2, reg_lo2, reg_hi2)
+    else:
+        new_leaf_value = upd2(tree.leaf_value, best.left_output,
+                              best.right_output)
+        mono2 = mono
+        if mono is not None:
+            # basic mode: both children fenced at the mid of their outputs
+            # (a categorical split has no direction)
+            mono_dir = torch.where(
+                best.feature >= 0,
+                meta.monotone[best.feature.clamp(min=0).long()], 0)
+            if best.cat_flag is not None:
+                mono_dir = torch.where(best.cat_flag, 0, mono_dir)
+            mono2 = mono_child_bounds(
+                mono[0], mono[1], selected, mono_dir, best.left_output,
+                best.right_output, slots, new_of_leaf) + mono[2:]
     tree2 = tree._replace(
         num_leaves=nl + n_sel,
         split_feature=w(tree.split_feature, best.feature),
@@ -402,8 +469,7 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B,
         internal_count=w(tree.internal_count, tree.leaf_count),
         internal_weight=w(tree.internal_weight, tree.leaf_weight),
         left_child=lc, right_child=rc,
-        leaf_value=upd2(tree.leaf_value, best.left_output,
-                        best.right_output),
+        leaf_value=new_leaf_value,
         leaf_count=upd2(tree.leaf_count, best.left_count, best.right_count),
         leaf_weight=upd2(tree.leaf_weight, best.left_sum_hess,
                          best.right_sum_hess),
@@ -427,14 +493,17 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B,
         g2 = _masked_scatter(best.gain, slots, neg, selected)
         g2 = _masked_scatter(g2, new_of_leaf, neg, selected)
         return (tree2, leaf_T2, pool_g, pool_h, pool_c,
-                best._replace(gain=g2), lpn2, lil2, leaf_groups2)
+                best._replace(gain=g2), lpn2, lil2, leaf_groups2, mono2)
 
     # ---- best splits for the 2*Sp fresh children only; each child's own
     # post-split output is the parent_output of its prospective children
-    # (ref: feature_histogram.hpp FindBestThreshold parent_output)
+    # (ref: feature_histogram.hpp FindBestThreshold parent_output); the
+    # intermediate mode reads the clipped outputs from the tree
     zero = torch.zeros((), device=dev)
-    left_out = torch.where(lof_on, best.left_output[lof_safe], zero)
-    right_out = torch.where(lof_on, best.right_output[lof_safe], zero)
+    outs = ((tree2.leaf_value[lof_safe], tree2.leaf_value[new_s]) if inter
+            else (best.left_output[lof_safe], best.right_output[lof_safe]))
+    left_out = torch.where(lof_on, outs[0], zero)
+    right_out = torch.where(lof_on, outs[1], zero)
     ch_mask = feature_mask[None, :]
     if node_masks is not None:
         ch_groups = torch.cat([leaf_groups2[lof_safe], leaf_groups2[new_s]])
@@ -442,17 +511,39 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B,
         node = node_of_leaf[lof_safe]
         ch_ids = torch.cat([2 * (node + 1) + 1, 2 * (node + 1)])
         ch_mask = ch_mask & node_feature_mask(node_masks, ch_groups, ch_ids)
+    bounds = {}
+    if mono2 is not None:
+        ch = lambda a: torch.cat([a[lof_safe], a[new_s]])  # noqa: E731
+        bounds = _bounds_kw(meta, ch(mono2[0]), ch(mono2[1]),
+                            ch(tree2.leaf_depth))
     bs = best_split_cm(
         torch.cat([left_g, right_g]), torch.cat([left_h, right_h]),
         torch.cat([left_c, right_c]), meta.num_bin, meta.missing_type,
         meta.default_bin, ch_mask, meta_is_cat(meta), params,
-        torch.cat([left_out, right_out]), cat_idx=cat_idx)
+        torch.cat([left_out, right_out]), cat_idx=cat_idx, **bounds)
     left_bs = map_split(lambda a: a[:Sp], bs)
     right_bs = map_split(lambda a: a[Sp:], bs)
     best2 = _merge_best_many(best, lof_safe, left_bs, lof_on)
     best2 = _merge_best_many(best2, new_s, right_bs, lof_on)
+    if inter:
+        # stale leaves: the leaves whose bounds the level tightened
+        # without splitting them re-derive their best split from the pool
+        # under the new bounds (ref: serial_tree_learner.cpp:706-714);
+        # every leaf is rescanned and the changed ones take the result
+        m = feature_mask[None, :]
+        if node_masks is not None:
+            m = m & node_feature_mask(node_masks, leaf_groups2,
+                                      2 * (lpn2 + 1) + lil2.to(torch.int32))
+        bs_all = best_split_cm(
+            pool_g, pool_h, pool_c, meta.num_bin, meta.missing_type,
+            meta.default_bin, m.expand(L, -1), meta_is_cat(meta), params,
+            tree2.leaf_value, cat_idx=cat_idx,
+            **_bounds_kw(meta, mono2[0], mono2[1], tree2.leaf_depth))
+        best2 = map_split(lambda old, new: torch.where(
+            mono_changed if old.dim() == 1 else mono_changed[:, None], new,
+            old), best2, bs_all)
     return (tree2, leaf_T2, pool_g, pool_h, pool_c, best2, lpn2, lil2,
-            leaf_groups2)
+            leaf_groups2, mono2)
 
 
 def tree_score_delta(tree: TreeArrays, row_leaf: torch.Tensor, shrinkage,

@@ -2,10 +2,12 @@
 
 PyTorch counterpart of the parts of ``lightgbm_tpu/models/learner.py`` the
 fused grower uses: the feature metadata record, the collision-free masked
-scatter, the masked gain vector, and the per-node feature masks of
+scatter, the masked gain vector, the per-node feature masks of
 interaction constraints and ``feature_fraction_bynode`` (``NodeMaskCfg``,
 whose by-node draws come from the port's copy of ``jax.random``'s
-Threefry, ``utils/random.py``).
+Threefry, ``utils/random.py``), and the monotone-constraint bookkeeping of
+the basic and intermediate modes (``mono_child_bounds``,
+``region_adjacency``, ``mono_inter_level_update``).
 """
 from __future__ import annotations
 
@@ -172,3 +174,137 @@ def update_leaf_groups(cfg: NodeMaskCfg, leaf_groups: torch.Tensor,
                                       cfg.groups_with_f[f_safe], -1)
     out = _masked_scatter(leaf_groups, left_idx, child, sel)
     return _masked_scatter(out, new_idx, child, sel)
+
+
+def mono_child_bounds(lo, hi, sel, mono_dir, left_output, right_output,
+                      left_idx, new_idx):
+    """Per-leaf output bounds after a level's splits, the reference's
+    BASIC rule (ref: monotone_constraints.hpp:488-500
+    BasicLeafConstraints::Update; lightgbm_tpu/models/learner.py:239-261):
+    both children are fenced at mid = (left_out + right_out) / 2, so every
+    later leaf of the left subtree stays <= mid <= every leaf of the right
+    one (m < 0 mirrored); a split on a feature without a direction passes
+    the parent's bounds on. All tensors [L]; ``sel`` marks the leaves split
+    this level, ``left_idx``/``new_idx`` their children's slots."""
+    par_lo = lo[left_idx.long()]
+    par_hi = hi[left_idx.long()]
+    mid = 0.5 * (left_output + right_output)
+    l_hi = torch.where(mono_dir > 0, torch.minimum(par_hi, mid), par_hi)
+    l_lo = torch.where(mono_dir < 0, torch.maximum(par_lo, mid), par_lo)
+    r_lo = torch.where(mono_dir > 0, torch.maximum(par_lo, mid), par_lo)
+    r_hi = torch.where(mono_dir < 0, torch.minimum(par_hi, mid), par_hi)
+    lo2 = _masked_scatter(_masked_scatter(lo, left_idx, l_lo, sel),
+                          new_idx, r_lo, sel)
+    hi2 = _masked_scatter(_masked_scatter(hi, left_idx, l_hi, sel),
+                          new_idx, r_hi, sel)
+    return lo2, hi2
+
+
+def region_adjacency(q_lo, q_hi, c_lo, c_hi, mask, monotone):
+    """Monotone region adjacency of every leaf box q against C child boxes
+    (lightgbm_tpu/models/learner.py:263-294, the vectorized form of the
+    reference's GoUp/GoDown contiguity walk): the boxes overlap on every
+    feature but one monotone feature g, and q lies strictly beyond the
+    child on g. q_lo/q_hi [L, F] bin-space boxes, c_lo/c_hi [C, F], mask
+    [L] (which q count), monotone [F]. Returns (up, dn) [L, C] bool: q
+    lies above (up) or below (dn) the child in its feature's direction."""
+    F = q_lo.shape[1]
+    ql, qh = q_lo[:, None, :], q_hi[:, None, :]
+    cl, ch = c_lo[None, :, :], c_hi[None, :, :]
+    ov = (ql < ch) & (cl < qh)                              # [L, C, F]
+    ov_i = ov.to(torch.int32)
+    ov_except = (ov_i.sum(2, keepdim=True) - ov_i) == (F - 1)
+    gate = ov_except & mask[:, None, None]
+    above = gate & (ql >= ch)
+    below = gate & (qh <= cl)
+    d = monotone[None, None, :]
+    up = ((d > 0) & above) | ((d < 0) & below)
+    dn = ((d > 0) & below) | ((d < 0) & above)
+    return up.any(2), dn.any(2)
+
+
+def mono_inter_level_update(leaf_value, leaf_lo, leaf_hi, reg_lo, reg_hi,
+                            selected, k_of_leaf, feature, threshold,
+                            cat_flag, left_out, right_out, monotone,
+                            num_leaves_before: int, n_splits: int):
+    """The intermediate mode's bookkeeping for one level of simultaneous
+    splits (ref: monotone_constraints.hpp:514 IntermediateLeafConstraints;
+    lightgbm_tpu/models/learner.py:296-403): raw-output fences,
+    region-aware clipping of each fresh child's output against the
+    region-adjacent leaves, and the cross-tightening of the other leaves'
+    bounds. The splits run one at a time in slot order (``k_of_leaf``, the
+    gain rank), as the JAX package's ``fori_loop`` over the level's slots
+    does; the loop here runs only over the level's ``n_splits`` (a host
+    int), whose every step has a split, with no host read. Every step is
+    min/max/select, so the result is bit-equal to the JAX package's.
+
+    All tensors are [L]-sized ([L, F] for the regions; ``cat_flag`` None
+    when nothing is categorical); the k-th split's right child gets slot
+    ``num_leaves_before + k``. Returns (leaf_value2, lo2, hi2, reg_lo2,
+    reg_hi2, changed): ``changed`` marks the leaves that existed before
+    the level, were not split by it, and whose bounds tightened (their
+    cached best splits are stale)."""
+    L, F = reg_lo.shape
+    dev = reg_lo.device
+    slots = torch.arange(L, device=dev)
+    f_iota = torch.arange(F, device=dev)
+    lv, lo, hi = leaf_value.clone(), leaf_lo.clone(), leaf_hi.clone()
+    rlo, rhi = reg_lo.clone(), reg_hi.clone()
+    changed = torch.zeros(L, dtype=torch.bool, device=dev)
+    inf = torch.tensor(float("inf"), device=dev)
+    for k in range(n_splits):
+        new = num_leaves_before + k
+        l = torch.argmax((selected & (k_of_leaf == k)).to(torch.int32)) \
+            .reshape(1)
+        f = feature[l].clamp(min=0).long()
+        is_num = (~cat_flag[l] if cat_flag is not None
+                  else torch.ones(1, dtype=torch.bool, device=dev))
+        mono_d = torch.where(is_num, monotone[f], 0)
+        # regions: a numerical split cuts the parent's box at t + 1 on f
+        parent_lo, parent_hi = rlo[l], rhi[l]                    # [1, F]
+        cut = (f_iota[None, :] == f[:, None]) & is_num[:, None]
+        t1 = threshold[l][:, None] + 1
+        l_hi_r = torch.where(cut, t1, parent_hi).to(rhi.dtype)
+        n_lo_r = torch.where(cut, t1, parent_lo).to(rlo.dtype)
+        rlo[new] = n_lo_r[0]
+        rhi[new] = parent_hi[0]
+        rhi.index_copy_(0, l, l_hi_r)
+        c_lo = torch.cat([parent_lo, n_lo_r])
+        c_hi = torch.cat([l_hi_r, parent_hi])
+        # adjacency against the current leaves (the level's earlier
+        # children included) other than the parent. Rows l and new are
+        # masked out, so the regions as updated above give the same
+        # answer the JAX package's pre- and post-update regions give in
+        # its clipping and cross-tightening steps
+        other = (slots < new) & (slots != l)
+        q_up, q_dn = region_adjacency(rlo, rhi, c_lo, c_hi, other, monotone)
+        qv = lv[:, None]
+        c_hi_b = torch.where(q_up, qv, inf).amin(0)               # [2]
+        c_lo_b = torch.where(q_dn, qv, -inf).amax(0)
+        o_l = torch.clamp(left_out[l], c_lo_b[0:1], c_hi_b[0:1])
+        o_n = torch.clamp(right_out[l], c_lo_b[1:2], c_hi_b[1:2])
+        # the siblings' order must survive the independent clips
+        o_n = torch.where(mono_d > 0, torch.maximum(o_n, o_l), o_n)
+        o_n = torch.where(mono_d < 0, torch.minimum(o_n, o_l), o_n)
+        lv.index_copy_(0, l, o_l)
+        lv[new] = o_n[0]
+        # inherited bounds and raw-output fences (looser than basic's
+        # mid), then the adjacency clip bounds, with the clipped outputs
+        p_lo, p_hi = lo[l], hi[l]
+        l_hi = torch.where(mono_d > 0, torch.minimum(p_hi, o_n), p_hi)
+        l_lo = torch.where(mono_d < 0, torch.maximum(p_lo, o_n), p_lo)
+        n_lo = torch.where(mono_d > 0, torch.maximum(p_lo, o_l), p_lo)
+        n_hi = torch.where(mono_d < 0, torch.minimum(p_hi, o_l), p_hi)
+        lo.index_copy_(0, l, torch.maximum(l_lo, c_lo_b[0:1]))
+        lo[new] = torch.maximum(n_lo, c_lo_b[1:2])[0]
+        hi.index_copy_(0, l, torch.minimum(l_hi, c_hi_b[0:1]))
+        hi[new] = torch.minimum(n_hi, c_hi_b[1:2])[0]
+        # cross-tighten the other leaves by the new (clipped) outputs
+        co = torch.cat([o_l, o_n])[None, :]
+        lo3 = torch.maximum(lo, torch.where(q_up, co, -inf).amax(1))
+        hi3 = torch.minimum(hi, torch.where(q_dn, co, inf).amin(1))
+        changed |= (lo3 > lo) | (hi3 < hi)
+        lo, hi = lo3, hi3
+    # the fresh children are rescanned by the level anyway
+    changed &= (slots < num_leaves_before) & ~selected
+    return lv, lo, hi, rlo, rhi, changed

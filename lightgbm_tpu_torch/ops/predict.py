@@ -181,36 +181,77 @@ def cat_value_masks(tree):
     return flag, mask
 
 
+def tree_leaves(t, X: torch.Tensor) -> torch.Tensor:
+    """[n] int64 leaf index of every row of ``X`` [n, F] float64 in the
+    HostTree ``t`` (leaf 0 for a one-leaf tree), routed on X's device."""
+    if getattr(t, "is_linear", False):
+        raise NotImplementedError("linear trees are not ported to "
+                                  "lightgbm_tpu_torch yet")
+    dev = X.device
+    if t.num_leaves <= 1:
+        return torch.zeros(X.shape[0], dtype=torch.int64, device=dev)
+    ni = t.num_internal
+
+    def a(x, dt):
+        return torch.as_tensor(np.asarray(x[:ni]), dtype=dt, device=dev)
+    d = np.asarray(t.decision_type[:ni])
+    cat = cat_value_masks(t)
+    return route_raw_rows_to_leaves(
+        X, a(t.split_feature, torch.int64), a(t.threshold, torch.float64),
+        torch.as_tensor((d & 2) != 0, device=dev),
+        torch.as_tensor((d >> 2) & 3, device=dev),
+        a(t.left_child, torch.int64), a(t.right_child, torch.int64),
+        tree_depth(t.left_child, t.right_child),
+        *([] if cat is None else
+          [torch.as_tensor(c, device=dev) for c in cat]))
+
+
+def _leaf_values(t, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(t.leaf_value, np.float64), device=dev)
+
+
 def predict_raw(models: List, X: torch.Tensor, k: int) -> torch.Tensor:
     """Raw scores [k, n] float64 of ``models`` (HostTrees) on ``X``
     [n, F] float64, summed in tree order like the JAX package's host walk
     (basic.host_walk_raw)."""
-    n = X.shape[0]
-    dev = X.device
-    raw = torch.zeros((k, n), dtype=torch.float64, device=dev)
+    raw = torch.zeros((k, X.shape[0]), dtype=torch.float64, device=X.device)
     for i, t in enumerate(models):
-        if getattr(t, "is_linear", False):
-            raise NotImplementedError("linear trees are not ported to "
-                                      "lightgbm_tpu_torch yet")
-        lv = torch.as_tensor(np.asarray(t.leaf_value, np.float64),
-                             device=dev)
-        if t.num_leaves <= 1:
-            raw[i % k] += lv[0]
-            continue
-        ni = t.num_internal
-
-        def a(x, dt):
-            return torch.as_tensor(np.asarray(x[:ni]), dtype=dt, device=dev)
-        d = np.asarray(t.decision_type[:ni])
-        cat = cat_value_masks(t)
-        leaves = route_raw_rows_to_leaves(
-            X, a(t.split_feature, torch.int64),
-            a(t.threshold, torch.float64),
-            torch.as_tensor((d & 2) != 0, device=dev),
-            torch.as_tensor((d >> 2) & 3, device=dev),
-            a(t.left_child, torch.int64), a(t.right_child, torch.int64),
-            tree_depth(t.left_child, t.right_child),
-            *([] if cat is None else
-              [torch.as_tensor(c, device=dev) for c in cat]))
-        raw[i % k] += lv[leaves]
+        raw[i % k] += _leaf_values(t, X.device)[tree_leaves(t, X)]
     return raw
+
+
+def predict_leaf(models: List, X: torch.Tensor) -> torch.Tensor:
+    """[n, len(models)] int32 leaf of every row in every tree (the JAX
+    package's ``pred_leaf``, ``basic.py:996-1000``)."""
+    out = torch.zeros((X.shape[0], len(models)), dtype=torch.int32,
+                      device=X.device)
+    for i, t in enumerate(models):
+        out[:, i] = tree_leaves(t, X).to(torch.int32)
+    return out
+
+
+def predict_raw_early_stop(models: List, X: torch.Tensor, k: int,
+                           freq: int, margin: float):
+    """Margin-based prediction early stopping (ref:
+    src/boosting/prediction_early_stop.cpp; the JAX package's
+    ``_predict_raw_early_stop``, ``basic.py:1016-1038``): trees add to a
+    row's raw scores in tree order until, at a check after every ``freq *
+    k`` trees, its margin exceeds ``margin`` (binary: |raw|; multiclass:
+    the top score less the second); the row then takes no more trees.
+    Returns (raw [k, n] float64, active [n] bool: the rows never
+    stopped). The checks run on the device: no host read."""
+    dev = X.device
+    raw = torch.zeros((k, X.shape[0]), dtype=torch.float64, device=dev)
+    active = torch.ones(X.shape[0], dtype=torch.bool, device=dev)
+    for i, t in enumerate(models):
+        c = i % k
+        raw[c] = torch.where(active, raw[c] + _leaf_values(t, dev)[
+            tree_leaves(t, X)], raw[c])
+        if (i + 1) % (freq * k) == 0:
+            if k == 1:
+                done = raw[0].abs() > margin
+            else:
+                top = torch.topk(raw, 2, dim=0).values
+                done = (top[0] - top[1]) > margin
+            active &= ~done
+    return raw, active

@@ -24,7 +24,17 @@ feature_histogram.hpp:278-470) split one-vs-rest under
 left set is an explicit bin mask (``cat_mask``), bin 0 (NaN/other) never
 in it. ``best_split_cm`` takes the better of the two scans per slot.
 
-Monotone bounds and CEGB are not ported yet.
+Monotone constraints (``lightgbm_tpu/ops/split.py:254-400``): with
+``monotone`` [F] every candidate whose outputs break its feature's
+direction gets gain 0 (ref: GetSplitGains USE_MC); with per-slot bounds
+``bound_lo``/``bound_hi`` the candidate outputs are clipped into the
+slot's interval and the gain is taken on the clipped outputs, the
+winner's outputs come back clipped (a categorical winner's too, with no
+direction), and ``monotone_penalty`` scales the net gain of monotone
+splits by the slot's depth (``leaf_depth``). Unbounded slots carry
+-inf/+inf, which a clamp leaves bit-equal. The advanced mode's
+per-segment bound planes run only on the leaf-wise grower, which is not
+ported. CEGB is not ported yet.
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ class SplitParams(NamedTuple):
     min_sum_hessian_in_leaf: float = 1e-3
     min_gain_to_split: float = 0.0
     path_smooth: float = 0.0
+    monotone_penalty: float = 0.0
     # categorical split search (ref: config.h cat_l2/cat_smooth/...)
     max_cat_to_onehot: int = 4
     max_cat_threshold: int = 32
@@ -135,7 +146,11 @@ def best_numerical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
                             missing_type: torch.Tensor,
                             default_bin: torch.Tensor,
                             feature_mask: torch.Tensor, params: SplitParams,
-                            parent_output: torch.Tensor) -> BestSplit:
+                            parent_output: torch.Tensor,
+                            monotone: torch.Tensor = None,
+                            bound_lo: torch.Tensor = None,
+                            bound_hi: torch.Tensor = None,
+                            leaf_depth: torch.Tensor = None) -> BestSplit:
     """Best numerical split per slot from channel-major planes.
 
     Args:
@@ -145,6 +160,10 @@ def best_numerical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
       default_bin: ``[F]`` int32 (bin of value 0; the zero-missing bin).
       feature_mask: ``[F]`` or ``[S, F]`` bool.
       parent_output: ``[S]`` f32 leaf outputs (for path smoothing).
+      monotone: ``[F]`` int32 in {-1, 0, 1}, or None (no constraint).
+      bound_lo/bound_hi: ``[S]`` f32 per-slot output bounds (the JAX
+        package's ``use_bounds``), or None; ``leaf_depth`` ``[S]`` int32
+        with them, for ``monotone_penalty``.
     """
     S, F, B = grad.shape
     p = params
@@ -174,6 +193,11 @@ def best_numerical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
                                                & (t_iota == nan_bin))
     zero = torch.zeros((), dtype=grad.dtype, device=dev)
     neg_inf = torch.full((), K_MIN_SCORE, dtype=grad.dtype, device=dev)
+    use_bounds = bound_lo is not None
+    mono = monotone[None, :, None] if monotone is not None else None
+    if use_bounds:
+        blo = bound_lo[:, None, None]
+        bhi = bound_hi[:, None, None]
 
     def directional_best(excl_missing_mask, thresh_valid, reverse):
         m = (~is_pad) & (~excl_missing_mask)
@@ -206,8 +230,30 @@ def best_numerical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
               & (left_h >= p.min_sum_hessian_in_leaf)
               & (right_h >= p.min_sum_hessian_in_leaf)
               & fm3)
-        gains = (leaf_gain(left_g, left_h, p, left_c, parent_out)
-                 + leaf_gain(right_g, right_h, p, right_c, parent_out))
+        if use_bounds:
+            # candidate outputs clipped into the slot's feasible interval,
+            # the gain taken on the clipped outputs (ref:
+            # monotone_constraints.hpp BasicLeafConstraints +
+            # feature_histogram GetSplitGains USE_MC)
+            lo = torch.clamp(calculate_leaf_output(left_g, left_h, p, left_c,
+                                                   parent_out), blo, bhi)
+            ro = torch.clamp(calculate_leaf_output(right_g, right_h, p,
+                                                   right_c, parent_out),
+                             blo, bhi)
+            gains = (leaf_gain_given_output(left_g, left_h, p, lo)
+                     + leaf_gain_given_output(right_g, right_h, p, ro))
+        else:
+            gains = (leaf_gain(left_g, left_h, p, left_c, parent_out)
+                     + leaf_gain(right_g, right_h, p, right_c, parent_out))
+        if mono is not None:
+            if not use_bounds:
+                lo = calculate_leaf_output(left_g, left_h, p, left_c,
+                                           parent_out)
+                ro = calculate_leaf_output(right_g, right_h, p, right_c,
+                                           parent_out)
+            # the direction check (ref: GetSplitGains USE_MC -> 0)
+            viol = ((mono > 0) & (lo > ro)) | ((mono < 0) & (lo < ro))
+            gains = torch.where(viol, zero, gains)
         gains = torch.where(ok & (gains > min_gain_shift), gains, neg_inf)
 
         if reverse:
@@ -241,6 +287,20 @@ def best_numerical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
     g_best = torch.where(use_fwd, g_fwd, g_rev)
     stats = [torch.where(use_fwd, a, b) for a, b in zip(s_fwd, s_rev)]
     default_left = ~use_fwd
+    if use_bounds and p.monotone_penalty > 0:
+        # the depth penalty on the NET gain of monotone-feature splits,
+        # after the validity gate on the gross gain (ref:
+        # monotone_constraints.hpp:355 ComputeMonotoneSplitGainPenalty)
+        pen = p.monotone_penalty
+        d = leaf_depth[:, None].to(torch.float32)
+        factor = torch.where(
+            pen >= d + 1.0, torch.full_like(d, K_EPSILON),
+            1.0 - pen / torch.exp2(d) + K_EPSILON if pen <= 1.0
+            else 1.0 - torch.exp2(pen - 1.0 - d) + K_EPSILON)
+        shift2 = min_gain_shift[:, :, 0]
+        net = torch.where(torch.isfinite(g_best),
+                          (g_best - shift2) * factor + shift2, g_best)
+        g_best = torch.where(monotone[None, :] != 0, net, g_best)
 
     # across features: first feature wins ties (argmax picks first max)
     f_best = torch.argmax(g_best, 1)                                 # [S]
@@ -250,6 +310,9 @@ def best_numerical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
 
     left_out = calculate_leaf_output(lg, lh, p, lc, parent_output)
     right_out = calculate_leaf_output(rg, rh, p, rc, parent_output)
+    if use_bounds:
+        left_out = torch.clamp(left_out, bound_lo, bound_hi)
+        right_out = torch.clamp(right_out, bound_lo, bound_hi)
     out_gain = torch.where(valid, gain - min_gain_shift[:, 0, 0], neg_inf)
     return BestSplit(
         feature=torch.where(valid, f_best.to(torch.int32),
@@ -458,7 +521,8 @@ def best_categorical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
 
 def best_split_cm(grad, hess, cnt, num_bin_per_feat, missing_type,
                   default_bin, feature_mask, is_cat, params: SplitParams,
-                  parent_output, cat_idx=None) -> BestSplit:
+                  parent_output, cat_idx=None, monotone=None, bound_lo=None,
+                  bound_hi=None, leaf_depth=None) -> BestSplit:
     """Combined numerical + categorical best split per slot (the JAX
     package's ``best_split_cm``, ``lightgbm_tpu/ops/split.py:627-668``;
     FindBestThreshold's dispatch on bin_type, ref:
@@ -466,16 +530,23 @@ def best_split_cm(grad, hess, cnt, num_bin_per_feat, missing_type,
     indices, None when there are none: the JAX package's static
     ``has_cat``) turns on the categorical scan; a categorical winner takes
     the slot where its gain is strictly greater. Without it the result's
-    categorical fields are None."""
+    categorical fields are None. ``monotone`` and the bounds as for
+    :func:`best_numerical_split_cm`; under bounds a categorical winner's
+    outputs are clipped too (the JAX package's winner-level clamp)."""
     ic = is_cat[None, :] if feature_mask.dim() == 2 else is_cat
     num = best_numerical_split_cm(
         grad, hess, cnt, num_bin_per_feat, missing_type, default_bin,
-        feature_mask & ~ic, params, parent_output)
+        feature_mask & ~ic, params, parent_output, monotone=monotone,
+        bound_lo=bound_lo, bound_hi=bound_hi, leaf_depth=leaf_depth)
     if cat_idx is None:
         return num
     cat = best_categorical_split_cm(
         grad, hess, cnt, num_bin_per_feat, feature_mask & ic, params,
         parent_output, cat_idx=cat_idx)
+    if bound_lo is not None:
+        cat = cat._replace(
+            left_output=torch.clamp(cat.left_output, bound_lo, bound_hi),
+            right_output=torch.clamp(cat.right_output, bound_lo, bound_hi))
     use_cat = cat.gain > num.gain
     num = num._replace(cat_flag=torch.zeros_like(cat.cat_flag),
                        cat_mask=torch.zeros_like(cat.cat_mask))

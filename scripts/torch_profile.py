@@ -4,7 +4,8 @@ the card.
 
     python3 scripts/torch_profile.py [--rows 1000000] [--rounds 3]
                                      [--path train update frontier mixed cuts
-                                             eval class rank cat bundle]
+                                             eval class rank cat bundle
+                                             mono]
 
 Trains chip_smoke.py's configuration (1,000,000 x 28 rows of bench.py's
 synthetic data, max_bin=63, num_leaves=255) with ``Booster.update()``,
@@ -34,7 +35,10 @@ JSON line each: (a) the megastep body on the Allstate-shaped CSR draw
 (``--rows`` rows, 4,228 columns, bundled at ingestion), (b) the epilogue
 body on dense EFB (500,000 rows of 28 dense and 512 exclusive columns)
 and (c) the epilogue body on one 4,033-bin bundle column (500,000 rows of
-64 exclusive columns). Each warms up two iterations (GOSS ten), times
+64 exclusive columns); ``mono`` its phase 12 runs, one JSON line each:
+phase 3's rows binned with ``chip_smoke.mono_constraints``, (a) the basic
+and (b) the intermediate mode on the megastep body, (c)
+``monotone_penalty=2.0`` on the epilogue body. Each warms up two iterations (GOSS ten), times
 ``--rounds`` more untraced, then traces ``--rounds`` more with
 ``torch.profiler`` and prints one JSON line: the wall time per iteration
 untraced and traced, the device time summed over all kernels, the
@@ -71,10 +75,10 @@ def main() -> int:
     ap.add_argument("--path", nargs="+",
                     choices=("train", "update", "frontier", "mixed",
                              "cuts", "eval", "class", "rank", "cat",
-                             "bundle"),
+                             "bundle", "mono"),
                     default=["train", "update", "frontier", "mixed",
                              "cuts", "eval", "class", "rank", "cat",
-                             "bundle"])
+                             "bundle", "mono"])
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -139,6 +143,21 @@ def main() -> int:
                     **profile_path(lgb, frontier2, params, d, megastep,
                                    args.rounds))), flush=True)
                 del Xb, d
+            continue
+        if path == "mono":
+            mono = cs.mono_constraints(w).tolist()
+            d = lgb.Dataset(X, label=y, params=dict(
+                params, monotone_constraints=mono)).construct()
+            for run, extra, megastep in (
+                    ("a", {}, True),
+                    ("b", {"monotone_constraints_method": "intermediate"},
+                     True),
+                    ("c", {"monotone_penalty": cs.MONO_PENALTY}, False)):
+                print(json.dumps(dict(
+                    path=path, run=run, nvidia_smi=smi, **extra,
+                    **profile_path(lgb, frontier2, dict(params, **extra), d,
+                                   megastep, args.rounds))), flush=True)
+            del d
             continue
         if path == "cat":
             cats = list(range(len(cs.CAT_CARDINALITIES)))

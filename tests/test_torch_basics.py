@@ -63,7 +63,7 @@ def test_default_device_raises_without_cuda():
 @pytest.mark.parametrize("params", [{"boosting": "dart"},
                                     {"boosting": "rf"},
                                     {"linear_tree": True},
-                                    {"monotone_constraints": [1, 0, 0]}])
+                                    {"cegb_penalty_split": 1.0}])
 def test_unported_options_raise(params):
     X = np.random.RandomState(0).randn(64, 3)
     y = (X[:, 0] > 0).astype(float)

@@ -241,8 +241,8 @@ def test_body_choice_follows_jax_engine(monkeypatch, case, body, blocker):
 
 @pytest.mark.parametrize("kw,params,item", [
     ({"resume_from": "ckpt_3"}, {}, "item 10"),
-    ({}, {"monotone_constraints": [1] + [0] * (X.shape[1] - 1)},
-     "monotone constraints are not ported")], ids=["resume", "monotone"])
+    ({}, {"linear_tree": True}, "linear trees")],
+    ids=["resume", "linear_tree"])
 def test_unported_train_arguments_raise(kw, params, item):
     with pytest.raises(lt.LightGBMError, match=item):
         lt.train(dict(PARAMS, device_type="cpu", **params),

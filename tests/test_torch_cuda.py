@@ -1273,3 +1273,66 @@ def test_cuda_bundled_training_matches_cpu(cuda_device):
             np.testing.assert_array_equal(a.left_child, c.left_child)
             np.testing.assert_allclose(a.leaf_value, c.leaf_value,
                                        rtol=1e-5, atol=1e-6)
+
+
+def _mono_rows(n=250_000):
+    """The determinism test's draw with the labelling weights' signs as
+    constraints on the 8 columns of largest |w| (chip_smoke phase 12)."""
+    rng = np.random.RandomState(1)
+    X = rng.rand(n, 28).astype(np.float32)
+    w = rng.randn(28).astype(np.float32)
+    y = (X @ w + 0.5 * rng.randn(n) > 0).astype(np.float32)
+    mono = np.zeros(28, np.int32)
+    top = np.argsort(-np.abs(w))[:8]
+    mono[top] = np.sign(w[top]).astype(np.int32)
+    return X, y, mono
+
+
+@pytest.mark.parametrize("method", ["basic", "intermediate"])
+def test_cuda_monotone_training_gives_the_same_model_twice(cuda_device,
+                                                           method):
+    """A monotone train() (250,000 rows, 255 leaves, 3 rounds) gives the
+    same model text twice on the card, with the constraints in it."""
+    X, y, mono = _mono_rows()
+    p = {"objective": "binary", "max_bin": 63, "num_leaves": 255,
+         "learning_rate": 0.1, "min_data_in_leaf": 1,
+         "min_sum_hessian_in_leaf": 1e-3, "verbose": -1,
+         "device_type": "cuda", "monotone_constraints": mono.tolist(),
+         "monotone_constraints_method": method}
+    texts = [lt.train(p, lt.Dataset(X, label=y), 3).model_to_string()
+             for _ in range(2)]
+    assert texts[0] == texts[1]
+    assert "monotone_constraints=" + " ".join(map(str, mono)) in texts[0]
+
+
+def test_cuda_pred_leaf_matches_the_bin_router(cuda_device):
+    """predict(pred_leaf=True) on the card (float64 routing of raw values)
+    gives every training row the leaf the trainer's bin router gives it."""
+    X, y, _ = _mono_rows()
+    p = {"objective": "binary", "max_bin": 63, "num_leaves": 63,
+         "verbose": -1, "device_type": "cuda"}
+    bst = lt.train(p, lt.Dataset(X, label=y), 3)
+    leaves = bst.predict(X, pred_leaf=True)
+    g = bst._gbdt
+    for i, ht in enumerate(bst.models):
+        want = g._host_tree_leaves(g.train_data.bins_dev, ht)
+        np.testing.assert_array_equal(leaves[:, i], want.cpu().numpy())
+
+
+def test_cuda_binary_cache_round_trip(cuda_device, tmp_path):
+    """save_binary/load_binary on the card: the loaded bins reach the card
+    only when a booster is built, equal to the original's there, and the
+    model trains to the same text."""
+    X, y, _ = _mono_rows(50_000)
+    p = {"objective": "binary", "max_bin": 63, "num_leaves": 63,
+         "verbose": -1, "device_type": "cuda"}
+    ds = lt.Dataset(X, label=y, params=dict(p)).construct()
+    path = str(tmp_path / "train.bin")
+    ds.save_binary(path)
+    loaded = lt.Dataset(path, params={"device_type": "cuda"}).construct()
+    assert loaded._inner._bins_dev is None
+    bst = lt.train(p, loaded, 3)
+    assert loaded._inner.bins_dev.is_cuda
+    assert torch.equal(loaded._inner.bins_dev, ds._inner.bins_dev)
+    ds.params = {}
+    assert bst.model_to_string() == lt.train(p, ds, 3).model_to_string()
