@@ -193,18 +193,37 @@ non-zero (it prints no result line then):
    (``level_pass``'s ``CAPTURE_LEVEL_CALL``-th call and the first
    ``route_pass`` of (a) and (b), the second ``epilogue_pass`` of (c))
    through phase 2's checks (``check_captured``);
-13. the ``kernels`` line: every ported kernel and variant with its
+13. DART, RF, linear-tree leaves and TreeSHAP (``slice_train``) on phase
+   3's rows at its width, each through ``train()`` on the synchronous
+   body (``run_slice_train``): (a) DART at LightGBM's drop defaults,
+   ``drop_seed=4``, 20 rounds with phase 7's valid set (the drops per
+   iteration, at least one; training and valid scores against
+   ``predict``, rtol/atol 1e-5; training AUC > 0.75; sec/iter, launches
+   and host syncs per tree; its 6th ``level_pass`` call held to the plain
+   version on its own operands), (b) RF with bagging 0.632 and
+   feature_fraction 0.8, 10 rounds with the valid set (``predict`` equal
+   to the summed scores over 10, the ``average_output`` line,
+   ``eval_valid``'s AUC equal to that of the averaged scores, 1e-6, and
+   its logloss to the metric's on ``predict``, rtol 1e-5), (c)
+   ``linear_tree`` regression on the latent z, 10 rounds with the raw
+   columns on the card (``predict`` against the trainer's scores, 1e-5;
+   one tree's fit redone by the device and the plain form on its own
+   operands, rtol 1e-6; the fit's ms per tree; the L2 loss against 10
+   rounds of constant leaves), (d) ``pred_contrib`` on (a)'s model:
+   100,000 rows on the card adding up to ``predict`` (1e-6) and equal to
+   the plain form on 200 rows (1e-9), with its seconds;
+14. the ``kernels`` line: every ported kernel and variant with its
    wrapper calls and CUDA kernel launches on the main path where it runs
    (every level_pass, route_pass, epilogue_pass and hist_pass call in
-   phases 3-12 held to one launch of each of its CUDA kernels), its
+   phases 3-13 held to one launch of each of its CUDA kernels), its
    launches in phase 7's runs (a), (c) and (d), in phase 8's, 9's,
-   10's, 11's and 12's runs, error, time per launch, plain time, bound
-   and library time, the bundled rows on each phase-11 run's own operands
-   with that run's launches and on phase 2's Bc_p = 16384 layout with
-   none, the ``mono`` rows on each phase-12 run's own operands,
-   and per-kernel times of ``level_pass``, ``epilogue_pass`` and
-   ``hist_pass``;
-14. the last line: ``{"ok": true, "device": {...}}``.
+   10's, 11's, 12's and 13's runs, error, time per launch, plain time,
+   bound and library time, the bundled rows on each phase-11 run's own
+   operands with that run's launches and on phase 2's Bc_p = 16384
+   layout with none, the ``mono`` rows on each phase-12 run's own
+   operands, the ``dart`` rows on 13a's, and per-kernel times of
+   ``level_pass``, ``epilogue_pass`` and ``hist_pass``;
+15. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package. It exits non-zero when no CUDA
 device is present.
@@ -290,6 +309,14 @@ MONO_GRID = 200                 # and grid points along each column
 MONO_PENALTY = 2.0              # phase 12c
 API_ROWS = 100_000              # phase 12d: pred_leaf, early stop, refit
 EARLY_STOP_FREQ = 2
+DART_ROUNDS = 20                # phase 13a
+DART_DROP_SEED = 4
+RF_ROUNDS = 10                  # phase 13b
+LINEAR_ROUNDS = 10              # phase 13c
+CAPTURE_FIT_CALL = 3            # phase 13c: the linear fit checked (tree 5)
+CHECK_ROWS = 100_000            # phase 13: rows predict is held to
+SHAP_ROWS = 100_000             # phase 13d: the device form's rows
+SHAP_PLAIN_ROWS = 200           # and the plain form's
 REPLACES = {
     "level_pass": "lightgbm_tpu/ops/fused_level.py:402",
     "route_pass": "lightgbm_tpu/ops/fused_level.py:575",
@@ -1486,6 +1513,11 @@ def run_eval_train(lgb, params, ds, X, y, w, e2e):
                                                  atol=1e-5):
         raise AssertionError(f"run (e): valid scores differ from the sum "
                              f"of both boosters' predictions by {err_e}")
+    # train(init_model=...) writes the model's raw predictions into its
+    # Datasets' init scores, as LightGBM's does: the later runs on these
+    # Datasets start from zero again
+    ds.set_init_score(None)
+    dv.set_init_score(None)
 
     # (f) cv: 3 stratified folds, 5 rounds
     ds.params = {}
@@ -3193,6 +3225,348 @@ def run_mono_train(lgb, params, ds, X, y, w, e2e):
     return out, checks
 
 
+def _fit_rows_equal(got, want, rtol, atol) -> float:
+    """The largest difference of two per-leaf linear fits (None, or
+    (columns, coefficients, intercept) per leaf); raises where a leaf
+    fits in one and not the other, or on other columns."""
+    worst = 0.0
+    for leaf, (a, b) in enumerate(zip(got, want)):
+        if (a is None) != (b is None):
+            raise AssertionError(f"13c: leaf {leaf} fits in one form only")
+        if a is None:
+            continue
+        if a[0] != b[0]:
+            raise AssertionError(f"13c: leaf {leaf} columns {a[0]}/{b[0]}")
+        va, vb = np.asarray(a[1] + [a[2]]), np.asarray(b[1] + [b[2]])
+        if not np.allclose(va, vb, rtol=rtol, atol=atol):
+            raise AssertionError(f"13c: leaf {leaf} coefficients {va} / "
+                                 f"{vb}")
+        worst = max(worst, float(np.abs(va - vb).max()))
+    return worst
+
+
+def _numerical_paths(tree):
+    """Per leaf of a HostTree, the sorted real columns of the numerical
+    splits on its root path."""
+    paths = [[] for _ in range(tree.num_leaves)]
+    stack = [(0, set())]
+    while stack:
+        node, cols = stack.pop()
+        if not int(tree.decision_type[node]) & 1:
+            cols = cols | {int(tree.split_feature[node])}
+        for child in (int(tree.left_child[node]),
+                      int(tree.right_child[node])):
+            if child < 0:
+                paths[~child] = sorted(cols)
+            else:
+                stack.append((child, cols))
+    return paths
+
+
+def run_slice_train(lgb, params, ds, X, y, z, w, e2e):
+    """Phase 13: DART, RF, linear-tree leaves and TreeSHAP on phase 3's
+    rows at the slice's width, each through train(). (a) DART at
+    LightGBM's defaults (drop_rate 0.1, skip_drop 0.5, max_drop 50),
+    drop_seed 4, DART_ROUNDS rounds with phase 7's valid set: the drops
+    per iteration, the training scores against predict on CHECK_ROWS rows
+    and the valid scores against predict on the valid rows (rtol/atol
+    1e-5: ``_normalize``'s bookkeeping), training AUC > 0.75, and the
+    CAPTURE_LEVEL_CALL-th level_pass held to its plain version on its
+    own operands (``check_captured``). (b) RF (bagging 0.632 every
+    iteration, feature_fraction 0.8), RF_ROUNDS rounds with the valid set:
+    predict equals the summed training and valid scores over RF_ROUNDS
+    (1e-5), the model text says ``average_output``, and eval_valid reports
+    the AUC of the averaged f32 valid scores and of predict's float64
+    (1e-6 each; the two differ where f32 sums tie rows that float64
+    parts) and the logloss its metric gives predict's scores (rtol 1e-5).
+    (c) ``linear_tree`` regression on the latent z, LINEAR_ROUNDS rounds,
+    the raw columns on the card: predict equals the trainer's scores on
+    CHECK_ROWS rows (1e-5); the CAPTURE_FIT_CALL-th fit took its tree's
+    numerical path columns (walked here), the fits the tree kept
+    (unshrunk) and the device form redone on the call's operands equal
+    the plain form there (rtol 1e-6), and the device form gives the same
+    bits twice and the bits the tree kept; the fit's time per tree, and
+    the L2 loss against the same rounds with constant leaves. (d) ``pred_contrib`` on (a)'s model: the device form
+    on SHAP_ROWS rows adds up to predict (1e-6) and equals the plain form
+    on SHAP_PLAIN_ROWS rows (1e-9), pattern keys over several words there
+    (1e-12) and a second call (the same bits). Returns (each run's wrapper launches,
+    (a)'s kernel check)."""
+    import torch
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    from lightgbm_tpu_torch.io import shap
+    from lightgbm_tpu_torch.models import frontier2
+    from lightgbm_tpu_torch.ops import linear
+    metric = ["binary_logloss", "auc"]
+    Xv, yv = _valid_rows(VALID_ROWS, w, seed=DATA_SEED + 100)
+    dv = lgb.Dataset(Xv, label=yv, reference=ds).construct()
+    Xc = X[:CHECK_ROWS]
+    out, boosters = {}, {}
+
+    def per_tree(counts, n):
+        return {k: v / n for k, v in counts.items() if v}
+
+    def scores_match(bst, n_iter, what):
+        """(predict on CHECK_ROWS rows and on the valid rows, their worst
+        gaps to the trainer's scores, averaged over n_iter)."""
+        g = bst._gbdt
+        pred = bst.predict(Xc, raw_score=True)
+        got = g.scores[0, :CHECK_ROWS].double().cpu().numpy() / n_iter
+        err = float(np.abs(pred - got).max())
+        if not np.allclose(pred, got, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"{what}: predict differs from the "
+                                 f"trainer's scores by {err}")
+        errs = {"predict_max_abs_err": err}
+        if g.valid_scores:
+            pv = bst.predict(Xv, raw_score=True)
+            gv = g.valid_scores[0][0].double().cpu().numpy() / n_iter
+            errs["valid_predict_max_abs_err"] = float(np.abs(pv - gv).max())
+            if not np.allclose(pv, gv, rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"{what}: predict differs from the "
+                                     f"valid scores by {errs}")
+            errs["valid_pred"] = pv
+        return errs
+
+    # (a) DART
+    pa = dict(params, boosting="dart", drop_seed=DART_DROP_SEED,
+              metric=metric)
+    drops = []
+
+    def rec_drops(env):
+        drops.append(list(env.model._gbdt.drop_index))
+
+    def fit_a(rounds):
+        ds.params = {}
+        return lgb.train(pa, ds, rounds, valid_sets=[dv],
+                         valid_names=["valid"], callbacks=[rec_drops])
+    _, t_one = _timed_run(lambda: fit_a(1))
+    drops.clear()
+    counts = _run_counts()
+    (bst, t_all), store = captured(lambda: fit_a(DART_ROUNDS), [
+        (frontier2, "level_pass", CAPTURE_LEVEL_CALL)])
+    launches, cuda, syncs = counts()
+    n_trees = bst.num_trees()
+    errs = scores_match(bst, 1, "13a")
+    errs.pop("valid_pred")
+    train_auc = auc(bst.train_scores().float().cpu().numpy(), y)
+    res = {"phase": "slice_train", "run": "a", "boosting": "dart",
+           "rounds": DART_ROUNDS, "trees": n_trees,
+           "drop_rate": 0.1, "skip_drop": 0.5, "max_drop": 50,
+           "drop_seed": DART_DROP_SEED,
+           "drops_per_iter": [len(d) for d in drops],
+           "dropped": drops, "body": bst._gbdt._fast_path_reason(),
+           "sec_per_iter_after_first": (t_all - t_one) / (DART_ROUNDS - 1),
+           "train_s": t_all,
+           "phase3_sec_per_iter_after_first":
+           e2e["sec_per_iter_after_first"],
+           "launches_per_tree": per_tree(launches, n_trees),
+           "cuda_launches_per_tree": per_tree(cuda, n_trees),
+           "host_syncs_per_tree": syncs / n_trees, "train_auc": train_auc,
+           "auc_floor": 0.75, **errs, "predict_tol": "rtol=1e-5 atol=1e-5",
+           "leaves": [m.num_leaves for m in bst.models]}
+    emit(res)
+    if n_trees != DART_ROUNDS:
+        raise AssertionError(f"13a: {n_trees} trees")
+    if len(drops) != DART_ROUNDS or not any(drops):
+        raise AssertionError(f"13a: no iteration dropped a tree: {drops}")
+    if not train_auc > 0.75:
+        raise AssertionError(f"13a: training AUC {train_auc}")
+    for name in TRAIN_PATH_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"13a: {name} never launched")
+    check_stages(launches, cuda, "13a")
+    out["a"] = launches
+    boosters["a"] = bst
+    check = check_captured(store, "a", "slice_train", 13)
+    del store
+
+    # (b) RF
+    pb = dict(params, boosting="rf", bagging_fraction=0.632, bagging_freq=1,
+              feature_fraction=0.8, metric=metric)
+
+    def fit_b(rounds):
+        ds.params = {}
+        return lgb.train(pb, ds, rounds, valid_sets=[dv],
+                         valid_names=["valid"])
+    _, t_one = _timed_run(lambda: fit_b(1))
+    counts = _run_counts()
+    bst, t_all = _timed_run(lambda: fit_b(RF_ROUNDS))
+    launches, cuda, syncs = counts()
+    n_trees = bst.num_trees()
+    errs = scores_match(bst, RF_ROUNDS, "13b")
+    pv = errs.pop("valid_pred")
+    reported = dict((m, v) for _, m, v, _ in bst.eval_valid())
+    # the scores the metrics see: the f32 sums over the iterations
+    seen = (bst._gbdt.valid_scores[0][0].cpu().numpy()
+            / np.float32(RF_ROUNDS)).astype(np.float64)
+    auc_seen = auc_ties(seen, yv)
+    # the same metric (its device form, f32) on predict's averaged scores
+    g = bst._gbdt
+    loss_pred = float(g.eval_metric_set("valid", g.valid_metrics[0][:1],
+                                        torch.as_tensor(
+                                            pv[None, :].astype(np.float32),
+                                            device=DEVICE))[0][2])
+    auc_pred = auc_ties(pv, yv)
+    text_has = "\naverage_output\n" in bst.model_to_string()
+    res = {"phase": "slice_train", "run": "b", "boosting": "rf",
+           "rounds": RF_ROUNDS, "trees": n_trees, "bagging_fraction": 0.632,
+           "feature_fraction": 0.8, "body": bst._gbdt._fast_path_reason(),
+           "sec_per_iter_after_first": (t_all - t_one) / (RF_ROUNDS - 1),
+           "train_s": t_all,
+           "launches_per_tree": per_tree(launches, n_trees),
+           "cuda_launches_per_tree": per_tree(cuda, n_trees),
+           "host_syncs_per_tree": syncs / n_trees, **errs,
+           "valid_auc_reported": reported["auc"],
+           "valid_auc_of_averaged_scores": auc_seen, "auc_tol": 1e-6,
+           "valid_auc_from_predict": auc_pred,
+           "valid_logloss_reported": reported["binary_logloss"],
+           "valid_logloss_of_predict": loss_pred,
+           "valid_logloss_float64_of_predict": logloss(pv, yv),
+           "logloss_tol": "rtol=1e-5",
+           "model_text_average_output": text_has,
+           "leaves": [m.num_leaves for m in bst.models]}
+    emit(res)
+    if n_trees != RF_ROUNDS or not text_has:
+        raise AssertionError(f"13b: {res}")
+    # the AUC on the averaged f32 scores; the logloss (which, unlike the
+    # AUC, an unaveraged sum would change) against the same metric on
+    # predict's averaged scores
+    if abs(reported["auc"] - auc_seen) > 1e-6 \
+            or abs(reported["auc"] - auc_pred) > 1e-6 or not np.isclose(
+            reported["binary_logloss"], loss_pred, rtol=1e-5, atol=0):
+        raise AssertionError(f"13b: eval_valid {reported} vs AUC "
+                             f"{auc_seen} of the averaged scores, AUC "
+                             f"{auc_pred} and logloss {loss_pred} from "
+                             f"predict")
+    check_stages(launches, cuda, "13b")
+    out["b"] = launches
+    del bst
+
+    # (c) linear-tree leaves on the latent z, and constant leaves beside
+    pc = dict(params, objective="regression", linear_tree=True,
+              linear_lambda=0.1, metric=["l2"])
+    dl, construct_s = _timed_run(lambda: lgb.Dataset(
+        X, label=z, params=dict(pc)).construct())
+
+    def fit_c(p, rounds):
+        dl.params = {}
+        return lgb.train(p, dl, rounds)
+    _, t_one = _timed_run(lambda: fit_c(pc, 1))
+    counts = _run_counts()
+    (bst, t_all), store = captured(lambda: fit_c(pc, LINEAR_ROUNDS), [
+        (gbdt_mod, "fit_linear_leaves", CAPTURE_FIT_CALL)])
+    launches, cuda, syncs = counts()
+    n_trees = bst.num_trees()
+    errs = scores_match(bst, 1, "13c")
+    args, _ = store.pop("fit_linear_leaves")
+    # the tree that call fitted (the first tree fits nothing), its paths
+    # walked here, and the fits it kept, unshrunk
+    tree = bst.models[CAPTURE_FIT_CALL + 1]
+    if args[5] != _numerical_paths(tree):
+        raise AssertionError("13c: the fit took other columns than the "
+                             "tree's numerical path columns")
+    rate = bst._gbdt.shrinkage_rate
+    kept = [(f, [c / rate for c in cs], lc / rate) if f else None
+            for f, cs, lc in zip(tree.leaf_features, tree.leaf_coeff,
+                                 tree.leaf_const)]
+    dev_fit = linear.fit_linear_leaves(*args)
+    repeat_equal = linear.fit_linear_leaves(*args) == dev_fit
+    # the same sums in the same order: the bits the trainer kept
+    kept_equal = all(
+        (f is None) == (not cs) and (f is None or (
+            [c * rate for c in f[1]] == cs and f[2] * rate == lc))
+        for f, cs, lc in zip(dev_fit, tree.leaf_coeff, tree.leaf_const))
+    host = [a.cpu().numpy() if hasattr(a, "cpu") else a for a in args]
+    plain_fit, plain_s = _timed_run(
+        lambda: linear.fit_linear_leaves_plain(*host))
+    fit_err = _fit_rows_equal(dev_fit, plain_fit, 1e-6, 1e-9)
+    kept_err = _fit_rows_equal(kept, plain_fit, 1e-6, 1e-9)
+    fit_ms = call_ms(lambda: linear.fit_linear_leaves(*args), reps=5,
+                     warmup=1)
+    del store, args
+    l2 = float(np.mean((bst.train_scores().double().cpu().numpy() - z)
+                       ** 2))
+    const = fit_c(dict(pc, linear_tree=False), LINEAR_ROUNDS)
+    l2_const = float(np.mean(
+        (const.train_scores().double().cpu().numpy() - z) ** 2))
+    res = {"phase": "slice_train", "run": "c", "objective": "regression",
+           "linear_tree": True, "linear_lambda": 0.1,
+           "rounds": LINEAR_ROUNDS, "trees": n_trees,
+           "construct_s": construct_s,
+           "raw_data_on": str(dl._inner.raw_data.device),
+           "body": bst._gbdt._fast_path_reason(),
+           "sec_per_iter_after_first": (t_all - t_one)
+           / (LINEAR_ROUNDS - 1), "train_s": t_all,
+           "launches_per_tree": per_tree(launches, n_trees),
+           "cuda_launches_per_tree": per_tree(cuda, n_trees),
+           "host_syncs_per_tree": syncs / n_trees, **errs,
+           "fit_call": CAPTURE_FIT_CALL,
+           "fit_leaves": sum(f is not None for f in dev_fit),
+           "fit_columns_max": max((len(f[0]) for f in dev_fit if f),
+                                  default=0),
+           "fit_ms_per_tree": fit_ms, "plain_fit_ms": plain_s * 1e3,
+           "fit_max_abs_diff_to_plain": fit_err, "fit_tol": "rtol=1e-6",
+           "kept_fit_max_abs_diff_to_plain": kept_err,
+           "fit_repeat_bit_equal": repeat_equal,
+           "kept_fit_bit_equal_to_refit": kept_equal,
+           "train_l2": l2, "train_l2_constant_leaves": l2_const,
+           "linear_leaves": sum(len(f) > 0 for m in bst.models
+                                for f in m.leaf_features)}
+    emit(res)
+    if n_trees != LINEAR_ROUNDS or res["fit_leaves"] == 0 \
+            or not (repeat_equal and kept_equal):
+        raise AssertionError(f"13c: {res}")
+    if not (res["raw_data_on"].startswith(DEVICE) and l2 < l2_const):
+        raise AssertionError(f"13c: {res}")
+    for name in ("level_pass", "route_pass"):
+        if launches[name] <= 0:
+            raise AssertionError(f"13c: {name} never launched")
+    check_stages(launches, cuda, "13c")
+    out["c"] = launches
+    del bst, const, dl
+
+    # (d) TreeSHAP on (a)'s model
+    bst = boosters.pop("a")
+    Xs = X[:SHAP_ROWS]
+    contrib, shap_s = _timed_run(lambda: bst.predict(Xs, pred_contrib=True))
+    raw = bst.predict(Xs, raw_score=True)
+    add_err = float(np.abs(contrib.sum(1) - raw).max())
+    Xp = X[:SHAP_PLAIN_ROWS].astype(np.float64)
+    plain, plain_s = _timed_run(lambda: shap.predict_contrib_plain(
+        bst.models, Xp, 1, X.shape[1]))
+    plain_err = float(np.abs(contrib[:SHAP_PLAIN_ROWS] - plain).max())
+    # the pattern keys over several int64 words (4 path elements a word),
+    # and a second call's bits
+    bits = shap._BITS
+    shap._BITS = 4
+    try:
+        words = bst.predict(Xp, pred_contrib=True)
+    finally:
+        shap._BITS = bits
+    words_err = float(np.abs(words - contrib[:SHAP_PLAIN_ROWS]).max())
+    again = bst.predict(Xp, pred_contrib=True)
+    repeat_equal = np.array_equal(bst.predict(Xp, pred_contrib=True), again)
+    res = {"phase": "slice_train", "run": "d", "pred_contrib_rows":
+           SHAP_ROWS, "shape": list(contrib.shape), "trees": bst.num_trees(),
+           "device_s": shap_s, "device_s_per_100k_rows":
+           shap_s * 100_000 / SHAP_ROWS,
+           "additivity_max_abs_err": add_err, "additivity_tol": 1e-6,
+           "plain_rows": SHAP_PLAIN_ROWS, "plain_s": plain_s,
+           "plain_max_abs_err": plain_err, "plain_tol": 1e-9,
+           "several_words_max_abs_err": words_err, "several_words_tol":
+           1e-12, "repeat_bit_equal": repeat_equal}
+    emit(res)
+    if contrib.shape != (SHAP_ROWS, X.shape[1] + 1) \
+            or not np.allclose(contrib.sum(1), raw, rtol=1e-6, atol=1e-6):
+        raise AssertionError(f"13d: {res}")
+    if not np.allclose(contrib[:SHAP_PLAIN_ROWS], plain, rtol=1e-9,
+                       atol=1e-9):
+        raise AssertionError(f"13d: the device form differs from the plain "
+                             f"one by {plain_err}")
+    if not (words_err <= 1e-12 and repeat_equal):
+        raise AssertionError(f"13d: {res}")
+    return out, check
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3408,9 +3782,13 @@ def main() -> int:
     X, _, _ = _class_rows(ROWS, FEATURES, seed=DATA_SEED)
     mono_launches, mono_checks = run_mono_train(lgb, params, ds, X, y, w,
                                                 e2e)
+
+    # ---- 13. DART, RF, linear-tree leaves and TreeSHAP on phase 3's rows
+    slice_launches, slice_check = run_slice_train(lgb, params, ds, X, y, z,
+                                                  w, e2e)
     del X
 
-    # ---- 13. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
+    # ---- 14. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
     # the epilogue at Bp=64 int8, nch=5, binary, Sp=64; hist_pass at Bp=64,
     # Sp=64, f32). Launches: the train() run for the three kernels of its
     # path, update() run (a) for the epilogue, the frontier train() run for
@@ -3455,6 +3833,10 @@ def main() -> int:
                                         for run in ("a", "b", "c")}
         row["mono_train_launches"] = {run: mono_launches[run][name]
                                       for run in ("a", "b", "c")}
+        for run, key in (("a", "dart_train_launches"),
+                         ("b", "rf_train_launches"),
+                         ("c", "linear_train_launches")):
+            row[key] = slice_launches[run][name]
         rows.append(row)
     # the kernels on bundle columns: each phase-11 run's own operands
     # (check_captured) with that run's launches; phase 2's widest synthetic
@@ -3477,6 +3859,12 @@ def main() -> int:
                     kernel, res, mono_launches[run][kernel],
                     f"phase 12 run {run}, on its own operands",
                     tag="mono"))
+    # the kernels on phase 13a's own operands (DART), with its launches
+    for kernel in ("level_pass", "route_pass"):
+        if kernel in slice_check:
+            rows.append(bundled_row(
+                kernel, slice_check, slice_launches["a"][kernel],
+                "phase 13 run a, on its own operands", tag="dart"))
     # the variants at Sp=64 on the mixed layout, each with the launches of
     # the phase-6 run that takes it on every level_pass (VARIANT_RUNS); the
     # packed route_pass with run (b)'s
@@ -3510,7 +3898,7 @@ def main() -> int:
     emit({"kernels": rows})
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start})
 
-    # ---- 14. the result line
+    # ---- 15. the result line
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -21,12 +21,17 @@ subset slices its rows, and ``Booster.predict`` densifies it in chunks of
 package, sparse input takes no categorical feature and no linear tree.
 
 The rest of the JAX package's ``Booster`` and ``Dataset`` API: ``predict``
-with ``pred_leaf`` and ``pred_early_stop`` (both on the device;
-``pred_contrib`` raises), ``dump_model``, ``feature_importance``,
+with ``pred_leaf``, ``pred_early_stop`` and ``pred_contrib`` (TreeSHAP,
+``io/shap.py``; all on the device), ``dump_model``, ``feature_importance``,
 ``feature_name``, ``num_feature``, ``refit``, ``reset_training_data`` and
 ``refit_by_leaf_preds``; ``Dataset.add_features_from``,
 ``get_feature_name``, ``save_binary``, and ``Dataset(path)`` on a binary
 cache that either package wrote (``io/cache.py``).
+
+Averaged-output models (RF, ``average_output``) evaluate and predict on
+their summed scores divided by the iterations trained or used. With
+``linear_tree`` a dense Dataset keeps its raw columns as float32 on its
+device (``BinnedDataset.raw_data``), which the linear leaves fit on.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from .binning import mappers_digest
 from .config import Config, resolve_device
 from .dataset import BinnedDataset
 from .io import model_io
+from .io.shap import predict_contrib
 from .metric import create_metric, default_metric_for_objective
 from .models.tree import HostTree
 from .objective import create_objective, create_objective_from_string
@@ -122,9 +128,15 @@ class Dataset:
                 self.data, cfg, device, feature_names=names,
                 reference=ref_inner)
         else:
+            data = _to_2d_numpy(self.data)
             inner = BinnedDataset.from_data(
-                _to_2d_numpy(self.data), cfg, device, feature_names=names,
+                data, cfg, device, feature_names=names,
                 reference=ref_inner, categorical_feature=cats)
+            if bool(cfg.linear_tree):
+                # linear leaves fit on raw values (lightgbm_tpu/basic.py:
+                # 236-239)
+                inner.raw_data = torch.as_tensor(
+                    np.asarray(data, np.float32), device=device)
         if self.label is not None:
             inner.metadata.set_label(np.asarray(self.label))
         if self.weight is not None:
@@ -372,6 +384,7 @@ class Booster:
         self.models = self._gbdt.models
         self.num_class = max(1, int(self.config.num_class))
         self.num_tree_per_iteration = self._gbdt.num_tree_per_iteration
+        self.average_output = getattr(self._gbdt, "average_output", False)
         self.max_feature_idx = inner.num_total_features - 1
         self.feature_names = inner.feature_names
         self.feature_infos = inner.feature_infos()
@@ -486,7 +499,8 @@ class Booster:
     def _eval_set(self, name: str, valid_idx: Optional[int], feval) -> List:
         """The metrics' device forms on the live device scores, host forms
         and ``feval`` on one float64 host copy, and one batched fetch of
-        every device scalar at the end."""
+        every device scalar at the end. An averaged-output model's scores
+        are divided by the iterations trained first."""
         g = self._gbdt
         if valid_idx is None:
             score_dev, metrics = g.scores, g.training_metrics
@@ -495,6 +509,9 @@ class Booster:
             score_dev = g.valid_scores[valid_idx]
             metrics = g.valid_metrics[valid_idx]
             dataset = self.valid_sets[valid_idx]
+        if self.average_output:
+            score_dev = score_dev / max(
+                1, len(g.models) // g.num_tree_per_iteration)
         out = g.eval_metric_set(name, metrics, score_dev)
         if feval is not None:
             host_score = score_dev.double().cpu().numpy().reshape(-1)
@@ -524,16 +541,13 @@ class Booster:
         every row in every tree. ``pred_early_stop``: a row stops taking
         trees once its margin passes ``pred_early_stop_margin`` at a check
         every ``pred_early_stop_freq`` iterations
-        (``ops.predict.predict_raw_early_stop``). A scipy sparse matrix is
+        (``ops.predict.predict_raw_early_stop``; not for averaged-output
+        models). ``pred_contrib``: the [n, k * (F + 1)] TreeSHAP
+        contributions, the expected value in column F of each class block
+        (``io.shap.predict_contrib``). An averaged-output model divides the
+        raw scores by the iterations used. A scipy sparse matrix is
         densified ``_HOST_SPARSE_CHUNK_ROWS`` rows at a time."""
-        if pred_contrib:
-            raise NotImplementedError(
-                "pred_contrib (SHAP values) is not ported to "
-                "lightgbm_tpu_torch yet (ROADMAP Queue A item 7c)")
         k = self.num_tree_per_iteration
-        if self.average_output:
-            raise NotImplementedError("averaged-output (RF) models are not "
-                                      "ported yet (ROADMAP Queue A item 7)")
         if num_iteration is None:
             num_iteration = (self.best_iteration
                              if self.best_iteration > 0 else -1)
@@ -550,15 +564,23 @@ class Booster:
             for rows, X in self._predict_chunks(data):
                 out[rows] = predict_leaf(models, X).cpu().numpy()
             return out
+        if pred_contrib:
+            out = np.zeros((n, k * (self.max_feature_idx + 2)), np.float64)
+            for rows, X in self._predict_chunks(data):
+                out[rows] = predict_contrib(
+                    models, X, k, self.max_feature_idx + 1).cpu().numpy()
+            return out
         raw = np.zeros((k, n), np.float64)
         for rows, X in self._predict_chunks(data):
-            if pred_early_stop:
+            if pred_early_stop and not self.average_output:
                 raw[:, rows] = predict_raw_early_stop(
                     models, X, k, int(pred_early_stop_freq),
                     float(pred_early_stop_margin))[0].cpu().numpy()
             else:
                 raw[:, rows] = predict_raw(models, X, k).cpu().numpy()
         # (the JAX package's finalize_raw_predictions)
+        if self.average_output and num_iteration > 0:
+            raw = raw / num_iteration
         if not raw_score and self.objective is not None:
             if k > 1:
                 return self.objective.convert_output(raw.T)

@@ -1,11 +1,10 @@
 """Boosting variants factory (ref: src/boosting/boosting.cpp:36
-Boosting::CreateBoosting); DART and RF are not ported yet (ROADMAP Queue A
-item 7) and raise."""
+Boosting::CreateBoosting)."""
 from __future__ import annotations
 
 from ..config import Config
 from ..utils import log
-from .gbdt import GBDT, GOSS
+from .gbdt import DART, GBDT, GOSS, RF
 
 
 def create_boosting(config: Config):
@@ -14,7 +13,8 @@ def create_boosting(config: Config):
         return GBDT()
     if name == "goss":
         return GOSS()
-    if name in ("dart", "rf", "random_forest"):
-        log.fatal("boosting=%s is not ported to lightgbm_tpu_torch yet "
-                  "(ROADMAP Queue A item 7)", name)
+    if name == "dart":
+        return DART()
+    if name in ("rf", "random_forest"):
+        return RF()
     log.fatal("Unknown boosting type %s", name)

@@ -127,9 +127,23 @@ fused engine: ``use_mono_bounds`` and ``mono_mode`` go to every
 and degrades to ``intermediate`` with the JAX package's warning, and the
 frontier-v1 engine degrades to the fused one.
 
-Not ported yet (``_UNPORTED`` and ``create_boosting`` raise, each naming
-its ROADMAP item): DART and RF, distributed learners, linear trees, forced
-splits, CEGB; resilience checkpoints.
+DART (``DART``, the JAX package's ``gbdt.py:5331-5470``) and random
+forests (``RF``, ``gbdt.py:5579-5734``) train on the synchronous body.
+DART drops trees through the gradient hook (``_get_gradients``): the
+dropped trees leave the training scores before the gradients, and
+``_normalize`` shrinks them and re-adds their share afterwards. RF takes
+fixed gradients at the constant base score and folds that score into every
+tree; its scores hold the sum of the trees, which evaluation and
+prediction divide by the iterations.
+
+Linear-tree leaves (``linear_tree``; ``gbdt.py:3018-3074, 4719-4770``)
+fit after the host tree, on the dataset's raw columns on the device
+(``ops/linear.py``), before leaf renewal and shrinkage; the training
+scores then take each row's linear output, and a valid set its own raw
+rows' outputs where it kept them, the binned constant replay otherwise.
+
+Not ported yet (``_UNPORTED`` raises, naming its ROADMAP item):
+distributed learners, forced splits, CEGB; resilience checkpoints.
 """
 from __future__ import annotations
 
@@ -138,6 +152,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..binning import BIN_CATEGORICAL
 from ..config import Config
 from ..dataset import BinnedDataset
 from ..models.frontier import grow_tree_frontier, leaf_value_lookup
@@ -151,9 +166,10 @@ from ..ops.fused_level import (NCH_FAST, NCH_PRECISE, epilogue_pass,
                                max_slot_cap, pack_gh, pack_gh_quant,
                                table_lookup)
 from ..ops.layout import feature_layout, packed_feature_layout
+from ..ops.linear import fit_linear_leaves, linear_leaf_outputs
 from ..ops.pallas_histogram import pad_feature_layout
 from ..ops.predict import (add_tree_score, route_binned_rows_to_leaves,
-                           tree_depth)
+                           tree_depth, tree_outputs)
 from ..ops.quantize import QNCH
 from ..ops.split import SplitParams, calculate_leaf_output
 from ..utils import log
@@ -181,11 +197,8 @@ def split_params_from_config(config: Config) -> SplitParams:
 
 
 _UNPORTED = (
-    ("boosting", lambda v: v in ("dart", "rf", "random_forest"),
-     "DART and RF boosting (ROADMAP Queue A item 7)"),
     ("tree_learner", lambda v: v != "serial",
      "distributed tree learners (ROADMAP Queue A item 9)"),
-    ("linear_tree", bool, "linear trees (ROADMAP Queue A item 7)"),
     ("forcedsplits_filename", bool, "forced splits (ROADMAP Queue A item 7)"),
     ("cegb_penalty_split", lambda v: float(v) != 0.0,
      "CEGB (ROADMAP Queue A item 7)"),
@@ -846,6 +859,8 @@ class GBDT:
             return "fobj"
         if obj.is_renew_tree_output:
             return f"objective_leaf_renewal:{obj.name}"
+        if bool(self.config.linear_tree):
+            return "config:linear_tree"
         if self.use_node_masks:
             return "config:interaction_constraints/feature_fraction_bynode"
         if not all(self.class_need_train):
@@ -998,13 +1013,15 @@ class GBDT:
 
     def _sync_iter_body(self, gradients=None, hessians=None) -> bool:
         """The synchronous body (gbdt.py:4649-4800): the objective's
-        gradients (after ``boost_from_average`` per class) or the caller's
-        ``[k, n]``, then ``_bagging``, then per class its tree through the
-        engine's grower, the host tree, leaf renewal, float64 shrinkage,
-        the f32 leaf values added to the training scores per row
-        (``table_lookup``) and to the valid scores, then the bias. A class
-        that grows nothing gets a constant tree; True when no class grew a
-        split (the iteration's trees are then dropped, past the first)."""
+        gradients (after ``boost_from_average`` per class, through the
+        ``_get_gradients`` hook) or the caller's ``[k, n]``, then
+        ``_bagging``, then per class its tree through the engine's grower,
+        the host tree, the linear leaves (``linear_tree``), leaf renewal,
+        float64 shrinkage, the f32 leaf values added to the training scores
+        per row (``table_lookup``; a linear tree's per-row outputs instead)
+        and to the valid scores, then the bias. A class that grows nothing
+        gets a constant tree; True when no class grew a split (the
+        iteration's trees are then dropped, past the first)."""
         self._epi_carry = None   # the scores change outside the carry
         k, n = self.num_tree_per_iteration, self.num_data
         obj = self.objective
@@ -1015,7 +1032,7 @@ class GBDT:
                           "built-in objective or supply gradients via "
                           "Booster.update(fobj=...)")
             init_scores = [self._boost_from_average(tid) for tid in range(k)]
-            grad, hess = obj.get_gradients(self.scores)
+            grad, hess = self._get_gradients()
         else:
             grad, hess = [torch.as_tensor(
                 np.asarray(a, np.float32).reshape(k, n), device=self.device)
@@ -1035,17 +1052,23 @@ class GBDT:
             if tree is not None and tree.num_leaves > 1:
                 should_continue = True
                 ht = self._to_host_tree(tree)
+                if bool(self.config.linear_tree):
+                    self._fit_linear_leaves(ht, row_leaf, grad[tid],
+                                            hess[tid])
                 if obj is not None and obj.is_renew_tree_output:
                     self._renew_tree_output(ht, row_leaf, tid)
                 # shrinkage then score update (ref: gbdt.cpp:414-419)
                 ht.apply_shrinkage(self.shrinkage_rate)
-                lv = torch.as_tensor(ht.leaf_value.astype(np.float32),
-                                     device=self.device)
-                self.scores[tid] += lookup(lv, row_leaf)
-                for vd, vs in zip(self.valid_data, self.valid_scores):
-                    vs[tid] = self._add_host_tree(
-                        vs[tid], vd.bins_dev, ht,
-                        bundle=self._bundle_of(vd))
+                if ht.is_linear:
+                    self._add_linear_tree(ht, row_leaf, tid)
+                else:
+                    lv = torch.as_tensor(ht.leaf_value.astype(np.float32),
+                                         device=self.device)
+                    self.scores[tid] += lookup(lv, row_leaf)
+                    for vd, vs in zip(self.valid_data, self.valid_scores):
+                        vs[tid] = self._add_host_tree(
+                            vs[tid], vd.bins_dev, ht,
+                            bundle=self._bundle_of(vd))
                 if abs(init_scores[tid]) > K_EPSILON:
                     ht.add_bias(init_scores[tid])
                 self.models.append(ht)
@@ -1070,6 +1093,61 @@ class GBDT:
             self._update_gain_ema(gains)
         self.iter += 1
         return False
+
+    def _get_gradients(self):
+        """The objective's gradients at the training scores (the JAX
+        package's ``_boosting_scores``/``_get_gradients``, gbdt.py:
+        2426-2433): the hook where DART drops trees and RF returns its
+        fixed gradients."""
+        return self.objective.get_gradients(self.scores)
+
+    def _fit_linear_leaves(self, ht: HostTree, row_leaf: torch.Tensor,
+                           grad: torch.Tensor, hess: torch.Tensor) -> None:
+        """Linear leaves of a new tree (gbdt.py:3018-3074): a per-leaf
+        ridge on the raw values of the numerical columns of its root path
+        (``ops.linear.fit_linear_leaves``, on the device), in-bag rows
+        only; the first iteration's trees keep constants only. The path's
+        columns are the host tree's real ones and a column is categorical
+        by its own bin mapper (the JAX package reads both as inner
+        indices: see ``ops/linear.py``)."""
+        ds = self.train_data
+        if ds.raw_data is None:
+            log.warning("linear_tree needs retained raw data; keeping "
+                        "constant leaves")
+            return
+        ht.is_linear = True
+        L = ht.num_leaves
+        ht.leaf_const = ht.leaf_value.astype(np.float64).copy()
+        ht.leaf_features = [[] for _ in range(L)]
+        ht.leaf_coeff = [[] for _ in range(L)]
+        if len(self.models) < self.num_tree_per_iteration:
+            return   # first tree: constants only (ref: is_first_tree)
+        paths = [[f for f in p
+                  if ds.mappers[f].bin_type != BIN_CATEGORICAL]
+                 for p in ht.branch_features()]
+        fits = fit_linear_leaves(ds.raw_data, row_leaf, grad, hess,
+                                 self.bag_weight > 0, paths,
+                                 float(self.config.linear_lambda))
+        host_syncs["count"] += 1
+        for leaf, fit in enumerate(fits):
+            if fit is not None:
+                ht.leaf_features[leaf], ht.leaf_coeff[leaf], \
+                    ht.leaf_const[leaf] = fit
+
+    def _add_linear_tree(self, ht: HostTree, row_leaf: torch.Tensor,
+                         tid: int) -> None:
+        """A shrunk linear tree's outputs added to the scores
+        (gbdt.py:4730-4760): each training row's, by its leaf, in float64
+        and added as f32; a valid set's from its own raw rows where it
+        kept them, else the binned replay of the constant leaves."""
+        self.scores[tid] += linear_leaf_outputs(
+            ht, self.train_data.raw_data, row_leaf).float()
+        for vd, vs in zip(self.valid_data, self.valid_scores):
+            if vd.raw_data is not None:
+                vs[tid] += tree_outputs(ht, vd.raw_data.double()).float()
+            else:
+                vs[tid] = self._add_host_tree(vs[tid], vd.bins_dev, ht,
+                                              bundle=self._bundle_of(vd))
 
     def _grow_sync(self, g, h, tid: int):
         """One class tree of the synchronous body on the engine's grower:
@@ -1096,16 +1174,22 @@ class GBDT:
             lambda lv, rl: table_lookup(rl[None, :], lv)[0])
 
     def _renew_tree_output(self, ht: HostTree, row_leaf: torch.Tensor,
-                           class_id: int) -> None:
+                           class_id: int, base: float = None) -> None:
         """Leaf renewal for the L1 family (ref: serial_tree_learner.cpp:717
         RenewTreeOutput; gbdt.py:2933-2957): each leaf's value from the
         float64 residuals of its in-bag rows, grouped by one stable
-        argsort. Two host copies (the class's scores and the row leaves)."""
+        argsort. The residuals are against the class's scores (two host
+        copies: the scores and the row leaves), or against the constant
+        ``base`` (RF, rf.hpp:135-139; one copy)."""
         obj = self.objective
         label = self.train_data.metadata.label
-        score = self.scores[class_id].double().cpu().numpy()
+        if base is None:
+            score = self.scores[class_id].double().cpu().numpy()
+            host_syncs["count"] += 1
+        else:
+            score = base
         rl = row_leaf.cpu().numpy()
-        host_syncs["count"] += 2
+        host_syncs["count"] += 1
         residual = label.astype(np.float64) - score
         sel = np.nonzero(self._bag_host)[0]
         order = sel[np.argsort(rl[sel], kind="stable")]
@@ -1165,12 +1249,13 @@ class GBDT:
         bitsets decoded into bins (``_host_cat_bins``). ``bundle`` is
         ``_replay_bundle`` where ``bins`` holds the bundle columns of a
         sparse-built training set, None for logical bins."""
+        if ht.num_leaves <= 1:
+            # the scaled constant in float64, added as f32 (gbdt.py:3082)
+            return score + float(np.float32(ht.leaf_value[0])) * scale
         lv = torch.as_tensor(np.asarray(ht.leaf_value, np.float32),
                              device=self.device)
         if scale != 1.0:
             lv = lv * scale
-        if ht.num_leaves <= 1:
-            return score + lv[0]
         return score + lv[self._host_tree_leaves(bins, ht, bundle)]
 
     def _host_tree_leaves(self, bins: torch.Tensor, ht: HostTree,
@@ -1510,3 +1595,198 @@ class GOSS(GBDT):
         self._set_bag(mask)
         mult_dev = torch.as_tensor(mult, device=self.device)[None, :]
         return grad * mult_dev, hess * mult_dev
+
+
+class DART(GBDT):
+    """DART dropout boosting (ref: src/boosting/dart.hpp:23; the JAX
+    package's gbdt.py:5331-5470). It always trains on the synchronous
+    body. Each iteration draws its drop set from the reference's LCG
+    (``drop_seed``) in the JAX package's order — ``is_skip`` first, then
+    one float per trained iteration, stopping at ``max_drop`` — and
+    subtracts the dropped trees (their f32 leaf values) from the training
+    scores before the gradients; ``_normalize`` then shrinks them in
+    float64 and moves their scores by the same factor."""
+
+    name = "dart"
+
+    def init(self, config, train_data, objective, training_metrics=()):
+        super().init(config, train_data, objective, training_metrics)
+        self.drop_rng = ref_random.Random(int(config.drop_seed))
+        self.tree_weight: List[float] = []
+        self.sum_weight = 0.0
+        self.drop_index: List[int] = []
+
+    def _get_gradients(self):
+        # drop trees, then the gradients on the reduced scores (ref:
+        # dart.hpp:77-86 GetTrainingScore -> DroppingTrees)
+        self._dropping_trees()
+        return super()._get_gradients()
+
+    def _dropping_trees(self) -> None:
+        """(ref: dart.hpp:95-148 DroppingTrees)"""
+        cfg = self.config
+        self.drop_index = []
+        is_skip = self.drop_rng.next_float() < cfg.skip_drop
+        if not is_skip:
+            drop_rate = cfg.drop_rate
+            if not cfg.uniform_drop:
+                if self.sum_weight > 0:
+                    inv_avg = len(self.tree_weight) / self.sum_weight
+                    if cfg.max_drop > 0:
+                        drop_rate = min(drop_rate, cfg.max_drop * inv_avg
+                                        / self.sum_weight)
+                    for i in range(self.iter):
+                        if (self.drop_rng.next_float()
+                                < drop_rate * self.tree_weight[i] * inv_avg):
+                            self.drop_index.append(self.num_init_iteration
+                                                   + i)
+                            if len(self.drop_index) >= cfg.max_drop > 0:
+                                break
+            else:
+                if cfg.max_drop > 0 and self.iter > 0:
+                    drop_rate = min(drop_rate, cfg.max_drop / self.iter)
+                for i in range(self.iter):
+                    if self.drop_rng.next_float() < drop_rate:
+                        self.drop_index.append(self.num_init_iteration + i)
+                        if len(self.drop_index) >= cfg.max_drop > 0:
+                            break
+        k = self.num_tree_per_iteration
+        bins, bundle = (self.train_data.bins_dev,
+                        self._bundle_of(self.train_data))
+        for i in self.drop_index:
+            for tid in range(k):
+                self.scores[tid] = self._add_host_tree(
+                    self.scores[tid], bins, self.models[i * k + tid], -1.0,
+                    bundle)
+        nd = len(self.drop_index)
+        lr = cfg.learning_rate
+        if not cfg.xgboost_dart_mode:
+            self.shrinkage_rate = lr / (1.0 + nd)
+        else:
+            self.shrinkage_rate = lr if nd == 0 else lr / (lr + nd)
+
+    def train_one_iter(self, gradients=None, hessians=None) -> bool:
+        if super().train_one_iter(gradients, hessians):
+            return True
+        self._normalize()
+        if not self.config.uniform_drop:
+            self.tree_weight.append(self.shrinkage_rate)
+            self.sum_weight += self.shrinkage_rate
+        return False
+
+    def _normalize(self) -> None:
+        """(ref: dart.hpp:150-199 Normalize): each dropped tree shrinks to
+        nd/(nd+1) of its weight (nd/(nd+lr) in xgboost_dart_mode); the
+        valid scores take -1/(nd+1) (-(1 - factor)) of its old f32 values
+        and the training scores +nd/(nd+1) (+factor), valid sets first."""
+        cfg = self.config
+        nd = len(self.drop_index)
+        if nd == 0:
+            return
+        k = self.num_tree_per_iteration
+        lr = cfg.learning_rate
+        if not cfg.xgboost_dart_mode:
+            factor, valid_scale = nd / (nd + 1.0), -1.0 / (nd + 1.0)
+        else:
+            factor = nd / (nd + lr)
+            valid_scale = -(1.0 - factor)
+        bins, bundle = (self.train_data.bins_dev,
+                        self._bundle_of(self.train_data))
+        for i in self.drop_index:
+            for tid in range(k):
+                ht = self.models[i * k + tid]
+                for vd, vs in zip(self.valid_data, self.valid_scores):
+                    vs[tid] = self._add_host_tree(vs[tid], vd.bins_dev, ht,
+                                                  valid_scale,
+                                                  self._bundle_of(vd))
+                self.scores[tid] = self._add_host_tree(
+                    self.scores[tid], bins, ht, factor, bundle)
+                ht.apply_shrinkage(factor)
+            if not cfg.uniform_drop:
+                j = i - self.num_init_iteration
+                div = nd + 1.0 if not cfg.xgboost_dart_mode else nd + lr
+                self.sum_weight -= self.tree_weight[j] / div
+                self.tree_weight[j] *= nd / div
+
+
+class RF(GBDT):
+    """Random forest mode (ref: src/boosting/rf.hpp:25; the JAX package's
+    gbdt.py:5579-5734): bagging required, no shrinkage, gradients fixed at
+    the constant base score (``boost_from_score``, 0 over an init score
+    or without ``boost_from_average``) and that score folded into every
+    tree; the scores hold the sum of the trees, and evaluation and
+    prediction divide by the iterations (``average_output``). Leaf
+    renewal takes residuals against the base score."""
+
+    name = "rf"
+    average_output = True
+
+    def init(self, config, train_data, objective, training_metrics=()):
+        if not (config.bagging_freq > 0
+                and 0.0 < config.bagging_fraction < 1.0):
+            log.fatal("RF mode requires bagging "
+                      "(bagging_freq > 0, bagging_fraction in (0,1))")
+        super().init(config, train_data, objective, training_metrics)
+        self.shrinkage_rate = 1.0
+        if objective is None:
+            log.fatal("RF mode do not support custom objective function, "
+                      "please use built-in objectives.")
+        # gradients fixed at the base score (ref: rf.hpp:82-100 Boosting)
+        k = self.num_tree_per_iteration
+        self.init_scores = [
+            0.0 if self.has_init_score or not config.boost_from_average
+            else objective.boost_from_score(tid) for tid in range(k)]
+        base = torch.as_tensor(np.tile(
+            np.asarray(self.init_scores, np.float32)[:, None],
+            (1, self.num_data)), device=self.device)
+        self._fixed_grad, self._fixed_hess = objective.get_gradients(base)
+
+    def _get_gradients(self):
+        return self._fixed_grad, self._fixed_hess
+
+    def train_one_iter(self, gradients=None, hessians=None) -> bool:
+        """(ref: rf.hpp:102-160 TrainOneIter) Per class: grow on the fixed
+        gradients, renew, fold in the base score, add the f32 leaf values
+        to the training scores (``table_lookup``) and the valid scores. A
+        class that grows nothing gets a zero tree; True when none grew."""
+        self._epi_carry = None
+        k, n = self.num_tree_per_iteration, self.num_data
+        if gradients is None:
+            grad, hess = self._get_gradients()
+        else:
+            grad, hess = [torch.as_tensor(
+                np.asarray(a, np.float32).reshape(k, n), device=self.device)
+                for a in (gradients, hessians)]
+        grad, hess = self._bagging(self.iter, grad, hess)
+        should_continue = False
+        for tid in range(k):
+            # the JAX package grows every class tree with tid 0 (its
+            # quantized dither seed)
+            tree, row_leaf, lookup = self._grow_sync(grad[tid], hess[tid], 0)
+            if tree.num_leaves <= 1:
+                self.models.append(HostTree(1))
+                continue
+            should_continue = True
+            ht = self._to_host_tree(tree)
+            if self.objective.is_renew_tree_output:
+                self._renew_tree_output(ht, row_leaf, tid,
+                                        base=self.init_scores[tid])
+            # the base score rides in every tree; the averaged score then
+            # carries it once (ref: rf.hpp:136-138 AddBias)
+            if abs(self.init_scores[tid]) > K_EPSILON:
+                ht.add_bias(self.init_scores[tid])
+            lv = torch.as_tensor(ht.leaf_value.astype(np.float32),
+                                 device=self.device)
+            self.scores[tid] += lookup(lv, row_leaf)
+            for vd, vs in zip(self.valid_data, self.valid_scores):
+                vs[tid] = self._add_host_tree(vs[tid], vd.bins_dev, ht,
+                                              bundle=self._bundle_of(vd))
+            self.models.append(ht)
+        if not should_continue:
+            log.warning("Stopped training because there are no more leaves "
+                        "that meet the split requirements")
+            if len(self.models) > k:
+                del self.models[-k:]
+            return True
+        self.iter += 1
+        return False

@@ -224,6 +224,10 @@ class BinnedDataset:
         self.dataset_params: Dict[str, Any] = {}
         # binned against another dataset's mappers (a valid set)
         self.reference_binned = False
+        # [num_data, num_total_features] float32 raw columns on ``device``,
+        # kept for linear trees (a row subset does not carry them, as in
+        # the JAX package's TpuDataset.subset)
+        self.raw_data: Optional[torch.Tensor] = None
 
     @classmethod
     def from_data(cls, data: np.ndarray, config: Config, device,

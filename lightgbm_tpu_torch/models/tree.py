@@ -12,7 +12,8 @@ include/LightGBM/tree.h:25, src/io/tree.cpp).  Two forms:
   (``cat_flag``) sends left the bins of its ``cat_mask`` row.
 - ``HostTree``: the host-side object used for model text IO (a numpy copy
   of the JAX package's class, without its host prediction walk —
-  ``ops/predict.py`` routes on the device).  Thresholds are
+  ``ops/predict.py`` routes on the device, and ``ops/linear.py`` gives a
+  linear tree's per-row outputs).  Thresholds are
   converted from bin indices to real values with the dataset's BinMapper
   upper bounds (ref: tree.h RealThreshold); a categorical node's threshold
   indexes ``cat_boundaries``, whose range of ``cat_threshold`` holds the
@@ -144,3 +145,19 @@ class HostTree:
         if self.is_linear:
             self.leaf_const = self.leaf_const + val
         self.shrinkage = 1.0
+
+    def branch_features(self) -> List[List[int]]:
+        """Per leaf, the sorted unique features (real indices) its root
+        path splits on (ref: tree.h branch_features_)."""
+        paths: List[List[int]] = [[] for _ in range(self.num_leaves)]
+        stack = [(0, ())] if self.num_internal else []
+        while stack:
+            node, feats = stack.pop()
+            feats = feats + (int(self.split_feature[node]),)
+            for child in (int(self.left_child[node]),
+                          int(self.right_child[node])):
+                if child < 0:
+                    paths[~child] = sorted(set(feats))
+                else:
+                    stack.append((child, feats))
+        return paths

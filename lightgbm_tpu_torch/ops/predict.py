@@ -24,6 +24,11 @@ node's logical bin from its feature's column (``lightgbm_tpu/ops/
 predict.py:31-60``). The JAX
 package computes these outside any Pallas kernel, in plain XLA; here they
 are plain torch.
+
+:func:`predict_raw`, :func:`predict_raw_early_stop` and
+:func:`predict_leaf` take linear trees too: they route as any other tree,
+and :func:`tree_outputs` gives their per-row linear outputs
+(``ops/linear.py``).
 """
 from __future__ import annotations
 
@@ -31,6 +36,8 @@ from typing import List
 
 import numpy as np
 import torch
+
+from .linear import linear_leaf_outputs
 
 K_ZERO_THRESHOLD = 1e-35
 
@@ -183,10 +190,8 @@ def cat_value_masks(tree):
 
 def tree_leaves(t, X: torch.Tensor) -> torch.Tensor:
     """[n] int64 leaf index of every row of ``X`` [n, F] float64 in the
-    HostTree ``t`` (leaf 0 for a one-leaf tree), routed on X's device."""
-    if getattr(t, "is_linear", False):
-        raise NotImplementedError("linear trees are not ported to "
-                                  "lightgbm_tpu_torch yet")
+    HostTree ``t`` (leaf 0 for a one-leaf tree), routed on X's device;
+    a linear tree routes as any other."""
     dev = X.device
     if t.num_leaves <= 1:
         return torch.zeros(X.shape[0], dtype=torch.int64, device=dev)
@@ -206,8 +211,15 @@ def tree_leaves(t, X: torch.Tensor) -> torch.Tensor:
           [torch.as_tensor(c, device=dev) for c in cat]))
 
 
-def _leaf_values(t, dev) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(t.leaf_value, np.float64), device=dev)
+def tree_outputs(t, X: torch.Tensor) -> torch.Tensor:
+    """[n] float64 output of the HostTree ``t`` for every row of ``X``:
+    its leaf's value, or a linear tree's per-row linear output
+    (``ops.linear.linear_leaf_outputs``)."""
+    leaves = tree_leaves(t, X)
+    if getattr(t, "is_linear", False):
+        return linear_leaf_outputs(t, X, leaves)
+    return torch.as_tensor(np.asarray(t.leaf_value, np.float64),
+                           device=X.device)[leaves]
 
 
 def predict_raw(models: List, X: torch.Tensor, k: int) -> torch.Tensor:
@@ -216,7 +228,7 @@ def predict_raw(models: List, X: torch.Tensor, k: int) -> torch.Tensor:
     (basic.host_walk_raw)."""
     raw = torch.zeros((k, X.shape[0]), dtype=torch.float64, device=X.device)
     for i, t in enumerate(models):
-        raw[i % k] += _leaf_values(t, X.device)[tree_leaves(t, X)]
+        raw[i % k] += tree_outputs(t, X)
     return raw
 
 
@@ -245,8 +257,7 @@ def predict_raw_early_stop(models: List, X: torch.Tensor, k: int,
     active = torch.ones(X.shape[0], dtype=torch.bool, device=dev)
     for i, t in enumerate(models):
         c = i % k
-        raw[c] = torch.where(active, raw[c] + _leaf_values(t, dev)[
-            tree_leaves(t, X)], raw[c])
+        raw[c] = torch.where(active, raw[c] + tree_outputs(t, X), raw[c])
         if (i + 1) % (freq * k) == 0:
             if k == 1:
                 done = raw[0].abs() > margin

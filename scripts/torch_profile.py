@@ -5,7 +5,7 @@ the card.
     python3 scripts/torch_profile.py [--rows 1000000] [--rounds 3]
                                      [--path train update frontier mixed cuts
                                              eval class rank cat bundle
-                                             mono]
+                                             mono dart rf linear]
 
 Trains chip_smoke.py's configuration (1,000,000 x 28 rows of bench.py's
 synthetic data, max_bin=63, num_leaves=255) with ``Booster.update()``,
@@ -38,7 +38,13 @@ and (c) the epilogue body on one 4,033-bin bundle column (500,000 rows of
 64 exclusive columns); ``mono`` its phase 12 runs, one JSON line each:
 phase 3's rows binned with ``chip_smoke.mono_constraints``, (a) the basic
 and (b) the intermediate mode on the megastep body, (c)
-``monotone_penalty=2.0`` on the epilogue body. Each warms up two iterations (GOSS ten), times
+``monotone_penalty=2.0`` on the epilogue body; ``dart``, ``rf`` and
+``linear`` its phase 13 runs (a)-(c), each on the synchronous body:
+DART at LightGBM's drop defaults with ``drop_seed=4`` and RF (bagging
+0.632 every iteration, feature_fraction 0.8), both with the 250,000-row
+valid set and ``metric=["binary_logloss", "auc"]`` evaluated after every
+iteration, and ``linear_tree`` regression on the latent score z with the
+raw columns on the card. Each warms up two iterations (GOSS ten), times
 ``--rounds`` more untraced, then traces ``--rounds`` more with
 ``torch.profiler`` and prints one JSON line: the wall time per iteration
 untraced and traced, the device time summed over all kernels, the
@@ -75,10 +81,10 @@ def main() -> int:
     ap.add_argument("--path", nargs="+",
                     choices=("train", "update", "frontier", "mixed",
                              "cuts", "eval", "class", "rank", "cat",
-                             "bundle", "mono"),
+                             "bundle", "mono", "dart", "rf", "linear"),
                     default=["train", "update", "frontier", "mixed",
                              "cuts", "eval", "class", "rank", "cat",
-                             "bundle", "mono"])
+                             "bundle", "mono", "dart", "rf", "linear"])
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -157,6 +163,29 @@ def main() -> int:
                     path=path, run=run, nvidia_smi=smi, **extra,
                     **profile_path(lgb, frontier2, dict(params, **extra), d,
                                    megastep, args.rounds))), flush=True)
+            del d
+            continue
+        if path in ("dart", "rf", "linear"):
+            metric = ["binary_logloss", "auc"]
+            extra = {"dart": {"boosting": "dart",
+                              "drop_seed": cs.DART_DROP_SEED,
+                              "metric": metric},
+                     "rf": {"boosting": "rf", "bagging_fraction": 0.632,
+                            "bagging_freq": 1, "feature_fraction": 0.8,
+                            "metric": metric},
+                     "linear": {"objective": "regression",
+                                "linear_tree": True, "linear_lambda": 0.1,
+                                "metric": ["l2"]}}[path]
+            p, d, valid = dict(params, **extra), ds, None
+            if path == "linear":
+                d = lgb.Dataset(X, label=z, params=dict(p)).construct()
+            else:
+                Xv, yv = cs._valid_rows(cs.VALID_ROWS, w,
+                                        seed=cs.DATA_SEED + 100)
+                valid = lgb.Dataset(Xv, label=yv, reference=ds)
+            print(json.dumps(dict(path=path, nvidia_smi=smi, **profile_path(
+                lgb, frontier2, p, d, False, args.rounds, valid))),
+                flush=True)
             del d
             continue
         if path == "cat":

@@ -60,9 +60,9 @@ def test_default_device_raises_without_cuda():
         lt.Dataset(X, label=y, params={"device_type": "cuda"}).construct()
 
 
-@pytest.mark.parametrize("params", [{"boosting": "dart"},
-                                    {"boosting": "rf"},
-                                    {"linear_tree": True},
+@pytest.mark.parametrize("params", [{"tree_learner": "data"},
+                                    {"forcedsplits_filename": "f.json"},
+                                    {"cegb_penalty_feature_lazy": [1.0] * 3},
                                     {"cegb_penalty_split": 1.0}])
 def test_unported_options_raise(params):
     X = np.random.RandomState(0).randn(64, 3)
@@ -91,7 +91,8 @@ def test_port_imports_no_jax():
             "lightgbm_tpu_torch.objective.rank",
             "lightgbm_tpu_torch.utils.dcg",
             "lightgbm_tpu_torch.utils.random",
-            "lightgbm_tpu_torch.ops.efb"} <= set(_port_modules())
+            "lightgbm_tpu_torch.ops.efb", "lightgbm_tpu_torch.io.shap",
+            "lightgbm_tpu_torch.ops.linear"} <= set(_port_modules())
     code = (
         "import importlib, json, sys\n"
         f"for m in {_port_modules()!r} + ['chip_smoke']:\n"

@@ -241,9 +241,13 @@ def test_body_choice_follows_jax_engine(monkeypatch, case, body, blocker):
 
 @pytest.mark.parametrize("kw,params,item", [
     ({"resume_from": "ckpt_3"}, {}, "item 10"),
-    ({}, {"linear_tree": True}, "linear trees")],
+    ({}, {"linear_tree": True}, "not supported for sparse input")],
     ids=["resume", "linear_tree"])
 def test_unported_train_arguments_raise(kw, params, item):
+    """``resume_from`` is not ported; ``linear_tree`` trains, but, as in
+    the JAX package, not on sparse input (no raw columns)."""
+    import scipy.sparse as sp
+    data = sp.csr_matrix(X) if params else X
     with pytest.raises(lt.LightGBMError, match=item):
         lt.train(dict(PARAMS, device_type="cpu", **params),
-                 lt.Dataset(X, label=Y), 2, **kw)
+                 lt.Dataset(data, label=Y), 2, **kw)

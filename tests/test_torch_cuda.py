@@ -1336,3 +1336,69 @@ def test_cuda_binary_cache_round_trip(cuda_device, tmp_path):
     assert torch.equal(loaded._inner.bins_dev, ds._inner.bins_dev)
     ds.params = {}
     assert bst.model_to_string() == lt.train(p, ds, 3).model_to_string()
+
+
+def _slice_rows(n=5000):
+    rng = np.random.RandomState(3)
+    X = rng.randn(n, 8)
+    X[rng.rand(n) < 0.05, 2] = np.nan
+    z = X[:, 0] + 0.5 * np.nan_to_num(X[:, 2]) + 0.3 * X[:, 3] \
+        + 0.3 * rng.randn(n)
+    return X, z
+
+
+@pytest.mark.parametrize("extra", [
+    {"objective": "binary", "boosting": "dart", "skip_drop": 0.0,
+     "drop_rate": 0.3},
+    {"objective": "binary", "boosting": "rf", "bagging_fraction": 0.6,
+     "bagging_freq": 1, "feature_fraction": 0.8},
+    {"objective": "regression", "linear_tree": True, "linear_lambda": 0.1},
+], ids=["dart", "rf", "linear"])
+def test_cuda_dart_rf_linear_match_cpu(cuda_device, extra):
+    """DART, RF and linear_tree train() on the card (through level_pass,
+    route_pass and table_lookup) as on the CPU: the same drop sets and
+    tree structures, predictions within rtol 1e-5, atol 1e-6."""
+    X, z = _slice_rows()
+    y = z if extra["objective"] == "regression" else (z > 0).astype(float)
+    p = dict({"num_leaves": 31, "max_bin": 63, "min_data_in_leaf": 20,
+              "verbose": -1}, **extra)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tfl.reset_launch_counts()
+        bst = lt.Booster(dict(p, device_type=dev), lt.Dataset(X, label=y))
+        drops = []
+        for _ in range(5):
+            bst.update()
+            drops.append(list(getattr(bst._gbdt, "drop_index", [])))
+        out[dev] = bst, drops, dict(tfl.launches)
+    (bc, dc, _), (bg, dg, n) = out["cpu"], out["cuda"]
+    assert dc == dg
+    assert all(n[k] > 0 for k in ("level_pass", "route_pass"))
+    if not extra.get("linear_tree"):
+        assert n["table_lookup"] > 0
+    assert bg._gbdt.scores.is_cuda
+    for a, b in zip(bc.models, bg.models):
+        np.testing.assert_array_equal(a.split_feature, b.split_feature)
+        np.testing.assert_array_equal(a.threshold_bin, b.threshold_bin)
+        assert a.leaf_features == b.leaf_features
+    np.testing.assert_allclose(bg.predict(X, raw_score=True),
+                               bc.predict(X, raw_score=True), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_cuda_pred_contrib_matches_cpu(cuda_device):
+    """pred_contrib on the card equals the CPU's within 1e-9 and adds up
+    to predict(raw_score=True)."""
+    X, z = _slice_rows()
+    p = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+         "verbose": -1, "device_type": "cuda"}
+    text = lt.train(p, lt.Dataset(X, label=(z > 0).astype(float)),
+                    5).model_to_string()
+    bg = lt.Booster(params={"device_type": "cuda"}, model_str=text)
+    bc = lt.Booster(params={"device_type": "cpu"}, model_str=text)
+    got = bg.predict(X[:2000], pred_contrib=True)
+    np.testing.assert_allclose(got, bc.predict(X[:2000], pred_contrib=True),
+                               rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(got.sum(1),
+                               bg.predict(X[:2000], raw_score=True),
+                               rtol=1e-9, atol=1e-9)
