@@ -27,7 +27,9 @@ non-zero (it prints no result line then):
    (nch 5), ~30% of rows at slot -1 with non-zero gh, and the root level
    (S = 8, every row in slot 0), each called twice (the same bits), its
    CUDA kernels counted per call and, at the main shape, each timed
-   alone; the histogram-plane
+   alone; its unrounded f32 variant (the XLA engine's) at S in {1, 256},
+   Bp in {64, 256}, and on a bundled layout (88 columns, Bp = 256); the
+   histogram-plane
    variants of ``level_pass`` (quantized to 8 and 16 bits, packed,
    masked, and all three at once as run (b) of phase 6 runs them; f32
    padded on the same rows as their yardstick) and the packed
@@ -212,7 +214,24 @@ non-zero (it prints no result line then):
    rounds of constant leaves), (d) ``pred_contrib`` on (a)'s model:
    100,000 rows on the card adding up to ``predict`` (1e-6) and equal to
    the plain form on 200 rows (1e-9), with its seconds;
-14. the ``kernels`` line: every ported kernel and variant with its
+14. the XLA engine (``xla_train``) on phase 3's rows: (a)
+   ``tpu_engine="xla"`` (the leaf-wise grower), 10 rounds: sec/iter,
+   training AUC (> 0.75), predict against the trainer's scores, hist_pass
+   calls per tree (255: the root, then one per step), CUDA launches per
+   iteration, host syncs per tree, one captured step's histogram (S = 1)
+   against the plain version on its own operands; then 2 rounds of
+   ``tpu_engine="fused", grow_policy="leafwise"`` give (a)'s first two
+   trees; (b) ``grow_policy="depthwise"`` with CEGB (a split penalty,
+   coupled costs on four columns, lazy costs on four others), 10 rounds:
+   AUC, the penalised columns' splits against (a)'s, the level passes per
+   tree, a captured level's histogram (S = 255) checked; (c) leaf-wise
+   with a three-level forced-splits JSON on three low-signal columns and
+   ``monotone_constraints_method="advanced"`` on phase 12's columns, 10
+   rounds: every tree's first seven nodes are the JSON's, the worst step
+   along each constrained column >= -1e-6; (d) phase 11a's CSR draw cut
+   to 100,000 rows (bundle columns on the leaf-wise grower), 3 rounds,
+   predict on the CSR rows against the trainer's scores;
+15. the ``kernels`` line: every ported kernel and variant with its
    wrapper calls and CUDA kernel launches on the main path where it runs
    (every level_pass, route_pass, epilogue_pass and hist_pass call in
    phases 3-13 held to one launch of each of its CUDA kernels), its
@@ -221,9 +240,10 @@ non-zero (it prints no result line then):
    bound and library time, the bundled rows on each phase-11 run's own
    operands with that run's launches and on phase 2's Bc_p = 16384
    layout with none, the ``mono`` rows on each phase-12 run's own
-   operands, the ``dart`` rows on 13a's, and per-kernel times of
+   operands, the ``dart`` rows on 13a's, the unrounded ``hist_pass`` rows
+   on 14a's and 14b's with their launches, and per-kernel times of
    ``level_pass``, ``epilogue_pass`` and ``hist_pass``;
-15. the last line: ``{"ok": true, "device": {...}}``.
+16. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package. It exits non-zero when no CUDA
 device is present.
@@ -317,6 +337,17 @@ CAPTURE_FIT_CALL = 3            # phase 13c: the linear fit checked (tree 5)
 CHECK_ROWS = 100_000            # phase 13: rows predict is held to
 SHAP_ROWS = 100_000             # phase 13d: the device form's rows
 SHAP_PLAIN_ROWS = 200           # and the plain form's
+CAPTURE_XLA_CALL = 100          # phase 14a: the hist_pass call checked (S=1)
+CAPTURE_DEPTH_CALL = 5          # phase 14b: a level's hist_pass (S = L)
+FUSED_LEAFWISE_ROUNDS = 2       # phase 14a: fused + leafwise against xla
+CEGB_SPLIT = 1e-5               # phase 14b: cost per split and leaf row,
+CEGB_COUPLED = 1e3              # per first use of a coupled column,
+CEGB_LAZY = 1e-2                # per row first using a lazy column
+XLA_CSR_ROWS = 100_000          # phase 14d: phase 11a's draw, cut
+XLA_CSR_ROUNDS = 3
+# the unrounded variant replaces no pallas_call: the XLA engine's histogram
+XLA_REPLACES = "lightgbm_tpu/ops/histogram.py:71 (build_histograms)"
+BUNDLED_COLUMNS = 88            # phase 11a's bundle columns
 REPLACES = {
     "level_pass": "lightgbm_tpu/ops/fused_level.py:402",
     "route_pass": "lightgbm_tpu/ops/fused_level.py:575",
@@ -431,8 +462,8 @@ def call_ms(fn, reps: int = 20, warmup: int = 2) -> float:
 # the template instances' arguments in ptxas's mangled names (an int
 # argument as its value, a bool as true or false)
 _MANGLED_TYPES = {"a": "int8", "s": "int16", "13__nv_bfloat16": "bf16",
-                  "f": "f32", "i": "int32"}
-_MANGLED = r"(a|s|f|i|13__nv_bfloat16|L[ib]\d+E)"
+                  "f": "f32", "i": "int32", "NS_6RawF32E": "f32_unrounded"}
+_MANGLED = r"(a|s|f|i|13__nv_bfloat16|NS_6RawF32E|L[ib]\d+E)"
 
 
 def _demangled_arg(t: str) -> str:
@@ -1153,15 +1184,14 @@ def compare_epilogue(args, kw, float64_hist=False):
 
 
 def check_hist(R, Fp, B, S, quant_bits, seed, slots="random",
-               stages=False):
+               stages=False, unrounded=False):
     """hist_pass against its plain version: int32 bins [R, Fp] in [0, B-1),
     slots in [0, S) with ~30% of rows at -1 (their gh non-zero), or every
     row in slot 0 (``slots="root"``, the root level), gh as f32 (g, h, w)
-    or the int8 channels of ``quant_bits``. Called twice: the same bits.
-    ``stages`` also times each of its CUDA kernels alone."""
+    (bf16-rounded, or as given by the ``unrounded`` variant of the XLA
+    engine) or the int8 channels of ``quant_bits``. Called twice: the same
+    bits. ``stages`` also times each of its CUDA kernels alone."""
     import torch
-    from lightgbm_tpu_torch.ops import fused_level as fl
-    from lightgbm_tpu_torch.ops import pallas_histogram as ph
     from lightgbm_tpu_torch.ops import quantize as q
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1182,8 +1212,27 @@ def check_hist(R, Fp, B, S, quant_bits, seed, slots="random",
             1).contiguous()
     else:
         gh = torch.stack([g, h, w], 1).contiguous()
+    return {"slots": slots,
+            **hist_operand_check(bins, gh, slot, S, B, quant_bits, stages,
+                                 unrounded)}
+
+
+def hist_operand_check(bins, gh, slot, S, B, quant_bits=0, stages=False,
+                       unrounded=False):
+    """hist_pass on given operands against its plain version (the checks
+    and timings of ``check_hist``): one call launching each CUDA kernel
+    once, the same bits on a second call, the f32 planes within 1e-5 of the
+    per-cell sum of |value| and the weight channel (or every int32 plane)
+    exact; kernel, plain, ``index_add_`` and bound times."""
+    import torch
+    from lightgbm_tpu_torch.ops import fused_level as fl
+    from lightgbm_tpu_torch.ops import pallas_histogram as ph
+    dev = bins.device
+    R, Fp = bins.shape
     nch = gh.shape[1]
     kw = dict(S=S, Bp=B, nch=nch, quant=bool(quant_bits))
+    if unrounded:
+        kw["unrounded"] = True
     n0 = fl.launches["hist_pass"]
     c0 = {k: fl.cuda_launches[k] for k in fl.HIST_KERNELS}
     out_k = ph.hist_pass(bins, gh, slot, **kw)
@@ -1229,7 +1278,7 @@ def check_hist(R, Fp, B, S, quant_bits, seed, slots="random",
     # the library yardstick: one index_add_ over precomputed flat indices
     cell = ((slot[rows].long()[:, None] * Fp
              + torch.arange(Fp, device=dev)) * B + bins[rows].long())
-    src = (gh[rows].int() if quant_bits
+    src = (gh[rows].int() if quant_bits else gh[rows] if unrounded
            else gh[rows].to(torch.bfloat16).float())
     src = src[:, None, :].expand(-1, Fp, -1).reshape(-1, nch)
     cell = cell.reshape(-1)
@@ -1248,7 +1297,8 @@ def check_hist(R, Fp, B, S, quant_bits, seed, slots="random",
         # each CUDA kernel alone on the same inputs, into one set of
         # buffers a whole call filled first (a kernel reads what the
         # earlier ones wrote)
-        lkw = dict(Bp=B, nch=nch, quant=bool(quant_bits))
+        lkw = dict(Bp=B, nch=nch, quant=bool(quant_bits),
+                   unrounded=unrounded)
         buf = ph.hist_buffers(bins, S=S, **lkw)
         ph._hist_launch(fl.HIST_KERNELS, bins, gh, slot, buf, **lkw)
 
@@ -1260,8 +1310,9 @@ def check_hist(R, Fp, B, S, quant_bits, seed, slots="random",
                    channels_per_block=buf["channels_per_block"],
                    adding_warps=buf["warps"])
     return {
-        "R": R, "Fp": Fp, "Bp": B, "S": S, "nch": nch, "slots": slots,
-        "variant": f"quant{quant_bits}" if quant_bits else "f32",
+        "R": R, "Fp": Fp, "Bp": B, "S": S, "nch": nch,
+        "variant": (f"quant{quant_bits}" if quant_bits else
+                    "f32_unrounded" if unrounded else "f32"),
         "slotted_rows": n_slot, "launches": launched,
         "cuda_launches": cuda_launched, "same_bits_twice": same_bits, **out,
         "max_abs_err": abs_err,
@@ -3567,6 +3618,275 @@ def run_slice_train(lgb, params, ds, X, y, z, w, e2e):
     return out, check
 
 
+def forced_splits_json(w: np.ndarray, mono: np.ndarray) -> dict:
+    """Phase 14c's forced splits: three levels (seven nodes) at 0.5 on the
+    three columns of least |w| (little signal) that carry no constraint,
+    one column per level."""
+    a, b, c = [int(f) for f in np.argsort(np.abs(w)) if mono[f] == 0][:3]
+
+    def node(f, child=None):
+        out = {"feature": f, "threshold": 0.5}
+        if child is not None:
+            out.update(left=child(), right=child())
+        return out
+    return node(a, lambda: node(b, lambda: node(c)))
+
+
+def cegb_columns(w: np.ndarray):
+    """Phase 14b's penalised columns: coupled costs on the four of largest
+    |w|, lazy costs on the next four."""
+    order = [int(f) for f in np.argsort(-np.abs(w))]
+    return order[:4], order[4:8]
+
+
+def _split_uses(bst, cols) -> int:
+    """How many of the model's splits are on ``cols``."""
+    return int(sum(np.isin(m.split_feature[:m.num_internal], cols).sum()
+                   for m in bst.models))
+
+
+def _trees_text(text: str) -> str:
+    """The model text's tree blocks (the parameters after them differ)."""
+    return text[text.index("Tree=0"):text.index("end of trees")]
+
+
+def run_xla_train(lgb, params, ds, X, y, w, e2e):
+    """Phase 14: the XLA engine (leaf-wise and depth-wise growers, their
+    histograms through hist_pass's unrounded f32 variant) on phase 3's
+    rows. (a) ``tpu_engine="xla"`` (leaf-wise) through train(), ROUNDS
+    rounds: sec/iter, training AUC (> 0.75), predict against the trainer's
+    scores, hist_pass calls per tree (the root, then one per split: L),
+    CUDA launches per iteration, host syncs per tree, and its
+    CAPTURE_XLA_CALL-th hist_pass call (S = 1) held to the plain version on
+    its own operands; then 2 rounds of ``tpu_engine="fused",
+    grow_policy="leafwise"`` give the same trees as (a)'s first two. (b)
+    ``grow_policy="depthwise"`` with CEGB (a split penalty, coupled costs on
+    four columns, lazy costs on four others): AUC, the penalised columns'
+    splits against (a)'s, the level passes per tree, and its
+    CAPTURE_DEPTH_CALL-th hist_pass call (a level, S = L) checked. (c)
+    leaf-wise with forced splits (three levels on three low-signal
+    columns) and ``monotone_constraints_method="advanced"`` on phase 12's
+    constrained columns: every tree's first nodes are the JSON's, the mode
+    stays advanced, the worst step along each constrained column >= -1e-6.
+    (d) phase 11a's CSR draw cut to XLA_CSR_ROWS rows (bundle columns on
+    the leaf-wise grower), XLA_CSR_ROUNDS rounds, predict on the CSR rows
+    against the trainer's scores. Returns (each run's wrapper launches,
+    the captured checks of (a) and (b)); each run's launches carry its
+    CUDA kernel launches under "cuda"."""
+    import json as json_mod
+    import os
+    import tempfile
+    from lightgbm_tpu_torch.ops import histogram as hmod
+    out, checks = {}, {}
+
+    def fit(p, rounds, data=ds):
+        data.params = {}
+        return lgb.train(p, data, rounds)
+
+    def common(run, bst, t_all, t_one, launches, cuda, syncs, rounds,
+               data_y):
+        n_trees = bst.num_trees()
+        scores = bst.train_scores().float().cpu().numpy()
+        g = bst._gbdt
+        return {"phase": "xla_train", "run": run,
+                "engine": {"use_fused": g.use_fused,
+                           "use_frontier": g.use_frontier,
+                           "grow_policy": g.grow_policy,
+                           "fast_path_reason": g._fast_path_reason()},
+                "rounds": rounds, "trees": n_trees,
+                "sec_per_iter_after_first": (t_all - t_one) / (rounds - 1),
+                "train_s": t_all, "train_auc": auc(scores, data_y),
+                "hist_pass_calls_per_tree": launches["hist_pass"] / n_trees,
+                "launches_per_tree": {k: v / n_trees
+                                      for k, v in launches.items() if v},
+                "cuda_launches_per_iter": {k: v / rounds
+                                           for k, v in cuda.items() if v},
+                "host_syncs_per_tree": syncs / n_trees,
+                "phase3_sec_per_iter_after_first":
+                e2e["sec_per_iter_after_first"],
+                "leaves": [m.num_leaves for m in bst.models]}, scores
+
+    def gate(res, launches, cuda, name, want_trees):
+        if res["trees"] != want_trees:
+            raise AssertionError(f"{name}: {res['trees']} trees")
+        if res["engine"]["use_fused"] or res["engine"]["use_frontier"]:
+            raise AssertionError(f"{name}: not the XLA engine: {res}")
+        if launches["hist_pass"] <= 0 or launches["level_pass"]:
+            raise AssertionError(f"{name}: launches {launches}")
+        check_stages(launches, cuda, name)
+
+    def captured_check(store, run, S):
+        args, kw = store.pop("hist_pass")
+        bins, gh, slot = args
+        res = hist_operand_check(bins, gh, slot, kw["S"], kw["Bp"],
+                                 unrounded=True)
+        res["slotted_rows"] = int((slot >= 0).sum())
+        if kw["S"] != S:
+            raise AssertionError(f"14{run}: captured S={kw['S']}, want {S}")
+        emit({"phase": "xla_train", "run": run, "kernel_check": res})
+        return res
+
+    # (a) the leaf-wise grower
+    pa = dict(params, tpu_engine="xla")
+    _, t_one = _timed_run(lambda: fit(pa, 1))
+    counts = _run_counts()
+    (bst_a, t_all), store = captured(lambda: fit(pa, ROUNDS), [
+        (hmod, "hist_pass", CAPTURE_XLA_CALL)])
+    launches, cuda, syncs = counts()
+    res, scores = common("a", bst_a, t_all, t_one, launches, cuda, syncs,
+                         ROUNDS, y)
+    pred = bst_a.predict(X[:CHECK_ROWS], raw_score=True)
+    res["predict_max_abs_err"] = float(np.abs(pred
+                                              - scores[:CHECK_ROWS]).max())
+    res["predict_tol"] = "rtol=1e-5 atol=1e-5"
+    text_a = bst_a.model_to_string(num_iteration=FUSED_LEAFWISE_ROUNDS)
+    (bst_f, t_f) = _timed_run(lambda: fit(dict(
+        params, tpu_engine="fused", grow_policy="leafwise"),
+        FUSED_LEAFWISE_ROUNDS))
+    res["fused_leafwise"] = {
+        "rounds": FUSED_LEAFWISE_ROUNDS, "train_s": t_f,
+        "grow_policy": bst_f._gbdt.grow_policy,
+        "use_fused": bst_f._gbdt.use_fused,
+        "same_trees_as_xla": _trees_text(bst_f.model_to_string())
+        == _trees_text(text_a)}
+    emit(res)
+    gate(res, launches, cuda, "14a", ROUNDS)
+    if not res["train_auc"] > 0.75:
+        raise AssertionError(f"14a: training AUC {res['train_auc']}")
+    if res["engine"]["grow_policy"] != "leafwise" \
+            or launches["hist_pass"] != ROUNDS * params["num_leaves"]:
+        raise AssertionError(f"14a: {res['engine']}, "
+                             f"{launches['hist_pass']} hist_pass calls")
+    if not np.allclose(pred, scores[:CHECK_ROWS], rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"14a: predict differs from the trainer's "
+                             f"scores by {res['predict_max_abs_err']}")
+    if not res["fused_leafwise"]["same_trees_as_xla"] \
+            or res["fused_leafwise"]["use_fused"]:
+        raise AssertionError(f"14a: fused + leafwise: "
+                             f"{res['fused_leafwise']}")
+    out["a"] = dict(launches, cuda=cuda)
+    checks["a"] = captured_check(store, "a", 1)
+
+    # (b) the depth-wise grower with CEGB
+    coupled, lazy = cegb_columns(w)
+    F = X.shape[1]
+    pen_c = [CEGB_COUPLED if f in coupled else 0.0 for f in range(F)]
+    pen_l = [CEGB_LAZY if f in lazy else 0.0 for f in range(F)]
+    pb = dict(params, tpu_engine="xla", grow_policy="depthwise",
+              cegb_penalty_split=CEGB_SPLIT,
+              cegb_penalty_feature_coupled=pen_c,
+              cegb_penalty_feature_lazy=pen_l)
+    _, t_one = _timed_run(lambda: fit(pb, 1))
+    counts = _run_counts()
+    (bst_b, t_all), store = captured(lambda: fit(pb, ROUNDS), [
+        (hmod, "hist_pass", CAPTURE_DEPTH_CALL)])
+    launches, cuda, syncs = counts()
+    res, _ = common("b", bst_b, t_all, t_one, launches, cuda, syncs, ROUNDS,
+                    y)
+    g = bst_b._gbdt
+    res.update({"cegb_penalty_split": CEGB_SPLIT,
+                "coupled_columns": coupled, "coupled_penalty": CEGB_COUPLED,
+                "lazy_columns": lazy, "lazy_penalty": CEGB_LAZY,
+                "use_cegb": g.use_cegb, "use_cegb_lazy": g.use_cegb_lazy,
+                "level_passes_per_tree":
+                res["hist_pass_calls_per_tree"] - 1,
+                "coupled_splits": _split_uses(bst_b, coupled),
+                "lazy_splits": _split_uses(bst_b, lazy),
+                "phase14a_coupled_splits": _split_uses(bst_a, coupled),
+                "phase14a_lazy_splits": _split_uses(bst_a, lazy),
+                "cegb_used": [int(f) for f in
+                              np.nonzero(g.cegb_used.cpu().numpy())[0]],
+                "cegb_used_rf_share": float(g.cegb_used_rf.float().mean())})
+    emit(res)
+    gate(res, launches, cuda, "14b", ROUNDS)
+    if not (g.use_cegb and g.use_cegb_lazy
+            and res["engine"]["grow_policy"] == "depthwise"):
+        raise AssertionError(f"14b: {res['engine']}, CEGB {g.use_cegb}")
+    if not np.isfinite(res["train_auc"]) or res["train_auc"] <= 0.5:
+        raise AssertionError(f"14b: training AUC {res['train_auc']}")
+    out["b"] = dict(launches, cuda=cuda)
+    checks["b"] = captured_check(store, "b", params["num_leaves"])
+
+    # (c) leaf-wise with forced splits and the advanced monotone mode, on
+    # phase 3's rows binned again with phase 12's constraints
+    mono = mono_constraints(w)
+    spec = forced_splits_json(w, mono)
+    fd, path = tempfile.mkstemp(suffix=".json")
+    with os.fdopen(fd, "w") as fh:
+        json_mod.dump(spec, fh)
+    try:
+        dsm, construct_s = _timed_run(lambda: lgb.Dataset(
+            X, label=y, params=dict(params,
+                                    monotone_constraints=mono.tolist()))
+            .construct())
+        pc = dict(params, tpu_engine="xla", forcedsplits_filename=path,
+                  monotone_constraints_method="advanced")
+        _, t_one = _timed_run(lambda: fit(pc, 1, dsm))
+        counts = _run_counts()
+        bst_c, t_all = _timed_run(lambda: fit(pc, ROUNDS, dsm))
+        launches, cuda, syncs = counts()
+    finally:
+        os.unlink(path)
+    res, _ = common("c", bst_c, t_all, t_one, launches, cuda, syncs, ROUNDS,
+                    y)
+    g = bst_c._gbdt
+    want_f = g.forced_feat.tolist()
+    want_t = g.forced_thr.tolist()
+    n = len(want_f)
+    forced_ok = all(
+        [int(g.train_data.used_features.index(int(f)))
+         for f in m.split_feature[:n]] == want_f
+        and [int(t) for t in m.threshold_bin[:n]] == want_t
+        for m in bst_c.models)
+    worst = mono_worst_steps(bst_c, X, mono, DATA_SEED + 1400)
+    res.update({"construct_s": construct_s, "forced_splits": spec,
+                "n_forced": n, "forced_features": want_f,
+                "forced_bins": want_t, "forced_nodes_as_json": forced_ok,
+                "mono_mode": g.mono_mode, "constraints": mono.tolist(),
+                "worst_step_by_column": worst,
+                "worst_step": min(worst.values()),
+                "worst_step_floor": -1e-6})
+    emit(res)
+    gate(res, launches, cuda, "14c", ROUNDS)
+    if not (forced_ok and n == 7 and g.mono_mode == "advanced"
+            and res["worst_step"] >= -1e-6):
+        raise AssertionError(f"14c: forced {forced_ok} ({n}), mode "
+                             f"{g.mono_mode}, worst {res['worst_step']}")
+    out["c"] = dict(launches, cuda=cuda)
+
+    # (d) phase 11a's CSR draw, cut: bundle columns on the leaf-wise grower
+    (Xs, ys), _ = _timed_run(lambda: _sparse_rows(XLA_CSR_ROWS,
+                                                 DATA_SEED + 500))
+    dss = lgb.Dataset(Xs, label=ys, params=params).construct()
+    pd_ = dict(params, tpu_engine="xla")
+    _, t_one = _timed_run(lambda: fit(pd_, 1, dss))
+    counts = _run_counts()
+    bst_d, t_all = _timed_run(lambda: fit(pd_, XLA_CSR_ROUNDS, dss))
+    launches, cuda, syncs = counts()
+    res, scores = common("d", bst_d, t_all, t_one, launches, cuda, syncs,
+                         XLA_CSR_ROUNDS, ys)
+    raw = bst_d.predict(Xs, raw_score=True)
+    g = bst_d._gbdt
+    res.update({"input": "csr", "rows": XLA_CSR_ROWS,
+                "columns": Xs.shape[1], "use_bundles": bool(g.use_bundles),
+                "bundle_columns": int(g.xla_bins.shape[1]),
+                "Bc": int(g.bundle_col_bins),
+                "hist_bins": list(g.xla_hist_bins.shape),
+                "logical_features": int(g.train_data.num_features),
+                "predict_max_abs_err": float(np.abs(raw - scores).max()),
+                "predict_tol": "rtol=1e-5 atol=1e-5"})
+    emit(res)
+    gate(res, launches, cuda, "14d", XLA_CSR_ROUNDS)
+    if not (bst_d._gbdt.use_bundles
+            and np.allclose(raw, scores, rtol=1e-5, atol=1e-5)):
+        raise AssertionError(f"14d: bundles {bst_d._gbdt.use_bundles}, "
+                             f"predict error {res['predict_max_abs_err']}")
+    out["d"] = dict(launches, cuda=cuda)
+    return out, checks
+
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3662,6 +3982,22 @@ def main() -> int:
                     hist_main = res
     res = check_hist(ROWS, FEATURES, 64, 8, 0, seed=72, slots="root")
     emit({"phase": "kernel_check", "hist_pass": res})
+    # the XLA engine's unrounded f32 variant: a leaf-wise step (S = 1) and
+    # a depth-wise level (S = 256), and on a bundled layout (11a's 88
+    # columns of up to 256 bins, the int16 bins widened to the kernel's
+    # int32 copy)
+    unrounded = {}
+    for B in (64, 256):
+        for S in (1, 256):
+            res = check_hist(ROWS, FEATURES, B, S, 0, seed=B + S + 3,
+                             stages=(B, S) == (64, 1), unrounded=True)
+            emit({"phase": "kernel_check", "hist_pass": res})
+            if B == 64:
+                unrounded[S if S == 1 else "level"] = res
+    res = check_hist(ROWS, BUNDLED_COLUMNS, 256, 256, 0, seed=88,
+                     unrounded=True)
+    emit({"phase": "kernel_check", "hist_pass": {"layout": "bundled",
+                                                 **res}})
     bundled = {}
     for i, Bc_p in enumerate(BUNDLE_WIDTHS):
         res = check_bundled(Rp, ROWS, Bc_p, seed=90 + i)
@@ -3786,9 +4122,13 @@ def main() -> int:
     # ---- 13. DART, RF, linear-tree leaves and TreeSHAP on phase 3's rows
     slice_launches, slice_check = run_slice_train(lgb, params, ds, X, y, z,
                                                   w, e2e)
+
+    # ---- 14. the XLA engine: leaf-wise and depth-wise growers, CEGB,
+    # forced splits, advanced monotone, bundle columns
+    xla_launches, xla_checks = run_xla_train(lgb, params, ds, X, y, w, e2e)
     del X
 
-    # ---- 14. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
+    # ---- 15. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
     # the epilogue at Bp=64 int8, nch=5, binary, Sp=64; hist_pass at Bp=64,
     # Sp=64, f32). Launches: the train() run for the three kernels of its
     # path, update() run (a) for the epilogue, the frontier train() run for
@@ -3837,7 +4177,33 @@ def main() -> int:
                          ("b", "rf_train_launches"),
                          ("c", "linear_train_launches")):
             row[key] = slice_launches[run][name]
+        row["xla_train_launches"] = {run: v[name]
+                                     for run, v in xla_launches.items()}
         rows.append(row)
+    # hist_pass's unrounded f32 variant, the XLA engine's histogram: on
+    # phase 14a's (a leaf-wise step, S = 1) and 14b's (a depth-wise level,
+    # S = L) own operands, each with its run's launches; phase 2's
+    # synthetic checks of the variant beside them
+    for run, S in (("a", 1), ("b", params["num_leaves"])):
+        r = xla_checks[run]
+        rows.append({
+            "name": f"hist_pass[f32_unrounded,S={S}]", "route": "cuda",
+            "source": SOURCES["hist_pass"], "replaces": XLA_REPLACES,
+            "launches": xla_launches[run]["hist_pass"],
+            "launches_per_tree": xla_launches[run]["hist_pass"] / ROUNDS,
+            "cuda_launches": kernel_cuda_launches(
+                "hist_pass", xla_launches[run]["cuda"]),
+            "operands": f"phase 14 run {run}, its own", "S": r["S"],
+            "slotted_rows": r["slotted_rows"],
+            "max_abs_err": r["max_abs_err"],
+            "rel_err_of_abs_sum": r["rel_err_of_abs_sum"],
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "phase2": {k: unrounded[S if S == 1 else "level"][k]
+                       for k in ("R", "Fp", "Bp", "S", "max_abs_err",
+                                 "kernel_ms", "plain_ms", "library_ms",
+                                 "bound_ms", "bound_by")}})
     # the kernels on bundle columns: each phase-11 run's own operands
     # (check_captured) with that run's launches; phase 2's widest synthetic
     # layout, which no run reaches, with none
@@ -3898,7 +4264,7 @@ def main() -> int:
     emit({"kernels": rows})
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start})
 
-    # ---- 15. the result line
+    # ---- 16. the result line
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

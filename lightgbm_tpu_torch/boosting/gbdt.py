@@ -1,11 +1,16 @@
-"""Gradient boosting driver on the fused and frontier-v1 engines.
+"""Gradient boosting on the fused, frontier-v1 and XLA engines.
 
 PyTorch counterpart of ``lightgbm_tpu/boosting/gbdt.py`` on its main
-training path, the serial learner. ``tpu_engine`` picks the engine as the
-JAX package resolves it (``gbdt.py:1956-2037``), with only the branches
-the port can take: ``auto`` and ``fused`` train the fused engine,
-``frontier`` the frontier-v1 engine (with ``tpu_histogram_impl`` auto or
-pallas), and anything else raises, naming what is not ported.
+training path, the serial learner. ``_setup_engine`` resolves
+``tpu_engine`` and ``grow_policy`` as the JAX package does
+(``gbdt.py:1956-2106``), in its order: ``auto`` is the fused engine (the
+port always runs on the card, as the JAX package's ``auto`` on a TPU),
+``frontier`` the frontier-v1 engine with ``tpu_histogram_impl`` auto or
+pallas and the XLA engine's leaf-wise grower otherwise, ``xla`` the XLA
+engine; forced splits and CEGB move any engine to ``xla``; ``grow_policy``
+``auto`` is depth-wise on the fused and frontier engines and under CEGB,
+leaf-wise otherwise, and ``leafwise`` on any engine takes the XLA
+leaf-wise grower (``depthwise`` with ``xla`` its depth-wise grower).
 
 The fused engine has two iteration bodies, as in the JAX package:
 
@@ -26,7 +31,10 @@ The fused engine has two iteration bodies, as in the JAX package:
 
 The frontier-v1 engine takes the synchronous body below (``gh3 = [g*bag,
 h*bag, bag]`` into ``grow_tree_frontier``); neither the megastep nor the
-epilogue applies to it.
+epilogue applies to it. Nor to the XLA engine (``models/learner.py``'s
+``grow_tree_leafwise`` and ``grow_tree_depthwise`` on the same ``gh3``,
+their histograms through ``ops/histogram.py``), which the synchronous
+body drives too.
 
 The **synchronous body** (``_sync_iter_body``; the JAX package's
 ``_sync_iter_body``, ``gbdt.py:4649-4800``) grows one tree per class and
@@ -72,7 +80,18 @@ Layouts: ``_init_fused`` transposes the binned matrix to ``bins_T``
 [Fp=max(F_oh, 8), Rp] with Rp rounded up to 2048, int8 for Bp <= 128 and
 int16 above (padded rows sit at leaf -1 and carry zero gradients);
 ``_init_frontier`` keeps it row-major, ``bins_i32`` [num_data, Fp] int32,
-with no row padding.
+with no row padding; ``_init_xla`` routes on the dataset's own bins
+(``xla_bins``, the bundle columns under bundles) and keeps the histogram
+kernel's int32 feature-padded copy once (``xla_hist_bins``).
+
+Forced splits (``forcedsplits_filename``; ``gbdt.py:1359-1403``) are a BFS
+schedule of (leaf, inner feature, bin threshold) the leaf-wise grower
+takes before its gain choice; they disable feature bundling (fatal on a
+sparse-built dataset) and CEGB. CEGB (``cegb_*``; ``gbdt.py:1406-1440``)
+runs on the depth-wise grower: ``cegb_used`` [F] (the features any
+split has used, on the device) and, under lazy penalties,
+``cegb_used_rf`` [n, F] persist across trees; ``reset_config`` re-reads
+both setups.
 
 The histogram-plane cuts (``gbdt.py:2107-2161`` of the JAX package) run on
 the fused engine's megastep body, alone or together:
@@ -120,12 +139,12 @@ package.
 
 Monotone constraints (``monotone_constraints`` per original column,
 indexed by the used features into ``FeatureMeta.monotone``; the JAX
-package's ``gbdt.py:81-82, 321, 1990-2075``) run on every body of the
-fused engine: ``use_mono_bounds`` and ``mono_mode`` go to every
-``grow_tree_fused`` call. ``monotone_constraints_method`` ``basic`` and
-``intermediate`` are the grower's; ``advanced`` needs the leaf-wise grower
-and degrades to ``intermediate`` with the JAX package's warning, and the
-frontier-v1 engine degrades to the fused one.
+package's ``gbdt.py:81-82, 321, 1990-2075``) run on every grower but the
+frontier-v1 one (which degrades to the fused engine): ``use_mono_bounds``
+and ``mono_mode`` go to every grow call. ``monotone_constraints_method``
+``basic`` and ``intermediate`` run on every grower; ``advanced`` needs the
+leaf-wise grower and elsewhere degrades to ``intermediate`` with the JAX
+package's warning.
 
 DART (``DART``, the JAX package's ``gbdt.py:5331-5470``) and random
 forests (``RF``, ``gbdt.py:5579-5734``) train on the synchronous body.
@@ -143,10 +162,12 @@ scores then take each row's linear output, and a valid set its own raw
 rows' outputs where it kept them, the binned constant replay otherwise.
 
 Not ported yet (``_UNPORTED`` raises, naming its ROADMAP item):
-distributed learners, forced splits, CEGB; resilience checkpoints.
+distributed learners; resilience checkpoints (of ``cegb_used`` and
+``cegb_used_rf`` too).
 """
 from __future__ import annotations
 
+import json
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -159,12 +180,14 @@ from ..models.frontier import grow_tree_frontier, leaf_value_lookup
 from ..models.frontier2 import grow_tree_fused, level_caps, tree_score_delta
 from ..models.frontier2 import host_syncs
 from ..models.learner import (BundleCfg, FeatureMeta, NodeMaskCfg,
+                              grow_tree_depthwise, grow_tree_leafwise,
                               make_node_mask_cfg)
 from ..models.tree import HostTree, TreeArrays
 from ..ops.efb import BundleLayout, encode_bundles, find_bundles
 from ..ops.fused_level import (NCH_FAST, NCH_PRECISE, epilogue_pass,
                                max_slot_cap, pack_gh, pack_gh_quant,
                                table_lookup)
+from ..ops.histogram import hist_bins
 from ..ops.layout import feature_layout, packed_feature_layout
 from ..ops.linear import fit_linear_leaves, linear_leaf_outputs
 from ..ops.pallas_histogram import pad_feature_layout
@@ -193,17 +216,14 @@ def split_params_from_config(config: Config) -> SplitParams:
         max_cat_threshold=int(config.max_cat_threshold),
         cat_l2=float(config.cat_l2),
         cat_smooth=float(config.cat_smooth),
-        min_data_per_group=int(config.min_data_per_group))
+        min_data_per_group=int(config.min_data_per_group),
+        cegb_tradeoff=float(config.cegb_tradeoff),
+        cegb_penalty_split=float(config.cegb_penalty_split))
 
 
 _UNPORTED = (
     ("tree_learner", lambda v: v != "serial",
      "distributed tree learners (ROADMAP Queue A item 9)"),
-    ("forcedsplits_filename", bool, "forced splits (ROADMAP Queue A item 7)"),
-    ("cegb_penalty_split", lambda v: float(v) != 0.0,
-     "CEGB (ROADMAP Queue A item 7)"),
-    ("cegb_penalty_feature_lazy", bool, "CEGB (ROADMAP Queue A item 7)"),
-    ("cegb_penalty_feature_coupled", bool, "CEGB (ROADMAP Queue A item 7)"),
 )
 
 
@@ -243,6 +263,8 @@ class GBDT:
         self.class_need_train = [
             objective.class_need_train(i) if objective is not None else True
             for i in range(self.num_tree_per_iteration)]
+        self._setup_cegb(config)
+        self._setup_forced_splits(config, train_data)
         self._setup_bundles(config, train_data)
         self._setup_node_masks(config, train_data)
         self._setup_engine(config, train_data)
@@ -333,6 +355,9 @@ class GBDT:
         self._replay_bundle = None
         pb = train_data.prebundled
         if pb is not None:
+            if self.n_forced > 0:
+                log.fatal("forced splits are not supported on sparse-built "
+                          "(prebundled) datasets")
             mfb = np.asarray(train_data.most_freq_bins, np.int32)
             self._install_bundle_layout(train_data, pb, train_data.bins, mfb)
             t = lambda a: torch.as_tensor(np.asarray(a, np.int64),  # noqa
@@ -345,7 +370,11 @@ class GBDT:
             return
         if not config.was_set("tpu_enable_bundle") \
                 and str(config.tpu_engine) not in ("fused", "auto"):
+            # opt-in on the other engines, as in the JAX package
+            # (gbdt.py:1253-1266)
             return
+        if self.n_forced > 0:
+            return   # forced splits route through the leaf-wise grower
         bins_np = train_data.bins
         mfb = np.asarray(train_data.most_freq_bins, np.int32)
         F = train_data.num_features
@@ -406,6 +435,100 @@ class GBDT:
         self.bundle_col_bins = int(Bc)
         self.use_bundles = True
 
+    def _setup_forced_splits(self, config: Config,
+                             train_data: BinnedDataset) -> None:
+        """The forced-split schedule (gbdt.py:1359-1403; ref: gbdt.cpp:72-80
+        and serial_tree_learner.cpp:455 ForceSplits): the JSON's nodes in
+        BFS order as device tensors ``forced_leaf`` / ``forced_feat``
+        (inner index) / ``forced_thr`` (the threshold's bin, by the
+        feature's mapper), at most ``num_leaves - 1``. Leaf ids follow the
+        leaf-wise grower: splitting leaf l keeps l as the left child and
+        gives the right one the next id. A filtered feature's node is
+        skipped (with its subtree); a categorical one is fatal."""
+        self.n_forced = 0
+        path = str(config.forcedsplits_filename or "")
+        if not path:
+            return
+        with open(path) as fh:
+            root = json.load(fh)
+        used = train_data.used_features
+        leaves, feats, thrs = [], [], []
+        queue = [(root, 0)]
+        next_id = 1
+        while queue:
+            node, leaf = queue.pop(0)
+            real_f = int(node["feature"])
+            if real_f not in used:
+                log.warning("forced split on filtered feature %d skipped",
+                            real_f)
+                continue
+            inner = used.index(real_f)
+            if bool(train_data.is_categorical[inner]):
+                log.fatal("forced splits on categorical features are not "
+                          "supported (feature %d)", real_f)
+            tbin = int(train_data.mappers[real_f].value_to_bin(
+                float(node["threshold"])))
+            leaves.append(leaf)
+            feats.append(inner)
+            thrs.append(tbin)
+            right_id = next_id
+            next_id += 1
+            if node.get("left"):
+                queue.append((node["left"], leaf))
+            if node.get("right"):
+                queue.append((node["right"], right_id))
+        n = min(len(leaves), self.max_leaves - 1)
+        self.n_forced = n
+        self.forced_leaf, self.forced_feat, self.forced_thr = [
+            torch.as_tensor(np.asarray(a[:n], np.int64), device=self.device)
+            for a in (leaves, feats, thrs)]
+        if n:
+            log.info("Loaded %d forced splits from %s", n, path)
+
+    def _setup_cegb(self, config: Config) -> None:
+        """CEGB's switch and per-feature costs (gbdt.py:1406-1440; ref:
+        cost_effective_gradient_boosting.hpp:26 IsEnable), the penalties
+        given per original column and indexed by the used features.
+        ``cegb_used`` [F] bool and, under lazy penalties, ``cegb_used_rf``
+        [n, F] bool live on the device and persist across trees (and
+        across ``reset_config``, which re-reads the penalties)."""
+        self.use_cegb_lazy = False
+        coupled = list(config.cegb_penalty_feature_coupled or [])
+        lazy = list(config.cegb_penalty_feature_lazy or [])
+        self.use_cegb = (config.cegb_tradeoff < 1.0
+                         or config.cegb_penalty_split > 0.0
+                         or bool(coupled) or bool(lazy))
+        if not self.use_cegb:
+            return
+        ds = self.train_data
+        F = ds.num_features
+
+        def per_inner(pens):
+            out = np.zeros(F, np.float32)
+            for real_f, pen in enumerate(pens):
+                if real_f in ds.used_features:
+                    out[ds.used_features.index(real_f)] = pen
+            return torch.as_tensor(out, device=self.device)
+        self.cegb_coupled = per_inner(coupled)
+        if not hasattr(self, "cegb_used"):
+            self.cegb_used = torch.zeros(F, dtype=torch.bool,
+                                         device=self.device)
+        self.cegb_lazy = per_inner(lazy)
+        self.use_cegb_lazy = bool((self.cegb_lazy > 0).any())
+        if self.use_cegb_lazy and not hasattr(self, "cegb_used_rf"):
+            self.cegb_used_rf = torch.zeros((self.num_data, F),
+                                            dtype=torch.bool,
+                                            device=self.device)
+
+    def _mark_cegb_used(self, tree: TreeArrays) -> None:
+        """The features this tree split on join ``cegb_used``
+        (gbdt.py:4718-4721), on the device: a max-scatter of the used nodes'
+        features (unused nodes hold -1)."""
+        sf = tree.split_feature.long()
+        hit = self.cegb_used.to(torch.int32).scatter_reduce(
+            0, sf.clamp(min=0), (sf >= 0).to(torch.int32), "amax")
+        self.cegb_used = hit > 0
+
     def _setup_node_masks(self, config: Config,
                           train_data: BinnedDataset) -> None:
         """Interaction constraints (real feature indices, mapped to the
@@ -424,15 +547,16 @@ class GBDT:
             int(config.feature_fraction_seed) + 12345, self.device)
 
     def _node_masks_for_iter(self) -> Optional[NodeMaskCfg]:
-        """The node masks padded to the fused engine's F_oh features, the
-        key folded with the iteration so every tree draws fresh by-node
-        samples (gbdt.py:2672-2698); the same key serves every class tree
-        of the iteration."""
+        """The node masks padded to the engine's feature width (the fused
+        engine's F_oh; the XLA engine's is F), the key folded with the
+        iteration so every tree draws fresh by-node samples
+        (gbdt.py:2672-2698); the same key serves every class tree of the
+        iteration."""
         nm = self.node_masks
         if nm is None:
             return None
         G, F = nm.group_feat.shape
-        F_oh = self.fused_f_oh
+        F_oh = self.fmask_full.shape[0]
         gf = torch.zeros((G, F_oh), dtype=torch.bool, device=self.device)
         gf[:, :F] = nm.group_feat
         gwf = torch.zeros(F_oh, dtype=torch.int32, device=self.device)
@@ -442,22 +566,17 @@ class GBDT:
 
     def _setup_engine(self, config: Config,
                       train_data: BinnedDataset) -> None:
-        """Resolve ``tpu_engine`` (gbdt.py:1956-2037, the branches the port
-        can take) and build that engine's layout. Never falls back."""
+        """Resolve ``tpu_engine`` and ``grow_policy`` as the JAX package
+        does for the serial learner (gbdt.py:1956-2106, in its order), and
+        build the engine's layout: ``use_fused``, ``use_frontier``, and
+        otherwise the XLA engine with ``grow_policy`` "leafwise" or
+        "depthwise". Never falls back."""
         engine = str(config.tpu_engine)
-        if engine == "xla":
-            log.fatal("tpu_engine=xla (the XLA growers of models/learner.py "
-                      "and the XLA histograms of ops/histogram.py) is not "
-                      "ported to lightgbm_tpu_torch yet")
-        if engine == "frontier" \
-                and config.tpu_histogram_impl not in ("auto", "pallas"):
-            log.fatal("tpu_engine=frontier with tpu_histogram_impl=%s needs "
-                      "the XLA histograms of ops/histogram.py, which are not "
-                      "ported to lightgbm_tpu_torch yet",
-                      config.tpu_histogram_impl)
-        if engine not in ("auto", "fused", "frontier"):
+        if engine not in ("auto", "fused", "frontier", "xla"):
             log.fatal("unknown tpu_engine=%r (auto, fused, frontier or xla)",
                       engine)
+        if engine == "auto":
+            engine = "fused"
         has_cat = bool(np.any(train_data.is_categorical))
         mono = self._monotone(train_data)
         self.use_mono_bounds = bool(np.any(mono != 0))
@@ -466,34 +585,70 @@ class GBDT:
             method = str(config.monotone_constraints_method)
             if method in ("intermediate", "advanced"):
                 self.mono_mode = method
-            if self.mono_mode == "advanced":
-                # the per-segment bound planes run on the leaf-wise grower
-                # only; both engines here grow depth-wise
-                log.warning("monotone_constraints_method=advanced (segment "
-                            "bound planes) runs on the leaf-wise grower; "
-                            "this configuration uses intermediate instead")
-                self.mono_mode = "intermediate"
-        if engine == "frontier" and self.use_bundles:
+        if self.n_forced > 0 and engine != "xla":
+            log.info("forced splits use the leaf-wise XLA engine")
+            engine = "xla"
+        if self.use_bundles and engine == "frontier":
             log.info("feature bundling is not wired into the frontier-v1 "
                      "engine; using the fused engine")
             engine = "fused"
-        if engine == "frontier" and (has_cat or self.use_node_masks
-                                     or self.use_mono_bounds):
+        if self.use_cegb and engine != "xla":
+            log.info("cost-effective gradient boosting uses the depthwise "
+                     "XLA engine")
+            engine = "xla"
+        self.use_fused = engine == "fused"
+        self.use_frontier = (engine == "frontier"
+                             and config.tpu_histogram_impl
+                             in ("auto", "pallas"))
+        if self.use_frontier and (has_cat or self.use_node_masks
+                                  or self.use_mono_bounds):
             log.warning("tpu_engine=frontier supports neither categorical "
                         "features, monotone bounds, nor interaction/bynode "
                         "constraints; using the fused engine")
-            engine = "fused"
-        self.use_frontier = engine == "frontier"
+            self.use_frontier = False
+            self.use_fused = True
+        default_policy = ("depthwise" if (self.use_fused or self.use_frontier
+                                          or self.use_cegb)
+                          else "leafwise")
+        policy = str(config.grow_policy)
+        self.grow_policy = default_policy if policy == "auto" else policy
+        if self.mono_mode == "advanced" and self.grow_policy != "leafwise":
+            log.warning("monotone_constraints_method=advanced (segment "
+                        "bound planes) runs on the leaf-wise grower; this "
+                        "configuration uses intermediate instead")
+            self.mono_mode = "intermediate"
+        if self.use_cegb and self.grow_policy != "depthwise":
+            log.warning("CEGB is implemented on the depthwise grower; "
+                        "switching grow_policy")
+            self.grow_policy = "depthwise"
+        if self.use_bundles and self.n_forced > 0:
+            if train_data.prebundled is not None:
+                log.fatal("forced splits are not supported on sparse-built "
+                          "(prebundled) datasets")
+            log.warning("forced splits disable feature bundling")
+            self.use_bundles = False
+        if self.n_forced > 0 and self.grow_policy != "leafwise":
+            log.warning("forced splits are implemented on the leaf-wise "
+                        "grower; switching grow_policy")
+            self.grow_policy = "leafwise"
+        if self.n_forced > 0 and self.use_cegb:
+            log.warning("CEGB penalties are not applied when forced splits "
+                        "are enabled (leaf-wise grower); disabling CEGB")
+            self.use_cegb = False
+        if self.grow_policy != "depthwise":
+            self.use_fused = self.use_frontier = False
         self._setup_plane_cuts(config)
         if self.use_frontier:
             self._init_frontier(train_data)
-        else:
+        elif self.use_fused:
             self._init_fused(train_data)
+        else:
+            self._init_xla(train_data)
 
     def _setup_plane_cuts(self, config: Config) -> None:
         """The histogram-plane cuts (gbdt.py:2107-2161): fused-engine
-        features, each gated on its own; the frontier engine drops them
-        and trains unchanged."""
+        features, each gated on its own; the other engines drop them and
+        train unchanged."""
         qb = int(config.tpu_quantized_grad or 0)
         if qb not in (0, 8, 16):
             log.fatal("tpu_quantized_grad must be 0, 8 or 16; got %s", qb)
@@ -504,7 +659,7 @@ class GBDT:
             log.info("tpu_adaptive_bins is subsumed by feature bundling; "
                      "keeping the bundle layout")
             adaptive = False
-        if self.use_frontier and (qb or adaptive or scr):
+        if not self.use_fused and (qb or adaptive or scr):
             log.info("tpu_quantized_grad, tpu_adaptive_bins and "
                      "tpu_gain_screening require the fused engine; "
                      "training without them")
@@ -528,6 +683,30 @@ class GBDT:
         self.bins_i32 = bins
         # pad features are trivial (num_bin 2) and never selected
         self.frontier_meta = self._padded_meta(train_data, Fp, 2)
+
+    def _init_xla(self, train_data: BinnedDataset) -> None:
+        """The XLA engine's layout (gbdt.py ``bins_dev`` /
+        ``bundle_bins_dev`` and ``meta``): the growers route on the
+        dataset's bins ([n, F] uint8/uint16, or the [n, C] int16 bundle
+        columns under bundles) and histogram through the kernel's int32
+        feature-padded copy, made once here; the feature metadata is the
+        dataset's, unpadded."""
+        if self.use_bundles:
+            self.xla_bins = self.bundle_bins_dev
+            self.xla_hist_bins = hist_bins(self.bundle_bins_dev,
+                                           self.bundle_col_bins)
+        else:
+            self.xla_bins = train_data.bins_dev
+            self.xla_hist_bins = hist_bins(train_data.bins_dev,
+                                           self.max_bins)
+        self.xla_meta = self._padded_meta(train_data,
+                                          train_data.num_features, 0)
+
+    def _engine_meta(self) -> FeatureMeta:
+        """The feature metadata of the engine's trees (its padded width)."""
+        if self.use_frontier:
+            return self.frontier_meta
+        return self.fused_meta if self.use_fused else self.xla_meta
 
     def _init_fused(self, train_data: BinnedDataset) -> None:
         """Transposed, padded bin matrix + f_oh-padded feature metadata for
@@ -837,7 +1016,7 @@ class GBDT:
         histogram-plane cut (its kernel builds f32 padded root histograms,
         and screening's mask must reach the next root; gbdt.py:3487)."""
         return bool(self._epi_spec is not None
-                    and not self.use_frontier
+                    and self.use_fused
                     and self.config.tpu_fused_epilogue
                     and self.num_tree_per_iteration == 1
                     and not self.quant_bits
@@ -852,7 +1031,7 @@ class GBDT:
             return f"boosting:{self.name}"
         if not bool(self.config.tpu_fast_path):
             return "config:tpu_fast_path=false"
-        if self.use_frontier:
+        if not self.use_fused:
             return f"engine:{self.config.tpu_engine}"
         obj = self.objective
         if obj is None:
@@ -861,6 +1040,10 @@ class GBDT:
             return f"objective_leaf_renewal:{obj.name}"
         if bool(self.config.linear_tree):
             return "config:linear_tree"
+        if self.use_cegb:
+            return "config:cegb"
+        if self.n_forced:
+            return "config:forcedsplits_filename"
         if self.use_node_masks:
             return "config:interaction_constraints/feature_fraction_bynode"
         if not all(self.class_need_train):
@@ -871,8 +1054,8 @@ class GBDT:
         """One boosting iteration; True when training must stop (no split
         met the requirements — ref: gbdt.cpp:421-445). ``gradients`` and
         ``hessians`` ([k * n] each, class-major, from a custom objective)
-        and every case of ``_fast_path_reason`` take the synchronous
-        body."""
+        and every case of ``_fast_path_reason`` (the frontier and XLA
+        engines among them) take the synchronous body."""
         if gradients is not None and hessians is not None:
             return self._sync_iter_body(gradients, hessians)
         if self.objective is None:
@@ -1052,6 +1235,8 @@ class GBDT:
             if tree is not None and tree.num_leaves > 1:
                 should_continue = True
                 ht = self._to_host_tree(tree)
+                if self.use_cegb:
+                    self._mark_cegb_used(tree)
                 if bool(self.config.linear_tree):
                     self._fit_linear_leaves(ht, row_leaf, grad[tid],
                                             hess[tid])
@@ -1154,6 +1339,11 @@ class GBDT:
         (tree, row_leaf [n], lookup(leaf_values, row_leaf) -> [n])."""
         n = self.num_data
         w = self.bag_weight
+        if not (self.use_fused or self.use_frontier):
+            tree, row_leaf = self._grow_xla(
+                torch.stack([g * w, h * w, w], 1))
+            return tree, row_leaf, (
+                lambda lv, rl: table_lookup(rl[None, :], lv)[0])
         if self.use_frontier:
             gh3 = torch.stack([g * w, h * w, w], 1)
             tree, row_leaf = grow_tree_frontier(
@@ -1172,6 +1362,45 @@ class GBDT:
                                     node_masks=self._node_masks_for_iter())
         return tree, row_leaf[:n], (
             lambda lv, rl: table_lookup(rl[None, :], lv)[0])
+
+    def _grow_xla(self, gh3: torch.Tensor):
+        """One tree of the XLA engine (gbdt.py:2628-2670): the depth-wise
+        grower, with CEGB, or the leaf-wise one, with forced splits, on
+        ``gh3`` [n, 3]; the lazy CEGB bitmap carried to the next tree."""
+        common = dict(
+            hist_impl=self._xla_hist_impl(), cat_idx=self.cat_idx,
+            use_mono_bounds=self.use_mono_bounds,
+            node_masks=self._node_masks_for_iter(),
+            bundle_cfg=self.bundle_cfg if self.use_bundles else None,
+            bundle_col_bins=self.bundle_col_bins if self.use_bundles else 0,
+            mono_mode=self.mono_mode, hist_bins_i32=self.xla_hist_bins)
+        args = (self.xla_bins, gh3, self.xla_meta, self._feature_mask_pad(),
+                self.params, self.max_leaves, self.max_bins,
+                int(self.config.max_depth))
+        if self.grow_policy == "depthwise":
+            lazy = self.use_cegb and self.use_cegb_lazy
+            out = grow_tree_depthwise(
+                *args, use_cegb=self.use_cegb,
+                cegb_coupled=self.cegb_coupled if self.use_cegb else None,
+                cegb_used=self.cegb_used if self.use_cegb else None,
+                use_cegb_lazy=lazy,
+                cegb_lazy=self.cegb_lazy if lazy else None,
+                cegb_used_rf=self.cegb_used_rf if lazy else None, **common)
+            if lazy:
+                tree, row_leaf, self.cegb_used_rf = out
+                return tree, row_leaf
+            return out
+        f = self.n_forced > 0
+        return grow_tree_leafwise(
+            *args, forced_leaf=self.forced_leaf if f else None,
+            forced_feat=self.forced_feat if f else None,
+            forced_thr=self.forced_thr if f else None, **common)
+
+    def _xla_hist_impl(self) -> str:
+        """The XLA growers' histogram formulation (gbdt.py:2697-2699):
+        ``tpu_histogram_impl``, pallas read as auto."""
+        impl = str(self.config.tpu_histogram_impl)
+        return "auto" if impl in ("auto", "pallas") else impl
 
     def _renew_tree_output(self, ht: HostTree, row_leaf: torch.Tensor,
                            class_id: int, base: float = None) -> None:
@@ -1270,7 +1499,7 @@ class GBDT:
         def t(a, dt=torch.int64):
             return torch.as_tensor(np.asarray(a), dtype=dt,
                                    device=self.device)
-        meta = self.frontier_meta if self.use_frontier else self.fused_meta
+        meta = self._engine_meta()
         cat = self._host_cat_bins(ht, inner)
         cat = (None, None) if cat is None else [t(a, torch.bool)
                                                  for a in cat]
@@ -1291,7 +1520,8 @@ class GBDT:
         if not flag.any():
             return None
         ds = self.train_data
-        Bp = self.frontier_Bp if self.use_frontier else self.fused_Bp
+        Bp = (self.frontier_Bp if self.use_frontier else
+              self.fused_Bp if self.use_fused else self.max_bins)
         mask = np.zeros((ni, Bp), bool)
         for i in np.nonzero(flag)[0]:
             words = ht.cat_bitset(i)
@@ -1395,14 +1625,16 @@ class GBDT:
         """Re-derive the training state from an updated config (ref:
         gbdt.cpp:686-839 ResetConfig/ResetBaggingConfig; the JAX
         package's ``reset_config``): shrinkage, leaves, split parameters,
-        the engine's layout, and the bagging state, whose per-block
-        streams are drawn anew."""
+        the CEGB costs and the forced-split schedule, the engine's layout,
+        and the bagging state, whose per-block streams are drawn anew."""
         self._check_ported(config)
         self.config = config
         self.shrinkage_rate = float(config.learning_rate)
         self.max_leaves = max(2, int(config.num_leaves))
         self.params = split_params_from_config(config)
         self._epi_carry = None
+        self._setup_cegb(config)
+        self._setup_forced_splits(config, self.train_data)
         self._setup_engine(config, self.train_data)
         obj = self.objective
         self.is_bagging = False

@@ -1,19 +1,22 @@
-// hist_pass: the slot-keyed histogram of the frontier-v1 engine. For every
-// row r with slot s = row_slot[r] in [0, Sp), every feature f < Fp and every
-// channel c < nch:
+// hist_pass: the slot-keyed histogram of the frontier-v1 engine and of the
+// XLA engine's growers. For every row r with slot s = row_slot[r] in
+// [0, Sp), every feature f < Fp and every channel c < nch:
 //
 //     out[c, s, f, bins[r, f]] += v[r, c]
 //
 // f32 variant: v = the bf16 rounding (to nearest even) of gh[r, c], summed
 // in f32, as the TPU kernel's bf16 one-hot matmul takes it. quant variant:
 // v = the int8 channel gh[r, c] (ops/quantize.py encode_channels), summed
-// exactly in int32, so it equals its plain version bit for bit. Rows with
-// slot -1 (or >= Sp) add nothing whatever their gh; bins outside [0, Bp)
-// add nothing.
+// exactly in int32, so it equals its plain version bit for bit. unrounded
+// f32 variant (nch <= 3): v = gh[r, c] as given, summed in f32, as the XLA
+// engine's build_histograms sums its f32 channels. Rows with slot -1 (or
+// >= Sp) add nothing whatever their gh; bins outside [0, Bp) add nothing.
 //
 // Replaces: the Pallas kernel _hist_kernel (lightgbm_tpu/ops/
-// pallas_histogram.py:60, launched by _run_hist_kernel :103). Layouts are
-// the contract's: bins [R, Fp] int32 row-major, row_slot [R] int32, gh
+// pallas_histogram.py:60, launched by _run_hist_kernel :103); its unrounded
+// variant replaces no Pallas kernel: it is the XLA engine's build_histograms
+// (lightgbm_tpu/ops/histogram.py:71, segment_sum or one-hot einsum). Layouts
+// are the contract's: bins [R, Fp] int32 row-major, row_slot [R] int32, gh
 // [R, nch] f32 or int8, out [nch, Sp, Fp, Bp] f32 or int32, every cell
 // written here (the caller does not zero it). Any R: the TPU's 512-row tile
 // padding is not carried over.
@@ -41,8 +44,9 @@
 //      slot offsets.
 //   3. hist_bucket: the same blocks count their warps' rows again (kept in
 //      registers) and lay out a record per live row — its channels (bf16
-//      bits or int8 bytes) and its row index — in shared memory, in a fixed
-//      order (slot, block, warp, row: row order within a slot), then write
+//      bits, int8 bytes or f32 words) and its row index — in shared memory,
+//      in a fixed order (slot, block, warp, row: row order within a slot),
+//      then write
 //      each slot's run contiguously at its place. The fixed order makes the
 //      f32 sums below the same on every call.
 //   4. hist_tiles: grid.x blocks take even shares of the bucketed rows;
@@ -118,8 +122,14 @@ __device__ inline int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
 
+// The unrounded f32 variant's channel type: an f32 taken as it is (the
+// f32 variant's channels, plain float, are rounded to bf16).
+struct RawF32 {
+  float v;
+};
+
 // Bits of channel c of row r as the histogram takes it: the bf16 rounding
-// of an f32 channel, or the int8 byte.
+// of an f32 channel, the int8 byte, or the unrounded f32 word.
 __device__ inline uint32_t channel_bits(const float* __restrict__ gh,
                                         int64_t i) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(gh[i]));
@@ -127,6 +137,10 @@ __device__ inline uint32_t channel_bits(const float* __restrict__ gh,
 __device__ inline uint32_t channel_bits(const int8_t* __restrict__ gh,
                                         int64_t i) {
   return static_cast<uint8_t>(gh[i]);
+}
+__device__ inline uint32_t channel_bits(const RawF32* __restrict__ gh,
+                                        int64_t i) {
+  return __float_as_uint(gh[i].v);
 }
 template <typename ValT> struct ChannelCode;
 template <> struct ChannelCode<float> {
@@ -137,6 +151,16 @@ template <> struct ChannelCode<int8_t> {
   static constexpr int kBytes = 1;
   static constexpr uint32_t kNonZero = 0xFFu;
 };
+template <> struct ChannelCode<RawF32> {
+  static constexpr int kBytes = 4;
+  static constexpr uint32_t kNonZero = 0x7FFFFFFFu;
+};
+
+// Bytes of a record whose channel pack takes `pack` bytes: the pack, then
+// the row index, in 16 bytes where they fit, else 32.
+__host__ __device__ constexpr int record_bytes(int pack) {
+  return pack <= 12 ? 16 : 32;
+}
 
 // Row of step j of this thread: block x holds rows [x * kCountRows, (x +
 // 1) * kCountRows),
@@ -304,8 +328,9 @@ hist_scan_kernel(const int* __restrict__ cnt, int* __restrict__ off,
 }
 
 // Each live row's record at its place in its slot's bucket: its channel
-// pack (bf16 bits or int8 bytes, kWords = 2 or 4 words), then its row
-// index, in 16 or 32 bytes. The order is fixed: slot, block, warp, step,
+// pack (bf16 bits or int8 bytes, kWords = 2 or 4 words; unrounded f32
+// words, kWords = 3), then its row index, in 16 or 32 bytes
+// (record_bytes). The order is fixed: slot, block, warp, step,
 // lane — row order within a slot. The block first lays its 16-byte records
 // out in shared memory in that order (its rows of each slot together),
 // then writes each slot's run to its place with consecutive threads on
@@ -315,7 +340,7 @@ __global__ void __launch_bounds__(kCountThreads)
 hist_bucket_kernel(const int* __restrict__ slot, const ValT* __restrict__ gh,
                    const int* __restrict__ off, uint4* __restrict__ recs,
                    int64_t R, int lo, int Sw, int nch) {
-  constexpr int kRec = kWords / 2;            // uint4s per record
+  constexpr int kRec = record_bytes(4 * kWords) / 16;   // uint4s a record
   extern __shared__ __align__(16) int s_bucket[];
   int* s_wc = s_bucket;                       // [kCountWarps][Sw]
   int* s_start = s_wc + kCountWarps * Sw;     // [Sw + 1]: local run starts
@@ -359,8 +384,10 @@ hist_bucket_kernel(const int* __restrict__ slot, const ValT* __restrict__ gh,
     if (k[j] >= 0) {
       const int at = wc[k[j]] + __popc(m[j] & ((1u << lane) - 1u));
       const uint32_t row = static_cast<uint32_t>(step_row(j));
-      if constexpr (kRec == 1) {
+      if constexpr (kWords == 2) {
         s_rec[at] = make_uint4(w[j][0], w[j][1], row, 0u);
+      } else if constexpr (kWords == 3) {
+        s_rec[at] = make_uint4(w[j][0], w[j][1], w[j][2], row);
       } else {                 // 32-byte records: straight to their place
         const int64_t g = off[static_cast<int64_t>(k[j]) * gridDim.x +
                               blockIdx.x] + (at - s_start[k[j]]);
@@ -424,48 +451,65 @@ __device__ inline int& at(int4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// Channel c of a staged record as the accumulator adds it: the bf16 bits
-// widened to f32, or the int8 byte (one broadcast shared load each).
-template <typename AccT> struct RecChannel;
-template <> struct RecChannel<float> {
+// Channel c of a staged record as the accumulator adds it, by the
+// variant (the accumulator and the pack's bytes tell them apart): the bf16
+// bits widened to f32 (f32, packs of 8 or 16 bytes), the unrounded f32 word
+// (f32, 12-byte packs), or the int8 byte (int32). get: one broadcast shared
+// load; word: channel c's value from the 32-bit word that holds it.
+template <typename AccT, int kPack> struct RecCode;
+template <int kPack> struct RecCode<float, kPack> {
   static constexpr int kBytes = 2;
   static __device__ float get(const unsigned char* rec, int c) {
     return __uint_as_float(
         static_cast<uint32_t>(reinterpret_cast<const uint16_t*>(rec)[c])
         << 16);
   }
+  static __device__ float word(uint32_t w, int c) {
+    return __uint_as_float(c % 2 ? (w & 0xFFFF0000u) : (w << 16));
+  }
 };
-template <> struct RecChannel<int> {
+template <> struct RecCode<float, 12> {
+  static constexpr int kBytes = 4;
+  static __device__ float get(const unsigned char* rec, int c) {
+    return reinterpret_cast<const float*>(rec)[c];
+  }
+  static __device__ float word(uint32_t w, int) { return __uint_as_float(w); }
+};
+template <int kPack> struct RecCode<int, kPack> {
   static constexpr int kBytes = 1;
   static __device__ int get(const unsigned char* rec, int c) {
     return reinterpret_cast<const int8_t*>(rec)[c];
+  }
+  static __device__ int word(uint32_t w, int c) {
+    return static_cast<int>(static_cast<int8_t>(w >> (8 * (c % 4))));
   }
 };
 
 // Channels c0g .. c0g + C - 1 of a staged record: where c0g is 0 (a block
 // whose channels start at the first, as when one pass takes them all) from
 // one 8-byte shared load of the pack (a group's channels take at most 6
-// bytes), else one load per channel.
-template <typename AccT, int C, bool kFromZero>
+// bytes; 8 or 12 for unrounded f32, one 16-byte load of the record then),
+// else one load per channel.
+template <typename AccT, int kPack, int C, bool kFromZero>
 __device__ inline void rec_channels(const unsigned char* rec, int c0g,
                                     AccT (&v)[C]) {
-  constexpr int kB = RecChannel<AccT>::kBytes;
+  using Code = RecCode<AccT, kPack>;
+  constexpr int kB = Code::kBytes;
   if constexpr (kFromZero && C * kB <= 8) {
     const uint2 w = *reinterpret_cast<const uint2*>(rec);
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const uint32_t word = (c * kB) / 4 == 0 ? w.x : w.y;
-      const int sh = 8 * ((c * kB) % 4);
-      if constexpr (kB == 2) {
-        v[c] = __uint_as_float(sh ? (word & 0xFFFF0000u) : (word << 16));
-      } else {
-        v[c] = static_cast<int>(static_cast<int8_t>(word >> sh));
-      }
+      v[c] = Code::word((c * kB) / 4 == 0 ? w.x : w.y, c);
     }
+  } else if constexpr (kFromZero && kB == 4 && C <= 4) {
+    const uint4 w = *reinterpret_cast<const uint4*>(rec);
+    const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int c = 0; c < C; ++c) v[c] = Code::word(words[c], c);
   } else {
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      v[c] = RecChannel<AccT>::get(rec + (c0g + c) * kB, 0);
+      v[c] = Code::get(rec + (c0g + c) * kB, 0);
     }
   }
 }
@@ -524,7 +568,7 @@ __host__ __device__ inline size_t tile_stage_bytes(int rs, int rec) {
 // loaded before this step's tile stores (the staged chunk is read-only
 // here; a row past hi, read ahead, stays inside the block's shared memory
 // and adds nothing). Lanes past the block's features see no row.
-template <typename AccT, int C, int kRec, bool kFromZero>
+template <typename AccT, int kPack, int C, bool kFromZero>
 __device__ inline void add_rows(AccT* tile, const TileArgs& a, int c0g,
                                 const int* sb, const unsigned char* sr,
                                 int lo, int hi, int i, int n, int lane,
@@ -532,6 +576,7 @@ __device__ inline void add_rows(AccT* tile, const TileArgs& a, int c0g,
   constexpr int kVec = TileCell<C>::kVec;
   constexpr int kRest = TileCell<C>::kRest;
   constexpr int kRows = 4;
+  constexpr int kRec = record_bytes(kPack);
   using V = typename VecOf<AccT, kVec>::T;
   V* tv = reinterpret_cast<V*>(tile) + lane;
   AccT* tr = tile + a.Bw * kLanes * kVec + lane;
@@ -547,7 +592,8 @@ __device__ inline void add_rows(AccT* tile, const TileArgs& a, int c0g,
     for (int u = 0; u < kRows; ++u) {
       const int x = sbl[(p + u) * a.rs] - a.b_lo;
       b[u] = p + u < hl ? x : -1;
-      rec_channels<AccT, C, kFromZero>(sr + (p + u) * kRec, c0g, v[u]);
+      rec_channels<AccT, kPack, C, kFromZero>(sr + (p + u) * kRec, c0g,
+                                              v[u]);
     }
   };
   if (q < hi) load(q);
@@ -603,13 +649,14 @@ __device__ inline void add_rows(AccT* tile, const TileArgs& a, int c0g,
 // exact and the same on every call; the warps need no tile of their own,
 // so a block has all kTileMaxWarps of them even where a tile is wide.
 // Warp i of n adds chunk rows lo + i, lo + i + n, ... of [lo, hi).
-template <int C, int kRec, bool kFromZero>
+template <int kPack, int C, bool kFromZero>
 __device__ inline void add_rows_shared(int* tile, const TileArgs& a,
                                        int c0g, const int* sb,
                                        const unsigned char* sr, int lo,
                                        int hi, int i, int n, int lane,
                                        bool on) {
   constexpr int kRows = 4;
+  constexpr int kRec = record_bytes(kPack);
   const int* sbl = sb + lane;
   const int hl = on ? hi : lo;
   const unsigned bw = static_cast<unsigned>(a.bw);
@@ -623,7 +670,7 @@ __device__ inline void add_rows_shared(int* tile, const TileArgs& a,
       const int p = q + u * n;
       const int x = sbl[p * a.rs] - a.b_lo;
       b[u] = p < hl ? x : -1;
-      rec_channels<int, C, kFromZero>(sr + p * kRec, c0g, v[u]);
+      rec_channels<int, kPack, C, kFromZero>(sr + p * kRec, c0g, v[u]);
     }
 #pragma unroll
     for (int u = 0; u < kRows; ++u) {
@@ -696,7 +743,7 @@ hist_tiles_kernel(const int* __restrict__ bins,
   a.Bw = Bw;
   a.rs = (min(kLanes, Fp) + 3) & ~3;
   a.pack = kPack;
-  a.rec = 2 * kPack;
+  a.rec = record_bytes(kPack);
   const int bin_bytes = kChunk * a.rs * 4;
   unsigned char* srec = smem + kBinBufs * bin_bytes;   // [kRecBufs][kChunk]
   AccT* tiles0 = reinterpret_cast<AccT*>(smem +
@@ -764,20 +811,20 @@ hist_tiles_kernel(const int* __restrict__ bins,
       const int lo = static_cast<int>(s - e), hi = static_cast<int>(seg - e);
       if constexpr (kShared) {
         if (c0 == 0) {
-          add_rows_shared<CN, 2 * kPack, true>(tiles0, a, 0, sb, sr, lo, hi,
-                                               warp, n_w, lane, on);
+          add_rows_shared<kPack, CN, true>(tiles0, a, 0, sb, sr, lo, hi,
+                                           warp, n_w, lane, on);
         } else {
-          add_rows_shared<CN, 2 * kPack, false>(tiles0, a, c0, sb, sr, lo,
-                                                hi, warp, n_w, lane, on);
+          add_rows_shared<kPack, CN, false>(tiles0, a, c0, sb, sr, lo, hi,
+                                            warp, n_w, lane, on);
         }
       } else {
         AccT* tile = tiles0 + warp * Bw * CN * kLanes;
         if (c0 == 0) {
-          add_rows<AccT, CN, 2 * kPack, true>(tile, a, 0, sb, sr, lo, hi,
-                                              warp, n_w, lane, on);
+          add_rows<AccT, kPack, CN, true>(tile, a, 0, sb, sr, lo, hi, warp,
+                                          n_w, lane, on);
         } else {
-          add_rows<AccT, CN, 2 * kPack, false>(tile, a, c0, sb, sr, lo, hi,
-                                               warp, n_w, lane, on);
+          add_rows<AccT, kPack, CN, false>(tile, a, c0, sb, sr, lo, hi, warp,
+                                           n_w, lane, on);
         }
       }
       s = seg;
@@ -923,11 +970,12 @@ TileKernel<AccT> tile_kernel_of(int cn) {
 }
 
 // The tile kernel instance for cn channels per block and a pack of `pack`
-// bytes (int8 channels always fit 8).
+// bytes (int8 channels always fit 8; 12 is the unrounded f32 pack).
 template <typename AccT>
 TileKernel<AccT> tile_kernel(int cn, int pack) {
-  if constexpr (sizeof(AccT) == 4 && std::is_same<AccT, float>::value) {
+  if constexpr (std::is_same<AccT, float>::value) {
     if (pack == 16) return tile_kernel_of<AccT, 16>(cn);
+    if (pack == 12) return tile_kernel_of<AccT, 12>(cn);
   }
   return tile_kernel_of<AccT, 8>(cn);
 }
@@ -938,10 +986,10 @@ TileKernel<AccT> tile_kernel(int cn, int pack) {
 template <typename AccT>
 cudaError_t tile_occupancy(int cn, int pack, int dev, int threads,
                            size_t smem, int* occ) {
-  static LaunchCache cache[kMaxCn + 1][2][kMaxDevices];
+  static LaunchCache cache[kMaxCn + 1][3][kMaxDevices];
   static std::mutex lock;
   std::lock_guard<std::mutex> hold(lock);
-  LaunchCache& c = cache[cn][pack == 16][dev];
+  LaunchCache& c = cache[cn][pack / 4 - 2][dev];
   if (c.smem != static_cast<int>(smem)) {
     auto kern = tile_kernel<AccT>(cn, pack);
     cudaError_t e = cudaFuncSetAttribute(
@@ -971,13 +1019,14 @@ cudaError_t hist_plan(int64_t R, int Fp, int Bp, int Sw, int nch,
   cudaError_t e = device_limits(&dev, &sms, &optin);
   if (e != cudaSuccess) return e;
   HistPlan h;
-  h.pack = nch * elem_bytes <= 8 ? 8 : 16;
+  // unrounded f32 (4-byte channels, nch <= 3): always the 12-byte pack
+  h.pack = elem_bytes == 4 ? 12 : nch * elem_bytes <= 8 ? 8 : 16;
   h.nb = static_cast<int>(std::max<int64_t>(
       (R + kCountRows - 1) / kCountRows, 1));
   h.Bw = std::min(Bp, kMaxBinWidth);
   h.nbg = (Bp + h.Bw - 1) / h.Bw;
   const size_t stage = tile_stage_bytes((std::min(kLanes, Fp) + 3) & ~3,
-                                        2 * h.pack);
+                                        record_bytes(h.pack));
   double best = 0.0;
   for (int cn = std::min(nch, kMaxCn); cn >= 1; --cn) {
     const size_t tile = static_cast<size_t>(h.Bw) * cn * kLanes *
@@ -1067,7 +1116,7 @@ template <typename ValT, typename AccT>
 cudaError_t run_hist(const HistArgs& a, int stages) {
   HistPlan h;
   cudaError_t e = hist_plan<AccT>(a.R, a.Fp, a.Bp, a.Sw, a.nch,
-                                  sizeof(ValT) == 1 ? 1 : 2, &h);
+                                  ChannelCode<ValT>::kBytes, &h);
   if (e != cudaSuccess) return e;
   const int* slot = static_cast<const int*>(a.slot);
   const ValT* gh = static_cast<const ValT*>(a.gh);
@@ -1092,9 +1141,11 @@ cudaError_t run_hist(const HistArgs& a, int stages) {
   }
   if (stages & kBucketBit) {
     const size_t smem = wc_bytes + sizeof(int) * ((a.Sw + 4) & ~3) +
-                        (h.pack == 8 ? static_cast<size_t>(kCountRows) * 16
-                                     : 0);
-    if (h.pack == 8) {
+                        (record_bytes(h.pack) == 16
+                             ? static_cast<size_t>(kCountRows) * 16 : 0);
+    if constexpr (std::is_same<ValT, RawF32>::value) {
+      e = bucket_launch<ValT, 3>(smem, h.nb, a, off, recs);
+    } else if (h.pack == 8) {
       e = bucket_launch<ValT, 2>(smem, h.nb, a, off, recs);
     } else {
       e = bucket_launch<ValT, 4>(smem, h.nb, a, off, recs);
@@ -1133,8 +1184,10 @@ cudaError_t run_hist(const HistArgs& a, int stages) {
 
 // Any of the stages (1 count, 2 scan, 4 bucket, 8 tiles, 16 reduce; 31 =
 // all, in order) for the window of slots [lo, lo + Sw) (Sw <= 512) of out
-// [nch, Sp, Fp, Bp], on one stream with no host sync. quant = 0: gh f32,
-// out and part f32; quant = 1: gh int8, out and part int32. Scratch, of
+// [nch, Sp, Fp, Bp], on one stream with no host sync. quant = 0: gh f32
+// (rounded to bf16), out and part f32; quant = 1: gh int8, out and part
+// int32; quant = 2: gh f32 as given (nch <= 3), out and part f32. Scratch,
+// of
 // lgbt_hist_plan's sizes: cnt and off (int32 each), slot_off (Sw + 1
 // int32), recs (R records), part. The reduce writes every cell
 // of the window's slots. *launched gets one bit for each kernel launched,
@@ -1147,33 +1200,42 @@ extern "C" int lgbt_hist_pass(const void* bins, const void* gh,
                               int quant, int stages, void* stream,
                               int* launched) {
   *launched = 0;
-  if (Sw < 1 || Sw > lgbt::kMaxWindow || nch < 1 || nch > lgbt::kMaxCh) {
+  if (Sw < 1 || Sw > lgbt::kMaxWindow || nch < 1 || nch > lgbt::kMaxCh ||
+      quant < 0 || quant > 2 || (quant == 2 && nch > 3)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const lgbt::HistArgs a{bins, gh, slot, out, cnt, off, slot_off, recs,
                          part, R, Fp, Bp, Sp, lo, Sw, nch,
                          static_cast<cudaStream_t>(stream), launched};
   const cudaError_t e =
-      quant ? lgbt::run_hist<int8_t, int>(a, stages)
-            : lgbt::run_hist<float, float>(a, stages);
+      quant == 1 ? lgbt::run_hist<int8_t, int>(a, stages)
+      : quant == 2 ? lgbt::run_hist<lgbt::RawF32, float>(a, stages)
+                   : lgbt::run_hist<float, float>(a, stages);
   return static_cast<int>(e);
 }
 
 // The scratch one window of these arguments takes: sizes[0] the int32s of
 // cnt and of off each, [1] bytes of a record (recs holds R of them),
 // [2] part elements (4 bytes each); sizes[3] the tile kernel's row blocks,
-// [4] its channels per block, [5] its adding warps.
+// [4] its channels per block, [5] its adding warps, [6] the bytes of a
+// record's channel pack (its row index follows). quant as for
+// lgbt_hist_pass.
 extern "C" int lgbt_hist_plan(long long R, int Fp, int Bp, int Sw, int nch,
                               int quant, long long* sizes) {
   lgbt::HistPlan h;
+  if (quant < 0 || quant > 2 || (quant == 2 && nch > 3)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaError_t e =
-      quant ? lgbt::hist_plan<int>(R, Fp, Bp, Sw, nch, 1, &h)
-            : lgbt::hist_plan<float>(R, Fp, Bp, Sw, nch, 2, &h);
+      quant == 1 ? lgbt::hist_plan<int>(R, Fp, Bp, Sw, nch, 1, &h)
+                 : lgbt::hist_plan<float>(R, Fp, Bp, Sw, nch,
+                                          quant == 2 ? 4 : 2, &h);
   sizes[0] = static_cast<long long>(h.nb) * Sw;
-  sizes[1] = 2 * h.pack;
+  sizes[1] = lgbt::record_bytes(h.pack);
   sizes[2] = h.part_elems;
   sizes[3] = h.gx;
   sizes[4] = h.cn;
   sizes[5] = h.warps;
+  sizes[6] = h.pack;
   return static_cast<int>(e);
 }

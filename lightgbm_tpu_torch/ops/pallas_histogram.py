@@ -1,4 +1,5 @@
-"""The slot-keyed histogram of the frontier-v1 engine.
+"""The slot-keyed histogram of the frontier-v1 engine (and, unrounded, of
+the XLA engine: ``ops/histogram.py``).
 
 PyTorch counterpart of ``lightgbm_tpu/ops/pallas_histogram.py`` (the
 module keeps the JAX module's name so a reader finds the counterpart; it
@@ -20,7 +21,11 @@ ch < nch, ``out[ch, s, f, bins[r, f]] += v[r, ch]``, with
   kernel's ``gh.astype(bfloat16)``), summed in f32. This rounding of g, h
   and w is part of the frontier engine's numbers;
 - quant variant: ``v`` is an int8 channel from
-  :func:`ops.quantize.encode_channels`, summed exactly in int32.
+  :func:`ops.quantize.encode_channels`, summed exactly in int32;
+- unrounded f32 variant (``unrounded=True``, nch <= 3): ``v = gh[r, ch]``
+  as given, summed in f32: the XLA engine's ``build_histograms``
+  (``lightgbm_tpu/ops/histogram.py:71``), which sums its f32 channels as
+  they are. Its records on the card are ``(g, h, w, row)``, 16 bytes.
 
 Rows with slot -1 add nothing whatever their gh. Layouts: ``bins_i32``
 [R, Fp] int32 row-major (feature-padded so ``Fp * Bp % 128 == 0``),
@@ -52,7 +57,13 @@ def pad_feature_layout(num_features: int, max_bin: int) -> Tuple[int, int]:
     return feature_layout(num_features, max_bin)
 
 
-def _check(bins_i32, gh, row_slot, S, Bp, nch, quant) -> Tuple[int, int, int]:
+def _check(bins_i32, gh, row_slot, S, Bp, nch, quant,
+           unrounded=False) -> Tuple[int, int, int]:
+    if quant and unrounded:
+        raise ValueError("quant and unrounded exclude each other")
+    if unrounded and nch > 3:
+        raise ValueError(f"the unrounded f32 variant takes nch <= 3; got "
+                         f"{nch}")
     if bins_i32.dim() != 2 or bins_i32.dtype != torch.int32:
         raise ValueError("bins_i32 must be a 2-D int32 tensor; got "
                          f"{tuple(bins_i32.shape)} {bins_i32.dtype}")
@@ -76,11 +87,13 @@ def _check(bins_i32, gh, row_slot, S, Bp, nch, quant) -> Tuple[int, int, int]:
 
 def hist_pass_plain(bins_i32: torch.Tensor, gh: torch.Tensor,
                     row_slot: torch.Tensor, *, S: int, Bp: int, nch: int,
-                    quant: bool = False) -> torch.Tensor:
+                    quant: bool = False,
+                    unrounded: bool = False) -> torch.Tensor:
     """Plain PyTorch version of :func:`hist_pass`: one ``index_add_`` of
     every (slotted row, feature) pair's channels into a flat
-    [Sp*Fp*Bp, nch] buffer — exact int32 sums, or the f32 channels summed
-    in float64 and rounded once to f32."""
+    [Sp*Fp*Bp, nch] buffer — exact int32 sums, or the f32 channels (bf16-
+    rounded, or as given when ``unrounded``) summed in float64 and rounded
+    once to f32."""
     R, Fp = bins_i32.shape
     Sp = _round_up(max(S, 8), 8)
     dev = bins_i32.device
@@ -88,7 +101,7 @@ def hist_pass_plain(bins_i32: torch.Tensor, gh: torch.Tensor,
     rows = torch.nonzero((row_slot >= 0) & (row_slot < Sp)).squeeze(1)
     s = row_slot[rows].long()
     b = bins_i32[rows].long()                                     # [n, Fp]
-    vals = _values(gh[rows], quant)                               # [n, nch]
+    vals = _values(gh[rows], quant, unrounded)                    # [n, nch]
     cell = (s[:, None] * Fp + torch.arange(Fp, device=dev)) * Bp + b
     ok = (b >= 0) & (b < Bp)
     out = torch.zeros((Sp * Fp * Bp, nch), dtype=acc, device=dev)
@@ -98,10 +111,20 @@ def hist_pass_plain(bins_i32: torch.Tensor, gh: torch.Tensor,
     return out.t().reshape(nch, Sp, Fp, Bp)
 
 
-def _values(gh: torch.Tensor, quant: bool) -> torch.Tensor:
-    """The channel values the histogram adds: int8 widened to int32, or f32
-    rounded to bf16 (nearest even) and back."""
-    return gh.to(torch.int32) if quant else gh.to(torch.bfloat16).float()
+def _values(gh: torch.Tensor, quant: bool,
+            unrounded: bool = False) -> torch.Tensor:
+    """The channel values the histogram adds: int8 widened to int32, f32
+    rounded to bf16 (nearest even) and back, or (``unrounded``) f32 as
+    given."""
+    if quant:
+        return gh.to(torch.int32)
+    return gh if unrounded else gh.to(torch.bfloat16).float()
+
+
+def _variant(quant: bool, unrounded: bool) -> int:
+    """The C entries' variant code: 0 f32 (bf16-rounded), 1 int8, 2
+    unrounded f32."""
+    return 1 if quant else 2 if unrounded else 0
 
 
 # ------------------------------------------- the card's stages, plainly
@@ -184,20 +207,22 @@ HIST_WINDOW = 512     # slots per launch of the card's kernels
 
 @functools.lru_cache(maxsize=64)
 def _hist_plan(dev_index: int, R: int, Fp: int, Bp: int, Sw: int, nch: int,
-               quant: bool) -> Tuple[int, ...]:
+               variant: int) -> Tuple[int, ...]:
     """(cnt int32s, record bytes, partial elements, tile blocks, channels
-    per tile block, adding warps) of one window of Sw slots."""
+    per tile block, adding warps, channel pack bytes) of one window of Sw
+    slots."""
     import ctypes
     from .cuda_build import library
-    sizes = (ctypes.c_longlong * 6)()
+    sizes = (ctypes.c_longlong * 7)()
     with torch.cuda.device(dev_index):
-        _raise_on(library().lgbt_hist_plan(R, Fp, Bp, Sw, nch, int(quant),
+        _raise_on(library().lgbt_hist_plan(R, Fp, Bp, Sw, nch, variant,
                                            sizes), "hist_pass")
     return tuple(sizes)
 
 
 def hist_buffers(bins_i32: torch.Tensor, *, S: int, Bp: int, nch: int,
-                 quant: bool = False) -> Dict[str, object]:
+                 quant: bool = False,
+                 unrounded: bool = False) -> Dict[str, object]:
     """The output and scratch of one :func:`hist_pass` call on the card,
     sized for its widest window: the per-block slot counts and their scan,
     the slot offsets, the bucketed rows' records (channel pack, then row
@@ -207,8 +232,8 @@ def hist_buffers(bins_i32: torch.Tensor, *, S: int, Bp: int, nch: int,
     dev = bins_i32.device
     Sp = _round_up(max(S, 8), 8)
     Sw = min(Sp, HIST_WINDOW)
-    n_cnt, rec, n_part, blocks, cn, warps = _hist_plan(
-        dev.index or 0, R, Fp, Bp, Sw, nch, bool(quant))
+    n_cnt, rec, n_part, blocks, cn, warps, pack = _hist_plan(
+        dev.index or 0, R, Fp, Bp, Sw, nch, _variant(quant, unrounded))
     acc = torch.int32 if quant else torch.float32
 
     def empty(n, dtype):
@@ -218,6 +243,7 @@ def hist_buffers(bins_i32: torch.Tensor, *, S: int, Bp: int, nch: int,
             "off": empty(n_cnt, torch.int32),
             "slot_off": empty(Sw + 1, torch.int32),
             "recs": empty(R * rec // 4, torch.int32), "rec": rec,
+            "pack": pack,
             "part": empty(n_part, acc), "blocks": blocks,
             "channels_per_block": cn, "warps": warps}
 
@@ -225,11 +251,12 @@ def hist_buffers(bins_i32: torch.Tensor, *, S: int, Bp: int, nch: int,
 def bucket_rows(buf: Dict[str, object], n: int) -> torch.Tensor:
     """The row indices of the first n bucketed records of ``buf``."""
     words = buf["rec"] // 4
-    return buf["recs"][:n * words].view(n, words)[:, words // 2]
+    return buf["recs"][:n * words].view(n, words)[:, buf["pack"] // 4]
 
 
 def _hist_launch(kernels, bins_i32, gh, row_slot, buf, *, Bp: int,
-                 nch: int, quant: bool, lo: int = 0) -> None:
+                 nch: int, quant: bool, lo: int = 0,
+                 unrounded: bool = False) -> None:
     """Launch the CUDA kernels named in ``kernels`` (of HIST_KERNELS; a
     later one reads what ``buf`` holds from the earlier) for the window of
     slots [lo, lo + HIST_WINDOW) on the current stream, and count those
@@ -245,7 +272,7 @@ def _hist_launch(kernels, bins_i32, gh, row_slot, buf, *, Bp: int,
         buf["out"].data_ptr(), buf["cnt"].data_ptr(),
         buf["off"].data_ptr(), buf["slot_off"].data_ptr(),
         buf["recs"].data_ptr(), buf["part"].data_ptr(), R, Fp, Bp, Sp, lo,
-        min(HIST_WINDOW, Sp - lo), nch, int(bool(quant)), stages,
+        min(HIST_WINDOW, Sp - lo), nch, _variant(quant, unrounded), stages,
         _stream(bins_i32.device), ctypes.byref(done))
     _count_kernels(HIST_KERNELS, done.value)
     _raise_on(rc, "hist_pass")
@@ -253,19 +280,21 @@ def _hist_launch(kernels, bins_i32, gh, row_slot, buf, *, Bp: int,
 
 def hist_pass(bins_i32: torch.Tensor, gh: torch.Tensor,
               row_slot: torch.Tensor, *, S: int, Bp: int, nch: int,
-              quant: bool = False) -> torch.Tensor:
+              quant: bool = False, unrounded: bool = False) -> torch.Tensor:
     """The slot-keyed histogram (module docstring): [nch, Sp, Fp, Bp] f32,
-    or int32 when ``quant``. On the card: the five kernels of
-    ``HIST_KERNELS`` per window of up to ``HIST_WINDOW`` slots, any Bp."""
-    R, Fp, Sp = _check(bins_i32, gh, row_slot, S, Bp, nch, quant)
+    or int32 when ``quant``; ``unrounded`` takes the f32 channels as given.
+    On the card: the five kernels of ``HIST_KERNELS`` per window of up to
+    ``HIST_WINDOW`` slots, any Bp."""
+    R, Fp, Sp = _check(bins_i32, gh, row_slot, S, Bp, nch, quant, unrounded)
     if bins_i32.device.type == "cpu":
         return hist_pass_plain(bins_i32, gh, row_slot, S=S, Bp=Bp, nch=nch,
-                               quant=quant)
+                               quant=quant, unrounded=unrounded)
     _require_cuda(bins_i32, gh, row_slot)
-    buf = hist_buffers(bins_i32, S=S, Bp=Bp, nch=nch, quant=quant)
+    buf = hist_buffers(bins_i32, S=S, Bp=Bp, nch=nch, quant=quant,
+                       unrounded=unrounded)
     for lo in range(0, Sp, HIST_WINDOW):
         _hist_launch(HIST_KERNELS, bins_i32, gh, row_slot, buf, Bp=Bp,
-                     nch=nch, quant=quant, lo=lo)
+                     nch=nch, quant=quant, lo=lo, unrounded=unrounded)
     launches["hist_pass"] += 1
     return buf["out"]
 

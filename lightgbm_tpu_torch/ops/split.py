@@ -32,9 +32,18 @@ slot's interval and the gain is taken on the clipped outputs, the
 winner's outputs come back clipped (a categorical winner's too, with no
 direction), and ``monotone_penalty`` scales the net gain of monotone
 splits by the slot's depth (``leaf_depth``). Unbounded slots carry
--inf/+inf, which a clamp leaves bit-equal. The advanced mode's
-per-segment bound planes run only on the leaf-wise grower, which is not
-ported. CEGB is not ported yet.
+-inf/+inf, which a clamp leaves bit-equal. The advanced mode
+(``lightgbm_tpu/ops/split.py:259-296``, the leaf-wise grower's) gives the
+numerical scan per-(feature, bin) bound planes ``bound_lo_plane`` /
+``bound_hi_plane``: a candidate child's bound is the extremum of the plane
+over the bins it covers (prefix ``cummin``/``cummax`` for the left child,
+suffix for the right), the missing bin folded into its default side.
+
+CEGB (cost-effective gradient boosting, ref:
+cost_effective_gradient_boosting.hpp:66 DetlaGain): an ``[S, F]``
+``cegb_delta`` is subtracted from every finite per-feature gain before the
+feature choice, in the numerical and the categorical scans
+(``lightgbm_tpu/ops/split.py:412-552``).
 """
 from __future__ import annotations
 
@@ -67,6 +76,10 @@ class SplitParams(NamedTuple):
     cat_l2: float = 10.0
     cat_smooth: float = 10.0
     min_data_per_group: int = 100
+    # CEGB (ref: config.h cegb_tradeoff, cegb_penalty_split); the JAX
+    # package's SplitParams holds them after lambda_l1
+    cegb_tradeoff: float = 1.0
+    cegb_penalty_split: float = 0.0
 
 
 def threshold_l1(s, l1):
@@ -150,7 +163,11 @@ def best_numerical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
                             monotone: torch.Tensor = None,
                             bound_lo: torch.Tensor = None,
                             bound_hi: torch.Tensor = None,
-                            leaf_depth: torch.Tensor = None) -> BestSplit:
+                            leaf_depth: torch.Tensor = None,
+                            cegb_delta: torch.Tensor = None,
+                            bound_lo_plane: torch.Tensor = None,
+                            bound_hi_plane: torch.Tensor = None
+                            ) -> BestSplit:
     """Best numerical split per slot from channel-major planes.
 
     Args:
@@ -164,6 +181,10 @@ def best_numerical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
       bound_lo/bound_hi: ``[S]`` f32 per-slot output bounds (the JAX
         package's ``use_bounds``), or None; ``leaf_depth`` ``[S]`` int32
         with them, for ``monotone_penalty``.
+      cegb_delta: ``[S, F]`` f32 CEGB cost, or None.
+      bound_lo_plane/bound_hi_plane: ``[S, F, B]`` f32 advanced-mode
+        segment bounds (with the scalar bounds, which still clip the
+        winner), or None.
     """
     S, F, B = grad.shape
     p = params
@@ -230,7 +251,16 @@ def best_numerical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
               & (left_h >= p.min_sum_hessian_in_leaf)
               & (right_h >= p.min_sum_hessian_in_leaf)
               & fm3)
-        if use_bounds:
+        if bound_hi_plane is not None:
+            lo, ro = _plane_clip(
+                calculate_leaf_output(left_g, left_h, p, left_c, parent_out),
+                calculate_leaf_output(right_g, right_h, p, right_c,
+                                      parent_out),
+                bound_lo_plane, bound_hi_plane, is_pad,
+                excl_missing_mask, reverse)
+            gains = (leaf_gain_given_output(left_g, left_h, p, lo)
+                     + leaf_gain_given_output(right_g, right_h, p, ro))
+        elif use_bounds:
             # candidate outputs clipped into the slot's feasible interval,
             # the gain taken on the clipped outputs (ref:
             # monotone_constraints.hpp BasicLeafConstraints +
@@ -246,7 +276,7 @@ def best_numerical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
             gains = (leaf_gain(left_g, left_h, p, left_c, parent_out)
                      + leaf_gain(right_g, right_h, p, right_c, parent_out))
         if mono is not None:
-            if not use_bounds:
+            if not use_bounds and bound_hi_plane is None:
                 lo = calculate_leaf_output(left_g, left_h, p, left_c,
                                            parent_out)
                 ro = calculate_leaf_output(right_g, right_h, p, right_c,
@@ -301,6 +331,9 @@ def best_numerical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
         net = torch.where(torch.isfinite(g_best),
                           (g_best - shift2) * factor + shift2, g_best)
         g_best = torch.where(monotone[None, :] != 0, net, g_best)
+    if cegb_delta is not None:
+        g_best = torch.where(torch.isfinite(g_best), g_best - cegb_delta,
+                             g_best)
 
     # across features: first feature wins ties (argmax picks first max)
     f_best = torch.argmax(g_best, 1)                                 # [S]
@@ -328,13 +361,46 @@ def best_numerical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
     )
 
 
+def _plane_clip(lo, ro, lo_plane, hi_plane, is_pad, excl_missing, reverse):
+    """Candidate outputs [S, F, B] clipped by the advanced mode's segment
+    bounds (lightgbm_tpu/ops/split.py:259-296): the left child covers bins
+    <= t (prefix extrema of the planes), the right child bins > t (suffix
+    extrema); the missing bins ride the default side (left in the reverse
+    scan, right in the forward one) and fold their plane entries in."""
+    inf = torch.full((), float("inf"), dtype=lo.dtype, device=lo.device)
+    hi_pl = torch.where(is_pad, inf, hi_plane)
+    lo_pl = torch.where(is_pad, -inf, lo_plane)
+    hi_pref = torch.cummin(hi_pl, 2).values
+    lo_pref = torch.cummax(lo_pl, 2).values
+    hi_suf = torch.flip(torch.cummin(torch.flip(hi_pl, [2]), 2).values, [2])
+    lo_suf = torch.flip(torch.cummax(torch.flip(lo_pl, [2]), 2).values, [2])
+    hi_right = torch.cat([hi_suf[..., 1:], inf.expand_as(hi_suf[..., :1])],
+                         2)
+    lo_right = torch.cat([lo_suf[..., 1:], (-inf).expand_as(lo_suf[..., :1])],
+                         2)
+    mm = excl_missing & ~is_pad
+    miss_hi = torch.where(mm, hi_pl, inf).amin(2, keepdim=True)
+    miss_lo = torch.where(mm, lo_pl, -inf).amax(2, keepdim=True)
+    if reverse:
+        l_hi = torch.minimum(hi_pref, miss_hi)
+        l_lo = torch.maximum(lo_pref, miss_lo)
+        r_hi, r_lo = hi_right, lo_right
+    else:
+        l_hi, l_lo = hi_pref, lo_pref
+        r_hi = torch.minimum(hi_right, miss_hi)
+        r_lo = torch.maximum(lo_right, miss_lo)
+    return (torch.minimum(torch.maximum(lo, l_lo), l_hi),
+            torch.minimum(torch.maximum(ro, r_lo), r_hi))
+
+
 def best_categorical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
                               cnt: torch.Tensor,
                               num_bin_per_feat: torch.Tensor,
                               cat_feature_mask: torch.Tensor,
                               params: SplitParams,
                               parent_output: torch.Tensor,
-                              cat_idx: torch.Tensor = None) -> BestSplit:
+                              cat_idx: torch.Tensor = None,
+                              cegb_delta: torch.Tensor = None) -> BestSplit:
     """Best categorical split per slot (ref: feature_histogram.hpp:278-470
     FindBestThresholdCategoricalInner; lightgbm_tpu/ops/split.py:412-625).
 
@@ -361,6 +427,7 @@ def best_categorical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
       cat_idx: the categorical features' indices, ascending (a host-known
         set): the scan then runs on those planes only, with the same
         result.
+      cegb_delta: [S, F] f32 CEGB cost, or None.
 
     Returns a BestSplit whose winners are categorical (cat_flag True,
     cat_mask the left bin set, default_left False, threshold 0).
@@ -369,7 +436,9 @@ def best_categorical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
         out = best_categorical_split_cm(
             grad[:, cat_idx], hess[:, cat_idx], cnt[:, cat_idx],
             num_bin_per_feat[cat_idx], cat_feature_mask[..., cat_idx],
-            params, parent_output)
+            params, parent_output,
+            cegb_delta=(None if cegb_delta is None
+                        else cegb_delta[:, cat_idx]))
         f = out.feature
         return out._replace(feature=torch.where(
             f >= 0, cat_idx[f.clamp(min=0).long()].to(torch.int32), f))
@@ -467,6 +536,9 @@ def best_categorical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
     use_rev = g_rev > g_fwd
     g_feat = torch.where(onehot_allowed, g1,
                          torch.where(use_rev, g_rev, g_fwd))
+    if cegb_delta is not None:
+        g_feat = torch.where(torch.isfinite(g_feat), g_feat - cegb_delta,
+                             g_feat)
     cfm = (cat_feature_mask[None, :] if cat_feature_mask.dim() == 1
            else cat_feature_mask)
     g_feat = torch.where(cfm, g_feat, neg_inf)
@@ -500,8 +572,8 @@ def best_categorical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
     rg = take(tot_g) - lg
     rh = take(tot_h) - lh - eps
     rc = take(tot_c) - lc
-    l2_out = torch.where(is_onehot, torch.tensor(p.lambda_l2, device=dev),
-                         torch.tensor(l2_cat, device=dev))
+    l2_out = torch.where(is_onehot, torch.full((), p.lambda_l2, device=dev),
+                         torch.full((), l2_cat, device=dev))
     left_out = calculate_leaf_output(lg, lh, p, lc, parent_output, l2_out)
     right_out = calculate_leaf_output(rg, rh, p, rc, parent_output, l2_out)
     return BestSplit(
@@ -522,7 +594,8 @@ def best_categorical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
 def best_split_cm(grad, hess, cnt, num_bin_per_feat, missing_type,
                   default_bin, feature_mask, is_cat, params: SplitParams,
                   parent_output, cat_idx=None, monotone=None, bound_lo=None,
-                  bound_hi=None, leaf_depth=None) -> BestSplit:
+                  bound_hi=None, leaf_depth=None, cegb_delta=None,
+                  bound_lo_plane=None, bound_hi_plane=None) -> BestSplit:
     """Combined numerical + categorical best split per slot (the JAX
     package's ``best_split_cm``, ``lightgbm_tpu/ops/split.py:627-668``;
     FindBestThreshold's dispatch on bin_type, ref:
@@ -530,19 +603,22 @@ def best_split_cm(grad, hess, cnt, num_bin_per_feat, missing_type,
     indices, None when there are none: the JAX package's static
     ``has_cat``) turns on the categorical scan; a categorical winner takes
     the slot where its gain is strictly greater. Without it the result's
-    categorical fields are None. ``monotone`` and the bounds as for
+    categorical fields are None. ``monotone``, the bounds, the bound
+    planes (numerical features only) and ``cegb_delta`` as for
     :func:`best_numerical_split_cm`; under bounds a categorical winner's
     outputs are clipped too (the JAX package's winner-level clamp)."""
     ic = is_cat[None, :] if feature_mask.dim() == 2 else is_cat
     num = best_numerical_split_cm(
         grad, hess, cnt, num_bin_per_feat, missing_type, default_bin,
         feature_mask & ~ic, params, parent_output, monotone=monotone,
-        bound_lo=bound_lo, bound_hi=bound_hi, leaf_depth=leaf_depth)
+        bound_lo=bound_lo, bound_hi=bound_hi, leaf_depth=leaf_depth,
+        cegb_delta=cegb_delta, bound_lo_plane=bound_lo_plane,
+        bound_hi_plane=bound_hi_plane)
     if cat_idx is None:
         return num
     cat = best_categorical_split_cm(
         grad, hess, cnt, num_bin_per_feat, feature_mask & ic, params,
-        parent_output, cat_idx=cat_idx)
+        parent_output, cat_idx=cat_idx, cegb_delta=cegb_delta)
     if bound_lo is not None:
         cat = cat._replace(
             left_output=torch.clamp(cat.left_output, bound_lo, bound_hi),

@@ -5,7 +5,8 @@ the card.
     python3 scripts/torch_profile.py [--rows 1000000] [--rounds 3]
                                      [--path train update frontier mixed cuts
                                              eval class rank cat bundle
-                                             mono dart rf linear]
+                                             mono dart rf linear xla
+                                             xla_depthwise]
 
 Trains chip_smoke.py's configuration (1,000,000 x 28 rows of bench.py's
 synthetic data, max_bin=63, num_leaves=255) with ``Booster.update()``,
@@ -44,7 +45,11 @@ DART at LightGBM's drop defaults with ``drop_seed=4`` and RF (bagging
 0.632 every iteration, feature_fraction 0.8), both with the 250,000-row
 valid set and ``metric=["binary_logloss", "auc"]`` evaluated after every
 iteration, and ``linear_tree`` regression on the latent score z with the
-raw columns on the card. Each warms up two iterations (GOSS ten), times
+raw columns on the card; ``xla`` and ``xla_depthwise`` the XLA engine
+(``tpu_engine="xla"``, its phase 14 runs (a) and (b) without their CEGB
+costs: the leaf-wise and the depth-wise grower on the synchronous body,
+every histogram through ``hist_pass``'s unrounded f32 variant). Each
+warms up two iterations (GOSS ten), times
 ``--rounds`` more untraced, then traces ``--rounds`` more with
 ``torch.profiler`` and prints one JSON line: the wall time per iteration
 untraced and traced, the device time summed over all kernels, the
@@ -81,7 +86,8 @@ def main() -> int:
     ap.add_argument("--path", nargs="+",
                     choices=("train", "update", "frontier", "mixed",
                              "cuts", "eval", "class", "rank", "cat",
-                             "bundle", "mono", "dart", "rf", "linear"),
+                             "bundle", "mono", "dart", "rf", "linear",
+                             "xla", "xla_depthwise"),
                     default=["train", "update", "frontier", "mixed",
                              "cuts", "eval", "class", "rank", "cat",
                              "bundle", "mono", "dart", "rf", "linear"])
@@ -203,6 +209,10 @@ def main() -> int:
             valid = lgb.Dataset(Xv, label=yv, reference=ds)
         elif path == "frontier":
             p = dict(params, tpu_engine="frontier")
+        elif path in ("xla", "xla_depthwise"):
+            p = dict(params, tpu_engine="xla",
+                     grow_policy=("depthwise" if path == "xla_depthwise"
+                                  else "leafwise"))
         elif path in ("mixed", "cuts"):
             if ds_mixed is None:
                 Xm = X.copy()
@@ -292,7 +302,9 @@ def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int,
                  "epilogue" if not megastep and g._use_epilogue() else
                  "megastep"),
         "valid_rows": valid._inner.num_data if valid is not None else 0,
-        "engine": "frontier" if g.use_frontier else "fused",
+        "engine": ("frontier" if g.use_frontier else
+                   "fused" if g.use_fused else "xla"),
+        "grow_policy": g.grow_policy,
         "quant_bits": g.quant_bits,
         "adaptive_bins": getattr(g, "fused_packed", None) is not None,
         "gain_screening": g.use_screening,

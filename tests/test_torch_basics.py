@@ -60,10 +60,7 @@ def test_default_device_raises_without_cuda():
         lt.Dataset(X, label=y, params={"device_type": "cuda"}).construct()
 
 
-@pytest.mark.parametrize("params", [{"tree_learner": "data"},
-                                    {"forcedsplits_filename": "f.json"},
-                                    {"cegb_penalty_feature_lazy": [1.0] * 3},
-                                    {"cegb_penalty_split": 1.0}])
+@pytest.mark.parametrize("params", [{"tree_learner": "data"}])
 def test_unported_options_raise(params):
     X = np.random.RandomState(0).randn(64, 3)
     y = (X[:, 0] > 0).astype(float)
@@ -163,16 +160,42 @@ def test_tpu_engine_frontier_trains_the_frontier_engine(impl):
     assert bst.num_trees() == 2 and bst.models[0].num_leaves > 1
 
 
-@pytest.mark.parametrize("params,what", [
-    ({"tpu_engine": "xla"}, "tpu_engine=xla"),
+@pytest.mark.parametrize("params,want", [
+    ({"forcedsplits_filename": "f.json"}, "leafwise"),
+    ({"cegb_penalty_feature_lazy": [1.0] * 3}, "depthwise"),
+    ({"cegb_penalty_split": 1.0}, "depthwise"),
+    ({"tpu_engine": "xla"}, "leafwise"),
     ({"tpu_engine": "frontier", "tpu_histogram_impl": "segment"},
-     "tpu_histogram_impl=segment"),
+     "leafwise"),
     ({"tpu_engine": "frontier", "tpu_histogram_impl": "onehot"},
-     "tpu_histogram_impl=onehot"),
-], ids=["xla", "frontier-segment", "frontier-onehot"])
-def test_unported_engines_raise(params, what):
-    X, y = _tiny()
-    p = dict({"objective": "binary", "verbose": -1, "device_type": "cpu"},
-             **params)
-    with pytest.raises(lt.LightGBMError, match=what + ".*not ported"):
-        lt.train(p, lt.Dataset(X, label=y), num_boost_round=1)
+     "leafwise"),
+], ids=["forcedsplits_filename", "cegb_penalty_feature_lazy",
+        "cegb_penalty_split", "xla", "frontier-segment", "frontier-onehot"])
+def test_engine_resolution(params, want, tmp_path):
+    """Forced splits, CEGB, tpu_engine=xla and the frontier engine with the
+    XLA histograms (once refused as not ported) train the XLA engine's
+    grower that the JAX package resolves for them (gbdt.py:1956-2106, its
+    TPU resolution: the port's card takes a TPU's place)."""
+    import lightgbm_tpu as lj
+    X, _ = _tiny()
+    y = 10.0 * (X[:, 0] > 0)        # gains far above the CEGB costs
+    params = dict(params)
+    if "forcedsplits_filename" in params:
+        path = tmp_path / params["forcedsplits_filename"]
+        path.write_text(json.dumps({"feature": 1, "threshold": 0.0}))
+        params["forcedsplits_filename"] = str(path)
+    p = dict({"objective": "regression", "num_leaves": 7, "verbose": -1,
+              "min_data_in_leaf": 5}, **params)
+    bst = lt.train(dict(p, device_type="cpu"), lt.Dataset(X, label=y),
+                   num_boost_round=1)
+    g = bst._gbdt
+    gj = lj.Booster(dict(p), lj.Dataset(X, label=y))._gbdt
+    gj.on_tpu = True
+    gj._setup_engine(gj.config)
+    assert (g.use_fused, g.use_frontier, g.grow_policy) \
+        == (gj.use_fused, gj.use_frontier, gj.grow_policy) \
+        == (False, False, want)
+    assert g.use_cegb == gj.use_cegb == ("cegb" in str(params))
+    assert bst.models[0].num_leaves > 1
+    if "forcedsplits_filename" in params:
+        assert bst.models[0].split_feature[0] == 1

@@ -1402,3 +1402,131 @@ def test_cuda_pred_contrib_matches_cpu(cuda_device):
     np.testing.assert_allclose(got.sum(1),
                                bg.predict(X[:2000], raw_score=True),
                                rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("R,F,B,S,slots", [
+    (5000, 28, 64, 1, "random"),     # a leaf-wise step: one slot
+    (5000, 28, 64, 255, "random"),   # a depth-wise level: S = L
+    (6000, 28, 64, 1, "root"),
+    (3000, 88, 256, 64, "random"),   # bundle columns
+    (1500, 7, 16, 600, "random"),    # two windows of slots
+])
+def test_hist_pass_unrounded_matches_plain(cuda_device, R, F, B, S, slots):
+    """The XLA engine's variant: the f32 channels as given (no bf16
+    rounding), the same bits on a second call, within 1e-5 of the plain
+    version's float64 sums; the weight channel exact."""
+    bins, gh, slot, Bp = _hist_operands(R, F, B, S, 0, seed=R + S,
+                                        slots=slots)
+    kw = dict(S=S, Bp=Bp, nch=3, unrounded=True)
+    args = (bins.to(cuda_device), gh.to(cuda_device), slot.to(cuda_device))
+    out_c = tph.hist_pass(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(tph.hist_pass(*args, **kw), out_c)
+    out_p = tph.hist_pass_plain(bins, gh, slot, **kw)
+    for c in range(2):
+        np.testing.assert_allclose(
+            out_c[c].cpu().numpy(), out_p[c].numpy(), rtol=1e-5,
+            atol=1e-5 * float(out_p[c].abs().max()))
+    assert torch.equal(out_c[2].cpu(), out_p[2])
+    rounded = tph.hist_pass_plain(bins, gh, slot, S=S, Bp=Bp, nch=3)
+    assert not torch.equal(rounded[:2], out_p[:2])
+
+
+@pytest.mark.parametrize("extra", [
+    {"tpu_engine": "xla"},
+    {"tpu_engine": "xla", "grow_policy": "depthwise"},
+    {"tpu_engine": "xla", "cegb_penalty_split": 1e-4,
+     "cegb_penalty_feature_lazy": [0, 0, 0, 0, 1e-3, 1e-3, 0, 0]},
+], ids=["leafwise", "depthwise", "cegb"])
+def test_cuda_xla_engine_matches_cpu_and_repeats(cuda_device, extra):
+    """The XLA engine's growers on the card: two train() calls give the
+    same model text (no f32 atomic in hist_pass), the trees equal the
+    CPU's and the predictions agree within rtol 1e-5, atol 1e-6; every
+    histogram went through hist_pass."""
+    X, z = _slice_rows()
+    y = (z > 0).astype(float)
+    p = dict({"objective": "binary", "num_leaves": 31, "max_bin": 63,
+              "min_data_in_leaf": 20, "verbose": -1}, **extra)
+    texts, boosters = [], {}
+    for dev in ("cuda", "cuda", "cpu"):
+        tfl.reset_launch_counts()
+        bst = lt.train(dict(p, device_type=dev), lt.Dataset(X, label=y), 4)
+        if dev == "cuda":
+            texts.append(bst.model_to_string())
+            assert tfl.launches["hist_pass"] > 0
+            assert tfl.launches["level_pass"] == 0
+        boosters[dev] = bst
+    assert texts[0] == texts[1]
+    bg, bc = boosters["cuda"], boosters["cpu"]
+    for a, b in zip(bc.models, bg.models):
+        np.testing.assert_array_equal(a.split_feature, b.split_feature)
+        np.testing.assert_array_equal(a.threshold_bin, b.threshold_bin)
+    np.testing.assert_allclose(bg.predict(X, raw_score=True),
+                               bc.predict(X, raw_score=True), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("policy", ["leafwise", "depthwise"])
+def test_xla_growers_never_wait_for_the_card(cuda_device, policy,
+                                            monkeypatch, tmp_path):
+    """No operation inside either XLA grower synchronizes with the card:
+    under ``torch.cuda.set_sync_debug_mode("error")`` any that does (a
+    read to the host, a copy from pageable host memory) raises. The
+    leaf-wise run takes forced splits, the advanced monotone mode, a
+    categorical column and by-node sampling; the depth-wise run CEGB with
+    lazy costs, the intermediate mode and the same. The tree's one read,
+    its leaf count after the loop (``learner._finish``), is left to the
+    caller here. PyTorch calls the mode a prototype that does not detect
+    every synchronizing operation; the test also checks that it catches
+    ``.item()``."""
+    import json
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    from lightgbm_tpu_torch.models import learner as tlearn
+    X, z = _slice_rows()
+    X[:, 5] = np.random.RandomState(8).randint(0, 6, len(X))
+    p = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+         "min_data_in_leaf": 20, "verbose": -1, "tpu_engine": "xla",
+         "grow_policy": policy, "feature_fraction_bynode": 0.8,
+         "device_type": "cuda"}
+    mono = [1, 0, 0, 1, 0, 0, 0, 0]
+    if policy == "leafwise":
+        path = tmp_path / "forced.json"
+        path.write_text(json.dumps({"feature": 4, "threshold": 0.0,
+                                    "left": {"feature": 6,
+                                             "threshold": 0.0}}))
+        p.update(forcedsplits_filename=str(path),
+                 monotone_constraints_method="advanced")
+    else:
+        p.update(cegb_penalty_split=1e-4,
+                 cegb_penalty_feature_lazy=[0, 0, 1e-3, 0, 0, 0, 0, 1e-3],
+                 monotone_constraints_method="intermediate")
+    grower = "grow_tree_" + policy
+    real = getattr(gbdt_mod, grower)
+
+    def strict(*a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    monkeypatch.setattr(gbdt_mod, grower, strict)
+    monkeypatch.setattr(tlearn, "_finish",
+                        lambda tree, nl: tree._replace(num_leaves=nl))
+    ds = lt.Dataset(X, label=(z > 0).astype(float), categorical_feature=[5],
+                    params={"monotone_constraints": mono})
+    bst = lt.train(p, ds, 3)
+    g = bst._gbdt
+    assert g.grow_policy == policy and not g.use_fused
+    assert g.mono_mode == ("advanced" if policy == "leafwise"
+                           else "intermediate")
+    assert g.use_cegb == (policy == "depthwise")
+    assert bst.num_trees() == 3 and all(m.num_leaves > 1
+                                        for m in bst.models)
+    # the check itself catches a read to the host
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            torch.ones(1, device=cuda_device).item()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
