@@ -212,8 +212,8 @@ non-zero (it prints no result line then):
    one tree's fit redone by the device and the plain form on its own
    operands, rtol 1e-6; the fit's ms per tree; the L2 loss against 10
    rounds of constant leaves), (d) ``pred_contrib`` on (a)'s model:
-   100,000 rows on the card adding up to ``predict`` (1e-6) and equal to
-   the plain form on 200 rows (1e-9), with its seconds;
+   100,000 rows on the card adding up to the float64 walk (1e-6) and
+   equal to the plain form on 200 rows (1e-9), with its seconds;
 14. the XLA engine (``xla_train``) on phase 3's rows: (a)
    ``tpu_engine="xla"`` (the leaf-wise grower), 10 rounds: sec/iter,
    training AUC (> 0.75), predict against the trainer's scores, hist_pass
@@ -231,7 +231,34 @@ non-zero (it prints no result line then):
    along each constrained column >= -1e-6; (d) phase 11a's CSR draw cut
    to 100,000 rows (bundle columns on the leaf-wise grower), 3 rounds,
    predict on the CSR rows against the trainer's scores;
-15. the ``kernels`` line: every ported kernel and variant with its
+15. serving on the card (``serve``): (a) phase 3's configuration trained
+   for 200 rounds, served as ``live`` (binned routing through the
+   training mappers) and from its model text as ``file`` (raw float32
+   routing) by one ``PredictionService`` (max_batch_rows=1024,
+   max_delay_ms=1, min_bucket_rows=16), warmed up, then bench.py's
+   closed-loop stream (200 requests of 1-1024 float32 rows from
+   RandomState(7), the models in turns): p50/p95/p99, exactly 1.0
+   dispatch and one ``predict_pass`` launch per request, 0 compiles per
+   1,000 requests, rows/s; the same 200 submitted at once (rows/s,
+   requests per batch); (b) every response within rtol 1e-5, atol 1e-6
+   of the float64 walk (the JAX package's serving tolerance), each
+   model's routing equal to the walk's leaves (the float32 sums of the
+   leaves' values bit for bit, and three one-tree engines); (c) 20 rounds
+   on 200,000 rows of phase 10's categorical codes, served through both
+   variants (category masks on the card); (d) ``Booster.predict`` on the
+   1M rows, which takes the device predictor: its seconds, the host-side
+   binning, the kernel and the float64 walk it replaced apart, against
+   that walk (the same tolerance; its raw scores the float32 sums of the
+   walk's leaves); phases 3-14 predict through ``walk_predict``, the
+   float64 walk at any rows x trees, so their checks against predict
+   keep a reference that does not bin the rows;
+   (e) ``predict_pass`` against its plain version on the phase's operands
+   (binned and raw at 1,024 and 65,536 rows, the categorical stacks of
+   (c), a synthetic k = 3 stack): the same bits twice and equal to the
+   plain version, time per launch, plain time, bound (the rows and the
+   output, and of the stacks only the nodes, leaves and category-mask
+   rows that some row reaches);
+16. the ``kernels`` line: every ported kernel and variant with its
    wrapper calls and CUDA kernel launches on the main path where it runs
    (every level_pass, route_pass, epilogue_pass and hist_pass call in
    phases 3-13 held to one launch of each of its CUDA kernels), its
@@ -242,8 +269,9 @@ non-zero (it prints no result line then):
    layout with none, the ``mono`` rows on each phase-12 run's own
    operands, the ``dart`` rows on 13a's, the unrounded ``hist_pass`` rows
    on 14a's and 14b's with their launches, and per-kernel times of
-   ``level_pass``, ``epilogue_pass`` and ``hist_pass``;
-16. the last line: ``{"ok": true, "device": {...}}``.
+   ``level_pass``, ``epilogue_pass`` and ``hist_pass``, and the
+   ``predict_pass`` rows of phase 15 with their launches there;
+17. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package. It exits non-zero when no CUDA
 device is present.
@@ -348,6 +376,22 @@ XLA_CSR_ROUNDS = 3
 # the unrounded variant replaces no pallas_call: the XLA engine's histogram
 XLA_REPLACES = "lightgbm_tpu/ops/histogram.py:71 (build_histograms)"
 BUNDLED_COLUMNS = 88            # phase 11a's bundle columns
+SERVE_ROUNDS = 200              # phase 15: the served model's trees
+SERVE_REQUESTS = 200            # bench.py's serve stream (bench.py:1092)
+SERVE_MAX_BATCH = 1024          # request sizes 1..1024, the largest bucket
+SERVE_MIN_BUCKET = 16
+SERVE_SEED = 7
+SERVE_CAT_ROWS = 200_000        # phase 15c: phase 10's codes, cut
+SERVE_CAT_ROUNDS = 20
+SERVE_CHECK_BUCKETS = (1024, 65_536)    # phase 15e's operands
+# served probabilities against the float64 walk: the JAX package's serving
+# tolerance for float32 sums (tests/test_serve.py); the routing itself is
+# held exactly, to the float32 sums of the walk's leaves
+SERVE_RTOL = {"rtol": 1e-5, "atol": 1e-6}
+SERVE_TOL = "rtol=1e-5 atol=1e-6"
+# predict_pass replaces no pallas_call: the JAX package's stacked traversal
+PREDICT_REPLACES = ("lightgbm_tpu/models/predictor.py:69 (_run_binned_body)"
+                    ", :93 (_run_raw_body)")
 REPLACES = {
     "level_pass": "lightgbm_tpu/ops/fused_level.py:402",
     "route_pass": "lightgbm_tpu/ops/fused_level.py:575",
@@ -361,6 +405,7 @@ SOURCES = {
     "table_lookup": "lightgbm_tpu_torch/csrc/table_lookup.cu",
     "epilogue_pass": "lightgbm_tpu_torch/csrc/epilogue_pass.cu",
     "hist_pass": "lightgbm_tpu_torch/csrc/hist_pass.cu",
+    "predict_pass": "lightgbm_tpu_torch/csrc/predict_pass.cu",
 }
 
 
@@ -496,6 +541,21 @@ def ptxas_summary(report: str):
                     "spill_bytes": int(spill.group(1)) + int(spill.group(2))
                     if spill else 0})
     return out
+
+
+def walk_predict(bst, X, **kw):
+    """``bst.predict`` on the exact float64 walk, whatever its rows x
+    trees: the checks of phases 3-14 hold the trainer to it as a reference
+    of its own. At or above ``pred_device_min_work`` predict takes the
+    float32 stacked predictor, which bins the rows with the trainer's own
+    mappers, so a binning or binned-routing fault would show on both
+    sides and pass; phase 15 drives that predictor and holds it to the
+    walk."""
+    bst._pred_device_min_work = lambda: float("inf")
+    try:
+        return bst.predict(X, **kw)
+    finally:
+        del bst._pred_device_min_work
 
 
 def bound(nbytes: float, ops: float):
@@ -1413,7 +1473,7 @@ def run_eval_train(lgb, params, ds, X, y, w, e2e):
         return bst, ev
 
     def check_predict(bst, run, i=0):
-        pred = bst.predict(Xv, raw_score=True, num_iteration=-1)
+        pred = walk_predict(bst, Xv, raw_score=True, num_iteration=-1)
         got = bst.valid_scores(i).float().cpu().numpy()
         err = float(np.abs(pred - got).max())
         if not np.allclose(got, pred, rtol=1e-5, atol=1e-5):
@@ -1501,9 +1561,9 @@ def run_eval_train(lgb, params, ds, X, y, w, e2e):
                         [lgb.early_stopping(3, verbose=False)])
     rule = es_rule(ev_b, 3)
     text_trees = lgb.Booster(model_str=bst_b.model_to_string()).num_trees()
-    by_default = bst_b.predict(Xv[:10_000], raw_score=True)
-    at_best = bst_b.predict(Xv[:10_000], raw_score=True,
-                            num_iteration=bst_b.best_iteration)
+    by_default = walk_predict(bst_b, Xv[:10_000], raw_score=True)
+    at_best = walk_predict(bst_b, Xv[:10_000], raw_score=True,
+                           num_iteration=bst_b.best_iteration)
     emit({"phase": "eval_train", "run": "b", "rounds": rounds_b,
           "trees": bst_b.num_trees(), "best_iteration": bst_b.best_iteration,
           "rule_best_iteration": rule, "model_text_trees": text_trees,
@@ -1553,8 +1613,8 @@ def run_eval_train(lgb, params, ds, X, y, w, e2e):
     # (e) continued training from run (a)'s booster
     bst_e, ev_e = train(dict(params, metric=metric), 5, [dv], ["valid"],
                         init_model=bst)
-    both = (bst.predict(Xv, raw_score=True, num_iteration=-1)
-            + bst_e.predict(Xv, raw_score=True))
+    both = (walk_predict(bst, Xv, raw_score=True, num_iteration=-1)
+            + walk_predict(bst_e, Xv, raw_score=True))
     got_e = bst_e.valid_scores(0).float().cpu().numpy()
     err_e = float(np.abs(got_e - both).max())
     emit({"phase": "eval_train", "run": "e", "trees": bst_e.num_trees(),
@@ -1742,16 +1802,16 @@ def run_class_train(lgb, params, ds, y, z, w, e2e):
             ok_quality = res["train_auc"] > 0.75
         else:
             obj = extra["objective"]
-            first = class_loss(obj, bst.predict(Xs, raw_score=True,
-                                                num_iteration=1),
+            first = class_loss(obj, walk_predict(bst, Xs, raw_score=True,
+                                                 num_iteration=1),
                                labels[:100_000])
-            last = class_loss(obj, bst.predict(Xs, raw_score=True,
-                                               num_iteration=-1),
+            last = class_loss(obj, walk_predict(bst, Xs, raw_score=True,
+                                                num_iteration=-1),
                               labels[:100_000])
             res["train_loss_after_1_and_all"] = [first, last]
             ok_quality = last < first
         if name == "a":
-            prob = bst.predict(Xv)
+            prob = walk_predict(bst, Xv)
             p_true = np.clip(prob[np.arange(len(yv_mc)),
                                   yv_mc.astype(int)], 1e-15, None)
             want = float(-np.mean(np.log(p_true.astype(np.float64))))
@@ -1955,7 +2015,8 @@ def run_rank_train(lgb, base, e2e):
         g = bst._gbdt
         n_trees = bst.num_trees()
         recorded = ev["valid"]["ndcg@10"]
-        want = [ndcg_at(bst.predict(Xv, raw_score=True, num_iteration=i + 1),
+        want = [ndcg_at(walk_predict(bst, Xv, raw_score=True,
+                                     num_iteration=i + 1),
                         yv, sv, 10) for i in range(ROUNDS)]
         err = float(np.max(np.abs(np.asarray(recorded) - want)
                            / np.abs(want)))
@@ -2114,13 +2175,13 @@ def run_cat_train(lgb, params, X, y, z, e2e):
             cat_splits = [int((m.decision_type[:m.num_internal] & 1).sum())
                           for m in bst.models]
             scores = bst.train_scores().float().cpu().numpy()
-            raw = bst.predict(Xc[:n_rows], raw_score=True)
+            raw = walk_predict(bst, Xc[:n_rows], raw_score=True)
             want = scores[..., :n_rows] if k == 1 else scores[:, :n_rows].T
             pred_err = float(np.abs(raw - want).max())
             again = lgb.Booster(params={"device_type": DEVICE},
                                 model_str=bst.model_to_string())
             text_equal = bool(np.array_equal(
-                again.predict(Xc[:n_rows], raw_score=True), raw))
+                walk_predict(again, Xc[:n_rows], raw_score=True), raw))
             res = {"phase": "cat_train", "run": run,
                    "objective": p["objective"],
                    "body": ("epilogue" if run == "b" and g._use_epilogue()
@@ -2143,8 +2204,8 @@ def run_cat_train(lgb, params, X, y, z, e2e):
                 res["train_auc"] = auc(scores, labels)
                 ok_quality = res["train_auc"] > 0.75
             else:
-                first = class_loss("multiclass", bst.predict(
-                    Xc[:n_rows], raw_score=True, num_iteration=1),
+                first = class_loss("multiclass", walk_predict(
+                    bst, Xc[:n_rows], raw_score=True, num_iteration=1),
                     labels[:n_rows])
                 last = class_loss("multiclass", raw, labels[:n_rows])
                 res["train_loss_after_1_and_all"] = [first, last]
@@ -2251,7 +2312,7 @@ def run_updates(lgb, params, ds, X, y, megastep=False):
     n_trees = bst.num_trees()
     scores = bst.train_scores().float().cpu().numpy()
     train_auc = auc(scores, y)
-    pred = bst.predict(X[:100_000], raw_score=True)
+    pred = walk_predict(bst, X[:100_000], raw_score=True)
     pred_err = float(np.abs(pred - scores[:100_000]).max())
     ok_pred = bool(np.allclose(pred, scores[:100_000], rtol=1e-5,
                                atol=1e-5))
@@ -2308,7 +2369,7 @@ def run_frontier(lgb, params, ds, X, y):
     n_trees = bst.num_trees()
     scores = bst.train_scores().float().cpu().numpy()
     train_auc = auc(scores, y)
-    pred = bst.predict(X[:100_000], raw_score=True)
+    pred = walk_predict(bst, X[:100_000], raw_score=True)
     pred_err = float(np.abs(pred - scores[:100_000]).max())
     ok_pred = bool(np.allclose(pred, scores[:100_000], rtol=1e-5,
                                atol=1e-5))
@@ -2395,7 +2456,7 @@ def run_plane_cuts(lgb, params, X, y):
         n_trees = bst.num_trees()
         scores = bst.train_scores().float().cpu().numpy()
         train_auc = auc(scores, y)
-        pred = bst.predict(X[:100_000], raw_score=True)
+        pred = walk_predict(bst, X[:100_000], raw_score=True)
         pred_err = float(np.abs(pred - scores[:100_000]).max())
         ok_pred = bool(np.allclose(pred, scores[:100_000], rtol=1e-5,
                                    atol=1e-5))
@@ -2893,7 +2954,7 @@ def run_bundle_train(lgb, params):
     scores = bst.train_scores().float().cpu().numpy()
     train_auc = auc(scores, y)
     n_rows = 100_000
-    raw = bst.predict(X[:n_rows], raw_score=True)
+    raw = walk_predict(bst, X[:n_rows], raw_score=True)
     pred_err = float(np.abs(raw - scores[:n_rows]).max())
     feats = sorted({int(f) for m in bst.models
                     for f in m.split_feature[:m.num_internal]})
@@ -3004,7 +3065,7 @@ def run_bundle_train(lgb, params):
     launches, cuda, syncs = counts()
     scores = bst.train_scores().float().cpu().numpy()
     train_auc = auc(scores, y)
-    raw = bst.predict(X[:n_rows], raw_score=True)
+    raw = walk_predict(bst, X[:n_rows], raw_score=True)
     pred_err = float(np.abs(raw - scores[:n_rows]).max())
     res = {"phase": "bundle_train", "run": "c", "input": "dense",
            "rows": EFB_ROWS, "columns": X.shape[1], **_bundle_summary(bst),
@@ -3053,7 +3114,7 @@ def mono_worst_steps(bst, X, mono, seed):
                    MONO_GRID, axis=2)                 # [C, B, G, F]
     for i, c in enumerate(cols):
         Xg[i, :, :, c] = grid
-    raw = bst.predict(Xg.reshape(-1, X.shape[1]), raw_score=True)
+    raw = walk_predict(bst, Xg.reshape(-1, X.shape[1]), raw_score=True)
     steps = np.diff(raw.reshape(len(cols), MONO_BASE_ROWS, MONO_GRID),
                     axis=2) * mono[cols][:, None, None]
     return {int(c): float(v) for c, v in zip(cols, steps.min(axis=(1, 2)))}
@@ -3203,7 +3264,7 @@ def run_mono_train(lgb, params, ds, X, y, w, e2e):
     Xs = X[:API_ROWS]
     leaves, leaf_s = _timed_run(lambda: bst.predict(Xs, pred_leaf=True))
     routed = torch.stack(trainer_leaves, 1).cpu().numpy()
-    full = bst.predict(Xs, raw_score=True)
+    full = walk_predict(bst, Xs, raw_score=True)
     margin = float(np.median(np.abs(full)))
     es, es_s = _timed_run(lambda: bst.predict(
         Xs, raw_score=True, pred_early_stop=True,
@@ -3221,7 +3282,7 @@ def run_mono_train(lgb, params, ds, X, y, w, e2e):
     Xr, zr = _valid_z(API_ROWS, w, DATA_SEED + 1300)
     yr = (zr > 0).astype(np.float32)
     refit, refit_s = _timed_run(lambda: bst.refit(Xr, yr, decay_rate=0.9))
-    refit_auc = auc(refit.predict(Xr, raw_score=True), yr)
+    refit_auc = auc(walk_predict(refit, Xr, raw_score=True), yr)
     tmp = tempfile.mkdtemp()
     path = os.path.join(tmp, "phase3.bin")
     try:
@@ -3252,7 +3313,8 @@ def run_mono_train(lgb, params, ds, X, y, w, e2e):
            "importance_gain": [round(float(v), 3) for v in imp_gain],
            "refit_rows": API_ROWS, "refit_s": refit_s,
            "refit_auc": refit_auc,
-           "auc_before_refit": auc(bst.predict(Xr, raw_score=True), yr),
+           "auc_before_refit": auc(walk_predict(bst, Xr, raw_score=True),
+                                   yr),
            "cache_mb": file_mb, "save_binary_s": save_s,
            "load_binary_s": load_s, "bins_on_host_until_train": on_host,
            "cache_bins_equal": bins_equal,
@@ -3337,11 +3399,12 @@ def run_slice_train(lgb, params, ds, X, y, z, w, e2e):
     (unshrunk) and the device form redone on the call's operands equal
     the plain form there (rtol 1e-6), and the device form gives the same
     bits twice and the bits the tree kept; the fit's time per tree, and
-    the L2 loss against the same rounds with constant leaves. (d) ``pred_contrib`` on (a)'s model: the device form
-    on SHAP_ROWS rows adds up to predict (1e-6) and equals the plain form
-    on SHAP_PLAIN_ROWS rows (1e-9), pattern keys over several words there
-    (1e-12) and a second call (the same bits). Returns (each run's wrapper launches,
-    (a)'s kernel check)."""
+    the L2 loss against the same rounds with constant leaves. (d)
+    ``pred_contrib`` on (a)'s model: the device form on SHAP_ROWS rows
+    adds up to the float64 walk (1e-6) and equals the plain form on
+    SHAP_PLAIN_ROWS rows (1e-9), pattern keys over several words there
+    (1e-12) and a second call (the same bits). Returns (each run's wrapper
+    launches, (a)'s kernel check)."""
     import torch
     from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
     from lightgbm_tpu_torch.io import shap
@@ -3360,7 +3423,7 @@ def run_slice_train(lgb, params, ds, X, y, z, w, e2e):
         """(predict on CHECK_ROWS rows and on the valid rows, their worst
         gaps to the trainer's scores, averaged over n_iter)."""
         g = bst._gbdt
-        pred = bst.predict(Xc, raw_score=True)
+        pred = walk_predict(bst, Xc, raw_score=True)
         got = g.scores[0, :CHECK_ROWS].double().cpu().numpy() / n_iter
         err = float(np.abs(pred - got).max())
         if not np.allclose(pred, got, rtol=1e-5, atol=1e-5):
@@ -3368,7 +3431,7 @@ def run_slice_train(lgb, params, ds, X, y, z, w, e2e):
                                  f"trainer's scores by {err}")
         errs = {"predict_max_abs_err": err}
         if g.valid_scores:
-            pv = bst.predict(Xv, raw_score=True)
+            pv = walk_predict(bst, Xv, raw_score=True)
             gv = g.valid_scores[0][0].double().cpu().numpy() / n_iter
             errs["valid_predict_max_abs_err"] = float(np.abs(pv - gv).max())
             if not np.allclose(pv, gv, rtol=1e-5, atol=1e-5):
@@ -3579,7 +3642,10 @@ def run_slice_train(lgb, params, ds, X, y, z, w, e2e):
     bst = boosters.pop("a")
     Xs = X[:SHAP_ROWS]
     contrib, shap_s = _timed_run(lambda: bst.predict(Xs, pred_contrib=True))
-    raw = bst.predict(Xs, raw_score=True)
+    # the float64 walk SHAP adds up to (at 100,000 rows x 20 trees predict
+    # takes the float32 device predictor)
+    from lightgbm_tpu_torch.basic import host_walk_raw
+    raw = host_walk_raw(bst.models, Xs, 0, bst.num_trees(), 1, DEVICE)[0]
     add_err = float(np.abs(contrib.sum(1) - raw).max())
     Xp = X[:SHAP_PLAIN_ROWS].astype(np.float64)
     plain, plain_s = _timed_run(lambda: shap.predict_contrib_plain(
@@ -3735,7 +3801,7 @@ def run_xla_train(lgb, params, ds, X, y, w, e2e):
     launches, cuda, syncs = counts()
     res, scores = common("a", bst_a, t_all, t_one, launches, cuda, syncs,
                          ROUNDS, y)
-    pred = bst_a.predict(X[:CHECK_ROWS], raw_score=True)
+    pred = walk_predict(bst_a, X[:CHECK_ROWS], raw_score=True)
     res["predict_max_abs_err"] = float(np.abs(pred
                                               - scores[:CHECK_ROWS]).max())
     res["predict_tol"] = "rtol=1e-5 atol=1e-5"
@@ -3865,7 +3931,7 @@ def run_xla_train(lgb, params, ds, X, y, w, e2e):
     launches, cuda, syncs = counts()
     res, scores = common("d", bst_d, t_all, t_one, launches, cuda, syncs,
                          XLA_CSR_ROUNDS, ys)
-    raw = bst_d.predict(Xs, raw_score=True)
+    raw = walk_predict(bst_d, Xs, raw_score=True)
     g = bst_d._gbdt
     res.update({"input": "csr", "rows": XLA_CSR_ROWS,
                 "columns": Xs.shape[1], "use_bundles": bool(g.use_bundles),
@@ -3885,6 +3951,516 @@ def run_xla_train(lgb, params, ds, X, y, w, e2e):
     return out, checks
 
 
+
+
+def _tree_paths(lc, rc, num_leaves, N) -> np.ndarray:
+    """[L, N] mask of the internal nodes a row passes on its way to each
+    leaf of one tree (a one-leaf tree's rows read node 0 once)."""
+    L = max(int(num_leaves), 1)
+    on = np.zeros((L, N), bool)
+    if L == 1:
+        on[0, 0] = True
+        return on
+    todo = [(0, [0])]
+    while todo:
+        node, path = todo.pop()
+        for c in (int(lc[node]), int(rc[node])):
+            if c >= 0:
+                todo.append((c, path + [c]))
+            else:
+                on[~c, path] = True
+    return on
+
+
+class _PassUse:
+    """What one predict_pass run's rows need of a stack [T, N] / [T, L]:
+    the node visits, and the internal nodes and leaves that some row
+    reaches. The bound counts only those nodes' and leaves' bytes."""
+
+    def __init__(self, ops, variant):
+        from lightgbm_tpu_torch.ops.predict import FIELDS
+        o = dict(zip(FIELDS[variant], ops))
+        T, N = o["lc"].shape
+        self.visits = 0
+        self.nodes = np.zeros((T, N), bool)
+        self.leaves = np.zeros((T, o["lv"].shape[1]), bool)
+        self._paths = {}
+
+    def add(self, t, lc, rc, num_leaves, leaves):
+        """Rows reaching ``leaves`` [R] in tree ``t`` (of the stack)."""
+        if t not in self._paths:
+            self._paths[t] = _tree_paths(lc, rc, num_leaves,
+                                         self.nodes.shape[1])
+        paths = self._paths[t]
+        self.visits += int(paths.sum(1)[leaves].sum())
+        hit = np.unique(leaves)
+        self.leaves[t, hit] = True
+        self.nodes[t] |= paths[hit].any(0)
+
+    def add_models(self, models, leaves):
+        """Rows' ``leaves`` [R, T] in HostTrees ``models``."""
+        for t, m in enumerate(models):
+            self.add(t, m.left_child, m.right_child, m.num_leaves,
+                     leaves[:, t])
+
+
+def _pass_bound(enc, ops, tids, k, variant, use):
+    """The least time of one predict_pass: the bytes it must move (its
+    rows and output once, the per-feature arrays and tids whole, and of
+    the stacks only what some row reaches: the per-node fields of the
+    visited nodes, the leaf values of the reached leaves, the category
+    mask rows of the visited categorical nodes) over the memory rate,
+    against one compare per node visit and one add per row and tree
+    (this run's data) over the f32 rate."""
+    from lightgbm_tpu_torch.ops.predict import FIELDS
+    R = enc.shape[0]
+    o = dict(zip(FIELDS[variant], ops))
+    nbytes = enc.numel() * enc.element_size() + k * R * 4 \
+        + tids.numel() * 4
+    for name, a in o.items():
+        if a is None:
+            continue
+        if name == "lv":
+            nbytes += int(use.leaves.sum()) * a.element_size()
+        elif name == "cm":
+            cat = use.nodes & o["cf"].cpu().numpy()
+            nbytes += int(cat.sum()) * a.shape[2] * a.element_size()
+        elif a.dim() == 2:              # per-node fields [T, N]
+            nbytes += int(use.nodes.sum()) * a.element_size()
+        else:                           # per-feature arrays
+            nbytes += a.numel() * a.element_size()
+    return bound(nbytes, use.visits + R * tids.numel())
+
+
+def _f32_sums(models, leaves, k) -> np.ndarray:
+    """[k, R] float32 sums, in tree order, of each tree's leaf value (as
+    float32) at the given leaves [R, T]: what predict_pass computes when
+    its routing equals the leaves'."""
+    vals = np.stack([np.asarray(t.leaf_value, np.float64).astype(
+        np.float32)[leaves[:, i]] for i, t in enumerate(models)], 1)
+    out = np.zeros((k, leaves.shape[0]), np.float32)
+    for c in range(k):
+        out[c] = np.add.accumulate(vals[:, c::k], axis=1,
+                                   dtype=np.float32)[:, -1]
+    return out
+
+
+def _synthetic_stack(R, T, F, L, k, seed):
+    """A random binned stack with categorical nodes and k classes (each
+    row's bins in range, the missing bins hit often) for phase 15e."""
+    import torch
+    from lightgbm_tpu_torch.ops.predict import FIELDS
+    rng = np.random.RandomState(seed)
+    N = L - 1
+    lc = np.full((T, N), -1, np.int32)
+    rc = np.full((T, N), -1, np.int32)
+    depth = 1
+    for t in range(T):
+        left, right, slot = [], [], {0: None}
+        for i in range(N):              # split a random leaf
+            leaf = int(rng.randint(0, i + 1))
+            left.append(~leaf)
+            right.append(~(i + 1))
+            if slot[leaf] is not None:
+                node, side = slot[leaf]
+                (left if side == 0 else right)[node] = i
+            slot[leaf], slot[i + 1] = (i, 0), (i, 1)
+        lc[t], rc[t] = left, right
+        d, frontier = 0, [0]
+        while frontier:
+            d += 1
+            frontier = [c for nd in frontier for c in (left[nd], right[nd])
+                        if c >= 0]
+        depth = max(depth, d)
+    num_bin = rng.randint(8, 64, F).astype(np.int32)
+    sf = rng.randint(0, F, (T, N)).astype(np.int32)
+    default_bin = (rng.randint(0, 10**6, F) % num_bin).astype(np.int32)
+    arrays = {"sf": sf, "tb": (rng.randint(0, 10**6, (T, N))
+                               % num_bin[sf]).astype(np.int32),
+              "dl": rng.rand(T, N) < 0.5, "lc": lc, "rc": rc,
+              "lv": rng.randn(T, L).astype(np.float32),
+              "cf": rng.rand(T, N) < 0.2,
+              "cm": rng.rand(T, N, int(num_bin.max())) < 0.5,
+              "num_bin": num_bin,
+              "missing": np.resize(np.array([0, 1, 2], np.int32), F),
+              "default_bin": default_bin}
+    enc = (rng.randint(0, 10**6, (R, F)) % num_bin).astype(np.int32)
+    hit = rng.rand(R, F)
+    enc = np.where(hit < 0.1, default_bin, enc)
+    enc = np.where(hit > 0.9, num_bin - 1, enc).astype(np.int32)
+    dev = DEVICE
+    ops = tuple(torch.as_tensor(arrays[n]).to(dev)
+                for n in FIELDS["binned"])
+    tids = torch.as_tensor((np.arange(T) % k).astype(np.int32)).to(dev)
+    steps = 1 << max(1, depth.bit_length())
+    # what the rows need of the stack, for the bound: the port's per-tree
+    # routing
+    from lightgbm_tpu_torch.ops.predict import route_binned_rows_to_leaves
+    enc_t = torch.as_tensor(enc).to(dev)
+    o = dict(zip(FIELDS["binned"], ops))
+    use = _PassUse(ops, "binned")
+    for t in range(T):
+        leaves = route_binned_rows_to_leaves(
+            enc_t, o["sf"][t], o["tb"][t], o["dl"][t], o["lc"][t],
+            o["rc"][t], o["num_bin"], o["missing"], o["default_bin"], steps,
+            o["cf"][t], o["cm"][t])
+        use.add(t, lc[t], rc[t], L, leaves.cpu().numpy())
+    return enc_t, ops, tids, steps, use
+
+
+def check_predict_pass(name, enc, ops, tids, k, steps, variant, use,
+                       launches):
+    """predict_pass against its plain version on one operand set: two
+    calls give the same bits, equal to the plain version's; the device
+    time per launch (a CUDA graph of 20 calls), the plain version's one
+    call (it loops over trees and steps on the host), the bound."""
+    import torch
+    from lightgbm_tpu_torch.ops import predict as tp
+    a = tp.predict_pass(enc, ops, tids, k, steps, variant)
+    b = tp.predict_pass(enc, ops, tids, k, steps, variant)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    want = tp.predict_pass_plain(enc, ops, tids, k, steps, variant)
+    e1.record()
+    e1.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    same = bool(torch.equal(a, b))
+    equal = bool(torch.equal(a, want))
+    ms = cuda_ms(lambda: tp.predict_pass(enc, ops, tids, k, steps,
+                                         variant))
+    b_ms, b_by = _pass_bound(enc, ops, tids, k, variant, use)
+    res = {"name": name, "variant": variant,
+           "categorical": ops[list(tp.FIELDS[variant]).index("cf")]
+           is not None, "rows": int(enc.shape[0]),
+           "features": int(enc.shape[1]), "trees": int(tids.numel()),
+           "k": k, "max_steps": steps, "node_visits": use.visits,
+           "nodes_visited": int(use.nodes.sum()),
+           "leaves_reached": int(use.leaves.sum()),
+           "same_bits_twice": same, "equal_to_plain": equal,
+           "max_abs_err": float((a - want).abs().max()) if a.numel()
+           else 0.0, "kernel_ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "launches": launches}
+    emit({"phase": "kernel_check", "predict_pass": res})
+    if not (same and equal):
+        raise AssertionError(f"predict_pass {name}: twice the same bits "
+                             f"{same}, equal to the plain version {equal}")
+    return res
+
+
+def run_serve(lgb, params, ds, X, y, e2e):
+    """Phase 15: serving on the card. (a) phase 3's configuration trained
+    for SERVE_ROUNDS rounds, served as ``live`` (binned routing) and from
+    its model text as ``file`` (raw routing) by one PredictionService;
+    bench.py's closed-loop stream (200 requests of 1..1024 float32 rows
+    from RandomState(7), the models in turns) then the same 200 submitted
+    at once; (b) every response against the float64 walk; (c) a
+    categorical model served through both variants; (d) Booster.predict
+    on the 1M rows; (e) predict_pass against its plain version on the
+    phase's operands. Returns the kernels-line rows."""
+    import os
+    import tempfile
+
+    import torch
+    from lightgbm_tpu_torch.basic import host_walk_raw
+    from lightgbm_tpu_torch.ops import predict as tp
+    out_rows = []
+
+    def fit(dset, rounds, extra=None):
+        dset.params = {}
+        return _timed_run(lambda: lgb.train(dict(params, **(extra or {})),
+                                            dset, rounds))
+
+    def counts():
+        tp.reset_launch_counts()
+        return lambda: dict(tp.variant_launches)
+
+    # ---- (a) the model, the service, the closed and open loops
+    bst, train_s = fit(ds, SERVE_ROUNDS)
+    tmp = tempfile.mkdtemp()
+    path = os.path.join(tmp, "serve_model.txt")
+    bst.save_model(path)
+    svc = lgb.serve.PredictionService(
+        {"live": bst, "file": path}, max_batch_rows=SERVE_MAX_BATCH,
+        max_delay_ms=1.0, min_bucket_rows=SERVE_MIN_BUCKET,
+        batch_events=False, serve_devices=1, device_type=DEVICE)
+    (warm, warm_s) = _timed_run(svc.warmup)
+    rng = np.random.RandomState(SERVE_SEED)
+    sizes = rng.randint(1, SERVE_MAX_BATCH + 1, size=SERVE_REQUESTS)
+    mids = [("live", "file")[i % 2] for i in range(SERVE_REQUESTS)]
+    reqs = [rng.rand(int(s), X.shape[1]).astype(np.float32) for s in sizes]
+    s0 = svc.stats()
+    read = counts()
+    lat, answers = [], []
+    t0 = time.perf_counter()
+    for mid, Xq in zip(mids, reqs):
+        r0 = time.perf_counter()
+        answers.append(svc.predict(mid, Xq))
+        lat.append((time.perf_counter() - r0) * 1000.0)
+    closed_s = time.perf_counter() - t0
+    closed_launches = read()
+    s1 = svc.stats()
+    lat = np.sort(lat)
+
+    def q(p):
+        return float(lat[min(len(lat) - 1, int(p * (len(lat) - 1) + 0.5))])
+    dispatches = s1["dispatches"] - s0["dispatches"]
+    n_pass = sum(closed_launches.values())
+    closed = {"requests": SERVE_REQUESTS, "rows": int(sizes.sum()),
+              "p50_ms": q(0.50), "p95_ms": q(0.95), "p99_ms": q(0.99),
+              "dispatches_per_request": dispatches / SERVE_REQUESTS,
+              "compiles_per_1k_requests":
+                  (s1["compiles"] - s0["compiles"]) * 1000.0
+                  / SERVE_REQUESTS,
+              "rows_per_s": float(sizes.sum()) / closed_s,
+              "predict_pass_launches": closed_launches,
+              "dispatches": dispatches}
+    read = counts()
+    b0 = svc.stats()
+    t0 = time.perf_counter()
+    futs = [svc.submit(mid, Xq) for mid, Xq in zip(mids, reqs)]
+    open_answers = [f.result(timeout=600) for f in futs]
+    open_s = time.perf_counter() - t0
+    b1 = svc.stats()
+    batches = b1["batches"] - b0["batches"]
+    open_loop = {"rows_per_s": float(sizes.sum()) / open_s,
+                 "batches": batches,
+                 "requests_per_batch": SERVE_REQUESTS / max(batches, 1),
+                 "dispatches": b1["dispatches"] - b0["dispatches"],
+                 "predict_pass_launches": read()}
+
+    # ---- (b) every response against the float64 walk; the file model's
+    # routing against the walk's leaves, bit for bit
+    walk = lgb.Booster(params={"device_type": DEVICE}, model_file=path)
+    Xall = np.concatenate(reqs).astype(np.float64)
+    want = walk.predict(Xall)
+    got = np.concatenate(answers)
+    got_open = np.concatenate(open_answers)
+    err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                      1e-30)))
+    leaves = walk.predict(Xall, pred_leaf=True)
+    file_eng = svc.residency.get("file")
+    live_eng = svc.residency.get("live")
+    sums = _f32_sums(walk.models, leaves, 1)
+    file_leaves_equal = bool(np.array_equal(file_eng.predict_raw(
+        Xall.astype(np.float32)).astype(np.float32), sums))
+    live_leaves_equal = bool(np.array_equal(live_eng.predict_raw(
+        Xall.astype(np.float32)).astype(np.float32), sums))
+    tree_leaves_equal = []
+    for ti in range(3):                 # one tree at a time, exactly
+        one = lgb.serve.ServingEngine(
+            walk, max_batch_rows=SERVE_MAX_BATCH,
+            min_bucket_rows=SERVE_MAX_BATCH, start_iteration=ti,
+            num_iteration=1)
+        Xq = reqs[0]
+        lv = np.asarray(walk.models[ti].leaf_value, np.float64)[
+            walk.predict(Xq, pred_leaf=True)[:, ti]].astype(np.float32)
+        tree_leaves_equal.append(bool(np.array_equal(
+            one.predict_raw(Xq)[0].astype(np.float32), lv)))
+    res = {"phase": "serve", "run": "a", "model": "phase 3's, "
+           f"{SERVE_ROUNDS} rounds", "trees": bst.num_trees(),
+           "leaves_max": max(m.num_leaves for m in bst.models),
+           "train_s": train_s, "warmup_s": warm_s,
+           "warmed_buckets": warm["live"]["warmed"],
+           "variants": {"live": live_eng.variant, "file": file_eng.variant},
+           "max_steps": {"live": live_eng.pred.max_steps,
+                         "file": file_eng.pred.max_steps},
+           "packed_bytes": {"live": live_eng.packed_nbytes,
+                            "file": file_eng.packed_nbytes},
+           "closed_loop": closed, "open_loop": open_loop,
+           "max_rel_err_to_float64_walk": err, "tol": SERVE_TOL,
+           "open_loop_equal_to_closed": bool(np.array_equal(got_open, got)),
+           "file_routing_equal_to_walk_leaves": file_leaves_equal,
+           "live_routing_equal_to_walk_leaves": live_leaves_equal,
+           "one_tree_engines_equal_leaf_values": tree_leaves_equal,
+           "latency_ms_service": s1["latency_ms"]}
+    emit(res)
+    if not (closed["dispatches_per_request"] == 1.0
+            and closed["compiles_per_1k_requests"] == 0
+            and n_pass == dispatches == SERVE_REQUESTS):
+        raise AssertionError(f"serve (a): {closed}")
+    if not (np.allclose(got, want, **SERVE_RTOL)
+            and res["open_loop_equal_to_closed"] and file_leaves_equal
+            and live_leaves_equal and all(tree_leaves_equal)):
+        raise AssertionError(f"serve (b): relative error {err} to the "
+                             f"float64 walk, routing equal to the walk's "
+                             f"leaves: file {file_leaves_equal}, live "
+                             f"{live_leaves_equal}, {tree_leaves_equal}")
+    serve_launches = {k: closed_launches.get(k, 0)
+                      + open_loop["predict_pass_launches"].get(k, 0)
+                      for k in tp.variant_launches}
+
+    # ---- (e) operands of (a): buckets 1024 and 65,536 of the stream's
+    # rows (and of X past 1024 rows), both variants
+    checks = {}
+    X64k = np.concatenate([Xall, X[:SERVE_CHECK_BUCKETS[1]]])[
+        :SERVE_CHECK_BUCKETS[1]]
+    for eng, key in ((live_eng, "binned"), (file_eng, "raw")):
+        for R in SERVE_CHECK_BUCKETS:
+            Xr = X64k[:R]
+            enc = torch.from_numpy(eng.pred.encode(Xr)).to(DEVICE)
+            use = _PassUse(eng._ops, key)
+            use.add_models(walk.models, walk.predict(Xr, pred_leaf=True))
+            r = check_predict_pass(
+                f"{key}[R={R}]", enc, eng._ops, eng._tids, 1,
+                eng.pred.max_steps, key, use,
+                serve_launches["predict_pass:" + key])
+            checks[(key, R)] = r
+    svc.close()
+    del svc, live_eng, file_eng
+
+    # ---- (c) categorical: phase 10's codes, both variants
+    Xc = _cat_codes(X[:SERVE_CAT_ROWS], DATA_SEED + 400)
+    dc = lgb.Dataset(Xc, label=y[:SERVE_CAT_ROWS],
+                     categorical_feature=list(range(len(CAT_CARDINALITIES))),
+                     params=params).construct()
+    bst_c, cat_train_s = fit(dc, SERVE_CAT_ROUNDS)
+    path_c = os.path.join(tmp, "serve_cat.txt")
+    bst_c.save_model(path_c)
+    svc = lgb.serve.PredictionService(
+        {"cat_live": bst_c, "cat_file": path_c},
+        max_batch_rows=SERVE_MAX_BATCH, max_delay_ms=1.0,
+        min_bucket_rows=SERVE_MIN_BUCKET, batch_events=False,
+        serve_devices=1, device_type=DEVICE)
+    svc.warmup()
+    read = counts()
+    cat_reqs = [Xc[SERVE_MAX_BATCH * i:SERVE_MAX_BATCH * i + int(s)]
+                for i, s in enumerate(sizes[:20])]
+    cat_answers = [svc.predict(("cat_live", "cat_file")[i % 2], Xq)
+                   for i, Xq in enumerate(cat_reqs)]
+    cat_launches = read()
+    walk_c = lgb.Booster(params={"device_type": DEVICE}, model_file=path_c)
+    Xcall = np.concatenate(cat_reqs).astype(np.float64)
+    want_c = walk_c.predict(Xcall)
+    got_c = np.concatenate(cat_answers)
+    err_c = float(np.max(np.abs(got_c - want_c)
+                         / np.maximum(np.abs(want_c), 1e-30)))
+    leaves_c = walk_c.predict(Xcall, pred_leaf=True)
+    fc = svc.residency.get("cat_file")
+    lc_eng = svc.residency.get("cat_live")
+    cat_equal = bool(np.array_equal(
+        fc.predict_raw(Xcall.astype(np.float32)).astype(np.float32),
+        _f32_sums(walk_c.models, leaves_c, 1)))
+    cat_splits = sum(int((m.decision_type[:m.num_internal] & 1).sum())
+                     for m in bst_c.models)
+    res_c = {"phase": "serve", "run": "c", "rows": SERVE_CAT_ROWS,
+             "rounds": SERVE_CAT_ROUNDS, "train_s": cat_train_s,
+             "categorical_splits": cat_splits,
+             "variants": {"cat_live": lc_eng.variant,
+                          "cat_file": fc.variant},
+             "mask_widths": {"cat_live": int(lc_eng._ops[7].shape[2]),
+                             "cat_file": int(fc._ops[8].shape[2])},
+             "requests": len(cat_reqs), "predict_pass_launches":
+             cat_launches, "max_rel_err_to_float64_walk": err_c,
+             "tol": SERVE_TOL, "file_routing_equal_to_walk_leaves":
+             cat_equal}
+    emit(res_c)
+    if not (cat_splits > 0 and np.allclose(got_c, want_c, **SERVE_RTOL)
+            and cat_equal and cat_launches["predict_pass:binned+cat"] > 0
+            and cat_launches["predict_pass:raw+cat"] > 0):
+        raise AssertionError(f"serve (c): {res_c}")
+    for eng, key in ((lc_eng, "binned"), (fc, "raw")):
+        Xr = Xcall[:SERVE_CHECK_BUCKETS[0]]
+        enc = torch.from_numpy(eng.pred.encode(Xr)).to(DEVICE)
+        use = _PassUse(eng._ops, key)
+        use.add_models(walk_c.models, walk_c.predict(Xr, pred_leaf=True))
+        checks[(key + "+cat", SERVE_CHECK_BUCKETS[0])] = check_predict_pass(
+            f"{key}+cat[R={SERVE_CHECK_BUCKETS[0]}]", enc, eng._ops,
+            eng._tids, 1, eng.pred.max_steps, key, use,
+            cat_launches["predict_pass:" + key + "+cat"])
+    svc.close()
+    del svc, lc_eng, fc, dc, bst_c
+
+    # ---- (e) a synthetic stack of k = 3 classes (no main-path launches)
+    enc, ops, tids, steps, use = _synthetic_stack(
+        SERVE_CHECK_BUCKETS[0], 60, X.shape[1], 63, 3, seed=15)
+    checks[("k3", SERVE_CHECK_BUCKETS[0])] = check_predict_pass(
+        "binned+cat[k=3]", enc, ops, tids, 3, steps, "binned", use, 0)
+
+    # ---- (d) Booster.predict at scale: the 1M rows, 200 trees
+    read = counts()
+    pred_all, predict_s = _timed_run(lambda: bst.predict(X))
+    scale_launches = read()
+    pred = bst._device_predictor
+    enc_np, enc_s = _timed_run(lambda: pred.encode(X))
+    enc_dev, upload_s = _timed_run(
+        lambda: torch.from_numpy(enc_np).to(DEVICE))
+    ops_d, tids_d = pred.run_args(0, pred.num_trees)
+
+    def pass_d():
+        return tp.predict_pass(enc_dev, ops_d, tids_d, 1, pred.max_steps,
+                               "binned")
+    kernel_ms = cuda_ms(pass_d, reps=5, replays=3)
+    raw_d = pass_d().cpu().numpy()[0]
+    # the float64 walk this path took before pred_device_min_work was
+    # honoured, timed on the same rows and trees
+    walk_raw, walk_s = _timed_run(lambda: host_walk_raw(
+        bst.models, X, 0, bst.num_trees(), 1, DEVICE))
+    walk_all = bst.objective.convert_output(walk_raw[0])
+    err_d = float(np.max(np.abs(pred_all - walk_all)
+                         / np.maximum(np.abs(walk_all), 1e-30)))
+    # the walk's leaves: what the rows need of the stack, for the bound,
+    # and predict_pass's float32 sums bit for bit
+    use_d, bits_d = _PassUse(ops_d, "binned"), True
+    for c0 in range(0, X.shape[0], 250_000):
+        leaves_d = bst.predict(X[c0:c0 + 250_000], pred_leaf=True)
+        use_d.add_models(bst.models, leaves_d)
+        bits_d &= bool(np.array_equal(
+            raw_d[c0:c0 + 250_000], _f32_sums(bst.models, leaves_d, 1)[0]))
+    del leaves_d
+    bound_d = _pass_bound(enc_dev, ops_d, tids_d, 1, "binned", use_d)
+    res_d = {"phase": "serve", "run": "d", "rows": int(X.shape[0]),
+             "trees": bst.num_trees(), "predictor": type(pred).__name__,
+             "pred_device_min_work": bst._pred_device_min_work(),
+             "predict_s": predict_s, "host_binning_s": enc_s,
+             "float64_walk_s": walk_s,
+             "upload_s": upload_s, "kernel_ms": kernel_ms,
+             "bound_ms": bound_d[0], "bound_by": bound_d[1],
+             "node_visits": use_d.visits,
+             "nodes_visited": int(use_d.nodes.sum()),
+             "leaves_reached": int(use_d.leaves.sum()),
+             "predict_pass_launches": scale_launches,
+             "max_rel_err_to_float64_walk": err_d, "tol": SERVE_TOL,
+             "raw_equal_to_f32_sums_of_walk_leaves": bits_d}
+    emit(res_d)
+    if not (type(pred).__name__ == "DevicePredictor"
+            and sum(scale_launches.values()) > 0 and bits_d
+            and np.allclose(pred_all, walk_all, **SERVE_RTOL)):
+        raise AssertionError(f"serve (d): {res_d}")
+
+    # the kernels line's rows: each variant on (a)'s or (c)'s operands at
+    # bucket 1024 with its phase-15 launches, the k = 3 stack with none
+    for key, label in (("binned", "binned"), ("raw", "raw"),
+                       ("binned+cat", "binned,categorical"),
+                       ("raw+cat", "raw,categorical")):
+        r = checks[(key, SERVE_CHECK_BUCKETS[0])]
+        n = r["launches"] + (scale_launches.get("predict_pass:" + key, 0))
+        out_rows.append(_predict_row(f"predict_pass[{label}]", r, n))
+    out_rows.append(_predict_row("predict_pass[binned,R=65536]",
+                                 checks[("binned", SERVE_CHECK_BUCKETS[1])],
+                                 checks[("binned", SERVE_CHECK_BUCKETS[1])]
+                                 ["launches"]))
+    out_rows.append(_predict_row("predict_pass[raw,R=65536]",
+                                 checks[("raw", SERVE_CHECK_BUCKETS[1])],
+                                 checks[("raw", SERVE_CHECK_BUCKETS[1])]
+                                 ["launches"]))
+    out_rows.append(_predict_row("predict_pass[binned,categorical,k=3]",
+                                 checks[("k3", SERVE_CHECK_BUCKETS[0])], 0))
+    return out_rows
+
+
+def _predict_row(name, r, launches):
+    return {"name": name, "route": "cuda", "source": SOURCES["predict_pass"],
+            "replaces": PREDICT_REPLACES, "launches": launches,
+            "cuda_launches": {"predict_pass": launches},
+            "operands": f"{r['rows']} rows x {r['features']} features, "
+                        f"{r['trees']} trees, k={r['k']}, max_steps "
+                        f"{r['max_steps']}",
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None}
 
 
 def main() -> int:
@@ -4048,7 +4624,7 @@ def main() -> int:
     n_trees = bst.num_trees()
     scores = bst.train_scores().float().cpu().numpy()
     train_auc = auc(scores, y)
-    pred = bst.predict(X[:100_000], raw_score=True)
+    pred = walk_predict(bst, X[:100_000], raw_score=True)
     pred_err = float(np.abs(pred - scores[:100_000]).max())
     ok_pred = bool(np.allclose(pred, scores[:100_000], rtol=1e-5,
                                atol=1e-5))
@@ -4126,9 +4702,13 @@ def main() -> int:
     # ---- 14. the XLA engine: leaf-wise and depth-wise growers, CEGB,
     # forced splits, advanced monotone, bundle columns
     xla_launches, xla_checks = run_xla_train(lgb, params, ds, X, y, w, e2e)
+
+    # ---- 15. serving on the card: the stacked-tree predictor through
+    # predict_pass, Booster.predict at scale, the PredictionService
+    serve_rows = run_serve(lgb, params, ds, X, y, e2e)
     del X
 
-    # ---- 15. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
+    # ---- 16. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
     # the epilogue at Bp=64 int8, nch=5, binary, Sp=64; hist_pass at Bp=64,
     # Sp=64, f32). Launches: the train() run for the three kernels of its
     # path, update() run (a) for the epilogue, the frontier train() run for
@@ -4256,6 +4836,8 @@ def main() -> int:
                      "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
+    # predict_pass (phase 15): each variant on its phase's own operands
+    rows.extend(serve_rows)
     emit({"phase": "timing", "ms": "device time per launch: a CUDA graph "
           "of 20 wrapper calls replayed 5 times between two events, "
           "median", "plain_ms": "median of 20 (3 for the plain level, route, "
@@ -4264,7 +4846,7 @@ def main() -> int:
     emit({"kernels": rows})
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start})
 
-    # ---- 16. the result line
+    # ---- 17. the result line
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -16,9 +16,16 @@ kernels' plain PyTorch versions). A model with k trees per iteration
 
 A scipy CSR/CSC matrix is taken as it is: ``Dataset`` bins it without
 densifying (``BinnedDataset.from_sparse``: bundled at ingestion), a row
-subset slices its rows, and ``Booster.predict`` densifies it in chunks of
-``_HOST_SPARSE_CHUNK_ROWS`` rows, each routed on the device. As in the JAX
-package, sparse input takes no categorical feature and no linear tree.
+subset slices its rows, and ``Booster.predict`` densifies it in chunks
+(``_HOST_SPARSE_CHUNK_ROWS`` rows on the float64 walk, 262,144 on the
+device predictor), each routed on the device. As in the JAX package,
+sparse input takes no categorical feature and no linear tree.
+
+``Booster.predict`` at or above ``pred_device_min_work`` rows x trees
+scores through the stacked-tree device predictor (``models/predictor.py``,
+the ``predict_pass`` kernel) by the JAX package's rules; below it, the
+float64 walk (:func:`host_walk_raw`). The serving plane (``serve/``)
+shares :func:`host_walk_raw` and :func:`finalize_raw_predictions`.
 
 The rest of the JAX package's ``Booster`` and ``Dataset`` API: ``predict``
 with ``pred_leaf``, ``pred_early_stop`` and ``pred_contrib`` (TreeSHAP,
@@ -55,7 +62,7 @@ from .objective import create_objective, create_objective_from_string
 from .ops.predict import predict_leaf, predict_raw, predict_raw_early_stop
 from .utils.log import LightGBMError  # noqa: F401  (re-exported)
 
-# rows of a sparse matrix densified at once by Booster.predict
+# rows of a sparse matrix densified at once by the float64 walk
 _HOST_SPARSE_CHUNK_ROWS = 65_536
 
 
@@ -76,6 +83,51 @@ def _to_2d_numpy(data) -> np.ndarray:
     if arr.dtype == object:
         arr = arr.astype(np.float64)
     return arr
+
+
+def _row_chunks(data, device):
+    """(row slice, float64 rows on ``device``): the whole matrix, or a
+    sparse matrix's rows ``_HOST_SPARSE_CHUNK_ROWS`` at a time."""
+    if not _is_scipy_sparse(data):
+        X = _to_2d_numpy(data).astype(np.float64)
+        yield slice(0, X.shape[0]), torch.as_tensor(X, device=device)
+        return
+    csr = data.tocsr()
+    for c0 in range(0, csr.shape[0], _HOST_SPARSE_CHUNK_ROWS):
+        rows = slice(c0, c0 + _HOST_SPARSE_CHUNK_ROWS)
+        yield rows, torch.as_tensor(
+            csr[rows].toarray().astype(np.float64), device=device)
+
+
+def host_walk_raw(models, X, lo: int, hi: int, k: int,
+                  device) -> np.ndarray:
+    """Exact float64 walk over trees [lo, hi) (``lo`` a multiple of ``k``)
+    on ``device``: raw scores [k, n] (the JAX package's ``host_walk_raw``).
+    The one implementation of the walk: ``Booster.predict`` below
+    ``pred_device_min_work`` or on a model the stacked predictor cannot
+    hold, and the serving engine's degraded path, with the same bounded
+    per-chunk densify of sparse input."""
+    n = X.shape[0]
+    raw = np.zeros((k, n), np.float64)
+    for rows, Xd in _row_chunks(X, device):
+        raw[:, rows] = predict_raw(models[lo:hi], Xd, k).cpu().numpy()
+    return raw
+
+
+def finalize_raw_predictions(raw: np.ndarray, k: int, objective,
+                             average_output: bool, num_iteration: int,
+                             raw_score: bool) -> np.ndarray:
+    """Raw [k, n] scores -> the user-facing prediction: RF averaging, the
+    objective's output transform, the multiclass transpose. The one
+    implementation of the output contract: ``Booster.predict`` and the
+    serving engine both end here."""
+    if average_output and num_iteration > 0:
+        raw = raw / num_iteration
+    if not raw_score and objective is not None:
+        if k > 1:
+            return objective.convert_output(raw.T)
+        return np.asarray(objective.convert_output(raw[0]))
+    return raw[0] if k == 1 else raw.T
 
 
 class Dataset:
@@ -345,6 +397,11 @@ class Booster:
         self.label_index = 0
         self.average_output = False
         self.device = None
+        # bumped on every change to the trees: a cached device predictor
+        # of another version is stale
+        self._model_version = 0
+        self._device_predictor = None
+        self._pred_min_work_cache = None
         if train_set is not None:
             self._init_train(train_set)
         elif model_file is not None:
@@ -430,6 +487,7 @@ class Booster:
         and returns ``k * n`` values, class-major."""
         if train_set is not None and train_set is not self.train_set:
             raise LightGBMError("Replacing train_set is not supported yet")
+        self._model_version += 1
         if fobj is None:
             return self._gbdt.train_one_iter()
         if self.objective is not None:
@@ -445,11 +503,13 @@ class Booster:
         """Remove the last iteration's tree and its training- and
         valid-score contributions."""
         self._gbdt.rollback_one_iter()
+        self._model_version += 1
         return self
 
     def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
         """(ref: basic.py Booster.reset_parameter -> gbdt.cpp ResetConfig)"""
         self.params.update(params)
+        self._pred_min_work_cache = None
         if self._gbdt is not None:
             self.config.update(params)
             self._gbdt.reset_config(self.config)
@@ -532,22 +592,37 @@ class Booster:
                 pred_early_stop_freq: int = 10,
                 pred_early_stop_margin: float = 10.0,
                 **kwargs) -> np.ndarray:
-        """Predictions on raw features, routed in float64 on the device
-        (ref: basic.py:3449 Booster.predict). ``num_iteration=None`` means
-        the early-stopped best iteration where there is one, an explicit
-        value <= 0 every iteration. [n], or [n, k] with k trees per
-        iteration (the objective's softmax or per-class sigmoid applied
-        unless ``raw_score``). ``pred_leaf``: the int32 [n, trees] leaf of
-        every row in every tree. ``pred_early_stop``: a row stops taking
-        trees once its margin passes ``pred_early_stop_margin`` at a check
-        every ``pred_early_stop_freq`` iterations
+        """Predictions on raw features (ref: basic.py:3449
+        Booster.predict). ``num_iteration=None`` means the early-stopped
+        best iteration where there is one, an explicit value <= 0 every
+        iteration. [n], or [n, k] with k trees per iteration (the
+        objective's softmax or per-class sigmoid applied unless
+        ``raw_score``).
+
+        At or above ``pred_device_min_work`` rows x trees the model is
+        packed once into stacked tensors on the device
+        (``models/predictor.py``, cached until the trees change) and
+        scored in one ``predict_pass`` launch per chunk, in float32:
+        routed on the training bins when a training set is attached, else
+        on raw values in float32, which only float32 input or a
+        user-set ``pred_device_min_work`` engages. Below it, or for a
+        model the stack cannot hold (linear trees, ...), the exact
+        float64 walk on the device (:func:`host_walk_raw`).
+
+        ``pred_leaf``: the int32 [n, trees] leaf of every row in every
+        tree. ``pred_early_stop``: a row stops taking trees once its
+        margin passes ``pred_early_stop_margin`` at a check every
+        ``pred_early_stop_freq`` iterations
         (``ops.predict.predict_raw_early_stop``; not for averaged-output
         models). ``pred_contrib``: the [n, k * (F + 1)] TreeSHAP
         contributions, the expected value in column F of each class block
-        (``io.shap.predict_contrib``). An averaged-output model divides the
-        raw scores by the iterations used. A scipy sparse matrix is
-        densified ``_HOST_SPARSE_CHUNK_ROWS`` rows at a time."""
+        (``io.shap.predict_contrib``). These three walk in float64. An
+        averaged-output model divides the raw scores by the iterations
+        used. A scipy sparse matrix is densified in chunks."""
         k = self.num_tree_per_iteration
+        # float32 sources are exactly representable in the raw-value
+        # device predictor's compares; remember before the float64 cast
+        f32_input = getattr(data, "dtype", None) == np.float32
         if num_iteration is None:
             num_iteration = (self.best_iteration
                              if self.best_iteration > 0 else -1)
@@ -555,51 +630,95 @@ class Booster:
         if num_iteration <= 0:
             num_iteration = total - start_iteration
         num_iteration = min(num_iteration, total - start_iteration)
-        models = self.models[start_iteration * k:
-                             (start_iteration + num_iteration) * k]
-        n = data.shape[0] if _is_scipy_sparse(data) \
-            else _to_2d_numpy(data).shape[0]
+        lo = start_iteration * k
+        hi = (start_iteration + num_iteration) * k
+        models = self.models[lo:hi]
+        dev = self._predict_device()
+        sparse = _is_scipy_sparse(data)
+        X = data.tocsr() if sparse else _to_2d_numpy(data).astype(np.float64)
+        n = X.shape[0]
         if pred_leaf:
             out = np.zeros((n, len(models)), np.int32)
-            for rows, X in self._predict_chunks(data):
-                out[rows] = predict_leaf(models, X).cpu().numpy()
+            for rows, Xd in _row_chunks(X, dev):
+                out[rows] = predict_leaf(models, Xd).cpu().numpy()
             return out
         if pred_contrib:
             out = np.zeros((n, k * (self.max_feature_idx + 2)), np.float64)
-            for rows, X in self._predict_chunks(data):
+            for rows, Xd in _row_chunks(X, dev):
                 out[rows] = predict_contrib(
-                    models, X, k, self.max_feature_idx + 1).cpu().numpy()
+                    models, Xd, k, self.max_feature_idx + 1).cpu().numpy()
             return out
-        raw = np.zeros((k, n), np.float64)
-        for rows, X in self._predict_chunks(data):
-            if pred_early_stop and not self.average_output:
+        if pred_early_stop and not self.average_output:
+            raw = np.zeros((k, n), np.float64)
+            for rows, Xd in _row_chunks(X, dev):
                 raw[:, rows] = predict_raw_early_stop(
-                    models, X, k, int(pred_early_stop_freq),
+                    models, Xd, k, int(pred_early_stop_freq),
                     float(pred_early_stop_margin))[0].cpu().numpy()
-            else:
-                raw[:, rows] = predict_raw(models, X, k).cpu().numpy()
-        # (the JAX package's finalize_raw_predictions)
-        if self.average_output and num_iteration > 0:
-            raw = raw / num_iteration
-        if not raw_score and self.objective is not None:
-            if k > 1:
-                return self.objective.convert_output(raw.T)
-            return np.asarray(self.objective.convert_output(raw[0]))
-        return raw[0] if k == 1 else raw.T
+        else:
+            raw = self._predict_raw(X, lo, hi, f32_input)
+        return finalize_raw_predictions(raw, k, self.objective,
+                                        self.average_output, num_iteration,
+                                        raw_score)
 
-    def _predict_chunks(self, data):
-        """(row slice, float64 rows on the device): the whole matrix, or a
-        sparse matrix's rows ``_HOST_SPARSE_CHUNK_ROWS`` at a time."""
+    def _pred_device_min_work(self) -> int:
+        """The resolved ``pred_device_min_work`` (rows x trees at or above
+        which predict takes the device predictor): the training config's
+        where there is one, else the booster params' (model files)."""
+        if self.config is not None:
+            return int(self.config.pred_device_min_work)
+        if self._pred_min_work_cache is None:
+            # resolve the one key by hand: a full Config would re-run its
+            # side effects (the global log level) on every first predict
+            cached = 2_000_000
+            for key, value in self.params.items():
+                if Config.resolve_key(str(key)) == "pred_device_min_work" \
+                        and value is not None:
+                    cached = int(float(value))
+            self._pred_min_work_cache = cached
+        return self._pred_min_work_cache
+
+    def _pred_min_work_user_set(self) -> bool:
+        """Did the user set ``pred_device_min_work``? That is the opt-in
+        that lets float64 input take the float32 raw-routing device
+        path."""
+        if self.config is not None:
+            return self.config.was_set("pred_device_min_work")
+        return any(Config.resolve_key(str(key)) == "pred_device_min_work"
+                   for key in self.params)
+
+    def _predict_raw(self, X, lo: int, hi: int,
+                     f32_input: bool = False) -> np.ndarray:
+        """Raw scores [k, n] float64 (the JAX package's ``_predict_raw``):
+        the device predictor at or above ``pred_device_min_work`` rows x
+        trees (binned routing with a training set; raw routing only for
+        float32 input or a user-set threshold), else the float64 walk."""
+        n = X.shape[0]
+        k = self.num_tree_per_iteration
         dev = self._predict_device()
-        if not _is_scipy_sparse(data):
-            X = _to_2d_numpy(data).astype(np.float64)
-            yield slice(0, X.shape[0]), torch.as_tensor(X, device=dev)
-            return
-        csr = data.tocsr()
-        for c0 in range(0, csr.shape[0], _HOST_SPARSE_CHUNK_ROWS):
-            rows = slice(c0, c0 + _HOST_SPARSE_CHUNK_ROWS)
-            yield rows, torch.as_tensor(
-                csr[rows].toarray().astype(np.float64), device=dev)
+        if n * max(hi - lo, 1) >= self._pred_device_min_work():
+            has_train = (self.train_set is not None
+                         and self.train_set._inner is not None)
+            if not has_train and not f32_input \
+                    and not self._pred_min_work_user_set():
+                return host_walk_raw(self.models, X, lo, hi, k, dev)
+            pred = self._device_predictor
+            if pred is None or pred.model_version != self._model_version:
+                from .models.predictor import (DevicePredictor,
+                                               RawDevicePredictor)
+                if has_train:
+                    pred = DevicePredictor(self.models,
+                                           self.train_set._inner, k)
+                else:
+                    pred = RawDevicePredictor(self.models,
+                                              self.max_feature_idx + 1, k,
+                                              device=dev)
+                # failed packs are cached too: the decision is per model
+                # state, and a rescan per call would tax repeated predicts
+                pred.model_version = self._model_version
+                self._device_predictor = pred
+            if pred.ok:
+                return pred.predict_raw(X, lo, hi)
+        return host_walk_raw(self.models, X, lo, hi, k, dev)
 
     def _predict_device(self):
         if self.device is None:
@@ -709,6 +828,7 @@ class Booster:
                 + (1.0 - decay_rate) * new_out, t.leaf_value[:L])
             scores[tid] += torch.as_tensor(
                 t.leaf_value, dtype=torch.float64, device=X.device)[leaves]
+        new._model_version += 1
         return new
 
     def reset_training_data(self, train_set: "Dataset") -> "Booster":
@@ -758,6 +878,7 @@ class Booster:
                 g.scores[idx % k], g.train_data.bins_dev, ht, bundle=bundle)
         g.iter = len(post) // k
         self.models = g.models
+        self._model_version += 1
         return self
 
     def refit_by_leaf_preds(self, leaf_preds: np.ndarray) -> "Booster":
@@ -771,6 +892,7 @@ class Booster:
                 "reset_training_data()/LGBM_BoosterResetTrainingData first")
         self._gbdt.refit_by_leaf_preds(np.asarray(leaf_preds, np.int32)
                                        .reshape(self._gbdt.num_data, -1))
+        self._model_version += 1
         return self
 
     def _load_model_string(self, model_str: str) -> None:

@@ -29,10 +29,21 @@ are plain torch.
 :func:`predict_leaf` take linear trees too: they route as any other tree,
 and :func:`tree_outputs` gives their per-row linear outputs
 (``ops/linear.py``).
+
+:func:`predict_pass` is the stacked traversal of the device predictor
+(``models/predictor.py``; the JAX package's ``_run_binned_body`` /
+``_run_raw_body``): every row through every tree of a packed ``[T, N]``
+stack, leaf values summed per class in float32, in one launch of the
+hand-written CUDA kernel ``csrc/predict_pass.cu``. Its plain version
+:func:`predict_pass_plain` routes tree by tree through
+:func:`route_binned_rows_to_leaves` or, in float32 against thresholds
+pre-rounded by ``models.predictor.threshold_to_f32``,
+:func:`route_raw_rows_to_leaves`; it is a different function from the
+float64 walk of :func:`predict_raw`, which stays exact.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -40,6 +51,32 @@ import torch
 from .linear import linear_leaf_outputs
 
 K_ZERO_THRESHOLD = 1e-35
+
+# predict_pass's operands after the encoded rows, per variant (the order of
+# the JAX package's run_args without tids)
+BINNED_FIELDS = ("sf", "tb", "dl", "lc", "rc", "lv", "cf", "cm", "num_bin",
+                 "missing", "default_bin")
+RAW_FIELDS = ("sf", "th", "dl", "mt", "lc", "rc", "lv", "cf", "cm")
+FIELDS = {"binned": BINNED_FIELDS, "raw": RAW_FIELDS}
+_DTYPES = {"sf": torch.int32, "tb": torch.int32, "th": torch.float32,
+           "dl": torch.bool, "mt": torch.int32, "lc": torch.int32,
+           "rc": torch.int32, "lv": torch.float32, "cf": torch.bool,
+           "cm": torch.bool, "num_bin": torch.int32, "missing": torch.int32,
+           "default_bin": torch.int32}
+
+# predict_pass wrapper calls and CUDA kernel launches since the last reset
+# (CPU calls never count), beside ops/fused_level's counters; and the calls
+# by variant, "+cat" where the stack has categorical nodes
+launches: Dict[str, int] = {"predict_pass": 0}
+cuda_launches: Dict[str, int] = {"predict_pass": 0}
+variant_launches: Dict[str, int] = dict.fromkeys(
+    ["predict_pass:" + v + c for v in FIELDS for c in ("", "+cat")], 0)
+
+
+def reset_launch_counts() -> None:
+    for counts in (launches, cuda_launches, variant_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def route_raw_rows_to_leaves(values: torch.Tensor,
@@ -53,8 +90,10 @@ def route_raw_rows_to_leaves(values: torch.Tensor,
                              cat_flag: torch.Tensor = None,
                              cat_mask: torch.Tensor = None) -> torch.Tensor:
     """Leaf index per row for one tree (child >= 0 internal node, < 0 is
-    ~leaf). ``values`` [R, F] float64; per-node arrays [N]; ``max_steps``
-    must be >= the tree's depth. ``cat_flag`` [N] and ``cat_mask`` [N, C]
+    ~leaf). ``values`` [R, F] and ``threshold`` [N] of one dtype: float64
+    for the exact walk, float32 with ``threshold_to_f32`` thresholds for
+    :func:`predict_pass_plain`; per-node arrays [N]; ``max_steps`` must be
+    >= the tree's depth. ``cat_flag`` [N] and ``cat_mask`` [N, C]
     (indexed by the integer category value) route the categorical
     nodes."""
     R = values.shape[0]
@@ -266,3 +305,113 @@ def predict_raw_early_stop(models: List, X: torch.Tensor, k: int,
                 done = (top[0] - top[1]) > margin
             active &= ~done
     return raw, active
+
+
+# ----------------------------------------------------- the stacked traversal
+def _check_pass_inputs(enc, packed, tids, k, variant):
+    if variant not in FIELDS:
+        raise ValueError(f"variant must be 'binned' or 'raw', not {variant!r}")
+    names = FIELDS[variant]
+    if len(packed) != len(names):
+        raise ValueError(f"a {variant} stack has {len(names)} operands "
+                         f"{names}, got {len(packed)}")
+    want = torch.float32 if variant == "raw" else torch.int32
+    if enc.dim() != 2 or enc.dtype != want:
+        raise ValueError(f"enc must be [R, F] {want} for the {variant} "
+                         f"variant, got {tuple(enc.shape)} {enc.dtype}")
+    ops = dict(zip(names, packed))
+    for name, a in ops.items():
+        if a is None:
+            if name not in ("cf", "cm"):
+                raise ValueError(f"operand {name} is missing")
+            continue
+        if a.dtype != _DTYPES[name] or a.device != enc.device:
+            raise ValueError(f"operand {name} must be {_DTYPES[name]} on "
+                             f"{enc.device}, got {a.dtype} on {a.device}")
+    if (ops["cf"] is None) != (ops["cm"] is None):
+        raise ValueError("cf and cm come together")
+    T, N = ops["sf"].shape
+    F = enc.shape[1]
+    for name, a in ops.items():
+        if a is None:
+            continue
+        lead = (F,) if name in ("num_bin", "missing", "default_bin") \
+            else (T,) if name == "lv" else (T, N)
+        ndim = {"lv": 2, "cm": 3}.get(name, len(lead))
+        if a.dim() != ndim or tuple(a.shape[:len(lead)]) != lead:
+            raise ValueError(f"operand {name} must be {lead} + "
+                             f"{ndim - len(lead)} more dims, got "
+                             f"{tuple(a.shape)}")
+    if tids.dtype != torch.int32 or tuple(tids.shape) != (T,) \
+            or tids.device != enc.device:
+        raise ValueError(f"tids must be [{T}] int32 on {enc.device}")
+    if k < 1:
+        raise ValueError("k must be >= 1")
+    return ops
+
+
+def predict_pass_plain(enc: torch.Tensor, packed: Sequence, tids: torch.Tensor,
+                       k: int, max_steps: int, variant: str) -> torch.Tensor:
+    """Plain version of :func:`predict_pass`: per tree, its leaves through
+    :func:`route_binned_rows_to_leaves` (``variant="binned"``) or
+    :func:`route_raw_rows_to_leaves` in float32 (``"raw"``), then
+    ``raw[tids[t]] += lv[t][leaves]`` in float32, in tree order (the JAX
+    package's ``_run_binned_body`` / ``_run_raw_body``). Returns [k, R]
+    float32 on ``enc``'s device."""
+    ops = _check_pass_inputs(enc, packed, tids, k, variant)
+    R = enc.shape[0]
+    raw = torch.zeros((k, R), dtype=torch.float32, device=enc.device)
+    cf, cm = ops["cf"], ops["cm"]
+    for t, tid in enumerate(tids.tolist()):
+        cat = () if cf is None else (cf[t], cm[t])
+        if variant == "binned":
+            leaves = route_binned_rows_to_leaves(
+                enc, ops["sf"][t], ops["tb"][t], ops["dl"][t], ops["lc"][t],
+                ops["rc"][t], ops["num_bin"], ops["missing"],
+                ops["default_bin"], max_steps, *cat)
+        else:
+            leaves = route_raw_rows_to_leaves(
+                enc, ops["sf"][t].long(), ops["th"][t], ops["dl"][t],
+                ops["mt"][t], ops["lc"][t], ops["rc"][t], max_steps, *cat)
+        raw[tid] += ops["lv"][t][leaves]
+    return raw
+
+
+def predict_pass(enc: torch.Tensor, packed: Sequence, tids: torch.Tensor,
+                 k: int, max_steps: int, variant: str) -> torch.Tensor:
+    """Raw scores [k, R] float32 of a packed tree stack (``packed`` holds
+    the operands of ``FIELDS[variant]`` in order; ``cf``/``cm`` None
+    without categorical nodes) on the encoded rows ``enc`` [R, F] (int32
+    bins for ``"binned"``, float32 values for ``"raw"``); tree t adds to
+    class ``tids[t]``; ``max_steps`` >= every tree's depth. On a CPU tensor
+    the plain version; on the card one launch of ``csrc/predict_pass.cu``
+    on the current stream (the same bits), or it raises."""
+    ops = _check_pass_inputs(enc, packed, tids, k, variant)
+    if enc.device.type == "cpu":
+        return predict_pass_plain(enc, packed, tids, k, max_steps, variant)
+    from .cuda_build import library
+    from .fused_level import _raise_on, _require_cuda, _stream
+    _require_cuda(enc, tids, *(a for a in ops.values() if a is not None))
+    R, F = enc.shape
+    T, N = ops["sf"].shape
+    cm = ops["cm"]
+    out = torch.empty((k, R), dtype=torch.float32, device=enc.device)
+    if R == 0:
+        return out
+
+    def ptr(name) -> Optional[int]:
+        a = ops.get(name)
+        return None if a is None else a.data_ptr()
+    rc = library().lgbt_predict_pass(
+        enc.data_ptr(), int(variant == "raw"), R, F, T, N,
+        ops["lv"].shape[1], 0 if cm is None else cm.shape[2], k, max_steps,
+        ptr("sf"), ptr("th" if variant == "raw" else "tb"), ptr("dl"),
+        ptr("mt"), ptr("lc"), ptr("rc"), ptr("lv"), tids.data_ptr(),
+        ptr("cf"), ptr("cm"), ptr("num_bin"), ptr("missing"),
+        ptr("default_bin"), out.data_ptr(), _stream(enc.device))
+    _raise_on(rc, "predict_pass")
+    launches["predict_pass"] += 1
+    cuda_launches["predict_pass"] += 1
+    variant_launches["predict_pass:" + variant
+                     + ("" if cm is None else "+cat")] += 1
+    return out

@@ -89,7 +89,14 @@ def test_port_imports_no_jax():
             "lightgbm_tpu_torch.utils.dcg",
             "lightgbm_tpu_torch.utils.random",
             "lightgbm_tpu_torch.ops.efb", "lightgbm_tpu_torch.io.shap",
-            "lightgbm_tpu_torch.ops.linear"} <= set(_port_modules())
+            "lightgbm_tpu_torch.ops.linear",
+            "lightgbm_tpu_torch.models.predictor",
+            "lightgbm_tpu_torch.obs.registry",
+            "lightgbm_tpu_torch.obs.reqtrace",
+            "lightgbm_tpu_torch.serve.engine",
+            "lightgbm_tpu_torch.serve.batcher",
+            "lightgbm_tpu_torch.serve.residency",
+            "lightgbm_tpu_torch.serve.service"} <= set(_port_modules())
     code = (
         "import importlib, json, sys\n"
         f"for m in {_port_modules()!r} + ['chip_smoke']:\n"

@@ -17,7 +17,7 @@ from lightgbm_tpu_torch.ops import pallas_histogram as tph
 from lightgbm_tpu_torch.ops import quantize as tq
 from lightgbm_tpu_torch.ops.layout import feature_layout
 from torch_parity import (cat_route_table, kernel_slabs, level_operands,
-                          odd_route_table)
+                          odd_route_table, random_stack)
 
 pytestmark = pytest.mark.cuda
 
@@ -1530,3 +1530,95 @@ def test_xla_growers_never_wait_for_the_card(cuda_device, policy,
             torch.ones(1, device=cuda_device).item()
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+def _stack_tensors(variant, device, **kw):
+    from lightgbm_tpu_torch.ops.predict import FIELDS
+    enc, arrays, tids, steps = random_stack(variant, **kw)
+
+    def t(a):
+        return None if a is None else torch.as_tensor(a).to(device)
+    return (t(enc), tuple(t(arrays[n]) for n in FIELDS[variant]),
+            t(tids), steps)
+
+
+@pytest.mark.parametrize("variant", ["binned", "raw"])
+@pytest.mark.parametrize("cat,k", [(False, 1), (True, 1), (False, 3),
+                                   (True, 3), (True, 9)])
+def test_predict_pass_matches_plain(cuda_device, variant, cat, k):
+    """The stacked traversal on the card gives the plain version's bits,
+    twice (no atomics; class sums in tree order); k = 9 takes the
+    accumulator in the output column instead of registers."""
+    from lightgbm_tpu_torch.ops import predict as tpred
+    enc, ops, tids, steps = _stack_tensors(variant, "cpu", R=3000, T=24,
+                                           k=k, cat=cat, seed=k + 2 * cat)
+    want = tpred.predict_pass_plain(enc, ops, tids, k, steps, variant)
+    dev = [None if a is None else a.to(cuda_device) for a in ops]
+    n0 = dict(tpred.launches)
+    a = tpred.predict_pass(enc.to(cuda_device), dev, tids.to(cuda_device),
+                           k, steps, variant)
+    b = tpred.predict_pass(enc.to(cuda_device), dev, tids.to(cuda_device),
+                           k, steps, variant)
+    torch.cuda.synchronize()
+    assert tpred.launches["predict_pass"] - n0["predict_pass"] == 2
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), want)
+
+
+def test_predict_pass_raises_on_bad_operands(cuda_device):
+    """On a CUDA tensor the wrapper launches or raises: an operand left on
+    the CPU is refused, never routed to the plain version."""
+    from lightgbm_tpu_torch.ops import predict as tpred
+    enc, ops, tids, steps = _stack_tensors("raw", "cpu", R=64)
+    with pytest.raises(ValueError):
+        tpred.predict_pass(enc.to(cuda_device), ops, tids, 1, steps, "raw")
+
+
+def test_service_on_card_one_launch_per_dispatch(cuda_device, tmp_path):
+    """A service on the card: after warmup, every request is one dispatch
+    and one predict_pass launch, no new signature, and the answers agree
+    with the float64 walk (rtol 1e-5); the file model's leaves are the
+    walk's on float32 input."""
+    from lightgbm_tpu_torch.ops import predict as tpred
+    X, z = _slice_rows()
+    X = X.astype(np.float32)
+    bst = lt.train({"objective": "binary", "num_leaves": 31, "verbose": -1,
+                    "device_type": "cuda"},
+                   lt.Dataset(X, label=(z > 0).astype(float)), 8)
+    path = str(tmp_path / "m.txt")
+    bst.save_model(path)
+    svc = lt.serve.PredictionService({"live": bst, "file": path},
+                                     max_batch_rows=256, min_bucket_rows=16,
+                                     max_delay_ms=1.0, serve_devices=1)
+    try:
+        svc.warmup()
+        s0 = svc.stats()
+        n0 = tpred.launches["predict_pass"]
+        rng = np.random.RandomState(3)
+        walk = lt.Booster(params={"device_type": "cuda"},
+                          model_file=path)
+        for i, rows in enumerate([1, 7, 16, 100, 256, 33]):
+            Xq = X[rng.randint(0, len(X), rows)]
+            got = svc.predict(("live", "file")[i % 2], Xq)
+            want = walk.predict(Xq.astype(np.float64))
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+        s1 = svc.stats()
+        dispatches = s1["dispatches"] - s0["dispatches"]
+        assert dispatches == 6
+        assert tpred.launches["predict_pass"] - n0 == dispatches
+        assert s1["compiles"] == s0["compiles"]
+        assert s1["dispatches_per_request"] == 1.0
+        eng = svc.residency.get("file")
+        assert eng.variant == "raw" and eng.device_ok
+        Xq = X[:256]
+        for ti in range(3):
+            one = lt.serve.ServingEngine(walk, max_batch_rows=256,
+                                         min_bucket_rows=256,
+                                         start_iteration=ti,
+                                         num_iteration=1)
+            got = one.predict_raw(Xq)[0].astype(np.float32)
+            want = walk.predict(Xq.astype(np.float64), raw_score=True,
+                                start_iteration=ti, num_iteration=1)
+            np.testing.assert_array_equal(got, want.astype(np.float32))
+    finally:
+        svc.close()

@@ -236,3 +236,89 @@ def level_operands(R, Rp, num_bin, Bp, Sp, *, nch=5, quant_bits=0,
     kw = dict(num_bins=Bp, f_oh=F_oh, nch=nch, quant_bits=quant_bits,
               packed=pk)
     return ops, None if fm is None else fm.to(dev), kw
+
+
+def random_tree_children(rng, n_leaves):
+    """(left_child, right_child) of a random tree in LightGBM's layout,
+    grown by splitting a random leaf n_leaves - 1 times (internal node i
+    splits a leaf into itself and leaf i + 1; a child < 0 is ~leaf)."""
+    left, right, slot = [], [], {0: None}
+    for i in range(n_leaves - 1):
+        leaf = int(rng.randint(0, i + 1))
+        left.append(~leaf)
+        right.append(~(i + 1))
+        if slot[leaf] is not None:
+            node, side = slot[leaf]
+            (left if side == 0 else right)[node] = i
+        slot[leaf], slot[i + 1] = (i, 0), (i, 1)
+    return left, right
+
+
+def _depth(left, right):
+    depth, frontier = 0, [0] if left else []
+    while frontier:
+        depth += 1
+        frontier = [c for nd in frontier for c in (left[nd], right[nd])
+                    if c >= 0]
+    return depth
+
+
+def random_stack(variant, R=512, T=12, F=6, L=9, k=1, cat=False,
+                 seed=0):
+    """A random packed stack for ``ops.predict.predict_pass``: (encoded
+    rows [R, F], {name: numpy array} in ``FIELDS[variant]``, tids [T],
+    max_steps). Trees of 1-L leaves (one single-leaf tree), missing types
+    and default-left at random; binned rows hit the missing bins, raw rows
+    hold NaN, zeros, values in the zero band, negatives and categories
+    past the masks; with ``cat`` about a quarter of the nodes are
+    categorical."""
+    rng = np.random.RandomState(seed)
+    N = L - 1
+    sf = np.zeros((T, N), np.int32)
+    dl = np.zeros((T, N), bool)
+    lc = np.full((T, N), -1, np.int32)
+    rc = np.full((T, N), -1, np.int32)
+    lv = np.zeros((T, L), np.float32)
+    cf = np.zeros((T, N), bool)
+    depth = 1
+    for t in range(T):
+        nl = 1 if t == 1 else int(rng.randint(2, L + 1))
+        left, right = random_tree_children(rng, nl)
+        ni = nl - 1
+        lc[t, :ni], rc[t, :ni] = left, right
+        sf[t, :ni] = rng.randint(0, F, ni)
+        dl[t, :ni] = rng.rand(ni) < 0.5
+        cf[t, :ni] = cat & (rng.rand(ni) < 0.25)
+        lv[t, :nl] = rng.randn(nl).astype(np.float32)
+        depth = max(depth, _depth(left, right))
+    out = {"sf": sf, "dl": dl, "lc": lc, "rc": rc, "lv": lv,
+           "cf": cf if cat else None}
+    if variant == "binned":
+        num_bin = rng.randint(3, 40, F).astype(np.int32)
+        missing = np.resize(np.array([0, 1, 2], np.int32), F)
+        default_bin = (rng.randint(0, 1000, F) % num_bin).astype(np.int32)
+        enc = (rng.randint(0, 1000, (R, F)) % num_bin).astype(np.int32)
+        hit = rng.rand(R, F)
+        enc = np.where(hit < 0.1, default_bin, enc)
+        enc = np.where(hit > 0.9, num_bin - 1, enc).astype(np.int32)
+        B = int(num_bin.max())
+        out.update(tb=(rng.randint(0, 1000, (T, N))
+                       % num_bin[sf]).astype(np.int32),
+                   num_bin=num_bin, missing=missing,
+                   default_bin=default_bin,
+                   cm=(rng.rand(T, N, B) < 0.5) if cat else None)
+    else:
+        C = 37
+        enc = rng.randn(R, F).astype(np.float32) * 3
+        hit = rng.rand(R, F)
+        enc[hit < 0.08] = np.nan
+        enc[(hit >= 0.08) & (hit < 0.14)] = 0.0
+        enc[(hit >= 0.14) & (hit < 0.17)] = 1e-36
+        cats = rng.randint(-2, C + 4, (R, F)).astype(np.float32)
+        enc[hit > 0.6] = cats[hit > 0.6]
+        out.update(th=rng.randn(T, N).astype(np.float32) * 2,
+                   mt=rng.randint(0, 3, (T, N)).astype(np.int32),
+                   cm=(rng.rand(T, N, C) < 0.5) if cat else None)
+    tids = (np.arange(T) % k).astype(np.int32)
+    steps = 1 << max(1, depth.bit_length())
+    return enc, out, tids, steps
