@@ -243,21 +243,29 @@ non-zero (it prints no result line then):
    requests per batch); (b) every response within rtol 1e-5, atol 1e-6
    of the float64 walk (the JAX package's serving tolerance), each
    model's routing equal to the walk's leaves (the float32 sums of the
-   leaves' values bit for bit, and three one-tree engines); (c) 20 rounds
+   leaves' values bit for bit, and three one-tree engines), and where a
+   request's time goes, from the closed loop's own ``serve_access``
+   records (the engine's host encode, pinned staging, copy in, kernel and
+   copy out, its dispatch, and per request the hand-off: the caller's
+   wall time less the dispatch); (c) 20 rounds
    on 200,000 rows of phase 10's categorical codes, served through both
-   variants (category masks on the card); (d) ``Booster.predict`` on the
-   1M rows, which takes the device predictor: its seconds, the host-side
-   binning, the kernel and the float64 walk it replaced apart, against
-   that walk (the same tolerance; its raw scores the float32 sums of the
-   walk's leaves); phases 3-14 predict through ``walk_predict``, the
-   float64 walk at any rows x trees, so their checks against predict
-   keep a reference that does not bin the rows;
+   variants (category masks on the card), its rows binned on the card
+   against ``value_to_bin`` bit for bit; (d) ``Booster.predict`` on the
+   1M rows, which takes the device predictor and bins the rows on the
+   card: its seconds by part (the used columns on the host, the upload,
+   the binning, the kernel), the device bins against ``value_to_bin`` on
+   every row and on edge rows, bit for bit, against the float64 walk it
+   replaced (the same tolerance, its raw scores the float32 sums of the
+   walk's leaves, and faster than the walk in the same run); phases 3-14
+   predict through ``walk_predict``, the float64 walk at any rows x
+   trees, so their checks against predict keep a reference that does
+   not bin the rows;
    (e) ``predict_pass`` against its plain version on the phase's operands
    (binned and raw at 1,024 and 65,536 rows, the categorical stacks of
-   (c), a synthetic k = 3 stack): the same bits twice and equal to the
-   plain version, time per launch, plain time, bound (the rows and the
-   output, and of the stacks only the nodes, leaves and category-mask
-   rows that some row reaches);
+   (c), a synthetic k = 3 stack, and (d)'s 1M rows): the same bits twice
+   and equal to the plain version, time per launch, plain time, bound
+   (the rows and the output, and of the stacks
+   only the nodes, leaves and category-mask rows that some row reaches);
 16. the ``kernels`` line: every ported kernel and variant with its
    wrapper calls and CUDA kernel launches on the main path where it runs
    (every level_pass, route_pass, epilogue_pass and hist_pass call in
@@ -1379,6 +1387,10 @@ def hist_operand_check(bins, gh, slot, S, B, quant_bits=0, stages=False,
         "rel_err_of_abs_sum": rel_sum,
         "tol": "exact" if quant_bits else "1e-5 of abs sum; w exact",
         "kernel_ms": cuda_ms(lambda: ph.hist_pass(bins, gh, slot, **kw)),
+        # the same timing again: the run-to-run spread a comparison must
+        # exceed
+        "kernel_ms_repeat": cuda_ms(
+            lambda: ph.hist_pass(bins, gh, slot, **kw)),
         "plain_ms": call_ms(lambda: ph.hist_pass_plain(bins, gh, slot, **kw),
                             reps=3, warmup=1),
         "library_ms": cuda_ms(library, reps=5),
@@ -4088,9 +4100,11 @@ def _synthetic_stack(R, T, F, L, k, seed):
     hit = rng.rand(R, F)
     enc = np.where(hit < 0.1, default_bin, enc)
     enc = np.where(hit > 0.9, num_bin - 1, enc).astype(np.int32)
+    from lightgbm_tpu_torch.ops.predict import pack_records
     dev = DEVICE
     ops = tuple(torch.as_tensor(arrays[n]).to(dev)
                 for n in FIELDS["binned"])
+    ops = ops + pack_records(ops, "binned")
     tids = torch.as_tensor((np.arange(T) % k).astype(np.int32)).to(dev)
     steps = 1 << max(1, depth.bit_length())
     # what the rows need of the stack, for the bound: the port's per-tree
@@ -4130,6 +4144,12 @@ def check_predict_pass(name, enc, ops, tids, k, steps, variant, use,
     equal = bool(torch.equal(a, want))
     ms = cuda_ms(lambda: tp.predict_pass(enc, ops, tids, k, steps,
                                          variant))
+    plan = tp.tiled_plan(int(enc.shape[0]), int(enc.shape[1]),
+                         int(tids.numel()), int(ops[0].shape[1]),
+                         int(ops[list(tp.FIELDS[variant]).index("lv")]
+                             .shape[1]),
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
     b_ms, b_by = _pass_bound(enc, ops, tids, k, variant, use)
     res = {"name": name, "variant": variant,
            "categorical": ops[list(tp.FIELDS[variant]).index("cf")]
@@ -4140,7 +4160,8 @@ def check_predict_pass(name, enc, ops, tids, k, steps, variant, use,
            "leaves_reached": int(use.leaves.sum()),
            "same_bits_twice": same, "equal_to_plain": equal,
            "max_abs_err": float((a - want).abs().max()) if a.numel()
-           else 0.0, "kernel_ms": ms, "plain_ms": plain_ms,
+           else 0.0, "kernel_ms": ms, "plan": plan,
+           "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
            "launches": launches}
     emit({"phase": "kernel_check", "predict_pass": res})
@@ -4148,6 +4169,72 @@ def check_predict_pass(name, enc, ops, tids, k, steps, variant, use,
         raise AssertionError(f"predict_pass {name}: twice the same bits "
                              f"{same}, equal to the plain version {equal}")
     return res
+
+
+def _edge_rows(pred) -> np.ndarray:
+    """Rows whose every column takes each edge value in turn: NaN, +-inf,
+    +-0.0, the zero band, huge and out-of-int64 values, negative, unseen
+    and non-integer categories, and every used column's finite bin upper
+    bounds with their neighbours on either side."""
+    F = pred.ds.num_total_features
+    vals = [np.nan, np.inf, -np.inf, -0.0, 0.0, 1e-36, -1e-36, 1e300,
+            -1e300, 2.0 ** 63, -2.0 ** 63, -1.0, -0.5, 0.5, 2.5, 3.0,
+            7.999, 1e9]
+    for j in pred.ds.used_features:
+        b = np.asarray(pred.ds.mappers[j].bin_upper_bound, np.float64)
+        b = b[np.isfinite(b)]
+        vals += list(b) + list(np.nextafter(b, np.inf)) \
+            + list(np.nextafter(b, -np.inf))
+    return np.tile(np.asarray(vals)[:, None], (1, F))
+
+
+def device_bins_check(pred, X) -> dict:
+    """A binned predictor's rows binned on the card against its host
+    ``encode`` (``value_to_bin`` per column) on ``X`` and on the edge rows,
+    bit for bit."""
+    import torch
+    from lightgbm_tpu_torch.binning import device_bin_tables, values_to_bins
+    tables = pred.bin_tables or device_bin_tables(
+        [pred.ds.mappers[j] for j in pred.ds.used_features], DEVICE)
+    out = {}
+    for name, rows in (("rows", X), ("edge_rows", _edge_rows(pred))):
+        got = values_to_bins(torch.from_numpy(pred.used_values(rows))
+                             .to(DEVICE), tables).cpu().numpy()
+        out[name] = int(rows.shape[0])
+        out[name + "_equal"] = bool(np.array_equal(got, pred.encode(rows)))
+    return out
+
+
+def request_breakdown(svc, walls, trace_ids, mids) -> dict:
+    """Where a request's time goes, per model: medians over the requests
+    of the parts that the engine's own dispatch recorded in each one's
+    ``serve_access`` record (``reqtrace.DISPATCH_PARTS``: the host encode,
+    the staging into the pinned buffer, the host's wait for the card, and
+    the card's copy in, kernel and copy back between CUDA events), its
+    dispatch, queue and batch times, and per request its hand-off: the
+    caller's wall time less the dispatch (the queue, the batcher's worker
+    thread and the wake-up)."""
+    from lightgbm_tpu_torch.obs.reqtrace import DISPATCH_PARTS
+    acc = {e["trace_id"]: e for e in svc.tel.snapshot()["events"]
+           if e.get("event") == "serve_access"}
+    missing = [t for t in trace_ids if t not in acc]
+    if missing:
+        raise AssertionError(f"request breakdown: {len(missing)} requests "
+                             "without a serve_access record")
+    out = {}
+    for mid in sorted(set(mids)):
+        rows = [(w, acc[t]) for w, t, m in zip(walls, trace_ids, mids)
+                if m == mid]
+        parts = {k: [e[k] for _, e in rows if k in e]
+                 for k in DISPATCH_PARTS + ("dispatch_ms", "queue_ms",
+                                            "batch_ms")}
+        parts = {k: v for k, v in parts.items() if v}
+        parts["request_ms"] = [w for w, _ in rows]
+        parts["hand_off_ms"] = [w - e["dispatch_ms"] for w, e in rows]
+        med = {k: float(np.median(v)) for k, v in parts.items()}
+        med["requests"] = len(rows)
+        out[mid] = med
+    return out
 
 
 def run_serve(lgb, params, ds, X, y, e2e):
@@ -4165,6 +4252,7 @@ def run_serve(lgb, params, ds, X, y, e2e):
 
     import torch
     from lightgbm_tpu_torch.basic import host_walk_raw
+    from lightgbm_tpu_torch.binning import device_bin_tables, values_to_bins
     from lightgbm_tpu_torch.ops import predict as tp
     out_rows = []
 
@@ -4193,13 +4281,18 @@ def run_serve(lgb, params, ds, X, y, e2e):
     reqs = [rng.rand(int(s), X.shape[1]).astype(np.float32) for s in sizes]
     s0 = svc.stats()
     read = counts()
-    lat, answers = [], []
+    lat, answers, trace_ids = [], [], []
     t0 = time.perf_counter()
     for mid, Xq in zip(mids, reqs):
         r0 = time.perf_counter()
-        answers.append(svc.predict(mid, Xq))
+        fut = svc.submit(mid, Xq)         # svc.predict's own two steps
+        answers.append(fut.result())
         lat.append((time.perf_counter() - r0) * 1000.0)
+        trace_ids.append(fut.trace_id)
     closed_s = time.perf_counter() - t0
+    # where a request's time goes, per model, from the closed loop's own
+    # serve_access records
+    breakdown = request_breakdown(svc, lat, trace_ids, mids)
     closed_launches = read()
     s1 = svc.stats()
     lat = np.sort(lat)
@@ -4270,6 +4363,7 @@ def run_serve(lgb, params, ds, X, y, e2e):
            "packed_bytes": {"live": live_eng.packed_nbytes,
                             "file": file_eng.packed_nbytes},
            "closed_loop": closed, "open_loop": open_loop,
+           "request_breakdown": breakdown,
            "max_rel_err_to_float64_walk": err, "tol": SERVE_TOL,
            "open_loop_equal_to_closed": bool(np.array_equal(got_open, got)),
            "file_routing_equal_to_walk_leaves": file_leaves_equal,
@@ -4345,6 +4439,7 @@ def run_serve(lgb, params, ds, X, y, e2e):
         _f32_sums(walk_c.models, leaves_c, 1)))
     cat_splits = sum(int((m.decision_type[:m.num_internal] & 1).sum())
                      for m in bst_c.models)
+    cat_bins = device_bins_check(lc_eng.pred, Xc)
     res_c = {"phase": "serve", "run": "c", "rows": SERVE_CAT_ROWS,
              "rounds": SERVE_CAT_ROUNDS, "train_s": cat_train_s,
              "categorical_splits": cat_splits,
@@ -4355,10 +4450,12 @@ def run_serve(lgb, params, ds, X, y, e2e):
              "requests": len(cat_reqs), "predict_pass_launches":
              cat_launches, "max_rel_err_to_float64_walk": err_c,
              "tol": SERVE_TOL, "file_routing_equal_to_walk_leaves":
-             cat_equal}
+             cat_equal, "device_bins": cat_bins}
     emit(res_c)
     if not (cat_splits > 0 and np.allclose(got_c, want_c, **SERVE_RTOL)
-            and cat_equal and cat_launches["predict_pass:binned+cat"] > 0
+            and cat_equal and cat_bins["rows_equal"]
+            and cat_bins["edge_rows_equal"]
+            and cat_launches["predict_pass:binned+cat"] > 0
             and cat_launches["predict_pass:raw+cat"] > 0):
         raise AssertionError(f"serve (c): {res_c}")
     for eng, key in ((lc_eng, "binned"), (fc, "raw")):
@@ -4384,9 +4481,27 @@ def run_serve(lgb, params, ds, X, y, e2e):
     pred_all, predict_s = _timed_run(lambda: bst.predict(X))
     scale_launches = read()
     pred = bst._device_predictor
+    # its parts: the used columns as float64 on the host, their upload,
+    # the binning on the card, the kernel
+    vals, used_s = _timed_run(lambda: pred.used_values(X))
+    vals_dev, upload_s = _timed_run(lambda: torch.from_numpy(vals)
+                                    .to(DEVICE))
+    del vals
+    tables = pred.bin_tables or device_bin_tables(
+        [pred.ds.mappers[j] for j in pred.ds.used_features], DEVICE)
+    enc_dev, bin_s = _timed_run(lambda: values_to_bins(vals_dev, tables))
+    bin_ms = cuda_ms(lambda: values_to_bins(vals_dev, tables), reps=5,
+                     replays=3)
+    del vals_dev
+    # the device bins against the host's value_to_bin on every row, and on
+    # the edge rows
     enc_np, enc_s = _timed_run(lambda: pred.encode(X))
-    enc_dev, upload_s = _timed_run(
-        lambda: torch.from_numpy(enc_np).to(DEVICE))
+    bins_equal = bool(np.array_equal(enc_dev.cpu().numpy(), enc_np))
+    del enc_np
+    edges = _edge_rows(pred)
+    edge_dev = values_to_bins(torch.from_numpy(pred.used_values(edges))
+                              .to(DEVICE), tables).cpu().numpy()
+    edges_equal = bool(np.array_equal(edge_dev, pred.encode(edges)))
     ops_d, tids_d = pred.run_args(0, pred.num_trees)
 
     def pass_d():
@@ -4394,6 +4509,16 @@ def run_serve(lgb, params, ds, X, y, e2e):
                                "binned")
     kernel_ms = cuda_ms(pass_d, reps=5, replays=3)
     raw_d = pass_d().cpu().numpy()[0]
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    plain_d = tp.predict_pass_plain(enc_dev, ops_d, tids_d, 1,
+                                    pred.max_steps, "binned")
+    e1.record()
+    e1.synchronize()
+    plain_ms_d = e0.elapsed_time(e1)
+    plain_equal = bool(np.array_equal(plain_d.cpu().numpy()[0], raw_d))
+    del plain_d
     # the float64 walk this path took before pred_device_min_work was
     # honoured, timed on the same rows and trees
     walk_raw, walk_s = _timed_run(lambda: host_walk_raw(
@@ -4411,12 +4536,24 @@ def run_serve(lgb, params, ds, X, y, e2e):
             raw_d[c0:c0 + 250_000], _f32_sums(bst.models, leaves_d, 1)[0]))
     del leaves_d
     bound_d = _pass_bound(enc_dev, ops_d, tids_d, 1, "binned", use_d)
+    kernel_s = kernel_ms / 1e3
     res_d = {"phase": "serve", "run": "d", "rows": int(X.shape[0]),
              "trees": bst.num_trees(), "predictor": type(pred).__name__,
              "pred_device_min_work": bst._pred_device_min_work(),
-             "predict_s": predict_s, "host_binning_s": enc_s,
-             "float64_walk_s": walk_s,
-             "upload_s": upload_s, "kernel_ms": kernel_ms,
+             "predict_s": predict_s, "float64_walk_s": walk_s,
+             "faster_than_walk": predict_s < walk_s,
+             "breakdown_s": {
+                 "used_columns_host": used_s, "upload": upload_s,
+                 "device_binning": bin_s, "device_binning_kernel_time":
+                 bin_ms / 1e3, "predict_pass": kernel_s,
+                 "rest_host": predict_s - used_s - upload_s - bin_s
+                 - kernel_s},
+             "host_binning_s": enc_s,
+             "device_bins_equal_value_to_bin": bins_equal,
+             "edge_rows": int(edges.shape[0]),
+             "edge_bins_equal_value_to_bin": edges_equal,
+             "kernel_ms": kernel_ms, "plain_ms": plain_ms_d,
+             "equal_to_plain": plain_equal,
              "bound_ms": bound_d[0], "bound_by": bound_d[1],
              "node_visits": use_d.visits,
              "nodes_visited": int(use_d.nodes.sum()),
@@ -4427,8 +4564,20 @@ def run_serve(lgb, params, ds, X, y, e2e):
     emit(res_d)
     if not (type(pred).__name__ == "DevicePredictor"
             and sum(scale_launches.values()) > 0 and bits_d
+            and bins_equal and edges_equal and plain_equal
             and np.allclose(pred_all, walk_all, **SERVE_RTOL)):
         raise AssertionError(f"serve (d): {res_d}")
+    if not predict_s < walk_s:
+        raise AssertionError(f"serve (d): Booster.predict {predict_s} s, "
+                             f"the float64 walk {walk_s} s")
+    checks[("binned", int(X.shape[0]))] = {
+        "rows": int(X.shape[0]), "features": int(enc_dev.shape[1]),
+        "trees": bst.num_trees(), "k": 1, "max_steps": pred.max_steps,
+        "max_abs_err": 0.0 if plain_equal else float("nan"),
+        "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms_d, "bound_ms": bound_d[0],
+        "bound_by": bound_d[1], "launches": 0}
+    del enc_dev
 
     # the kernels line's rows: each variant on (a)'s or (c)'s operands at
     # bucket 1024 with its phase-15 launches, the k = 3 stack with none
@@ -4438,6 +4587,11 @@ def run_serve(lgb, params, ds, X, y, e2e):
         r = checks[(key, SERVE_CHECK_BUCKETS[0])]
         n = r["launches"] + (scale_launches.get("predict_pass:" + key, 0))
         out_rows.append(_predict_row(f"predict_pass[{label}]", r, n))
+    out_rows[0]["serve_p50_ms"] = closed["p50_ms"]
+    out_rows.append(_predict_row(
+        f"predict_pass[binned,R={X.shape[0]}]",
+        checks[("binned", int(X.shape[0]))],
+        scale_launches.get("predict_pass:binned", 0)))
     out_rows.append(_predict_row("predict_pass[binned,R=65536]",
                                  checks[("binned", SERVE_CHECK_BUCKETS[1])],
                                  checks[("binned", SERVE_CHECK_BUCKETS[1])]
@@ -4741,6 +4895,8 @@ def main() -> int:
                                           "library_call")})
         if name in ("level_pass", "epilogue_pass", "hist_pass"):
             row["stages_ms"] = r["stages_ms"]
+        if name == "hist_pass":
+            row["ms_repeat"] = r["kernel_ms_repeat"]
         row["eval_train_launches"] = {run: eval_launches[run][name]
                                       for run in ("a", "c", "d")}
         row["class_train_launches"] = {run: v[name]
@@ -4777,13 +4933,15 @@ def main() -> int:
             "slotted_rows": r["slotted_rows"],
             "max_abs_err": r["max_abs_err"],
             "rel_err_of_abs_sum": r["rel_err_of_abs_sum"],
-            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "ms": r["kernel_ms"], "ms_repeat": r["kernel_ms_repeat"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "phase2": {k: unrounded[S if S == 1 else "level"][k]
                        for k in ("R", "Fp", "Bp", "S", "max_abs_err",
-                                 "kernel_ms", "plain_ms", "library_ms",
-                                 "bound_ms", "bound_by")}})
+                                 "kernel_ms", "kernel_ms_repeat",
+                                 "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by")}})
     # the kernels on bundle columns: each phase-11 run's own operands
     # (check_captured) with that run's launches; phase 2's widest synthetic
     # layout, which no run reaches, with none

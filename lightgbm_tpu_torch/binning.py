@@ -13,13 +13,19 @@ dataset loading — while the resulting ``[num_rows, num_features]`` bin matrix
 is what lives in device memory. A numpy-only copy of
 ``lightgbm_tpu/binning.py`` (the port imports nothing of the JAX package), so
 both packages bin a matrix identically.
+
+:func:`device_bin_tables` and :func:`values_to_bins` bin rows on the
+device (``Booster.predict`` through the stacked predictor): the same bins
+as ``BinMapper.value_to_bin``, bit for bit, which stays their plain
+version and the CPU path.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .utils import log
 
@@ -570,3 +576,96 @@ def mappers_digest(mappers: Sequence[BinMapper]) -> str:
         h.update(json.dumps(d, sort_keys=True, default=str).encode())
         h.update(b"\x00")
     return h.hexdigest()
+
+
+# ------------------------------------------------------ binning on the device
+class DeviceBinTables(NamedTuple):
+    """Per-column tables of a list of mappers on one device (made once per
+    model by :func:`device_bin_tables`). Numerical columns: their upper
+    bounds ``[:n_numeric]`` padded with +inf to ``[Fn, Bmax]`` float64, the
+    last numeric bin and the NaN bin (-1 without one). Categorical columns:
+    the sorted category values padded with int64's largest to ``[Fc,
+    Cmax]``, their bins, the vocabulary sizes."""
+    num_cols: torch.Tensor
+    bounds: torch.Tensor
+    last_bin: torch.Tensor
+    nan_bin: torch.Tensor
+    cat_cols: torch.Tensor
+    cats: torch.Tensor
+    cat_bins: torch.Tensor
+    cat_len: torch.Tensor
+    width: int
+
+
+_I64_MAX = np.iinfo(np.int64).max
+_I64_MIN = np.iinfo(np.int64).min
+
+
+def device_bin_tables(mappers: Sequence[BinMapper],
+                      device) -> DeviceBinTables:
+    """The tables :func:`values_to_bins` reads, for the columns binned by
+    ``mappers`` (in order)."""
+    num = [j for j, m in enumerate(mappers) if m.bin_type != BIN_CATEGORICAL]
+    cat = [j for j, m in enumerate(mappers) if m.bin_type == BIN_CATEGORICAL]
+    n_num = [mappers[j].num_bin - (1 if mappers[j].missing_type
+                                   == MISSING_NAN else 0) for j in num]
+    bounds = np.full((len(num), max(n_num, default=1)), np.inf)
+    for i, (j, n) in enumerate(zip(num, n_num)):
+        bounds[i, :n] = mappers[j].bin_upper_bound[:n]
+    nan_bin = [mappers[j].num_bin - 1 if mappers[j].missing_type
+               == MISSING_NAN else -1 for j in num]
+    vocab = [sorted(mappers[j].categorical_2_bin) for j in cat]
+    cats = np.full((len(cat), max(map(len, vocab), default=1)), _I64_MAX,
+                   np.int64)
+    cat_bins = np.zeros(cats.shape, np.int32)
+    for i, (j, v) in enumerate(zip(cat, vocab)):
+        cats[i, :len(v)] = v
+        cat_bins[i, :len(v)] = [mappers[j].categorical_2_bin[c] for c in v]
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(device)
+    return DeviceBinTables(
+        t(num, torch.int64), t(bounds, torch.float64),
+        t(np.subtract(n_num, 1), torch.int64), t(nan_bin, torch.int64),
+        t(cat, torch.int64), t(cats, torch.int64), t(cat_bins, torch.int32),
+        t([len(v) for v in vocab], torch.int64), len(mappers))
+
+
+def values_to_bins(values: torch.Tensor,
+                   tables: DeviceBinTables) -> torch.Tensor:
+    """``[R, F]`` int32 bins of ``values`` ``[R, F]`` float64 on the
+    tables' device, equal to each column's ``BinMapper.value_to_bin`` of
+    float64 values: numerical columns by one batched ``searchsorted``
+    (``side="left"``: the first bound >= the value) over their padded
+    bounds, clipped to the last numeric bin, NaN to the NaN bin or binned
+    as 0.0; categorical columns truncated to int64 as numpy's
+    ``astype(np.int64)`` does on x86-64 (NaN first -1, a value out of
+    int64's range its smallest), an exact hit in the sorted vocabulary its
+    bin, anything else bin 0."""
+    if values.dim() != 2 or values.shape[1] != tables.width \
+            or values.dtype != torch.float64:
+        raise ValueError(f"values must be [R, {tables.width}] float64, got "
+                         f"{tuple(values.shape)} {values.dtype}")
+    out = torch.empty(values.shape, dtype=torch.int32, device=values.device)
+    if tables.num_cols.numel():
+        v = values[:, tables.num_cols].t().contiguous()          # [Fn, R]
+        nan = torch.isnan(v)
+        b = torch.searchsorted(tables.bounds,
+                               torch.where(nan, 0.0, v), side="left")
+        b = torch.minimum(b, tables.last_bin[:, None])
+        nb = tables.nan_bin[:, None]
+        b = torch.where(nan & (nb >= 0), nb, b)
+        out[:, tables.num_cols] = b.t().to(torch.int32)
+    if tables.cat_cols.numel():
+        v = values[:, tables.cat_cols].t()                        # [Fc, R]
+        v = torch.where(torch.isnan(v), -1.0, v)
+        wide = ~(v.abs() < 2.0 ** 63)
+        iv = torch.where(wide, torch.full_like(v, 0.0), v).to(torch.int64)
+        iv = torch.where(wide, _I64_MIN, iv).contiguous()
+        pos = torch.searchsorted(tables.cats, iv)
+        pos = torch.minimum(pos, (tables.cat_len - 1).clamp(min=0)[:, None])
+        hit = (tables.cats.gather(1, pos) == iv) \
+            & (tables.cat_len[:, None] > 0)
+        b = torch.where(hit, tables.cat_bins.gather(1, pos), 0)
+        out[:, tables.cat_cols] = b.t().to(torch.int32)
+    return out

@@ -163,7 +163,10 @@ rows' outputs where it kept them, the binned constant replay otherwise.
 
 Not ported yet (``_UNPORTED`` raises, naming its ROADMAP item):
 distributed learners; resilience checkpoints (of ``cegb_used`` and
-``cegb_used_rf`` too).
+``cegb_used_rf`` too) and the training side of the observability keys
+(``telemetry_out``, ``trace_out``, ``health_check_period``,
+``metrics_port``, ``run_report_out``, ``profile_dir``, ``perf_db``,
+``slo_enabled``, ``slo_config``, ``checkpoint_dir``).
 """
 from __future__ import annotations
 
@@ -221,10 +224,25 @@ def split_params_from_config(config: Config) -> SplitParams:
         cegb_penalty_split=float(config.cegb_penalty_split))
 
 
+_ITEM10 = "(ROADMAP Queue A item 10)"
 _UNPORTED = (
     ("tree_learner", lambda v: v != "serial",
      "distributed tree learners (ROADMAP Queue A item 9)"),
-)
+) + tuple(
+    # the training side of obs/, the SLO plane and resilience checkpoints
+    # (lightgbm_tpu/boosting/gbdt.py:460-466, 532, 554-561, 1109-1111): a
+    # non-default value is refused, never ignored
+    (key, bool, f"{key} {what} {_ITEM10}") for key, what in (
+        ("telemetry_out", "(per-iteration telemetry)"),
+        ("trace_out", "(trace spans)"),
+        ("health_check_period", "(health checks)"),
+        ("metrics_port", "(the metrics exporter)"),
+        ("run_report_out", "(the run report)"),
+        ("profile_dir", "(profiler windows)"),
+        ("perf_db", "(the performance database)"),
+        ("slo_enabled", "(the SLO plane)"),
+        ("slo_config", "(the SLO plane)"),
+        ("checkpoint_dir", "(resilience checkpoints)")))
 
 
 class GBDT:

@@ -506,8 +506,11 @@ class BinnedDataset:
             self.reference_binned = bool(manifest.get("reference_binned",
                                                       False))
         else:
-            log.check(magic == LEGACY_MAGIC, f"{path} is not a "
-                      "lightgbm_tpu binary dataset file")
+            log.check(magic == LEGACY_MAGIC, f"{path}: loading a text "
+                      "(CSV, TSV, LibSVM) data file is not ported to "
+                      "lightgbm_tpu_torch yet (io/file_loader.py, ROADMAP "
+                      "Queue A item 10); a path must name a binary dataset "
+                      "cache")
             with open(path, "rb") as fh:
                 fh.read(8)
                 meta = pickle.load(fh)

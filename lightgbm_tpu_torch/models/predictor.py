@@ -6,10 +6,11 @@ scores all its trees in one launch of ``ops.predict.predict_pass`` (the
 hand-written CUDA kernel ``csrc/predict_pass.cu``; on the CPU its plain
 version). Two routing variants share it:
 
-- :class:`DevicePredictor` — **binned** routing: the rows are binned on the
-  host through the training BinMappers (exactly the training-time
-  quantization), then compared with threshold bins on the device. Needs a
-  training dataset.
+- :class:`DevicePredictor` — **binned** routing: the rows are binned
+  through the training BinMappers (exactly the training-time
+  quantization; on the card by ``binning.values_to_bins``, on the CPU and
+  in the serving engine's :meth:`encode` on the host), then compared with
+  threshold bins on the device. Needs a training dataset.
 - :class:`RawDevicePredictor` — **raw-value** routing for boosters without
   training BinMappers (model files, the serving case): float32 compares
   against thresholds pre-rounded by :func:`threshold_to_f32`, so any
@@ -32,7 +33,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.predict import FIELDS, predict_pass
+from ..binning import device_bin_tables, values_to_bins
+from ..ops.predict import FIELDS, RECORDS, pack_records, predict_pass
 
 # raw-variant categorical vocabulary cap: the per-node mask is a [T, N, C]
 # bool tensor over raw category values; a vocabulary past this is a reason
@@ -89,10 +91,14 @@ class _StackedPredictor:
         self.enc_dtype = ""
 
     def _place(self, arrays: Dict[str, Optional[np.ndarray]]) -> None:
+        """The stack on the device: ``FIELDS[variant]``, then the tiled
+        kernel's ``RECORDS`` packed from them once (``pack_records``)."""
         self.stack = {
             name: None if arrays.get(name) is None else torch.as_tensor(
                 np.ascontiguousarray(arrays[name])).to(self.device)
             for name in FIELDS[self.variant]}
+        self.stack.update(zip(RECORDS, pack_records(
+            tuple(self.stack.values()), self.variant)))
 
     @classmethod
     def from_packed(cls, arrays: Dict[str, Optional[np.ndarray]], k: int,
@@ -126,9 +132,9 @@ class _StackedPredictor:
 
     def run_args(self, lo: int, hi: int) -> Tuple[Tuple, torch.Tensor]:
         """(the stack's operands for trees [lo, hi) in ``FIELDS`` order,
-        each tree's class): views of the packed tensors, no copy; the
-        per-feature tensors whole."""
-        per_feature = {"num_bin", "missing", "default_bin"}
+        then ``RECORDS``; each tree's class): views of the packed tensors,
+        no copy; the per-feature tensors whole."""
+        per_feature = {"num_bin", "missing", "default_bin", "fmiss"}
         ops = tuple(None if a is None else a if name in per_feature
                     else a[lo:hi] for name, a in self.stack.items())
         tids = torch.arange(lo, hi, dtype=torch.int32) % self.k
@@ -160,9 +166,13 @@ class _StackedPredictor:
         for c0 in range(0, n, chunk_rows):
             sl = slice(c0, min(n, c0 + chunk_rows))
             Xc = X[sl].toarray() if sparse_in else X[sl]
-            enc = torch.from_numpy(self.encode(Xc)).to(self.device)
-            out[:, sl] = self.run(enc, lo, hi).cpu().numpy()
+            out[:, sl] = self.run(self.encode_on_device(Xc), lo,
+                                  hi).cpu().numpy()
         return out
+
+    def encode_on_device(self, X: np.ndarray) -> torch.Tensor:
+        """:meth:`encode` of raw rows ``X``, on the stack's device."""
+        return torch.from_numpy(self.encode(X)).to(self.device)
 
 
 class DevicePredictor(_StackedPredictor):
@@ -175,6 +185,7 @@ class DevicePredictor(_StackedPredictor):
         (mappers, used features), whose device the stack goes to."""
         super().__init__(ds.device)
         self.ds = ds
+        self.bin_tables = None        # made at the first device binning
         self.k = num_tree_per_iteration
         T = len(models)
         if T == 0:
@@ -255,6 +266,30 @@ class DevicePredictor(_StackedPredictor):
             out[:, k] = ds.mappers[j].value_to_bin(
                 np.asarray(X[:, j], np.float64))
         return out
+
+    def used_values(self, X: np.ndarray) -> np.ndarray:
+        """[R, used features] float64 of raw rows ``X``: what
+        :meth:`encode` bins (no copy where X already is exactly that)."""
+        used = self.ds.used_features
+        X = np.asarray(X)
+        if X.ndim == 2 and used == list(range(X.shape[1])):
+            return np.ascontiguousarray(X, np.float64)
+        return np.ascontiguousarray(X[:, used], np.float64)
+
+    def encode_on_device(self, X: np.ndarray) -> torch.Tensor:
+        """The training bins of raw rows ``X`` binned where the stack lives:
+        on the card the used columns go up once as float64 and are binned
+        there (``binning.values_to_bins``, the host's bins bit for bit); on
+        the CPU :meth:`encode`."""
+        if self.device.type == "cpu":
+            return torch.from_numpy(self.encode(X))
+        if self.bin_tables is None:
+            ds = self.ds
+            self.bin_tables = device_bin_tables(
+                [ds.mappers[j] for j in ds.used_features], self.device)
+        return values_to_bins(
+            torch.from_numpy(self.used_values(X)).to(self.device),
+            self.bin_tables)
 
 
 class RawDevicePredictor(_StackedPredictor):

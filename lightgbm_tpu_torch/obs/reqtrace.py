@@ -1,7 +1,8 @@
 """Request-scoped serving traces.
 
-A copy of ``lightgbm_tpu/obs/reqtrace.py`` (which imports no JAX; the port
-keeps its own). A serving request is invisible between
+Started as a copy of ``lightgbm_tpu/obs/reqtrace.py`` (which imports no
+JAX; the port keeps its own); the records here also carry the serving
+engine's dispatch parts (:data:`DISPATCH_PARTS`). A serving request is invisible between
 ``PredictionService.submit()`` and its future resolving: the batcher
 coalesces it, the engine buckets and dispatches it, and nothing ties the
 pieces back to THE request an operator is debugging.  This module
@@ -17,7 +18,7 @@ supplies the thread of identity:
   engine knowing each other's internals;
 - :func:`emit_access` — exactly one structured ``serve_access`` JSONL
   record per request (trace_id, model_id, rows, queue_ms, batch_ms,
-  dispatch_ms, bucket, degraded); the JAX package's Perfetto span beside
+  dispatch_ms, bucket, degraded, and the dispatch's parts); the JAX package's Perfetto span beside
   it waits for ``trace_out`` (ROADMAP Queue A item 10).
 
 The batch context is a plain thread-local: the micro-batcher owns ONE
@@ -32,6 +33,14 @@ import threading
 from typing import Any, Dict, Optional
 
 _tls = threading.local()
+
+# the serving engine's dispatch parts (serve/engine.py ``_dispatch``), in
+# ms, summed over a batch's dispatches and carried by its serve_access
+# records: host encode, staging into the pinned buffer, the host's wait for
+# the card; on the card the copy in, the kernel and the copy back
+DISPATCH_PARTS = ("encode_ms", "stage_ms", "device_ms", "copy_in_ms",
+                  "kernel_ms", "copy_out_ms")
+_SUMMED = ("dispatch_ms", "dispatches", "compiles") + DISPATCH_PARTS
 
 
 def mint_trace_id() -> str:
@@ -82,7 +91,7 @@ def annotate(**attrs: Any) -> None:
     if ctx is None:
         return
     for k, v in attrs.items():
-        if k in ("dispatch_ms", "dispatches", "compiles"):
+        if k in _SUMMED:
             ctx[k] = ctx.get(k, 0) + v      # accumulate across chunks
         else:
             ctx[k] = v
@@ -117,6 +126,9 @@ def emit_access(tel, req, ctx: Dict[str, Any], queue_ms: float,
         extra["shadow_divergence"] = float(ctx["shadow_divergence"])
     if ctx.get("device") is not None:
         extra["device"] = int(ctx["device"])
+    for k in DISPATCH_PARTS:
+        if k in ctx:
+            extra[k] = round(float(ctx[k]), 4)
     tel.inc("serve.access_records")
     tel.event("serve_access", trace_id=req.trace_id,
               model_id=req.model_id, rows=int(req.rows),

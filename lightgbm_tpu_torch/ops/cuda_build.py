@@ -69,8 +69,9 @@ SIGNATURES = {
                        _c.c_int, _c.c_int, _c.POINTER(_c.c_longlong)],
     "lgbt_predict_pass": [_P, _c.c_int, _c.c_longlong, _c.c_int, _c.c_int,
                           _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
-                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P],
+                          _P, _P, _P, _P, _P, _P, _P, _P, _c.c_int,
+                          _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+                          _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -34,8 +34,10 @@ and :func:`tree_outputs` gives their per-row linear outputs
 (``models/predictor.py``; the JAX package's ``_run_binned_body`` /
 ``_run_raw_body``): every row through every tree of a packed ``[T, N]``
 stack, leaf values summed per class in float32, in one launch of the
-hand-written CUDA kernel ``csrc/predict_pass.cu``. Its plain version
-:func:`predict_pass_plain` routes tree by tree through
+hand-written CUDA kernel ``csrc/predict_pass.cu``, which walks 16-byte
+node records packed once per model (:func:`pack_records`, shape by
+:func:`tiled_plan`). Its plain version :func:`predict_pass_plain`
+routes tree by tree on the per-field stacks through
 :func:`route_binned_rows_to_leaves` or, in float32 against thresholds
 pre-rounded by ``models.predictor.threshold_to_f32``,
 :func:`route_raw_rows_to_leaves`; it is a different function from the
@@ -63,6 +65,11 @@ _DTYPES = {"sf": torch.int32, "tb": torch.int32, "th": torch.float32,
            "rc": torch.int32, "lv": torch.float32, "cf": torch.bool,
            "cm": torch.bool, "num_bin": torch.int32, "missing": torch.int32,
            "default_bin": torch.int32}
+
+# the kernel's operands, after a variant's FIELDS (pack_records):
+# one 16-byte record per node, and the binned features' missing bins
+RECORDS = ("nodes", "fmiss")
+FEATURE_BITS = 24           # a record's split feature: bits 0-23
 
 # predict_pass wrapper calls and CUDA kernel launches since the last reset
 # (CPU calls never count), beside ops/fused_level's counters; and the calls
@@ -312,9 +319,11 @@ def _check_pass_inputs(enc, packed, tids, k, variant):
     if variant not in FIELDS:
         raise ValueError(f"variant must be 'binned' or 'raw', not {variant!r}")
     names = FIELDS[variant]
-    if len(packed) != len(names):
+    if len(packed) != len(names) + len(RECORDS):
         raise ValueError(f"a {variant} stack has {len(names)} operands "
-                         f"{names}, got {len(packed)}")
+                         f"{names}, then {RECORDS}; got {len(packed)}")
+    records = tuple(packed[len(names):])
+    packed = tuple(packed[:len(names)])
     want = torch.float32 if variant == "raw" else torch.int32
     if enc.dim() != 2 or enc.dtype != want:
         raise ValueError(f"enc must be [R, F] {want} for the {variant} "
@@ -347,7 +356,53 @@ def _check_pass_inputs(enc, packed, tids, k, variant):
         raise ValueError(f"tids must be [{T}] int32 on {enc.device}")
     if k < 1:
         raise ValueError("k must be >= 1")
+    nodes, fmiss = records
+    if nodes is None or nodes.dtype != torch.int32 \
+            or tuple(nodes.shape) != (T, N, 4) \
+            or nodes.device != enc.device:
+        raise ValueError(f"nodes must be [{T}, {N}, 4] int32 on "
+                         f"{enc.device}")
+    if (fmiss is None) != (variant == "raw") or (
+            fmiss is not None and (fmiss.dtype != torch.int32
+                                   or tuple(fmiss.shape) != (F,)
+                                   or fmiss.device != enc.device)):
+        raise ValueError(f"fmiss must be [{F}] int32 on {enc.device} "
+                         "for the binned variant, None for raw")
+    ops.update(zip(RECORDS, records))
     return ops
+
+
+def pack_records(packed: Sequence, variant: str):
+    """The kernel's operands of a stack (``packed`` in
+    ``FIELDS[variant]`` order), made once per model on the stack's device:
+    ``nodes`` [T, N, 4] int32, one 16-byte record per node (x = split
+    feature | default left << 24 | missing type << 25 | categorical << 27,
+    the binned variant's missing type its feature's; y = the threshold bin,
+    or the float32 threshold's bits; z, w = the children), and ``fmiss``
+    [F] int32, each binned feature's missing bin (its default bin for
+    missing type Zero, its last bin for NaN, else -1; None for raw)."""
+    o = dict(zip(FIELDS[variant], packed))
+    sf = o["sf"]
+    if sf.numel() and (int(sf.min()) < 0
+                       or int(sf.max()) >= 1 << FEATURE_BITS):
+        raise ValueError(f"split features must lie in [0, "
+                         f"2**{FEATURE_BITS})")
+    i32 = torch.int32
+    if variant == "binned":
+        miss = o["missing"]
+        mt = miss[sf.long()]
+        thr = o["tb"]
+        fmiss = torch.where(miss == 1, o["default_bin"],
+                            torch.where(miss == 2, o["num_bin"] - 1,
+                                        -1)).to(i32).contiguous()
+    else:
+        mt, thr, fmiss = o["mt"], o["th"].contiguous().view(i32), None
+    cf = torch.zeros_like(o["dl"]) if o["cf"] is None else o["cf"]
+    w0 = sf.to(i32) | (o["dl"].to(i32) << 24) | (mt.to(i32) << 25) \
+        | (cf.to(i32) << 27)
+    nodes = torch.stack([w0, thr.to(i32), o["lc"].to(i32),
+                         o["rc"].to(i32)], -1).contiguous()
+    return nodes, fmiss
 
 
 def predict_pass_plain(enc: torch.Tensor, packed: Sequence, tids: torch.Tensor,
@@ -356,8 +411,10 @@ def predict_pass_plain(enc: torch.Tensor, packed: Sequence, tids: torch.Tensor,
     :func:`route_binned_rows_to_leaves` (``variant="binned"``) or
     :func:`route_raw_rows_to_leaves` in float32 (``"raw"``), then
     ``raw[tids[t]] += lv[t][leaves]`` in float32, in tree order (the JAX
-    package's ``_run_binned_body`` / ``_run_raw_body``). Returns [k, R]
-    float32 on ``enc``'s device."""
+    package's ``_run_binned_body`` / ``_run_raw_body``). It walks the
+    per-field operands and leaves the ``RECORDS`` to the kernel, so a
+    packing fault shows as a disagreement. Returns [k, R] float32 on
+    ``enc``'s device."""
     ops = _check_pass_inputs(enc, packed, tids, k, variant)
     R = enc.shape[0]
     raw = torch.zeros((k, R), dtype=torch.float32, device=enc.device)
@@ -377,15 +434,58 @@ def predict_pass_plain(enc: torch.Tensor, packed: Sequence, tids: torch.Tensor,
     return raw
 
 
+# shared memory a block of the tiled design may fill (two blocks per SM)
+TILED_SMEM = 100 * 1024
+TILED_ROWS_SMEM_MAX = 64 * 1024
+
+
+def tiled_plan(R: int, F: int, T: int, N: int, L: int,
+               sms: int) -> Dict[str, int]:
+    """The tiled design's launch shape on a card of ``sms`` SMs: RT rows
+    per block (128, 256 or 512: the most that still gives one and a half
+    blocks per SM; each block stages every tree once, so wider tiles read
+    the stack fewer times), TS tree splits per row tile (where the row
+    tiles alone leave SMs idle) of Ts trees, TC trees per shared-memory
+    chunk, and whether the rows and the trees are staged in shared
+    memory. An empty stack (T = 0) is one split of one tree's room: the
+    launch writes zeros."""
+    RT = next((rt for rt in (512, 256) if 2 * R >= 3 * sms * rt), 128)
+    rows_bytes = RT * F * 4 + F * 4
+    rows_smem = int(rows_bytes <= TILED_ROWS_SMEM_MAX)
+    room = TILED_SMEM - rows_smem * rows_bytes
+    per_tree = 16 * N + 4 * L
+    nodes_smem = int(per_tree <= room)
+    tiles = -(-R // RT)
+    TS = 1 if tiles >= sms or T <= 1 else min(T, -(-2 * sms // tiles))
+    Ts = max(1, -(-T // TS))
+    TS = max(1, -(-T // Ts))
+    TC = min(Ts, room // per_tree) if nodes_smem else Ts
+    return {"RT": RT, "TS": TS, "Ts": Ts, "TC": TC, "rows_smem": rows_smem,
+            "nodes_smem": nodes_smem, "tiles": tiles}
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
 def predict_pass(enc: torch.Tensor, packed: Sequence, tids: torch.Tensor,
                  k: int, max_steps: int, variant: str) -> torch.Tensor:
     """Raw scores [k, R] float32 of a packed tree stack (``packed`` holds
-    the operands of ``FIELDS[variant]`` in order; ``cf``/``cm`` None
-    without categorical nodes) on the encoded rows ``enc`` [R, F] (int32
-    bins for ``"binned"``, float32 values for ``"raw"``); tree t adds to
-    class ``tids[t]``; ``max_steps`` >= every tree's depth. On a CPU tensor
-    the plain version; on the card one launch of ``csrc/predict_pass.cu``
-    on the current stream (the same bits), or it raises."""
+    the operands of ``FIELDS[variant]`` in order, ``cf``/``cm`` None
+    without categorical nodes, then the ``RECORDS`` that
+    :func:`pack_records` makes of them once per model) on the encoded rows
+    ``enc`` [R, F] (int32 bins for ``"binned"``, float32 values for
+    ``"raw"``); tree t adds to class ``tids[t]``; ``max_steps`` >= every
+    tree's depth. On a CPU tensor the plain version; on the card one
+    launch of ``csrc/predict_pass.cu`` on the current stream (the same
+    bits), or it raises."""
     ops = _check_pass_inputs(enc, packed, tids, k, variant)
     if enc.device.type == "cpu":
         return predict_pass_plain(enc, packed, tids, k, max_steps, variant)
@@ -394,21 +494,27 @@ def predict_pass(enc: torch.Tensor, packed: Sequence, tids: torch.Tensor,
     _require_cuda(enc, tids, *(a for a in ops.values() if a is not None))
     R, F = enc.shape
     T, N = ops["sf"].shape
+    L = ops["lv"].shape[1]
     cm = ops["cm"]
     out = torch.empty((k, R), dtype=torch.float32, device=enc.device)
     if R == 0:
         return out
 
-    def ptr(name) -> Optional[int]:
-        a = ops.get(name)
+    def ptr(a) -> Optional[int]:
         return None if a is None else a.data_ptr()
+    plan = tiled_plan(R, F, T, N, L, _sm_count(enc.device))
+    scratch = done = None
+    if plan["TS"] > 1:
+        scratch = torch.empty((T, R), dtype=torch.float32, device=enc.device)
+        done = torch.zeros(plan["tiles"], dtype=torch.int32,
+                           device=enc.device)
     rc = library().lgbt_predict_pass(
-        enc.data_ptr(), int(variant == "raw"), R, F, T, N,
-        ops["lv"].shape[1], 0 if cm is None else cm.shape[2], k, max_steps,
-        ptr("sf"), ptr("th" if variant == "raw" else "tb"), ptr("dl"),
-        ptr("mt"), ptr("lc"), ptr("rc"), ptr("lv"), tids.data_ptr(),
-        ptr("cf"), ptr("cm"), ptr("num_bin"), ptr("missing"),
-        ptr("default_bin"), out.data_ptr(), _stream(enc.device))
+        enc.data_ptr(), int(variant == "raw"), R, F, T, N, L,
+        0 if cm is None else cm.shape[2], k, max_steps,
+        ops["nodes"].data_ptr(), ops["lv"].data_ptr(), tids.data_ptr(),
+        ptr(cm), ptr(ops["fmiss"]), out.data_ptr(), ptr(scratch), ptr(done),
+        plan["RT"], plan["TS"], plan["Ts"], plan["TC"], plan["rows_smem"],
+        plan["nodes_smem"], _stream(enc.device))
     _raise_on(rc, "predict_pass")
     launches["predict_pass"] += 1
     cuda_launches["predict_pass"] += 1

@@ -121,6 +121,7 @@ class ServingEngine:
         # the bucket buffers are reused: one dispatch at a time
         self._dispatch_lock = threading.Lock()
         self._buffers: Dict[int, tuple] = {}
+        self._events: Optional[List["torch.cuda.Event"]] = None
 
         ts = getattr(booster, "train_set", None)
         if ts is not None and getattr(ts, "_inner", None) is not None:
@@ -238,35 +239,74 @@ class ServingEngine:
             bufs = self._buffers[bucket] = (host_in, dev_in, host_out)
         return bufs
 
+    def _timing_events(self) -> List["torch.cuda.Event"]:
+        """Four CUDA events around the copy in, the kernel and the copy
+        back, made once and reused: the dispatch lock makes them one
+        dispatch's alone."""
+        if self._events is None:
+            self._events = [torch.cuda.Event(enable_timing=True)
+                            for _ in range(4)]
+        return self._events
+
     def _dispatch(self, Xc: np.ndarray, bucket: int) -> np.ndarray:
         """Scores [k, rows] float32 of up to ``bucket`` raw rows: encode on
         the host into the bucket's buffer (zero padding), copy it to the
-        card, one ``predict_pass`` on the lane's stream, copy back."""
+        card, one ``predict_pass`` on the lane's stream, copy back. With
+        telemetry on, the parts' times (``reqtrace.DISPATCH_PARTS``: host
+        clock for the encode, the staging and the wait for the card, CUDA
+        events on the lane's stream for the copies and the kernel) go to
+        the ``serve.dispatch.*`` distributions and to the request's
+        ``serve_access`` record."""
         sig = self._signature(bucket)
         with _SIG_LOCK:
             fresh = sig not in _COMPILED_SIGS
+        timed = self.tel is not None and self.tel.enabled
         t0 = time.perf_counter()
         rows = Xc.shape[0]
         enc = self.pred.encode(Xc)
+        t1 = time.perf_counter()
         with self._dispatch_lock:
             host_in, dev_in, host_out = self._bucket_buffers(bucket)
             staged = host_in.numpy()
             staged[:rows] = enc
             staged[rows:] = 0
+            t2 = time.perf_counter()
+            ev = None
             if self.device.type == "cuda":
                 stream = lane_stream(self.device)
+                ev = self._timing_events() if timed else None
                 with torch.cuda.stream(stream):
+                    if ev is not None:
+                        ev[0].record()
                     dev_in.copy_(host_in, non_blocking=True)
+                    if ev is not None:
+                        ev[1].record()
                     out = predict_pass(dev_in, self._ops, self._tids,
                                        self.k, self.pred.max_steps,
                                        self.variant)
+                    if ev is not None:
+                        ev[2].record()
                     host_out.copy_(out, non_blocking=True)
+                    if ev is not None:
+                        ev[3].record()
                 stream.synchronize()
             else:
                 host_out.copy_(predict_pass(dev_in, self._ops, self._tids,
                                             self.k, self.pred.max_steps,
                                             self.variant))
             res = host_out.numpy()[:, :rows].copy()
+            if timed:
+                parts = {"encode_ms": (t1 - t0) * 1000.0,
+                         "stage_ms": (t2 - t1) * 1000.0,
+                         "device_ms": (time.perf_counter() - t2) * 1000.0}
+                if ev is not None:
+                    parts.update(copy_in_ms=ev[0].elapsed_time(ev[1]),
+                                 kernel_ms=ev[1].elapsed_time(ev[2]),
+                                 copy_out_ms=ev[2].elapsed_time(ev[3]))
+        if timed:
+            for name, v in parts.items():
+                self.tel.dist("serve.dispatch." + name, v)
+            reqtrace.annotate(**parts)
         # registered only after the call returned: a failed first dispatch
         # must not mark its signature warm
         if fresh:

@@ -1533,13 +1533,14 @@ def test_xla_growers_never_wait_for_the_card(cuda_device, policy,
 
 
 def _stack_tensors(variant, device, **kw):
-    from lightgbm_tpu_torch.ops.predict import FIELDS
+    """A random stack: its fields, then the records packed from them."""
+    from lightgbm_tpu_torch.ops.predict import FIELDS, pack_records
     enc, arrays, tids, steps = random_stack(variant, **kw)
 
     def t(a):
         return None if a is None else torch.as_tensor(a).to(device)
-    return (t(enc), tuple(t(arrays[n]) for n in FIELDS[variant]),
-            t(tids), steps)
+    ops = tuple(t(arrays[n]) for n in FIELDS[variant])
+    return t(enc), ops + pack_records(ops, variant), t(tids), steps
 
 
 @pytest.mark.parametrize("variant", ["binned", "raw"])
@@ -1622,3 +1623,44 @@ def test_service_on_card_one_launch_per_dispatch(cuda_device, tmp_path):
             np.testing.assert_array_equal(got, want.astype(np.float32))
     finally:
         svc.close()
+
+
+@pytest.mark.parametrize("R", [100, 3000, 20_000, 70_000, 140_000])
+@pytest.mark.parametrize("variant", ["binned", "raw"])
+def test_predict_tiled_shapes_match_plain(cuda_device, R, variant):
+    """Every launch shape (trees split across blocks below 132 row tiles,
+    one split above; 128, 256 and 512 rows a block): the plain version's
+    bits, twice; categorical nodes, k = 9 (the output column as
+    accumulator) and max_steps 256."""
+    from lightgbm_tpu_torch.ops import predict as tpred
+    for cat, k, steps in ((True, 3, None), (False, 9, 256)):
+        enc, ops, tids, st = _stack_tensors(variant, "cpu", R=R, T=12,
+                                            k=k, cat=cat, seed=R % 97 + k)
+        steps = steps or st
+        want = tpred.predict_pass_plain(enc, ops, tids, k, steps, variant)
+        dev = [None if a is None else a.to(cuda_device) for a in ops]
+        e, t = enc.to(cuda_device), tids.to(cuda_device)
+        a = tpred.predict_pass(e, dev, t, k, steps, variant)
+        b = tpred.predict_pass(e, dev, t, k, steps, variant)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b) and torch.equal(a.cpu(), want)
+
+
+@pytest.mark.parametrize("R", [1024, 140_000])
+def test_predict_empty_tree_range(cuda_device, R):
+    """``Booster.predict`` from the last iteration takes the device
+    predictor over no trees: zeros, as the plain version gives."""
+    from lightgbm_tpu_torch.ops import predict as tpred
+    enc, ops, tids, steps = _stack_tensors("binned", cuda_device, R=R,
+                                           T=6, k=3)
+    empty = tuple(None if a is None else a if a.dim() == 1 else a[:0]
+                  for a in ops)
+    out = tpred.predict_pass(enc, empty, tids[:0], 3, steps, "binned")
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (3, R) and not out.any()
+    X, z = _slice_rows()
+    bst = lt.train({"objective": "binary", "num_leaves": 7, "verbose": -1,
+                    "device_type": "cuda", "pred_device_min_work": 1},
+                   lt.Dataset(X, label=(z > 0).astype(float)), 3)
+    got = bst.predict(X, start_iteration=3, raw_score=True)
+    np.testing.assert_array_equal(got, np.zeros(len(X)))

@@ -13,7 +13,8 @@ A leaf left with two categories would tie {a} against its complement {b},
 which f32 sums in another order break either way; a one-vs-rest split of
 one shifted category leaves ten or more in a leaf. The trees equal
 (``torch_parity.assert_same_trees``), predictions are monotone in x0 in
-every category, and under the penalty the first root splits on x1.
+every category, and under the penalty the first root splits on x1. The
+bynode case runs in ``tests/test_torch_monotone_bynode.py``.
 """
 import numpy as np
 import pytest
@@ -44,9 +45,8 @@ def _data(case):
     return X, y
 
 
-@pytest.fixture(scope="module", params=list(CASES))
-def trained(request):
-    case = request.param
+def train_both(case):
+    """(case, X, the port's booster, the JAX package's) of one case."""
     X, y = _data(case)
     extra = dict(CASES[case])
     cats = extra.pop("categorical_feature", "auto")
@@ -58,6 +58,13 @@ def trained(request):
         bst.num_trees()
         out.append(bst)
     return case, X, out[0], out[1]
+
+
+# "bynode" runs in tests/test_torch_monotone_bynode.py, so that
+# --dist loadfile trains it beside these
+@pytest.fixture(scope="module", params=["penalty", "categorical"])
+def trained(request):
+    return train_both(request.param)
 
 
 def test_trees_match_jax(trained):

@@ -109,12 +109,24 @@ def test_packed_stacks_equal_jax(case, variant):
         (jp.k, jp.max_steps, jp.enc_width, jp.enc_dtype)
     want = _jax_arrays(jp)
     assert want["cf"] is not None and want["cf"].any()   # categorical
-    for name, a in tp.stack.items():
+    assert list(tp.stack) == list(tops.FIELDS[variant] + tops.RECORDS)
+    for name in tops.FIELDS[variant]:
+        a = tp.stack[name]
         if want[name] is None:
             assert a is None, name
             continue
         assert a.numpy().dtype == want[name].dtype, name
         np.testing.assert_array_equal(a.numpy(), want[name], err_msg=name)
+    # the tiled kernel's records, packed from those fields
+    records = tops.pack_records(tuple(
+        None if want[n] is None else torch.as_tensor(want[n])
+        for n in tops.FIELDS[variant]), variant)
+    for name, a, b in zip(tops.RECORDS, records,
+                          (tp.stack[n] for n in tops.RECORDS)):
+        assert (a is None) == (b is None) == (
+            name == "fmiss" and variant == "raw"), name
+        if a is not None:
+            np.testing.assert_array_equal(b.numpy(), a.numpy(), err_msg=name)
     # the single-leaf tree and the missing types of the case
     assert (want["lc"][SINGLE_LEAF_TREE] == -1).all()
     mt = want["missing"] if variant == "binned" else want["mt"]
@@ -153,8 +165,8 @@ def _hold_plain_to_jax(variant, enc, arrays, tids, k, steps,
     ops = tuple(None if arrays[n] is None else torch.as_tensor(arrays[n])
                 for n in tops.FIELDS[variant])
     t_enc, t_tids = torch.as_tensor(enc), torch.as_tensor(tids)
-    got = tops.predict_pass_plain(t_enc, ops, t_tids, k, steps,
-                                  variant).numpy()
+    got = tops.predict_pass_plain(t_enc, ops + tops.pack_records(
+        ops, variant), t_tids, k, steps, variant).numpy()
     # the JAX runner's operand order: tids after lv
     names = tops.FIELDS[variant]
     cut = names.index("lv") + 1
