@@ -217,9 +217,15 @@ non-zero (it prints no result line then):
 14. the XLA engine (``xla_train``) on phase 3's rows: (a)
    ``tpu_engine="xla"`` (the leaf-wise grower), 10 rounds: sec/iter,
    training AUC (> 0.75), predict against the trainer's scores, hist_pass
-   calls per tree (255: the root, then one per step), CUDA launches per
-   iteration, host syncs per tree, one captured step's histogram (S = 1)
-   against the plain version on its own operands; then 2 rounds of
+   calls per tree (1: the root), leaf_partition and leaf_hist calls per
+   tree (254: one each per step, on the rows listed per leaf), CUDA
+   launches per iteration, host syncs per tree; one captured step's
+   leaf_partition (exactly) and leaf_hist (1e-5 of the abs sum, weights
+   exact) against their plain versions on its own operands, the same
+   bits twice, times against ``torch.sort`` and ``index_add_`` on the
+   same rows and against the five-kernel hist_pass on the same child,
+   and the root both ways; a captured root's hist_pass (S = 1) checked;
+   then 2 rounds of
    ``tpu_engine="fused", grow_policy="leafwise"`` give (a)'s first two
    trees; (b) ``grow_policy="depthwise"`` with CEGB (a split penalty,
    coupled costs on four columns, lazy costs on four others), 10 rounds:
@@ -230,7 +236,9 @@ non-zero (it prints no result line then):
    rounds: every tree's first seven nodes are the JSON's, the worst step
    along each constrained column >= -1e-6; (d) phase 11a's CSR draw cut
    to 100,000 rows (bundle columns on the leaf-wise grower), 3 rounds,
-   predict on the CSR rows against the trainer's scores;
+   predict on the CSR rows against the trainer's scores, and its first
+   step's leaf_partition and leaf_hist checked as (a)'s are, at the
+   bundle columns' widths;
 15. serving on the card (``serve``): (a) phase 3's configuration trained
    for 200 rounds, served as ``live`` (binned routing through the
    training mappers) and from its model text as ``file`` (raw float32
@@ -276,7 +284,9 @@ non-zero (it prints no result line then):
    operands with that run's launches and on phase 2's Bc_p = 16384
    layout with none, the ``mono`` rows on each phase-12 run's own
    operands, the ``dart`` rows on 13a's, the unrounded ``hist_pass`` rows
-   on 14a's and 14b's with their launches, and per-kernel times of
+   on 14a's (a root) and 14b's with their launches, ``leaf_partition``
+   and ``leaf_hist`` on 14a's step with 14a's launches, and per-kernel
+   times of
    ``level_pass``, ``epilogue_pass`` and ``hist_pass``, and the
    ``predict_pass`` rows of phase 15 with their launches there;
 17. the last line: ``{"ok": true, "device": {...}}``.
@@ -373,16 +383,29 @@ CAPTURE_FIT_CALL = 3            # phase 13c: the linear fit checked (tree 5)
 CHECK_ROWS = 100_000            # phase 13: rows predict is held to
 SHAP_ROWS = 100_000             # phase 13d: the device form's rows
 SHAP_PLAIN_ROWS = 200           # and the plain form's
-CAPTURE_XLA_CALL = 100          # phase 14a: the hist_pass call checked (S=1)
+CAPTURE_XLA_CALL = 100          # phase 14a: the leaf-wise step checked (its
+#                                 leaf_partition and leaf_hist calls)
+CAPTURE_XLA_ROOT = 1            # phase 14a: the hist_pass call checked (a
+#                                 tree's root, S = 1)
 CAPTURE_DEPTH_CALL = 5          # phase 14b: a level's hist_pass (S = L)
 FUSED_LEAFWISE_ROUNDS = 2       # phase 14a: fused + leafwise against xla
 CEGB_SPLIT = 1e-5               # phase 14b: cost per split and leaf row,
 CEGB_COUPLED = 1e3              # per first use of a coupled column,
 CEGB_LAZY = 1e-2                # per row first using a lazy column
 XLA_CSR_ROWS = 100_000          # phase 14d: phase 11a's draw, cut
+CAPTURE_CSR_CALL = 1            # phase 14d: the leaf-wise step checked (the
+#                                 first: a child of about half the rows, on
+#                                 the bundle columns)
 XLA_CSR_ROUNDS = 3
 # the unrounded variant replaces no pallas_call: the XLA engine's histogram
 XLA_REPLACES = "lightgbm_tpu/ops/histogram.py:71 (build_histograms)"
+# the leaf-wise step's two row passes (phase 14a, csrc/data_partition.cu):
+# neither replaces a pallas_call
+LIST_REPLACES = {
+    "leaf_partition": "lightgbm_tpu/models/learner.py:735 (grow_tree_"
+                      "leafwise's partition: jnp.where over all R rows)",
+    "leaf_hist": "lightgbm_tpu/ops/histogram.py:71 (build_histograms at one "
+                 "slot: the leaf-wise step's smaller child, learner.py:741)"}
 BUNDLED_COLUMNS = 88            # phase 11a's bundle columns
 SERVE_ROUNDS = 200              # phase 15: the served model's trees
 SERVE_REQUESTS = 200            # bench.py's serve stream (bench.py:1092)
@@ -414,6 +437,8 @@ SOURCES = {
     "epilogue_pass": "lightgbm_tpu_torch/csrc/epilogue_pass.cu",
     "hist_pass": "lightgbm_tpu_torch/csrc/hist_pass.cu",
     "predict_pass": "lightgbm_tpu_torch/csrc/predict_pass.cu",
+    "leaf_partition": "lightgbm_tpu_torch/csrc/data_partition.cu",
+    "leaf_hist": "lightgbm_tpu_torch/csrc/data_partition.cu",
 }
 
 
@@ -573,29 +598,35 @@ def bound(nbytes: float, ops: float):
 
 
 def check_stages(launches, cuda, run) -> None:
-    """Every level_pass, route_pass, epilogue_pass and hist_pass call
-    launched each CUDA kernel of its stages once, as the C entries report
-    each launch (``cuda_launches``; hist_pass: at most 512 slots, one
-    window)."""
+    """Every level_pass, route_pass, epilogue_pass, hist_pass,
+    leaf_partition and leaf_hist call launched each CUDA kernel of its
+    stages once, as the C entries report each launch (``cuda_launches``;
+    hist_pass: at most 512 slots, one window)."""
+    from lightgbm_tpu_torch.ops import data_partition as dp
     from lightgbm_tpu_torch.ops import fused_level as fl
     for wrapper, kernels in (("level_pass", fl.LEVEL_KERNELS),
                              ("route_pass", fl.ROUTE_KERNELS),
                              ("epilogue_pass", fl.EPILOGUE_KERNELS),
-                             ("hist_pass", fl.HIST_KERNELS)):
-        got = {k: cuda[k] for k in kernels}
-        if got != dict.fromkeys(kernels, launches[wrapper]):
+                             ("hist_pass", fl.HIST_KERNELS),
+                             ("leaf_partition", dp.PARTITION_KERNELS),
+                             ("leaf_hist", dp.LEAF_HIST_KERNELS)):
+        got = {k: cuda.get(k, 0) for k in kernels}
+        if got != dict.fromkeys(kernels, launches.get(wrapper, 0)):
             raise AssertionError(f"{run}: {launches[wrapper]} {wrapper} "
                                  f"calls launched the CUDA kernels {got}")
 
 
 def kernel_cuda_launches(name, cuda):
     """The CUDA kernel launches of one wrapper in a run's counts."""
+    from lightgbm_tpu_torch.ops import data_partition as dp
     from lightgbm_tpu_torch.ops import fused_level as fl
     kernels = {"level_pass": fl.LEVEL_KERNELS,
                "route_pass": fl.ROUTE_KERNELS,
                "epilogue_pass": fl.EPILOGUE_KERNELS,
-               "hist_pass": fl.HIST_KERNELS}.get(name, (name,))
-    return {k: cuda[k] for k in kernels}
+               "hist_pass": fl.HIST_KERNELS,
+               "leaf_partition": dp.PARTITION_KERNELS,
+               "leaf_hist": dp.LEAF_HIST_KERNELS}.get(name, (name,))
+    return {k: cuda.get(k, 0) for k in kernels}
 
 
 def odd_route_table(W, slabs, seed):
@@ -1397,6 +1428,173 @@ def hist_operand_check(bins, gh, slot, S, B, quant_bits=0, stages=False,
         "bound_ms": b_ms, "bound_by": b_by}
 
 
+def list_partition_check(call, run):
+    """leaf_partition on one captured leaf-wise step (phase ``run``: the list
+    state before the split, the split's column and left table) against
+    its plain version, exactly, and the same output on a second call;
+    kernel ms (each timed call starts from the captured state: three
+    restoring copies, timed alone and taken off), plain ms, the library
+    yardstick (one stable ``torch.sort`` of the segment's precomputed left
+    flags) and the bound (the segment's ids read, their bins gathered,
+    the ids written: 12 B a row, and the table)."""
+    import torch
+    from lightgbm_tpu_torch.ops import data_partition as dp
+    (order, scratch, begin, rows, l1, new1, ds, kbins, col, table), _ = call
+    lf = int(l1)
+    b, n = int(begin[lf]), int(rows[lf])
+    if not bool(ds):
+        raise AssertionError(f"{run}: the captured leaf-wise step does not "
+                             f"split")
+    op = (l1, new1, ds, kbins, col, table)
+
+    def state():
+        return order.clone(), begin.clone(), rows.clone()
+    want = state()
+    dp.leaf_partition_plain(*want, *op)
+    c0 = {k: dp.cuda_launches[k] for k in dp.PARTITION_KERNELS}
+    outs = []
+    for _ in range(2):
+        got = state()
+        dp.leaf_partition(got[0], scratch, got[1], got[2], *op)
+        outs.append(got)
+    torch.cuda.synchronize()
+    cuda_launched = {k: dp.cuda_launches[k] - c0[k]
+                     for k in dp.PARTITION_KERNELS}
+    exact = all(torch.equal(a, w) for got in outs
+                for a, w in zip(got, want))
+    same = all(torch.equal(a, c) for a, c in zip(*outs))
+    if not (exact and same) or set(cuda_launched.values()) != {2}:
+        raise AssertionError(f"{run} leaf_partition: equal to plain {exact}, "
+                             f"the same twice {same}, CUDA {cuda_launched}")
+    o, bg, rw = state()
+    seg, bg0, rw0 = order[b:b + n].clone(), begin.clone(), rows.clone()
+
+    def restore():
+        o[b:b + n].copy_(seg)
+        bg.copy_(bg0)
+        rw.copy_(rw0)
+
+    def kernel():
+        restore()
+        dp.leaf_partition(o, scratch, bg, rw, *op)
+
+    def plain():
+        restore()
+        dp.leaf_partition_plain(o, bg, rw, *op)
+    flags = table[kbins[seg.long(), int(col)].long().clamp(
+        0, table.numel() - 1)]
+    keys = (~flags).to(torch.uint8)
+
+    def library():
+        return torch.sort(keys, stable=True)
+    restore_ms = cuda_ms(restore)
+    with_restore = cuda_ms(kernel)
+    with_restore_2 = cuda_ms(kernel)
+    n_left = int(flags.sum())
+    b_ms, b_by = bound(12 * n + table.numel(), n)
+    return {"segment_rows": n, "left_rows": n_left,
+            "right_rows": n - n_left, "Bk": int(table.numel()),
+            "launches": 2, "cuda_launches": cuda_launched,
+            "equal_to_plain": exact, "same_twice": same,
+            "max_abs_err": 0.0, "tol": "exact",
+            "kernel_ms": with_restore - restore_ms,
+            "kernel_ms_repeat": with_restore_2 - restore_ms,
+            "restore_ms": restore_ms, "kernel_with_restore_ms": with_restore,
+            "plain_ms": call_ms(plain, reps=5, warmup=1),
+            "library_ms": cuda_ms(library),
+            "library_call": "torch.sort(left flags, stable=True)",
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def list_hist_check(call, run):
+    """leaf_hist on one captured leaf-wise step (phase ``run``: the smaller
+    child's listed rows) against its plain version (g and h within 1e-5 of
+    the per-cell sum of |value|, the weight channel exact), the same bits
+    on a second call; kernel ms and a repeat, plain ms, the bound (the
+    listed rows' ids, bins and channels read, the planes written; 3 adds a
+    row and feature), ``index_add_`` over the child's precomputed cells,
+    the five-kernel ``hist_pass`` on ``slot = (row_leaf == target)`` for
+    the same child (held to the plain version as leaf_hist is), and the
+    root both ways (every row listed, or slotted)."""
+    import torch
+    from lightgbm_tpu_torch.models import learner as tlearn
+    from lightgbm_tpu_torch.ops import data_partition as dp
+    from lightgbm_tpu_torch.ops import pallas_histogram as ph
+    args, kw = call
+    kbins, gh, order, begin, rows, target, ds = args
+    Bk = kw["num_bins"]
+    R, Fp = kbins.shape
+    dev = kbins.device
+    lf = int(target)
+    b, n = int(begin[lf]), int(rows[lf])
+    c0 = dp.cuda_launches["leaf_hist"]
+    out_k = dp.leaf_hist(*args, num_bins=Bk)
+    again = dp.leaf_hist(*args, num_bins=Bk)
+    out_p = dp.leaf_hist_plain(*args, num_bins=Bk)
+    abs_sum = dp.leaf_hist_plain(kbins, gh.abs(), *args[2:], num_bins=Bk)
+    torch.cuda.synchronize()
+    cuda_launched = dp.cuda_launches["leaf_hist"] - c0
+    same = bool(torch.equal(out_k.view(torch.int32),
+                            again.view(torch.int32)))
+    rel = max(float((out_k[c] - out_p[c]).abs().max())
+              / max(float(abs_sum[c].max()), 1e-30) for c in range(2))
+    w_exact = bool(torch.equal(out_k[2], out_p[2]))
+    if not (same and w_exact and rel <= 1e-5) or cuda_launched != 2:
+        raise AssertionError(f"{run} leaf_hist: same twice {same}, rel "
+                             f"{rel}, w exact {w_exact}, CUDA "
+                             f"{cuda_launched}")
+    listed = order[b:b + n].long()
+    nbytes = n * 4 + n * (Fp * 4 + 3 * 4) + out_p.numel() * 4
+    b_ms, b_by = bound(nbytes, n * Fp * 3)
+    cell = (torch.arange(Fp, device=dev) * Bk
+            + kbins[listed].long()).reshape(-1)
+    src = gh[listed][:, None, :].expand(-1, Fp, -1).reshape(-1, 3)
+
+    def library():
+        return torch.zeros((Fp * Bk, 3), device=dev).index_add_(0, cell,
+                                                                 src)
+    row_leaf = tlearn._rows_to_leaves(order, begin, rows)
+    slot = torch.where(row_leaf == lf, 0, -1).to(torch.int32)
+    hkw = dict(S=1, Bp=Bk, nch=3, unrounded=True)
+    five = ph.hist_pass(kbins, gh, slot, **hkw)[:, 0]
+    five_rel = max(float((five[c] - out_p[c]).abs().max())
+                   / max(float(abs_sum[c].max()), 1e-30) for c in range(2))
+    if not (five_rel <= 1e-5 and torch.equal(five[2], out_p[2])):
+        raise AssertionError(f"{run}: the five-kernel hist_pass on leaf_hist's "
+                             f"child: rel {five_rel}, w exact "
+                             f"{bool(torch.equal(five[2], out_p[2]))}")
+    # the root: every row listed (leaf 0 of a fresh list) or slotted
+    all_rows = torch.arange(R, dtype=torch.int32, device=dev)
+    root_begin = torch.zeros_like(begin)
+    root_rows = torch.zeros_like(rows)
+    root_rows[:1].fill_(R)
+    root_leaf = torch.zeros(1, dtype=torch.int64, device=dev)
+    zero_slot = torch.zeros(R, dtype=torch.int32, device=dev)
+    return {"listed_rows": n, "R": R, "Fp": Fp, "Bk": Bk,
+            "grid": list(dp.hist_grid(Fp, Bk)),
+            "launches": 2, "cuda_launches": cuda_launched,
+            "same_bits_twice": same,
+            "max_abs_err": float((out_k - out_p).abs().max()),
+            "rel_err_of_abs_sum": rel,
+            "tol": "1e-5 of abs sum; w exact",
+            "kernel_ms": cuda_ms(lambda: dp.leaf_hist(*args, num_bins=Bk)),
+            "kernel_ms_repeat": cuda_ms(
+                lambda: dp.leaf_hist(*args, num_bins=Bk)),
+            "plain_ms": call_ms(lambda: dp.leaf_hist_plain(
+                *args, num_bins=Bk), reps=3, warmup=1),
+            "library_ms": cuda_ms(library, reps=5),
+            "library_call": "index_add_ over the child's precomputed cells",
+            "bound_ms": b_ms, "bound_by": b_by,
+            "five_kernel_hist_pass_ms": cuda_ms(
+                lambda: ph.hist_pass(kbins, gh, slot, **hkw)),
+            "five_kernel_rel_err_of_abs_sum": five_rel,
+            "root_leaf_hist_ms": cuda_ms(lambda: dp.leaf_hist(
+                kbins, gh, all_rows, root_begin, root_rows, root_leaf, ds,
+                num_bins=Bk)),
+            "root_hist_pass_ms": cuda_ms(
+                lambda: ph.hist_pass(kbins, gh, zero_slot, **hkw))}
+
+
 def auc(scores: np.ndarray, y: np.ndarray) -> float:
     order = np.argsort(scores, kind="stable")
     ranks = np.empty(len(scores), np.float64)
@@ -1971,12 +2169,16 @@ def _timed_run(fn):
 
 def _run_counts():
     """Reset the wrappers' and the grower's counters; returns a reader of
-    (launches, CUDA launches, host syncs) since."""
+    (launches, CUDA launches, host syncs) since (the leaf-wise list
+    kernels' counts, ``ops/data_partition.py``, beside the rest)."""
     from lightgbm_tpu_torch.models import frontier2
+    from lightgbm_tpu_torch.ops import data_partition as dp
     from lightgbm_tpu_torch.ops import fused_level as fl
     fl.reset_launch_counts()
+    dp.reset_launch_counts()
     frontier2.host_syncs["count"] = 0
-    return lambda: (dict(fl.launches), dict(fl.cuda_launches),
+    return lambda: (dict(fl.launches, **dp.launches),
+                    dict(fl.cuda_launches, **dp.cuda_launches),
                     frontier2.host_syncs["count"])
 
 
@@ -3729,14 +3931,19 @@ def _trees_text(text: str) -> str:
 
 
 def run_xla_train(lgb, params, ds, X, y, w, e2e):
-    """Phase 14: the XLA engine (leaf-wise and depth-wise growers, their
-    histograms through hist_pass's unrounded f32 variant) on phase 3's
-    rows. (a) ``tpu_engine="xla"`` (leaf-wise) through train(), ROUNDS
-    rounds: sec/iter, training AUC (> 0.75), predict against the trainer's
-    scores, hist_pass calls per tree (the root, then one per split: L),
-    CUDA launches per iteration, host syncs per tree, and its
-    CAPTURE_XLA_CALL-th hist_pass call (S = 1) held to the plain version on
-    its own operands; then 2 rounds of ``tpu_engine="fused",
+    """Phase 14: the XLA engine (leaf-wise and depth-wise growers; the
+    depth-wise levels and the leaf-wise roots through hist_pass's unrounded
+    f32 variant, each leaf-wise step through leaf_partition and leaf_hist
+    on the rows listed per leaf) on phase 3's rows. (a)
+    ``tpu_engine="xla"`` (leaf-wise) through train(), ROUNDS rounds:
+    sec/iter, training AUC (> 0.75), predict against the trainer's
+    scores, hist_pass calls per tree (the root: 1), leaf_partition and
+    leaf_hist calls per tree (one per step: L - 1), CUDA launches per
+    iteration, host syncs per tree; its CAPTURE_XLA_CALL-th step's
+    leaf_partition and leaf_hist operands (``list_partition_check``,
+    ``list_hist_check``) and its CAPTURE_XLA_ROOT-th hist_pass call (a
+    root, S = 1) held to their plain versions; then 2 rounds of
+    ``tpu_engine="fused",
     grow_policy="leafwise"`` give the same trees as (a)'s first two. (b)
     ``grow_policy="depthwise"`` with CEGB (a split penalty, coupled costs on
     four columns, lazy costs on four others): AUC, the penalised columns'
@@ -3748,12 +3955,15 @@ def run_xla_train(lgb, params, ds, X, y, w, e2e):
     stays advanced, the worst step along each constrained column >= -1e-6.
     (d) phase 11a's CSR draw cut to XLA_CSR_ROWS rows (bundle columns on
     the leaf-wise grower), XLA_CSR_ROUNDS rounds, predict on the CSR rows
-    against the trainer's scores. Returns (each run's wrapper launches,
-    the captured checks of (a) and (b)); each run's launches carry its
-    CUDA kernel launches under "cuda"."""
+    against the trainer's scores, and its CAPTURE_CSR_CALL-th step's list
+    kernels checked as (a)'s are, on the bundle columns' operands. Returns (each run's wrapper launches,
+    the captured checks of (a) and (b), with the list kernels of (a) and
+    (d) under "<run>_leaf_partition" and "<run>_leaf_hist"); each run's
+    launches carry its CUDA kernel launches under "cuda"."""
     import json as json_mod
     import os
     import tempfile
+    from lightgbm_tpu_torch.models import learner as lmod
     from lightgbm_tpu_torch.ops import histogram as hmod
     out, checks = {}, {}
 
@@ -3775,6 +3985,9 @@ def run_xla_train(lgb, params, ds, X, y, w, e2e):
                 "sec_per_iter_after_first": (t_all - t_one) / (rounds - 1),
                 "train_s": t_all, "train_auc": auc(scores, data_y),
                 "hist_pass_calls_per_tree": launches["hist_pass"] / n_trees,
+                "leaf_partition_calls_per_tree":
+                launches["leaf_partition"] / n_trees,
+                "leaf_hist_calls_per_tree": launches["leaf_hist"] / n_trees,
                 "launches_per_tree": {k: v / n_trees
                                       for k, v in launches.items() if v},
                 "cuda_launches_per_iter": {k: v / rounds
@@ -3791,7 +4004,28 @@ def run_xla_train(lgb, params, ds, X, y, w, e2e):
             raise AssertionError(f"{name}: not the XLA engine: {res}")
         if launches["hist_pass"] <= 0 or launches["level_pass"]:
             raise AssertionError(f"{name}: launches {launches}")
+        # the leaf-wise grower: one leaf_partition and one leaf_hist call
+        # per step, L - 1 steps a tree; the depth-wise grower neither
+        steps = (want_trees * (params["num_leaves"] - 1)
+                 if res["engine"]["grow_policy"] == "leafwise" else 0)
+        if not launches["leaf_partition"] == launches["leaf_hist"] == steps:
+            raise AssertionError(f"{name}: {launches['leaf_partition']} "
+                                 f"leaf_partition and "
+                                 f"{launches['leaf_hist']} leaf_hist calls, "
+                                 f"want {steps} each")
         check_stages(launches, cuda, name)
+
+    def list_checks(store, run, step):
+        # the run's captured leaf-wise step: both list kernels against
+        # their plain versions on its own operands (each check raises)
+        for check, name in ((list_partition_check, "leaf_partition"),
+                            (list_hist_check, "leaf_hist")):
+            key = f"{run}_{name}"
+            checks[key] = dict(check(store.pop(name), f"14{run}"),
+                               step=step)
+            emit({"phase": "xla_train", "run": run, "kernel_check": {
+                "kernel": name, "operands": f"step {step} of 14{run}'s "
+                f"first tree", **checks[key]}})
 
     def captured_check(store, run, S):
         args, kw = store.pop("hist_pass")
@@ -3809,7 +4043,9 @@ def run_xla_train(lgb, params, ds, X, y, w, e2e):
     _, t_one = _timed_run(lambda: fit(pa, 1))
     counts = _run_counts()
     (bst_a, t_all), store = captured(lambda: fit(pa, ROUNDS), [
-        (hmod, "hist_pass", CAPTURE_XLA_CALL)])
+        (hmod, "hist_pass", CAPTURE_XLA_ROOT),
+        (lmod, "leaf_partition", CAPTURE_XLA_CALL - 1),
+        (lmod, "leaf_hist", CAPTURE_XLA_CALL - 1)])
     launches, cuda, syncs = counts()
     res, scores = common("a", bst_a, t_all, t_one, launches, cuda, syncs,
                          ROUNDS, y)
@@ -3831,8 +4067,10 @@ def run_xla_train(lgb, params, ds, X, y, w, e2e):
     gate(res, launches, cuda, "14a", ROUNDS)
     if not res["train_auc"] > 0.75:
         raise AssertionError(f"14a: training AUC {res['train_auc']}")
+    # one hist_pass call per tree (its root): the steps' histograms are
+    # leaf_hist's (gate)
     if res["engine"]["grow_policy"] != "leafwise" \
-            or launches["hist_pass"] != ROUNDS * params["num_leaves"]:
+            or launches["hist_pass"] != ROUNDS:
         raise AssertionError(f"14a: {res['engine']}, "
                              f"{launches['hist_pass']} hist_pass calls")
     if not np.allclose(pred, scores[:CHECK_ROWS], rtol=1e-5, atol=1e-5):
@@ -3843,6 +4081,7 @@ def run_xla_train(lgb, params, ds, X, y, w, e2e):
         raise AssertionError(f"14a: fused + leafwise: "
                              f"{res['fused_leafwise']}")
     out["a"] = dict(launches, cuda=cuda)
+    list_checks(store, "a", CAPTURE_XLA_CALL)
     checks["a"] = captured_check(store, "a", 1)
 
     # (b) the depth-wise grower with CEGB
@@ -3939,7 +4178,9 @@ def run_xla_train(lgb, params, ds, X, y, w, e2e):
     pd_ = dict(params, tpu_engine="xla")
     _, t_one = _timed_run(lambda: fit(pd_, 1, dss))
     counts = _run_counts()
-    bst_d, t_all = _timed_run(lambda: fit(pd_, XLA_CSR_ROUNDS, dss))
+    (bst_d, t_all), store = captured(lambda: fit(pd_, XLA_CSR_ROUNDS, dss), [
+        (lmod, "leaf_partition", CAPTURE_CSR_CALL - 1),
+        (lmod, "leaf_hist", CAPTURE_CSR_CALL - 1)])
     launches, cuda, syncs = counts()
     res, scores = common("d", bst_d, t_all, t_one, launches, cuda, syncs,
                          XLA_CSR_ROUNDS, ys)
@@ -3960,6 +4201,7 @@ def run_xla_train(lgb, params, ds, X, y, w, e2e):
         raise AssertionError(f"14d: bundles {bst_d._gbdt.use_bundles}, "
                              f"predict error {res['predict_max_abs_err']}")
     out["d"] = dict(launches, cuda=cuda)
+    list_checks(store, "d", CAPTURE_CSR_CALL)
     return out, checks
 
 
@@ -4917,7 +5159,7 @@ def main() -> int:
                                      for run, v in xla_launches.items()}
         rows.append(row)
     # hist_pass's unrounded f32 variant, the XLA engine's histogram: on
-    # phase 14a's (a leaf-wise step, S = 1) and 14b's (a depth-wise level,
+    # phase 14a's (a leaf-wise root, S = 1) and 14b's (a depth-wise level,
     # S = L) own operands, each with its run's launches; phase 2's
     # synthetic checks of the variant beside them
     for run, S in (("a", 1), ("b", params["num_leaves"])):
@@ -4929,7 +5171,9 @@ def main() -> int:
             "launches_per_tree": xla_launches[run]["hist_pass"] / ROUNDS,
             "cuda_launches": kernel_cuda_launches(
                 "hist_pass", xla_launches[run]["cuda"]),
-            "operands": f"phase 14 run {run}, its own", "S": r["S"],
+            "operands": (f"phase 14 run {run}, its own"
+                         + (" (a tree's root)" if run == "a" else "")),
+            "S": r["S"],
             "slotted_rows": r["slotted_rows"],
             "max_abs_err": r["max_abs_err"],
             "rel_err_of_abs_sum": r["rel_err_of_abs_sum"],
@@ -4942,6 +5186,37 @@ def main() -> int:
                                  "kernel_ms", "kernel_ms_repeat",
                                  "plain_ms", "library_ms", "bound_ms",
                                  "bound_by")}})
+    # the leaf-wise step's list kernels (csrc/data_partition.cu) on phase
+    # 14a's own operands (logical columns) and 14d's (bundle columns), each
+    # with its run's launches (every run's beside them)
+    for run, name in [(run, name) for run in ("a", "d")
+                      for name in ("leaf_partition", "leaf_hist")]:
+        r = xla_checks[f"{run}_{name}"]
+        rounds = ROUNDS if run == "a" else XLA_CSR_ROUNDS
+        row = {"name": name if run == "a" else f"{name}[bundled]",
+               "route": "cuda", "source": SOURCES[name],
+               "replaces": LIST_REPLACES[name],
+               "launches": xla_launches[run][name],
+               "launches_per_tree": xla_launches[run][name] / rounds,
+               "cuda_launches": kernel_cuda_launches(
+                   name, xla_launches[run]["cuda"]),
+               "operands": f"phase 14 run {run}, step {r['step']}",
+               "max_abs_err": r["max_abs_err"], "tol": r["tol"],
+               "ms": r["kernel_ms"], "ms_repeat": r["kernel_ms_repeat"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+               "library_call": r["library_call"],
+               "xla_train_launches": {run: v[name]
+                                      for run, v in xla_launches.items()}}
+        if name == "leaf_partition":
+            row.update(segment_rows=r["segment_rows"],
+                       restore_ms=r["restore_ms"])
+        else:
+            row.update({k: r[k] for k in (
+                "listed_rows", "Fp", "Bk", "grid", "rel_err_of_abs_sum",
+                "five_kernel_hist_pass_ms", "root_leaf_hist_ms",
+                "root_hist_pass_ms")})
+        rows.append(row)
     # the kernels on bundle columns: each phase-11 run's own operands
     # (check_captured) with that run's launches; phase 2's widest synthetic
     # layout, which no run reaches, with none

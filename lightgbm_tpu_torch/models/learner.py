@@ -12,16 +12,20 @@ forced splits (``gather_split_info``), and the XLA engine's two growers:
 
 - ``grow_tree_leafwise``: LightGBM's best-first growth (ref:
   serial_tree_learner.cpp:159-210): the root histogram, then ``L - 1``
-  steps of argmax -> split -> route the leaf's rows -> the smaller
-  child's histogram (one slot) -> its sibling by subtraction -> the two
-  children's scans;
+  steps of argmax -> split -> partition the leaf's listed rows -> the
+  smaller child's histogram from its list -> its sibling by subtraction
+  -> the two children's scans. The rows are one index list grouped by
+  leaf (``ops/data_partition.py``, the reference's ``DataPartition``), so
+  a step reads only the split leaf's rows;
 - ``grow_tree_depthwise``: frontier-batched growth: one histogram pass per
   level for every left child at once (``S = L`` slots), siblings by
   subtraction, the leaves ranked by gain (a stable sort) within the
   ``num_leaves`` budget.
 
-Both build their histograms through ``ops/histogram.py`` (the unrounded
-f32 ``hist_pass`` on the card). Neither reads the device from the host
+The depth-wise grower, and the leaf-wise one's root, build their
+histograms through ``ops/histogram.py`` (the unrounded f32 ``hist_pass``
+on the card); the leaf-wise children through ``leaf_hist``. Neither
+reads the device from the host
 inside its loop: the JAX growers' ``lax.cond`` on ``do_split`` /
 ``n_sel > 0`` becomes a ``torch.where`` on every write (a step or level
 with nothing to split leaves the state as it was, so the loops run a
@@ -38,6 +42,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops.data_partition import leaf_hist, leaf_partition
 from ..ops.histogram import hist_bins, histogram_planes, histogram_subtract
 from ..ops.split import (BestSplit, SplitParams, best_split_cm,
                          calculate_leaf_output, leaf_gain, map_split)
@@ -515,21 +520,73 @@ class _Hist:
             h = _views(h, self.cfg, self.F, self.B)
         return h.permute(1, 0, 2, 3)
 
+    def leaf(self, order, leaf_begin, leaf_rows, leaf,
+             ds) -> torch.Tensor:
+        """[3, F, B] planes of the rows listed in ``leaf``'s segment of
+        ``order`` (``ops/data_partition.leaf_hist``); zeros where ``ds``
+        is false."""
+        h = leaf_hist(self.kbins, self.gh, order, leaf_begin, leaf_rows,
+                      leaf, ds, num_bins=self.Bk)[:, :self.Fk]
+        if self.cfg is not None:
+            h = _views(h[:, None], self.cfg, self.F, self.B)[:, 0]
+        return h
+
+
+def _window(raw, f_idx, meta: FeatureMeta, bundle_cfg):
+    """Bundle-column values -> feature ``f_idx``'s bins: its window
+    shifted to 0, every value outside it the feature's most-frequent bin
+    (lightgbm_tpu/models/learner.py:719-728)."""
+    off = bundle_cfg.offset_of_feat[f_idx]
+    in_win = (raw >= off) & (raw < off + meta.num_bin[f_idx])
+    return torch.where(in_win, raw - off, bundle_cfg.default_bin[f_idx])
+
 
 def _route_bins(bins, f_idx, meta: FeatureMeta, bundle_cfg):
     """Each row's bin of feature ``f_idx`` ([1] for one split, or [R] per
     row): a gather from the logical bins, or from the bundle columns with
-    the window decode (lightgbm_tpu/models/learner.py:719-728; rows
-    outside the feature's window hold its most-frequent bin)."""
+    the window decode."""
     R = bins.shape[0]
     if bundle_cfg is None:
         return bins.gather(1, f_idx.expand(R)[:, None].long())[:, 0] \
             .to(torch.int32)
     col = bundle_cfg.col_of_feat[f_idx].long()
     raw = bins.gather(1, col.expand(R)[:, None])[:, 0].to(torch.int32)
-    off = bundle_cfg.offset_of_feat[f_idx]
-    in_win = (raw >= off) & (raw < off + meta.num_bin[f_idx])
-    return torch.where(in_win, raw - off, bundle_cfg.default_bin[f_idx])
+    return _window(raw, f_idx, meta, bundle_cfg)
+
+
+def _left_table(kvals, fs, t, dl, cf, cm, meta: FeatureMeta, bundle_cfg,
+                B: int) -> torch.Tensor:
+    """[Bk] bool: whether a row whose kernel bin column holds each value of
+    ``kvals`` (``arange(Bk)``) goes left under the split (feature ``fs``,
+    threshold ``t``, default-left ``dl``, categorical flag ``cf`` and set
+    ``cm``): the routing of ``_route_bins`` and ``_route_left`` with the
+    category lookup, run over the Bk possible values instead of the R
+    rows."""
+    b = kvals if bundle_cfg is None else _window(kvals, fs, meta,
+                                                 bundle_cfg)
+    go_left = _route_left(b, t, dl, meta.num_bin[fs], meta.missing_type[fs],
+                          meta.default_bin[fs])
+    if cf is not None:
+        go_left = torch.where(cf, cm[0][b.long().clamp(0, B - 1)], go_left)
+    return go_left
+
+
+def _rows_to_leaves(order, leaf_begin, leaf_rows) -> torch.Tensor:
+    """row_leaf [R] int32 from the leaves' segments of ``order``: each
+    position takes the leaf whose non-empty segment starts at or before
+    it (the non-empty segments tile [0, R)), scattered to its row. On the
+    device, with no host read."""
+    R, L = order.shape[0], leaf_begin.shape[0]
+    dev = order.device
+    owner = torch.full((R + 1,), -1, dtype=torch.int32, device=dev)
+    # empty leaves write at the dropped slot R (their begins may collide)
+    start = torch.where(leaf_rows > 0, leaf_begin, R).long()
+    owner[start] = torch.arange(L, dtype=torch.int32, device=dev)
+    pos = torch.arange(R, device=dev)
+    first = torch.cummax(torch.where(owner[:R] >= 0, pos, 0), 0).values
+    row_leaf = torch.empty(R, dtype=torch.int32, device=dev)
+    row_leaf[order.long()] = owner[first]
+    return row_leaf
 
 
 def _scan_mask(feature_mask, node_masks, lg_rows, node_ids):
@@ -592,7 +649,20 @@ def grow_tree_leafwise(bins: torch.Tensor, gh: torch.Tensor,
       hist_bins_i32: the kernel's int32 copy of ``bins``
         (``ops.histogram.hist_bins``), kept per dataset; made here if None.
 
-    Returns (TreeArrays, row_leaf [R] int32).
+    State on the device, per tree (``ops/data_partition.py``): ``order``
+    int32 [R], the row ids grouped by leaf, in row order within a leaf;
+    ``leaf_begin`` and ``leaf_rows`` int32 [L], each leaf's segment of it
+    (zero-weight rows included); and an int32 [R] scratch list. The root's
+    segment is ``arange(R)``. Each step splits leaf l1's segment stably
+    (``leaf_partition``, from the split's decision per kernel bin value,
+    ``_left_table``) and histograms the smaller child, chosen on the
+    weighted counts, from its segment (``leaf_hist``); a step that does not
+    split leaves the lists as they were. The loop reads nothing on the
+    host.
+
+    Returns (TreeArrays, row_leaf [R] int32): row_leaf is built once after
+    the loop from the lists (``_rows_to_leaves``), equal element for
+    element to the per-row leaf vector the JAX grower rewrites each step.
     """
     R = bins.shape[0]
     dev = bins.device
@@ -617,7 +687,14 @@ def grow_tree_leafwise(bins: torch.Tensor, gh: torch.Tensor,
         + left_right.long()[None, :]
 
     tree = empty_tree(L, B, dev)
-    row_leaf = torch.zeros(R, dtype=torch.int32, device=dev)
+    # the rows as one list grouped by leaf (ops/data_partition.py; ref:
+    # data_partition.hpp): the root's segment is every row, in row order
+    order = torch.arange(R, dtype=torch.int32, device=dev)
+    scratch = torch.empty(R, dtype=torch.int32, device=dev)
+    leaf_begin = torch.zeros(L, dtype=torch.int32, device=dev)
+    leaf_rows = torch.zeros(L, dtype=torch.int32, device=dev)
+    leaf_rows[:1].fill_(R)       # fill_: no copy from the host
+    kvals = torch.arange(hist.Bk, dtype=torch.int32, device=dev)
     pool = torch.zeros((L, 3, F, B), dtype=torch.float32, device=dev)
     pool[0] = _root(hist, tree, params)
     nl = torch.ones(1, dtype=torch.int64, device=dev)
@@ -712,21 +789,21 @@ def grow_tree_leafwise(bins: torch.Tensor, gh: torch.Tensor,
         put(lpn, both, node.expand(2))
         put(lil, both, left_right)
 
-        # ---- partition update (ref: data_partition.hpp Split)
+        # ---- partition update (ref: data_partition.hpp Split): l1's
+        # segment of the list, left rows first, from the split's decision
+        # for each value of its kernel bin column
         fs = f.clamp(min=0).long()
-        bins_col = _route_bins(bins, fs, meta, bundle_cfg)
-        go_left = _route_left(bins_col, t, dl, meta.num_bin[fs],
-                              meta.missing_type[fs], meta.default_bin[fs])
-        if cf is not None:
-            go_left = torch.where(cf, cm[0][bins_col.long().clamp(0, B - 1)],
-                                  go_left)
-        row_leaf = torch.where((row_leaf == l1) & ~go_left & ds,
-                               new1.to(torch.int32), row_leaf)
+        table = _left_table(kvals, fs, t, dl, cf, cm, meta, bundle_cfg, B)
+        col = fs if bundle_cfg is None \
+            else bundle_cfg.col_of_feat[fs].long()
+        leaf_partition(order, scratch, leaf_begin, leaf_rows, l1, new1, ds,
+                       hist.kbins, col, table)
 
-        # ---- the smaller child's histogram; the sibling by subtraction
+        # ---- the smaller child's histogram from its listed rows; the
+        # sibling by subtraction
         target_is_left = bsl.left_count <= bsl.right_count
-        target = torch.where(target_is_left, l1, new1).to(torch.int32)
-        hist_t = hist(torch.where(row_leaf == target, 0, -1), 1)[0]
+        target = torch.where(target_is_left, l1, new1)
+        hist_t = hist.leaf(order, leaf_begin, leaf_rows, target, ds)
         hist_sib = histogram_subtract(pool[l1][0], hist_t)
         put(pool, l1, torch.where(target_is_left, hist_t, hist_sib)[None])
         put(pool, new1, torch.where(target_is_left, hist_sib, hist_t)[None])
@@ -771,7 +848,7 @@ def grow_tree_leafwise(bins: torch.Tensor, gh: torch.Tensor,
                         bsl, f, t, cf, child_hist, child_ids[i], meta, scan,
                         slots, f_iota, inf, L, B, adv)
         nl = nl + ds.long()
-    return _finish(tree, nl), row_leaf
+    return _finish(tree, nl), _rows_to_leaves(order, leaf_begin, leaf_rows)
 
 
 def _inter_step(tree, best, pool, leaf_lo, leaf_hi, leaf_groups, reg_lo,

@@ -10,7 +10,8 @@ keyed by a hash of the sources and flags, under ``lightgbm_tpu_torch/_build``
 every pointer argument is declared ``c_void_p`` so ctypes never truncates it
 to 32 bits. Each C entry point returns ``cudaGetLastError()`` after its
 launch; the wrappers in ``ops/fused_level.py``,
-``ops/pallas_histogram.py`` and ``ops/predict.py`` raise when it is not 0.
+``ops/pallas_histogram.py``, ``ops/predict.py`` and
+``ops/data_partition.py`` raise when it is not 0.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine with no ``nvcc``.
@@ -31,7 +32,8 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 SOURCES = ("level_pass.cu", "route_pass.cu", "table_lookup.cu",
-           "epilogue_pass.cu", "hist_pass.cu", "predict_pass.cu")
+           "epilogue_pass.cu", "hist_pass.cu", "predict_pass.cu",
+           "data_partition.cu")
 HEADERS = ("fused_level.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -72,6 +74,10 @@ SIGNATURES = {
                           _P, _P, _P, _P, _P, _P, _P, _P, _c.c_int,
                           _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
                           _P],
+    "lgbt_leaf_partition": [_P, _P, _P, _P, _P, _P, _P, _P, _c.c_int, _P,
+                            _P, _c.c_int, _P, _P, _c.POINTER(_c.c_int)],
+    "lgbt_leaf_hist": [_P, _c.c_int, _c.c_int, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _c.c_int, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -841,12 +841,13 @@ def _smem_budget(device) -> int:
     return _device_limits(device)[1] - HIST_STATIC_SMEM
 
 
-def _count_kernels(names, bits: int) -> None:
-    """Count in ``cuda_launches`` the kernels a C entry reports launched:
-    bit i of ``bits`` for ``names[i]``."""
+def _count_kernels(names, bits: int, counts=None) -> None:
+    """Count in ``counts`` (``cuda_launches``) the kernels a C entry reports
+    launched: bit i of ``bits`` for ``names[i]``."""
+    counts = cuda_launches if counts is None else counts
     for i, kern in enumerate(names):
         if bits >> i & 1:
-            cuda_launches[kern] += 1
+            counts[kern] += 1
 
 
 @functools.lru_cache(maxsize=None)

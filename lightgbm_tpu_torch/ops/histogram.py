@@ -33,7 +33,11 @@ segment sums rescaled, bit for bit, where that function runs eagerly
 
 The kernel takes ``bins`` as an int32 ``[R, Fp]`` row-major copy,
 feature-padded (``hist_bins``): the growers keep one per dataset and call
-``histogram_planes``; ``build_histograms`` makes one per call.
+``histogram_planes``; ``build_histograms`` makes one per call. The
+leaf-wise grower calls it for the root only: its children no longer go
+through ``histogram_planes`` but through ``ops/data_partition.leaf_hist``,
+which reads only the rows listed in the child's segment (the same sums
+over the same rows).
 """
 from __future__ import annotations
 

@@ -48,7 +48,9 @@ iteration, and ``linear_tree`` regression on the latent score z with the
 raw columns on the card; ``xla`` and ``xla_depthwise`` the XLA engine
 (``tpu_engine="xla"``, its phase 14 runs (a) and (b) without their CEGB
 costs: the leaf-wise and the depth-wise grower on the synchronous body,
-every histogram through ``hist_pass``'s unrounded f32 variant). Each
+the depth-wise levels and the leaf-wise roots through ``hist_pass``'s
+unrounded f32 variant, each leaf-wise step through ``leaf_partition`` and
+``leaf_hist`` on its listed rows). Each
 warms up two iterations (GOSS ten), times
 ``--rounds`` more untraced, then traces ``--rounds`` more with
 ``torch.profiler`` and prints one JSON line: the wall time per iteration
@@ -58,8 +60,9 @@ launches per iteration,
 each of the port's kernels' device ms per iteration (``level_pass``,
 ``route_pass``, ``epilogue_pass`` and ``hist_pass`` as the sums of their
 CUDA kernels, each also on its own; the slab-table kernel the first three
-share is split by launches), the port's CUDA kernel launches per
-iteration (``ops.fused_level.cuda_launches``), the kernels ranked by
+share is split by launches; ``leaf_partition`` and ``leaf_hist``), the
+port's CUDA kernel launches per iteration (``ops.fused_level.cuda_launches``
+and ``ops.data_partition.cuda_launches``), the kernels ranked by
 device time, and the host syncs per tree (the grower's, GOSS's copy of
 |g·h|, leaf renewal's copies). Also prints the card's name and power
 limit. Needs a CUDA device.
@@ -233,6 +236,7 @@ def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int,
                  valid=None, warmup: int = 2):
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from lightgbm_tpu_torch.ops import data_partition as dp
     from lightgbm_tpu_torch.ops import fused_level as fl
     ds.params = {}   # a Booster keeps its params in its Dataset: no leaks
     bst = lgb.Booster(params=params, train_set=ds)
@@ -254,6 +258,7 @@ def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int,
     untraced = time.perf_counter() - t0
     frontier2.host_syncs["count"] = 0
     fl.reset_launch_counts()
+    dp.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -292,7 +297,10 @@ def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int,
                                             for k in fl.EPILOGUE_KERNELS),
                  "hist_pass (all)": sum(kernel_ms[k]
                                         for k in fl.HIST_KERNELS),
-                 **kernel_ms}
+                 **kernel_ms,
+                 **{k: func_ms(f"{k}_kernel") for k in dp.cuda_launches}}
+    kernel_ms["leaf_partition (all)"] = sum(kernel_ms[k]
+                                            for k in dp.PARTITION_KERNELS)
     g = bst._gbdt
     k = g.num_tree_per_iteration
     return {
@@ -317,7 +325,8 @@ def profile_path(lgb, frontier2, params, ds, megastep: bool, rounds: int,
         "device_launches_per_iter": sum(r[2] for r in rows) / rounds,
         "kernel_ms_per_iter": kernel_ms,
         "cuda_launches_per_iter": {k: v / rounds
-                                   for k, v in fl.cuda_launches.items()},
+                                   for k, v in {**fl.cuda_launches,
+                                                **dp.cuda_launches}.items()},
         "top_device_ops": [{"name": k[:80], "calls_per_iter": c / rounds,
                             "ms_per_iter": d / 1e3 / rounds}
                            for d, k, c in rows[:15]]}
