@@ -274,7 +274,25 @@ non-zero (it prints no result line then):
    and equal to the plain version, time per launch, plain time, bound
    (the rows and the output, and of the stacks
    only the nodes, leaves and category-mask rows that some row reaches);
-16. the ``kernels`` line: every ported kernel and variant with its
+16. distributed training (``dist_train``): two ranks of the port
+   (``parallel.spawn``), both on cuda:0 over gloo (one card; NCCL refuses
+   two ranks on one device), each with its block of phase 3's draw cut to
+   2 x 499,712 rows: (a) ``tree_learner=data``, fused, f32: identical
+   model texts, trees of identical structure against the serial model on
+   the same rows (the first must be), AUC within 1e-4; (b) the same with
+   ``tpu_quantized_grad=16``: every tree exactly the serial quantized
+   model's; (c) ``voting``, ``top_k=5``: AUC > 0.75 and the collective
+   bytes per tree against (a)'s; (d) data-parallel on the XLA engine,
+   leaf-wise, 3 rounds: ``leaf_partition`` and ``leaf_hist`` launched on
+   each rank, trees against the serial XLA run; (e) at the grower level,
+   rows replicated: the feature-parallel depth-wise XLA and fused trees
+   equal the serial growers' to the last bit; (f) one rank over nccl:
+   ``record_psum`` on a CUDA tensor, and ``tree_learner=data`` warns and
+   trains phase 3's model. Each run prints per rank sec/iter, the device
+   span per iteration, kernel launches, collective calls and bytes per
+   tree and the collectives' share of the wall time (gloo's host-staged
+   round trips);
+17. the ``kernels`` line: every ported kernel and variant with its
    wrapper calls and CUDA kernel launches on the main path where it runs
    (every level_pass, route_pass, epilogue_pass and hist_pass call in
    phases 3-13 held to one launch of each of its CUDA kernels), its
@@ -288,8 +306,9 @@ non-zero (it prints no result line then):
    and ``leaf_hist`` on 14a's step with 14a's launches, and per-kernel
    times of
    ``level_pass``, ``epilogue_pass`` and ``hist_pass``, and the
-   ``predict_pass`` rows of phase 15 with their launches there;
-17. the last line: ``{"ok": true, "device": {...}}``.
+   ``predict_pass`` rows of phase 15 with their launches there, and
+   each kernel's launches per rank in phase 16's runs;
+18. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package. It exits non-zero when no CUDA
 device is present.
@@ -297,6 +316,7 @@ device is present.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -415,6 +435,12 @@ SERVE_SEED = 7
 SERVE_CAT_ROWS = 200_000        # phase 15c: phase 10's codes, cut
 SERVE_CAT_ROUNDS = 20
 SERVE_CHECK_BUCKETS = (1024, 65_536)    # phase 15e's operands
+DIST_ROWS = 2 * 499_712         # phase 16: two unpadded rank blocks
+DIST_WORLD = 2                  # phase 16: ranks, both on cuda:0 (gloo)
+DIST_TOP_K = 5                  # phase 16c: 10 of 28 columns exchanged
+DIST_XLA_ROUNDS = 3             # phase 16d
+DIST_DEADLINE_S = 600           # phase 16: the parent kills the ranks after
+DIST_TIMEOUT_S = 120            # phase 16: every group's collective timeout
 # served probabilities against the float64 walk: the JAX package's serving
 # tolerance for float32 sums (tests/test_serve.py); the routing itself is
 # held exactly, to the float32 sums of the walk's leaves
@@ -4859,6 +4885,418 @@ def _predict_row(name, r, launches):
             "bound_by": r["bound_by"], "library_ms": None}
 
 
+def _dist_cfg():
+    """The constants phase 16's ranks run with (a rank loads this file
+    afresh, so a rehearsal's settings travel with the call)."""
+    return {k: globals()[k] for k in ("DEVICE", "ROWS", "DIST_ROWS",
+                                      "ROUNDS", "DIST_XLA_ROUNDS")}
+
+
+def _set_dist_cfg(cfg) -> None:
+    globals().update(cfg)
+    globals()["DIST_RUNS"] = (
+        ("a", {"tree_learner": "data"}, ROUNDS),
+        ("b", {"tree_learner": "data", "tpu_quantized_grad": 16}, ROUNDS),
+        ("c", {"tree_learner": "voting", "top_k": DIST_TOP_K}, ROUNDS),
+        ("d", {"tree_learner": "data", "tpu_engine": "xla"},
+         DIST_XLA_ROUNDS))
+
+
+def _dev_sync() -> None:
+    import torch
+    if DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def _dist_rows(rank: int, world: int):
+    """Phase 16's rows: phase 3's draw cut to DIST_ROWS, and this rank's
+    contiguous block of them (world 1: all of them)."""
+    from lightgbm_tpu_torch.parallel.mesh import shard_rows
+    X, z, _ = _class_rows(ROWS, FEATURES, seed=DATA_SEED)
+    X, y = X[:DIST_ROWS], (z[:DIST_ROWS] > 0).astype(np.float32)
+    return shard_rows(X, rank, world), shard_rows(y, rank, world)
+
+
+def _dist_params(every_row_binned: bool = True):
+    """Phase 3's parameters; by default every row goes into the binning
+    sample, so the ranks' gathered samples (each rank's rows) and the
+    serial run's are the same rows and give the same mappers."""
+    p = {"objective": "binary", "max_bin": 63, "num_leaves": 255,
+         "learning_rate": 0.1, "min_data_in_leaf": 1,
+         "min_sum_hessian_in_leaf": 1e-3, "verbose": -1,
+         "device_type": DEVICE}
+    if every_row_binned:
+        p["bin_construct_sample_cnt"] = DIST_ROWS
+    return p
+
+
+DIST_RUNS = ()      # set by _set_dist_cfg
+
+
+def _timed_dist_train(lgb, params, ds, rounds):
+    """train() under a timed CollectiveTrace: (booster, its numbers)."""
+    import torch
+    from lightgbm_tpu_torch.ops.collectives import CollectiveTrace
+    reader = _run_counts()
+    _dev_sync()
+    ds.params = {}
+    on_card = DEVICE != "cpu"
+    if on_card:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+    with CollectiveTrace(timed=True) as rec:
+        t0 = time.perf_counter()
+        if on_card:
+            e0.record()
+        bst = lgb.train(params, ds, num_boost_round=rounds)
+        if on_card:
+            e1.record()
+        _dev_sync()
+        wall = time.perf_counter() - t0
+    launches, cuda, syncs = reader()
+    n = bst.num_trees()
+    return bst, {
+        "trees": n, "train_s": wall, "sec_per_iter": wall / rounds,
+        "device_span_ms_per_iter": (e0.elapsed_time(e1) / rounds
+                                    if on_card else None),
+        "launches": launches, "host_syncs_per_tree": syncs / max(1, n),
+        "collective_calls_per_tree": rec.count / max(1, n),
+        "collective_bytes_per_tree": rec.bytes / max(1, n),
+        "collective_by_dtype": {k: list(v) for k, v in rec.by_dtype.items()},
+        "collective_s": rec.seconds,
+        "collective_share_of_wall": rec.seconds / wall}
+
+
+def _feature_grower_check(rank, world):
+    """Phase 16e on this rank, rows replicated: the feature-parallel
+    depth-wise XLA tree and the fused tree (each rank scanning its half of
+    the columns) against the serial growers' trees on the same rows, every
+    array to the last bit."""
+    import torch
+    import torch.distributed as dist
+    from lightgbm_tpu_torch.models.frontier2 import grow_tree_fused
+    from lightgbm_tpu_torch.models.learner import (FeatureMeta,
+                                                   grow_tree_depthwise)
+    from lightgbm_tpu_torch.ops.fused_level import pack_gh
+    from lightgbm_tpu_torch.ops.layout import feature_layout
+    from lightgbm_tpu_torch.ops.split import SplitParams
+    from lightgbm_tpu_torch.parallel import make_feature_parallel_grow_fn
+    dev = torch.device(DEVICE)
+    X, y = _dist_rows(0, 1)
+    B, L, F = 63, 255, FEATURES
+    bins = torch.as_tensor(np.minimum(X * B, B - 1).astype(np.uint8),
+                           device=dev)
+    yt = torch.as_tensor(y, device=dev)
+    gh = torch.stack([0.5 - yt, torch.full_like(yt, 0.25),
+                      torch.ones_like(yt)], 1).contiguous()
+    params = SplitParams(min_data_in_leaf=1, min_sum_hessian_in_leaf=1e-3)
+    z = torch.zeros(F, dtype=torch.int32, device=dev)
+    meta = FeatureMeta(torch.full((F,), B, dtype=torch.int32, device=dev),
+                       z, z, z)
+    fm = torch.ones(F, dtype=torch.bool, device=dev)
+    group = dist.group.WORLD
+    out = {}
+
+    def same(t1, r1, t2, r2):
+        keys = [k for k in t1._fields if k != "num_leaves"
+                and getattr(t1, k) is not None]
+        diff = [k for k in keys
+                if not torch.equal(getattr(t1, k), getattr(t2, k))]
+        if t1.num_leaves != t2.num_leaves:
+            diff.append("num_leaves")
+        if not torch.equal(r1, r2):
+            diff.append("row_leaf")
+        return diff
+    reader = _run_counts()
+    fn = make_feature_parallel_grow_fn(group, params, L, B)
+    t_f, r_f = fn(bins, gh, meta, fm)
+    launches = reader()[0]
+    t_s, r_s = grow_tree_depthwise(bins, gh, meta, fm, params, L, B)
+    out["xla_depthwise"] = {"leaves": int(t_f.num_leaves),
+                            "differs": same(t_f, r_f, t_s, r_s),
+                            "hist_pass_launches": launches["hist_pass"]}
+    F_oh, Bp = feature_layout(F, 64)
+    Rp = ((X.shape[0] + 2047) // 2048) * 2048
+    bins_T = torch.zeros((max(F_oh, 8), Rp), dtype=torch.int8, device=dev)
+    bins_T[:F, :X.shape[0]] = bins.t().to(torch.int8)
+    pad = Rp - X.shape[0]
+    gh_T = pack_gh(*(torch.nn.functional.pad(gh[:, i], (0, pad))
+                     for i in range(3)), 5)
+    nb = torch.zeros(F_oh, dtype=torch.int32, device=dev)
+    nb[:F] = B
+    zf = torch.zeros(F_oh, dtype=torch.int32, device=dev)
+    fmeta = FeatureMeta(nb, zf, zf, zf)
+    ffm = torch.arange(F_oh, device=dev) < F
+    shard = torch.arange(F_oh, device=dev) // (F_oh // world) == rank
+    kw = dict(num_rows=X.shape[0], nch=5)
+    reader = _run_counts()
+    t_f, r_f = grow_tree_fused(bins_T, gh_T, fmeta, ffm, params, L, Bp, F_oh,
+                               group=group, parallel_mode="feature",
+                               feature_shard_mask=shard, **kw)
+    launches = reader()[0]
+    t_s, r_s = grow_tree_fused(bins_T, gh_T, fmeta, ffm, params, L, Bp, F_oh,
+                               **kw)
+    out["fused"] = {"leaves": int(t_f.num_leaves),
+                    "differs": same(t_f, r_f, t_s, r_s),
+                    "level_pass_launches": launches["level_pass"],
+                    "route_pass_launches": launches["route_pass"]}
+    return out
+
+
+def dist_rank(rank: int, world: int, cfg):
+    """Phase 16's program on one rank (``parallel.spawn``, gloo, cuda:0):
+    runs (a)-(d) through train() on this rank's block of DIST_ROWS rows,
+    then (e) at the grower level on every row. Returns each run's model
+    text, host trees, local training scores and numbers."""
+    import torch
+    import torch.distributed as dist
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.parallel import mesh
+    _set_dist_cfg(cfg)
+    Xr, yr = _dist_rows(rank, world)
+    params = _dist_params()
+    t0 = time.perf_counter()
+    # a parallel tree_learner in the Dataset's params: the ranks bin from
+    # the gathered sample
+    ds = lgb.Dataset(Xr, label=yr, params=dict(
+        params, tree_learner="data")).construct()
+    from lightgbm_tpu_torch.binning import mappers_digest
+    out = {"construct_s": time.perf_counter() - t0,
+           "mappers": mappers_digest(ds._inner.mappers),
+           "backend": dist.get_backend(),
+           "host_backend": dist.get_backend(mesh.host_group()),
+           "device": (str(torch.device("cuda", torch.cuda.current_device()))
+                      if DEVICE != "cpu" else DEVICE)}
+    for run, extra, rounds in DIST_RUNS:
+        bst, res = _timed_dist_train(lgb, dict(params, **extra), ds, rounds)
+        res.update(text=bst.model_to_string(), models=bst.models,
+                   scores=bst.train_scores().float().cpu().numpy())
+        out[run] = res
+    out["e"] = _feature_grower_check(rank, world)
+    return out
+
+
+def dist_nccl_rank(rank: int, world: int, cfg):
+    """Phase 16f on a group of one rank over nccl: record_psum on a CUDA
+    tensor, then tree_learner=data on phase 3's rows, which warns and
+    trains serially."""
+    import torch
+    import torch.distributed as dist
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.ops.collectives import record_psum
+    from lightgbm_tpu_torch.utils import log
+    _set_dist_cfg(cfg)
+    x = torch.arange(12, dtype=torch.float32, device=DEVICE)
+    s = record_psum(x, dist.group.WORLD)
+    X, z, _ = _class_rows(ROWS, FEATURES, seed=DATA_SEED)
+    y = (z > 0).astype(np.float32)
+    said = []
+    log.register_logger(said.append)
+    try:
+        bst = lgb.train(dict(_dist_params(False), tree_learner="data"),
+                        lgb.Dataset(X, label=y), num_boost_round=ROUNDS)
+    finally:
+        log.register_logger(None)
+    return {"backend": dist.get_backend(),
+            "psum_ok": bool(torch.equal(s, x))
+            and s.is_cuda == (DEVICE != "cpu"),
+            "warned": [m for m in said if "training serially" in m],
+            "models": bst.models}
+
+
+def _leading_nodes_equal(m1, m2) -> int:
+    """How many internal nodes, in node order (level order on the fused
+    grower, split order on the leaf-wise one), have the same split
+    feature, threshold and children before the first that differs."""
+    n = min(m1.num_leaves, m2.num_leaves) - 1
+    for i in range(n):
+        if any(getattr(m1, k)[i] != getattr(m2, k)[i]
+               for k in ("split_feature", "threshold", "left_child",
+                         "right_child")):
+            return i
+    return n
+
+
+def _same_structure(m1, m2):
+    return (m1.num_leaves == m2.num_leaves
+            and all(np.array_equal(getattr(m1, k), getattr(m2, k))
+                    for k in ("split_feature", "threshold", "left_child",
+                              "right_child", "leaf_count")))
+
+
+def run_dist_train(lgb, bst3):
+    """Phase 16: distributed training over torch.distributed. Two ranks of
+    the port (``parallel.spawn``), both on cuda:0 over gloo (NCCL refuses
+    two ranks on one device, and the machine has one card), each holding
+    its block of phase 3's draw cut to DIST_ROWS rows (two unpadded blocks
+    of 499,712): (a) tree_learner=data on the fused engine, f32: the ranks'
+    model texts identical, against the serial model on the same rows the
+    trees of identical structure and leaf counts counted (the first must
+    be), AUC within 1e-4 of the serial model's; (b) the same with
+    tpu_quantized_grad=16: every tree equal to the serial quantized
+    model's, leaf values exactly; (c) tree_learner=voting, top_k=5: the
+    ranks agree, AUC > 0.75, the collective bytes per tree against (a)'s;
+    (d) data-parallel on the XLA engine, leaf-wise, DIST_XLA_ROUNDS rounds:
+    each rank runs leaf_partition and leaf_hist on its own lists, the ranks
+    agree, the trees against the serial XLA run as in (a); (e) at the
+    grower level, rows replicated: the feature-parallel depth-wise XLA tree
+    and fused tree equal the serial growers' to the last bit. Then (f) one
+    rank over nccl: record_psum on a CUDA tensor, and tree_learner=data
+    warns and trains phase 3's model. The collective times are gloo's:
+    host-staged round trips, not NCCL or NVLink."""
+    import shutil
+    import tempfile
+    from lightgbm_tpu_torch.parallel.spawn import run_ranks
+    here = os.path.abspath(__file__)
+    t_phase = time.perf_counter()
+    cfg = _dist_cfg()
+    _set_dist_cfg(cfg)
+    wd = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    ranks = run_ranks(here + ":dist_rank", DIST_WORLD, (cfg,), workdir=wd,
+                      device_type=DEVICE, backend="gloo",
+                      deadline_s=DIST_DEADLINE_S, timeout_s=DIST_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t_phase
+    # the serial references on the same rows, in this process
+    X, y = _dist_rows(0, 1)
+    params = _dist_params()
+    ds = lgb.Dataset(X, label=y, params=params).construct()
+    from lightgbm_tpu_torch.binning import mappers_digest
+    if any(r["mappers"] != mappers_digest(ds._inner.mappers)
+           for r in ranks):
+        raise AssertionError("phase 16: a rank's bin mappers (from the "
+                             "gathered sample) differ from the serial ones")
+    serial = {}
+    for run, extra, rounds in DIST_RUNS:
+        if run == "c":
+            continue
+        p = dict(params, **{k: v for k, v in extra.items()
+                            if k != "tree_learner"})
+        bst, res = _timed_dist_train(lgb, p, ds, rounds)
+        res["scores"] = bst.train_scores().float().cpu().numpy()
+        serial[run] = (bst.models, res)
+    out = {}
+    for run, extra, rounds in DIST_RUNS:
+        r0, r1 = ranks[0][run], ranks[1][run]
+        if r0["text"] != r1["text"]:
+            raise AssertionError(f"phase 16 run {run}: the ranks' model "
+                                 "texts differ")
+        scores = np.concatenate([r0["scores"], r1["scores"]])
+        res = {"phase": "dist_train", "run": run, "params": extra,
+               "rows": DIST_ROWS, "ranks": DIST_WORLD,
+               "backend": ranks[0]["backend"],
+               "host_backend": ranks[0]["host_backend"],
+               "devices": [r["device"] for r in ranks],
+               "trees": r0["trees"], "train_auc": auc(scores, y),
+               "per_rank": [{k: r[run][k] for k in (
+                   "sec_per_iter", "device_span_ms_per_iter",
+                   "host_syncs_per_tree", "collective_calls_per_tree",
+                   "collective_bytes_per_tree", "collective_by_dtype",
+                   "collective_s", "collective_share_of_wall")}
+                   | {"launches": {k: v for k, v in r[run]["launches"].items()
+                                   if v}} for r in ranks],
+               "collective_note": "gloo on cuda:0: host-staged round trips"}
+        if run in serial:
+            s_models, s_res = serial[run]
+            same = [_same_structure(a, b) for a, b in zip(r0["models"],
+                                                           s_models)]
+            exact = [bool(_same_structure(a, b) and np.array_equal(
+                a.leaf_value, b.leaf_value))
+                for a, b in zip(r0["models"], s_models)]
+            res.update(serial_trees=len(s_models),
+                       first_tree_leading_nodes_equal=_leading_nodes_equal(
+                           r0["models"][0], s_models[0]),
+                       first_tree_internal_nodes=r0["models"][0].num_leaves
+                       - 1,
+                       leading_nodes_equal=[
+                           _leading_nodes_equal(a, b)
+                           for a, b in zip(r0["models"], s_models)],
+                       trees_same_structure=int(sum(same)),
+                       trees_exact=int(sum(exact)),
+                       serial_auc=auc(s_res["scores"], y),
+                       serial_sec_per_iter=s_res["sec_per_iter"],
+                       serial_device_span_ms_per_iter=s_res[
+                           "device_span_ms_per_iter"])
+            res["auc_gap"] = abs(res["train_auc"] - res["serial_auc"])
+        out[run] = res
+        emit(res)
+        kern = ("leaf_partition", "leaf_hist") if run == "d" \
+            else TRAIN_PATH_KERNELS
+        for r in ranks:
+            for k in kern:
+                # (the plain versions of a CPU rehearsal count nothing)
+                if DEVICE != "cpu" and r[run]["launches"].get(k, 0) <= 0:
+                    raise AssertionError(f"phase 16 run {run}: {k} never "
+                                         "launched on a rank")
+        if run in ("a", "d"):
+            # (a): the fused plane sums bf16 hi/lo parts, and the two
+            # ranks' planes summed gave the serial bits in every tree; (d):
+            # leaf_hist sums f32 values in list order, so the ranks'
+            # partial sums may differ from the serial ones by an ulp and a
+            # near-tie of a later tree flip (the first tree must match)
+            want = r0["trees"] if run == "a" else 1
+            if not (len(same) == r0["trees"] == len(s_models)
+                    and all(same[:want])):
+                raise AssertionError(
+                    f"phase 16 run {run}: {sum(same)} of {r0['trees']} "
+                    f"trees have the serial structure (serial "
+                    f"{len(s_models)}; {want} must)")
+            if res["auc_gap"] > 1e-4:
+                raise AssertionError(f"phase 16 run {run}: AUC "
+                                     f"{res['train_auc']} vs serial "
+                                     f"{res['serial_auc']}")
+        if run == "b" and (res["trees_exact"] != len(s_models)
+                           or len(s_models) != r0["trees"]):
+            raise AssertionError("phase 16 run b: the quantized trees differ "
+                                 "from the serial quantized model's")
+        if run == "c" and not res["train_auc"] > 0.75:
+            raise AssertionError(f"phase 16 run c: AUC {res['train_auc']}")
+    vote_ratio = (out["c"]["per_rank"][0]["collective_bytes_per_tree"]
+                  / out["a"]["per_rank"][0]["collective_bytes_per_tree"])
+    e = [r["e"] for r in ranks]
+    emit({"phase": "dist_train", "run": "e", "grower": e,
+          "voting_bytes_over_data": vote_ratio,
+          "vote_fraction": 2 * DIST_TOP_K / FEATURES})
+    # the levels exchange 10 of 28 columns; the full root exchange, the
+    # int32 votes and the different trees keep the ratio above 10/28
+    if not vote_ratio < 0.6:
+        raise AssertionError(f"phase 16 run c: voting moved {vote_ratio} "
+                             f"of data-parallel's bytes per tree")
+    for r in e:
+        for g in ("xla_depthwise", "fused"):
+            if r[g]["differs"]:
+                raise AssertionError(f"phase 16 run e: the feature-parallel "
+                                     f"{g} tree differs from the serial one "
+                                     f"in {r[g]['differs']}")
+        if DEVICE != "cpu" and (
+                r["xla_depthwise"]["hist_pass_launches"] <= 0
+                or r["fused"]["level_pass_launches"] <= 0):
+            raise AssertionError("phase 16 run e: a grower's kernel never "
+                                 "launched")
+    f = run_ranks(here + ":dist_nccl_rank", 1, (cfg,), workdir=wd + "/f",
+                  device_type=DEVICE, deadline_s=DIST_DEADLINE_S,
+                  timeout_s=DIST_TIMEOUT_S)[0]
+    f_same = [_same_structure(a, b) and np.allclose(
+        a.leaf_value, b.leaf_value, rtol=1e-5, atol=1e-6)
+        for a, b in zip(f["models"], bst3.models)]
+    emit({"phase": "dist_train", "run": "f", "backend": f["backend"],
+          "record_psum_cuda_ok": f["psum_ok"], "warning": f["warned"][:1],
+          "trees_equal_phase3": int(sum(f_same)),
+          "phase3_trees": len(bst3.models)})
+    if not (f["backend"] == ("nccl" if DEVICE != "cpu" else "gloo")
+            and f["psum_ok"] and f["warned"]
+            and all(f_same) and len(f_same) == len(bst3.models)):
+        raise AssertionError("phase 16 run f failed")
+    shutil.rmtree(wd, ignore_errors=True)
+    emit({"phase": "dist_train", "phase_s": time.perf_counter() - t_phase,
+          "ranks_s": ranks_s})
+    return {run: [r[run]["launches"] for r in ranks]
+            for run, _, _ in DIST_RUNS} | {
+        "e": [{"hist_pass": r["e"]["xla_depthwise"]["hist_pass_launches"],
+               "level_pass": r["e"]["fused"]["level_pass_launches"],
+               "route_pass": r["e"]["fused"]["route_pass_launches"]}
+              for r in ranks]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5104,7 +5542,10 @@ def main() -> int:
     serve_rows = run_serve(lgb, params, ds, X, y, e2e)
     del X
 
-    # ---- 16. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
+    # ---- 16. distributed training: two ranks on cuda:0 over gloo
+    dist_launches = run_dist_train(lgb, bst)
+
+    # ---- 17. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
     # the epilogue at Bp=64 int8, nch=5, binary, Sp=64; hist_pass at Bp=64,
     # Sp=64, f32). Launches: the train() run for the three kernels of its
     # path, update() run (a) for the epilogue, the frontier train() run for
@@ -5157,6 +5598,9 @@ def main() -> int:
             row[key] = slice_launches[run][name]
         row["xla_train_launches"] = {run: v[name]
                                      for run, v in xla_launches.items()}
+        row["dist_train_launches_per_rank"] = {
+            run: [v.get(name, 0) for v in per_rank]
+            for run, per_rank in dist_launches.items()}
         rows.append(row)
     # hist_pass's unrounded f32 variant, the XLA engine's histogram: on
     # phase 14a's (a leaf-wise root, S = 1) and 14b's (a depth-wise level,
@@ -5208,6 +5652,10 @@ def main() -> int:
                "library_call": r["library_call"],
                "xla_train_launches": {run: v[name]
                                       for run, v in xla_launches.items()}}
+        if run == "a":      # phase 16 runs the list kernels on logical columns
+            row["dist_train_launches_per_rank"] = {
+                d_run: [v.get(name, 0) for v in per_rank]
+                for d_run, per_rank in dist_launches.items()}
         if name == "leaf_partition":
             row.update(segment_rows=r["segment_rows"],
                        restore_ms=r["restore_ms"])
@@ -5279,7 +5727,7 @@ def main() -> int:
     emit({"kernels": rows})
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start})
 
-    # ---- 17. the result line
+    # ---- 18. the result line
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

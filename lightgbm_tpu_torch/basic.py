@@ -563,8 +563,10 @@ class Booster:
         are divided by the iterations trained first."""
         g = self._gbdt
         if valid_idx is None:
-            score_dev, metrics = g.scores, g.training_metrics
-            dataset = self.train_set
+            # under a rank layout the metrics hold the global rows
+            score_dev = (g.train_scores_global() if g.mp is not None
+                         else g.scores)
+            metrics, dataset = g.training_metrics, self.train_set
         else:
             score_dev = g.valid_scores[valid_idx]
             metrics = g.valid_metrics[valid_idx]
@@ -783,6 +785,24 @@ class Booster:
         booster = Booster(model_str=self.model_to_string(num_iteration=-1))
         booster.params = dict(self.params)
         return booster
+
+    def set_network(self, machines: str, local_listen_port: int = 12400,
+                    listen_time_out: int = 120,
+                    num_machines: int = 1) -> "Booster":
+        """Multi-host setup shim (ref: basic.py:2687 Booster.set_network):
+        the reference's machine-list parameters onto
+        ``torch.distributed.init_process_group`` — see
+        ``parallel/distributed.py``."""
+        from .parallel import distributed
+        distributed.set_network(machines, local_listen_port, num_machines,
+                                listen_time_out)
+        return self
+
+    def free_network(self) -> "Booster":
+        """(ref: basic.py:2721) Destroy the process group."""
+        from .parallel import distributed
+        distributed.free_network()
+        return self
 
     def refit(self, data, label, decay_rate: float = 0.9, **kwargs):
         """A copy whose leaf values are refitted on ``data`` (ref:

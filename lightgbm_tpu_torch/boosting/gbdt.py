@@ -161,8 +161,29 @@ fit after the host tree, on the dataset's raw columns on the device
 scores then take each row's linear output, and a valid set its own raw
 rows' outputs where it kept them, the binned constant replay otherwise.
 
+Distributed training (``_setup_parallel``, the JAX package's
+``gbdt.py:1441-1645``): ``tree_learner`` data or voting over an
+initialised ``torch.distributed`` group with one rank per device, each
+rank passing only its own rows. ``MultiProcLayout`` lays the rows out in
+rank blocks, the objective and the training metrics are initialised on
+the allgathered global metadata (their statistics global, their gradient
+operands sliced back to the rank's rows), bagging draws over the global
+rows on every rank and keeps the rank's slice, the quantized dither hashes
+global rows under the group's scales, and every grower reduces its
+histograms over the group (``group``), the epilogue body's next root
+histogram included, so every rank grows the same trees. Training metrics
+evaluate on the gathered scores; valid sets are replicated, their
+agreement checked by a digest. Feature-parallel needs every row on every
+rank: under the trainer it degrades to data-parallel with the JAX
+package's warning, and runs at the grower level
+(``parallel.make_feature_parallel_grow_fn``). With no group, or a group of
+one rank, ``tree_learner`` warns and trains serially. Under two or more
+ranks GOSS, DART, RF, leaf renewal, ranking, CEGB, forced splits, EFB and
+sparse input raise (ROADMAP Queue A item 9c), and ``linear_tree`` is
+refused in the JAX package's words.
+
 Not ported yet (``_UNPORTED`` raises, naming its ROADMAP item):
-distributed learners; resilience checkpoints (of ``cegb_used`` and
+resilience checkpoints (of ``cegb_used`` and
 ``cegb_used_rf`` too) and the training side of the observability keys
 (``telemetry_out``, ``trace_out``, ``health_check_period``,
 ``metrics_port``, ``run_report_out``, ``profile_dir``, ``perf_db``,
@@ -186,6 +207,7 @@ from ..models.learner import (BundleCfg, FeatureMeta, NodeMaskCfg,
                               grow_tree_depthwise, grow_tree_leafwise,
                               make_node_mask_cfg)
 from ..models.tree import HostTree, TreeArrays
+from ..ops.collectives import record_psum
 from ..ops.efb import BundleLayout, encode_bundles, find_bundles
 from ..ops.fused_level import (NCH_FAST, NCH_PRECISE, epilogue_pass,
                                max_slot_cap, pack_gh, pack_gh_quant,
@@ -225,10 +247,8 @@ def split_params_from_config(config: Config) -> SplitParams:
 
 
 _ITEM10 = "(ROADMAP Queue A item 10)"
-_UNPORTED = (
-    ("tree_learner", lambda v: v != "serial",
-     "distributed tree learners (ROADMAP Queue A item 9)"),
-) + tuple(
+_ITEM9C = "(ROADMAP Queue A item 9c)"
+_UNPORTED = tuple(
     # the training side of obs/, the SLO plane and resilience checkpoints
     # (lightgbm_tpu/boosting/gbdt.py:460-466, 532, 554-561, 1109-1111): a
     # non-default value is refused, never ignored
@@ -285,6 +305,7 @@ class GBDT:
         self._setup_forced_splits(config, train_data)
         self._setup_bundles(config, train_data)
         self._setup_node_masks(config, train_data)
+        self._setup_parallel(config, train_data)
         self._setup_engine(config, train_data)
         self._megastep_armed = False
         # epilogue body: (score [1, Rp], root hist, gh_T) carried to the
@@ -292,14 +313,17 @@ class GBDT:
         self._epi_carry = None
         self._epi_spec = (objective.epilogue_spec()
                           if objective is not None else None)
+        if self._epi_spec is not None and self.mp is not None:
+            kind, rows, sig = self._epi_spec
+            self._epi_spec = (kind, tuple(self.mp.local_block(r)
+                                          for r in rows), sig)
         self._epi_ops = None
 
         # bagging state (ref: gbdt.cpp:686-758 ResetBaggingConfig;
         # utils/random.h LCG, gbdt.cpp:804 per-block bagging generators,
         # col_sampler.hpp:26 by-tree stream); GOSS samples from bag_rng
-        n = self.num_data
         self.bag_streams = ref_random.BlockBaggingStreams(
-            int(config.bagging_seed), n)
+            int(config.bagging_seed), self._bag_rows())
         self._bag_round_cache = {}
         self.bag_rng = np.random.RandomState(int(config.bagging_seed))
         self.feat_rng = ref_random.Random(int(config.feature_fraction_seed))
@@ -321,6 +345,133 @@ class GBDT:
             if bad(getattr(config, key)):
                 log.fatal("%s is not ported to lightgbm_tpu_torch yet "
                           "(%s=%r)", what, key, getattr(config, key))
+
+    # ------------------------------------------------------ distribution
+    def _setup_parallel(self, config: Config,
+                        train_data: BinnedDataset) -> None:
+        """The distribution axis of the learner (gbdt.py:1441-1645; ref:
+        tree_learner.cpp:17-49): ``tree_learner`` data or voting over the
+        default process group, one rank per device, rows sharded. Sets
+        ``parallel_mode``, ``group`` (None = serial), ``mp`` (the rank
+        layout) and, under it, re-initialises the objective and the
+        training metrics on the global metadata."""
+        self.parallel_mode = "serial"
+        self.group = None
+        self.mp = None
+        self.top_k = int(config.top_k)
+        if not bool(getattr(config, "is_parallel", False)):
+            return
+        from ..parallel import mesh
+        from ..parallel.multiproc import MultiProcLayout, cohort_votes
+        mode = str(config.tree_learner)
+        if mesh.world() < 2:
+            log.warning(
+                "tree_learner=%s requested but only one device is visible; "
+                "training serially (start one rank per device: "
+                "parallel.distributed.init_distributed, or torchrun)", mode)
+            return
+        import torch.distributed as dist
+
+        def refuse(what):
+            log.fatal("%s is not supported with multi-process training yet "
+                      "%s", what, _ITEM9C)
+        if type(self) is not GBDT:
+            refuse(f"boosting={self.name}")
+        if bool(config.linear_tree):
+            # REFERENCE PARITY: the reference also refuses this (config.cpp:
+            # 348 forces tree_learner=serial under linear_tree)
+            log.fatal("linear_tree is serial-only (the reference forces "
+                      "tree_learner=serial for linear trees too); not "
+                      "supported with multi-process training")
+        obj = self.objective
+        if obj is not None and obj.is_renew_tree_output:
+            refuse(f"the leaf-renewal objective {obj.name}")
+        if train_data.metadata.query_boundaries is not None:
+            refuse("ranking with query-aligned shards")
+        if self.use_cegb:
+            refuse("cost-effective gradient boosting (cegb_*)")
+        if self.n_forced:
+            refuse("forcedsplits_filename")
+        # local decisions: the cohort's votes, so every rank refuses
+        if cohort_votes(train_data.prebundled is not None)[0]:
+            refuse("sparse input")
+        if cohort_votes(bool(self.use_bundles))[0]:
+            refuse("exclusive feature bundling (set enable_bundle=false)")
+        if mode == "feature":
+            # feature-parallel replicates rows on every rank; here each
+            # rank holds only its own rows
+            log.warning("tree_learner=feature needs row-replicated data; "
+                        "multi-process runs shard rows per rank — using "
+                        "data-parallel")
+            mode = "data"
+        self.parallel_mode = mode
+        self.group = dist.group.WORLD
+        # the fused engine's rank blocks align to its widest kernel tile
+        # (gbdt.py:1618-1628), so the global row of every local one, which
+        # the quantized dither hashes, is the JAX package's
+        wants_fused = str(config.tpu_engine) in ("auto", "fused", "frontier")
+        self.mp = MultiProcLayout(train_data.num_data,
+                                  row_align=ROW_BLOCK if wants_fused else 1)
+        # a Dataset constructed before its params named a parallel
+        # tree_learner binned from its own rows only
+        from ..binning import mappers_digest
+        digest = np.frombuffer(bytes.fromhex(
+            mappers_digest(train_data.mappers)), np.uint8).copy()
+        allg = self.mp._allgather(digest)
+        if not bool((allg == allg[0]).all()):
+            log.fatal("the bin mappers differ across ranks: give the "
+                      "training Dataset tree_learner in its params before "
+                      "it is constructed (train() does so for a Dataset "
+                      "not yet constructed), so that every rank bins from "
+                      "the gathered sample")
+        self._mp_metadata = self.mp.global_metadata(train_data.metadata)
+        # objectives and metrics: global statistics (the reference's
+        # GlobalSyncUp* paths), arrays over the Np padded rows with zero
+        # weight on the pads; the gradients read this rank's rows of them
+        if obj is not None:
+            obj.init(self._mp_metadata, self.mp.total_real, self.device)
+            full_ops = obj.gradient_operands
+            mp = self.mp
+            obj.gradient_operands = lambda: tuple(
+                None if o is None else mp.local_block(o)
+                for o in full_ops())
+            self.class_need_train = [
+                obj.class_need_train(i)
+                for i in range(self.num_tree_per_iteration)]
+        for m in self.training_metrics:
+            m.init(self._mp_metadata, self.mp.total_real)
+        log.info("Using %s-parallel tree learner over %d ranks", mode,
+                 self.mp.process_count)
+
+    def _bag_rows(self) -> int:
+        """Rows the bagging streams draw over: the global padded rows
+        under a rank layout (every rank draws all of them), else ours."""
+        return self.mp.Np if self.mp is not None else self.num_data
+
+    def train_scores_global(self) -> torch.Tensor:
+        """[k, Np] training scores of every rank's rows (pads 0), for the
+        training metrics, which hold the global metadata."""
+        return self.mp.gather_cols(self.scores)
+
+    def _valid_digest_check(self, valid_data: BinnedDataset) -> None:
+        """Valid sets are replicated: every rank must pass the same rows,
+        or the ranks' metrics, and early stopping with them, would diverge
+        (gbdt.py:4200-4228). One host gather of a digest per set."""
+        import hashlib
+        h = hashlib.sha256()
+        h.update(np.ascontiguousarray(
+            valid_data.bins_dev.cpu().numpy()).tobytes())
+        md = valid_data.metadata
+        for arr in (md.label, md.weight, md.init_score):
+            if arr is not None:
+                h.update(np.ascontiguousarray(
+                    np.asarray(arr, np.float64)).tobytes())
+        digest = np.frombuffer(h.digest(), np.uint8).copy()
+        allg = self.mp._allgather(digest)
+        if not bool((allg == allg[0]).all()):
+            log.fatal("the valid set differs across ranks: multi-process "
+                      "training evaluates replicated valid data, so every "
+                      "rank must pass the same rows")
 
     def _initial_scores(self, md, n: int) -> torch.Tensor:
         """[k, n] f32 scores: the init score where one is set (``k * n``
@@ -345,6 +496,8 @@ class GBDT:
         scores (from its init score, then every tree trained so far
         replayed onto it) and its metrics (ref: gbdt.cpp
         AddValidDataset)."""
+        if self.mp is not None:
+            self._valid_digest_check(valid_data)
         self._epi_carry = None
         self.valid_data.append(valid_data)
         score = self._initial_scores(valid_data.metadata,
@@ -595,6 +748,12 @@ class GBDT:
                       engine)
         if engine == "auto":
             engine = "fused"
+        if self.group is not None and engine == "frontier":
+            # the frontier-v1 engine has no multi-chip path (gbdt.py:
+            # 1976-1990)
+            engine = "xla" if self.parallel_mode == "voting" else "fused"
+            log.info("tree_learner=%s runs on the XLA or fused engines; "
+                     "using %s", self.parallel_mode, engine)
         has_cat = bool(np.any(train_data.is_categorical))
         mono = self._monotone(train_data)
         self.use_mono_bounds = bool(np.any(mono != 0))
@@ -676,6 +835,12 @@ class GBDT:
             # EFB already owns the packed flat axis (bundle columns)
             log.info("tpu_adaptive_bins is subsumed by feature bundling; "
                      "keeping the bundle layout")
+            adaptive = False
+        if adaptive and self.parallel_mode == "voting":
+            # the fused vote exchanges whole feature rows of the padded
+            # layout (gbdt.py:2130)
+            log.info("tpu_adaptive_bins does not compose with the voting "
+                     "exchange; keeping the padded layout")
             adaptive = False
         if not self.use_fused and (qb or adaptive or scr):
             log.info("tpu_quantized_grad, tpu_adaptive_bins and "
@@ -888,7 +1053,9 @@ class GBDT:
             # promotion
             draws = self.bag_streams.next_floats().astype(np.float64)
             if self.balanced_bagging:
-                frac = np.where(self.train_data.metadata.label > 0,
+                label = (self._mp_metadata.label if self.mp is not None
+                         else self.train_data.metadata.label)
+                frac = np.where(label > 0,
                                 np.float64(cfg.pos_bagging_fraction),
                                 np.float64(cfg.neg_bagging_fraction))
             else:
@@ -897,6 +1064,9 @@ class GBDT:
             for old in [key for key in cache
                         if key < fire - cfg.bagging_freq]:
                 del cache[old]
+        if self.mp is not None:
+            # every rank drew the global rows; it keeps its own
+            return self.mp.local_block(cache[fire])
         return cache[fire]
 
     def _bagging(self, it: int, grad=None, hess=None):
@@ -1019,7 +1189,9 @@ class GBDT:
             bundle_cols=self.fused_bundle_cols,
             bundle_col_bins=self.fused_bundle_col_bins,
             bundle_cfg=self.fused_bundle_cfg,
-            use_mono_bounds=self.use_mono_bounds, mono_mode=self.mono_mode)
+            use_mono_bounds=self.use_mono_bounds, mono_mode=self.mono_mode,
+            group=self.group, parallel_mode=self.parallel_mode,
+            top_k=self.top_k)
 
     def arm_megastep(self, on: bool = True) -> None:
         """Permission from a training loop (``engine.train``) to run the
@@ -1030,7 +1202,8 @@ class GBDT:
     def _use_epilogue(self) -> bool:
         """The epilogue body applies: an objective with a closed form the
         kernel implements (binary, l2), ``tpu_fused_epilogue``, one tree
-        per iteration (the serial learner is the only one ported), and no
+        per iteration (under a group its next root histogram is summed
+        over the ranks before the next tree reads it), and no
         histogram-plane cut (its kernel builds f32 padded root histograms,
         and screening's mask must reach the next root; gbdt.py:3487)."""
         return bool(self._epi_spec is not None
@@ -1124,8 +1297,10 @@ class GBDT:
         and its scales (None unquantized)."""
         gh = [self._pad_rows(x) for x in (g, h, w)]
         if self.quant_bits:
-            return pack_gh_quant(*gh, self.quant_bits,
-                                 seed=self._quant_seed(self.iter, tid))
+            return pack_gh_quant(
+                *gh, self.quant_bits, seed=self._quant_seed(self.iter, tid),
+                row_offset=self.mp.offset if self.mp is not None else 0,
+                group=self.group)
         return pack_gh(*gh, self.fused_nch), None
 
     def _epi_iter_body(self) -> bool:
@@ -1168,6 +1343,10 @@ class GBDT:
             self.fused_bins_T, row_leaf[None, :], W_last, tbl_last, lv,
             score_pad, ops, bag_next[None, :], num_bins=k_B, f_oh=k_F,
             nch=self.fused_nch, kind=kind, sigmoid=float(sig))
+        if self.group is not None:
+            # the next root histogram holds this rank's rows only: sum it
+            # before the next tree reads it (a full exchange, as the root)
+            hist0 = record_psum(hist0, self.group)
         self._epi_carry = (score2, hist0, gh_next)
         self.scores = score2[:, :n]
         return self._finish_fast_iter([tree], [init_score])
@@ -1367,7 +1546,8 @@ class GBDT:
             tree, row_leaf = grow_tree_frontier(
                 self.bins_i32, gh3, self.frontier_meta,
                 self._feature_mask_pad(), self.params, self.max_leaves,
-                self.frontier_Bp, int(self.config.max_depth))
+                self.frontier_Bp, int(self.config.max_depth),
+                group=self.group)
             return tree, row_leaf, (lambda lv, rl: leaf_value_lookup(
                 lv, rl, self.max_leaves))
         fmask = self._feature_mask_pad()
@@ -1391,7 +1571,9 @@ class GBDT:
             node_masks=self._node_masks_for_iter(),
             bundle_cfg=self.bundle_cfg if self.use_bundles else None,
             bundle_col_bins=self.bundle_col_bins if self.use_bundles else 0,
-            mono_mode=self.mono_mode, hist_bins_i32=self.xla_hist_bins)
+            mono_mode=self.mono_mode, hist_bins_i32=self.xla_hist_bins,
+            group=self.group, parallel_mode=self.parallel_mode,
+            top_k=self.top_k)
         args = (self.xla_bins, gh3, self.xla_meta, self._feature_mask_pad(),
                 self.params, self.max_leaves, self.max_bins,
                 int(self.config.max_depth))
@@ -1668,7 +1850,7 @@ class GBDT:
         if not self.is_bagging:
             self._set_bag(None)
         self.bag_streams = ref_random.BlockBaggingStreams(
-            int(config.bagging_seed), self.num_data)
+            int(config.bagging_seed), self._bag_rows())
         self._bag_round_cache = {}
 
     def eval_metric_set(self, ds_name: str, metrics, score_dev):

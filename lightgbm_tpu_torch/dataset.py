@@ -47,6 +47,7 @@ from .config import Config
 from .io.cache import (CACHE_MAGIC, LEGACY_MAGIC, load_dataset_cache,
                        read_magic, save_dataset_cache)
 from .ops.efb import BundleLayout, find_bundles
+from .parallel.multiproc import allgather_sample
 from .utils import log
 
 # the binning-defining keys a binary cache carries (the JAX package's
@@ -262,6 +263,14 @@ class BinnedDataset:
         sample_idx = _sample_rows(n, config.bin_construct_sample_cnt,
                                   config.data_random_seed)
         sample = np.asarray(data[sample_idx], dtype=np.float64)
+        # distributed loading: every rank holds only its row shard, and the
+        # bin mappers must still be IDENTICAL everywhere, so the samples
+        # are allgathered before FindBin (lightgbm_tpu/dataset.py:281-284;
+        # ref: dataset_loader.cpp:1015,1146-1154). Only for a parallel
+        # tree_learner: a torch process group may exist for other reasons
+        # (a DDP job, ranks each training a serial model of their own)
+        if config.is_parallel:
+            sample = allgather_sample(sample)
         mb_by_feat = list(config.max_bin_by_feature or [])
         if mb_by_feat and len(mb_by_feat) != f:
             log.fatal("max_bin_by_feature has %d entries but the data has "

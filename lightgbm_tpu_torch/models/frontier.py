@@ -1,7 +1,10 @@
 """Frontier-batched tree growth: the frontier-v1 engine.
 
-PyTorch counterpart of ``lightgbm_tpu/models/frontier.py`` on its serial
-path (``psum_axis`` is left out: the distributed learners are not ported).
+PyTorch counterpart of ``lightgbm_tpu/models/frontier.py``. Under a
+process group (``group``, the JAX grower's ``psum_axis``) each level's
+histogram planes are summed over the ranks before the split search
+(``_hist_level``); ``boosting/gbdt.py`` moves distributed runs to the
+fused engine, as the JAX package's trainer does.
 Every level splits up to ``S_cap = min(slot_cap, num_leaves)`` leaves,
 chosen by gain, and histograms the smaller child of each split through
 :func:`ops.pallas_histogram.build_histograms_pallas_cm` (the CUDA
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.collectives import record_psum
 from ..ops.pallas_histogram import build_histograms_pallas_cm
 from ..ops.split import SplitParams, best_numerical_split_cm, \
     calculate_leaf_output, map_split
@@ -49,10 +53,20 @@ def level_count(num_leaves: int, max_depth: int, slot_cap: int) -> int:
     return n_levels + max(0, (L - 1 + S_cap - 1) // S_cap - n_levels)
 
 
+def _hist_level(bins_i32, gh3, row_slot, S, B, group):
+    """[S, F, B] (g, h, c) planes of one level, summed over ``group``
+    (lightgbm_tpu/models/frontier.py:38-50)."""
+    g, h, c = build_histograms_pallas_cm(bins_i32, gh3, row_slot,
+                                         num_slots=S, num_bins=B)
+    if group is not None:
+        g, h, c = (record_psum(x, group) for x in (g, h, c))
+    return g, h, c
+
+
 def grow_tree_frontier(bins_i32: torch.Tensor, gh3: torch.Tensor,
                        meta: FeatureMeta, feature_mask: torch.Tensor,
                        params: SplitParams, num_leaves: int, max_bins: int,
-                       max_depth: int = -1, slot_cap: int = 64):
+                       max_depth: int = -1, slot_cap: int = 64, group=None):
     """Grow one tree level by level.
 
     Args:
@@ -63,6 +77,7 @@ def grow_tree_frontier(bins_i32: torch.Tensor, gh3: torch.Tensor,
       meta: FeatureMeta sized Fp (padding features num_bin=2, masked out).
       feature_mask: [Fp] bool.
       max_bins: the padded pow2 bin count Bp.
+      group: the data-parallel process group (rows sharded), or None.
 
     Returns (TreeArrays, row_leaf [R] int32).
     """
@@ -78,9 +93,7 @@ def grow_tree_frontier(bins_i32: torch.Tensor, gh3: torch.Tensor,
     pool_h = torch.zeros_like(pool_g)
     pool_c = torch.zeros_like(pool_g)
 
-    g0, h0, c0 = build_histograms_pallas_cm(bins_i32, gh3, row_leaf,
-                                            num_slots=ROOT_SLOTS,
-                                            num_bins=B)
+    g0, h0, c0 = _hist_level(bins_i32, gh3, row_leaf, ROOT_SLOTS, B, group)
     pool_g[0] = g0[0]
     pool_h[0] = h0[0]
     pool_c[0] = c0[0]
@@ -105,7 +118,7 @@ def grow_tree_frontier(bins_i32: torch.Tensor, gh3: torch.Tensor,
     state = (tree, row_leaf, pool_g, pool_h, pool_c, best, lpn, lil)
     for _ in range(level_count(L, max_depth, slot_cap)):
         state = _one_level(state, bins_i32, gh3, meta, feature_mask, params,
-                           L, B, S_cap, max_depth)
+                           L, B, S_cap, max_depth, group)
     return state[0], state[1]
 
 
@@ -121,7 +134,7 @@ def leaf_value_lookup(leaf_value: torch.Tensor, row_leaf: torch.Tensor,
 
 
 def _one_level(state, bins_i32, gh3, meta, feature_mask, params, L, B, S_d,
-               max_depth):
+               max_depth, group=None):
     tree, row_leaf, pool_g, pool_h, pool_c, best, lpn, lil = state
     dev = bins_i32.device
     nl = tree.num_leaves
@@ -171,8 +184,7 @@ def _one_level(state, bins_i32, gh3, meta, feature_mask, params, L, B, S_d,
         .to(torch.int32)
 
     # ---- histogram the SMALLER child per split; sibling by subtraction
-    hg, hh, hc = build_histograms_pallas_cm(bins_i32, gh3, row_slot,
-                                            num_slots=S_d, num_bins=B)
+    hg, hh, hc = _hist_level(bins_i32, gh3, row_slot, S_d, B, group)
     sl = left_smaller[sel][:, None, None]
     fresh = []
     for pool, got in ((pool_g, hg[:n_sel]), (pool_h, hh[:n_sel]),

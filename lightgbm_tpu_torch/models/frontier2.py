@@ -67,6 +67,24 @@ histogram under them. The JAX grower gates that rescan with a
 ``lax.cond`` on any such leaf; here it runs every intermediate level and
 the result is merged where a leaf's bounds changed, which gives the same
 splits with no second host read per level.
+
+Distribution (the JAX lines ``frontier2.py:150-200`` are the contract):
+``group`` takes the place of ``psum_axis`` (None = serial). Under
+``parallel_mode`` "data" the root pass's histogram and every level's
+packed ``[FB, nch*Sp]`` accumulator are summed over the group before the
+decode (the hi/lo and int32 decodes are linear, so the sum keeps f32-grade
+precision, and int32 sums are exact); routing stays rank-local, and the
+level's ``n_sel`` host read sees the same global gains on every rank.
+"voting" exchanges only the vote winners' columns of each level (the root
+is a full exchange) and keeps an ``[L, f_oh]`` validity pool for the
+sibling subtraction and later scans; a vote that covers every column is
+the data path verbatim. "feature" keeps the rows replicated, scans only
+``feature_shard_mask``'s columns and merges the best splits over the group
+(offset 0: the fused layout is replicated, so local indices are global).
+Under a group each rank passes its own ``num_rows``: its rows are its own
+local layout, the padding columns of which sit at leaf -1 as in the
+serial path (``num_rows=0``, every column real, with padding marked by
+zero gh weight, holds as well).
 """
 from __future__ import annotations
 
@@ -74,16 +92,18 @@ from typing import List, Tuple
 
 import torch
 
+from ..ops.collectives import record_psum
 from ..ops.fused_level import (NCH_PRECISE, build_route_table,
                                build_route_table_bundled, bundle_plane_views,
                                hist_planes, level_pass, max_slot_cap,
                                pack_route_table, route_pass, table_lookup)
 from ..ops.split import (BestSplit, SplitParams, best_split_cm,
-                         calculate_leaf_output, map_split)
+                         calculate_leaf_output, map_split,
+                         per_feature_gains_cm)
 from .learner import (NEG_INF, FeatureMeta, NodeMaskCfg, _masked_gain,
-                      _masked_scatter, meta_is_cat, mono_child_bounds,
-                      mono_inter_level_update, node_feature_mask,
-                      update_leaf_groups)
+                      _masked_scatter, merge_best_over_shards, meta_is_cat,
+                      mono_child_bounds, mono_inter_level_update,
+                      node_feature_mask, update_leaf_groups, vote_exchange)
 from .tree import TreeArrays, empty_tree
 
 # host reads of device values made by the grower since the last reset
@@ -136,7 +156,9 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
                     cat_idx: torch.Tensor = None, bundle_cols: int = 0,
                     bundle_col_bins: int = 0, bundle_cfg=None,
                     use_mono_bounds: bool = False,
-                    mono_mode: str = "basic"):
+                    mono_mode: str = "basic", group=None,
+                    parallel_mode: str = "data", top_k: int = 20,
+                    feature_shard_mask: torch.Tensor = None):
     """Grow one tree with fused level passes.
 
     Args:
@@ -176,6 +198,9 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
       use_mono_bounds: ``meta.monotone`` holds a constraint; every split
         search then runs under the leaves' output bounds.
       mono_mode: ``basic`` or ``intermediate`` (the bounds' bookkeeping).
+      group, parallel_mode, top_k, feature_shard_mask: the distributed
+        learner (module docstring); a ``root_hist`` under a group must
+        already be summed over it.
 
     Returns (TreeArrays, row_leaf [Rp] int32; padding rows stay at -1).
     With ``defer_final_route``: (tree, row_leaf before the final route,
@@ -252,6 +277,10 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
         hist0, _ = level_pass(bins_T, leaf_T, gh_T, W0, tbl0, kmask,
                               num_bins=k_B, f_oh=k_foh, nch=nch,
                               quant_bits=quant_bits, packed=packed)
+        # feature mode: rows are replicated, the local histogram is the
+        # global one; voting: the root is a full exchange
+        if group is not None and parallel_mode != "feature":
+            hist0 = record_psum(hist0, group)
     g0, h0, c0 = decode(hist0, Sp0)
     pool_g[0] = g0[0]
     pool_h[0] = h0[0]
@@ -275,7 +304,15 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
                 torch.zeros((L, f_oh), dtype=torch.int32, device=dev),
                 torch.clamp(meta.num_bin, min=1).to(torch.int32)[None, :]
                 .expand(L, f_oh).clone())
+    feat_par = group is not None and parallel_mode == "feature"
+    vote_live = (group is not None and parallel_mode == "voting"
+                 and min(f_oh, 2 * top_k) < f_oh)
+    if vote_live and (packed is not None or bundle_cols):
+        raise ValueError("the fused voting exchange runs on the padded "
+                         "unbundled layout (no packed layout, no bundles)")
     root_mask = feature_mask[None, :]
+    if feat_par:
+        root_mask = root_mask & feature_shard_mask[None, :]
     if node_masks is not None:
         root_mask = root_mask & node_feature_mask(
             node_masks, leaf_groups[:1],
@@ -286,6 +323,8 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
         tree.leaf_value[:1], cat_idx=cat_idx,
         **(_bounds_kw(meta, mono[0][:1], mono[1][:1], tree.leaf_depth[:1])
            if mono is not None else {}))
+    if feat_par:
+        root_best = merge_best_over_shards(root_best, group, 0)
     best = map_split(lambda a: torch.cat(
         [a[:1], torch.zeros((L - 1,) + a.shape[1:], dtype=a.dtype,
                             device=dev)]), root_best)
@@ -303,14 +342,21 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
                 if defer_final_route else None)
     if deferred is not None:
         deferred[1][:, 0] = -2
+    # voting: which (leaf, feature) pool entries hold global sums
+    pool_valid = (torch.ones((L, f_oh), dtype=torch.bool, device=dev)
+                  if vote_live else None)
+    dist_kw = {"group": group, "vote_live": vote_live, "top_k": top_k,
+               "feature_shard_mask": feature_shard_mask if feat_par
+               else None}
     state = (tree, leaf_T, pool_g, pool_h, pool_c, best, lpn, lil,
-             leaf_groups, mono)
+             leaf_groups, mono, pool_valid)
     for li, S_d in enumerate(caps):
         state = _one_level(state, bins_T, gh_T, meta, feature_mask, params,
                            L, B, (k_foh, k_B), S_d, nch, max_depth,
                            li == len(caps) - 1, deferred, decode, kmask,
                            quant_bits, packed, node_masks, cat_idx,
-                           route_table, mono_mode == "intermediate")
+                           route_table, mono_mode == "intermediate",
+                           **dist_kw)
     tree, leaf_T = state[0], state[1]
     if deferred is not None:
         return tree, leaf_T[0], deferred[0], deferred[1]
@@ -326,9 +372,11 @@ def _bounds_kw(meta, lo, hi, depth):
 
 def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B,
                kernel, S_d, nch, max_depth, is_last, deferred, decode, kmask,
-               quant_bits, packed, node_masks, cat_idx, route_table, inter):
+               quant_bits, packed, node_masks, cat_idx, route_table, inter,
+               group=None, vote_live=False, top_k=20,
+               feature_shard_mask=None):
     (tree, leaf_T, pool_g, pool_h, pool_c, best, lpn, lil,
-     leaf_groups, mono) = state
+     leaf_groups, mono, pool_valid) = state
     inter = inter and mono is not None
     dev = bins_T.device
     Sp = max(8, S_d)
@@ -393,6 +441,26 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B,
         hist, leaf_T2 = level_pass(bins_T, leaf_T, gh_T, W, tbl, kmask,
                                    num_bins=k_B, f_oh=k_foh, nch=nch,
                                    quant_bits=quant_bits, packed=packed)
+        if vote_live:
+            # the ranks rank their local per-feature gains on the smaller
+            # children (each child's own output smooths them), and only
+            # the winners' packed columns are summed, before the decode
+            lg, lh, lc = decode(hist, Sp)
+            zero = torch.zeros((), device=dev)
+            sm_out = torch.where(
+                small_left_s,
+                torch.where(lof_on, best.left_output[lof_safe], zero),
+                torch.where(lof_on, best.right_output[lof_safe], zero))
+            vote_mask = feature_mask[None, :] & lof_on[:, None]
+            gains = per_feature_gains_cm(
+                lg, lh, lc, meta.num_bin, meta.missing_type,
+                meta.default_bin, vote_mask, meta_is_cat(meta),
+                meta.monotone, params, sm_out, cat_idx=cat_idx)
+            hr, lvl_valid = vote_exchange(hist.reshape(k_foh, k_B, -1),
+                                          gains, top_k, group, 0)
+            hist = hr.reshape(k_foh * k_B, -1)
+        elif group is not None and feature_shard_mask is None:
+            hist = record_psum(hist, group)
         sm_g, sm_h, sm_c = decode(hist, Sp)
         # ---- sibling by subtraction from the parent pool
         par_g, par_h, par_c = pool_g[lof_safe], pool_h[lof_safe], \
@@ -410,6 +478,17 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B,
                              (pool_c, left_c, right_c)):
             _pool_write(pool, lof_safe, lv, lof_on)
             _pool_write(pool, new_s, rv, lof_on)
+        if vote_live:
+            # the exchanged side is valid where the vote summed it; the
+            # subtracted side also needs a globally valid parent
+            sm_v = lvl_valid[None, :].expand(Sp, -1)
+            sb_v = pool_valid[lof_safe] & sm_v
+            sl2 = small_left_s[:, None]
+            left_v = torch.where(sl2, sm_v, sb_v)
+            right_v = torch.where(sl2, sb_v, sm_v)
+            pool_valid = _masked_scatter(pool_valid, lof_safe, left_v,
+                                         lof_on)
+            pool_valid = _masked_scatter(pool_valid, new_s, right_v, lof_on)
 
     # ---- tree bookkeeping (ref: tree.h:62 Tree::Split)
     new_depth = tree.leaf_depth + 1
@@ -493,7 +572,8 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B,
         g2 = _masked_scatter(best.gain, slots, neg, selected)
         g2 = _masked_scatter(g2, new_of_leaf, neg, selected)
         return (tree2, leaf_T2, pool_g, pool_h, pool_c,
-                best._replace(gain=g2), lpn2, lil2, leaf_groups2, mono2)
+                best._replace(gain=g2), lpn2, lil2, leaf_groups2, mono2,
+                pool_valid)
 
     # ---- best splits for the 2*Sp fresh children only; each child's own
     # post-split output is the parent_output of its prospective children
@@ -505,6 +585,11 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B,
     left_out = torch.where(lof_on, outs[0], zero)
     right_out = torch.where(lof_on, outs[1], zero)
     ch_mask = feature_mask[None, :]
+    if vote_live:
+        # the scans must not read local-only (unexchanged) columns
+        ch_mask = ch_mask & torch.cat([left_v, right_v])
+    if feature_shard_mask is not None:
+        ch_mask = ch_mask & feature_shard_mask[None, :]
     if node_masks is not None:
         ch_groups = torch.cat([leaf_groups2[lof_safe], leaf_groups2[new_s]])
         # per-node sampling identity: the creating node's id and side bit
@@ -521,6 +606,10 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B,
         torch.cat([left_c, right_c]), meta.num_bin, meta.missing_type,
         meta.default_bin, ch_mask, meta_is_cat(meta), params,
         torch.cat([left_out, right_out]), cat_idx=cat_idx, **bounds)
+    if feature_shard_mask is not None:
+        # the level's SyncUpGlobalBestSplit over the column shards (ref:
+        # parallel_tree_learner.h:191)
+        bs = merge_best_over_shards(bs, group, 0)
     left_bs = map_split(lambda a: a[:Sp], bs)
     right_bs = map_split(lambda a: a[Sp:], bs)
     best2 = _merge_best_many(best, lof_safe, left_bs, lof_on)
@@ -534,16 +623,23 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B,
         if node_masks is not None:
             m = m & node_feature_mask(node_masks, leaf_groups2,
                                       2 * (lpn2 + 1) + lil2.to(torch.int32))
+        m = m.expand(L, -1)
+        if pool_valid is not None:
+            m = m & pool_valid
+        if feature_shard_mask is not None:
+            m = m & feature_shard_mask[None, :]
         bs_all = best_split_cm(
             pool_g, pool_h, pool_c, meta.num_bin, meta.missing_type,
-            meta.default_bin, m.expand(L, -1), meta_is_cat(meta), params,
+            meta.default_bin, m, meta_is_cat(meta), params,
             tree2.leaf_value, cat_idx=cat_idx,
             **_bounds_kw(meta, mono2[0], mono2[1], tree2.leaf_depth))
+        if feature_shard_mask is not None:
+            bs_all = merge_best_over_shards(bs_all, group, 0)
         best2 = map_split(lambda old, new: torch.where(
             mono_changed if old.dim() == 1 else mono_changed[:, None], new,
             old), best2, bs_all)
     return (tree2, leaf_T2, pool_g, pool_h, pool_c, best2, lpn2, lil2,
-            leaf_groups2, mono2)
+            leaf_groups2, mono2, pool_valid)
 
 
 def tree_score_delta(tree: TreeArrays, row_leaf: torch.Tensor, shrinkage,

@@ -30,10 +30,27 @@ inside its loop: the JAX growers' ``lax.cond`` on ``do_split`` /
 ``n_sel > 0`` becomes a ``torch.where`` on every write (a step or level
 with nothing to split leaves the state as it was, so the loops run a
 fixed number of steps), and scalars live in one-element tensors. The
-tree's leaf count is read once, after the loop. The voting and
-feature-parallel branches (``psum_axis``, ``_exchange``,
-``merge_best_over_shards``) belong to the distributed learners and are
-not here.
+tree's leaf count is read once, after the loop.
+
+The distributed branches take a process group (``group``) where the JAX
+growers take ``psum_axis``; ``None`` is serial and makes no collective
+call. Every rank runs the same loop and makes the same all-reduces, and every
+branch (the split choice, ``do_split``, the smaller child) reads reduced
+sums only:
+
+- ``parallel_mode="data"``: rows sharded; each histogram (the root, the
+  leaf-wise smaller child, the depth-wise level) is summed over the group
+  (``ops/collectives.record_psum``) before anything reads it;
+- ``"voting"``: rows sharded; the ranks rank their local per-feature
+  gains, psum the int32 votes, and sum only the ``2 * top_k`` winners'
+  columns (ties to the lower feature index, as ``jax.lax.top_k``); a
+  per-leaf validity plane keeps later scans and the sibling subtraction
+  off the columns that hold local sums only. The leaf-wise root is a full
+  exchange, the depth-wise root a vote, as in the JAX package;
+- ``"feature"`` (depth-wise): rows replicated, each rank histograms and
+  scans its column slice, and the best splits are merged over the group
+  (``merge_best_over_shards``); rows route on ``route_bins`` /
+  ``route_meta``, the full matrix.
 """
 from __future__ import annotations
 
@@ -42,10 +59,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops.collectives import record_pmax, record_pmin, record_psum
 from ..ops.data_partition import leaf_hist, leaf_partition
 from ..ops.histogram import hist_bins, histogram_planes, histogram_subtract
 from ..ops.split import (BestSplit, SplitParams, best_split_cm,
-                         calculate_leaf_output, leaf_gain, map_split)
+                         calculate_leaf_output, leaf_gain, map_split,
+                         per_feature_gains_cm)
 from ..utils import random as ref_random
 from .tree import TreeArrays, empty_tree
 
@@ -473,6 +492,64 @@ def _route_left(bins_col: torch.Tensor, t, default_left, nb, mt,
     return torch.where(missing, default_left, b <= t)
 
 
+def merge_best_over_shards(bs: BestSplit, group, f_offset) -> BestSplit:
+    """Global best split per slot across feature-parallel ranks
+    (lightgbm_tpu/models/learner.py:415-440; ref: parallel_tree_learner.h:
+    191 SyncUpGlobalBestSplit): MAX of the gain, MIN of the rank holding
+    it (the earliest rank wins ties), then the SUM of the records masked
+    to the winner's, its feature index made global with ``f_offset``."""
+    import torch.distributed as dist
+    g = bs.gain
+    gmax = record_pmax(g, group)
+    rank = dist.get_rank(group)
+    big = torch.full_like(g, 1 << 30, dtype=torch.int32)
+    winner = record_pmin(torch.where(g >= gmax, torch.full_like(big, rank),
+                                     big), group)
+    mine = winner == rank
+
+    def pick(a):
+        if a is None:
+            return None
+        m = mine.reshape((-1,) + (1,) * (a.dim() - 1))
+        return record_psum(torch.where(m, a, torch.zeros_like(a)), group)
+
+    feat_g = torch.where(bs.feature >= 0, bs.feature + int(f_offset),
+                         torch.full_like(bs.feature, -1))
+    return bs._replace(
+        feature=pick(feat_g), gain=gmax,
+        **{f: pick(getattr(bs, f)) for f in bs._fields
+           if f not in ("gain", "feature")})
+
+
+def _top_lower_first(score: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest entries of ``score``, the lower index
+    first on ties (``jax.lax.top_k``'s order; ``torch.topk`` promises
+    none)."""
+    return torch.sort(-score.to(torch.int64), stable=True).indices[:k]
+
+
+def vote_exchange(planes: torch.Tensor, gains: torch.Tensor, top_k: int,
+                  group, fdim: int):
+    """The voting exchange (ref: voting_parallel_tree_learner.cpp:151-184
+    GlobalVoting + CopyLocalHistogram; lightgbm_tpu/models/learner.py:
+    1057-1082): each slot's local top-``top_k`` features by ``gains``
+    [S, F] vote, the int32 votes are summed over ``group``, and the
+    ``min(F, 2 * top_k)`` winners' columns (axis ``fdim`` of ``planes``)
+    are summed; the other columns come back zero. Returns (planes,
+    valid [F] bool)."""
+    F = gains.shape[1]
+    k = min(top_k, F)
+    kth = torch.sort(gains, 1).values[:, F - k][:, None]
+    votes = (gains >= kth) & torch.isfinite(gains)
+    votes = record_psum(votes.to(torch.int32), group)
+    w_idx = _top_lower_first(votes.sum(0), min(F, 2 * top_k))
+    sub = record_psum(planes.index_select(fdim, w_idx), group)
+    out = torch.zeros_like(planes).index_copy_(fdim, w_idx, sub)
+    valid = torch.zeros(F, dtype=torch.bool, device=planes.device)
+    valid[w_idx] = True
+    return out, valid
+
+
 def _merge_best(best: BestSplit, idx: torch.Tensor, new: BestSplit,
                 on: torch.Tensor) -> BestSplit:
     """``best`` with rows ``idx`` [k] replaced by ``new``'s k rows where
@@ -598,16 +675,22 @@ def _scan_mask(feature_mask, node_masks, lg_rows, node_ids):
     return m.expand(lg_rows.shape[0], feature_mask.shape[0])
 
 
-def _root(hist, tree, params):
-    """The root's histogram [3, F, B] into the tree's leaf 0."""
+def _root(hist, tree, params, exchange=None):
+    """The root's histogram [3, F, B] into the tree's leaf 0, through the
+    grower's ``exchange`` under a group; returns it and its valid [F]
+    columns (None where every column holds global sums)."""
     R = hist.gh.shape[0]
     root = hist(torch.zeros(R, dtype=torch.int32, device=hist.gh.device),
-                1)[0]
+                1)
+    valid = None
+    if exchange is not None:
+        root, valid = exchange(root, torch.zeros(1, device=root.device))
+    root = root[0]
     rg, rh, rc = root[0, 0].sum(), root[1, 0].sum(), root[2, 0].sum()
     tree.leaf_value[0] = calculate_leaf_output(rg, rh, params, rc, 0.0)
     tree.leaf_count[0] = rc
     tree.leaf_weight[0] = rh
-    return root
+    return root, valid
 
 
 def _finish(tree: TreeArrays, nl: torch.Tensor) -> TreeArrays:
@@ -628,7 +711,8 @@ def grow_tree_leafwise(bins: torch.Tensor, gh: torch.Tensor,
                        forced_leaf=None, forced_feat=None, forced_thr=None,
                        bundle_cfg: BundleCfg = None,
                        bundle_col_bins: int = 0, mono_mode: str = "basic",
-                       hist_bins_i32: torch.Tensor = None):
+                       hist_bins_i32: torch.Tensor = None, group=None,
+                       parallel_mode: str = "data", top_k: int = 20):
     """Grow one tree best-first (lightgbm_tpu/models/learner.py:479-986).
 
     Args:
@@ -648,6 +732,9 @@ def grow_tree_leafwise(bins: torch.Tensor, gh: torch.Tensor,
         tensors on the device, BFS order), or None.
       hist_bins_i32: the kernel's int32 copy of ``bins``
         (``ops.histogram.hist_bins``), kept per dataset; made here if None.
+      group, parallel_mode, top_k: the distributed learner (module
+        docstring): rows sharded over ``group`` under "data" or "voting";
+        None is serial.
 
     State on the device, per tree (``ops/data_partition.py``): ``order``
     int32 [R], the row ids grouped by leaf, in row order within a leaf;
@@ -696,7 +783,13 @@ def grow_tree_leafwise(bins: torch.Tensor, gh: torch.Tensor,
     leaf_rows[:1].fill_(R)       # fill_: no copy from the host
     kvals = torch.arange(hist.Bk, dtype=torch.int32, device=dev)
     pool = torch.zeros((L, 3, F, B), dtype=torch.float32, device=dev)
-    pool[0] = _root(hist, tree, params)
+    # the root is a full exchange under every mode
+    pool[0] = _root(hist, tree, params, None if group is None else (
+        lambda planes, _: (record_psum(planes, group), None)))[0]
+    # voting: which pool columns hold global sums (the root's all do)
+    voting = group is not None and parallel_mode == "voting"
+    pool_valid = (torch.ones((L, F), dtype=torch.bool, device=dev)
+                  if voting else None)
     nl = torch.ones(1, dtype=torch.int64, device=dev)
     leaf_lo = torch.full((L,), -float("inf"), device=dev)
     leaf_hi = torch.full((L,), float("inf"), device=dev)
@@ -707,12 +800,12 @@ def grow_tree_leafwise(bins: torch.Tensor, gh: torch.Tensor,
     lil = torch.zeros(L, dtype=torch.bool, device=dev)
 
     def scan(planes, lg, node_ids, parent, lo, hi, depth, lo_pl=None,
-             hi_pl=None, bounds=use_mono_bounds):
-        return _best_planes(planes, meta,
-                            _scan_mask(feature_mask, node_masks, lg,
-                                       node_ids),
-                            params, parent, cat_idx, bounds, lo, hi, depth,
-                            None, lo_pl, hi_pl, mono)
+             hi_pl=None, bounds=use_mono_bounds, valid=None):
+        m = _scan_mask(feature_mask, node_masks, lg, node_ids)
+        if valid is not None:
+            m = m & valid
+        return _best_planes(planes, meta, m, params, parent, cat_idx,
+                            bounds, lo, hi, depth, None, lo_pl, hi_pl, mono)
 
     root_best = scan(pool[:1], leaf_groups[:1],
                      torch.zeros(1, dtype=torch.int64, device=dev),
@@ -804,6 +897,23 @@ def grow_tree_leafwise(bins: torch.Tensor, gh: torch.Tensor,
         target_is_left = bsl.left_count <= bsl.right_count
         target = torch.where(target_is_left, l1, new1)
         hist_t = hist.leaf(order, leaf_begin, leaf_rows, target, ds)
+        if voting:
+            # the ranks vote on the smaller child's local gains (its
+            # parent's output smooths them); only the winners are summed
+            gains_t = per_feature_gains_cm(
+                hist_t[0][None], hist_t[1][None], hist_t[2][None],
+                meta.num_bin, meta.missing_type, meta.default_bin,
+                feature_mask[None, :], meta_is_cat(meta), meta.monotone,
+                params, tree.leaf_value[l1], cat_idx=cat_idx)
+            hist_t, valid_t = vote_exchange(hist_t, gains_t, top_k, group,
+                                            1)
+            v_sib = pool_valid[l1][0] & valid_t
+            put(pool_valid, l1,
+                torch.where(target_is_left, valid_t, v_sib)[None])
+            put(pool_valid, new1,
+                torch.where(target_is_left, v_sib, valid_t)[None])
+        elif group is not None:
+            hist_t = record_psum(hist_t, group)
         hist_sib = histogram_subtract(pool[l1][0], hist_t)
         put(pool, l1, torch.where(target_is_left, hist_t, hist_sib)[None])
         put(pool, new1, torch.where(target_is_left, hist_sib, hist_t)[None])
@@ -839,14 +949,15 @@ def grow_tree_leafwise(bins: torch.Tensor, gh: torch.Tensor,
         child_hist = pool[both]
         bs2 = scan(child_hist, leaf_groups[both], child_ids[i],
                    tree.leaf_value[both], leaf_lo[both], leaf_hi[both],
-                   tree.leaf_depth[both])
+                   tree.leaf_depth[both],
+                   valid=None if pool_valid is None else pool_valid[both])
         _merge_best(best, both, bs2, ds)
 
         if inter:
             _inter_step(tree, best, pool, leaf_lo, leaf_hi, leaf_groups,
                         reg_lo, reg_hi, lpn, lil, l1, new1, both, nl, ds,
                         bsl, f, t, cf, child_hist, child_ids[i], meta, scan,
-                        slots, f_iota, inf, L, B, adv)
+                        slots, f_iota, inf, L, B, adv, pool_valid)
         nl = nl + ds.long()
     return _finish(tree, nl), _rows_to_leaves(order, leaf_begin, leaf_rows)
 
@@ -854,7 +965,7 @@ def grow_tree_leafwise(bins: torch.Tensor, gh: torch.Tensor,
 def _inter_step(tree, best, pool, leaf_lo, leaf_hi, leaf_groups, reg_lo,
                 reg_hi, lpn, lil, l1, new1, both, nl, ds, bsl, f, t, cf,
                 child_hist, child_ids, meta, scan, slots, f_iota, inf, L, B,
-                adv):
+                adv, pool_valid=None):
     """One leaf-wise step's intermediate (and advanced) monotone
     bookkeeping, in place (lightgbm_tpu/models/learner.py:816-967; ref:
     monotone_constraints.hpp:514-720 and :856): the parent's region cut
@@ -925,7 +1036,7 @@ def _inter_step(tree, best, pool, leaf_lo, leaf_hi, leaf_groups, reg_lo,
     # the stale leaves' best splits, rescanned with their new bounds
     node_ids = 2 * (lpn.long() + 1) + lil.long()
     bs_all = scan(pool, leaf_groups, node_ids, tree.leaf_value, leaf_lo,
-                  leaf_hi, tree.leaf_depth, bounds=True)
+                  leaf_hi, tree.leaf_depth, bounds=True, valid=pool_valid)
     for a, v in zip(best, bs_all):
         if a is not None:
             m = changed.reshape((L,) + (1,) * (a.dim() - 1))
@@ -951,7 +1062,8 @@ def _inter_step(tree, best, pool, leaf_lo, leaf_hi, leaf_groups, reg_lo,
     bs_adv = scan(child_hist, leaf_groups[both], child_ids,
                   tree.leaf_value[both], leaf_lo[both], leaf_hi[both],
                   tree.leaf_depth[both], lo_pl=lo_pl, hi_pl=hi_pl,
-                  bounds=True)
+                  bounds=True,
+                  valid=None if pool_valid is None else pool_valid[both])
     _merge_best(best, both, bs_adv, ds)
 
 
@@ -967,7 +1079,11 @@ def grow_tree_depthwise(bins: torch.Tensor, gh: torch.Tensor,
                         bundle_col_bins: int = 0, mono_mode: str = "basic",
                         use_cegb_lazy: bool = False, cegb_lazy=None,
                         cegb_used_rf=None,
-                        hist_bins_i32: torch.Tensor = None):
+                        hist_bins_i32: torch.Tensor = None, group=None,
+                        parallel_mode: str = "data", top_k: int = 20,
+                        route_bins: torch.Tensor = None,
+                        route_meta: FeatureMeta = None,
+                        feature_offset: int = 0):
     """Grow one tree level by level (lightgbm_tpu/models/learner.py:
     996-1384): per level, the leaves with a positive gain ranked within the
     ``num_leaves`` budget (a stable sort, as ``jnp.argsort``), one
@@ -982,6 +1098,13 @@ def grow_tree_depthwise(bins: torch.Tensor, gh: torch.Tensor,
     trees. The intermediate monotone mode runs
     ``mono_inter_level_update`` over a static bound of each level's
     splits, guarded; ``advanced`` is the leaf-wise grower's.
+
+    Distributed (module docstring): ``group`` with ``parallel_mode``
+    "data" or "voting" (rows sharded; ``top_k``), or "feature", where
+    ``bins``/``meta``/``feature_mask`` are this rank's column slice
+    starting at global column ``feature_offset`` and ``route_bins`` /
+    ``route_meta`` the full replicated matrix the rows route on; the
+    tree's split features are then global.
 
     Returns (TreeArrays, row_leaf [R] int32), and the updated
     ``cegb_used_rf`` third under ``use_cegb_lazy``.
@@ -1000,11 +1123,34 @@ def grow_tree_depthwise(bins: torch.Tensor, gh: torch.Tensor,
     mono = meta.monotone if use_mono_bounds else None
     slots = torch.arange(L, device=dev)
     i32 = torch.int32
+    voting = group is not None and parallel_mode == "voting"
+    feat_par = group is not None and parallel_mode == "feature"
+    r_bins = bins if route_bins is None else route_bins
+    r_meta = meta if route_meta is None else route_meta
+
+    def exchange(planes, parent_out):
+        """Level planes [S, 3, F, B] -> (globally valid planes, valid [F]
+        or None) (lightgbm_tpu/models/learner.py:1057-1082)."""
+        if group is None or feat_par:
+            return planes, None          # feature: local columns complete
+        if not voting:
+            return record_psum(planes, group), None
+        gains = per_feature_gains_cm(
+            planes[:, 0], planes[:, 1], planes[:, 2], meta.num_bin,
+            meta.missing_type, meta.default_bin, feature_mask,
+            meta_is_cat(meta), meta.monotone, params, parent_out,
+            cat_idx=cat_idx)
+        return vote_exchange(planes, gains, top_k, group, 2)
 
     tree = empty_tree(L, B, dev)
     row_leaf = torch.zeros(R, dtype=i32, device=dev)
     pool = torch.zeros((L, 3, F, B), dtype=torch.float32, device=dev)
-    pool[0] = _root(hist, tree, params)
+    pool[0], root_valid = _root(hist, tree, params,
+                                exchange if group is not None else None)
+    pool_valid = None
+    if voting:
+        pool_valid = torch.zeros((L, F), dtype=torch.bool, device=dev)
+        pool_valid[0] = root_valid
     nl = torch.ones((), dtype=torch.int64, device=dev)
     num_nodes = torch.zeros((), dtype=torch.int64, device=dev)
     lpn = torch.full((L,), -1, dtype=i32, device=dev)
@@ -1033,11 +1179,22 @@ def grow_tree_depthwise(bins: torch.Tensor, gh: torch.Tensor,
                 lazy = dict(lazy_penalty=cegb_lazy, unused_cnt=unused)
             delta = cegb_delta_matrix(params, cegb_coupled, used_f,
                                       tree.leaf_count, **lazy)
-        return _best_planes(
-            pool, meta, _scan_mask(feature_mask, node_masks, leaf_groups,
-                                   node_ids),
-            params, tree.leaf_value, cat_idx, use_mono_bounds, leaf_lo,
-            leaf_hi, tree.leaf_depth, delta, mono=mono)
+        m = _scan_mask(feature_mask, node_masks, leaf_groups, node_ids)
+        if pool_valid is not None:
+            m = m & pool_valid
+        bs = _best_planes(
+            pool, meta, m, params, tree.leaf_value, cat_idx, use_mono_bounds,
+            leaf_lo, leaf_hi, tree.leaf_depth, delta, mono=mono)
+        if feat_par:
+            if bs.cat_flag is None:
+                # a slice without categorical columns still takes part in
+                # the merge of the categorical fields
+                bs = bs._replace(
+                    cat_flag=torch.zeros(L, dtype=torch.bool, device=dev),
+                    cat_mask=torch.zeros((L, B), dtype=torch.bool,
+                                         device=dev))
+            bs = merge_best_over_shards(bs, group, feature_offset)
+        return bs
 
     best = all_best(tree, leaf_lo, leaf_hi, leaf_groups,
                     torch.zeros(L, dtype=torch.int64, device=dev), used_f,
@@ -1093,10 +1250,11 @@ def grow_tree_depthwise(bins: torch.Tensor, gh: torch.Tensor,
         l_row = row_leaf.long()
         sel_row = selected[l_row]
         f_row = f_l.clamp(min=0)[l_row]
-        bins_row = _route_bins(bins, f_row, meta, bundle_cfg)
+        bins_row = _route_bins(r_bins, f_row, r_meta, bundle_cfg)
         go_left = _route_left(bins_row, t_l[l_row], dl_l[l_row],
-                              meta.num_bin[f_row], meta.missing_type[f_row],
-                              meta.default_bin[f_row])
+                              r_meta.num_bin[f_row],
+                              r_meta.missing_type[f_row],
+                              r_meta.default_bin[f_row])
         if cf_l is not None:
             go_left = torch.where(cf_l[l_row],
                                   cm_l[l_row, bins_row.long().clamp(0, B - 1)],
@@ -1114,11 +1272,18 @@ def grow_tree_depthwise(bins: torch.Tensor, gh: torch.Tensor,
         leaf_to_slot = torch.where(selected, k_of_leaf, -1)
         row_slot = torch.where(sel_row & (row_leaf2 == row_leaf),
                                leaf_to_slot[l_row], -1)
-        hist_left = hist(row_slot, L)
+        hist_left, lvl_valid = exchange(hist(row_slot, L), tree.leaf_value)
         left = hist_left[torch.where(selected, k_of_leaf, 0).long()]
         pool2 = _masked_scatter(pool, slots, left, selected)
         pool = _masked_scatter(pool2, new_of_leaf,
                                histogram_subtract(pool, left), selected)
+        if voting:
+            # the subtracted sibling is global where its parent and this
+            # level's exchange both are
+            lvl_rows = lvl_valid[None, :].expand(L, -1)
+            pv2 = _masked_scatter(pool_valid, slots, lvl_rows, selected)
+            pool_valid = _masked_scatter(pv2, new_of_leaf,
+                                         pool_valid & lvl_rows, selected)
 
         # ---- leaf statistics
         def upd2(arr, lv, rv):
@@ -1148,8 +1313,8 @@ def grow_tree_depthwise(bins: torch.Tensor, gh: torch.Tensor,
         nl = nl + n_sel
         num_nodes = num_nodes + n_sel
         if use_mono_bounds and not inter:
-            mono_dir = torch.where(f_l >= 0, meta.monotone[f_l.clamp(min=0)],
-                                   0)
+            mono_dir = torch.where(f_l >= 0,
+                                   r_meta.monotone[f_l.clamp(min=0)], 0)
             if cf_l is not None:
                 mono_dir = torch.where(cf_l, 0, mono_dir)
             leaf_lo2, leaf_hi2 = mono_child_bounds(

@@ -164,15 +164,19 @@ def pack_gh(grad: torch.Tensor, hess: torch.Tensor, weight: torch.Tensor,
 
 
 def pack_gh_quant(grad: torch.Tensor, hess: torch.Tensor,
-                  weight: torch.Tensor, bits: int,
-                  seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                  weight: torch.Tensor, bits: int, seed: int,
+                  row_offset: int = 0,
+                  group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quantized sibling of :func:`pack_gh` (``tpu_quantized_grad``):
     ([8, R] int8 channel block, [2] f32 scales). bits=8 packs (g, h, w);
     bits=16 the hi/lo split (g_hi, g_lo, h_hi, h_lo, w) of
     ``ops/quantize.py``. ``weight`` is a 0/1 in-bag mask; zero-weight rows
-    encode exactly zero."""
-    scales = quantize.quant_scales(grad, hess, bits)
-    qg, qh = quantize.quantize_gh(grad, hess, scales, bits, seed)
+    encode exactly zero. Under a data-parallel ``group`` the scales are the
+    group's and the dither hashes global rows (``row_offset``: this rank's
+    first global row)."""
+    scales = quantize.quant_scales(grad, hess, bits, group)
+    qg, qh = quantize.quantize_gh(grad, hess, scales, bits, seed,
+                                  row_offset)
     rows = quantize.encode_channels(qg, qh, weight, bits)
     z = torch.zeros_like(rows[0])
     return torch.stack(rows + [z] * (8 - len(rows)), 0), scales

@@ -20,6 +20,14 @@ result is deterministic given (values, seed) and bit-equal to the JAX
 package's. The hash is uint32 wrap-around arithmetic: here it runs in
 int64 masked to 32 bits after every product (torch has no uint32 multiply
 on every device), which gives the same bits.
+
+Under a process group (data-parallel ranks, each holding a block of the
+global padded rows) the scales are the group's MAX of the local ones
+(``quant_scales(..., group)``) and row i of the rank whose block starts at
+``row_offset`` hashes its GLOBAL index ``row_offset + i``, as the JAX
+package's global sharded array gives it: every rank then quantizes on the
+serial grid with the serial dither, and the int32 histogram sums, which do
+not depend on order, are the serial ones.
 """
 from __future__ import annotations
 
@@ -49,12 +57,15 @@ def _mix(h: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def stochastic_round(x: torch.Tensor, seed: int) -> torch.Tensor:
+def stochastic_round(x: torch.Tensor, seed: int,
+                     row_offset: int = 0) -> torch.Tensor:
     """floor(x) + (u < frac(x)) as int32, u in [0, 1) hashed from (index
-    along the last axis, seed): unbiased, and value-independent so an ulp
-    of drift in x flips a rounding only when it straddles u."""
+    along the last axis plus ``row_offset``, seed): unbiased, and
+    value-independent so an ulp of drift in x flips a rounding only when
+    it straddles u."""
     n = x.shape[-1]
-    idx = torch.arange(n, dtype=torch.int64, device=x.device)
+    idx = torch.arange(row_offset, row_offset + n, dtype=torch.int64,
+                       device=x.device)
     seed = int(seed) & _M32
     h = _mix(((idx * 2654435761) & _M32) ^ ((seed * 0x27D4EB2F) & _M32))
     u = (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
@@ -67,26 +78,28 @@ def stochastic_round(x: torch.Tensor, seed: int) -> torch.Tensor:
 
 
 def quant_scales(grad: torch.Tensor, hess: torch.Tensor,
-                 bits: int) -> torch.Tensor:
+                 bits: int, group=None) -> torch.Tensor:
     """[2] f32 global scales (grad, hess): max|x| / QMAX (at least
-    1e-30 / QMAX)."""
+    1e-30 / QMAX); the max is taken over every rank of ``group``."""
     qmax = torch.tensor(float(QMAX[bits]), dtype=torch.float32,
                         device=grad.device)
     tiny = torch.tensor(1e-30, dtype=torch.float32, device=grad.device)
-    sg = torch.maximum(grad.abs().max(), tiny) / qmax
-    sh = torch.maximum(hess.abs().max(), tiny) / qmax
-    return torch.stack([sg, sh]).to(torch.float32)
+    amax = torch.stack([grad.abs().max(), hess.abs().max()])
+    if group is not None:
+        from .collectives import record_pmax
+        amax = record_pmax(amax, group)
+    return (torch.maximum(amax, tiny) / qmax).to(torch.float32)
 
 
 def quantize_gh(grad: torch.Tensor, hess: torch.Tensor,
-                scales: torch.Tensor, bits: int,
-                seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                scales: torch.Tensor, bits: int, seed: int,
+                row_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """(q_grad, q_hess) int32 on the signed grid, clipped to +-QMAX, with
     distinct dither streams per channel."""
     qmax = QMAX[bits]
     seed = int(seed) & _M32
-    qg = stochastic_round(grad / scales[0], seed)
-    qh = stochastic_round(hess / scales[1], seed ^ 0x9E3779B9)
+    qg = stochastic_round(grad / scales[0], seed, row_offset)
+    qh = stochastic_round(hess / scales[1], seed ^ 0x9E3779B9, row_offset)
     return qg.clamp(-qmax, qmax), qh.clamp(-qmax, qmax)
 
 

@@ -166,7 +166,8 @@ def best_numerical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
                             leaf_depth: torch.Tensor = None,
                             cegb_delta: torch.Tensor = None,
                             bound_lo_plane: torch.Tensor = None,
-                            bound_hi_plane: torch.Tensor = None
+                            bound_hi_plane: torch.Tensor = None,
+                            per_feature_gains: bool = False
                             ) -> BestSplit:
     """Best numerical split per slot from channel-major planes.
 
@@ -185,6 +186,8 @@ def best_numerical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
       bound_lo_plane/bound_hi_plane: ``[S, F, B]`` f32 advanced-mode
         segment bounds (with the scalar bounds, which still clip the
         winner), or None.
+      per_feature_gains: return the [S, F] plane of each feature's best
+        gain instead (what voting-parallel ranks rank before the vote).
     """
     S, F, B = grad.shape
     p = params
@@ -334,6 +337,10 @@ def best_numerical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
     if cegb_delta is not None:
         g_best = torch.where(torch.isfinite(g_best), g_best - cegb_delta,
                              g_best)
+    if per_feature_gains:
+        # voting-parallel wants the [S, F] gain plane, not the argmax
+        # (ref: voting_parallel_tree_learner.cpp:151 votes by local gain)
+        return g_best
 
     # across features: first feature wins ties (argmax picks first max)
     f_best = torch.argmax(g_best, 1)                                 # [S]
@@ -400,7 +407,8 @@ def best_categorical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
                               params: SplitParams,
                               parent_output: torch.Tensor,
                               cat_idx: torch.Tensor = None,
-                              cegb_delta: torch.Tensor = None) -> BestSplit:
+                              cegb_delta: torch.Tensor = None,
+                              per_feature_gains: bool = False) -> BestSplit:
     """Best categorical split per slot (ref: feature_histogram.hpp:278-470
     FindBestThresholdCategoricalInner; lightgbm_tpu/ops/split.py:412-625).
 
@@ -428,6 +436,8 @@ def best_categorical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
         set): the scan then runs on those planes only, with the same
         result.
       cegb_delta: [S, F] f32 CEGB cost, or None.
+      per_feature_gains: return the [S, F] plane of each feature's best
+        categorical gain instead (K_MIN_SCORE off the mask).
 
     Returns a BestSplit whose winners are categorical (cat_flag True,
     cat_mask the left bin set, default_left False, threshold 0).
@@ -438,7 +448,13 @@ def best_categorical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
             num_bin_per_feat[cat_idx], cat_feature_mask[..., cat_idx],
             params, parent_output,
             cegb_delta=(None if cegb_delta is None
-                        else cegb_delta[:, cat_idx]))
+                        else cegb_delta[:, cat_idx]),
+            per_feature_gains=per_feature_gains)
+        if per_feature_gains:
+            full = torch.full(grad.shape[:2], K_MIN_SCORE,
+                              dtype=grad.dtype, device=grad.device)
+            full[:, cat_idx.long()] = out
+            return full
         f = out.feature
         return out._replace(feature=torch.where(
             f >= 0, cat_idx[f.clamp(min=0).long()].to(torch.int32), f))
@@ -542,6 +558,8 @@ def best_categorical_split_cm(grad: torch.Tensor, hess: torch.Tensor,
     cfm = (cat_feature_mask[None, :] if cat_feature_mask.dim() == 1
            else cat_feature_mask)
     g_feat = torch.where(cfm, g_feat, neg_inf)
+    if per_feature_gains:
+        return g_feat
     f_best = torch.argmax(g_feat, 1)                   # [S]
     gain = _take(g_feat, f_best, 1)
     valid = torch.isfinite(gain)
@@ -628,3 +646,25 @@ def best_split_cm(grad, hess, cnt, num_bin_per_feat, missing_type,
                        cat_mask=torch.zeros_like(cat.cat_mask))
     return map_split(lambda a, b: torch.where(
         use_cat if a.dim() == 1 else use_cat[:, None], a, b), cat, num)
+
+
+def per_feature_gains_cm(grad, hess, cnt, num_bin_per_feat, missing_type,
+                         default_bin, feature_mask, is_cat, monotone,
+                         params: SplitParams, parent_output,
+                         cat_idx=None) -> torch.Tensor:
+    """[S, F] best-candidate gain per feature (lightgbm_tpu/ops/split.py:
+    670-689): what voting-parallel ranks rank locally before the vote
+    (ref: voting_parallel_tree_learner.cpp:151 GlobalVoting). Categorical
+    features rank by their categorical gain, numerical ones by the
+    threshold scan."""
+    ic = is_cat[None, :] if feature_mask.dim() == 2 else is_cat
+    g = best_numerical_split_cm(
+        grad, hess, cnt, num_bin_per_feat, missing_type, default_bin,
+        feature_mask & ~ic, params, parent_output, monotone=monotone,
+        per_feature_gains=True)
+    if cat_idx is not None:
+        gc = best_categorical_split_cm(
+            grad, hess, cnt, num_bin_per_feat, feature_mask & ic, params,
+            parent_output, cat_idx=cat_idx, per_feature_gains=True)
+        g = torch.maximum(g, gc)
+    return g

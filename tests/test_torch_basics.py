@@ -60,7 +60,7 @@ def test_default_device_raises_without_cuda():
         lt.Dataset(X, label=y, params={"device_type": "cuda"}).construct()
 
 
-@pytest.mark.parametrize("params", [{"tree_learner": "data"}])
+@pytest.mark.parametrize("params", [{"telemetry_out": "telemetry.jsonl"}])
 def test_unported_options_raise(params):
     X = np.random.RandomState(0).randn(64, 3)
     y = (X[:, 0] > 0).astype(float)
@@ -68,6 +68,29 @@ def test_unported_options_raise(params):
              **params)
     with pytest.raises(lt.LightGBMError, match="not ported"):
         lt.train(p, lt.Dataset(X, label=y), num_boost_round=1)
+
+
+def test_tree_learner_without_a_group_trains_serially():
+    """``tree_learner=data`` with no process group (or a group of one
+    rank) warns and trains the serial model, the JAX package's rule for
+    fewer than two devices (lightgbm_tpu/boosting/gbdt.py:1486-1494)."""
+    from lightgbm_tpu_torch.utils import log
+    X = np.random.RandomState(0).randn(256, 3)
+    y = (X[:, 0] > 0).astype(float)
+    p = {"objective": "binary", "verbose": -1, "device_type": "cpu",
+         "num_leaves": 7}
+    serial = lt.train(p, lt.Dataset(X, label=y), num_boost_round=2)
+    said = []
+    log.register_logger(said.append)
+    try:
+        dp = lt.train(dict(p, tree_learner="data"), lt.Dataset(X, label=y),
+                      num_boost_round=2)
+    finally:
+        log.register_logger(None)
+    assert any("only one device is visible; training serially" in m
+               for m in said), said
+    assert dp.model_to_string().replace("tree_learner: data", "") == \
+        serial.model_to_string().replace("tree_learner: serial", "")
 
 
 def _port_modules():
