@@ -292,7 +292,23 @@ non-zero (it prints no result line then):
    span per iteration, kernel launches, collective calls and bytes per
    tree and the collectives' share of the wall time (gloo's host-staged
    round trips);
-17. the ``kernels`` line: every ported kernel and variant with its
+17. the serving fleet (``serve_fleet``): phase 15's model and request
+   stream served by a ``PredictionService`` with ``devices=[cuda:0,
+   cuda:0]`` (two lanes on the one card, each with its replica, worker
+   thread and CUDA stream): (a) least-loaded routing, the closed loop and
+   the stream at once, beside a one-lane service in the same run (one,
+   fleet, fleet, one): p50/p95/p99, rows/s, requests and ``predict_pass``
+   launches per lane; every lane takes traffic with 1.0 dispatch and 0
+   compiles per request and launches equal to its dispatches, every
+   answer the one-lane service's bits and within rtol 1e-5 of the float64
+   walk; (b) ``round_robin``: exactly even requests; (c) a rollover of
+   the model file to its first half while a thread keeps submitting:
+   every ``serve_access`` record the old or the new hash, every request
+   submitted after the rollover returned the new one, on both lanes;
+   (d) ``predict_bulk`` of the 1M rows over the lanes: ``Booster.
+   predict``'s bits, one launch a lane per chunk of 2 x 65,536 rows,
+   seconds against ``Booster.predict`` and one lane's ``predict_bulk``;
+18. the ``kernels`` line: every ported kernel and variant with its
    wrapper calls and CUDA kernel launches on the main path where it runs
    (every level_pass, route_pass, epilogue_pass and hist_pass call in
    phases 3-13 held to one launch of each of its CUDA kernels), its
@@ -306,9 +322,10 @@ non-zero (it prints no result line then):
    and ``leaf_hist`` on 14a's step with 14a's launches, and per-kernel
    times of
    ``level_pass``, ``epilogue_pass`` and ``hist_pass``, and the
-   ``predict_pass`` rows of phase 15 with their launches there, and
-   each kernel's launches per rank in phase 16's runs;
-18. the last line: ``{"ok": true, "device": {...}}``.
+   ``predict_pass`` rows of phase 15 with their launches there and
+   phase 17's per lane, and each kernel's launches per rank in phase
+   16's runs;
+19. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package. It exits non-zero when no CUDA
 device is present.
@@ -444,6 +461,8 @@ DIST_TIMEOUT_S = 120            # phase 16: every group's collective timeout
 # served probabilities against the float64 walk: the JAX package's serving
 # tolerance for float32 sums (tests/test_serve.py); the routing itself is
 # held exactly, to the float32 sums of the walk's leaves
+FLEET_LANES = 2                 # phase 17: lanes on the one card
+FLEET_ROLL_REQUESTS = 400       # phase 17c: the most the loader submits
 SERVE_RTOL = {"rtol": 1e-5, "atol": 1e-6}
 SERVE_TOL = "rtol=1e-5 atol=1e-6"
 # predict_pass replaces no pallas_call: the JAX package's stacked traversal
@@ -4514,7 +4533,9 @@ def run_serve(lgb, params, ds, X, y, e2e):
     at once; (b) every response against the float64 walk; (c) a
     categorical model served through both variants; (d) Booster.predict
     on the 1M rows; (e) predict_pass against its plain version on the
-    phase's operands. Returns the kernels-line rows."""
+    phase's operands. Returns the kernels-line rows and what phase 17
+    serves again: the model, its file, the request stream, the one-lane
+    answers and their float64 walk, (d)'s predictions and seconds."""
     import os
     import tempfile
 
@@ -4653,6 +4674,9 @@ def run_serve(lgb, params, ds, X, y, e2e):
     serve_launches = {k: closed_launches.get(k, 0)
                       + open_loop["predict_pass_launches"].get(k, 0)
                       for k in tp.variant_launches}
+    fleet_ctx = {"bst": bst, "path": path, "mids": mids, "reqs": reqs,
+                 "sizes": sizes, "answers": answers, "want": want,
+                 "closed": closed, "open_loop": open_loop}
 
     # ---- (e) operands of (a): buckets 1024 and 65,536 of the stream's
     # rows (and of X past 1024 rows), both variants
@@ -4838,6 +4862,7 @@ def run_serve(lgb, params, ds, X, y, e2e):
     if not predict_s < walk_s:
         raise AssertionError(f"serve (d): Booster.predict {predict_s} s, "
                              f"the float64 walk {walk_s} s")
+    fleet_ctx.update(pred_all=pred_all, predict_s=predict_s)
     checks[("binned", int(X.shape[0]))] = {
         "rows": int(X.shape[0]), "features": int(enc_dev.shape[1]),
         "trees": bst.num_trees(), "k": 1, "max_steps": pred.max_steps,
@@ -4870,7 +4895,341 @@ def run_serve(lgb, params, ds, X, y, e2e):
                                  ["launches"]))
     out_rows.append(_predict_row("predict_pass[binned,categorical,k=3]",
                                  checks[("k3", SERVE_CHECK_BUCKETS[0])], 0))
-    return out_rows
+    return out_rows, fleet_ctx
+
+
+def _fleet_lanes():
+    """Phase 17's lanes: FLEET_LANES on the one card (cuda:0)."""
+    import torch
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else \
+        torch.device(DEVICE)
+    return [dev] * FLEET_LANES
+
+
+def _lane_launches(tp, svc) -> dict:
+    """``predict_pass`` launches since the last reset on each of ``svc``'s
+    lanes, by variant (``ops.predict.stream_launches``: each lane has its
+    own stream): {"predict_pass:<variant>": [lane 0, lane 1, ...]}."""
+    from lightgbm_tpu_torch.serve.engine import lane_stream
+    handles = [lane_stream(dev, d).cuda_stream
+               for d, dev in enumerate(svc.devices)]
+    out = {}
+    for (stream, name), n in tp.stream_launches.items():
+        if stream in handles:
+            out.setdefault(name, [0] * len(handles))[
+                handles.index(stream)] += n
+    return out
+
+
+def _per_lane(s0, s1) -> list:
+    """Each lane's counters between two ``stats()``."""
+    keys = ("requests", "rows", "batches", "dispatches", "compiles",
+            "spills")
+    return [{k: e1[k] - e0[k] for k in keys} for e0, e1 in
+            zip(s0["fleet"]["per_device"], s1["fleet"]["per_device"])]
+
+
+def _serve_loops(svc, mids, reqs, tp) -> dict:
+    """Phase 15's two loops on ``svc``: the closed loop (each request
+    waits for the one before) and the same requests submitted at once;
+    their answers, latencies, rows/s, and on a fleet each lane's counters
+    and launches."""
+    rows = float(sum(r.shape[0] for r in reqs))
+    out = {}
+    for loop in ("closed", "open"):
+        s0 = svc.stats()
+        tp.reset_launch_counts()
+        lat = []
+        t0 = time.perf_counter()
+        if loop == "closed":
+            answers = []
+            for mid, Xq in zip(mids, reqs):
+                r0 = time.perf_counter()
+                answers.append(svc.submit(mid, Xq).result())
+                lat.append((time.perf_counter() - r0) * 1000.0)
+        else:
+            futs = [svc.submit(mid, Xq) for mid, Xq in zip(mids, reqs)]
+            answers = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        s1 = svc.stats()
+        if loop == "open":
+            out["open_parts_median_ms"] = _access_medians(svc, futs)
+        res = {"rows_per_s": rows / wall,
+               "batches": s1["batches"] - s0["batches"],
+               "dispatches": s1["dispatches"] - s0["dispatches"],
+               "compiles": s1["compiles"] - s0["compiles"],
+               "predict_pass_launches": tp.launches["predict_pass"]}
+        if lat:
+            lat = np.sort(lat)
+            for p in (50, 95, 99):
+                res[f"p{p}_ms"] = float(lat[min(len(lat) - 1, int(
+                    p / 100 * (len(lat) - 1) + 0.5))])
+        if svc.devices is not None:
+            res["lanes"] = _per_lane(s0, s1)
+            res["launches_per_lane"] = _lane_launches(tp, svc)
+        res["answers"] = answers
+        out[loop] = res
+    return out
+
+
+def _access_medians(svc, futs) -> dict:
+    """Medians over ``futs``' ``serve_access`` records of the engine's
+    dispatch parts (``reqtrace.DISPATCH_PARTS``, summed over a request's
+    batch) and of the queue and batch times: where the requests of a
+    loop spent their time."""
+    from lightgbm_tpu_torch.obs.reqtrace import DISPATCH_PARTS
+    ids = {f.trace_id for f in futs}
+    recs = [e for e in svc.tel.snapshot()["events"]
+            if e.get("event") == "serve_access" and e["trace_id"] in ids]
+    keys = DISPATCH_PARTS + ("dispatch_ms", "queue_ms", "batch_ms")
+    out = {k: float(np.median([e[k] for e in recs if k in e]))
+           for k in keys if any(k in e for e in recs)}
+    out["records"] = len(recs)
+    return out
+
+
+def _lanes_hold_contract(res, closed: bool) -> bool:
+    """Every lane took traffic, launched ``predict_pass`` once per
+    dispatch it reports and compiled nothing; in the closed loop each
+    request was one dispatch."""
+    per = res["lanes"]
+    launched = [sum(v[d] for v in res["launches_per_lane"].values())
+                for d in range(len(per))]
+    return all(e["requests"] > 0 and e["compiles"] == 0
+               and launched[d] == e["dispatches"]
+               and (not closed or e["dispatches"] == e["requests"])
+               for d, e in enumerate(per))
+
+
+def _same_bits(a, b) -> bool:
+    return len(a) == len(b) and all(np.array_equal(x, y)
+                                    for x, y in zip(a, b))
+
+
+def run_serve_fleet(lgb, X, ctx):
+    """Phase 17: the serving fleet, FLEET_LANES lanes on cuda:0 (one
+    replica, worker thread and CUDA stream a lane; the machine has one
+    card), on phase 15's model (``live`` binned, ``file`` raw) and request
+    stream. (a) least-loaded routing, closed loop and all at once, beside
+    a one-lane service in the same call (one, fleet, fleet, one): every
+    lane takes traffic, 1.0 dispatch and 0 compiles per request per lane,
+    each lane's launches equal to its dispatches, every answer the
+    one-lane service's bits and within SERVE_RTOL of the float64 walk;
+    (b) round-robin: exactly even requests; (c) rollover of ``file`` to
+    its first half while a thread keeps submitting: every record the old
+    or the new hash, every request submitted after the rollover returned
+    the new one, on every lane; (d) ``predict_bulk`` of the 1M rows over
+    the lanes: ``Booster.predict``'s bits, one launch a lane per chunk,
+    timed against ``Booster.predict`` and one lane's ``predict_bulk``.
+    Returns the launches per lane by run and variant."""
+    import tempfile
+    import threading
+
+    from lightgbm_tpu_torch.ops import predict as tp
+    from lightgbm_tpu_torch.serve import bulk as serve_bulk
+    shard_rows = serve_bulk._MAX_SHARD_ROWS
+    t_phase = time.perf_counter()
+    bst, path, mids, reqs = ctx["bst"], ctx["path"], ctx["mids"], ctx["reqs"]
+    want = ctx["want"]
+    lanes = _fleet_lanes()
+    common = dict(max_batch_rows=SERVE_MAX_BATCH, max_delay_ms=1.0,
+                  min_bucket_rows=SERVE_MIN_BUCKET, batch_events=False,
+                  device_type=DEVICE)
+    models = {"live": bst, "file": path}
+    one = lgb.serve.PredictionService(models, serve_devices=1, **common)
+    fleet = lgb.serve.PredictionService(models, devices=lanes, **common)
+    one.warmup()
+    (warm, warm_s) = _timed_run(fleet.warmup)
+    per_lane = {}
+
+    # ---- (a) least-loaded routing beside one lane: one, fleet, fleet, one
+    runs = [(name, _serve_loops(svc, mids, reqs, tp)) for name, svc in
+            (("one", one), ("fleet", fleet), ("fleet", fleet),
+             ("one", one))]
+    one.close()
+    base = runs[0][1]["closed"]["answers"]
+    summary = {"one": [], "fleet": []}
+    ok_a, bits_a = True, True
+    for name, res in runs:
+        for loop in ("closed", "open"):
+            bits_a &= _same_bits(res[loop]["answers"], base)
+        if name == "fleet":
+            ok_a &= _lanes_hold_contract(res["closed"], True)
+            ok_a &= _lanes_hold_contract(res["open"], False)
+            for loop in ("closed", "open"):
+                per_lane.setdefault("a_" + loop, []).append(
+                    res[loop]["launches_per_lane"])
+        summary[name].append(dict(
+            {loop: {k: v for k, v in res[loop].items() if k != "answers"}
+             for loop in ("closed", "open")},
+            open_parts_median_ms=res["open_parts_median_ms"]))
+    got = np.concatenate(runs[1][1]["closed"]["answers"])
+    err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                      1e-30)))
+
+    def ratio(loop):
+        return (sum(r[loop]["rows_per_s"] for r in summary["fleet"])
+                / sum(r[loop]["rows_per_s"] for r in summary["one"]))
+    res_a = {"phase": "serve_fleet", "run": "a", "lanes": FLEET_LANES,
+             "devices": [str(d) for d in lanes], "routing": fleet.routing,
+             "requests": len(reqs), "rows": int(ctx["sizes"].sum()),
+             "warmup_s": warm_s,
+             "warmed_buckets": warm["live"][0]["warmed"],
+             "packed_bytes_per_lane": [
+                 fleet.residency.get("live", d).packed_nbytes
+                 for d in range(FLEET_LANES)],
+             "one_lane": summary["one"], "fleet": summary["fleet"],
+             "fleet_over_one_open_rows_per_s": ratio("open"),
+             "fleet_over_one_closed_rows_per_s": ratio("closed"),
+             "phase15_one_lane": {
+                 "closed_p50_ms": ctx["closed"]["p50_ms"],
+                 "closed_rows_per_s": ctx["closed"]["rows_per_s"],
+                 "open_rows_per_s": ctx["open_loop"]["rows_per_s"]},
+             "same_bits_as_one_lane": bits_a,
+             "max_rel_err_to_float64_walk": err, "tol": SERVE_TOL}
+    emit(res_a)
+    if not (ok_a and bits_a and np.allclose(got, want, **SERVE_RTOL)):
+        raise AssertionError(f"serve_fleet (a): {res_a}")
+
+    # ---- (b) round-robin: exactly even requests, the same bits
+    rr = lgb.serve.PredictionService(models, devices=lanes,
+                                     routing="round_robin", **common)
+    rr.warmup()
+    res = _serve_loops(rr, mids, reqs, tp)
+    rr.close()
+    per_lane["b_closed"] = [res["closed"]["launches_per_lane"]]
+    counts = [e["requests"] for e in res["closed"]["lanes"]]
+    res_b = {"phase": "serve_fleet", "run": "b", "routing": rr.routing,
+             "requests_per_lane": counts,
+             "open_requests_per_lane": [e["requests"]
+                                        for e in res["open"]["lanes"]],
+             "closed": {k: v for k, v in res["closed"].items()
+                        if k != "answers"},
+             "same_bits_as_one_lane": _same_bits(
+                 res["closed"]["answers"], base)}
+    emit(res_b)
+    if not (counts == [len(reqs) // FLEET_LANES] * FLEET_LANES
+            and res_b["same_bits_as_one_lane"]
+            and _lanes_hold_contract(res["closed"], True)):
+        raise AssertionError(f"serve_fleet (b): {res_b}")
+
+    # ---- (c) rollover under load: ``file`` to its first half
+    tel_path = os.path.join(tempfile.mkdtemp(), "fleet_roll.jsonl")
+    roll = lgb.serve.PredictionService(models, devices=lanes,
+                                       telemetry_out=tel_path, **common)
+    roll.warmup()
+    text = bst.model_to_string(num_iteration=SERVE_ROUNDS // 2)
+    old_hash = roll.residency.get("file", 0).model_hash[:16]
+    stop = threading.Event()
+    sent = []
+
+    def load():
+        i = 0
+        while not stop.is_set() and len(sent) < FLEET_ROLL_REQUESTS:
+            Xq = reqs[i % len(reqs)]
+            t_sub = time.perf_counter()
+            sent.append((t_sub, Xq, roll.submit("file", Xq)))
+            i += 1
+            time.sleep(0.001)
+    loader = threading.Thread(target=load)
+    loader.start()
+    time.sleep(0.05)
+    report = roll.rollover("file", text)
+    t_ret = time.perf_counter()
+    time.sleep(0.05)
+    stop.set()
+    loader.join()
+    done = [(t, Xq, f, f.result(timeout=600)) for t, Xq, f in sent]
+    # then a closed loop on the idle fleet: its ties rotate over the lanes
+    for Xq in reqs[:4 * FLEET_LANES]:
+        t, f = time.perf_counter(), roll.submit("file", Xq)
+        done.append((t, Xq, f, f.result(timeout=600)))
+    new_hash = roll.residency.get("file", 0).model_hash[:16]
+    lane_hashes = {roll.residency.get("file", d).model_hash[:16]
+                   for d in range(FLEET_LANES)}
+    roll.close()
+    with open(tel_path) as fh:
+        acc = {e["trace_id"]: e for e in map(json.loads, fh)
+               if e.get("event") == "serve_access"}
+    recs = [acc.get(f.trace_id) for _, _, f, _ in done]
+    after = [r for (t, _, _, _), r in zip(done, recs) if t > t_ret and r]
+    versions = sorted({r["model_version"] for r in recs if r})
+    walk_new = lgb.Booster(params={"device_type": DEVICE}, model_str=text)
+    late = [(Xq, a) for t, Xq, _, a in done if t > t_ret]
+    want_c = walk_new.predict(np.concatenate([x for x, _ in late])
+                              .astype(np.float64))
+    got_c = np.concatenate([a for _, a in late])
+    res_c = {"phase": "serve_fleet", "run": "c", "requests": len(done),
+             "submitted_after_rollover": len(late),
+             "old_hash": old_hash, "new_hash": new_hash,
+             "promoted": report["promoted"], "versions_seen": versions,
+             "records": sum(r is not None for r in recs),
+             "requests_by_version": {v: sum(1 for r in recs if r and
+                                            r["model_version"] == v)
+                                     for v in versions},
+             "after_rollover_lanes": sorted({r["device"] for r in after}),
+             "after_rollover_all_new": all(r["model_version"] == new_hash
+                                           for r in after),
+             "after_rollover_max_rel_err_to_new_walk": float(np.max(
+                 np.abs(got_c - want_c)
+                 / np.maximum(np.abs(want_c), 1e-30)))}
+    emit(res_c)
+    if not (report["promoted"] and lane_hashes == {new_hash}
+            and new_hash != old_hash and None not in recs
+            and set(versions) <= {old_hash, new_hash}
+            and res_c["after_rollover_all_new"]
+            and res_c["after_rollover_lanes"] == list(range(FLEET_LANES))
+            and np.allclose(got_c, want_c, **SERVE_RTOL)):
+        raise AssertionError(f"serve_fleet (c): {res_c}")
+
+    # ---- (d) predict_bulk of the 1M rows over the lanes
+    s0 = fleet.stats()
+    tp.reset_launch_counts()
+    bulk, bulk_s = _timed_run(lambda: fleet.predict_bulk("live", X))
+    bulk_lanes = _lane_launches(tp, fleet)
+    s1 = fleet.stats()
+    fleet.close()
+    chunks = (s1["fleet"]["bulk_dispatches"]
+              - s0["fleet"]["bulk_dispatches"])
+    per_lane["d"] = [bulk_lanes]
+    pred, predict_s = _timed_run(lambda: bst.predict(X))
+    one = lgb.serve.PredictionService(models, serve_devices=1, **common)
+    one.warmup(model_ids=["live"])
+    tp.reset_launch_counts()
+    one_out, one_s = _timed_run(lambda: one.predict_bulk("live", X))
+    one_launched = tp.cuda_launches["predict_pass"]
+    one.close()
+    n = int(X.shape[0])
+    launched = [sum(v[d] for v in bulk_lanes.values())
+                for d in range(FLEET_LANES)]
+    res_d = {"phase": "serve_fleet", "run": "d", "rows": n,
+             "trees": bst.num_trees(), "chunks": chunks,
+             "max_shard_rows": shard_rows,
+             "launches_per_lane": launched,
+             "bulk_compiles": s1["fleet"]["bulk_compiles"]
+             - s0["fleet"]["bulk_compiles"],
+             "bulk_s": bulk_s, "bulk_rows_per_s": n / bulk_s,
+             "booster_predict_s": predict_s,
+             "booster_predict_rows_per_s": n / predict_s,
+             "phase15_booster_predict_s": ctx["predict_s"],
+             "one_lane_bulk_s": one_s,
+             "one_lane_bulk_rows_per_s": n / one_s,
+             "one_lane_launches": one_launched,
+             "same_bits_as_booster_predict": bool(np.array_equal(bulk,
+                                                                 pred)),
+             "same_bits_as_one_lane_bulk": bool(np.array_equal(
+                 bulk, one_out)),
+             "same_bits_as_phase15_booster_predict": bool(np.array_equal(
+                 bulk, ctx["pred_all"]))}
+    emit(res_d)
+    if not (res_d["same_bits_as_booster_predict"]
+            and res_d["same_bits_as_one_lane_bulk"]
+            and chunks == -(-n // (FLEET_LANES * shard_rows))
+            and one_launched == -(-n // shard_rows)
+            and launched == [chunks] * FLEET_LANES):
+        raise AssertionError(f"serve_fleet (d): {res_d}")
+    emit({"phase": "serve_fleet", "phase_s": time.perf_counter() - t_phase})
+    return per_lane
 
 
 def _predict_row(name, r, launches):
@@ -5539,13 +5898,16 @@ def main() -> int:
 
     # ---- 15. serving on the card: the stacked-tree predictor through
     # predict_pass, Booster.predict at scale, the PredictionService
-    serve_rows = run_serve(lgb, params, ds, X, y, e2e)
-    del X
+    serve_rows, fleet_ctx = run_serve(lgb, params, ds, X, y, e2e)
 
     # ---- 16. distributed training: two ranks on cuda:0 over gloo
     dist_launches = run_dist_train(lgb, bst)
 
-    # ---- 17. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
+    # ---- 17. the serving fleet: two lanes on cuda:0, phase 15's model
+    fleet_launches = run_serve_fleet(lgb, X, fleet_ctx)
+    del X, fleet_ctx
+
+    # ---- 18. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
     # the epilogue at Bp=64 int8, nch=5, binary, Sp=64; hist_pass at Bp=64,
     # Sp=64, f32). Launches: the train() run for the three kernels of its
     # path, update() run (a) for the epilogue, the frontier train() run for
@@ -5717,7 +6079,19 @@ def main() -> int:
                      "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
-    # predict_pass (phase 15): each variant on its phase's own operands
+    # predict_pass (phase 15): each variant on its phase's own operands;
+    # phase 17's launches per lane beside them (online runs a-c at the
+    # 1,024-row buckets' variants, the bulk shards of d at R=65536)
+    for row in serve_rows:
+        keys = {"predict_pass[binned]": ("predict_pass:binned", "abc"),
+                "predict_pass[raw]": ("predict_pass:raw", "abc"),
+                "predict_pass[binned,R=65536]": ("predict_pass:binned",
+                                                 "d")}.get(row["name"])
+        if keys is not None:
+            row["serve_fleet_launches_per_lane"] = {
+                run: [per.get(keys[0], [0] * FLEET_LANES) for per in v]
+                for run, v in fleet_launches.items()
+                if run[0] in keys[1]}
     rows.extend(serve_rows)
     emit({"phase": "timing", "ms": "device time per launch: a CUDA graph "
           "of 20 wrapper calls replayed 5 times between two events, "
@@ -5727,7 +6101,7 @@ def main() -> int:
     emit({"kernels": rows})
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start})
 
-    # ---- 18. the result line
+    # ---- 19. the result line
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

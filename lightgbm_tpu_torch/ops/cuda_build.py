@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional
@@ -81,6 +82,9 @@ SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+# two threads at first use (the serving fleet's lane workers) build and
+# load the library once
+_LIB_LOCK = threading.Lock()
 build_info: Dict[str, object] = {}
 
 
@@ -156,13 +160,16 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call, by one thread)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for fn, argtypes in SIGNATURES.items():
-            f = getattr(lib, fn)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _LIB_LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for fn, argtypes in SIGNATURES.items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _lib = lib
     return _lib

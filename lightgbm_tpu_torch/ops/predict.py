@@ -45,7 +45,8 @@ float64 walk of :func:`predict_raw`, which stays exact.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -78,12 +79,20 @@ launches: Dict[str, int] = {"predict_pass": 0}
 cuda_launches: Dict[str, int] = {"predict_pass": 0}
 variant_launches: Dict[str, int] = dict.fromkeys(
     ["predict_pass:" + v + c for v in FIELDS for c in ("", "+cat")], 0)
+# the calls by CUDA stream and variant, ``(stream handle, "predict_pass:"
+# + variant)``: a serving fleet's launches per lane (each lane has its own
+# stream)
+stream_launches: Dict[Tuple[int, str], int] = {}
+# the serving fleet's lane workers launch from several threads at once
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for counts in (launches, cuda_launches, variant_launches):
-        for k in counts:
-            counts[k] = 0
+    with _COUNT_LOCK:
+        for counts in (launches, cuda_launches, variant_launches):
+            for k in counts:
+                counts[k] = 0
+        stream_launches.clear()
 
 
 def route_raw_rows_to_leaves(values: torch.Tensor,
@@ -503,6 +512,7 @@ def predict_pass(enc: torch.Tensor, packed: Sequence, tids: torch.Tensor,
     def ptr(a) -> Optional[int]:
         return None if a is None else a.data_ptr()
     plan = tiled_plan(R, F, T, N, L, _sm_count(enc.device))
+    stream = _stream(enc.device)
     scratch = done = None
     if plan["TS"] > 1:
         scratch = torch.empty((T, R), dtype=torch.float32, device=enc.device)
@@ -514,10 +524,13 @@ def predict_pass(enc: torch.Tensor, packed: Sequence, tids: torch.Tensor,
         ops["nodes"].data_ptr(), ops["lv"].data_ptr(), tids.data_ptr(),
         ptr(cm), ptr(ops["fmiss"]), out.data_ptr(), ptr(scratch), ptr(done),
         plan["RT"], plan["TS"], plan["Ts"], plan["TC"], plan["rows_smem"],
-        plan["nodes_smem"], _stream(enc.device))
+        plan["nodes_smem"], stream)
     _raise_on(rc, "predict_pass")
-    launches["predict_pass"] += 1
-    cuda_launches["predict_pass"] += 1
-    variant_launches["predict_pass:" + variant
-                     + ("" if cm is None else "+cat")] += 1
+    name = "predict_pass:" + variant + ("" if cm is None else "+cat")
+    with _COUNT_LOCK:
+        launches["predict_pass"] += 1
+        cuda_launches["predict_pass"] += 1
+        variant_launches[name] += 1
+        stream_launches[(stream, name)] = \
+            stream_launches.get((stream, name), 0) + 1
     return out

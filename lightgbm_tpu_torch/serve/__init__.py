@@ -18,12 +18,24 @@ Layers:
   micro-batch, future-based responses, admission control, deadlines and
   wedged-worker detection;
 - :class:`ResidencyManager` (residency.py) — N models on the card under
-  a bytes budget with LRU eviction and pin/unpin;
+  a bytes budget with LRU eviction and pin/unpin, one replica table per
+  lane in a fleet;
+- :class:`BulkScorer` (bulk.py) — offline scoring split across the
+  fleet's lanes, one ``predict_pass`` a lane per chunk
+  (``PredictionService.predict_bulk``);
 - :class:`PredictionService` (service.py) — the public facade:
   ``PredictionService(boosters_or_paths).predict(model_id, X)``.
+
+Serving fleet: with ``serve_devices > 1`` (or ``devices=[...]``, repeats
+allowed) each model is replicated onto every lane's device, one dispatch
+lane (queue, worker thread, CUDA stream) per replica; the micro-batcher
+routes to the least-loaded lane (or round-robin), spills to the coldest
+lane before shedding, and keeps the per-lane contract — 1.0 dispatch per
+request, 0 steady-state compiles. Rollover swaps every replica at once.
 """
 from .admission import AdmissionController
 from .batcher import MicroBatcher
+from .bulk import BulkScorer
 from .engine import ServingEngine
 from .errors import (RetryPolicy, ServeClosed, ServeDeadlineExceeded,
                      ServeError, ServeRejected, ServeWorkerWedged)
@@ -31,6 +43,6 @@ from .residency import ResidencyManager
 from .service import PredictionService
 
 __all__ = ["PredictionService", "ServingEngine", "MicroBatcher",
-           "ResidencyManager", "AdmissionController", "RetryPolicy",
-           "ServeError", "ServeRejected", "ServeDeadlineExceeded",
-           "ServeClosed", "ServeWorkerWedged"]
+           "ResidencyManager", "BulkScorer", "AdmissionController",
+           "RetryPolicy", "ServeError", "ServeRejected",
+           "ServeDeadlineExceeded", "ServeClosed", "ServeWorkerWedged"]

@@ -1,10 +1,9 @@
-"""Micro-batching request queue with admission control.
+"""Micro-batching request queue with admission control and fleet lanes.
 
 PyTorch-port copy of ``lightgbm_tpu/serve/batcher.py``: the same queue,
-coalescing, admission, deadlines and wedge detection, on one lane (one
-card). The fleet's lanes (one per serve device, least-loaded routing,
-spill, per-lane telemetry) come with the serving fleet, ROADMAP Queue A
-item 9; the fault-injection hook (``resilience/faults.py``) with item 10.
+coalescing, admission, deadlines, wedge detection and fleet lanes; the
+fault-injection hook (``resilience/faults.py``) waits for ROADMAP Queue A
+item 10.
 
 Per-request dispatch is what makes naive serving slow: every request
 pays a host→device→host round trip.  The batcher coalesces concurrent
@@ -23,8 +22,19 @@ of the training megastep's dispatch amortization:
   micro-batch when the batch fits one bucket), and each requester's
   slice resolves its future.
 
-The LANE is the queue + condition + worker thread that feeds the card;
-the dispatch callback takes ``(model_id, X)``.
+Fleet mode (``n_lanes > 1``): one LANE — queue + condition + worker
+thread — per serve device (on one card, per replica: each lane has its
+own CUDA stream). A submit is routed to the least-loaded lane (queued +
+in-flight rows weighted by the lane's measured per-row batch EWMA;
+all-idle ties rotate round-robin so a sequential closed loop still
+exercises every lane), or in turns with ``routing="round_robin"``, and
+the dispatch callback receives the lane index so the service resolves it
+against that lane's model replica. Admission caps split evenly across
+lanes, and a submit its routed lane would reject SPILLS to the coldest
+lane with room before it is shed (``serve.spills``). Per-lane gauges
+(``serve.d<i>.queue_depth`` / ``queue_rows``) publish next to the
+aggregate ones. With one lane the dispatch callback keeps its
+two-argument form ``(model_id, X)``.
 
 Overload hardening:
 
@@ -50,8 +60,8 @@ Failures resolve the affected futures with the exception — a poisoned
 request cannot wedge the queue.  Telemetry: queue-depth/rows gauges,
 refreshed on submit, drain AND shed so a stalled worker's backlog is
 visible between drains (+ peak watermarks), batch-size and latency
-distributions, ``serve.rejected``/``serve.shed`` counters,
-``serve_batch`` events.
+distributions, ``serve.rejected``/``serve.shed``/``serve.spills``
+counters, ``serve_batch`` events.
 """
 from __future__ import annotations
 
@@ -71,7 +81,7 @@ from .errors import (ServeClosed, ServeDeadlineExceeded, ServeRejected,
 # long enough for a healthy worker to notice the abort flag (it checks
 # between batches, and a batch is bounded by max_delay + one dispatch)
 _WEDGE_GRACE_S = 5.0
-# serve_rejected events are rate-limited (the counters
+# serve_rejected / serve_spill events are rate-limited (the counters
 # are exact; the event ring must not be flooded by an open-loop storm)
 _REJECT_EVENT_PERIOD_S = 0.5
 
@@ -114,16 +124,21 @@ def _resolve(future: Future, result=None, exc=None) -> None:
 
 
 class _Lane:
-    """The dispatch queue + worker; its condition is on the batcher's
-    mutex."""
+    """One dispatch queue + worker (one per serve device in fleet mode).
+    The condition shares the batcher's single mutex: routing reads every
+    lane's load under one lock; workers only wake for their own queue."""
 
-    __slots__ = ("cv", "q", "q_rows", "inflight", "worker")
+    __slots__ = ("index", "cv", "q", "q_rows", "inflight", "busy_rows",
+                 "ewma_ms_per_row", "worker")
 
-    def __init__(self, mu: threading.Lock):
+    def __init__(self, index: int, mu: threading.Lock):
+        self.index = index
         self.cv = threading.Condition(mu)
         self.q: collections.deque = collections.deque()
         self.q_rows = 0
         self.inflight: List[_Request] = []
+        self.busy_rows = 0          # rows of the batch being dispatched
+        self.ewma_ms_per_row: Optional[float] = None
         self.worker: Optional[threading.Thread] = None
 
 
@@ -135,7 +150,8 @@ class MicroBatcher:
                  telemetry=None, batch_events: bool = True,
                  memory_watermarks: bool = True,
                  max_queue_rows: int = 0, max_queue_requests: int = 0,
-                 default_deadline_ms: float = 0.0):
+                 default_deadline_ms: float = 0.0,
+                 n_lanes: int = 1, routing: str = "least_loaded"):
         self._dispatch = dispatch
         self.max_batch_rows = int(max_batch_rows)
         self.max_delay_s = float(max_delay_ms) / 1000.0
@@ -152,32 +168,44 @@ class MicroBatcher:
         self.shed_watermark_rows: Optional[int] = None
         # post-batch hook (the admission controller's step); best-effort
         self.on_batch_done: Optional[Callable[[], None]] = None
+        self.n_lanes = max(1, int(n_lanes or 1))
+        self.routing = str(routing or "least_loaded")
+        if self.routing not in ("least_loaded", "round_robin"):
+            raise ValueError(f"routing must be 'least_loaded' or "
+                             f"'round_robin', not {self.routing!r}")
         self._mu = threading.Lock()
-        self._lane = _Lane(self._mu)
+        self._lanes = [_Lane(i, self._mu) for i in range(self.n_lanes)]
+        self._rr = self.n_lanes - 1   # rotating tie-break cursor
         self._stop = False
         self._abort_drain = False
         self._wedged = False
-        # measured drain rate (EWMA over completed batches) feeding the
-        # retry_after_ms hint on rejections
+        # measured drain rate (EWMA over completed batches, all lanes)
+        # feeding the retry_after_ms hint on rejections
         self._ewma_batch_ms: Optional[float] = None
         self._ewma_batch_rows: Optional[float] = None
         self._last_reject_event = 0.0
-        self._lane.worker = threading.Thread(
-            target=self._loop, name="lgbm-serve-batcher", daemon=True)
-        self._lane.worker.start()
+        self._last_spill_event = 0.0
+        for lane in self._lanes:
+            suffix = f"-d{lane.index}" if self.n_lanes > 1 else ""
+            lane.worker = threading.Thread(
+                target=self._loop, args=(lane,),
+                name=f"lgbm-serve-batcher{suffix}", daemon=True)
+            lane.worker.start()
 
     # ---------------------------------------------------- introspection
     @property
     def _q(self) -> collections.deque:
-        return self._lane.q
+        """Lane 0's queue (the queue when ``n_lanes == 1``)."""
+        return self._lanes[0].q
 
     @property
     def _q_rows(self) -> int:
-        return self._lane.q_rows
+        """Queued rows across lanes."""
+        return sum(lane.q_rows for lane in self._lanes)
 
     @property
     def _inflight(self) -> List[_Request]:
-        return self._lane.inflight
+        return [r for lane in self._lanes for r in lane.inflight]
 
     # ------------------------------------------------------- admission
     def _retry_after_ms(self) -> float:
@@ -185,19 +213,32 @@ class MicroBatcher:
         should wait before resubmitting.  Before any batch completed,
         fall back to twice the coalescing delay."""
         if self._ewma_batch_ms and self._ewma_batch_rows:
-            rate = self._ewma_batch_rows / self._ewma_batch_ms
+            # rows/ms per lane; the fleet drains n_lanes of them
+            rate = (self._ewma_batch_rows / self._ewma_batch_ms
+                    * self.n_lanes)
             if rate > 0:
                 return min(10_000.0, max(1.0, self._q_rows / rate))
         return max(1.0, self.max_delay_s * 2000.0)
 
-    def _admission_reason(self, rows: int) -> Optional[str]:
-        """Why this submit must be rejected, or None.  Caller holds the
-        lock.  A single oversized request against an EMPTY queue always
-        admits (it could otherwise never be served; the engine chunks
-        it), matching the max_batch_rows oversized-single semantics."""
-        lane = self._lane
-        cap_rows, cap_reqs = self.max_queue_rows, self.max_queue_requests
+    def _lane_caps(self) -> Tuple[int, int, Optional[int]]:
+        """Per-lane (row cap, request cap, watermark): the global bounds
+        split evenly (ceil) across lanes; 0/None = unbounded."""
+        n = self.n_lanes
+        cap_rows = -(-self.max_queue_rows // n) \
+            if self.max_queue_rows else 0
+        cap_reqs = -(-self.max_queue_requests // n) \
+            if self.max_queue_requests else 0
         wm = self.shed_watermark_rows
+        wm_lane = None if wm is None else max(1, -(-int(wm) // n))
+        return cap_rows, cap_reqs, wm_lane
+
+    def _admission_reason(self, lane: _Lane, rows: int) -> Optional[str]:
+        """Why this submit must be rejected by ``lane``, or None.  Caller
+        holds the lock.  A single oversized request against an EMPTY lane
+        always admits (it could otherwise never be served; the engine
+        chunks it), matching the max_batch_rows oversized-single
+        semantics."""
+        cap_rows, cap_reqs, wm = self._lane_caps()
         if cap_reqs and len(lane.q) + 1 > cap_reqs:
             return "queue_requests"
         # effective row bound: the hard cap tightened by the adaptive
@@ -207,6 +248,45 @@ class MicroBatcher:
         if eff and lane.q_rows + rows > eff and (lane.q or rows <= eff):
             return "shed_watermark" \
                 if wm is not None and eff != cap_rows else "queue_rows"
+        return None
+
+    # --------------------------------------------------------- routing
+    def _lane_load(self, lane: _Lane) -> float:
+        """Estimated ms of work ahead of a request routed here: queued
+        + in-flight rows weighted by the lane's measured per-row batch
+        EWMA (a neutral weight before any batch completed)."""
+        w = lane.ewma_ms_per_row
+        if w is None or w <= 0:
+            w = 1.0
+        return (lane.q_rows + lane.busy_rows) * w
+
+    def _pick_lane(self) -> _Lane:
+        """Least-loaded lane; ties (the all-idle closed loop) rotate
+        round-robin from the last pick so every lane warms and the fleet
+        contract is measurable per lane. Caller holds the lock."""
+        n = self.n_lanes
+        if n == 1:
+            return self._lanes[0]
+        if self.routing == "round_robin":
+            self._rr = (self._rr + 1) % n
+            return self._lanes[self._rr]
+        best, best_load = None, 0.0
+        for off in range(n):
+            lane = self._lanes[(self._rr + 1 + off) % n]
+            load = self._lane_load(lane)
+            if best is None or load < best_load:
+                best, best_load = lane, load
+        self._rr = best.index
+        return best
+
+    def _spill_lane(self, rows: int, exclude: int) -> Optional[_Lane]:
+        """Coldest OTHER lane that admits ``rows`` — tried before a
+        shed. Caller holds the lock."""
+        cands = sorted((lane for lane in self._lanes
+                        if lane.index != exclude), key=self._lane_load)
+        for lane in cands:
+            if self._admission_reason(lane, rows) is None:
+                return lane
         return None
 
     # ------------------------------------------------------------------
@@ -228,7 +308,7 @@ class MicroBatcher:
         req = _Request(model_id, X, int(X.shape[0]), sparse,
                        deadline_ms=eff_deadline)
         reject: Optional[ServeRejected] = None
-        lane = self._lane
+        spilled = False
         with self._mu:
             if self._stop or self._wedged:
                 exc = ServeWorkerWedged(
@@ -238,11 +318,18 @@ class MicroBatcher:
                 req.future.set_exception(exc)
                 self._emit_failed(req, type(exc).__name__)
                 return req.future
-            reason = self._admission_reason(req.rows)
+            lane = self._pick_lane()
+            reason = self._admission_reason(lane, req.rows)
+            if reason is not None and self.n_lanes > 1:
+                # admission spill: the coldest lane with room takes the
+                # request before admission control sheds it
+                alt = self._spill_lane(req.rows, exclude=lane.index)
+                if alt is not None:
+                    lane, reason, spilled = alt, None, True
             if reason is None:
                 lane.q.append(req)
                 lane.q_rows += req.rows
-                gauges = self._queue_gauges_locked()
+                gauges = self._queue_gauges_locked(lane)
                 lane.cv.notify()
             else:
                 reject = ServeRejected(
@@ -251,7 +338,7 @@ class MicroBatcher:
                     reason=reason,
                     retry_after_ms=self._retry_after_ms(),
                     queue_rows=self._q_rows,
-                    queue_requests=len(lane.q),
+                    queue_requests=sum(len(ln.q) for ln in self._lanes),
                     model_id=model_id)
         if reject is not None:
             # telemetry OUTSIDE the queue lock: a JSONL sink write must
@@ -269,29 +356,50 @@ class MicroBatcher:
             self._publish_queue_gauges(gauges, peaks=True)
             self.tel.inc("serve.requests")
             self.tel.inc("serve.rows", req.rows)
+            if self.n_lanes > 1:
+                self.tel.inc(f"serve.d{lane.index}.requests")
+                self.tel.inc(f"serve.d{lane.index}.rows", req.rows)
+            if spilled:
+                self.tel.inc("serve.spills")
+                self.tel.inc(f"serve.d{lane.index}.spills")
+                now = time.perf_counter()
+                if now - self._last_spill_event > _REJECT_EVENT_PERIOD_S:
+                    self._last_spill_event = now
+                    self._record(lambda: self.tel.event(
+                        "serve_spill", model_id=model_id,
+                        rows=req.rows, to_device=lane.index))
         return req.future
 
     # ---------------------------------------------------------- gauges
-    def _queue_gauges_locked(self) -> Tuple[int, int]:
-        """Snapshot (depth, rows) under the lock; published outside
-        it."""
-        return len(self._lane.q), self._lane.q_rows
+    def _queue_gauges_locked(self, lane: Optional[_Lane] = None):
+        """Snapshot (aggregate depth, aggregate rows, [(lane, depth,
+        rows)]) under the lock; published outside it."""
+        agg_d = sum(len(ln.q) for ln in self._lanes)
+        agg_r = sum(ln.q_rows for ln in self._lanes)
+        per = None
+        if self.n_lanes > 1:
+            lanes = self._lanes if lane is None else [lane]
+            per = [(ln.index, len(ln.q), ln.q_rows) for ln in lanes]
+        return agg_d, agg_r, per
 
     def _publish_queue_gauges(self, gauges, peaks: bool = False) -> None:
         if self.tel is None:
             return
-        depth, rows = gauges
-        self.tel.gauge("serve.queue_depth", depth)
-        self.tel.gauge("serve.queue_rows", rows)
+        agg_d, agg_r, per = gauges
+        self.tel.gauge("serve.queue_depth", agg_d)
+        self.tel.gauge("serve.queue_rows", agg_r)
         if peaks:
-            self.tel.gauge_max("serve.queue_peak_requests", depth)
-            self.tel.gauge_max("serve.queue_peak_rows", rows)
+            self.tel.gauge_max("serve.queue_peak_requests", agg_d)
+            self.tel.gauge_max("serve.queue_peak_rows", agg_r)
+        for i, d, r in (per or ()):
+            self.tel.gauge(f"serve.d{i}.queue_depth", d)
+            self.tel.gauge(f"serve.d{i}.queue_rows", r)
 
-    def _regauge(self) -> None:
-        """Refresh the queue gauges from the worker (drain/shed paths) —
+    def _regauge(self, lane: _Lane) -> None:
+        """Refresh the queue gauges from a worker (drain/shed paths) —
         best-effort, never on the submit fast path's lock hold."""
         with self._mu:
-            gauges = self._queue_gauges_locked()
+            gauges = self._queue_gauges_locked(lane)
         self._record(self._publish_queue_gauges, gauges)
 
     # ------------------------------------------------------- deadlines
@@ -321,7 +429,8 @@ class MicroBatcher:
             self._emit_failed(r, "ServeDeadlineExceeded")
 
     # ------------------------------------------------------------------
-    def _pull_same_model(self, model_id: str, cols: int, budget: int
+    def _pull_same_model(self, lane: _Lane, model_id: str, cols: int,
+                         budget: int
                          ) -> Tuple[List[_Request], List[_Request]]:
         """Remove queued DENSE requests for ``model_id`` with the SAME
         column count (a width mismatch must fail only its own request,
@@ -329,7 +438,6 @@ class MicroBatcher:
         preserving arrival order.  Expired requests of ANY model are
         also removed and returned separately for shedding (emission
         happens outside the lock).  Caller holds the lock."""
-        lane = self._lane
         got, expired, keep = [], [], collections.deque()
         now = time.perf_counter()
         while lane.q:
@@ -351,15 +459,13 @@ class MicroBatcher:
         lane.q = keep
         return got, expired
 
-    def _drain_locked(self) -> List[_Request]:
-        lane = self._lane
+    def _drain_lane_locked(self, lane: _Lane) -> List[_Request]:
         drop = list(lane.q)
         lane.q.clear()
         lane.q_rows = 0
         return drop
 
-    def _loop(self) -> None:
-        lane = self._lane
+    def _loop(self, lane: _Lane) -> None:
         while True:
             drop: Optional[List[_Request]] = None
             with self._mu:
@@ -367,7 +473,7 @@ class MicroBatcher:
                         and not self._abort_drain:
                     lane.cv.wait()
                 if self._abort_drain:
-                    drop = self._drain_locked()
+                    drop = self._drain_lane_locked(lane)
                 elif not lane.q and self._stop:
                     return
                 else:
@@ -386,7 +492,7 @@ class MicroBatcher:
             now = time.perf_counter()
             if self._expired(first, now):
                 self._shed([first])
-                self._regauge()
+                self._regauge(lane)
                 continue
             batch = [first]
             rows = first.rows
@@ -395,7 +501,7 @@ class MicroBatcher:
                 while rows < self.max_batch_rows:
                     with self._mu:
                         more, expired = self._pull_same_model(
-                            first.model_id, first.cols,
+                            lane, first.model_id, first.cols,
                             self.max_batch_rows - rows)
                         if not more and not expired:
                             remaining = deadline - time.perf_counter()
@@ -403,7 +509,7 @@ class MicroBatcher:
                                 break
                             lane.cv.wait(remaining)
                             more, expired = self._pull_same_model(
-                                first.model_id, first.cols,
+                                lane, first.model_id, first.cols,
                                 self.max_batch_rows - rows)
                     if expired:
                         self._shed(expired)
@@ -412,7 +518,7 @@ class MicroBatcher:
                         rows += sum(r.rows for r in more)
                     elif time.perf_counter() >= deadline:
                         break
-            self._run_batch(first.model_id, batch, rows)
+            self._run_batch(lane, first.model_id, batch, rows)
 
     def _emit_failed(self, req: "_Request", error: str) -> None:
         """serve_access for a request that never reached a dispatch
@@ -432,8 +538,8 @@ class MicroBatcher:
     def _record(self, fn, *args, **kwargs) -> None:
         """Telemetry from a worker thread must be best-effort: a
         failing sink (disk full under telemetry_out) would otherwise
-        unwind _loop, kill the worker and wedge every future request
-        behind a healthy device."""
+        unwind _loop, kill the lane's worker and wedge every future
+        request behind a healthy device."""
         if self.tel is None:
             return
         try:
@@ -441,29 +547,35 @@ class MicroBatcher:
         except Exception:
             pass
 
-    def _run_batch(self, model_id: str, batch: List[_Request],
-                   rows: int) -> None:
-        lane = self._lane
+    def _run_batch(self, lane: _Lane, model_id: str,
+                   batch: List[_Request], rows: int) -> None:
         # re-gauge on drain too: submit-only updates would leave an
         # idle service reporting its last (peak) backlog forever
-        self._regauge()
+        self._regauge(lane)
         lane.inflight = batch
+        lane.busy_rows = rows
         t0 = time.perf_counter()
         wait_ms = (t0 - batch[0].t_submit) * 1000.0
         # request-scoped batch context: the engine annotates bucket /
         # dispatch wall / degradation from inside the dispatch without
         # the batcher knowing its internals (obs/reqtrace.py)
-        reqtrace.begin_batch(model_id)
+        reqtrace.begin_batch(model_id,
+                             device=lane.index if self.n_lanes > 1
+                             else None)
         try:
             X = batch[0].X if len(batch) == 1 else np.concatenate(
                 [r.X for r in batch], axis=0)
-            out = self._dispatch(model_id, X)
+            if self.n_lanes > 1:
+                out = self._dispatch(model_id, X, lane.index)
+            else:
+                out = self._dispatch(model_id, X)
             out = np.asarray(out)
         except Exception as exc:  # resolve, don't wedge
             ctx = reqtrace.end_batch()
             for r in batch:
                 _resolve(r.future, exc=exc)
             lane.inflight = []
+            lane.busy_rows = 0
 
             def _error_telemetry():
                 self.tel.inc("serve.batch_errors")
@@ -488,19 +600,29 @@ class MicroBatcher:
             _resolve(r.future, result=out[c0:c0 + r.rows])
             c0 += r.rows
         lane.inflight = []
+        lane.busy_rows = 0
         batch_ms = (done - t0) * 1000.0
-        # drain-rate EWMAs feed the rejection retry_after hint (plain
-        # attributes: worker-written, submitter-read, GIL-atomic)
+        # drain-rate EWMAs: the global pair feeds the rejection
+        # retry_after hint; the per-lane ms/row feeds least-loaded
+        # routing (plain attributes: worker-written, submitter-read,
+        # GIL-atomic)
         a = 0.2
         self._ewma_batch_ms = batch_ms if self._ewma_batch_ms is None \
             else (1 - a) * self._ewma_batch_ms + a * batch_ms
         self._ewma_batch_rows = float(rows) \
             if self._ewma_batch_rows is None \
             else (1 - a) * self._ewma_batch_rows + a * rows
+        ms_per_row = batch_ms / max(1, rows)
+        lane.ewma_ms_per_row = ms_per_row \
+            if lane.ewma_ms_per_row is None \
+            else (1 - a) * lane.ewma_ms_per_row + a * ms_per_row
 
         def _batch_telemetry():
             self.tel.inc("serve.batches")
             self.tel.dist("serve.batch_rows", rows)
+            if self.n_lanes > 1:
+                self.tel.inc(f"serve.d{lane.index}.batches")
+                self.tel.dist(f"serve.d{lane.index}.batch_ms", batch_ms)
             for r in batch:
                 self.tel.dist("serve.latency_ms",
                               (done - r.t_submit) * 1000.0)
@@ -513,7 +635,9 @@ class MicroBatcher:
                                rows=rows, requests=len(batch),
                                wait_ms=round(wait_ms, 3),
                                exec_ms=round(batch_ms, 3),
-                               trace_ids=[r.trace_id for r in batch])
+                               trace_ids=[r.trace_id for r in batch],
+                               **({} if self.n_lanes == 1
+                                  else {"device": lane.index}))
             if self.memory_watermarks:
                 # serving dispatch boundary: the allocator peak just
                 # moved (or didn't) — refresh the device memory gauges
@@ -527,50 +651,63 @@ class MicroBatcher:
     # ------------------------------------------------------------------
     def close(self, drain: bool = True,
               drain_timeout_s: Optional[float] = None) -> None:
-        """Stop the worker.  ``drain=True`` serves what is already
-        queued first, bounded by ``drain_timeout_s`` (default 30 s):
-        when the bound expires, the remaining queue is shed with
-        structured ``ServeClosed`` errors instead of blocking shutdown
-        indefinitely.  ``drain=False`` fails
+        """Stop the workers.  ``drain=True`` serves what is already
+        queued first, bounded by ``drain_timeout_s`` (default 30 s,
+        shared across lanes): when the bound expires, the remaining
+        queues are shed with structured ``ServeClosed`` errors instead
+        of blocking shutdown indefinitely.  ``drain=False`` fails
         queued requests immediately.  A worker that does not exit even
         after the aborted drain (stuck inside a device dispatch) is
         declared WEDGED: queued + in-flight futures are failed with
         ``ServeWorkerWedged`` and a ``serve_worker_wedged`` event fires
         — never a silent leak of unresolved futures."""
-        lane = self._lane
         with self._mu:
             self._stop = True
             dropped: List[_Request] = []
             if not drain:
-                dropped = self._drain_locked()
+                for lane in self._lanes:
+                    dropped.extend(self._drain_lane_locked(lane))
                 for r in dropped:
                     _resolve(r.future,
                              exc=ServeClosed("MicroBatcher closed",
                                              model_id=r.model_id))
-            lane.cv.notify_all()
+            for lane in self._lanes:
+                lane.cv.notify_all()
         for r in dropped:
             self._emit_failed(r, "MicroBatcherClosed")
         timeout = 30.0 if drain_timeout_s is None \
             else max(0.0, float(drain_timeout_s))
-        lane.worker.join(timeout=timeout)
-        if not lane.worker.is_alive():
+        # one shared deadline: the drain bound covers the whole fleet,
+        # not timeout x n_lanes
+        deadline = time.perf_counter() + timeout
+        for lane in self._lanes:
+            lane.worker.join(
+                timeout=max(0.0, deadline - time.perf_counter()))
+        if not any(lane.worker.is_alive() for lane in self._lanes):
             return
-        # bounded drain expired: tell the worker to stop serving the
-        # backlog and shed it (structured errors) on its way out
+        # bounded drain expired: tell the workers to stop serving the
+        # backlog and shed it (structured errors) on their way out
         with self._mu:
             self._abort_drain = True
-            lane.cv.notify_all()
-        lane.worker.join(timeout=_WEDGE_GRACE_S)
-        if not lane.worker.is_alive():
+            for lane in self._lanes:
+                lane.cv.notify_all()
+        grace = time.perf_counter() + _WEDGE_GRACE_S
+        for lane in self._lanes:
+            if lane.worker.is_alive():
+                lane.worker.join(
+                    timeout=max(0.0, grace - time.perf_counter()))
+        if not any(lane.worker.is_alive() for lane in self._lanes):
             return
-        # the worker ignored the abort: it is wedged inside a dispatch
+        # a worker ignored the abort: it is wedged inside a dispatch
         # (a hung device).  Fail everything
         # it will never serve — _resolve is race-tolerant, so if the
         # worker ever does come back its own delivery no-ops.
         self._wedged = True
         with self._mu:
-            drop = self._drain_locked()
-        inflight = list(lane.inflight)
+            drop = []
+            for lane in self._lanes:
+                drop.extend(self._drain_lane_locked(lane))
+        inflight = self._inflight
         exc = ServeWorkerWedged(
             "serving worker did not exit within the close timeout "
             "(wedged inside a dispatch); queued and in-flight requests "

@@ -9,15 +9,22 @@ stacked-tree predictors (``models/predictor.py``) with what serving needs:
   size reuses a warmed bucket;
 - **deterministic counters** — a "compile" is the first dispatch of a
   signature (variant, k, ``max_steps``, the encoded rows' width and
-  dtype, the stacks' shapes, the bucket) in a process-wide registry, as
-  the JAX package counts its jit cache; ``dispatches`` counts device
-  calls. Warmup runs every bucket once, so steady traffic counts 0
-  compiles and 1 dispatch per request that fits one bucket;
+  dtype, the device and lane, the stacks' shapes, the bucket) in a
+  process-wide registry, as the JAX package counts its jit cache;
+  ``dispatches`` counts device calls. Warmup runs every bucket once, so
+  steady traffic counts 0 compiles and 1 dispatch per request that fits
+  one bucket;
 - **placement** — the packed stacks live on the card from construction
   on. A dispatch encodes the rows on the host into the bucket's pinned
   buffer, copies it into the bucket's device buffer, launches one
   ``predict_pass`` on the lane's own ``torch.cuda.Stream`` and copies the
   scores back: nothing more;
+- **fleet replicas** — ``device=`` and ``device_index=`` place one
+  replica of the serving fleet (lane ``device_index`` on ``device``);
+  ``shared=`` names the base replica whose packing it reuses (one pack
+  per model). A replica on the base's device holds the base's very
+  tensors (``Tensor.to`` of a tensor already there returns it) and is
+  charged nothing; one on another card holds copies and is charged them;
 - **degradation** — only for the packer's reasons (linear trees, a
   categorical vocabulary past the raw variant's cap, ...): the model
   serves through the exact float64 walk (``basic.host_walk_raw``) with a
@@ -34,7 +41,7 @@ from __future__ import annotations
 import hashlib
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,20 +56,43 @@ from ..ops.predict import predict_pass
 # new compile
 _COMPILED_SIGS = set()
 _SIG_LOCK = threading.Lock()
-# one CUDA stream per device lane: one lane, so one stream, per card
-_LANE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+# one CUDA stream per dispatch lane: a fleet's lanes on one card each
+# have their own
+_LANE_STREAMS: Dict[Tuple[int, int], "torch.cuda.Stream"] = {}
 _STREAM_LOCK = threading.Lock()
 
 
-def lane_stream(device: torch.device) -> "torch.cuda.Stream":
-    """The CUDA stream of the dispatch lane on ``device``."""
+def lane_stream(device: torch.device,
+                lane: int = 0) -> "torch.cuda.Stream":
+    """The CUDA stream of dispatch lane ``lane`` on ``device``."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     with _STREAM_LOCK:
-        s = _LANE_STREAMS.get(index)
+        s = _LANE_STREAMS.get((index, lane))
         if s is None:
-            s = _LANE_STREAMS[index] = torch.cuda.Stream(device=index)
+            s = _LANE_STREAMS[(index, lane)] = torch.cuda.Stream(
+                device=index)
         return s
+
+
+def _storage_key(t: torch.Tensor) -> Tuple[str, int]:
+    return str(t.device), t.untyped_storage().data_ptr()
+
+
+def storage_nbytes(tensors, exclude=()) -> int:
+    """Bytes of the distinct storages behind ``tensors`` (None skipped),
+    leaving out those behind ``exclude``: what the tensors keep alive
+    beyond the excluded ones (views share their base's storage)."""
+    seen = {_storage_key(t) for t in exclude if t is not None}
+    total = 0
+    for t in tensors:
+        if t is None:
+            continue
+        key = _storage_key(t)
+        if key not in seen:
+            seen.add(key)
+            total += t.untyped_storage().nbytes()
+    return total
 
 
 def model_state_hash(models) -> str:
@@ -81,6 +111,12 @@ def model_state_hash(models) -> str:
     return h.hexdigest()
 
 
+# the engine's counters that a fleet replica also counts per lane, as
+# ``serve.d<i>.<name>``
+_PER_LANE = ("serve.dispatches", "serve.compiles",
+             "serve.warmup_dispatches", "serve.warmup_compiles")
+
+
 def _is_sparse(X) -> bool:
     from ..basic import _is_scipy_sparse
     return _is_scipy_sparse(X)
@@ -92,12 +128,23 @@ class ServingEngine:
     def __init__(self, booster, model_id: str = "default",
                  telemetry=None, max_batch_rows: int = 8192,
                  min_bucket_rows: int = 64, start_iteration: int = 0,
-                 num_iteration: Optional[int] = None):
+                 num_iteration: Optional[int] = None,
+                 device=None, device_index: int = 0,
+                 shared: Optional["ServingEngine"] = None):
         self.booster = booster
         self.model_id = model_id
         self.tel = telemetry
-        self.device = booster._predict_device()
-        self.model_hash = model_state_hash(booster.models)
+        # fleet placement: ``device`` holds this replica's operands and
+        # takes its dispatches, on lane ``device_index``'s stream;
+        # ``shared`` is the base replica whose packing this one reuses.
+        # Both None: the single-device engine, as before the fleet
+        self.device = booster._predict_device() if device is None \
+            else torch.device(device)
+        self.device_index = int(device_index)
+        self._dtag = None if device is None else f"d{self.device_index}"
+        self._owns_pred = shared is None
+        self.model_hash = shared.model_hash if shared is not None \
+            else model_state_hash(booster.models)
         self.k = max(1, booster.num_tree_per_iteration)
         total_iter = len(booster.models) // self.k
         if num_iteration is None:
@@ -122,46 +169,82 @@ class ServingEngine:
         self._dispatch_lock = threading.Lock()
         self._buffers: Dict[int, tuple] = {}
         self._events: Optional[List["torch.cuda.Event"]] = None
+        self._resident_nbytes = 0
 
-        ts = getattr(booster, "train_set", None)
-        if ts is not None and getattr(ts, "_inner", None) is not None:
-            self.variant = "binned"
-            self.pred = DevicePredictor(booster.models, ts._inner, self.k)
+        if shared is not None:
+            self.variant = shared.variant
+            self.pred = shared.pred
+            self.device_ok = self.pred is not None and num_iteration > 0
+            self.degraded_reason = "" if self.device_ok else \
+                (shared.degraded_reason or "no_trees")
         else:
-            self.variant = "raw"
-            self.pred = RawDevicePredictor(
-                booster.models, booster.max_feature_idx + 1, self.k,
-                device=self.device)
-        self.device_ok = bool(self.pred.ok) and num_iteration > 0
-        self.degraded_reason = "" if self.device_ok else \
-            (self.pred.reason or "no_trees")
+            ts = getattr(booster, "train_set", None)
+            if ts is not None and getattr(ts, "_inner", None) is not None:
+                self.variant = "binned"
+                self.pred = DevicePredictor(booster.models, ts._inner,
+                                            self.k)
+            else:
+                self.variant = "raw"
+                self.pred = RawDevicePredictor(
+                    booster.models, booster.max_feature_idx + 1, self.k,
+                    device=self.device)
+            self.device_ok = bool(self.pred.ok) and num_iteration > 0
+            self.degraded_reason = "" if self.device_ok else \
+                (self.pred.reason or "no_trees")
         if not self.device_ok:
             self.pred = None
-            self._event("serve_degradation", model_id=model_id,
-                        reason=self.degraded_reason)
-            self._inc("serve.degradations")
+            if shared is None:
+                self._event("serve_degradation", model_id=model_id,
+                            reason=self.degraded_reason)
+                self._inc("serve.degradations")
         else:
             # [lo, hi) is fixed for the engine's life: its operands (views
-            # of the packed stack) and tids once
-            self._ops, self._tids = self.pred.run_args(self.lo, self.hi)
+            # of the packed stack, on this replica's device) and tids once
+            if shared is not None and shared.pred is not None \
+                    and (shared.lo, shared.hi) == (self.lo, self.hi):
+                ops, tids = shared._ops, shared._tids
+            else:
+                ops, tids = self.pred.run_args(self.lo, self.hi)
+            self._ops = tuple(None if a is None else a.to(self.device)
+                              for a in ops)
+            self._tids = tids.to(self.device)
+            # bytes charged: the base replica the packing (and its tids);
+            # a replica the storages it holds beyond the base's: none on
+            # the base's device, its copies on another card
+            owned = list(self.pred.stack.values())
+            if shared is None:
+                self._resident_nbytes = self.pred.packed_nbytes \
+                    + storage_nbytes(self._ops + (self._tids,), owned)
+            else:
+                self._resident_nbytes = storage_nbytes(
+                    self._ops + (self._tids,),
+                    owned + list(shared._ops) + [shared._tids])
             if self.device.type == "cuda":
                 # the lane's stream reads what the packing stream wrote
-                lane_stream(self.device).wait_stream(
+                lane_stream(self.device, self.device_index).wait_stream(
                     torch.cuda.current_stream(self.device))
             self._sig_base = (
                 self.pred.variant, self.k, self.pred.max_steps,
                 self.pred.enc_width, self.pred.enc_dtype, str(self.device),
+                # each lane dispatches its own signatures, as the JAX
+                # package's committed placements fork executables per
+                # device: a replica's warmup counts its own compiles
+                self.device_index,
                 tuple(None if a is None
                       else (tuple(a.shape), str(a.dtype))
                       for a in self._ops))
         self._event("serve_model_loaded", model_id=model_id,
                     variant=self.variant, device=self.device_ok,
-                    trees=self.hi - self.lo, bytes=self.packed_nbytes)
+                    trees=self.hi - self.lo, bytes=self.packed_nbytes,
+                    **({} if self._dtag is None
+                       else {"device_index": self.device_index}))
 
     # ------------------------------------------------------- telemetry
     def _inc(self, name: str, v: float = 1) -> None:
         if self.tel is not None:
             self.tel.inc(name, v)
+            if self._dtag is not None and name in _PER_LANE:
+                self.tel.inc(f"serve.{self._dtag}.{name[6:]}", v)
 
     def _event(self, name: str, **attrs: Any) -> None:
         if self.tel is not None:
@@ -170,11 +253,12 @@ class ServingEngine:
     # ------------------------------------------------------------------
     @property
     def packed_nbytes(self) -> int:
-        """Device bytes of the packed stack this engine keeps alive (the
-        residency manager's accounting unit; the bucket buffers, a few
-        bucket x F words each, are left out as the JAX package leaves its
-        request buffers out)."""
-        return 0 if self.pred is None else self.pred.packed_nbytes
+        """Device bytes this engine keeps alive (the residency manager's
+        accounting unit): the base replica's packing and the operands it
+        holds beyond it, a replica's copies on another card; the bucket
+        buffers, a few bucket x F words each, are left out as the JAX
+        package leaves its request buffers out."""
+        return 0 if self.pred is None else self._resident_nbytes
 
     def buckets(self) -> List[int]:
         """All power-of-two bucket sizes this engine pads into."""
@@ -214,7 +298,9 @@ class ServingEngine:
         self._inc("serve.warmup_dispatches",
                   self.dispatches - dispatches_before)
         self._event("serve_warmup", model_id=self.model_id,
-                    buckets=warmed, compiles=n)
+                    buckets=warmed, compiles=n,
+                    **({} if self._dtag is None
+                       else {"device_index": self.device_index}))
         return {"warmed": warmed, "compiles": n, "degraded": False}
 
     def _bucket_buffers(self, bucket: int):
@@ -231,7 +317,8 @@ class ServingEngine:
             if pin:
                 # every dispatch copies the whole bucket in, so no fill;
                 # allocated on the lane's stream, which alone uses it
-                with torch.cuda.stream(lane_stream(self.device)):
+                with torch.cuda.stream(lane_stream(self.device,
+                                                   self.device_index)):
                     dev_in = torch.empty(shape, dtype=dt,
                                          device=self.device)
             host_out = torch.zeros((self.k, bucket), dtype=torch.float32,
@@ -273,7 +360,7 @@ class ServingEngine:
             t2 = time.perf_counter()
             ev = None
             if self.device.type == "cuda":
-                stream = lane_stream(self.device)
+                stream = lane_stream(self.device, self.device_index)
                 ev = self._timing_events() if timed else None
                 with torch.cuda.stream(stream):
                     if ev is not None:
@@ -355,8 +442,10 @@ class ServingEngine:
             Xc = X[sl].toarray() if sparse_in else X[sl]
             t0 = time.perf_counter()
             out[:, sl] = self._dispatch(Xc, self.bucket_for(Xc.shape[0]))
-            reqtrace.annotate(
-                dispatch_ms=(time.perf_counter() - t0) * 1000.0)
+            disp_ms = (time.perf_counter() - t0) * 1000.0
+            reqtrace.annotate(dispatch_ms=disp_ms)
+            if self._dtag is not None and self.tel is not None:
+                self.tel.dist(f"serve.{self._dtag}.dispatch_ms", disp_ms)
         return out
 
     def _host_predict_raw(self, X) -> np.ndarray:
@@ -402,4 +491,6 @@ class ServingEngine:
                     "compiles": self.compiles,
                     "dispatches": self.dispatches,
                     "host_rows": self.host_rows,
-                    "buckets": self.buckets()}
+                    "buckets": self.buckets(),
+                    **({} if self._dtag is None
+                       else {"device_index": self.device_index})}

@@ -1,8 +1,7 @@
 """PredictionService: the public serving facade.
 
-PyTorch counterpart of ``lightgbm_tpu/serve/service.py`` on one card. It
-owns the engine, micro-batcher and residency layers plus the telemetry
-registry::
+PyTorch counterpart of ``lightgbm_tpu/serve/service.py``. It owns the
+engine, micro-batcher and residency layers plus the telemetry registry::
 
     import lightgbm_tpu_torch as lgb
     svc = lgb.serve.PredictionService(
@@ -20,6 +19,20 @@ registry::
     svc.stats()                           # latency p50/p95/p99, counters
     svc.close(drain_timeout_s=10)
 
+The serving fleet: ``serve_devices=N`` replicates each model onto N local
+devices (``cuda:0`` .. ``cuda:N-1``; 0 means all; 1, or one local device,
+is the single-device plane), one dispatch lane (queue, worker thread,
+CUDA stream) per replica. ``routing`` is ``"least_loaded"`` (the
+``serve_routing`` default) or ``"round_robin"``; a submit its lane would
+reject spills to the coldest lane first; ``rollover`` swaps every
+replica at once; ``predict_bulk`` splits large batches across the lanes
+(``BulkScorer``); ``stats()["fleet"]`` has the per-lane counters.
+``devices=[torch.device(...), ...]`` names the lanes' devices outright,
+repeats allowed: it is how the CPU tests run lanes on the CPU and how a
+machine with one card runs several lanes on it, the counterpart of the
+forced host device count the JAX package's fleet tests run on, not a
+serving mode of its own.
+
 Models may be live ``Booster`` objects (binned routing through their
 training BinMappers) or model-file paths / model strings (raw routing, no
 training dataset needed; loaded on ``device_type``, default the card). A
@@ -32,10 +45,9 @@ live in the micro-batcher and the controller, every knob off by default;
 (never compute errors); :meth:`rollover` hot-swaps a new version (pack and
 warm off the serving thread, optional shadow scoring, one atomic swap).
 
-Not ported yet: the serving fleet (``serve_devices > 1``, ``BulkScorer``)
-waits for ROADMAP Queue A item 9; the metrics exporter (``metrics_port``),
-``trace_out``, the SLO plane, the cost ledger, the drift monitor and
-rollover from a resilience checkpoint wait for item 10. Asking for any of
+Not ported yet: the metrics exporter (``metrics_port``), ``trace_out``,
+the SLO plane, the cost ledger, the drift monitor and rollover from a
+resilience checkpoint wait for ROADMAP Queue A item 10. Asking for any of
 them raises ``NotImplementedError``; their defaults arm nothing, and
 :meth:`stats` has no keys for them.
 """
@@ -44,7 +56,7 @@ from __future__ import annotations
 import os
 import threading
 from concurrent.futures import Future
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -55,7 +67,6 @@ from .batcher import MicroBatcher
 from .errors import RetryPolicy
 from .residency import ResidencyManager
 
-_ITEM_9 = "ROADMAP Queue A item 9 (the serving fleet)"
 _ITEM_10 = "ROADMAP Queue A item 10 (observability and resilience)"
 
 
@@ -79,19 +90,31 @@ def _as_booster(spec, device_type: str):
                     "Booster, model-file path or model string")
 
 
-def _refuse_unported(serve_devices, metrics_port, trace_out, cost_ledger,
-                     drift, slo_enabled, slo_config, slo_readyz_gating,
-                     slo_tick_period_s) -> int:
-    """The planes this port has not yet: raise for any that is asked for;
-    returns the resolved device count (1)."""
+def resolve_devices(serve_devices, device_type: str,
+                    devices: Optional[Sequence] = None) -> List:
+    """The lanes' devices: ``devices`` as given (repeats allowed), else
+    the first ``serve_devices`` local devices (0: all of them, every card
+    for ``"cuda"``, the one CPU device for ``"cpu"``), at least one."""
     import torch
-    local = torch.cuda.device_count() if torch.cuda.is_available() else 1
+    if devices is not None:
+        out = [torch.device(d) for d in devices]
+        if not out:
+            raise ValueError("devices= names no device")
+        return out
+    local = [torch.device("cpu")] if str(device_type) == "cpu" else [
+        torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    local = local or [torch.device(device_type)]
     nd = int(serve_devices or 0)
-    nd = max(1, min(local if nd <= 0 else nd, max(local, 1)))
-    if nd > 1:
-        raise NotImplementedError(
-            f"serve_devices resolves to {nd} devices: serving on more than "
-            f"one card waits for {_ITEM_9}; pass serve_devices=1")
+    if nd <= 0:
+        nd = len(local)
+    return local[:max(1, min(nd, len(local)))]
+
+
+def _refuse_unported(metrics_port, trace_out, cost_ledger, drift,
+                     slo_enabled, slo_config, slo_readyz_gating,
+                     slo_tick_period_s) -> None:
+    """The planes this port has not yet: raise for any that is asked
+    for."""
     asked = [name for name, on in (
         ("metrics_port", int(metrics_port or 0) > 0),
         ("trace_out", bool(trace_out)),
@@ -103,7 +126,6 @@ def _refuse_unported(serve_devices, metrics_port, trace_out, cost_ledger,
     if asked:
         raise NotImplementedError(
             f"{', '.join(asked)}: not ported yet; waits for {_ITEM_10}")
-    return nd
 
 
 class PredictionService:
@@ -133,11 +155,13 @@ class PredictionService:
                  drift_eval_rows: Optional[int] = None,
                  drift_hysteresis: Optional[int] = None,
                  serve_devices: Optional[int] = None,
+                 routing: Optional[str] = None,
                  slo_enabled: Optional[bool] = None,
                  slo_config: Optional[str] = None,
                  slo_tick_period_s: Optional[float] = None,
                  slo_readyz_gating: Optional[bool] = None,
-                 device_type: str = "cuda"):
+                 device_type: str = "cuda",
+                 devices: Optional[Sequence] = None):
         if isinstance(boosters_or_paths, dict):
             specs = dict(boosters_or_paths)
         elif isinstance(boosters_or_paths, (list, tuple)):
@@ -146,14 +170,25 @@ class PredictionService:
             specs = {"default": boosters_or_paths}
         if not specs:
             raise ValueError("PredictionService needs at least one model")
-        if serve_devices is None:
-            serve_devices = param_default("serve_devices")
         drift = bool(drift_enabled) or any(
             v is not None for v in (drift_psi_threshold, drift_eval_rows,
                                     drift_hysteresis))
-        self.n_devices = _refuse_unported(
-            serve_devices, metrics_port, trace_out, cost_ledger, drift,
-            slo_enabled, slo_config, slo_readyz_gating, slo_tick_period_s)
+        _refuse_unported(metrics_port, trace_out, cost_ledger, drift,
+                         slo_enabled, slo_config, slo_readyz_gating,
+                         slo_tick_period_s)
+        # the serving fleet: one replica and one dispatch lane per device;
+        # one device is the single-device plane (devices None)
+        if serve_devices is None:
+            serve_devices = param_default("serve_devices")
+        if routing is None:
+            routing = param_default("serve_routing")
+        self.routing = str(routing or "least_loaded")
+        lanes = resolve_devices(serve_devices, device_type, devices)
+        self.n_devices = len(lanes)
+        self.devices = lanes if self.n_devices > 1 else None
+        # the bulk scorers over the lanes, built lazily per model
+        self._bulk: Dict[str, Any] = {}
+        self._bulk_lock = threading.Lock()
         # admission-control knobs default from the config registry; all 0
         # is off
         if max_queue_rows is None:
@@ -177,7 +212,7 @@ class PredictionService:
         self._shadow: Dict[str, Dict[str, Any]] = {}
         self.residency = ResidencyManager(
             budget_bytes=device_budget_bytes, telemetry=self.tel,
-            max_batch_rows=max_batch_rows,
+            devices=self.devices, max_batch_rows=max_batch_rows,
             min_bucket_rows=min_bucket_rows,
             num_iteration=num_iteration)
         for mid, spec in specs.items():
@@ -190,7 +225,8 @@ class PredictionService:
             memory_watermarks=memory_watermarks,
             max_queue_rows=int(max_queue_rows or 0),
             max_queue_requests=int(max_queue_requests or 0),
-            default_deadline_ms=float(default_deadline_ms or 0.0))
+            default_deadline_ms=float(default_deadline_ms or 0.0),
+            n_lanes=self.n_devices, routing=self.routing)
         # adaptive admission: armed only by a nonzero p99 target; runs on
         # the worker thread through the post-batch hook
         self.admission: Optional[AdmissionController] = None
@@ -207,7 +243,7 @@ class PredictionService:
                        default_deadline_ms=float(default_deadline_ms
                                                  or 0.0),
                        target_p99_ms=float(target_p99_ms or 0.0),
-                       devices=self.n_devices)
+                       devices=self.n_devices, routing=self.routing)
 
     # ------------------------------------------------------------------
     def _readiness(self) -> Tuple[bool, str]:
@@ -224,8 +260,9 @@ class PredictionService:
             return False, "warmup_pending"
         return True, "ready"
 
-    def _dispatch_batch(self, model_id: str, X) -> np.ndarray:
-        eng = self.residency.get(model_id)
+    def _dispatch_batch(self, model_id: str, X,
+                        device: int = 0) -> np.ndarray:
+        eng = self.residency.get(model_id, device)
         out = eng.predict(X, raw_score=self.raw_score)
         st = self._shadow.get(model_id)
         if st is not None and st["remaining"] > 0:
@@ -303,31 +340,72 @@ class PredictionService:
     def predict_bulk(self, model_id: str, X,
                      raw_score: Optional[bool] = None) -> np.ndarray:
         """Offline scoring of a large batch, bypassing the micro-batch
-        queue: with one card, the engine's path (bucketed chunks), as the
-        JAX package takes it with one device."""
+        queues: split across the lanes (:class:`~.bulk.BulkScorer`: one
+        ``predict_pass`` a lane per chunk of up to ``lanes x 65,536`` rows,
+        the same scores as the engine's dispatch); a model that serves
+        through the float64 walk takes the engine's path."""
         if self._closed:
             raise RuntimeError("PredictionService is closed")
         model_id = str(model_id)
         if not self.residency.has(model_id):
             raise KeyError(f"unknown model_id: {model_id!r}")
         rs = self.raw_score if raw_score is None else bool(raw_score)
-        return self.residency.get(model_id).predict(X, raw_score=rs)
+        eng = self.residency.get(model_id, 0)
+        if not eng.device_ok:
+            return eng.predict(X, raw_score=rs)
+        from ..basic import _is_scipy_sparse, finalize_raw_predictions
+        if not _is_scipy_sparse(X):
+            # the engine's input contract (ServingEngine.predict)
+            if not isinstance(X, np.ndarray):
+                X = np.asarray(X, np.float64)
+            if X.ndim == 1:
+                X = X.reshape(1, -1)
+        raw = self._bulk_scorer(model_id, eng).predict_raw(X)
+        b = eng.booster
+        return finalize_raw_predictions(raw, eng.k, b.objective,
+                                        b.average_output,
+                                        eng.num_iteration, rs)
+
+    def _bulk_scorer(self, model_id: str, eng):
+        """The cached bulk scorer of ``model_id``, built again whenever a
+        resident replica changed (rollover, refresh, eviction)."""
+        replicas = [eng] + [self.residency.get(model_id, d)
+                            for d in range(1, self.n_devices)]
+        with self._bulk_lock:
+            sc = self._bulk.get(model_id)
+            if sc is not None and all(
+                    a is b for a, b in zip(sc.replicas, replicas)):
+                return sc
+            from .bulk import BulkScorer
+            sc = BulkScorer(eng, replicas, telemetry=self.tel)
+            self._bulk[model_id] = sc
+            return sc
 
     def warmup(self, buckets: Optional[List[int]] = None,
                model_ids: Optional[List[str]] = None) -> Dict[str, Any]:
         """Pack every model (or ``model_ids``) and dispatch each bucket
-        size (or ``buckets``) once: afterwards steady serving counts no
-        compile, and the readiness probe reports ready."""
-        out = {str(mid): self.residency.get(str(mid)).warmup(buckets)
-               for mid in (model_ids or self.model_ids())}
+        size (or ``buckets``) once on every lane: afterwards steady
+        serving counts no compile, and the readiness probe reports
+        ready. A fleet returns each model's list of per-lane reports."""
+        out = {}
+        for mid in (model_ids or self.model_ids()):
+            mid = str(mid)
+            if self.devices is None:
+                out[mid] = self.residency.get(mid).warmup(buckets)
+            else:
+                # each lane dispatches its own signatures: an unwarmed
+                # replica would count a compile on its first request
+                out[mid] = [self.residency.get(mid, d).warmup(buckets)
+                            for d in range(self.n_devices)]
         self._warmed = True
         return out
 
     def refresh(self, model_id: str) -> None:
         """Re-pack a model whose live booster trained further since its
-        engine was built (engines pack a snapshot)."""
+        engines were built (engines pack a snapshot), on every lane."""
         self.residency.evict(str(model_id))
-        self.residency.get(str(model_id))
+        for d in range(self.n_devices):
+            self.residency.get(str(model_id), d)
 
     # ------------------------------------------------------- rollover
     def rollover(self, model_id: str, new_source,
@@ -352,18 +430,24 @@ class PredictionService:
         with self._rollover_lock:
             booster = _as_booster(new_source, self.device_type)
             old_hash = self.residency.get(model_id).model_hash
+            # pack and warm on this thread while the lanes serve the old
+            # engines; a fleet builds and warms every replica before the
+            # one swap, never a mixed-version fleet
             cand = self.residency.build_candidate(model_id, booster)
+            replicas = cand if isinstance(cand, dict) else {0: cand}
+            cand0 = replicas[0]
             if warm:
-                cand.warmup()
+                for eng in replicas.values():
+                    eng.warmup()
             report: Dict[str, Any] = {
                 "model_id": model_id, "promoted": False,
                 "old_hash": old_hash[:16],
-                "new_hash": cand.model_hash[:16], "shadow": None}
+                "new_hash": cand0.model_hash[:16], "shadow": None}
             source_kind = "file" if isinstance(
                 new_source, (str, os.PathLike)) \
                 else type(new_source).__name__
             if int(shadow_requests) > 0:
-                st = {"engine": cand, "remaining": int(shadow_requests),
+                st = {"engine": cand0, "remaining": int(shadow_requests),
                       "requests": 0, "max_divergence": 0.0,
                       "done": threading.Event()}
                 self._shadow[model_id] = st
@@ -384,7 +468,7 @@ class PredictionService:
                     self.tel.event(
                         "serve_rollover_aborted", model_id=model_id,
                         old_hash=old_hash[:16],
-                        new_hash=cand.model_hash[:16],
+                        new_hash=cand0.model_hash[:16],
                         **{f"shadow_{k}": v for k, v in shadow_rep.items()})
                     return report
             # the swap window: the readiness probe reports unready
@@ -393,12 +477,16 @@ class PredictionService:
                 self.residency.swap(model_id, booster, cand)
             finally:
                 self._rollover_swapping = False
+            with self._bulk_lock:
+                # the packing changed: the bulk scorer is built again from
+                # the new replicas on its next call
+                self._bulk.pop(model_id, None)
             self.tel.inc("serve.rollovers")
             self.tel.event("serve_rollover", model_id=model_id,
                            old_hash=old_hash[:16],
-                           new_hash=cand.model_hash[:16],
+                           new_hash=cand0.model_hash[:16],
                            source=source_kind, warmed=bool(warm),
-                           devices=self.n_devices,
+                           devices=len(replicas),
                            shadow=report["shadow"])
             report["promoted"] = True
             return report
@@ -414,7 +502,10 @@ class PredictionService:
         """Operator view: request, batch, dispatch and compile counters,
         the latency and batch-size distributions (p50/p95/p99), admission
         and residency state. ``dispatches_per_request`` and
-        ``compiles_per_1k_requests`` leave warmup out."""
+        ``compiles_per_1k_requests`` leave warmup out. A fleet adds
+        ``fleet``: the lanes, the routing, spills, the bulk counters and
+        ``per_device``, each lane's counters and, once it took traffic,
+        its two rates."""
         snap = self.tel.snapshot()
         c = snap.get("counters", {})
         g = snap.get("gauges", {})
@@ -450,12 +541,48 @@ class PredictionService:
             out["compiles_per_1k_requests"] = round(
                 max(0, out["compiles"] - out["warmup_compiles"])
                 * 1000.0 / requests, 6)
+        if self.devices is not None:
+            out["fleet"] = self._fleet_stats(c, g)
         return out
+
+    def _fleet_stats(self, c: Dict[str, Any],
+                     g: Dict[str, Any]) -> Dict[str, Any]:
+        """The fleet's view: the per-lane contract (1.0 dispatch per
+        request and 0 compiles per 1,000 on every lane that took
+        traffic)."""
+        per = []
+        for i in range(self.n_devices):
+            d_req = int(c.get(f"serve.d{i}.requests", 0))
+            d_disp = int(c.get(f"serve.d{i}.dispatches", 0))
+            d_comp = int(c.get(f"serve.d{i}.compiles", 0))
+            d_wd = int(c.get(f"serve.d{i}.warmup_dispatches", 0))
+            d_wc = int(c.get(f"serve.d{i}.warmup_compiles", 0))
+            ent: Dict[str, Any] = {
+                "device": i, "requests": d_req,
+                "rows": int(c.get(f"serve.d{i}.rows", 0)),
+                "batches": int(c.get(f"serve.d{i}.batches", 0)),
+                "dispatches": d_disp, "compiles": d_comp,
+                "warmup_dispatches": d_wd, "warmup_compiles": d_wc,
+                "spills": int(c.get(f"serve.d{i}.spills", 0)),
+                "queue_depth": g.get(f"serve.d{i}.queue_depth", 0)}
+            if d_req > 0:
+                ent["dispatches_per_request"] = round(
+                    max(0, d_disp - d_wd) / d_req, 6)
+                ent["compiles_per_1k_requests"] = round(
+                    max(0, d_comp - d_wc) * 1000.0 / d_req, 6)
+            per.append(ent)
+        return {"devices": self.n_devices, "routing": self.routing,
+                "routed_devices": sum(1 for e in per if e["requests"] > 0),
+                "spills": int(c.get("serve.spills", 0)),
+                "bulk_rows": int(c.get("serve.bulk_rows", 0)),
+                "bulk_dispatches": int(c.get("serve.bulk_dispatches", 0)),
+                "bulk_compiles": int(c.get("serve.bulk_compiles", 0)),
+                "per_device": per}
 
     # ------------------------------------------------------------------
     def close(self, drain: bool = True,
               drain_timeout_s: Optional[float] = None) -> None:
-        """Stop the worker (serving what is queued first when ``drain``,
+        """Stop the workers (serving what is queued first when ``drain``,
         bounded by ``drain_timeout_s``; past it the rest is shed with
         structured errors), emit the final ``serve_stats`` event and
         flush."""

@@ -406,7 +406,6 @@ def test_idle_overload_knobs_keep_serving_contract(bst):
 
 # ---------------------------------------------- planes not ported yet
 @pytest.mark.parametrize("kw,item", [
-    ({"serve_devices": 2}, "item 9"),
     ({"metrics_port": 9200}, "item 10"),
     ({"trace_out": "t.json"}, "item 10"),
     ({"slo_enabled": True}, "item 10"),
@@ -415,10 +414,9 @@ def test_idle_overload_knobs_keep_serving_contract(bst):
     ({"drift_enabled": True}, "item 10"),
 ])
 def test_unported_planes_refuse(bst, kw, item, monkeypatch):
-    """Serving on more than one card waits for ROADMAP Queue A item 9;
-    the metrics exporter, traces, SLOs, the cost ledger and the drift
-    monitor for item 10. The defaults arm none of them, and a checkpoint
-    directory is refused as a model source."""
+    """The metrics exporter, traces, SLOs, the cost ledger and the drift
+    monitor wait for ROADMAP Queue A item 10. The defaults arm none of
+    them, and a checkpoint directory is refused as a model source."""
     import torch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
