@@ -308,7 +308,34 @@ non-zero (it prints no result line then):
    (d) ``predict_bulk`` of the 1M rows over the lanes: ``Booster.
    predict``'s bits, one launch a lane per chunk of 2 x 65,536 rows,
    seconds against ``Booster.predict`` and one lane's ``predict_bulk``;
-18. the ``kernels`` line: every ported kernel and variant with its
+18. what two ranks refused until this phase (``dist_matrix``), two ranks
+   on cuda:0 over gloo as in phase 16, then the serial runs on the same
+   rows in this process: (a) phase 16's two blocks of phase 3's draw:
+   GOSS (learning_rate 0.5, rank-local sampling), DART, RF with bagging,
+   ``regression_l1`` and ``quantile`` (alpha 0.7; the leaves renewed as
+   the mean of the ranks' own outputs), CEGB with a split penalty and
+   lazy penalties (dropped with the JAX package's warning) on the
+   depth-wise XLA grower, phase 14c's forced splits under data and
+   voting on the leaf-wise grower; (b) ``lambdarank`` on phase 9's
+   MS-LTR-shaped draw cut to 200,000 documents, each rank holding whole
+   queries, with a training ``ndcg``; (c) dense EFB on phase 11b's
+   exclusive rows cut to 100,000, data and voting (decode-then-sum on
+   the bundled planes), fused; (d) sparse input and ``linear_tree``
+   refused on both ranks in the JAX package's words. Every run: the
+   ranks' model texts equal; DART, RF, CEGB, forced splits under data,
+   ``lambdarank`` and data-parallel EFB grow the serial trees (every
+   tree on the fused engine, the first on the XLA growers) with
+   predictions within 1e-5 where every tree is the serial one, and the
+   same training ``ndcg`` on both ranks; GOSS and the voting runs within
+   0.01 AUC of the serial run, L1 and quantile within 2% of its loss;
+   each leaf of the last renewed tree the mean of the ranks' own
+   percentile outputs, recomputed on the host from each rank's rows;
+   every on-path kernel and ``predict_pass`` launched on both ranks; a
+   captured bundled ``level_pass`` of rank 0's EFB run (and its
+   ``route_pass`` on that level's table) held to the plain versions.
+   Each run prints per rank sec/iter beside the serial run's, collective
+   calls and bytes per tree and the host-plane gathers;
+19. the ``kernels`` line: every ported kernel and variant with its
    wrapper calls and CUDA kernel launches on the main path where it runs
    (every level_pass, route_pass, epilogue_pass and hist_pass call in
    phases 3-13 held to one launch of each of its CUDA kernels), its
@@ -324,8 +351,8 @@ non-zero (it prints no result line then):
    ``level_pass``, ``epilogue_pass`` and ``hist_pass``, and the
    ``predict_pass`` rows of phase 15 with their launches there and
    phase 17's per lane, and each kernel's launches per rank in phase
-   16's runs;
-19. the last line: ``{"ok": true, "device": {...}}``.
+   16's and 18's runs, with 18's captured bundled level;
+20. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package. It exits non-zero when no CUDA
 device is present.
@@ -461,6 +488,23 @@ DIST_TIMEOUT_S = 120            # phase 16: every group's collective timeout
 # served probabilities against the float64 walk: the JAX package's serving
 # tolerance for float32 sums (tests/test_serve.py); the routing itself is
 # held exactly, to the float32 sums of the walk's leaves
+DM_ROUNDS = 6                   # phase 18a: the fused and depth-wise runs
+DM_XLA_ROUNDS = 2               # phase 18a: the leaf-wise (forced) runs
+DM_SHORT_ROUNDS = 5             # phase 18b, c
+DM_RANK_DOCS = 200_000          # phase 18b: phase 9's draw, cut
+DM_EFB_ROWS = 100_000           # phase 18c: phase 11b's draw, cut
+DM_DEADLINE_S = 600             # phase 18: the parent kills the ranks after
+# phase 18: where the ranks' partial f32 sums round otherwise than the
+# serial run's (the XLA growers' histograms; lambdarank's lambdas on rank
+# blocks that the engine pads, so the two runs' tiles part at other rows)
+# a near-tie may flip, but only after the first tree (DM_TIE_FROM_TREE),
+# with every earlier tree's leaves within 1e-5, the parting splits' gains
+# within DM_TIE_GAIN (relative) of each other (_dm_departure), and the
+# training quality (AUC; NDCG at every cut-off) within DM_TIE_QUALITY of
+# the serial run's
+DM_TIE_FROM_TREE = 1
+DM_TIE_GAIN = 1e-5
+DM_TIE_QUALITY = 0.0025
 FLEET_LANES = 2                 # phase 17: lanes on the one card
 FLEET_ROLL_REQUESTS = 400       # phase 17c: the most the loader submits
 SERVE_RTOL = {"rtol": 1e-5, "atol": 1e-6}
@@ -2179,6 +2223,9 @@ def rank_data(n_docs: int, n_valid: int):
         .astype(np.float32)
     X, z, sizes = _rank_rows(n_docs, DATA_SEED, w)
     cuts = np.quantile(z, RANK_GRADES)
+    if not n_valid:
+        return X, np.digitize(z, cuts).astype(np.float32), sizes, None, \
+            None, None
     Xv, zv, sv = _rank_rows(n_valid, DATA_SEED + 200, w)
     return (X, np.digitize(z, cuts).astype(np.float32), sizes, Xv,
             np.digitize(zv, cuts).astype(np.float32), sv)
@@ -5656,6 +5703,592 @@ def run_dist_train(lgb, bst3):
               for r in ranks]}
 
 
+# ------------------------------------------------------------- phase 18
+def _dm_cfg():
+    """The constants phase 18's ranks run with."""
+    return {k: globals()[k] for k in (
+        "DEVICE", "ROWS", "DIST_ROWS", "DM_ROUNDS", "DM_XLA_ROUNDS",
+        "DM_SHORT_ROUNDS", "DM_RANK_DOCS", "DM_EFB_ROWS")}
+
+
+def _dm_higgs(rank: int, world: int):
+    """Phase 16's rows (phase 3's draw cut to DIST_ROWS) and this rank's
+    block: (X, y binary, z regression, w)."""
+    from lightgbm_tpu_torch.parallel.mesh import shard_rows
+    X, z, w = _class_rows(ROWS, FEATURES, seed=DATA_SEED)
+    X, z = X[:DIST_ROWS], z[:DIST_ROWS].astype(np.float32)
+    y = (z > 0).astype(np.float32)
+    return tuple(shard_rows(a, rank, world) for a in (X, y, z)) + (w,)
+
+
+def _dm_rank_rows(rank: int, world: int):
+    """Phase 9's MS-LTR-shaped draw cut to DM_RANK_DOCS and this rank's
+    whole queries (world 1: all): (X, y, sizes). Rank 0 takes the queries
+    that end by half the documents."""
+    X, y, sizes, _, _, _ = rank_data(DM_RANK_DOCS, 0)
+    if world == 1:
+        return X, y, sizes
+    ends = np.cumsum(sizes)
+    q = int(np.searchsorted(ends, len(y) // 2))
+    cut = int(ends[q])
+    if rank == 0:
+        return X[:cut], y[:cut], sizes[:q + 1]
+    return X[cut:], y[cut:], sizes[q + 1:]
+
+
+def _dm_efb_rows(rank: int, world: int):
+    """Phase 11b's exclusive rows (28 dense, EFB_EXCLUSIVE exclusive
+    columns) cut to DM_EFB_ROWS, and this rank's block."""
+    from lightgbm_tpu_torch.parallel.mesh import shard_rows
+    X, y = _exclusive_rows(DM_EFB_ROWS, 28, EFB_EXCLUSIVE, DATA_SEED + 600)
+    return shard_rows(X, rank, world), shard_rows(y, rank, world)
+
+
+def _dm_pred_rows(kind: str):
+    """The rows every process predicts for a rank or EFB run: the first
+    ones of the draw (the same on every rank)."""
+    if kind == "rank":
+        return _dm_rank_rows(0, 1)[0][:100_000]
+    return _dm_efb_rows(0, 1)[0][:50_000]
+
+
+def _dm_base(rows: int) -> dict:
+    """Phase 3's parameters, every row in the binning sample (so the
+    gathered samples and the serial run's are the same rows), and the
+    device predictor at any size (``predict_pass`` serves every predict
+    of the phase)."""
+    return {"objective": "binary", "max_bin": 63, "num_leaves": 255,
+            "learning_rate": 0.1, "min_data_in_leaf": 1,
+            "min_sum_hessian_in_leaf": 1e-3, "verbose": -1,
+            "device_type": DEVICE, "bin_construct_sample_cnt": rows,
+            "pred_device_min_work": 1}
+
+
+def _dm_cases(w):
+    """Phase 18's runs: (name, data, params, rounds, contract). ``data``:
+    higgs (binary label), higgs_z (regression), rank, efb; ``contract``:
+    serial (the serial model's trees), margin (within a quality margin of
+    the serial run) or renew (margin, and each renewed leaf the mean of
+    the ranks' own outputs)."""
+    F = FEATURES
+    forced = forced_splits_json(w, np.zeros(F, np.int32))
+    coupled, lazy = cegb_columns(w)
+    data, vote = {"tree_learner": "data"}, {"tree_learner": "voting",
+                                             "top_k": DIST_TOP_K}
+    return [
+        ("goss", "higgs", dict(data, boosting="goss", learning_rate=0.5),
+         DM_ROUNDS, "margin"),
+        ("dart", "higgs", dict(data, boosting="dart"), DM_ROUNDS, "serial"),
+        ("rf", "higgs", dict(data, boosting="rf", bagging_fraction=0.5,
+                             bagging_freq=1), DM_ROUNDS, "serial"),
+        ("cegb", "higgs", dict(
+            data, cegb_penalty_split=CEGB_SPLIT,
+            cegb_penalty_feature_lazy=[CEGB_LAZY if f in lazy else 0.0
+                                       for f in range(F)]),
+         DM_ROUNDS, "serial"),
+        ("forced_data", "higgs", dict(data, forced_json=forced),
+         DM_XLA_ROUNDS, "serial"),
+        ("forced_vote", "higgs", dict(vote, forced_json=forced),
+         DM_XLA_ROUNDS, "margin"),
+        ("l1", "higgs_z", dict(data, objective="regression_l1"), DM_ROUNDS,
+         "renew"),
+        ("quantile", "higgs_z", dict(data, objective="quantile", alpha=0.7),
+         DM_ROUNDS, "renew"),
+        ("lambdarank", "rank", dict(
+            data, objective="lambdarank", metric="ndcg",
+            eval_at=RANK_EVAL_AT, is_provide_training_metric=True),
+         DM_SHORT_ROUNDS, "serial"),
+        ("efb_data", "efb", data, DM_SHORT_ROUNDS, "serial"),
+        ("efb_vote", "efb", {"tree_learner": "voting"}, DM_SHORT_ROUNDS,
+         "margin")]
+
+
+# the kernels each run's path launches (fused, the depth-wise XLA grower's
+# histograms, the leaf-wise list kernels and its root histogram)
+DM_FUSED = ("level_pass", "route_pass", "table_lookup")
+DM_KERNELS = {"cegb": ("hist_pass",),
+              "forced_data": ("hist_pass", "leaf_partition", "leaf_hist"),
+              "forced_vote": ("hist_pass", "leaf_partition", "leaf_hist")}
+# the serial references the margin runs are held to
+DM_SERIAL_OF = {"forced_vote": "forced_data", "efb_vote": "efb_data"}
+DM_AUC_MARGIN = 0.01        # GOSS and the voting runs, AUC
+DM_LOSS_MARGIN = 0.02       # L1 and quantile, relative loss
+
+
+def _dm_strip(params: dict, workdir: str) -> dict:
+    """A run's parameters as train() takes them: the forced-splits JSON
+    (written under ``workdir`` by ``run_dist_matrix`` before any rank
+    starts) named by its path."""
+    p = dict(params)
+    if p.pop("forced_json", None) is not None:
+        p["forcedsplits_filename"] = os.path.join(workdir, "forced18.json")
+    return p
+
+
+def _dm_loss(name, raw, label) -> float:
+    if name == "l1":
+        return float(np.mean(np.abs(label - raw)))
+    d = label - raw
+    return float(np.mean(np.where(d >= 0, 0.7 * d, -0.3 * d)))
+
+
+def _dm_run(lgb, name, params, ds, rounds, X_pred, renew_rows=None):
+    """One run of phase 18 on this process: train() (Booster.update() for
+    the renewal runs, which keep the scores before the last tree), under
+    a timed CollectiveTrace, with the kernel counters reset just before
+    and read just after; then predict on ``X_pred`` through
+    ``predict_pass`` (its launches counted alone). Returns (booster,
+    numbers)."""
+    import torch
+    from lightgbm_tpu_torch.ops import predict as pred_ops
+    from lightgbm_tpu_torch.ops.collectives import CollectiveTrace
+    ds.params = {}
+    reader = _run_counts()
+    _dev_sync()
+    before_last = None
+    with CollectiveTrace(timed=True) as rec:
+        t0 = time.perf_counter()
+        if renew_rows is not None:
+            bst = lgb.Booster(params=params, train_set=ds)
+            for i in range(rounds):
+                if i == rounds - 1:
+                    before_last = bst._gbdt.scores[0].double().cpu().numpy()
+                bst.update()
+        else:
+            bst = lgb.train(params, ds, num_boost_round=rounds)
+        _dev_sync()
+        wall = time.perf_counter() - t0
+    launches, cuda, syncs = reader()
+    n = max(1, bst.num_trees())
+    g = bst._gbdt
+    pred_ops.reset_launch_counts()
+    pred = bst.predict(X_pred, raw_score=True)
+    _dev_sync()
+    res = {"trees": bst.num_trees(), "train_s": wall,
+           "sec_per_iter": wall / rounds, "launches": launches,
+           "predict_pass_launches": pred_ops.launches["predict_pass"],
+           "host_syncs_per_tree": syncs / n,
+           "collective_calls_per_tree": rec.count / n,
+           "collective_bytes_per_tree": rec.bytes / n,
+           "collective_s": rec.seconds,
+           "collective_share_of_wall": rec.seconds / wall,
+           "models": bst.models, "text": bst.model_to_string(),
+           "pred": pred.astype(np.float32)}
+    if g.mp is not None:
+        res.update(host_gathers=g.mp.host_count,
+                   host_gather_bytes=g.mp.host_bytes,
+                   host_gathers_per_tree=g.mp.host_count / n,
+                   host_gather_bytes_per_tree=g.mp.host_bytes / n)
+    if "is_provide_training_metric" in params:
+        res["evals"] = [(m, float(v)) for _, m, v, _ in bst.eval_train()]
+    if renew_rows is not None:
+        res["renew"] = _dm_renew_parts(bst, before_last, *renew_rows)
+    return bst, res
+
+
+def _dm_renew_parts(bst, score_before, label, alpha):
+    """This rank's own renewed output of every leaf of the last tree
+    (its rows' residuals against the scores before that tree, the
+    objective's weighted percentile at unit weights: under ranks the
+    weights are the real-row mask) and which leaves hold its rows,
+    recomputed on the host from the rows."""
+    from lightgbm_tpu_torch.objective.base import weighted_percentile
+    g = bst._gbdt
+    leaf = g._host_tree_leaves(g.train_data.bins_dev,
+                               bst.models[-1]).cpu().numpy()
+    L = bst.models[-1].num_leaves
+    res = np.asarray(label, np.float64) - score_before
+    out, nz = np.zeros(L), np.zeros(L)
+    for lf in range(L):
+        r = res[leaf == lf]
+        if len(r):
+            out[lf] = weighted_percentile(r, np.ones(len(r)), alpha)
+            nz[lf] = 1.0
+    return {"outputs": out, "nonzero": nz}
+
+
+def dm_rank(rank: int, world: int, cfg):
+    """Phase 18's program on one rank (``parallel.spawn``, gloo, cuda:0;
+    world 1 is the serial reference in the parent): every run of
+    ``_dm_cases`` on this rank's rows, then the refusals. Returns each
+    run's numbers, model and predictions; rank 0 also holds a captured
+    bundled ``level_pass`` of its EFB run to the plain version."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.models import frontier2
+    globals().update(cfg)
+    wd = cfg["workdir"]
+    out = {}
+    Xh, yh, zh, w = _dm_higgs(rank, world)
+    Xa, _, _, _ = _dm_higgs(0, 1)
+    X_pred = Xa[:200_000]
+    par = world > 1
+    base = _dm_base(DIST_ROWS)
+    learner = {"tree_learner": "data"} if par else {}
+    sets, construct_s = {}, {}
+
+    def dataset(kind):
+        """(Dataset, its rows, label) of ``kind``, one on the card at a
+        time; the two Higgs labels share one binned Dataset."""
+        base_kind = "higgs" if kind.startswith("higgs") else kind
+        if base_kind not in sets:
+            sets.clear()
+            if base_kind == "higgs":
+                X, y, kw, n = Xh, yh, {}, DIST_ROWS
+            elif kind == "rank":
+                X, y, sq = _dm_rank_rows(rank, world)
+                kw, n = {"group": sq}, DM_RANK_DOCS
+            else:
+                (X, y), kw, n = _dm_efb_rows(rank, world), {}, DM_EFB_ROWS
+            p = dict(_dm_base(n), **learner)
+            t0 = time.perf_counter()
+            sets[base_kind] = (lgb.Dataset(X, label=y, params=p, **kw)
+                               .construct(), X, y)
+            construct_s[base_kind] = time.perf_counter() - t0
+        ds, X, y = sets[base_kind]
+        if base_kind == "higgs":
+            y = yh if kind == "higgs" else zh
+            ds.set_label(y)
+        return ds, X, y
+
+    for name, kind, extra, rounds, contract in _dm_cases(w):
+        params = _dm_strip(dict(base, **extra), wd)
+        if not par:
+            if name in DM_SERIAL_OF:
+                continue          # held to the serial run of its twin
+            # (two ranks drop the lazy CEGB penalties: the serial twin
+            # trains without them)
+            for k in ("tree_learner", "top_k", "cegb_penalty_feature_lazy"):
+                params.pop(k, None)
+        ds, Xk, yk = dataset(kind)
+        # predict: the same rows on every rank and the serial run
+        Xp = X_pred if kind.startswith("higgs") else _dm_pred_rows(kind)
+        renew = None
+        if contract == "renew" and par:
+            renew = (yk, 0.5 if name == "l1" else 0.7)
+        store = {}
+        undo = None
+        if par and rank == 0 and name == "efb_data" and DEVICE != "cpu":
+            undo = _capture_call(frontier2, "level_pass", CAPTURE_LEVEL_CALL,
+                                 store)
+        try:
+            bst, res = _dm_run(lgb, name, params, ds, rounds, Xp, renew)
+        finally:
+            if undo is not None:
+                undo()
+        res["use_bundles"] = bool(bst._gbdt.use_bundles)
+        res["grow_policy"] = bst._gbdt.grow_policy
+        res["engine"] = ("fused" if bst._gbdt.use_fused else "xla")
+        if kind != "rank":
+            res["scores"] = (bst.train_scores().float().cpu().numpy()
+                             .reshape(-1))
+            res["label"] = np.asarray(yk, np.float32)
+        if store:
+            res["kernel_check"] = check_captured(store, "c", "dist_matrix",
+                                                 18)
+        del bst
+        out[name] = res
+    sets.clear()
+    out["construct_s"] = construct_s
+    if par:
+        # (d) what two ranks still refuse, in the JAX package's words
+        import scipy.sparse as sp
+        for name, data, extra in (
+                ("sparse", sp.csr_matrix(Xh[:20_000]), {}),
+                ("linear_tree", Xh[:20_000], {"linear_tree": True})):
+            p = dict(_dm_base(20_000), tree_learner="data", **extra)
+            try:
+                lgb.train(p, lgb.Dataset(data, label=yh[:20_000], params=p),
+                          num_boost_round=1)
+                out[name] = "trained"
+            except lgb.LightGBMError as e:
+                out[name] = str(e)
+    return out
+
+
+def _dm_splits(m) -> dict:
+    """A tree's splits keyed by their path from the root (each ancestor's
+    feature, threshold and side): {path: (feature, threshold, gain,
+    node)}, so two trees compare split by split whatever their node
+    numbering."""
+    out = {}
+    stack = [(0, ())] if m.num_leaves > 1 else []
+    while stack:
+        node, path = stack.pop()
+        f, t = int(m.split_feature[node]), float(m.threshold[node])
+        out[path] = (f, t, float(m.split_gain[node]), node)
+        for side, c in (("l", m.left_child[node]), ("r", m.right_child[node])):
+            if c >= 0:
+                stack.append((int(c), path + ((f, t, side),)))
+    return out
+
+
+def _dm_rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(a), abs(b), 1e-30)
+
+
+def _dm_departure(ms, ss, leafwise: bool):
+    """Where the ranks' trees first leave the serial ones, or None (trees
+    that take the same splits in another order are the same tree). The
+    parting is where the two runs first chose otherwise: on the leaf-wise
+    grower the first split, in split order, that differs (another leaf or
+    another split of it); on the level-wise growers every leaf of the
+    first level where they differ, each split the other run took
+    otherwise paired with it, and a leaf split by one run only paired, in
+    gain order, with one split by the other only (the level's leaf
+    budget). ``pairs`` holds each parting's gains (ranks, serial) and
+    ``gain_gap_rel`` the largest relative gap of a pair, or of a split
+    left unpaired (which the other run found no gain in) against its
+    tree's root gain. Beside it, as this run's f32 noise between the two
+    runs, the largest relative gain difference of the splits both took in
+    that tree (``shared_gain_diff_rel``), and the largest leaf-value
+    difference of the trees before it (``leaf_diff_before``)."""
+    for t, (a, b) in enumerate(zip(ms, ss)):
+        if _same_structure(a, b):
+            continue
+        A, B = _dm_splits(a), _dm_splits(b)
+        split = {p: v[:2] for p, v in A.items()}
+        if split == {p: v[:2] for p, v in B.items()}:
+            continue
+        pairs, alone = [], []
+        if leafwise:
+            oa = sorted(A, key=lambda p: A[p][3])
+            ob = sorted(B, key=lambda p: B[p][3])
+            i = next(i for i in range(max(len(oa), len(ob)))
+                     if i >= min(len(oa), len(ob))
+                     or (oa[i], A[oa[i]][:2]) != (ob[i], B[ob[i]][:2]))
+            if i < min(len(oa), len(ob)):
+                pairs.append((A[oa[i]][2], B[ob[i]][2]))
+            else:
+                alone.append((A if i < len(oa) else B)[
+                    (oa if i < len(oa) else ob)[i]][2])
+            depth = len((oa if i < len(oa) else ob)[i])
+        else:
+            def key(d, p):
+                return d[p][:2] if p in d else None
+            parted = [p for p in set(A) | set(B)
+                      if key(A, p) != key(B, p)
+                      and (not p or key(A, p[:-1]) == key(B, p[:-1])
+                           == p[-1][:2])]
+            depth = min(len(p) for p in parted)
+            top = [p for p in parted if len(p) == depth]
+            pairs = [(A[p][2], B[p][2]) for p in top if p in A and p in B]
+            ra = sorted((A[p][2] for p in top if p not in B), reverse=True)
+            rb = sorted((B[p][2] for p in top if p not in A), reverse=True)
+            pairs += list(zip(ra, rb))
+            alone = ra[len(rb):] + rb[len(ra):]
+        root = max(abs(B[()][2]), 1e-30)
+        gap = max([_dm_rel(x, y) for x, y in pairs]
+                  + [abs(g) / root for g in alone])
+        shared = [_dm_rel(A[p][2], B[p][2]) for p in A
+                  if p in B and A[p][:2] == B[p][:2]]
+        before = max([float(np.max(np.abs(
+            np.asarray(x.leaf_value, np.float64)
+            - np.asarray(y.leaf_value, np.float64))))
+            for x, y in zip(ms[:t], ss[:t])], default=0.0)
+        return {"tree": t, "parted_at_depth": depth,
+                "pairs": [list(x) for x in pairs], "alone": alone,
+                "gain_gap_rel": gap,
+                "shared_gain_diff_rel": max(shared, default=0.0),
+                "leaf_diff_before": before}
+    return None
+
+
+def run_dist_matrix(lgb):
+    """Phase 18: what two ranks refused until this phase, through
+    train(). Two ranks of the port (``parallel.spawn``) on cuda:0 over gloo,
+    as phase 16 runs them, then the serial references in this process on
+    the same rows: (a) phase 3's configuration on phase 16's two blocks:
+    GOSS (learning_rate 0.5, rank-local sampling), DART, RF with bagging,
+    ``regression_l1`` and ``quantile`` (alpha 0.7, leaf renewal averaged
+    over the ranks), CEGB with a split penalty and lazy penalties (dropped
+    with the warning) on the depth-wise XLA grower, forced splits
+    (phase 14c's JSON) under data and voting on the leaf-wise grower; (b)
+    MS-LTR-shaped ``lambdarank`` (136 features) on query-aligned blocks
+    with a training ``ndcg``; (c) dense EFB on phase 11b's exclusive rows,
+    data and voting, fused; (d) sparse input and ``linear_tree`` refused.
+    Per run: the ranks' model texts equal; the serial-contract runs grow
+    the serial trees (every tree of the binary fused runs; elsewhere, where
+    the ranks' f32 sums round otherwise, they may part after the first
+    tree only at a near-tie, as DM_TIE_GAIN states it, which
+    ``_dm_departure`` measures), predictions within 1e-5 where every tree
+    is the serial one; the others
+    within a stated margin of the serial quality; each renewed leaf of the
+    last tree the mean of the ranks' own outputs; every on-path kernel and
+    ``predict_pass`` launched on both ranks. Returns (launches per run and
+    rank, the kernels-line rows of rank 0's captured bundled level)."""
+    import shutil
+    import tempfile
+    from lightgbm_tpu_torch.parallel.spawn import run_ranks
+    here = os.path.abspath(__file__)
+    t_phase = time.perf_counter()
+    wd = tempfile.mkdtemp(prefix="chip_smoke_dm_")
+    cfg = dict(_dm_cfg(), workdir=wd)
+    _, _, _, w = _dm_higgs(0, 1)
+    with open(os.path.join(wd, "forced18.json"), "w") as fh:
+        json.dump(forced_splits_json(w, np.zeros(FEATURES, np.int32)), fh)
+    ranks = run_ranks(here + ":dm_rank", DIST_WORLD, (cfg,), workdir=wd,
+                      device_type=DEVICE, backend="gloo",
+                      deadline_s=DM_DEADLINE_S, timeout_s=DIST_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    serial = dm_rank(0, 1, cfg)
+    serial_s = time.perf_counter() - t0
+    fails = []
+    launches = {}
+    for name, kind, extra, rounds, contract in _dm_cases(w):
+        rs = [r[name] for r in ranks]
+        s = serial[DM_SERIAL_OF.get(name, name)]
+        line = {"phase": "dist_matrix", "run": name, "data": kind,
+                "params": {k: v for k, v in extra.items()
+                           if k != "forced_json"},
+                "contract": contract, "rounds": rounds,
+                "engine": rs[0]["engine"], "grow_policy": rs[0]["grow_policy"],
+                "use_bundles": rs[0]["use_bundles"], "trees": rs[0]["trees"],
+                "serial_run": DM_SERIAL_OF.get(name, name),
+                "serial_sec_per_iter": s["sec_per_iter"],
+                "per_rank": [{k: r[k] for k in (
+                    "sec_per_iter", "collective_calls_per_tree",
+                    "collective_bytes_per_tree", "collective_s",
+                    "collective_share_of_wall", "host_gathers",
+                    "host_gather_bytes", "host_gathers_per_tree",
+                    "host_gather_bytes_per_tree", "host_syncs_per_tree",
+                    "predict_pass_launches")}
+                    | {"launches": {k: v for k, v in r["launches"].items()
+                                    if v}} for r in rs],
+                "collective_note": "gloo on cuda:0: host-staged round trips"}
+        launches[name] = [dict(r["launches"],
+                               predict_pass=r["predict_pass_launches"])
+                          for r in rs]
+        if rs[0]["text"] != rs[1]["text"]:
+            fails.append(f"{name}: the ranks' model texts differ")
+        if DEVICE != "cpu":
+            for i, r in enumerate(rs):
+                for k in DM_KERNELS.get(name, DM_FUSED) + ("predict_pass",):
+                    n = (r["predict_pass_launches"] if k == "predict_pass"
+                         else r["launches"].get(k, 0))
+                    if n <= 0:
+                        fails.append(f"{name}: {k} never launched on rank "
+                                     f"{i}")
+        pred_err = float(np.abs(rs[0]["pred"] - s["pred"]).max())
+        line["pred_max_abs_diff_vs_serial"] = pred_err
+        quality_gap = None
+        if "label" in rs[0]:
+            lab = np.concatenate([r["label"] for r in rs])
+            sc = np.concatenate([r["scores"] for r in rs])
+            if kind == "higgs_z":
+                line["loss"] = _dm_loss(name, sc, lab)
+                line["serial_loss"] = _dm_loss(name, s["scores"], s["label"])
+                gap = line["loss"] / line["serial_loss"] - 1.0
+                line["loss_gap"] = gap
+                if not gap <= DM_LOSS_MARGIN:
+                    fails.append(f"{name}: loss {gap:+.4f} over serial")
+            else:
+                line["train_auc"] = auc(sc, lab)
+                line["serial_auc"] = auc(s["scores"], s["label"])
+                line["auc_gap"] = quality_gap = (line["serial_auc"]
+                                                 - line["train_auc"])
+                if contract == "margin" \
+                        and not line["auc_gap"] <= DM_AUC_MARGIN:
+                    fails.append(f"{name}: AUC {line['auc_gap']:.4f} under "
+                                 "serial")
+        if "evals" in rs[0]:
+            line["train_ndcg"] = [r["evals"] for r in rs]
+            line["serial_ndcg"] = s["evals"]
+            if rs[0]["evals"] != rs[1]["evals"]:
+                fails.append(f"{name}: the ranks' training ndcg differ")
+            line["ndcg_max_abs_diff_vs_serial"] = quality_gap = max(
+                abs(a[1] - b[1]) for a, b in zip(rs[0]["evals"], s["evals"]))
+        if contract == "serial":
+            pairs = list(zip(rs[0]["models"], s["models"]))
+            same = [_same_structure(a, b) for a, b in pairs]
+            lead = [_leading_nodes_equal(a, b) for a, b in pairs]
+            dep = _dm_departure(rs[0]["models"], s["models"],
+                                rs[0]["grow_policy"] == "leafwise")
+            line.update(trees_same_structure=int(sum(same)),
+                        serial_trees=len(s["models"]),
+                        leading_nodes_equal=lead, departure=dep)
+            # binary gradients on the fused planes sum to the serial bits
+            # (phase 16a); elsewhere a near-tie may flip after tree 0
+            strict = rs[0]["engine"] == "fused" and kind != "rank"
+            if not len(same) == rs[0]["trees"] == len(s["models"]):
+                fails.append(f"{name}: {rs[0]['trees']} trees, serial "
+                             f"{len(s['models'])}")
+            elif strict and dep is not None:
+                fails.append(f"{name}: {sum(same)} of {rs[0]['trees']} "
+                             f"trees have the serial structure (all must): "
+                             f"{dep}")
+            elif dep is not None and not (
+                    dep["tree"] >= DM_TIE_FROM_TREE
+                    and dep["leaf_diff_before"] <= 1e-5
+                    and dep["gain_gap_rel"] <= DM_TIE_GAIN
+                    and abs(quality_gap) <= DM_TIE_QUALITY):
+                fails.append(f"{name}: left the serial trees at {dep}, "
+                             f"not a near-tie (quality {quality_gap})")
+            if dep is None and not np.allclose(rs[0]["pred"], s["pred"],
+                                               rtol=1e-5, atol=1e-5):
+                fails.append(f"{name}: predictions {pred_err} from the "
+                             f"serial model's")
+            if dep is None and "evals" in rs[0] \
+                    and not line["ndcg_max_abs_diff_vs_serial"] < 1e-5:
+                fails.append(f"{name}: ndcg "
+                             f"{line['ndcg_max_abs_diff_vs_serial']} from "
+                             "the serial run's")
+        if contract == "renew":
+            parts = [r["renew"] for r in rs]
+            tot = sum(p["outputs"] for p in parts)
+            nz = sum(p["nonzero"] for p in parts)
+            got = np.asarray(rs[0]["models"][-1].leaf_value, np.float64)
+            want = tot / np.maximum(nz, 1) * 0.1       # the shrinkage
+            on = nz > 0
+            err = float(np.max(np.abs(got[on] - want[on])
+                               / np.maximum(np.abs(want[on]), 1e-12)))
+            line.update(renewed_leaves=int(on.sum()),
+                        leaves_on_both_ranks=int((nz == 2).sum()),
+                        renew_max_rel_err=err)
+            if not (on.sum() == len(got) and err <= 1e-9):
+                fails.append(f"{name}: a renewed leaf is not the ranks' "
+                             f"mean ({err}, {int(on.sum())} of {len(got)})")
+        if name.startswith("forced"):
+            f0 = extra["forced_json"]["feature"]
+            line["forced_root_kept"] = all(m.split_feature[0] == f0
+                                           for m in rs[0]["models"])
+            if not line["forced_root_kept"]:
+                fails.append(f"{name}: a tree does not start with the "
+                             "forced split")
+        emit(line)
+    words = {"sparse": "sparse-built (prebundled) datasets derive their "
+                       "bundle layout from rank-local CSC columns",
+             "linear_tree": "linear_tree is serial-only"}
+    refused = {k: [r[k] for r in ranks] for k in words}
+    emit({"phase": "dist_matrix", "run": "refusals",
+          "errors": {k: v[0] for k, v in refused.items()}})
+    for k, v in refused.items():
+        if not all(words[k] in e for e in v):
+            fails.append(f"refusal {k}: {v}")
+    kc = ranks[0]["efb_data"].get("kernel_check")
+    rows = []
+    if kc is None:
+        if DEVICE != "cpu":     # (a CPU rehearsal captures nothing)
+            fails.append("efb_data: no level_pass call was captured on "
+                         "rank 0")
+    else:
+        emit({"phase": "dist_matrix", "run": "efb_data",
+              "kernel_check": kc})
+        for kernel in ("level_pass", "route_pass"):
+            rows.append(bundled_row(
+                kernel, kc, ranks[0]["efb_data"]["launches"][kernel],
+                "phase 18 run efb_data, rank 0's own operands",
+                tag="dist bundled"))
+    shutil.rmtree(wd, ignore_errors=True)
+    emit({"phase": "dist_matrix", "phase_s": time.perf_counter() - t_phase,
+          "ranks_s": ranks_s, "serial_s": serial_s,
+          "construct_s": [r["construct_s"] for r in ranks],
+          "serial_construct_s": serial["construct_s"], "failures": fails})
+    if fails:
+        raise AssertionError("phase 18: " + "; ".join(fails))
+    return launches, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5907,7 +6540,11 @@ def main() -> int:
     fleet_launches = run_serve_fleet(lgb, X, fleet_ctx)
     del X, fleet_ctx
 
-    # ---- 18. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
+    # ---- 18. what two ranks refused until now: GOSS, DART, RF, renewal,
+    # ranking, CEGB, forced splits, dense EFB (voting on bundles)
+    dm_launches, dm_rows = run_dist_matrix(lgb)
+
+    # ---- 19. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
     # the epilogue at Bp=64 int8, nch=5, binary, Sp=64; hist_pass at Bp=64,
     # Sp=64, f32). Launches: the train() run for the three kernels of its
     # path, update() run (a) for the epilogue, the frontier train() run for
@@ -5963,6 +6600,9 @@ def main() -> int:
         row["dist_train_launches_per_rank"] = {
             run: [v.get(name, 0) for v in per_rank]
             for run, per_rank in dist_launches.items()}
+        row["dist_matrix_launches_per_rank"] = {
+            run: [v.get(name, 0) for v in per_rank]
+            for run, per_rank in dm_launches.items()}
         rows.append(row)
     # hist_pass's unrounded f32 variant, the XLA engine's histogram: on
     # phase 14a's (a leaf-wise root, S = 1) and 14b's (a depth-wise level,
@@ -6014,10 +6654,14 @@ def main() -> int:
                "library_call": r["library_call"],
                "xla_train_launches": {run: v[name]
                                       for run, v in xla_launches.items()}}
-        if run == "a":      # phase 16 runs the list kernels on logical columns
+        if run == "a":      # phases 16, 18 run the list kernels on logical
+            #                 columns
             row["dist_train_launches_per_rank"] = {
                 d_run: [v.get(name, 0) for v in per_rank]
                 for d_run, per_rank in dist_launches.items()}
+            row["dist_matrix_launches_per_rank"] = {
+                d_run: [v.get(name, 0) for v in per_rank]
+                for d_run, per_rank in dm_launches.items()}
         if name == "leaf_partition":
             row.update(segment_rows=r["segment_rows"],
                        restore_ms=r["restore_ms"])
@@ -6092,7 +6736,15 @@ def main() -> int:
                 run: [per.get(keys[0], [0] * FLEET_LANES) for per in v]
                 for run, v in fleet_launches.items()
                 if run[0] in keys[1]}
+        if row["name"] == "predict_pass[binned]":
+            # Booster.predict of every phase-18 model, on each rank
+            row["dist_matrix_launches_per_rank"] = {
+                run: [v["predict_pass"] for v in per_rank]
+                for run, per_rank in dm_launches.items()}
     rows.extend(serve_rows)
+    # level_pass and route_pass on a rank's own bundled operands (phase
+    # 18's data-parallel EFB run, rank 0), with that rank's launches
+    rows.extend(dm_rows)
     emit({"phase": "timing", "ms": "device time per launch: a CUDA graph "
           "of 20 wrapper calls replayed 5 times between two events, "
           "median", "plain_ms": "median of 20 (3 for the plain level, route, "
@@ -6101,7 +6753,7 @@ def main() -> int:
     emit({"kernels": rows})
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start})
 
-    # ---- 19. the result line
+    # ---- 20. the result line
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

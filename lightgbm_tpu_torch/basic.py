@@ -130,6 +130,20 @@ def finalize_raw_predictions(raw: np.ndarray, k: int, objective,
     return raw[0] if k == 1 else raw.T
 
 
+def _check_rank_queries(group, num_data: int) -> None:
+    """Under a parallel tree_learner each rank holds whole queries: its
+    ``group`` sizes sum to its own rows. The check is taken on the
+    cohort's vote, so a query that straddles two ranks raises on every
+    rank (lightgbm_tpu/parallel/multiproc.py:216-220)."""
+    from .parallel.multiproc import cohort_votes
+    own = int(np.asarray(group, np.int64).sum())
+    if not cohort_votes(own == int(num_data))[1]:
+        raise LightGBMError(
+            "query-aligned sharding was violated: a rank's group sizes "
+            f"sum to {own} but it holds {int(num_data)} rows (every rank "
+            "must hold whole queries; a query straddles ranks)")
+
+
 class Dataset:
     """Training or validation dataset with lazy construction (ref:
     basic.py:1122). With ``reference`` (the training Dataset) the rows bin
@@ -194,6 +208,8 @@ class Dataset:
         if self.weight is not None:
             inner.metadata.set_weight(np.asarray(self.weight))
         if self.group is not None:
+            if cfg.is_parallel:
+                _check_rank_queries(self.group, inner.num_data)
             inner.metadata.set_group(np.asarray(self.group))
         if self.init_score is not None:
             inner.metadata.set_init_score(np.asarray(self.init_score))

@@ -173,14 +173,35 @@ global rows under the group's scales, and every grower reduces its
 histograms over the group (``group``), the epilogue body's next root
 histogram included, so every rank grows the same trees. Training metrics
 evaluate on the gathered scores; valid sets are replicated, their
-agreement checked by a digest. Feature-parallel needs every row on every
-rank: under the trainer it degrades to data-parallel with the JAX
-package's warning, and runs at the grower level
+agreement checked by a digest. Every composition of the serial learner
+trains under ranks with the JAX package's multi-process semantics:
+
+- GOSS samples each rank's own rows (the same seed on every rank, its
+  in-bag count gathered; a rank without rows joins every collective);
+  DART draws the same drop set on every rank and replays the dropped
+  trees on the rank's rows; RF takes fixed gradients on the rank's rows,
+  bags over the global rows and evaluates on the gathered average;
+- leaf renewal (the L1 family) sets each leaf to the mean of the ranks'
+  own renewed outputs over the ranks that hold in-bag rows in it, one
+  host gather per tree (``_renew_tree_output``), not a global
+  percentile;
+- ranking runs on query-aligned shards: the global query boundaries and
+  the compacted-to-padded row map (``GlobalMetadata``), the gradients over
+  the padded global rows sliced back to the rank's block, ``ndcg`` and
+  ``map`` as sums over the rank's queries and one host gather;
+- CEGB composes, its lazy penalties dropped with the JAX package's
+  warning; forced splits keep the leaf-wise grower under data and voting
+  (the vote always sums the forced features' columns);
+- dense EFB takes its bundle layout from the gathered binning sample
+  (``mp_sample_bins``), so every rank encodes its rows with the same
+  layout; fused voting on bundles sums the winners' decoded planes.
+
+Feature-parallel needs every row on every rank: under the trainer it
+degrades to data-parallel with the JAX package's warning, as the JAX
+package does under many processes, and runs at the grower level
 (``parallel.make_feature_parallel_grow_fn``). With no group, or a group of
-one rank, ``tree_learner`` warns and trains serially. Under two or more
-ranks GOSS, DART, RF, leaf renewal, ranking, CEGB, forced splits, EFB and
-sparse input raise (ROADMAP Queue A item 9c), and ``linear_tree`` is
-refused in the JAX package's words.
+one rank, ``tree_learner`` warns and trains serially. Sparse (prebundled)
+input and ``linear_tree`` are refused in the JAX package's words.
 
 Not ported yet (``_UNPORTED`` raises, naming its ROADMAP item):
 resilience checkpoints (of ``cegb_used`` and
@@ -247,7 +268,6 @@ def split_params_from_config(config: Config) -> SplitParams:
 
 
 _ITEM10 = "(ROADMAP Queue A item 10)"
-_ITEM9C = "(ROADMAP Queue A item 9c)"
 _UNPORTED = tuple(
     # the training side of obs/, the SLO plane and resilience checkpoints
     # (lightgbm_tpu/boosting/gbdt.py:460-466, 532, 554-561, 1109-1111): a
@@ -371,32 +391,20 @@ class GBDT:
                 "parallel.distributed.init_distributed, or torchrun)", mode)
             return
         import torch.distributed as dist
-
-        def refuse(what):
-            log.fatal("%s is not supported with multi-process training yet "
-                      "%s", what, _ITEM9C)
-        if type(self) is not GBDT:
-            refuse(f"boosting={self.name}")
         if bool(config.linear_tree):
             # REFERENCE PARITY: the reference also refuses this (config.cpp:
             # 348 forces tree_learner=serial under linear_tree)
             log.fatal("linear_tree is serial-only (the reference forces "
                       "tree_learner=serial for linear trees too); not "
                       "supported with multi-process training")
-        obj = self.objective
-        if obj is not None and obj.is_renew_tree_output:
-            refuse(f"the leaf-renewal objective {obj.name}")
-        if train_data.metadata.query_boundaries is not None:
-            refuse("ranking with query-aligned shards")
-        if self.use_cegb:
-            refuse("cost-effective gradient boosting (cegb_*)")
-        if self.n_forced:
-            refuse("forcedsplits_filename")
-        # local decisions: the cohort's votes, so every rank refuses
+        # a local fact, so the cohort's vote: every rank refuses
         if cohort_votes(train_data.prebundled is not None)[0]:
-            refuse("sparse input")
-        if cohort_votes(bool(self.use_bundles))[0]:
-            refuse("exclusive feature bundling (set enable_bundle=false)")
+            log.fatal("sparse-built (prebundled) datasets derive their "
+                      "bundle layout from rank-local CSC columns and are "
+                      "not supported with multi-process training; dense "
+                      "EFB (enable_bundle on dense data) composes — its "
+                      "layout comes from the shared binning sample")
+        self._drop_lazy_cegb()
         if mode == "feature":
             # feature-parallel replicates rows on every rank; here each
             # rank holds only its own rows
@@ -428,13 +436,28 @@ class GBDT:
         # objectives and metrics: global statistics (the reference's
         # GlobalSyncUp* paths), arrays over the Np padded rows with zero
         # weight on the pads; the gradients read this rank's rows of them
+        obj = self.objective
         if obj is not None:
             obj.init(self._mp_metadata, self.mp.total_real, self.device)
-            full_ops = obj.gradient_operands
             mp = self.mp
-            obj.gradient_operands = lambda: tuple(
-                None if o is None else mp.local_block(o)
-                for o in full_ops())
+            if self._mp_metadata.query_boundaries is not None:
+                # ranking: a query's lambdas read all its rows' scores, so
+                # the gradients run over the Np padded rows (this rank's
+                # scores at its block, zeros elsewhere: its queries are
+                # whole) and this rank's block is kept
+                full_grad = obj.get_gradients
+
+                def local_grad(score):
+                    full = score.new_zeros((score.shape[0], mp.Np))
+                    full[:, mp.offset:mp.offset + mp.local_real] = score
+                    g, h = full_grad(full)
+                    return mp.local_block(g), mp.local_block(h)
+                obj.get_gradients = local_grad
+            else:
+                full_ops = obj.gradient_operands
+                obj.gradient_operands = lambda: tuple(
+                    None if o is None else mp.local_block(o)
+                    for o in full_ops())
             self.class_need_train = [
                 obj.class_need_train(i)
                 for i in range(self.num_tree_per_iteration)]
@@ -549,10 +572,28 @@ class GBDT:
         bins_np = train_data.bins
         mfb = np.asarray(train_data.most_freq_bins, np.int32)
         F = train_data.num_features
-        masks = [bins_np[:, k] != mfb[k] for k in range(F)]
+        n_for_rate = self.num_data
+        from ..parallel import mesh
+        if mesh.under_ranks(config):
+            # the layout must be the same on every rank: the conflict
+            # masks come from the gathered binning sample (gbdt.py:
+            # 1273-1287; the reference bundles from sampled rows too), and
+            # each rank encodes its own rows with that layout. Whether to
+            # bundle is the cohort's vote, since it changes which
+            # collectives the grower runs
+            from ..parallel.multiproc import cohort_votes
+            sb = train_data.mp_sample_bins
+            if not cohort_votes(sb is not None)[1]:
+                log.warning("no shared binning sample retained; skipping "
+                            "EFB for this multi-process run")
+                return
+            masks = [sb[:, k] != mfb[k] for k in range(F)]
+            n_for_rate = sb.shape[0]
+        else:
+            masks = [bins_np[:, k] != mfb[k] for k in range(F)]
         nb_all = [int(x) for x in train_data.num_bin_per_feat]
         for cap in (32767, 8 * self.max_bins, 4 * self.max_bins):
-            bundles = find_bundles(masks, self.num_data,
+            bundles = find_bundles(masks, n_for_rate,
                                    max_conflict_rate=1e-4,
                                    max_bundle_bins=cap,
                                    num_bin_per_feat=nb_all)
@@ -686,10 +727,23 @@ class GBDT:
                                          device=self.device)
         self.cegb_lazy = per_inner(lazy)
         self.use_cegb_lazy = bool((self.cegb_lazy > 0).any())
+        if getattr(self, "group", None) is not None:
+            self._drop_lazy_cegb()        # reset_config under ranks
         if self.use_cegb_lazy and not hasattr(self, "cegb_used_rf"):
             self.cegb_used_rf = torch.zeros((self.num_data, F),
                                             dtype=torch.bool,
                                             device=self.device)
+
+    def _drop_lazy_cegb(self) -> None:
+        """Under ranks the lazy penalties are dropped with the JAX
+        package's warning (gbdt.py:1494-1500): their [n, F] bitmap is
+        per row, and the distributed growers do not carry it."""
+        if self.use_cegb_lazy:
+            log.warning("cegb_penalty_feature_lazy keeps a per-(row, "
+                        "feature) bitmap on one device and is not wired "
+                        "into the distributed growers; dropping the lazy "
+                        "penalties for this parallel run")
+            self.use_cegb_lazy = False
 
     def _mark_cegb_used(self, tree: TreeArrays) -> None:
         """The features this tree split on join ``cegb_used``
@@ -1605,12 +1659,23 @@ class GBDT:
     def _renew_tree_output(self, ht: HostTree, row_leaf: torch.Tensor,
                            class_id: int, base: float = None) -> None:
         """Leaf renewal for the L1 family (ref: serial_tree_learner.cpp:717
-        RenewTreeOutput; gbdt.py:2933-2957): each leaf's value from the
-        float64 residuals of its in-bag rows, grouped by one stable
-        argsort. The residuals are against the class's scores (two host
-        copies: the scores and the row leaves), or against the constant
-        ``base`` (RF, rf.hpp:135-139; one copy)."""
+        RenewTreeOutput; gbdt.py:2933-3015): each leaf's value from the
+        float64 residuals of its in-bag rows (``_bag_host``: GOSS's
+        rank-local mask, or this rank's slice of the bagging draw), grouped
+        by one stable argsort. The residuals are against the class's scores
+        (two host copies: the scores and the row leaves), or against the
+        constant ``base`` (RF, rf.hpp:135-139; one copy).
+
+        Under a rank layout a leaf's value is the AVERAGE of the rank-local
+        renewed outputs over the ranks that hold in-bag rows in it, the
+        reference's own distributed semantics (serial_tree_learner.cpp:
+        744-755: the local RenewTreeOutput, then GlobalSum(outputs) /
+        GlobalSum(nonzero)), not a global percentile: one host gather of
+        [outputs, nonzero] in float64 per tree, on every rank, even one
+        without rows. With one rank that average is the rank's own
+        output."""
         obj = self.objective
+        mp = self.mp
         label = self.train_data.metadata.label
         if base is None:
             score = self.scores[class_id].double().cpu().numpy()
@@ -1620,14 +1685,28 @@ class GBDT:
         rl = row_leaf.cpu().numpy()
         host_syncs["count"] += 1
         residual = label.astype(np.float64) - score
+        L = ht.num_leaves
+        outputs = np.zeros(L, np.float64)
+        nonzero = np.zeros(L, np.float64)
+        # the objective's weights are the gathered global ones under ranks
+        offset = mp.offset if mp is not None else 0
         sel = np.nonzero(self._bag_host)[0]
         order = sel[np.argsort(rl[sel], kind="stable")]
-        starts = np.searchsorted(rl[order], np.arange(ht.num_leaves + 1))
-        for leaf in range(ht.num_leaves):
+        starts = np.searchsorted(rl[order], np.arange(L + 1))
+        for leaf in range(L):
             rows = order[starts[leaf]:starts[leaf + 1]]
             if len(rows):
-                ht.leaf_value[leaf] = obj.renew_tree_output(
-                    ht.leaf_value[leaf], residual[rows], rows)
+                outputs[leaf] = obj.renew_tree_output(
+                    ht.leaf_value[leaf], residual[rows], rows + offset)
+                nonzero[leaf] = 1.0
+        if mp is not None:
+            allg = mp._allgather(np.concatenate([outputs, nonzero]))
+            allg = allg.reshape(mp.process_count, 2, L)
+            outputs = allg[:, 0, :].sum(axis=0)
+            nonzero = allg[:, 1, :].sum(axis=0)
+        ht.leaf_value[:L] = np.where(
+            nonzero > 0, outputs / np.maximum(nonzero, 1),
+            np.asarray(ht.leaf_value[:L], np.float64))
 
     def _kernel_layout(self) -> Tuple[int, int]:
         """(kernel rows, bins per kernel row) of ``bins_T``: the bundle
@@ -1857,12 +1936,19 @@ class GBDT:
         """[(ds_name, metric_name, value, is_higher_better)] of one score
         set (gbdt.py:5063): each metric's device form on ``score_dev``
         where it has one (a 0-d tensor; the caller fetches every scalar at
-        once), else its host form on one float64 copy of the scores."""
+        once), the ranking metrics' distributed form under a rank layout,
+        else its host form on one float64 copy of the scores."""
         out = []
         host_score = None
         cache = {}    # the converted score row, shared by the set's metrics
         for m in metrics:
             vals = m.eval_device(score_dev, self.objective, cache)
+            if vals is None and getattr(m, "query_row_map", None) \
+                    is not None:
+                # a ranking metric on the global metadata: sums over this
+                # rank's queries and one host gather (gbdt.py:5078-5081)
+                vals = m.eval_mp(self.mp.local_block(score_dev).double()
+                                 .cpu().numpy(), self.objective, self.mp)
             if vals is None:
                 if host_score is None:
                     host_score = score_dev.double().cpu().numpy()
@@ -2001,11 +2087,27 @@ class GOSS(GBDT):
         the rest drawn without replacement, whose gradients are scaled by
         (n - top_k) / other_k. The sums are taken on the device in class
         order, as the JAX package's ``jnp.sum(axis=0)`` reduces them, and
-        copied to the host once: the threshold and the draw are numpy's."""
+        copied to the host once: the threshold and the draw are numpy's.
+
+        Under a rank layout the sampling is rank-local (gbdt.py:5506-
+        5576, as each of the reference's machines samples its own rows):
+        the same ``bag_rng`` seed on every rank draws over different rows,
+        ``n`` is the rank's rows, the mask stays the rank's (leaf renewal
+        reads it), and ``bag_cnt`` is gathered over the host plane."""
         cfg = self.config
         n = self.num_data
+        mp = self.mp
         if it < int(1.0 / cfg.learning_rate):
             self._set_bag(None)
+            if mp is not None:
+                self.bag_cnt = mp.total_real
+            return grad, hess
+        if mp is not None and n == 0:
+            # a rank without rows samples nothing but joins the count's
+            # gather, so every rank runs the same collectives
+            self._set_bag(np.zeros(0, bool))
+            self.bag_cnt = int(mp._allgather(
+                np.asarray([0], np.int64)).sum())
             return grad, hess
         g_np = abs_gh_class_sum(grad, hess).cpu().numpy()
         host_syncs["count"] += 1
@@ -2025,6 +2127,10 @@ class GOSS(GBDT):
         mult = np.ones(n, np.float32)
         mult[sampled] = multiply
         self._set_bag(mask)
+        if mp is not None:
+            # the in-bag count over every rank's sample
+            self.bag_cnt = int(mp._allgather(
+                np.asarray([mask.sum()], np.int64)).sum())
         mult_dev = torch.as_tensor(mult, device=self.device)[None, :]
         return grad * mult_dev, hess * mult_dev
 

@@ -47,6 +47,7 @@ from .config import Config
 from .io.cache import (CACHE_MAGIC, LEGACY_MAGIC, load_dataset_cache,
                        read_magic, save_dataset_cache)
 from .ops.efb import BundleLayout, find_bundles
+from .parallel import mesh
 from .parallel.multiproc import allgather_sample
 from .utils import log
 
@@ -229,6 +230,10 @@ class BinnedDataset:
         # kept for linear trees (a row subset does not carry them, as in
         # the JAX package's TpuDataset.subset)
         self.raw_data: Optional[torch.Tensor] = None
+        # [sample rows, num_used_features] uint16: the binned sample every
+        # rank gathered, kept under a parallel tree_learner over two or
+        # more ranks (the bundle layout's conflict masks); None otherwise
+        self.mp_sample_bins: Optional[np.ndarray] = None
 
     @classmethod
     def from_data(cls, data: np.ndarray, config: Config, device,
@@ -298,6 +303,15 @@ class BinnedDataset:
         if not self.used_features:
             log.warning("There are no meaningful features which satisfy "
                         "the provided configuration.")
+        if mesh.under_ranks(config) and self.used_features:
+            # the gathered sample, binned (uint16), is kept for EFB: the
+            # bundle layout must be the same on every rank, so its
+            # conflict masks come from this shared sample
+            # (lightgbm_tpu/dataset.py:313-322; the reference also bundles
+            # from sampled rows, dataset_loader.cpp FindGroups)
+            self.mp_sample_bins = np.stack(
+                [self.mappers[j].value_to_bin(sample[:, j])
+                 for j in self.used_features], axis=1).astype(np.uint16)
         self._finalize_feature_arrays()
         self._place(self.bin_rows(data), device)
         self._set_monotone(config, f)
@@ -538,6 +552,7 @@ class BinnedDataset:
         self.metadata.init_score = meta.get("init_score")
         self.monotone_constraints = meta.get("monotone_constraints")
         self.dataset_params = dict(meta.get("dataset_params") or {})
+        self.mp_sample_bins = meta.get("mp_sample_bins")
         self._finalize_feature_arrays()
         self.device = torch.device(device)
         return self

@@ -174,7 +174,10 @@ def load_dataset_cache(path: str, verify: bool = True):
 
 def dataset_meta(ds) -> Dict[str, Any]:
     """The picklable metadata region of a binned dataset (the JAX
-    package's keys, its multi-process sample left None)."""
+    package's keys): a multi-process build keeps its gathered binning
+    sample (binned, uint16) for EFB, so a rank that loads the cache
+    bundles as a rank that built it (lightgbm_tpu/ingest/cache.py:
+    322-326)."""
     md = ds.metadata
     return {
         "mappers": [m.to_dict() for m in ds.mappers],
@@ -186,7 +189,7 @@ def dataset_meta(ds) -> Dict[str, Any]:
         "init_score": None if md is None else md.init_score,
         "monotone_constraints": ds.monotone_constraints,
         "dataset_params": dict(ds.dataset_params),
-        "mp_sample_bins": None,
+        "mp_sample_bins": ds.mp_sample_bins,
     }
 
 

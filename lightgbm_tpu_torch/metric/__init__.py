@@ -86,6 +86,9 @@ class Metric:
         self.label = metadata.label
         self.weight = metadata.weight
         self.query_boundaries = metadata.query_boundaries
+        # under a rank layout: compacted row -> padded global row
+        # (parallel/multiproc.GlobalMetadata)
+        self.query_row_map = getattr(metadata, "query_row_map", None)
         if self.weight is not None:
             self.sum_weights = float(np.sum(self.weight))
         else:
@@ -94,6 +97,41 @@ class Metric:
 
     def eval(self, score: np.ndarray, objective) -> List[float]:
         raise NotImplementedError
+
+    def eval_mp(self, score_local, objective, mp):
+        """The metric under a rank layout from this rank's [k, local_real]
+        scores (host float64), or None where it has no distributed form
+        (lightgbm_tpu/metric/__init__.py:121-123)."""
+        return None
+
+    def _eval_mp_ranked(self, score_local, mp, accum_fn, width: int):
+        """A per-query metric under a rank layout (lightgbm_tpu/metric/
+        __init__.py:91-119): each rank sums over the queries whose rows it
+        holds, then one host gather of [sums, query count] and the sum
+        over ranks in rank order; a zero-size query is rank 0's, so it is
+        counted once. Every rank returns the same values."""
+        qb = self.query_boundaries
+        off = mp.offset
+        sums = np.zeros(width, np.float64)
+        cnt = 0
+        for q in range(len(qb) - 1):
+            rows_g = dcg.query_rows(qb, self.query_row_map, q)
+            if rows_g.size == 0:
+                if mp.process_index == 0:
+                    accum_fn(q, np.zeros(0), np.zeros(0), sums)
+                    cnt += 1
+                continue
+            if not off <= rows_g[0] < off + mp.block:
+                continue
+            lab = np.asarray(self.label)[rows_g]
+            sc = np.asarray(score_local[0][rows_g - off], np.float64)
+            accum_fn(q, lab, sc, sums)
+            cnt += 1
+        allg = mp._allgather(np.concatenate([sums, [float(cnt)]]))
+        allg = allg.reshape(mp.process_count, width + 1)
+        tot = allg[:, :width].sum(axis=0)
+        n_q = allg[:, width].sum()
+        return list(tot / max(1.0, n_q))
 
     def has_device_form(self, objective) -> bool:
         """Whether ``eval_device`` evaluates under ``objective`` (the JAX
@@ -701,28 +739,39 @@ class NDCGMetric(Metric):
         # per-query ideal DCGs, -1 for an all-zero-label query
         self.inv_max_dcgs = np.zeros((self.num_queries, len(self.eval_at)))
         for q in range(self.num_queries):
-            lab = np.asarray(self.label)[qb[q]:qb[q + 1]]
+            lab = np.asarray(self.label)[
+                dcg.query_rows(qb, self.query_row_map, q)]
             for ki, k in enumerate(self.eval_at):
                 m = dcg.max_dcg_at_k(k, lab, self.label_gain)
                 self.inv_max_dcgs[q, ki] = 1.0 / m if m > 0 else -1.0
         self._ops = None
 
+    def _accum(self, q, lab, sc, sums):
+        for ki, k in enumerate(self.eval_at):
+            if self.inv_max_dcgs[q, ki] <= 0:
+                sums[ki] += 1.0            # (ref: rank_metric.hpp:88-92)
+            else:
+                d = dcg.dcg_at_k([k], lab, sc, self.label_gain)[0]
+                sums[ki] += d * self.inv_max_dcgs[q, ki]
+
     def eval(self, score, objective):
         qb = self.query_boundaries
         result = np.zeros(len(self.eval_at))
         for q in range(self.num_queries):
-            lab = self.label[qb[q]:qb[q + 1]]
-            sc = score[0][qb[q]:qb[q + 1]]
-            for ki, k in enumerate(self.eval_at):
-                if self.inv_max_dcgs[q, ki] <= 0:
-                    result[ki] += 1.0      # (ref: rank_metric.hpp:88-92)
-                else:
-                    d = dcg.dcg_at_k([k], lab, sc, self.label_gain)[0]
-                    result[ki] += d * self.inv_max_dcgs[q, ki]
+            self._accum(q, self.label[qb[q]:qb[q + 1]],
+                        score[0][qb[q]:qb[q + 1]], result)
         return list(result / self.num_queries)
 
+    def eval_mp(self, score_local, objective, mp):
+        if self.query_row_map is None:
+            return None
+        return self._eval_mp_ranked(score_local, mp, self._accum,
+                                    len(self.eval_at))
+
     def has_device_form(self, objective) -> bool:
-        return self.num_queries > 0
+        # (the compacted layout of a rank layout evaluates on the host,
+        # lightgbm_tpu/metric/traced.py:180-181)
+        return self.num_queries > 0 and self.query_row_map is None
 
     def _device_ops(self, device):
         """The static operands of ``_ndcg_builder`` on ``device``: each
@@ -750,6 +799,8 @@ class NDCGMetric(Metric):
         return ops
 
     def eval_device(self, score_dev, objective, cache=None):
+        if not self.has_device_form(objective):
+            return None
         row_gain, qid, factor, inv_max_t, degen_t = self._device_ops(
             score_dev.device)
         nq = self.num_queries
@@ -783,21 +834,31 @@ class MapMetric(Metric):
             log.fatal("The MAP metric requires query information")
         self.num_queries = len(self.query_boundaries) - 1
 
+    def _accum(self, q, lab, sc, sums):
+        rel = (lab > 0).astype(np.float64)[np.argsort(-sc, kind="stable")]
+        cum_rel = np.cumsum(rel)
+        prec = cum_rel / np.arange(1, len(rel) + 1)
+        for ki, k in enumerate(self.eval_at):
+            kk = min(k, len(rel))
+            n_rel = cum_rel[kk - 1] if kk > 0 else 0
+            if n_rel > 0:
+                sums[ki] += float(np.sum((prec * rel)[:kk]) / n_rel)
+
     def eval(self, score, objective):
         qb = self.query_boundaries
         result = np.zeros(len(self.eval_at))
         for q in range(self.num_queries):
-            lab = (self.label[qb[q]:qb[q + 1]] > 0).astype(np.float64)
-            sc = score[0][qb[q]:qb[q + 1]]
-            rel = lab[np.argsort(-sc, kind="stable")]
-            cum_rel = np.cumsum(rel)
-            prec = cum_rel / np.arange(1, len(rel) + 1)
-            for ki, k in enumerate(self.eval_at):
-                kk = min(k, len(rel))
-                n_rel = cum_rel[kk - 1] if kk > 0 else 0
-                if n_rel > 0:
-                    result[ki] += float(np.sum((prec * rel)[:kk]) / n_rel)
+            self._accum(q, self.label[qb[q]:qb[q + 1]],
+                        score[0][qb[q]:qb[q + 1]], result)
         return list(result / self.num_queries)
+
+    def eval_mp(self, score_local, objective, mp):
+        # (the JAX package has no distributed MAP and skips the metric
+        # under many processes; the port sums it as NDCG's)
+        if self.query_row_map is None:
+            return None
+        return self._eval_mp_ranked(score_local, mp, self._accum,
+                                    len(self.eval_at))
 
 
 # ---------------------------------------------------------------------------

@@ -49,8 +49,9 @@ on that layout, while split search, pools and trees stay logical. Every
 kernel histogram is decoded by ``bundle_plane_views`` (the FixHistogram
 residual on each feature's most-frequent bin), route tables come from
 ``build_route_table_bundled``, and the level caps from the bundle layout's
-flat width. The voting exchange (``frontier2.py:524-529``) waits for the
-distributed learners.
+flat width. Under voting the ranks vote on the decoded logical planes and
+sum the winners' decoded planes (``frontier2.py:516-540``,
+decode-then-psum; see Distribution).
 
 Monotone constraints (``use_mono_bounds``, the JAX lines
 ``frontier2.py:298-320, 379, 625-668, 692-765``) carry per-leaf output
@@ -78,7 +79,10 @@ level's ``n_sel`` host read sees the same global gains on every rank.
 "voting" exchanges only the vote winners' columns of each level (the root
 is a full exchange) and keeps an ``[L, f_oh]`` validity pool for the
 sibling subtraction and later scans; a vote that covers every column is
-the data path verbatim. "feature" keeps the rows replicated, scans only
+the data path verbatim. On bundle columns the sum is of the winners'
+decoded logical ``(g, h, c)`` planes, decoded per rank first: that
+rounds otherwise than the unbundled path's sum-then-decode, and is the
+JAX package's order. "feature" keeps the rows replicated, scans only
 ``feature_shard_mask``'s columns and merges the best splits over the group
 (offset 0: the fused layout is replicated, so local indices are global).
 Under a group each rank passes its own ``num_rows``: its rows are its own
@@ -307,9 +311,9 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
     feat_par = group is not None and parallel_mode == "feature"
     vote_live = (group is not None and parallel_mode == "voting"
                  and min(f_oh, 2 * top_k) < f_oh)
-    if vote_live and (packed is not None or bundle_cols):
-        raise ValueError("the fused voting exchange runs on the padded "
-                         "unbundled layout (no packed layout, no bundles)")
+    if vote_live and packed is not None:
+        raise ValueError("the fused voting exchange runs on the padded or "
+                         "bundled layouts, not the packed one")
     root_mask = feature_mask[None, :]
     if feat_par:
         root_mask = root_mask & feature_shard_mask[None, :]
@@ -347,7 +351,7 @@ def grow_tree_fused(bins_T: torch.Tensor, gh_T: torch.Tensor,
                   if vote_live else None)
     dist_kw = {"group": group, "vote_live": vote_live, "top_k": top_k,
                "feature_shard_mask": feature_shard_mask if feat_par
-               else None}
+               else None, "bundled": bool(bundle_cols)}
     state = (tree, leaf_T, pool_g, pool_h, pool_c, best, lpn, lil,
              leaf_groups, mono, pool_valid)
     for li, S_d in enumerate(caps):
@@ -374,7 +378,7 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B,
                kernel, S_d, nch, max_depth, is_last, deferred, decode, kmask,
                quant_bits, packed, node_masks, cat_idx, route_table, inter,
                group=None, vote_live=False, top_k=20,
-               feature_shard_mask=None):
+               feature_shard_mask=None, bundled=False):
     (tree, leaf_T, pool_g, pool_h, pool_c, best, lpn, lil,
      leaf_groups, mono, pool_valid) = state
     inter = inter and mono is not None
@@ -456,12 +460,23 @@ def _one_level(state, bins_T, gh_T, meta, feature_mask, params, L, B,
                 lg, lh, lc, meta.num_bin, meta.missing_type,
                 meta.default_bin, vote_mask, meta_is_cat(meta),
                 meta.monotone, params, sm_out, cat_idx=cat_idx)
-            hr, lvl_valid = vote_exchange(hist.reshape(k_foh, k_B, -1),
-                                          gains, top_k, group, 0)
-            hist = hr.reshape(k_foh * k_B, -1)
+            if bundled:
+                # logical features interleave inside the bundle columns:
+                # the winners' DECODED logical planes are summed (the JAX
+                # package's decode-then-psum, frontier2.py:524-535; it
+                # rounds otherwise than the unbundled path, which sums
+                # the packed channels before the decode)
+                st, lvl_valid = vote_exchange(
+                    torch.stack([lg, lh, lc], -1), gains, top_k, group, 1)
+                sm_g, sm_h, sm_c = st[..., 0], st[..., 1], st[..., 2]
+            else:
+                hr, lvl_valid = vote_exchange(
+                    hist.reshape(k_foh, k_B, -1), gains, top_k, group, 0)
+                hist = hr.reshape(k_foh * k_B, -1)
         elif group is not None and feature_shard_mask is None:
             hist = record_psum(hist, group)
-        sm_g, sm_h, sm_c = decode(hist, Sp)
+        if not (vote_live and bundled):
+            sm_g, sm_h, sm_c = decode(hist, Sp)
         # ---- sibling by subtraction from the parent pool
         par_g, par_h, par_c = pool_g[lof_safe], pool_h[lof_safe], \
             pool_c[lof_safe]

@@ -529,20 +529,25 @@ def _top_lower_first(score: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def vote_exchange(planes: torch.Tensor, gains: torch.Tensor, top_k: int,
-                  group, fdim: int):
+                  group, fdim: int, always: torch.Tensor = None):
     """The voting exchange (ref: voting_parallel_tree_learner.cpp:151-184
     GlobalVoting + CopyLocalHistogram; lightgbm_tpu/models/learner.py:
     1057-1082): each slot's local top-``top_k`` features by ``gains``
     [S, F] vote, the int32 votes are summed over ``group``, and the
     ``min(F, 2 * top_k)`` winners' columns (axis ``fdim`` of ``planes``)
-    are summed; the other columns come back zero. Returns (planes,
-    valid [F] bool)."""
+    are summed; the other columns come back zero. ``always`` (int64
+    feature ids, e.g. the forced splits' features) joins the winners
+    whatever the vote, as the JAX package appends it (learner.py:551-556;
+    a repeated id sums the same column twice and writes the same value).
+    Returns (planes, valid [F] bool)."""
     F = gains.shape[1]
     k = min(top_k, F)
     kth = torch.sort(gains, 1).values[:, F - k][:, None]
     votes = (gains >= kth) & torch.isfinite(gains)
     votes = record_psum(votes.to(torch.int32), group)
     w_idx = _top_lower_first(votes.sum(0), min(F, 2 * top_k))
+    if always is not None:
+        w_idx = torch.cat([w_idx, always.to(w_idx.dtype)])
     sub = record_psum(planes.index_select(fdim, w_idx), group)
     out = torch.zeros_like(planes).index_copy_(fdim, w_idx, sub)
     valid = torch.zeros(F, dtype=torch.bool, device=planes.device)
@@ -905,8 +910,11 @@ def grow_tree_leafwise(bins: torch.Tensor, gh: torch.Tensor,
                 meta.num_bin, meta.missing_type, meta.default_bin,
                 feature_mask[None, :], meta_is_cat(meta), meta.monotone,
                 params, tree.leaf_value[l1], cat_idx=cat_idx)
-            hist_t, valid_t = vote_exchange(hist_t, gains_t, top_k, group,
-                                            1)
+            # the forced splits' gather reads their features' columns
+            # whatever the vote, so those are always summed
+            hist_t, valid_t = vote_exchange(
+                hist_t, gains_t, top_k, group, 1,
+                always=forced_feat if n_forced else None)
             v_sib = pool_valid[l1][0] & valid_t
             put(pool_valid, l1,
                 torch.where(target_is_left, valid_t, v_sib)[None])

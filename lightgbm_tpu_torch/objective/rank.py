@@ -50,9 +50,19 @@ class RankingObjective(ObjectiveFunction):
         Q, D = self.num_queries, self.max_docs
         q_of_row = np.repeat(np.arange(Q), sizes)
         pos = np.arange(int(qb[-1])) - qb[q_of_row]
+        # under a rank layout the boundaries run over the compacted real
+        # rows and ``query_row_map`` carries each one's padded global row
+        # (parallel/multiproc.GlobalMetadata): the gathers, the scatter
+        # and the labels go through it, over all the padded rows
+        self._row_map = getattr(metadata, "query_row_map", None)
+        rows = np.arange(int(qb[-1]))
+        if self._row_map is not None:
+            rows = np.asarray(self._row_map, np.int64)
+        self._out_rows = (num_data if self._row_map is None
+                          else len(metadata.label))
         idx = np.zeros((Q, D), np.int64)
         valid = np.zeros((Q, D), bool)
-        idx[q_of_row, pos] = np.arange(int(qb[-1]))
+        idx[q_of_row, pos] = rows
         valid[q_of_row, pos] = True
         self._qsizes = sizes
         self._label_padded = np.where(valid, self.label[idx], 0.0) \
@@ -65,8 +75,9 @@ class RankingObjective(ObjectiveFunction):
         self._weight = self._dev(self.weight)
 
     def _unpad(self, padded: torch.Tensor) -> torch.Tensor:
-        """Padded [Q, D] values back to [1, n] row order."""
-        out = torch.zeros(self.num_data, dtype=torch.float32,
+        """Padded [Q, D] values back to [1, n] row order ([1, Np] under a
+        rank layout)."""
+        out = torch.zeros(self._out_rows, dtype=torch.float32,
                           device=padded.device)
         out[self._rows] = padded[self._valid]
         return out[None, :]
@@ -102,11 +113,15 @@ class LambdarankNDCG(RankingObjective):
         super().init(metadata, num_data, device)
         dcg.check_label(self.label, len(self.label_gain))
         # inverse max DCG per query (ref: rank_objective.hpp:124-135)
-        qb = self.query_boundaries
+        # (the JAX package reads label[qb[q]:qb[q + 1]] here, which under
+        # a rank layout is the query's rows only where no rank block
+        # before it is padded; the port reads through the row map)
         inv = np.zeros(self.num_queries)
         for q in range(self.num_queries):
             m = dcg.max_dcg_at_k(self.truncation_level,
-                                 self.label[qb[q]:qb[q + 1]], self.label_gain)
+                                 self.label[dcg.query_rows(
+                                     self.query_boundaries, self._row_map,
+                                     q)], self.label_gain)
             inv[q] = 1.0 / m if m > 0 else 0.0
         self._inv_max_dcg = self._dev(inv)
         self._gain_table = self._dev(self.label_gain)

@@ -118,6 +118,13 @@ def world() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+def under_ranks(config) -> bool:
+    """A parallel ``tree_learner`` over a group of two or more ranks: the
+    trainer's rank layout, decided where it is needed before the trainer
+    sets it up (the shared binning sample, bundling)."""
+    return bool(getattr(config, "is_parallel", False)) and world() >= 2
+
+
 def shard_rows(array, rank: int, world_size: int, pad_value=0) -> np.ndarray:
     """Rank ``rank``'s contiguous block of ``array``'s rows, the rows
     padded with ``pad_value`` to a multiple of ``world_size`` first."""

@@ -87,15 +87,21 @@ class GlobalMetadata:
     rank: objectives and metrics are initialised on it, so their
     statistics (label means, class counts, metric weights) are global, as
     the reference's Network::GlobalSyncUp* paths make them. ``weight``
-    always exists (the real-row mask when the data is unweighted). Query
-    boundaries are None: query-aligned shards are ROADMAP Queue A item
-    9c."""
+    always exists (the real-row mask when the data is unweighted).
 
-    def __init__(self, label, weight, init_score):
+    Ranking: ``query_boundaries`` is cumulative over the COMPACTED real
+    rows (``total_real``), and ``query_row_map`` [total_real] maps each
+    compacted row to its padded global row (the rank blocks leave gaps);
+    consumers index labels, weights and scores through the map. Every
+    rank holds whole queries (ref: metadata.cpp:141 CheckOrPartition)."""
+
+    def __init__(self, label, weight, init_score, query_boundaries=None,
+                 query_row_map=None):
         self.label = label
         self.weight = weight
         self.init_score = init_score
-        self.query_boundaries = None
+        self.query_boundaries = query_boundaries
+        self.query_row_map = query_row_map
 
 
 class MultiProcLayout:
@@ -159,9 +165,35 @@ class MultiProcLayout:
             m[off:off + c] = 1.0
         return m
 
+    def global_queries(self, query_boundaries):
+        """(global compacted query boundaries [Q+1] int64, query_row_map
+        [total_real] int64) from this rank's boundaries over its own rows
+        (lightgbm_tpu/parallel/multiproc.py:183-223): two host gathers,
+        the query counts and the padded sizes. Every rank's sizes cover
+        exactly its own rows (``basic._check_rank_queries``, on the
+        cohort's vote), so no query straddles ranks."""
+        sizes = np.diff(np.asarray(query_boundaries, np.int64))
+        nq = self._allgather(np.asarray([sizes.size], np.int64)).reshape(-1)
+        m = max(1, int(nq.max()))
+        pad = np.zeros(m, np.int64)
+        pad[:sizes.size] = sizes
+        allq = self._allgather(pad).reshape(self.process_count, m)
+        all_sizes = np.concatenate(
+            [allq[r, :int(nq[r])] for r in range(self.process_count)])
+        qb = np.concatenate([[0], np.cumsum(all_sizes)]).astype(np.int64)
+        # compacted row -> padded global row: rank r's rows sit at
+        # [r * block, r * block + counts[r]), the pads of its block skipped
+        qmap = np.concatenate(
+            [r * self.block + np.arange(c, dtype=np.int64)
+             for r, c in enumerate(self.counts)])
+        return qb, qmap
+
     def global_metadata(self, md) -> GlobalMetadata:
         """Global host metadata from the rank-local one; pad rows carry
         zero weight through objectives and metrics."""
+        qb = qmap = None
+        if md.query_boundaries is not None:
+            qb, qmap = self.global_queries(md.query_boundaries)
         label = self.allgather_rows(md.label)
         weight = self.allgather_rows(md.weight)
         mask = self.real_mask_np()
@@ -178,7 +210,8 @@ class MultiProcLayout:
                     [self.allgather_rows(c) for c in cols])
             else:
                 init_score = self.allgather_rows(init_score)
-        return GlobalMetadata(label, weight, init_score)
+        return GlobalMetadata(label, weight, init_score,
+                              query_boundaries=qb, query_row_map=qmap)
 
     def local_block(self, arr, axis: int = -1):
         """This rank's real rows of a global array or tensor whose ``axis``

@@ -27,6 +27,15 @@ def discounts(n: int) -> np.ndarray:
     return 1.0 / np.log2(2.0 + np.arange(n, dtype=np.float64))
 
 
+def query_rows(query_boundaries: np.ndarray, row_map: Optional[np.ndarray],
+               q: int) -> np.ndarray:
+    """The rows of query ``q``: ``[qb[q], qb[q + 1])``, or under a rank
+    layout those compacted rows' padded global rows through ``row_map``
+    (``parallel/multiproc.GlobalMetadata.query_row_map``)."""
+    rows = np.arange(query_boundaries[q], query_boundaries[q + 1])
+    return rows if row_map is None else np.asarray(row_map)[rows]
+
+
 def check_label(label: np.ndarray, num_gains: int) -> None:
     # ref: dcg_calculator.cpp CheckLabel — integral labels within gain table
     li = label.astype(np.int64)

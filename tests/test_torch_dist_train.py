@@ -24,10 +24,13 @@ Every rank bins from the gathered sample, so its mappers are the serial
 ones; ranks of a group that ask for no parallel learner bin and train on
 their own rows, and a training Dataset constructed before its params named
 the learner (so binned from the rank's rows alone) raises on every rank.
-Then the refusals: GOSS, DART, RF, a leaf-renewal
-objective, ranking, CEGB, forced splits, EFB and sparse input each raise
-naming ROADMAP Queue A item 9c, ``linear_tree`` in the JAX package's
-words, and a valid set that differs across ranks raises on both. No
+Then the compositions two ranks refused until ROADMAP Queue A item 9c:
+GOSS, DART, RF, a leaf-renewal objective, ranking, CEGB, forced splits
+and EFB each train one model, the same text on both ranks (their models
+are held to the serial and JAX models in test_torch_dist_matrix.py and
+test_torch_dist_matrix_jax.py); sparse input and ``linear_tree`` are
+refused in the JAX package's words, and a valid set that differs across
+ranks raises on both. No
 failure hangs: a rank that dies fails the run at once, a peer that never
 joins an all-reduce times the waiting rank out (the group's timeout), and
 ranks asked for a missing card raise.
@@ -54,7 +57,7 @@ OK_CASES = list(tdr.DRIVER_CASES.values())
 # case's serial model.
 JAX_HERE = ("binary", "l2", "multiclass", "voting", "update", "xla")
 SERIAL_TWIN = {"voting": "binary", "update": "binary"}
-REFUSALS = [
+ONCE_REFUSED = [
     dict(name="goss", params=dict(DATA, boosting="goss")),
     dict(name="dart", params=dict(DATA, boosting="dart")),
     dict(name="rf", params=dict(DATA, boosting="rf", bagging_fraction=0.5,
@@ -73,7 +76,7 @@ DIVERGE = dict(name="diverge", valid="diverge", params=DATA)
 OWN = dict(name="own_serial", params={})
 # constructed before train() names tree_learner: each rank's own mappers
 PRE = dict(name="preconstructed", preconstruct=True, params=DATA)
-ALL = OK_CASES + REFUSALS + [LINEAR, DIVERGE, OWN, PRE]
+ALL = OK_CASES + ONCE_REFUSED + [LINEAR, DIVERGE, OWN, PRE]
 
 
 @pytest.fixture(scope="module")
@@ -167,12 +170,28 @@ def test_voting_moves_fewer_bytes_than_data(ranks):
     assert "int32" in ranks[0]["voting"]["trace"][2]
 
 
-@pytest.mark.parametrize("case", REFUSALS, ids=[c["name"] for c in REFUSALS])
+@pytest.mark.parametrize("case", ONCE_REFUSED,
+                         ids=[c["name"] for c in ONCE_REFUSED])
 def test_unported_combinations_raise_item_9c(ranks, case):
-    for r in ranks:
-        err = r[case["name"]].get("error", "")
-        assert err.startswith("LightGBMError"), err
-        assert "ROADMAP Queue A item 9c" in err, err
+    """The compositions ROADMAP Queue A item 9c ported: each trains one
+    model whose text is the same on both ranks; sparse input alone stays
+    refused, on both ranks, in the JAX package's words."""
+    a, b = (r[case["name"]] for r in ranks)
+    if case["name"] == "sparse":
+        for res in (a, b):
+            err = res.get("error", "")
+            assert err.startswith("LightGBMError"), err
+            assert ("sparse-built (prebundled) datasets derive their "
+                    "bundle layout from rank-local CSC columns and are not "
+                    "supported with multi-process training") in err, err
+        return
+    assert "error" not in a, a.get("error")
+    assert "error" not in b, b.get("error")
+    assert a["text"] == b["text"]
+    assert len(a["models"]) == 3
+    assert any(m.num_leaves > 1 for m in a["models"])
+    if case["name"] == "efb":
+        assert a["use_bundles"]
 
 
 def test_linear_tree_is_refused_in_the_reference_words(ranks):

@@ -119,11 +119,35 @@ def train_data(kind="binary", n=N_TRAIN, seed=0):
         X = np.column_stack([X, a, b])
     if kind == "multiclass":
         y = np.digitize(z, [-0.6, 0.6]).astype(float)
+    elif kind == "rank":
+        # graded relevance 0-3, for the ranking objectives and metrics
+        y = np.digitize(z, [0.0, 0.8, 1.6]).astype(float)
     elif kind == "l2":
         y = z
     else:
         y = (z > 0).astype(float)
     return X, y
+
+
+def rank_group(n, rank, seed=11):
+    """Query sizes of 3-40 documents covering a rank's ``n`` rows (each
+    rank holds whole queries; the sizes differ per rank)."""
+    rng = np.random.RandomState(seed + rank)
+    sizes = []
+    while sum(sizes) < n:
+        sizes.append(int(rng.randint(3, 41)))
+    sizes[-1] -= sum(sizes) - n
+    if sizes[-1] == 0:
+        sizes.pop()
+    return np.asarray(sizes, np.int64)
+
+
+def global_group(n, world=2):
+    """Every rank's query sizes in rank order: the serial run's group."""
+    from lightgbm_tpu_torch.parallel.mesh import shard_rows
+    return np.concatenate([
+        rank_group(len(shard_rows(np.arange(n), r, world)), r)
+        for r in range(world)])
 
 
 def _case_params(c):
@@ -156,19 +180,24 @@ DRIVER_CASES = {c["name"]: c for c in [
 ]}
 
 
-def serial_run(lib, case):
+def serial_run(lib, case, workdir=None):
     """``case``'s serial model on all of train_data's rows, through
     ``lib``: the port, or the JAX package in the pytest process (on the
     CPU, its fused engine unless the case names another, as the port's
-    ``auto`` resolves). Returns the booster."""
-    X, y = train_data(case.get("data", "binary"))
+    ``auto`` resolves); a ranking case takes every rank's queries, a
+    forced-splits case ``workdir``'s JSON. Returns the booster."""
+    X, y = train_data(case.get("data", "binary"), n=case.get("n", N_TRAIN))
     p = _case_params(case)
     for k in ("tree_learner", "top_k"):
         p.pop(k, None)
     if lib.__name__ == "lightgbm_tpu":
         p.pop("device_type")
         p.setdefault("tpu_engine", "fused")
+    if case.get("forced"):
+        p["forcedsplits_filename"] = f"{workdir}/forced.json"
     kw = {"categorical_feature": [3]} if case.get("cat") else {}
+    if case.get("query"):
+        kw["group"] = global_group(len(y))
     ds = lib.Dataset(X, label=y, **kw)
     rounds = case.get("rounds", 3)
     if case.get("update"):
@@ -215,11 +244,13 @@ def train_rank(rank, world, cases, workdir):
     from lightgbm_tpu_torch.ops.collectives import CollectiveTrace
     out = {}
     for c in cases:
-        X, y = train_data(c.get("data", "binary"))
+        X, y = train_data(c.get("data", "binary"), n=c.get("n", N_TRAIN))
         Xr, yr = rank_rows(X, rank, world), rank_rows(y, rank, world)
         params = _case_params(c)
         if c.get("forced"):
             params["forcedsplits_filename"] = f"{workdir}/forced.json"
+        if c.get("drop_rows") and rank == 1:
+            Xr, yr = Xr[:0], yr[:0]      # a rank without rows
         try:
             if c.get("sparse"):
                 import scipy.sparse as sp
@@ -228,7 +259,11 @@ def train_rank(rank, world, cases, workdir):
             if c.get("cat"):
                 kw["categorical_feature"] = [3]
             if c.get("query"):
-                kw["group"] = np.full(len(yr) // 64, 64)
+                kw["group"] = rank_group(len(yr), rank)
+                if c.get("straddle"):
+                    # rank 0's last query continues on rank 1
+                    kw["group"][-1 if rank == 0 else 0] += \
+                        3 if rank == 0 else -3
             ds = lt.Dataset(Xr, label=yr, **kw)
             if c.get("preconstruct"):
                 # without tree_learner: binned from this rank's rows alone
@@ -242,11 +277,13 @@ def train_rank(rank, world, cases, workdir):
                 valid = [lt.Dataset(Xv, label=yv, reference=ds)]
             cbs = ([lt.early_stopping(c["early_stop"], verbose=False)]
                    if c.get("early_stop") else [])
+            bags = []
             with CollectiveTrace() as rec:
                 if c.get("update"):
                     bst = lt.Booster(params, ds)
                     for _ in range(c.get("rounds", 3)):
                         bst.update()
+                        bags.append(bst._gbdt._bag_host.copy())
                 else:
                     bst = lt.train(params, ds, c.get("rounds", 3),
                                    valid_sets=valid, callbacks=cbs)
@@ -254,11 +291,35 @@ def train_rank(rank, world, cases, workdir):
                    "pred": bst.predict(X, raw_score=True),
                    "digest": mappers_digest(ds._inner.mappers),
                    "best_iteration": bst.best_iteration,
-                   "trace": (rec.count, rec.bytes, dict(rec.by_dtype))}
+                   "trace": (rec.count, rec.bytes, dict(rec.by_dtype)),
+                   "bags": bags, "use_bundles": bst._gbdt.use_bundles,
+                   "evals": (bst.eval_train() if params.get(
+                       "is_provide_training_metric") else [])}
+            if c.get("query"):
+                # the rank's training scores, and its rank block's rows
+                # (padded on the fused engine)
+                res["scores"] = bst._gbdt.scores.double().cpu().numpy()
+                res["block"] = bst._gbdt.mp.block
         except Exception as e:        # the refusal cases
             res = {"error": f"{type(e).__name__}: {e}"}
         out[c["name"]] = res
     return out
+
+
+def warned_rank(rank, world, case):
+    """The log lines of ``case``'s train() on this rank's rows."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.utils import log
+    X, y = train_data(case.get("data", "binary"))
+    said = []
+    log.register_logger(said.append)
+    try:
+        lt.train(_case_params(case), lt.Dataset(rank_rows(X, rank, world),
+                                                label=rank_rows(y, rank,
+                                                                world)), 1)
+    finally:
+        log.register_logger(None)
+    return said
 
 
 def merge_inputs(rank, S=4, B=8):
