@@ -232,8 +232,8 @@ non-zero (it prints no result line then):
    AUC, the penalised columns' splits against (a)'s, the level passes per
    tree, a captured level's histogram (S = 255) checked; (c) leaf-wise
    with a three-level forced-splits JSON on three low-signal columns and
-   ``monotone_constraints_method="advanced"`` on phase 12's columns, 10
-   rounds: every tree's first seven nodes are the JSON's, the worst step
+   ``monotone_constraints_method="advanced"`` on phase 12's columns, 3
+   rounds (cut from 10 for the script's time limit): every tree's first seven nodes are the JSON's, the worst step
    along each constrained column >= -1e-6; (d) phase 11a's CSR draw cut
    to 100,000 rows (bundle columns on the leaf-wise grower), 3 rounds,
    predict on the CSR rows against the trainer's scores, and its first
@@ -335,7 +335,29 @@ non-zero (it prints no result line then):
    ``route_pass`` on that level's table) held to the plain versions.
    Each run prints per rank sec/iter beside the serial run's, collective
    calls and bytes per tree and the host-plane gathers;
-19. the ``kernels`` line: every ported kernel and variant with its
+19. data files (``data_files``), on phase 3's parameters: (a) phase 3's
+   draw written as a 1M-row CSV (label first, nine significant digits,
+   which read back to the same float32; cut to 500,000 rows and the cut
+   printed when writing and parsing would take over 60 s), then
+   ``Dataset(path)`` and ``train()``: the native parser ran, the parsed
+   rows equal the draw bit for bit, the model text is phase 3's, and the
+   fused kernels launched; parse seconds and MB/s, binning seconds,
+   sec/iter; (b) ``two_round=true`` with ``save_binary=true``: the
+   streamed build's model text is (a)'s, with its chunks and at most two
+   live, and it writes the sidecar; (c) the same construct again hits the
+   sidecar (no parser call), trains (a)'s model, and its bins reach the
+   card through the chunked prefetch, ``torch.equal`` to the one-shot
+   widened copy with at most two chunks live, timed against that copy
+   (GB/s, host wait); (d) phase 9's draw cut
+   to 200,000 documents as LibSVM with a ``.query`` sidecar:
+   ``lambdarank``'s model text equals the one from the arrays in memory
+   with ``group=``, and ``Booster.predict`` (``predict_pass``) is within
+   1e-5 of the trainer's scores; (e) two ranks on cuda:0 over gloo, each
+   loading its half of the first DIST_ROWS rows of (a)'s file: phase 16
+   run (a)'s model text on both, then the ``.rank<r>of2`` sidecar shards
+   written and hit without parsing, and (c)'s one-process cache refused
+   on both (Queue C 7);
+20. the ``kernels`` line: every ported kernel and variant with its
    wrapper calls and CUDA kernel launches on the main path where it runs
    (every level_pass, route_pass, epilogue_pass and hist_pass call in
    phases 3-13 held to one launch of each of its CUDA kernels), its
@@ -351,8 +373,9 @@ non-zero (it prints no result line then):
    ``level_pass``, ``epilogue_pass`` and ``hist_pass``, and the
    ``predict_pass`` rows of phase 15 with their launches there and
    phase 17's per lane, and each kernel's launches per rank in phase
-   16's and 18's runs, with 18's captured bundled level;
-20. the last line: ``{"ok": true, "device": {...}}``.
+   16's and 18's runs, with 18's captured bundled level, and phase 19's
+   launches per run (per rank in 19e; ``predict_pass`` in 19d);
+21. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package. It exits non-zero when no CUDA
 device is present.
@@ -369,6 +392,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+SMOKE_LIMIT_S = 1200            # the whole script, kernel builds included
 ROWS = 1_000_000
 FEATURES = 28
 ROUNDS = 10
@@ -461,6 +485,9 @@ CAPTURE_CSR_CALL = 1            # phase 14d: the leaf-wise step checked (the
 #                                 first: a child of about half the rows, on
 #                                 the bundle columns)
 XLA_CSR_ROUNDS = 3
+XLA_FORCED_ROUNDS = 3           # phase 14c: its leaf-wise trees take 5-7 s
+#                                 each on the card's host, so it is cut from
+#                                 ROUNDS to keep the script inside its limit
 # the unrounded variant replaces no pallas_call: the XLA engine's histogram
 XLA_REPLACES = "lightgbm_tpu/ops/histogram.py:71 (build_histograms)"
 # the leaf-wise step's two row passes (phase 14a, csrc/data_partition.cu):
@@ -4042,7 +4069,7 @@ def run_xla_train(lgb, params, ds, X, y, w, e2e):
     splits against (a)'s, the level passes per tree, and its
     CAPTURE_DEPTH_CALL-th hist_pass call (a level, S = L) checked. (c)
     leaf-wise with forced splits (three levels on three low-signal
-    columns) and ``monotone_constraints_method="advanced"`` on phase 12's
+    columns), XLA_FORCED_ROUNDS rounds, and ``monotone_constraints_method="advanced"`` on phase 12's
     constrained columns: every tree's first nodes are the JSON's, the mode
     stays advanced, the worst step along each constrained column >= -1e-6.
     (d) phase 11a's CSR draw cut to XLA_CSR_ROWS rows (bundle columns on
@@ -4232,12 +4259,12 @@ def run_xla_train(lgb, params, ds, X, y, w, e2e):
                   monotone_constraints_method="advanced")
         _, t_one = _timed_run(lambda: fit(pc, 1, dsm))
         counts = _run_counts()
-        bst_c, t_all = _timed_run(lambda: fit(pc, ROUNDS, dsm))
+        bst_c, t_all = _timed_run(lambda: fit(pc, XLA_FORCED_ROUNDS, dsm))
         launches, cuda, syncs = counts()
     finally:
         os.unlink(path)
-    res, _ = common("c", bst_c, t_all, t_one, launches, cuda, syncs, ROUNDS,
-                    y)
+    res, _ = common("c", bst_c, t_all, t_one, launches, cuda, syncs,
+                    XLA_FORCED_ROUNDS, y)
     g = bst_c._gbdt
     want_f = g.forced_feat.tolist()
     want_t = g.forced_thr.tolist()
@@ -4256,7 +4283,7 @@ def run_xla_train(lgb, params, ds, X, y, w, e2e):
                 "worst_step": min(worst.values()),
                 "worst_step_floor": -1e-6})
     emit(res)
-    gate(res, launches, cuda, "14c", ROUNDS)
+    gate(res, launches, cuda, "14c", XLA_FORCED_ROUNDS)
     if not (forced_ok and n == 7 and g.mono_mode == "advanced"
             and res["worst_step"] >= -1e-6):
         raise AssertionError(f"14c: forced {forced_ok} ({n}), mode "
@@ -5581,6 +5608,7 @@ def run_dist_train(lgb, bst3):
         res["scores"] = bst.train_scores().float().cpu().numpy()
         serial[run] = (bst.models, res)
     out = {}
+    PHASE16_TEXT["a"] = ranks[0]["a"]["text"]
     for run, extra, rounds in DIST_RUNS:
         r0, r1 = ranks[0][run], ranks[1][run]
         if r0["text"] != r1["text"]:
@@ -6289,6 +6317,495 @@ def run_dist_matrix(lgb):
     return launches, rows
 
 
+# ------------------------------------------------------------- phase 19
+FILE_CUT_ROWS = 500_000         # phase 19a: the rows when writing and
+FILE_WRITE_PARSE_LIMIT_S = 60   # parsing 1M rows would take longer
+FILE_PROBE_ROWS = 100_000       # phase 19a: the rows timed to decide it
+FILE_RANK_DOCS = 200_000        # phase 19d: phase 9's draw, cut
+FILE_PREFETCH_REPS = 3
+_DIGIT_ROWS = 65_536
+# phase 16's run (a): its ranks' model text, for phase 19e
+PHASE16_TEXT = {}
+
+
+def text_fields(V: np.ndarray) -> np.ndarray:
+    """float32 values [n, k] -> their text [n, k, 14] uint8: a sign, nine
+    digits and an exponent (``+123456789e-09``). Nine significant digits
+    read back through strtod to the same float32; written with numpy in
+    bulk, as no per-value formatting could be at a million rows."""
+    v = np.asarray(V, np.float64)
+    a = np.abs(v)
+    nz = a > 0
+    e = np.full(a.shape, -1, np.int64)
+    e[nz] = np.floor(np.log10(a[nz])).astype(np.int64) - 8
+    m = np.rint(a * 10.0 ** (-e)).astype(np.int64)
+    carry = m >= 10 ** 9
+    m[carry] = np.rint(m[carry] / 10.0).astype(np.int64)
+    e[carry] += 1
+    if not (np.all(e < 0) and np.all(e > -100) and np.isfinite(v).all()):
+        raise ValueError("a value outside the text writer's range")
+    out = np.empty(a.shape + (14,), np.uint8)
+    out[..., 0] = np.where(np.signbit(v), ord("-"), ord("+"))   # -0.0 too
+    m = m.astype(np.int32)
+    for k in range(9, 0, -1):
+        q = m // 10
+        out[..., k] = m - q * 10 + 48
+        m = q
+    out[..., 10] = ord("e")
+    out[..., 11] = ord("-")
+    out[..., 12] = (-e) // 10 + 48
+    out[..., 13] = (-e) % 10 + 48
+    return out
+
+
+def write_csv(path: str, y: np.ndarray, X: np.ndarray, mode="wb") -> None:
+    """Rows ``label,x0,...`` (integer labels 0-9) of :func:`text_fields`."""
+    n, f = X.shape
+    with open(path, mode) as fh:
+        for lo in range(0, n, _DIGIT_ROWS):
+            hi = min(n, lo + _DIGIT_ROWS)
+            row = np.empty((hi - lo, 1 + 15 * f + 1), np.uint8)
+            row[:, 0] = y[lo:hi].astype(np.int64) + 48
+            seg = row[:, 1:1 + 15 * f].reshape(hi - lo, f, 15)
+            seg[:, :, 0] = ord(",")
+            seg[:, :, 1:] = text_fields(X[lo:hi])
+            row[:, -1] = ord("\n")
+            fh.write(row.tobytes())
+
+
+def write_libsvm(path: str, y: np.ndarray, X: np.ndarray) -> None:
+    """Rows ``label 0:x0 1:x1 ...`` with every column written."""
+    n, f = X.shape
+    heads = [np.frombuffer(f" {j}:".encode(), np.uint8) for j in range(f)]
+    width = 1 + sum(len(h) + 14 for h in heads) + 1
+    with open(path, "wb") as fh:
+        for lo in range(0, n, _DIGIT_ROWS // 2):
+            hi = min(n, lo + _DIGIT_ROWS // 2)
+            fields = text_fields(X[lo:hi])
+            row = np.empty((hi - lo, width), np.uint8)
+            row[:, 0] = y[lo:hi].astype(np.int64) + 48
+            c = 1
+            for j, h in enumerate(heads):
+                row[:, c:c + len(h)] = h
+                c += len(h)
+                row[:, c:c + 14] = fields[:, j]
+                c += 14
+            row[:, -1] = ord("\n")
+            fh.write(row.tobytes())
+
+
+def copy_lines(src: str, dst: str, n_lines: int) -> None:
+    """The first ``n_lines`` lines of ``src`` into ``dst``."""
+    left = n_lines
+    with open(src, "rb") as fi, open(dst, "wb") as fo:
+        while left > 0:
+            block = fi.read(1 << 24)
+            if not block:
+                raise ValueError(f"{src} has fewer than {n_lines} lines")
+            cnt = block.count(b"\n")
+            if cnt < left:
+                fo.write(block)
+                left -= cnt
+                continue
+            cut = -1
+            for _ in range(left):
+                cut = block.index(b"\n", cut + 1)
+            fo.write(block[:cut + 1])
+            left = 0
+
+
+def _bits_equal(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+
+
+def _timed_dev(fn):
+    """(fn(), seconds) between two synchronizes of DEVICE."""
+    _dev_sync()
+    t = time.perf_counter()
+    out = fn()
+    _dev_sync()
+    return out, time.perf_counter() - t
+
+
+def _parser_calls() -> int:
+    from lightgbm_tpu_torch.native import loader
+    return loader.backend["native"] + loader.backend["numpy"]
+
+
+def _file_train(lgb, params, ds, rounds):
+    """train() with the kernel counters reset just before and read just
+    after: (booster, seconds, launches, CUDA launches)."""
+    reader = _run_counts()
+    ds.params = dict(params)
+    bst, t = _timed_dev(lambda: lgb.train(params, ds,
+                                          num_boost_round=rounds))
+    launches, cuda, _ = reader()
+    return bst, t, launches, cuda
+
+
+def _timed_parse(fn):
+    """(result of fn(), seconds spent in io.file_loader.load_text_file
+    during it)."""
+    from lightgbm_tpu_torch.io import file_loader
+    spent = []
+    orig = file_loader.load_text_file
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        r = orig(*a, **k)
+        spent.append(time.perf_counter() - t)
+        return r
+    file_loader.load_text_file = timed
+    try:
+        out = fn()
+    finally:
+        file_loader.load_text_file = orig
+    return out, sum(spent)
+
+
+def data_files_rank(rank: int, world: int, cfg, path: str,
+                    world1_cache: str):
+    """Phase 19e on one rank (``parallel.spawn``, gloo, cuda:0): this
+    rank's contiguous half of the file through Dataset(path) with
+    save_binary (the rank's sidecar shard written after the build) and
+    phase 16's run (a); then a second construct that hits the shard; then
+    a one-process cache, which must be refused."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.io.cache import CacheError
+    _set_dist_cfg(cfg)
+    params = dict(_dist_params(), tree_learner="data")
+    sp = dict(params, save_binary=True)
+    out = {}
+    ds, out["construct_s"] = _timed_dev(
+        lambda: lgb.Dataset(path, params=dict(sp)).construct())
+    out["shard_written"] = os.path.exists(
+        f"{path}.bin.rank{rank}of{world}")
+    out["rows"] = ds.num_data()
+    bst, out["train_s"], out["launches"], _ = _file_train(
+        lgb, params, ds, ROUNDS)
+    out["text"] = bst.model_to_string()
+    n0 = _parser_calls()
+    hit, out["hit_s"] = _timed_dev(
+        lambda: lgb.Dataset(path, params=dict(sp)).construct())
+    out["hit_parser_calls"] = _parser_calls() - n0
+    out["hit"] = (hit._inner.ingest_stats or {}).get("cache_hit")
+    try:
+        lgb.Dataset(world1_cache, params=dict(params)).construct()
+        out["world1_cache"] = "loaded"
+    except CacheError as e:
+        out["world1_cache"] = str(e)
+    return out
+
+
+def _prefetch_rates(bins, device, chunk_rows):
+    """Seconds of the chunked prefetch and of the one-shot copy (widen
+    on the host, one copy) for the same host bins, in turns, medians."""
+    import torch
+    from lightgbm_tpu_torch.ingest.prefetch import IngestStats
+    from lightgbm_tpu_torch.ingest.prefetch import stream_to_device
+    wide = np.int16 if bins.dtype == np.uint8 else np.int32
+    pf, pl, waits = [], [], []
+    for _ in range(FILE_PREFETCH_REPS):
+        stats = IngestStats(source="prefetch")
+        _dev_sync()
+        t = time.perf_counter()
+        stream_to_device(bins, chunk_rows, device, stats)
+        _dev_sync()
+        pf.append(time.perf_counter() - t)
+        waits.append(stats.host_wait_ms)
+        t = time.perf_counter()
+        torch.from_numpy(np.asarray(bins).astype(wide)).to(device)
+        _dev_sync()
+        pl.append(time.perf_counter() - t)
+    return float(np.median(pf)), float(np.median(pl)), waits, stats
+
+
+def run_data_files(lgb, bst3):
+    """Phase 19: data files through the port's entry points on the card,
+    with phase 3's parameters. (a) phase 3's draw written as a CSV (label
+    first, values that read back to the same float32; cut to 500,000 rows
+    if writing and parsing 1M would take over 60 s), Dataset(path) (the
+    native parser, its rows equal to the draw bit for bit) and train(): the
+    model text equal to phase 3's (the same rows in memory), the fused
+    kernels launched; (b) two_round=true with save_binary=true: the
+    streamed build's model text equal to (a)'s, the sidecar written during
+    its second pass; (c) the same construct again: it takes the sidecar
+    without parsing, trains (a)'s model, and its bins reach the card
+    through the prefetch (torch.equal to the one-shot widened copy, at most
+    two chunks live), timed against that copy; (d) phase 9's draw cut to
+    200,000 documents as LibSVM with a .query sidecar: lambdarank's model
+    equal to the one from the arrays in memory with group=, and
+    Booster.predict (predict_pass) within 1e-5 of the trainer's scores;
+    (e) two ranks on cuda:0 over gloo, each loading its half of the first
+    DIST_ROWS rows of (a)'s file with save_binary: phase 16 run (a)'s model
+    text, the .rank<r>of2 sidecar shards written and then hit, and (c)'s
+    one-process cache refused. Returns each run's wrapper launches."""
+    import shutil
+    import tempfile
+    import torch
+    from lightgbm_tpu_torch.native import loader
+    from lightgbm_tpu_torch.ops import predict as pred_ops
+    from lightgbm_tpu_torch.parallel.spawn import run_ranks
+    t_phase = time.perf_counter()
+    wd = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    dev = torch.device(DEVICE)
+    params = {"objective": "binary", "max_bin": 63, "num_leaves": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 1,
+              "min_sum_hessian_in_leaf": 1e-3, "verbose": -1,
+              "device_type": DEVICE}
+    launches = {}
+    fails = []
+
+    def check(ok, what):
+        if not ok:
+            fails.append(what)
+
+    # ---- (a) the CSV, monolithic
+    t_part = time.perf_counter()
+    X, z, _ = _class_rows(ROWS, FEATURES, seed=DATA_SEED)
+    y = (z > 0).astype(np.float32)
+    path = os.path.join(wd, "train.csv")
+    probe = min(FILE_PROBE_ROWS, ROWS)
+    t0 = time.perf_counter()
+    write_csv(path, y[:probe], X[:probe])
+    probe_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sep, n_p, n_c, _, head = loader.scan(path)
+    loader.parse_dense(path, sep, head, n_p, n_c)
+    probe_parse_s = time.perf_counter() - t0
+    projected = (probe_write_s + probe_parse_s) * ROWS / probe
+    rows = ROWS if projected <= FILE_WRITE_PARSE_LIMIT_S else FILE_CUT_ROWS
+    if rows != ROWS:
+        print(f"phase 19: writing and parsing {ROWS} rows would take "
+              f"{projected:.1f} s; cut to {rows} rows", flush=True)
+    t0 = time.perf_counter()
+    write_csv(path, y[probe:rows], X[probe:rows], mode="ab")
+    write_s = probe_write_s + time.perf_counter() - t0
+    file_mb = os.path.getsize(path) / 1e6
+    native0 = dict(loader.backend)
+    ds_a, parse_s = _timed_parse(lambda: _timed_dev(
+        lambda: lgb.Dataset(path, params=dict(params)).construct()))
+    ds_a, construct_s = ds_a
+    parsed_equal = (_bits_equal(ds_a.data, X[:rows])
+                    and _bits_equal(ds_a.get_label(), y[:rows]))
+    check(parsed_equal, "19a: the parsed rows differ from the draw")
+    bst_a, train_s, la, ca = _file_train(lgb, params, ds_a, ROUNDS)
+    text_a = bst_a.model_to_string()
+    same_phase3 = rows == ROWS and text_a == bst3.model_to_string()
+    if same_phase3:
+        same_memory = True
+    else:
+        # the same rows held in memory, trained here
+        ds_m = lgb.Dataset(X[:rows], label=y[:rows], params=dict(params))
+        same_memory = text_a == _file_train(
+            lgb, params, ds_m, ROUNDS)[0].model_to_string()
+        del ds_m
+    check(same_memory, "19a: the file's model differs from the in-memory "
+          "one")
+    native_calls = loader.backend["native"] - native0["native"]
+    check(native_calls > 0 and loader.backend["numpy"] == 0
+          and loader.build_info.get("path"),
+          "19a: the native parser did not run")
+    for k in TRAIN_PATH_KERNELS:
+        check(DEVICE == "cpu" or la.get(k, 0) > 0,
+              f"19a: {k} never launched")
+    launches["a"] = la
+    res = {"phase": "data_files", "run": "a",
+           "part_s": time.perf_counter() - t_part, "rows": rows,
+           "features": FEATURES, "cut": rows != ROWS,
+           "projected_write_parse_s": projected, "file_mb": file_mb,
+           "write_s": write_s, "parse_s": parse_s,
+           "parse_mb_per_s": file_mb / parse_s,
+           "parser": "native" if native_calls > 0 else "numpy",
+           "parser_library": loader.build_info.get("path"),
+           "construct_s": construct_s,
+           "binning_s": construct_s - parse_s, "train_s": train_s,
+           "sec_per_iter": train_s / ROUNDS,
+           "parsed_bits_equal": parsed_equal,
+           "model_text_equal_in_memory": same_memory,
+           "model_text_equal_phase3": same_phase3,
+           "launches": {k: la[k] for k in TRAIN_PATH_KERNELS},
+           "cuda_launches": {k: kernel_cuda_launches(k, ca)
+                             for k in TRAIN_PATH_KERNELS}}
+    emit(res)
+    del ds_a
+
+    # ---- (b) the same file, streamed in two rounds; the streamed build
+    # also writes the save_binary sidecar that (c) hits
+    t_part = time.perf_counter()
+    pb = dict(params, two_round=True, save_binary=True)
+    ds_b, construct_b = _timed_dev(
+        lambda: lgb.Dataset(path, params=dict(pb)).construct())
+    bst_b, train_b, lb, _ = _file_train(lgb, pb, ds_b, ROUNDS)
+    st = ds_b._inner.ingest_stats
+    equal_b = bst_b.model_to_string() == text_a
+    check(equal_b, "19b: the streamed model differs from (a)'s")
+    check(st["max_live_chunks"] <= 2, "19b: more than two chunks live")
+    check(st["source"] == "text+cache" and os.path.exists(path + ".bin"),
+          "19b: the streamed build wrote no sidecar")
+    launches["b"] = lb
+    emit({"phase": "data_files", "run": "b",
+          "part_s": time.perf_counter() - t_part, "two_round": True,
+          "save_binary": True,
+          "construct_s": construct_b, "train_s": train_b,
+          "chunks": st["chunks"], "chunk_rows": 65536,
+          "max_live_chunks": st["max_live_chunks"],
+          "sample_rows": st["sample_rows"],
+          "prefetch": st.get("prefetch"),
+          "model_text_equal_a": equal_b})
+    del ds_b
+
+    # ---- (c) a second construct hits (b)'s save_binary sidecar
+    t_part = time.perf_counter()
+    pc = pb
+    n0 = _parser_calls()
+    ds_c, construct_c2 = _timed_dev(
+        lambda: lgb.Dataset(path, params=dict(pc)).construct())
+    parser_calls = _parser_calls() - n0
+    inner = ds_c._inner
+    hit = (inner.ingest_stats or {}).get("cache_hit") == 1 \
+        and parser_calls == 0
+    check(hit, "19c: the second construct did not hit the sidecar")
+    bst_c, train_c, lc, _ = _file_train(lgb, pc, ds_c, ROUNDS)
+    equal_c = bst_c.model_to_string() == text_a
+    check(equal_c, "19c: the cached model differs from (a)'s")
+    pre = inner.ingest_stats.get("prefetch") or {}
+    placed = torch.from_numpy(np.asarray(inner.bins).astype(
+        np.int16 if inner.bins.dtype == np.uint8 else np.int32)).to(dev)
+    prefetch_equal = bool(torch.equal(inner.bins_dev, placed))
+    del placed
+    check(prefetch_equal, "19c: the prefetched bins differ from the "
+          "one-shot copy")
+    check(pre.get("chunks") == -(-rows // inner.prefetch_chunk_rows)
+          and pre.get("max_live_chunks", 9) <= 2
+          and (DEVICE == "cpu" or pre.get("pinned")),
+          f"19c: prefetch counters {pre}")
+    pf_s, place_s, waits, last = _prefetch_rates(
+        inner.bins, dev, inner.prefetch_chunk_rows)
+    nbytes = int(inner.bins.size) * inner.bins.itemsize
+    launches["c"] = lc
+    emit({"phase": "data_files", "run": "c",
+          "part_s": time.perf_counter() - t_part, "save_binary": True,
+          "cache_mb": os.path.getsize(path + ".bin") / 1e6,
+          "sidecar_written_by": "(b)'s streamed build",
+          "hit_construct_s": construct_c2, "hit_parser_calls": parser_calls,
+          "cache_hit": hit, "train_s": train_c,
+          "model_text_equal_a": equal_c,
+          "prefetch_in_train": pre, "prefetch_equal_place": prefetch_equal,
+          "host_bytes": nbytes, "prefetch_s": pf_s, "place_s": place_s,
+          "prefetch_gb_per_s": nbytes / pf_s / 1e9,
+          "place_gb_per_s": nbytes / place_s / 1e9,
+          "prefetch_host_wait_ms": waits,
+          "prefetch_chunks": last.chunks,
+          "prefetch_max_live_chunks": last.max_live_chunks,
+          "read": "warm (the cache was written just before)"})
+    del ds_c, inner, bst_b, bst_c
+
+    # ---- (d) ranking from LibSVM with a .query sidecar
+    t_part = time.perf_counter()
+    Xr, yr, sizes = rank_data(FILE_RANK_DOCS, 0)[:3]
+    svm = os.path.join(wd, "rank.svm")
+    t0 = time.perf_counter()
+    write_libsvm(svm, yr, Xr)
+    np.savetxt(svm + ".query", sizes, fmt="%d")
+    write_d = time.perf_counter() - t0
+    pr = dict(params, objective="lambdarank", pred_device_min_work=1)
+    ds_d, parse_d = _timed_parse(lambda: _timed_dev(
+        lambda: lgb.Dataset(svm, params=dict(pr)).construct()))
+    ds_d, construct_d = ds_d
+    parsed_d = (_bits_equal(ds_d.data, Xr) and _bits_equal(
+        ds_d.get_label(), yr) and np.array_equal(ds_d.get_group(), sizes))
+    check(parsed_d, "19d: the parsed LibSVM rows, labels or queries differ")
+    bst_d, train_d, ld, _ = _file_train(lgb, pr, ds_d, ROUNDS)
+    ds_dm = lgb.Dataset(Xr, label=yr, group=sizes, params=dict(pr))
+    equal_d = bst_d.model_to_string() == _file_train(
+        lgb, pr, ds_dm, ROUNDS)[0].model_to_string()
+    check(equal_d, "19d: the LibSVM model differs from the in-memory one")
+    del ds_dm
+    pred_ops.reset_launch_counts()
+    pred = bst_d.predict(Xr, raw_score=True)
+    _dev_sync()
+    n_pred = pred_ops.launches["predict_pass"]
+    variants = {k: v for k, v in pred_ops.variant_launches.items() if v}
+    scores = bst_d.train_scores().float().cpu().numpy()
+    pred_err = float(np.abs(pred - scores).max())
+    pred_ok = bool(np.allclose(pred, scores, rtol=1e-5, atol=1e-5))
+    check(pred_ok, f"19d: predict differs from the scores by {pred_err}")
+    check(DEVICE == "cpu" or (n_pred > 0 and all(
+        ld.get(k, 0) > 0 for k in TRAIN_PATH_KERNELS)),
+        "19d: a kernel never launched")
+    launches["d"] = dict(ld, predict_pass=n_pred, predict_variants=variants)
+    emit({"phase": "data_files", "run": "d",
+          "part_s": time.perf_counter() - t_part, "format": "libsvm",
+          "docs": FILE_RANK_DOCS, "queries": len(sizes),
+          "features": RANK_FEATURES, "file_mb": os.path.getsize(svm) / 1e6,
+          "write_s": write_d, "parse_s": parse_d,
+          "parse_mb_per_s": os.path.getsize(svm) / 1e6 / parse_d,
+          "construct_s": construct_d, "train_s": train_d,
+          "parsed_bits_equal": parsed_d, "model_text_equal_in_memory":
+          equal_d, "predict_pass_launches": n_pred,
+          "predict_variants": variants, "predict_max_abs_err": pred_err,
+          "predict_tol": "rtol=1e-5 atol=1e-5",
+          "launches": {k: ld[k] for k in TRAIN_PATH_KERNELS}})
+    del ds_d, bst_d, Xr, yr
+
+    # ---- (e) two ranks, each on its half of the file's first DIST_ROWS
+    t_part = time.perf_counter()
+    path_e = os.path.join(wd, "dist.csv")
+    if rows >= DIST_ROWS:
+        copy_lines(path, path_e, DIST_ROWS)
+    else:
+        write_csv(path_e, y[:DIST_ROWS], X[:DIST_ROWS])
+    del X, z, y
+    cfg = _dist_cfg()
+    t0 = time.perf_counter()
+    ranks = run_ranks(os.path.abspath(__file__) + ":data_files_rank",
+                      DIST_WORLD, (cfg, path_e, path + ".bin"),
+                      workdir=os.path.join(wd, "ranks"), device_type=DEVICE,
+                      backend="gloo", deadline_s=DIST_DEADLINE_S,
+                      timeout_s=DIST_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    want = PHASE16_TEXT.get("a")
+    equal_e = want is not None and all(r["text"] == want for r in ranks)
+    check(equal_e, "19e: the ranks' file model differs from phase 16 run "
+          "(a)'s")
+    per = (DIST_ROWS + DIST_WORLD - 1) // DIST_WORLD
+    check([r["rows"] for r in ranks] == [per] * DIST_WORLD,
+          f"19e: the ranks hold {[r['rows'] for r in ranks]} rows")
+    for r in ranks:
+        check(r["shard_written"] and r["hit"] == 1
+              and r["hit_parser_calls"] == 0,
+              "19e: a rank's sidecar shard was not written or not hit")
+        check("written for world=1 but this run has world=2"
+              in r["world1_cache"],
+              f"19e: a one-process cache was not refused: "
+              f"{r['world1_cache'][:200]}")
+        for k in TRAIN_PATH_KERNELS:
+            check(DEVICE == "cpu" or r["launches"].get(k, 0) > 0,
+                  f"19e: {k} never launched on a rank")
+    launches["e"] = [r["launches"] for r in ranks]
+    emit({"phase": "data_files", "run": "e",
+          "part_s": time.perf_counter() - t_part, "ranks": DIST_WORLD,
+          "rows": [r["rows"] for r in ranks], "backend": "gloo",
+          "ranks_s": ranks_s,
+          "construct_s": [r["construct_s"] for r in ranks],
+          "train_s": [r["train_s"] for r in ranks],
+          "hit_s": [r["hit_s"] for r in ranks],
+          "model_text_equal_phase16_a": equal_e,
+          "shards_hit": [r["hit"] for r in ranks],
+          "world1_cache_refused": [r["world1_cache"][:120] for r in ranks],
+          "launches": [{k: r["launches"][k] for k in TRAIN_PATH_KERNELS}
+                       for r in ranks]})
+    shutil.rmtree(wd, ignore_errors=True)
+    emit({"phase": "data_files", "phase_s": time.perf_counter() - t_phase,
+          "failures": fails})
+    if fails:
+        raise AssertionError("phase 19: " + "; ".join(fails))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6302,6 +6819,14 @@ def main() -> int:
 
     # ---- 1. environment and build
     t_start = time.perf_counter()
+    phase_s = {}
+    t_lap = [t_start]
+
+    def lap(name):
+        """Record the seconds since the previous phase ended."""
+        now = time.perf_counter()
+        phase_s[name] = now - t_lap[0]
+        t_lap[0] = now
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -6332,6 +6857,8 @@ def main() -> int:
         raise AssertionError(f"hist_pass compiled to other atomics than "
                              f"native integer shared-memory adds: "
                              f"{hist_atomics}")
+
+    lap("1_env_build")
 
     # ---- 2. kernels against their plain versions at the slice's shapes
     Rp = ((ROWS + 2047) // 2048) * 2048
@@ -6415,6 +6942,7 @@ def main() -> int:
                 plane_main[res["variant"]] = res
 
     # ---- 3. end to end through lightgbm_tpu_torch.train
+    lap("2_kernel_checks")
     X, z, w = _class_rows(ROWS, FEATURES, seed=DATA_SEED)
     y = (z > 0).astype(np.float32)     # _make_data's labels
     params = {"objective": "binary", "max_bin": 63, "num_leaves": 255,
@@ -6481,6 +7009,7 @@ def main() -> int:
     # ---- 4. the loop bench.py times: Booster(params, train_set).update(),
     # on the epilogue body (a) and, in turns with it, the megastep body
     # train() runs (m); then (b) with bagging and feature_fraction
+    lap("3_end_to_end")
     bagged = {"bagging_fraction": 0.5, "bagging_freq": 1,
               "feature_fraction": 0.8}
     upd_launches = upd_cuda = None
@@ -6494,57 +7023,78 @@ def main() -> int:
             upd_launches, upd_cuda = n_launch, n_cuda
 
     # ---- 5. the frontier-v1 engine through train()
+    lap("4_update_path")
     fr_launches, fr_cuda = run_frontier(lgb, params, ds, X, y)
+    lap("5_frontier")
 
     # ---- 6. the histogram-plane cuts through train()
     plane_launches = run_plane_cuts(lgb, params, X, y)
+    lap("6_plane_cuts")
 
     # ---- 7. valid sets, metrics, callbacks, early stopping and cv
     eval_launches = run_eval_train(lgb, params, ds, X, y, w, e2e)
+    lap("7_eval")
 
     # ---- 8. multiclass, GOSS, node masks and the pointwise objectives
     class_launches = run_class_train(lgb, params, ds, y, z, w, e2e)
+    lap("8_class")
 
     # ---- 9. ranking: lambdarank, rank_xendcg, ndcg/map, query folds
     rank_launches = run_rank_train(lgb, params, e2e)
+    lap("9_rank")
 
     # ---- 10. categorical splits through the same kernels
     cat_launches = run_cat_train(lgb, params, X, y, z, e2e)
+    lap("10_categorical")
 
     # ---- 11. exclusive feature bundling and sparse input
     del X
     bundle_launches, bundle_checks = run_bundle_train(lgb, params)
+    lap("11_bundles")
 
     # ---- 12. monotone constraints, and the rest of Booster and Dataset,
     # on phase 3's rows (drawn again)
     X, _, _ = _class_rows(ROWS, FEATURES, seed=DATA_SEED)
     mono_launches, mono_checks = run_mono_train(lgb, params, ds, X, y, w,
                                                 e2e)
+    lap("12_monotone_api")
 
     # ---- 13. DART, RF, linear-tree leaves and TreeSHAP on phase 3's rows
     slice_launches, slice_check = run_slice_train(lgb, params, ds, X, y, z,
                                                   w, e2e)
+    lap("13_dart_rf_linear_shap")
 
     # ---- 14. the XLA engine: leaf-wise and depth-wise growers, CEGB,
     # forced splits, advanced monotone, bundle columns
     xla_launches, xla_checks = run_xla_train(lgb, params, ds, X, y, w, e2e)
+    lap("14_xla")
 
     # ---- 15. serving on the card: the stacked-tree predictor through
     # predict_pass, Booster.predict at scale, the PredictionService
     serve_rows, fleet_ctx = run_serve(lgb, params, ds, X, y, e2e)
+    lap("15_serve")
 
     # ---- 16. distributed training: two ranks on cuda:0 over gloo
     dist_launches = run_dist_train(lgb, bst)
+    lap("16_dist_train")
 
     # ---- 17. the serving fleet: two lanes on cuda:0, phase 15's model
     fleet_launches = run_serve_fleet(lgb, X, fleet_ctx)
+    lap("17_serve_fleet")
     del X, fleet_ctx
 
     # ---- 18. what two ranks refused until now: GOSS, DART, RF, renewal,
     # ranking, CEGB, forced splits, dense EFB (voting on bundles)
     dm_launches, dm_rows = run_dist_matrix(lgb)
+    lap("18_dist_matrix")
 
-    # ---- 19. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
+    # ---- 19. data files: a CSV monolithic, streamed and through the
+    # save_binary sidecar and the prefetch; LibSVM ranking; two ranks on
+    # their halves of one file
+    file_launches = run_data_files(lgb, bst)
+    lap("19_data_files")
+
+    # ---- 20. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
     # the epilogue at Bp=64 int8, nch=5, binary, Sp=64; hist_pass at Bp=64,
     # Sp=64, f32). Launches: the train() run for the three kernels of its
     # path, update() run (a) for the epilogue, the frontier train() run for
@@ -6603,6 +7153,11 @@ def main() -> int:
         row["dist_matrix_launches_per_rank"] = {
             run: [v.get(name, 0) for v in per_rank]
             for run, per_rank in dm_launches.items()}
+        row["data_files_launches"] = {
+            run: v.get(name, 0) for run, v in file_launches.items()
+            if run != "e"}
+        row["data_files_launches_per_rank"] = {
+            "e": [v.get(name, 0) for v in file_launches["e"]]}
         rows.append(row)
     # hist_pass's unrounded f32 variant, the XLA engine's histogram: on
     # phase 14a's (a leaf-wise root, S = 1) and 14b's (a depth-wise level,
@@ -6741,6 +7296,10 @@ def main() -> int:
             row["dist_matrix_launches_per_rank"] = {
                 run: [v["predict_pass"] for v in per_rank]
                 for run, per_rank in dm_launches.items()}
+            # Booster.predict of phase 19d's LibSVM-trained model
+            row["data_files_launches"] = {
+                "d": file_launches["d"]["predict_pass"],
+                "d_variants": file_launches["d"]["predict_variants"]}
     rows.extend(serve_rows)
     # level_pass and route_pass on a rank's own bundled operands (phase
     # 18's data-parallel EFB run, rank 0), with that rank's launches
@@ -6751,9 +7310,12 @@ def main() -> int:
           "epilogue and hist passes) one-call event pairs, host included",
           "not_captured": timing_notes})
     emit({"kernels": rows})
-    emit({"phase": "done", "smoke_s": time.perf_counter() - t_start})
+    lap("20_kernels_line")
+    emit({"phase": "done", "smoke_s": time.perf_counter() - t_start,
+          "phase_s": phase_s, "limit_s": SMOKE_LIMIT_S,
+          "room_s": SMOKE_LIMIT_S - (time.perf_counter() - t_start)})
 
-    # ---- 20. the result line
+    # ---- 21. the result line
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

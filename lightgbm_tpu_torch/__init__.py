@@ -26,11 +26,15 @@ imports nothing of it and no JAX.
     # -> [n, 3]
     svc = lgb.serve.PredictionService({"m": bst}, max_batch_rows=1024)
     svc.warmup(); svc.predict("m", X[:10]); svc.close()
+    # data files: CSV, TSV, LibSVM (sidecars .weight/.query/.init),
+    # streamed with two_round, cached with save_binary
+    lgb.Dataset("train.csv", params={"two_round": True,
+                                     "save_binary": True})
 
 ``device_type`` defaults to ``"cuda"``; ``"cpu"`` runs the kernels' plain
 PyTorch versions (the CPU tests use it).
 """
-from .basic import Booster, Dataset
+from .basic import Booster, Dataset, Sequence
 from .callback import (EarlyStopException, early_stopping, log_evaluation,
                        record_evaluation, reset_parameter)
 from .config import Config
@@ -40,7 +44,7 @@ from . import serve
 from .serve import PredictionService
 
 __all__ = ["Booster", "CVBooster", "Config", "Dataset", "EarlyStopException",
-           "LightGBMError", "PredictionService", "cv", "early_stopping",
-           "log_evaluation", "record_evaluation", "reset_parameter", "serve",
-           "train"]
+           "LightGBMError", "PredictionService", "Sequence", "cv",
+           "early_stopping", "log_evaluation", "record_evaluation",
+           "reset_parameter", "serve", "train"]
 __version__ = "0.1.0"

@@ -35,6 +35,23 @@ with ``pred_leaf``, ``pred_early_stop`` and ``pred_contrib`` (TreeSHAP,
 ``get_feature_name``, ``save_binary``, and ``Dataset(path)`` on a binary
 cache that either package wrote (``io/cache.py``).
 
+``Dataset(path)`` on a CSV, TSV or LibSVM file (``io/file_loader.py``, the
+native parser of ``native/``) routes as the JAX package's
+``_construct_from_file`` does: an explicit binary cache is loaded without
+parsing; with ``save_binary=true`` the sidecar cache ``<path>.bin`` (under
+ranks ``<path>.bin.rank<r>of<w>``) is loaded when the source file's
+fingerprint, the rank layout and the provenance still match, the ranks
+deciding together; else ``two_round`` (or an explicit
+``ingest_chunk_rows``) streams the file in chunks (``ingest/pipeline.py``),
+and otherwise the file is parsed whole and binned as an array, against
+``reference`` for a valid file. Under ranks each rank takes its own slice
+of the file unless ``pre_partition``. A cache write is best effort. The
+sidecar files ``.weight``, ``.query``/``.group`` and ``.init`` give weights,
+queries and init scores; ``weight_column``, ``group_column`` and
+``ignore_column`` are refused (the JAX package reads none of them), and so
+is a ``header`` that the file's layout scan contradicts. ``Sequence`` input
+(one or a list) is assembled in float64 chunks first.
+
 Averaged-output models (RF, ``average_output``) evaluate and predict on
 their summed scores divided by the iterations trained or used. With
 ``linear_tree`` a dense Dataset keeps its raw columns as float32 on its
@@ -60,10 +77,52 @@ from .metric import create_metric, default_metric_for_objective
 from .models.tree import HostTree
 from .objective import create_objective, create_objective_from_string
 from .ops.predict import predict_leaf, predict_raw, predict_raw_early_stop
-from .utils.log import LightGBMError  # noqa: F401  (re-exported)
+from .utils import log
+from .utils.log import LightGBMError
 
 # rows of a sparse matrix densified at once by the float64 walk
 _HOST_SPARSE_CHUNK_ROWS = 65_536
+
+# the text-column keys the JAX package declares and never reads
+# (lightgbm_tpu/config.py:183-186)
+_TEXT_COLUMN_KEYS = ("weight_column", "group_column", "ignore_column")
+
+
+class Sequence:
+    """Chunked row access for dataset construction (ref: basic.py:605
+    Sequence): implement ``__len__``, ``__getitem__`` for row slices and
+    optionally ``batch_size``. The matrix is assembled ``batch_size`` rows
+    at a time; a list of Sequences concatenates row-wise."""
+
+    batch_size = 4096
+
+    def __len__(self) -> int:  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def __getitem__(self, idx):  # pragma: no cover - interface
+        raise NotImplementedError
+
+
+def _is_sequence_input(data) -> bool:
+    return isinstance(data, Sequence) or (
+        isinstance(data, list) and bool(data)
+        and all(isinstance(x, Sequence) for x in data))
+
+
+def _materialize_sequences(seqs) -> np.ndarray:
+    """The row-major float64 matrix of Sequence chunks (float64, so it bins
+    as the equal ndarray does)."""
+    if isinstance(seqs, Sequence):
+        seqs = [seqs]
+    chunks = []
+    for seq in seqs:
+        n = len(seq)
+        bs = int(getattr(seq, "batch_size", None) or 4096)
+        for lo in range(0, n, bs):
+            chunks.append(np.asarray(seq[lo:min(n, lo + bs)], np.float64))
+    if not chunks:
+        raise ValueError("Sequence dataset has 0 rows")
+    return np.concatenate(chunks, axis=0)
 
 
 def _is_scipy_sparse(data) -> bool:
@@ -152,7 +211,8 @@ class Dataset:
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
                  weight=None, group=None, init_score=None,
                  feature_name="auto", categorical_feature="auto",
-                 params: Optional[Dict[str, Any]] = None):
+                 params: Optional[Dict[str, Any]] = None,
+                 free_raw_data: bool = True):
         self.data = data
         self.label = label
         self.reference = reference
@@ -162,6 +222,9 @@ class Dataset:
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
         self.params = dict(params) if params else {}
+        # stored and carried to subsets; as in the JAX package, nothing is
+        # freed (lightgbm_tpu/basic.py:248-250)
+        self.free_raw_data = free_raw_data
         self._inner: Optional[BinnedDataset] = None
         self.used_indices: Optional[np.ndarray] = None
 
@@ -175,10 +238,13 @@ class Dataset:
         # rows binned against a reference live on the reference's device
         device = (ref_inner.device if ref_inner is not None
                   else resolve_device(cfg.device_type))
+        if _is_sequence_input(self.data):
+            self.data = _materialize_sequences(self.data)
+        pending_cache = None
         if isinstance(self.data, (str, os.PathLike)):
-            self._inner = BinnedDataset.load_binary(str(self.data), device)
-            self._apply_loaded(ref_inner)
-            return self
+            pending_cache = self._construct_from_file(cfg, device, ref_inner)
+            if self._inner is not None:
+                return self
         if _is_scipy_sparse(self.data):
             # CSR/CSC ingestion without densifying (lightgbm_tpu/basic.py:
             # 211-233)
@@ -214,7 +280,180 @@ class Dataset:
         if self.init_score is not None:
             inner.metadata.set_init_score(np.asarray(self.init_score))
         self._inner = inner
+        if pending_cache is not None:
+            self._write_sidecar_cache(*pending_cache)
         return self
+
+    def _construct_from_file(self, cfg, device, ref_inner):
+        """A data file's construct (lightgbm_tpu/basic.py:327-495; ref:
+        DatasetLoader::LoadFromFile / LoadFromBinFile). Sets ``_inner``
+        from a cache or the streamed build; otherwise leaves the parsed
+        shard in ``self.data`` (and the sidecars in the metadata
+        attributes) for the array tail, and returns the sidecar cache to
+        write after it, or None. Under ranks each rank reads its own
+        slice unless ``pre_partition``."""
+        from .ingest.pipeline import (dataset_params_digest,
+                                      ingest_text_streamed,
+                                      streaming_eligible)
+        from .io.cache import (CACHE_MAGIC, LEGACY_MAGIC, CacheError,
+                               cache_shard_path, read_magic, read_manifest,
+                               source_fingerprint)
+        from .parallel import mesh
+        from .parallel.multiproc import cohort_votes
+        path = str(self.data)
+        for key in _TEXT_COLUMN_KEYS:
+            if cfg.was_set(key) and str(getattr(cfg, key)) != "":
+                raise LightGBMError(
+                    f"{key}={getattr(cfg, key)!r} is refused: the JAX "
+                    "package reads none of weight_column, group_column and "
+                    "ignore_column; the sidecar files <data>.weight, "
+                    "<data>.query (or .group) and <data>.init carry "
+                    "weights, queries and init scores")
+        rank, nm = 0, 1
+        if mesh.world() > 1 and not bool(cfg.pre_partition):
+            rank, nm = mesh.rank(), mesh.world()
+
+        # ---- an explicit binary cache: no parsing. Under ranks each rank
+        # takes its shard <path>.rank<r>of<w> first; the ranks take the
+        # cache only together (a rank that parses joins the binning
+        # sample's gather, which a rank that loaded would never reach)
+        shard = cache_shard_path(path, rank, nm)
+        local_cache = None
+        if nm > 1 and read_magic(shard) == CACHE_MAGIC:
+            local_cache = shard
+        elif read_magic(path) in (CACHE_MAGIC, LEGACY_MAGIC):
+            local_cache = path
+        if nm > 1:
+            any_hit, all_hit = cohort_votes(local_cache is not None)
+            if any_hit and not all_hit:
+                raise CacheError(
+                    f"binary cache shards for {path} exist on some ranks "
+                    "only — rebuild every rank's shard (save_binary under "
+                    "the current launcher layout) or point data= at the "
+                    "text source")
+            if not all_hit:
+                local_cache = None
+        if local_cache is not None:
+            self._inner = BinnedDataset.load_binary(
+                local_cache, device, expect_rank=rank, expect_world=nm)
+            self._finish_loaded(cfg, ref_inner)
+            return None
+
+        if cfg.was_set("header"):
+            from .ingest.chunker import scan_layout
+            scanned = scan_layout(path).has_header
+            if bool(cfg.header) != scanned:
+                raise LightGBMError(
+                    f"header={bool(cfg.header)} contradicts the layout "
+                    f"scan of {path}, which finds "
+                    f"{'a' if scanned else 'no'} header line; the JAX "
+                    "package reads the layout from the scan alone")
+
+        # ---- the save_binary sidecar <path>.bin[.rank<r>of<w>]: a hit
+        # only when the source's fingerprint, the world and the
+        # provenance (standalone or binned against a reference) match,
+        # decided by every rank together
+        cats, names = self._resolve_cats_names()
+        auto_cache = None
+        if bool(cfg.save_binary):
+            auto_cache = cache_shard_path(path + ".bin", rank, nm)
+            loaded = None
+            if os.path.exists(auto_cache):
+                try:
+                    manifest = read_manifest(auto_cache)
+                    cur = source_fingerprint(
+                        path, dataset_params_digest(cfg, cats))
+                    if manifest.get("source") == cur \
+                            and int(manifest.get("world", 1)) == nm \
+                            and bool(manifest.get("reference_binned",
+                                                  False)) \
+                            == (self.reference is not None):
+                        # verified here, so a corrupt shard is a miss at
+                        # the vote rather than an error after it
+                        loaded = BinnedDataset.load_binary(
+                            auto_cache, device, expect_rank=rank,
+                            expect_world=nm)
+                    else:
+                        log.info("binary cache %s is stale (source, "
+                                 "params, layout or provenance changed); "
+                                 "rebuilding", auto_cache)
+                except CacheError as e:
+                    log.warning("ignoring unusable binary cache: %s", e)
+            if loaded is not None and ref_inner is not None \
+                    and mappers_digest(ref_inner.mappers) \
+                    != mappers_digest(loaded.mappers):
+                # a valid sidecar whose reference was rebuilt: a miss
+                log.info("binary cache %s no longer matches its reference "
+                         "dataset's mappers; rebuilding", auto_cache)
+                loaded = None
+            hit = loaded is not None
+            if nm > 1:
+                hit = cohort_votes(hit)[1]
+            if hit:
+                self._inner = loaded
+                self._finish_loaded(cfg, ref_inner)
+                return None
+
+        if streaming_eligible(cfg, path)[0]:
+            def _stream(cache_to):
+                return ingest_text_streamed(
+                    path, cfg, device,
+                    label_column=self.params.get("label_column"),
+                    rank=rank, num_machines=nm, categorical_feature=cats,
+                    feature_names=names, reference=ref_inner,
+                    cache_out=cache_to, world=nm)
+            try:
+                inner = _stream(auto_cache)
+            except (CacheError, OSError) as e:
+                if auto_cache is None:
+                    raise
+                # the sidecar is best effort: a full disk or a read-only
+                # directory streams into memory instead
+                log.warning("binary cache not written (%s); streaming "
+                            "without a cache", e)
+                inner = _stream(None)
+            self._inner = inner
+            self._finish_loaded(cfg, ref_inner)
+            return None
+
+        # ---- the monolithic parse: the shard as one array, binned by the
+        # array tail (against ``reference`` for a valid file)
+        from .io.file_loader import load_text_file
+        X, y, side = load_text_file(
+            path, label_column=self.params.get("label_column"), rank=rank,
+            num_machines=nm)
+        self.data = X
+        if self.label is None and y is not None:
+            self.label = y
+        if self.weight is None and "weight" in side:
+            self.weight = side["weight"]
+        if self.group is None and "group" in side:
+            self.group = side["group"]
+        if self.init_score is None and "init_score" in side:
+            self.init_score = side["init_score"]
+        if auto_cache is None:
+            return None
+        return (auto_cache, path, rank, nm, dataset_params_digest(cfg, cats))
+
+    def _write_sidecar_cache(self, cache_path: str, src_path: str,
+                             rank: int, world: int,
+                             params_digest: str) -> None:
+        """The monolithic path's cache write, after construction. Best
+        effort: an ineligible dataset or a failed write warns."""
+        from .io.cache import (CacheError, save_dataset_cache,
+                               source_fingerprint)
+        try:
+            save_dataset_cache(
+                self._inner, cache_path, rank=rank, world=world,
+                source=source_fingerprint(src_path, params_digest))
+        except (CacheError, OSError) as e:
+            log.warning("binary cache not written: %s", e)
+
+    def _finish_loaded(self, cfg, ref_inner) -> None:
+        """A cache-loaded or streamed dataset: the prefetch settings of
+        this construct, then the metadata rules of :meth:`_apply_loaded`."""
+        self._inner.set_prefetch(cfg)
+        self._apply_loaded(ref_inner)
 
     def _apply_loaded(self, ref_inner) -> None:
         """A binary cache's dataset (the JAX package's
@@ -240,12 +479,18 @@ class Dataset:
         md = inner.metadata
         if self.label is not None:
             md.set_label(np.asarray(self.label))
+        else:
+            self.label = md.label
         if self.weight is not None:
             md.set_weight(np.asarray(self.weight))
+        elif md.weight is not None:
+            self.weight = md.weight
         if self.group is not None:
             md.set_group(np.asarray(self.group))
         if self.init_score is not None:
             md.set_init_score(np.asarray(self.init_score))
+        elif md.init_score is not None:
+            self.init_score = md.init_score
 
     def _resolve_cats_names(self):
         """(categorical column indices, feature names or None): names in
@@ -360,7 +605,8 @@ class Dataset:
         self.construct()
         sub = Dataset.__new__(Dataset)
         sub.used_indices = np.asarray(used_indices)
-        if self.data is None:
+        sub.free_raw_data = self.free_raw_data
+        if self.data is None or isinstance(self.data, (str, os.PathLike)):
             sub.data = None
         elif _is_scipy_sparse(self.data):
             sub.data = self.data.tocsr()[sub.used_indices]
@@ -746,20 +992,26 @@ class Booster:
 
     # ------------------------------------------------------------------
     def model_to_string(self, start_iteration: int = 0,
-                        num_iteration: Optional[int] = None) -> str:
+                        num_iteration: Optional[int] = None,
+                        importance_type="split") -> str:
         """The model text; ``num_iteration=None`` keeps the early-stopped
-        best iteration where there is one, <= 0 every iteration."""
+        best iteration where there is one, <= 0 every iteration;
+        ``importance_type`` (``split``/0 or ``gain``/1) picks the
+        ``feature_importances:`` block's kind."""
         if num_iteration is None:
             num_iteration = (self.best_iteration
                              if self.best_iteration > 0 else -1)
+        it = 0 if importance_type in (0, "split") else 1
         return model_io.save_model_to_string(self, start_iteration,
-                                             num_iteration)
+                                             num_iteration, it)
 
     def save_model(self, filename: str, start_iteration: int = 0,
-                   num_iteration: Optional[int] = None) -> "Booster":
+                   num_iteration: Optional[int] = None,
+                   importance_type="split") -> "Booster":
         """Write ``model_to_string`` to ``filename`` through a temporary
         file and a rename, so a crash never leaves a truncated model."""
-        text = self.model_to_string(start_iteration, num_iteration)
+        text = self.model_to_string(start_iteration, num_iteration,
+                                    importance_type)
         tmp = f"{filename}.tmp{os.getpid()}"
         with open(tmp, "w") as fh:
             fh.write(text)

@@ -204,11 +204,13 @@ one rank, ``tree_learner`` warns and trains serially. Sparse (prebundled)
 input and ``linear_tree`` are refused in the JAX package's words.
 
 Not ported yet (``_UNPORTED`` raises, naming its ROADMAP item):
-resilience checkpoints (of ``cegb_used`` and
-``cegb_used_rf`` too) and the training side of the observability keys
-(``telemetry_out``, ``trace_out``, ``health_check_period``,
-``metrics_port``, ``run_report_out``, ``profile_dir``, ``perf_db``,
-``slo_enabled``, ``slo_config``, ``checkpoint_dir``).
+resilience checkpoints (of ``cegb_used`` and ``cegb_used_rf`` too,
+``checkpoint_dir``) and the host-collective policy
+(``collective_timeout``, ``collective_retries``), item 10c; the training
+side of the observability keys (``telemetry_out``, ``trace_out``,
+``health_check_period``, ``run_report_out``, ``profile_dir``,
+``perf_db``), item 10e; ``metrics_port``, ``slo_enabled`` and
+``slo_config``, item 10f.
 """
 from __future__ import annotations
 
@@ -267,22 +269,29 @@ def split_params_from_config(config: Config) -> SplitParams:
         cegb_penalty_split=float(config.cegb_penalty_split))
 
 
-_ITEM10 = "(ROADMAP Queue A item 10)"
 _UNPORTED = tuple(
-    # the training side of obs/, the SLO plane and resilience checkpoints
-    # (lightgbm_tpu/boosting/gbdt.py:460-466, 532, 554-561, 1109-1111): a
-    # non-default value is refused, never ignored
-    (key, bool, f"{key} {what} {_ITEM10}") for key, what in (
-        ("telemetry_out", "(per-iteration telemetry)"),
-        ("trace_out", "(trace spans)"),
-        ("health_check_period", "(health checks)"),
-        ("metrics_port", "(the metrics exporter)"),
-        ("run_report_out", "(the run report)"),
-        ("profile_dir", "(profiler windows)"),
-        ("perf_db", "(the performance database)"),
-        ("slo_enabled", "(the SLO plane)"),
-        ("slo_config", "(the SLO plane)"),
-        ("checkpoint_dir", "(resilience checkpoints)")))
+    # the training side of obs/, the SLO plane, resilience checkpoints and
+    # the host-collective policy (lightgbm_tpu/boosting/gbdt.py:460-466,
+    # 532, 554-561, 1101-1111): a non-default value is refused, never
+    # ignored
+    [(key, bool, f"{key} {what} (ROADMAP Queue A item {item})")
+     for key, what, item in (
+         ("telemetry_out", "(per-iteration telemetry)", "10e"),
+         ("trace_out", "(trace spans)", "10e"),
+         ("health_check_period", "(health checks)", "10e"),
+         ("metrics_port", "(the metrics exporter)", "10f"),
+         ("run_report_out", "(the run report)", "10e"),
+         ("profile_dir", "(profiler windows)", "10e"),
+         ("perf_db", "(the performance database)", "10e"),
+         ("slo_enabled", "(the SLO plane)", "10f"),
+         ("slo_config", "(the SLO plane)", "10f"),
+         ("checkpoint_dir", "(resilience checkpoints)", "10c"))]
+    + [("collective_timeout", lambda v: float(v) != 0.0,
+        "collective_timeout (the host-collective policy) "
+        "(ROADMAP Queue A item 10c)"),
+       ("collective_retries", lambda v: int(v) != 2,
+        "collective_retries (the host-collective policy) "
+        "(ROADMAP Queue A item 10c)")])
 
 
 class GBDT:

@@ -179,11 +179,11 @@ _PARAMS: List[_Param] = [
             "also OPTS IN to chunked ingest for file loads, like "
             "two_round=true"),
     _p("ingest_prefetch", bool, True,
-       desc="double-buffered host->device transfer of streamed/"
-            "mmap-cached bin matrices: the next chunk's host read "
+       desc="double-buffered host->device transfer of every "
+            "dataset's bin matrix: the next chunk's host read "
             "overlaps the in-flight copy, at most two chunks live on "
-            "host (ingest.max_live_chunks gauge), host stall time in "
-            "prefetch.host_wait_ms. Off = one-shot jnp.asarray upload"),
+            "host (ingest_stats max_live_chunks), host stall time in "
+            "its host_wait_ms. Off = one widened copy"),
     _p("header", bool, False, ("has_header",)),
     _p("label_column", str, "", ("label",)),
     _p("weight_column", str, "", ("weight",)),

@@ -32,6 +32,12 @@ by the used features. ``add_features_from`` appends another dataset's
 columns (and constraints), and ``save_binary``/``load_binary`` write and
 read the JAX package's binary cache (``io/cache.py``): a file written by
 either package loads in the other.
+
+A dataset keeps its host bins (a read-only memmap for a cache) and copies
+them to the device when ``bins_dev`` is first taken, through the chunked,
+double-buffered prefetch (``ingest/prefetch.py``), or in one shot when
+``ingest_prefetch`` was false at construction; ``ingest_stats`` holds the
+streamed ingest's or the cache load's counters and then the prefetch's.
 """
 from __future__ import annotations
 
@@ -44,8 +50,8 @@ import torch
 from .binning import (BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper,
                       effective_bin_counts)
 from .config import Config
-from .io.cache import (CACHE_MAGIC, LEGACY_MAGIC, load_dataset_cache,
-                       read_magic, save_dataset_cache)
+from .io.cache import (CACHE_MAGIC, LEGACY_MAGIC, CacheError,
+                       load_dataset_cache, read_magic, save_dataset_cache)
 from .ops.efb import BundleLayout, find_bundles
 from .parallel import mesh
 from .parallel.multiproc import allgather_sample
@@ -234,6 +240,12 @@ class BinnedDataset:
         # rank gathered, kept under a parallel tree_learner over two or
         # more ranks (the bundle layout's conflict masks); None otherwise
         self.mp_sample_bins: Optional[np.ndarray] = None
+        # how ``bins_dev`` copies the host bins: the chunked prefetch in
+        # blocks of ``prefetch_chunk_rows``, or (``prefetch`` false) one
+        # widened copy
+        self.prefetch = True
+        self.prefetch_chunk_rows = 65536
+        self.ingest_stats: Optional[Dict[str, Any]] = None
 
     @classmethod
     def from_data(cls, data: np.ndarray, config: Config, device,
@@ -257,6 +269,7 @@ class BinnedDataset:
         self.feature_names = (list(feature_names) if feature_names
                               else [f"Column_{i}" for i in range(f)])
         self.metadata = Metadata(n)
+        self.set_prefetch(config)
         if reference is not None:
             if f != reference.num_total_features:
                 log.fatal("the data has %d features but its reference has "
@@ -264,10 +277,23 @@ class BinnedDataset:
             self._adopt_reference(reference)
             self._place(self.bin_rows(data), device)
             return self
-        cat_set = set(int(c) for c in categorical_feature)
         sample_idx = _sample_rows(n, config.bin_construct_sample_cnt,
                                   config.data_random_seed)
-        sample = np.asarray(data[sample_idx], dtype=np.float64)
+        self.build_mappers_from_sample(
+            np.asarray(data[sample_idx], dtype=np.float64), config,
+            set(int(c) for c in categorical_feature))
+        self._place(self.bin_rows(data), device)
+        self._set_monotone(config, f)
+        return self
+
+    def build_mappers_from_sample(self, sample: np.ndarray, config: Config,
+                                  cat_set=frozenset()) -> None:
+        """One mapper per feature from a float64 row sample, then the used
+        features and the feature arrays. The one mapper construction:
+        ``from_data`` and the streamed ingest (which collects the same
+        sample rows chunk by chunk) both come here, so their mappers are
+        the same bits (lightgbm_tpu/dataset.py:267-331)."""
+        f = self.num_total_features
         # distributed loading: every rank holds only its row shard, and the
         # bin mappers must still be IDENTICAL everywhere, so the samples
         # are allgathered before FindBin (lightgbm_tpu/dataset.py:281-284;
@@ -280,6 +306,7 @@ class BinnedDataset:
         if mb_by_feat and len(mb_by_feat) != f:
             log.fatal("max_bin_by_feature has %d entries but the data has "
                       "%d features" % (len(mb_by_feat), f))
+        self.mappers = []
         for j in range(f):
             m = BinMapper()
             col = sample[:, j]
@@ -313,9 +340,6 @@ class BinnedDataset:
                 [self.mappers[j].value_to_bin(sample[:, j])
                  for j in self.used_features], axis=1).astype(np.uint16)
         self._finalize_feature_arrays()
-        self._place(self.bin_rows(data), device)
-        self._set_monotone(config, f)
-        return self
 
     @classmethod
     def from_sparse(cls, data, config: Config, device,
@@ -340,6 +364,7 @@ class BinnedDataset:
         self.feature_names = (list(feature_names) if feature_names
                               else [f"Column_{i}" for i in range(f)])
         self.metadata = Metadata(n)
+        self.set_prefetch(config)
         if reference is not None:
             if f != reference.num_total_features:
                 log.fatal("the data has %d features but its reference has "
@@ -443,18 +468,40 @@ class BinnedDataset:
             [m.bin_type == BIN_CATEGORICAL for m in used], bool)
 
     def _place(self, bins: np.ndarray, device) -> None:
-        """Keep the host bins and a copy on ``device``."""
+        """Keep the host bins for ``device``; ``bins_dev`` copies them
+        there at first use."""
         self.bins = bins
         self.device = torch.device(device)
-        # widened so bins >= 128 stay positive in a signed tensor
-        wide = np.int16 if bins.dtype == np.uint8 else np.int32
-        self._bins_dev = torch.from_numpy(bins.astype(wide)).to(self.device)
+        self._bins_dev = None
 
     @property
     def bins_dev(self) -> Optional[torch.Tensor]:
+        """The bins on ``device``, widened (int16 for uint8 host bins,
+        int32 for uint16) so bins >= 128 stay positive in a signed tensor;
+        copied at first use through the chunked prefetch, or in one shot
+        when ``prefetch`` is off."""
         if self._bins_dev is None and self.bins is not None:
-            self._place(self.bins, self.device)
+            if self.prefetch:
+                from .ingest.prefetch import IngestStats, stream_to_device
+                stats = IngestStats(source="prefetch")
+                self._bins_dev = stream_to_device(
+                    self.bins, self.prefetch_chunk_rows, self.device, stats)
+                self.ingest_stats = dict(self.ingest_stats or {},
+                                         prefetch=stats.to_dict())
+            else:
+                wide = np.int16 if self.bins.dtype == np.uint8 else np.int32
+                self._bins_dev = torch.from_numpy(
+                    np.asarray(self.bins).astype(wide)).to(self.device)
         return self._bins_dev
+
+    def set_prefetch(self, config: Config) -> None:
+        """The prefetch's switch and chunk rows, from the construct's
+        configuration."""
+        self.prefetch = bool(config.ingest_prefetch)
+        self.prefetch_chunk_rows = int(config.ingest_chunk_rows)
+
+    def bin_dtype(self):
+        return np.uint8 if self.max_num_bin <= 256 else np.uint16
 
     def subset(self, rows) -> "BinnedDataset":
         """A row subset sharing the mappers: the binned rows are sliced,
@@ -471,6 +518,8 @@ class BinnedDataset:
         out.prebundled = self.prebundled     # bundle rows slice as rows do
         out.monotone_constraints = self.monotone_constraints
         out.dataset_params = dict(self.dataset_params)
+        out.prefetch = self.prefetch
+        out.prefetch_chunk_rows = self.prefetch_chunk_rows
         out._place(self.bins[rows], self.device)
         return out
 
@@ -516,24 +565,30 @@ class BinnedDataset:
         save_dataset_cache(self, path)
 
     @classmethod
-    def load_binary(cls, path: str, device) -> "BinnedDataset":
+    def load_binary(cls, path: str, device, expect_rank=None,
+                    expect_world=None) -> "BinnedDataset":
         """A binary cache that either package wrote: the v2 ``LGBMTPU2``
-        artifact (bins mmapped, regions verified) or the JAX package's
-        v1 pickle (``LGBMTPU1``). The bins reach ``device`` on first
-        use."""
+        artifact (bins mmapped, regions verified; refused when written for
+        another rank or world than ``expect_rank``/``expect_world``) or
+        the JAX package's v1 pickle (``LGBMTPU1``). The bins reach
+        ``device`` on first use, a v2 cache's through the prefetch."""
         magic = read_magic(path)
         self = cls()
         if magic == CACHE_MAGIC:
-            bins, meta, manifest = load_dataset_cache(path)
+            bins, meta, manifest = load_dataset_cache(
+                path, expect_rank=expect_rank, expect_world=expect_world)
             self.num_total_features = int(manifest["num_total_features"])
             self.reference_binned = bool(manifest.get("reference_binned",
                                                       False))
+            self.ingest_stats = {"source": "cache", "cache_hit": 1,
+                                 "cache_path": str(path),
+                                 "chunks": int(manifest.get("chunks", 1)),
+                                 "rows": int(manifest["num_data"]),
+                                 "max_live_chunks": 0, "verified": True,
+                                 "mmap": True}
         else:
-            log.check(magic == LEGACY_MAGIC, f"{path}: loading a text "
-                      "(CSV, TSV, LibSVM) data file is not ported to "
-                      "lightgbm_tpu_torch yet (io/file_loader.py, ROADMAP "
-                      "Queue A item 10); a path must name a binary dataset "
-                      "cache")
+            if magic != LEGACY_MAGIC:
+                raise CacheError(f"{path}: not a binary dataset cache")
             with open(path, "rb") as fh:
                 fh.read(8)
                 meta = pickle.load(fh)
@@ -559,8 +614,10 @@ class BinnedDataset:
 
     def bin_rows(self, data: np.ndarray) -> np.ndarray:
         """Bin a [rows, num_total_features] float block against the mappers
-        -> [rows, num_used_features] uint8/uint16."""
-        dtype = np.uint8 if self.max_num_bin <= 256 else np.uint16
+        -> [rows, num_used_features] uint8/uint16. The one binning of raw
+        rows: ``from_data`` and the streamed ingest's chunks both come
+        here."""
+        dtype = self.bin_dtype()
         dataT = np.ascontiguousarray(data.T)
         outT = np.empty((len(self.used_features), data.shape[0]), dtype)
         for k, j in enumerate(self.used_features):

@@ -25,7 +25,7 @@ with query groups by whole queries (``folds.split(groups=...)`` gets each
 row's query id).
 
 Not ported yet (it raises): ``resume_from`` and resilience checkpoints
-(ROADMAP Queue A item 10).
+(ROADMAP Queue A item 10c).
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ _ES_ALIASES = ("early_stopping_round", "early_stopping_rounds",
 def _refuse_unported(params: Dict[str, Any], resume_from) -> None:
     if resume_from or params.get("resume") or params.get("resume_from"):
         log.fatal("resume_from (resilience checkpoints) is not ported to "
-                  "lightgbm_tpu_torch yet (ROADMAP Queue A item 10)")
+                  "lightgbm_tpu_torch yet (ROADMAP Queue A item 10c)")
 
 
 def _predictor(init_model, device_type: str) -> Optional[Booster]:

@@ -21,7 +21,7 @@ The trainer (``boosting/gbdt.py``) runs ``tree_learner=data`` and
 passing only its own rows (``multiproc.MultiProcLayout``); feature-parallel
 needs every row on every rank and runs at the grower level
 (``make_feature_parallel_grow_fn``). The JAX package's launcher and its
-external-collectives bridge are not here yet (ROADMAP Queue A items 10
+external-collectives bridge are not here yet (ROADMAP Queue A items 10d
 and 11).
 """
 from . import distributed

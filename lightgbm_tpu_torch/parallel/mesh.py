@@ -112,6 +112,12 @@ def reset_host_group() -> None:
     _host["group"] = None
 
 
+def rank() -> int:
+    """This process's rank in the default group (0 without one)."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def world() -> int:
     """Ranks in the default group (1 without one)."""
     import torch.distributed as dist

@@ -67,7 +67,8 @@ from .batcher import MicroBatcher
 from .errors import RetryPolicy
 from .residency import ResidencyManager
 
-_ITEM_10 = "ROADMAP Queue A item 10 (observability and resilience)"
+_ITEM_10 = ("ROADMAP Queue A item 10f (the serving side of observability "
+            "and resilience)")
 
 
 def _as_booster(spec, device_type: str):

@@ -1,16 +1,20 @@
-"""Keys and inputs the port does not honour yet are refused, never ignored.
+"""Keys and inputs the port does not honour are refused, never ignored.
 
-The JAX trainer reads the observability and checkpoint keys below
-(``lightgbm_tpu/boosting/gbdt.py:460-466, 532, 554-561, 1109-1111``) and
-loads text data files (``lightgbm_tpu/io/file_loader.py``). Until the port
-has them (ROADMAP Queue A item 10), ``train()``, ``Booster(params=...,
-train_set=...)`` and ``Dataset(<path>)`` raise, naming that item. Port
-only, on the CPU, tiny data.
+The JAX trainer reads the observability, checkpoint and host-collective
+keys below (``lightgbm_tpu/boosting/gbdt.py:460-466, 532, 554-561,
+1101-1111``). Until the port has them (ROADMAP Queue A items 10c, 10e and
+10f), ``train()`` and ``Booster(params=..., train_set=...)`` raise, naming
+the item. With a data file the port refuses ``weight_column``,
+``group_column`` and ``ignore_column`` (declared in the JAX package's
+config and read nowhere there) and a ``header`` its layout scan
+contradicts. A text data file itself now loads (``io/file_loader.py``).
+Port only, on the CPU, tiny data.
 """
 import numpy as np
 import pytest
 
 import lightgbm_tpu_torch as lt
+from lightgbm_tpu_torch.config import param_default
 from lightgbm_tpu_torch.utils.log import LightGBMError
 
 CPU = {"device_type": "cpu", "verbose": -1}
@@ -27,7 +31,18 @@ UNPORTED = [
     ("slo_enabled", True),
     ("slo_config", "p99_ms=5"),
     ("checkpoint_dir", "ckpt"),
+    ("collective_timeout", 30.0),
+    ("collective_retries", 5),
 ]
+# refused only with a data file (key, value, what the message says)
+FILE_REFUSED = [
+    ("weight_column", "1", "sidecar files"),
+    ("group_column", "name:q", "sidecar files"),
+    ("ignore_column", "0,2", "sidecar files"),
+    ("header", True, "contradicts the layout scan"),
+]
+REFUSED = ([(k, v, "array", "Queue A item 10") for k, v in UNPORTED]
+           + [(k, v, "file", m) for k, v, m in FILE_REFUSED])
 
 
 def _data(n=200, seed=0):
@@ -36,19 +51,36 @@ def _data(n=200, seed=0):
     return X, (X[:, 0] > 0).astype(float)
 
 
-@pytest.mark.parametrize("key,value", UNPORTED,
-                         ids=[k for k, _ in UNPORTED])
-def test_unported_key_is_refused(key, value, tmp_path):
-    X, y = _data()
-    if isinstance(value, str):
+def _csv(tmp_path, n=20):
+    X, y = _data(n)
+    path = tmp_path / "t.csv"
+    np.savetxt(path, np.column_stack([y, X]), delimiter=",")
+    return str(path)
+
+
+@pytest.mark.parametrize("key,value,source,match", REFUSED,
+                         ids=[k for k, _, _, _ in REFUSED])
+def test_unported_key_is_refused(key, value, source, match, tmp_path):
+    if source == "file":
+        path = _csv(tmp_path)
+
+        def make():
+            return lt.Dataset(path)
+    else:
+        X, y = _data()
+
+        def make():
+            return lt.Dataset(X, label=y)
+    before = set(tmp_path.iterdir())
+    if isinstance(value, str) and source == "array":
         value = str(tmp_path / value)
     params = dict(CPU, objective="binary", num_leaves=4, **{key: value})
-    with pytest.raises(LightGBMError, match="Queue A item 10"):
-        lt.train(params, lt.Dataset(X, label=y), 1)
+    with pytest.raises(LightGBMError, match=match):
+        lt.train(params, make(), 1)
     with pytest.raises(LightGBMError, match=key):
-        lt.Booster(params=params, train_set=lt.Dataset(X, label=y))
+        lt.Booster(params=params, train_set=make())
     # nothing was armed: no file or directory appeared
-    assert list(tmp_path.iterdir()) == []
+    assert set(tmp_path.iterdir()) == before
 
 
 def test_defaults_and_unarmed_keys_still_train():
@@ -58,17 +90,20 @@ def test_defaults_and_unarmed_keys_still_train():
     params = dict(CPU, objective="binary", num_leaves=4,
                   memory_watermarks=True, cost_ledger="hlo",
                   drift_profile=True,
-                  **{k: type(v)() for k, v in UNPORTED})
+                  **{k: param_default(k) for k, _ in UNPORTED})
     bst = lt.train(params, lt.Dataset(X, label=y), 2)
     assert bst.num_trees() == 2
 
 
-def test_text_data_file_is_refused(tmp_path):
-    """A path that is not a binary dataset cache names the file loader's
-    item, not a "not a binary dataset file" error."""
+def test_text_data_file_loads(tmp_path):
+    """The 20-row CSV that was refused constructs, and trains, as the same
+    rows in memory do."""
+    path = _csv(tmp_path)
     X, y = _data(20)
-    path = tmp_path / "t.csv"
-    np.savetxt(path, np.column_stack([y, X]), delimiter=",")
-    with pytest.raises(LightGBMError, match="Queue A item 10") as err:
-        lt.Dataset(str(path), params=CPU).construct()
-    assert "not a lightgbm_tpu binary" not in str(err.value)
+    params = dict(CPU, objective="binary", num_leaves=4, min_data_in_leaf=2)
+    ds = lt.Dataset(path, params=dict(params)).construct()
+    assert ds.num_data() == 20 and ds.num_feature() == 4
+    np.testing.assert_array_equal(ds.get_label(), y)
+    want = lt.train(params, lt.Dataset(X.astype(np.float32), label=y), 2)
+    assert lt.train(params, ds, 2).model_to_string() \
+        == want.model_to_string()
