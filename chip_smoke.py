@@ -349,7 +349,7 @@ non-zero (it prints no result line then):
    card through the chunked prefetch, ``torch.equal`` to the one-shot
    widened copy with at most two chunks live, timed against that copy
    (GB/s, host wait); (d) phase 9's draw cut
-   to 200,000 documents as LibSVM with a ``.query`` sidecar:
+   to 100,000 documents as LibSVM with a ``.query`` sidecar:
    ``lambdarank``'s model text equals the one from the arrays in memory
    with ``group=``, and ``Booster.predict`` (``predict_pass``) is within
    1e-5 of the trainer's scores; (e) two ranks on cuda:0 over gloo, each
@@ -357,7 +357,29 @@ non-zero (it prints no result line then):
    run (a)'s model text on both, then the ``.rank<r>of2`` sidecar shards
    written and hit without parsing, and (c)'s one-process cache refused
    on both (Queue C 7);
-20. the ``kernels`` line: every ported kernel and variant with its
+20. resilience (``resilience``), on phase 3's Dataset and parameters:
+   each part trains the uninterrupted run, the interrupted run (its
+   checkpoint directory wiped first) and the resume
+   (``train(resume_from=...)``), and the resumed model text is the
+   uninterrupted one byte for byte: (a) the megastep body with a
+   250,000-row valid set, bagging, feature_fraction, early stopping and
+   ``record_evaluation`` (10 rounds, checkpoints every 3, stopped at 6):
+   the recorded curves and ``best_iteration`` equal, sec/iter without
+   and with ``checkpoint_dir`` (3 runs each), the capture's ms per
+   checkpoint, the
+   background write's seconds and npz bytes, the resumed run's kernel
+   launches, and ``booster_from_checkpoint`` predicting the booster's
+   bits at the checkpoint's iteration; (b) the epilogue body, stopped at
+   4; (c) GOSS and DART, 8 rounds stopped at 4; (d) quantized gradients
+   with gain screening, the EMA crossing the resume; (e) two ranks on
+   cuda:0 over gloo on phase 16's blocks: sec/iter without and with
+   ``collective_timeout`` 5 (2 runs each) and the guarded gathers; then,
+   guarded, 6 rounds stopped at 3: a manifest per rank, the checkpoint
+   both completed selected, the two-rank model resumed byte for byte;
+   then rank 1 asleep through a guarded ``allgather_json``: rank 0 raises
+   ``CollectiveError`` within 15 s and exits, the parent reports it and
+   kills both;
+21. the ``kernels`` line: every ported kernel and variant with its
    wrapper calls and CUDA kernel launches on the main path where it runs
    (every level_pass, route_pass, epilogue_pass and hist_pass call in
    phases 3-13 held to one launch of each of its CUDA kernels), its
@@ -374,8 +396,9 @@ non-zero (it prints no result line then):
    ``predict_pass`` rows of phase 15 with their launches there and
    phase 17's per lane, and each kernel's launches per rank in phase
    16's and 18's runs, with 18's captured bundled level, and phase 19's
-   launches per run (per rank in 19e; ``predict_pass`` in 19d);
-21. the last line: ``{"ok": true, "device": {...}}``.
+   launches per run (per rank in 19e; ``predict_pass`` in 19d), and
+   phase 20's resumed runs' (per rank in 20e; ``predict_pass`` in 20a);
+22. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package. It exits non-zero when no CUDA
 device is present.
@@ -515,9 +538,10 @@ DIST_TIMEOUT_S = 120            # phase 16: every group's collective timeout
 # served probabilities against the float64 walk: the JAX package's serving
 # tolerance for float32 sums (tests/test_serve.py); the routing itself is
 # held exactly, to the float32 sums of the walk's leaves
-DM_ROUNDS = 6                   # phase 18a: the fused and depth-wise runs
+DM_ROUNDS = 4                   # phase 18a: the fused and depth-wise runs
+#                                 (6 until phase 20 needed the time)
 DM_XLA_ROUNDS = 2               # phase 18a: the leaf-wise (forced) runs
-DM_SHORT_ROUNDS = 5             # phase 18b, c
+DM_SHORT_ROUNDS = 3             # phase 18b, c (5 until phase 20)
 DM_RANK_DOCS = 200_000          # phase 18b: phase 9's draw, cut
 DM_EFB_ROWS = 100_000           # phase 18c: phase 11b's draw, cut
 DM_DEADLINE_S = 600             # phase 18: the parent kills the ranks after
@@ -6321,7 +6345,8 @@ def run_dist_matrix(lgb):
 FILE_CUT_ROWS = 500_000         # phase 19a: the rows when writing and
 FILE_WRITE_PARSE_LIMIT_S = 60   # parsing 1M rows would take longer
 FILE_PROBE_ROWS = 100_000       # phase 19a: the rows timed to decide it
-FILE_RANK_DOCS = 200_000        # phase 19d: phase 9's draw, cut
+FILE_RANK_DOCS = 100_000        # phase 19d: phase 9's draw, cut (200,000
+#                                 until phase 20 needed the time)
 FILE_PREFETCH_REPS = 3
 _DIGIT_ROWS = 65_536
 # phase 16's run (a): its ranks' model text, for phase 19e
@@ -6535,7 +6560,7 @@ def run_data_files(lgb, bst3):
     without parsing, trains (a)'s model, and its bins reach the card
     through the prefetch (torch.equal to the one-shot widened copy, at most
     two chunks live), timed against that copy; (d) phase 9's draw cut to
-    200,000 documents as LibSVM with a .query sidecar: lambdarank's model
+    100,000 documents as LibSVM with a .query sidecar: lambdarank's model
     equal to the one from the arrays in memory with group=, and
     Booster.predict (predict_pass) within 1e-5 of the trainer's scores;
     (e) two ranks on cuda:0 over gloo, each loading its half of the first
@@ -6803,6 +6828,388 @@ def run_data_files(lgb, bst3):
           "failures": fails})
     if fails:
         raise AssertionError("phase 19: " + "; ".join(fails))
+    return launches
+
+
+# ------------------------------------------------------------- phase 20
+RES_PREDICT_ROWS = 100_000      # phase 20a: booster_from_checkpoint's rows
+RES_PAIRS = 3                   # phase 20a: runs with and without checkpoints
+RES_GUARD_PAIRS = 2             # phase 20e: runs with and without the guard
+RES_TIMEOUT_S = 5.0             # phase 20e: collective_timeout
+RES_RAISE_LIMIT_S = 15.0        # phase 20e: rank 0 must raise within this
+RES_SLEEP_S = 60.0              # phase 20e: rank 1 sleeps through the gather
+RES_DEADLINE_S = 300            # phase 20e: the parent kills the ranks after
+BAGGED = {"bagging_fraction": 0.5, "bagging_freq": 1,
+          "feature_fraction": 0.8}
+
+
+def _ckpt_probe():
+    """Wrap the checkpoint capture (the training thread) and write (the
+    writer thread): (records, undo). Records: capture ms, write seconds
+    and npz bytes per checkpoint."""
+    from lightgbm_tpu_torch.resilience import checkpoint, state
+    rec = {"capture_ms": [], "write_s": [], "bytes": []}
+    cap, wr = state.capture, checkpoint.CheckpointManager._write
+
+    def capture(gbdt, *a):
+        t = time.perf_counter()
+        out = cap(gbdt, *a)
+        rec["capture_ms"].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def write(self, *a):
+        wr(self, *a)
+        if self.last_error is None:
+            rec["write_s"].append(self.last_written["seconds"])
+            rec["bytes"].append(self.last_written["bytes"])
+    state.capture = capture
+    checkpoint.CheckpointManager._write = write
+
+    def undo():
+        state.capture = cap
+        checkpoint.CheckpointManager._write = wr
+    return rec, undo
+
+
+def _departure(want, got) -> dict:
+    """Where a resumed model parts from the uninterrupted one: the first
+    tree that differs, whether its structure does, and the largest leaf
+    value difference over the trees of equal structure."""
+    first, diff = None, 0.0
+    for i, (a, b) in enumerate(zip(want, got)):
+        same = _same_structure(a, b)
+        if same:
+            diff = max(diff, float(np.abs(np.asarray(a.leaf_value)
+                                          - np.asarray(b.leaf_value))
+                                   .max(initial=0.0)))
+        if first is None and not (same and np.array_equal(
+                a.leaf_value, b.leaf_value)):
+            first = {"tree": i, "structure_equal": bool(same)}
+    return {"first": first, "max_leaf_diff_same_structure": diff,
+            "trees": [len(want), len(got)]}
+
+
+def resilience_rank(rank: int, world: int, cfg):
+    """Phase 20e on one rank (``parallel.spawn``, gloo, cuda:0): this
+    rank's block of phase 16's rows, tree_learner=data. First 6 rounds
+    without checkpoints, ``RES_GUARD_PAIRS`` times each without and with
+    ``collective_timeout`` (unguarded first, then in the order guarded,
+    guarded, unguarded), counting the guarded host-plane gathers; then,
+    guarded and with checkpoints every 3 iterations: 6 rounds, then (the
+    directory wiped) 3, then a resume to 6. Writes its results to
+    ``cfg["out"] % rank``; then, under the policy the training set, rank
+    1 sleeps through a guarded host-plane gather (``allgather_json``) and
+    rank 0, once its ``CollectiveError`` is raised, records the seconds
+    and exits with code 3, as a crashed rank would."""
+    import pickle
+    import shutil
+    import torch.distributed as dist
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.obs.registry import allgather_json
+    from lightgbm_tpu_torch.resilience import checkpoint as ckpt
+    from lightgbm_tpu_torch.resilience import comms
+    globals().update(cfg["globals"])
+    ck = cfg["ckpt_dir"]
+    Xr, yr = _dist_rows(rank, world)
+    plain = dict(_dist_params(False), tree_learner="data")
+    params = dict(plain, collective_timeout=RES_TIMEOUT_S,
+                  checkpoint_dir=ck, checkpoint_period=3)
+    ds = lgb.Dataset(Xr, label=yr, params=dict(plain)).construct()
+
+    def train(rounds, resume=None, p=params):
+        ds.params = {}
+        return _timed_dev(lambda: lgb.train(dict(p), ds, rounds,
+                                            resume_from=resume))
+    # every guarded gather runs through _run_with_timeout
+    guarded = [0]
+    run_with_timeout = comms._run_with_timeout
+
+    def counted(*a):
+        guarded[0] += 1
+        return run_with_timeout(*a)
+    comms._run_with_timeout = counted
+    out = {"unguarded_s": [], "guarded_s": [], "guarded_calls": []}
+    # unguarded, guarded, guarded, unguarded, ...
+    for guard in (i % 4 in (1, 2) for i in range(2 * RES_GUARD_PAIRS)):
+        guarded[0] = 0
+        p = dict(plain, collective_timeout=RES_TIMEOUT_S) if guard \
+            else plain
+        out["guarded_s" if guard else "unguarded_s"].append(
+            train(6, p=p)[1])
+        if guard:
+            out["guarded_calls"].append(guarded[0])
+    full, out["full_s"] = train(6)
+    out["full"] = full.model_to_string(num_iteration=-1)
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(ck)
+    dist.barrier()
+    _, out["stop_s"] = train(3)
+    dist.barrier()
+    sel = ckpt.select_checkpoint(ck, world)
+    out["selected"] = sel
+    out["files"] = sorted(os.listdir(sel)) if sel else []
+    reader = _run_counts()
+    res, out["resume_s"] = train(6, resume=ck)
+    out["launches"] = {k: v for k, v in reader()[0].items() if v}
+    out["resumed"] = res.model_to_string(num_iteration=-1)
+    with open(cfg["out"] % rank, "wb") as fh:
+        pickle.dump(out, fh)
+    dist.barrier()
+    if rank == 1:
+        time.sleep(RES_SLEEP_S)
+    t0 = time.perf_counter()
+    try:
+        allgather_json({"rank": rank})
+    except comms.CollectiveError as e:
+        with open(cfg["out"] % rank + ".timeout", "w") as fh:
+            json.dump({"seconds": time.perf_counter() - t0,
+                       "error": str(e)}, fh)
+        print(f"rank {rank}: {type(e).__name__}: {e}", flush=True)
+        os._exit(3)
+    return out
+
+
+def run_resilience(lgb, params, ds, w):
+    """Phase 20: checkpoints and resume on the card, on phase 3's Dataset
+    and parameters. Each part trains the uninterrupted run, then (its
+    checkpoint directory wiped) the interrupted run, then the resume from
+    the newest complete checkpoint, all with the same parameters, and
+    holds the resumed model text (every iteration) byte-equal to the
+    uninterrupted one: (a) the megastep body with a 250,000-row valid set,
+    bagging_fraction 0.5 every round, feature_fraction 0.8,
+    early_stopping(20) and record_evaluation, checkpoints every 3
+    iterations, 10 rounds stopped at 6 (the last round's checkpoint comes
+    after early stopping's final check, as in the JAX package, so the
+    resume is from 3), the recorded curves and best_iteration equal; with
+    sec/iter without and with checkpoint_dir over RES_PAIRS runs each (in
+    the order without, with, with, without, ...), the capture's ms per
+    checkpoint on the training thread, the background write's seconds and
+    npz bytes, and the resumed run's kernel launches; and
+    booster_from_checkpoint of the resumed run's last checkpoint predicts
+    the booster's bits at that iteration; (b) the epilogue body
+    (tpu_megastep=False) with the same bagging, 10 rounds stopped at 4;
+    (c) the synchronous body: GOSS (learning_rate 0.25, so its sampling
+    starts at iteration 4, the resume point) and DART, each 8 rounds
+    stopped at 4; (d) quantized gradients (16 bits) with gain screening,
+    10 rounds stopped at 6, the EMA crossing the resume; (e) two ranks on
+    cuda:0 over gloo on phase 16's blocks, tree_learner=data: sec/iter
+    of 6 rounds without and with collective_timeout=5 and the guarded
+    gathers each run made, then, guarded, 6 rounds stopped at 3: each
+    rank's manifest, select_checkpoint(world=2) on the newest checkpoint
+    both completed, the resumed two-rank model equal to the
+    uninterrupted one; then rank 1 asleep through a guarded
+    allgather_json: rank 0 raises CollectiveError within 15 s and exits,
+    and the parent reports the rank and kills both. Returns each resumed
+    run's wrapper launches."""
+    import pickle
+    import shutil
+    import tempfile
+    import torch
+    from lightgbm_tpu_torch.ops import predict as pred_ops
+    from lightgbm_tpu_torch.parallel.spawn import run_ranks
+    from lightgbm_tpu_torch.resilience import checkpoint as ckpt
+    from lightgbm_tpu_torch.resilience import state as rstate
+    t_phase = time.perf_counter()
+    wd = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    Xv, yv = _valid_rows(VALID_ROWS, w, seed=DATA_SEED + 100)
+    dv = lgb.Dataset(Xv, label=yv, reference=ds).construct()
+    launches, fails, part_s = {}, [], {}
+
+    def train(p, rounds, valid, cbs, resume=None):
+        ds.params = {}
+        return lgb.train(p, ds, rounds, valid_sets=[dv] if valid else None,
+                         callbacks=cbs, resume_from=resume)
+
+    def part(name, extra, n_full, n_stop, period, valid=False,
+             cbs=lambda: []):
+        """One part: (line, uninterrupted booster, resumed booster,
+        checkpoint root)."""
+        t_part = time.perf_counter()
+        ck = os.path.join(wd, name)
+        p = dict(params, checkpoint_dir=ck, checkpoint_period=period,
+                 **extra)
+        c_full, c_stop, c_res = cbs(), cbs(), cbs()     # in this order
+        full, s_full = _timed_dev(lambda: train(p, n_full, valid, c_full))
+        shutil.rmtree(ck)
+        _, s_stop = _timed_dev(lambda: train(p, n_stop, valid, c_stop))
+        sel = ckpt.select_checkpoint(ck, 1)
+        reader = _run_counts()
+        res, s_res = _timed_dev(lambda: train(p, n_full, valid, c_res,
+                                              resume=ck))
+        kl, kc, _ = reader()
+        want = full.model_to_string(num_iteration=-1)
+        equal = res.model_to_string(num_iteration=-1) == want
+        line = {"phase": "resilience", "run": name, "params": extra,
+                "rounds": n_full, "stopped_at": n_stop,
+                "checkpoint_period": period,
+                "resumed_from": int(sel[-10:]) if sel else None,
+                "text_equal": equal, "trees": res.num_trees(),
+                "full_s": s_full, "stop_s": s_stop, "resume_s": s_res,
+                "resumed_launches": {k: v for k, v in kl.items() if v},
+                "resumed_cuda_launches": {k: v for k, v in kc.items()
+                                          if v}}
+        if not equal:
+            line["departure"] = _departure(full.models, res.models)
+            fails.append(f"({name}) the resumed model text differs")
+        # the epilogue body defers each tree's final route into
+        # epilogue_pass
+        kern = ["level_pass"] + (
+            ["epilogue_pass"] if extra.get("tpu_megastep") is False
+            else ["route_pass", "table_lookup"])
+        for k in kern:
+            if DEVICE != "cpu" and kl.get(k, 0) <= 0:
+                fails.append(f"({name}) {k} never launched in the resume")
+        launches[name] = kl
+        part_s[name] = time.perf_counter() - t_part
+        return line, full, res, ck
+
+    # (a) the megastep body, valid set, early stopping, recorded curves
+    curves = []       # each run's recorded curve, in the order of runs
+
+    def cbs_a():
+        curves.append({})
+        return [lgb.early_stopping(20, verbose=False),
+                lgb.record_evaluation(curves[-1])]
+    # sec/iter without and with checkpoints: the same callbacks, its own
+    # checkpoint directory wiped before each run
+    s_pair = {False: [], True: []}
+    ck_pair = os.path.join(wd, "a_pairs")
+    for with_ck in (i % 4 in (1, 2) for i in range(2 * RES_PAIRS)):
+        p_pair = dict(params, **BAGGED)
+        if with_ck:
+            shutil.rmtree(ck_pair, ignore_errors=True)
+            p_pair.update(checkpoint_dir=ck_pair, checkpoint_period=3)
+        s_pair[with_ck].append(_timed_dev(lambda: train(
+            p_pair, ROUNDS, True, [lgb.early_stopping(20, verbose=False),
+                                   lgb.record_evaluation({})]))[1])
+    probe, undo = _ckpt_probe()
+    try:
+        line, full, res, ck_a = part("a", BAGGED, ROUNDS, 6, 3,
+                                     valid=True, cbs=cbs_a)
+    finally:
+        undo()
+    curves = [curves[0], curves[2]]       # the uninterrupted, the resumed
+    line.update(
+        curves_equal=curves[0] == curves[1],
+        best_iteration=[full.best_iteration, res.best_iteration],
+        sec_per_iter_no_checkpoint=[t / ROUNDS for t in s_pair[False]],
+        sec_per_iter_checkpoint=[t / ROUNDS for t in s_pair[True]],
+        checkpoints=len(probe["capture_ms"]),
+        capture_ms=probe["capture_ms"], write_s=probe["write_s"],
+        npz_bytes=probe["bytes"])
+    if not (curves[0] == curves[1] and curves[0]
+            and full.best_iteration == res.best_iteration):
+        fails.append("(a) the recorded curves or best_iteration differ")
+    if not (probe["capture_ms"] and probe["write_s"]):
+        fails.append("(a) no checkpoint was captured and written")
+    # booster_from_checkpoint of the resumed run's last checkpoint
+    sel = ckpt.select_checkpoint(ck_a, 1)
+    it = int(sel[-10:])
+    # both through predict_pass (the device predictor at any size): the
+    # checkpoint's trees routed on raw values, the booster's on its bins
+    b = rstate.booster_from_checkpoint(sel, params={
+        "device_type": DEVICE, "pred_device_min_work": 1})
+    v0 = dict(pred_ops.variant_launches)
+    got = b.predict(Xv[:RES_PREDICT_ROWS], raw_score=True)
+    res.reset_parameter({"pred_device_min_work": 1})
+    want = res.predict(Xv[:RES_PREDICT_ROWS], raw_score=True,
+                       num_iteration=it)
+    for v in ("raw", "binned"):
+        key = "predict_pass:" + v
+        launches["a_predict_" + v] = pred_ops.variant_launches[key] \
+            - v0[key]
+    same = bool(torch.equal(torch.as_tensor(got), torch.as_tensor(want)))
+    line["booster_from_checkpoint"] = {
+        "iteration": it, "rows": RES_PREDICT_ROWS, "torch_equal": same,
+        "predict_pass_launches": {v: launches["a_predict_" + v]
+                                  for v in ("raw", "binned")}}
+    if not same:
+        fails.append("(a) booster_from_checkpoint predicts other values")
+    if DEVICE != "cpu" and not (launches["a_predict_raw"] > 0
+                                and launches["a_predict_binned"] > 0):
+        fails.append("(a) a predict of (a) never launched predict_pass")
+    emit(line)
+    del full, res, b
+    # (b) the epilogue body
+    emit(part("b", dict(BAGGED, tpu_megastep=False), ROUNDS, 4, 2)[0])
+    # (c) the synchronous body
+    emit(part("c_goss", {"boosting": "goss", "learning_rate": 0.25}, 8, 4,
+              2)[0])
+    emit(part("c_dart", {"boosting": "dart", "drop_seed": DART_DROP_SEED},
+              8, 4, 2)[0])
+    # (d) the plane cuts: the gain EMA crosses the resume
+    line, _, res, _ = part("d", {"tpu_quantized_grad": 16, **SCREENING},
+                           ROUNDS, 6, 3)
+    line["active_features"] = res._gbdt.screening_active_features()
+    emit(line)
+    del res
+    # (e) two ranks, then the guarded gather
+    t_e = time.perf_counter()
+    here = os.path.abspath(__file__)
+    cfg = {"globals": {k: globals()[k] for k in ("DEVICE", "ROWS",
+                                                 "DIST_ROWS")},
+           "ckpt_dir": os.path.join(wd, "e"),
+           "out": os.path.join(wd, "rank%d.pkl")}
+    err = None
+    try:
+        run_ranks(here + ":resilience_rank", DIST_WORLD, (cfg,),
+                  workdir=os.path.join(wd, "ranks"), device_type=DEVICE,
+                  backend="gloo", deadline_s=RES_DEADLINE_S,
+                  timeout_s=DIST_TIMEOUT_S)
+    except RuntimeError as e:
+        err = str(e)
+    ranks = []
+    for r in range(DIST_WORLD):
+        with open(cfg["out"] % r, "rb") as fh:
+            ranks.append(pickle.load(fh))
+    with open(cfg["out"] % 0 + ".timeout") as fh:
+        timeout = json.load(fh)
+    first = (err or "").split(";")[0]
+    line = {"phase": "resilience", "run": "e", "ranks": DIST_WORLD,
+            "rows": DIST_ROWS, "rounds": 6, "stopped_at": 3,
+            "checkpoint_period": 3,
+            "selected": [os.path.basename(r["selected"] or "")
+                         for r in ranks],
+            "files": ranks[0]["files"],
+            "text_equal": [r["resumed"] == r["full"] for r in ranks],
+            "ranks_agree": ranks[0]["full"] == ranks[1]["full"],
+            "per_rank": [{k: r[k] for k in ("full_s", "stop_s",
+                                             "resume_s", "guarded_calls")}
+                         | {"sec_per_iter_unguarded":
+                            [t / 6 for t in r["unguarded_s"]],
+                            "sec_per_iter_guarded":
+                            [t / 6 for t in r["guarded_s"]],
+                            "launches": r["launches"]} for r in ranks],
+            "collective_timeout_s": RES_TIMEOUT_S,
+            "raised_s": timeout["seconds"], "error": timeout["error"][:160],
+            "parent_report": first, "ranks_s": time.perf_counter() - t_e}
+    emit(line)
+    launches["e"] = [r["launches"] for r in ranks]
+    if not all(r["guarded_calls"] and min(r["guarded_calls"]) > 0
+               for r in ranks):
+        fails.append("(e) a guarded run made no guarded gather")
+    if not (all(line["text_equal"]) and line["ranks_agree"]
+            and line["selected"] == ["ckpt_0000000003"] * 2
+            and line["files"] == ["rank0.json", "rank0.npz", "rank1.json",
+                                  "rank1.npz"]):
+        fails.append("(e) the two-rank resume differs or its checkpoint "
+                     "was not both ranks'")
+    if not (first == "rank 0 exited with code 3"
+            and RES_TIMEOUT_S * 0.9 <= timeout["seconds"]
+            <= RES_RAISE_LIMIT_S and "timed out" in timeout["error"]):
+        fails.append("(e) the guarded gather did not raise on rank 0 in "
+                     "time")
+    for r in ranks:
+        for k in TRAIN_PATH_KERNELS:
+            if DEVICE != "cpu" and r["launches"].get(k, 0) <= 0:
+                fails.append(f"(e) {k} never launched on a rank")
+    part_s["e"] = time.perf_counter() - t_e
+    shutil.rmtree(wd, ignore_errors=True)
+    emit({"phase": "resilience", "phase_s": time.perf_counter() - t_phase,
+          "part_s": part_s, "failures": fails})
+    if fails:
+        raise AssertionError("phase 20: " + "; ".join(fails))
     return launches
 
 
@@ -7094,7 +7501,12 @@ def main() -> int:
     file_launches = run_data_files(lgb, bst)
     lap("19_data_files")
 
-    # ---- 20. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
+    # ---- 20. resilience: train, stop and resume on every body and on two
+    # ranks, booster_from_checkpoint, the guarded host-plane gather
+    res_launches = run_resilience(lgb, params, ds, w)
+    lap("20_resilience")
+
+    # ---- 21. the kernels line (level/route at Bp=64 int8, nch=5, Sp=64;
     # the epilogue at Bp=64 int8, nch=5, binary, Sp=64; hist_pass at Bp=64,
     # Sp=64, f32). Launches: the train() run for the three kernels of its
     # path, update() run (a) for the epilogue, the frontier train() run for
@@ -7158,6 +7570,11 @@ def main() -> int:
             if run != "e"}
         row["data_files_launches_per_rank"] = {
             "e": [v.get(name, 0) for v in file_launches["e"]]}
+        row["resilience_launches"] = {
+            run: v.get(name, 0) for run, v in res_launches.items()
+            if run not in ("e", "a_predict_raw", "a_predict_binned")}
+        row["resilience_launches_per_rank"] = {
+            "e": [v.get(name, 0) for v in res_launches["e"]]}
         rows.append(row)
     # hist_pass's unrounded f32 variant, the XLA engine's histogram: on
     # phase 14a's (a leaf-wise root, S = 1) and 14b's (a depth-wise level,
@@ -7300,6 +7717,11 @@ def main() -> int:
             row["data_files_launches"] = {
                 "d": file_launches["d"]["predict_pass"],
                 "d_variants": file_launches["d"]["predict_variants"]}
+        if row["name"] in ("predict_pass[binned]", "predict_pass[raw]"):
+            # phase 20a: booster_from_checkpoint's predict (raw routing,
+            # no training set) and the resumed booster's (binned)
+            row["resilience_launches"] = {
+                "a": res_launches["a_predict_" + row["name"][13:-1]]}
     rows.extend(serve_rows)
     # level_pass and route_pass on a rank's own bundled operands (phase
     # 18's data-parallel EFB run, rank 0), with that rank's launches
@@ -7310,12 +7732,12 @@ def main() -> int:
           "epilogue and hist passes) one-call event pairs, host included",
           "not_captured": timing_notes})
     emit({"kernels": rows})
-    lap("20_kernels_line")
+    lap("21_kernels_line")
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start,
           "phase_s": phase_s, "limit_s": SMOKE_LIMIT_S,
           "room_s": SMOKE_LIMIT_S - (time.perf_counter() - t_start)})
 
-    # ---- 21. the result line
+    # ---- 22. the result line
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1008,14 +1008,14 @@ class Booster:
     def save_model(self, filename: str, start_iteration: int = 0,
                    num_iteration: Optional[int] = None,
                    importance_type="split") -> "Booster":
-        """Write ``model_to_string`` to ``filename`` through a temporary
-        file and a rename, so a crash never leaves a truncated model."""
+        """Write ``model_to_string`` to ``filename`` atomically: serialized
+        first, then a temp sibling, fsync and rename
+        (``resilience/atomicio``), so a failed or interrupted write leaves
+        the old file whole and no temp file beside it."""
+        from .resilience.atomicio import atomic_write_text
         text = self.model_to_string(start_iteration, num_iteration,
                                     importance_type)
-        tmp = f"{filename}.tmp{os.getpid()}"
-        with open(tmp, "w") as fh:
-            fh.write(text)
-        os.replace(tmp, filename)
+        atomic_write_text(str(filename), text)
         return self
 
     def dump_model(self, start_iteration: int = 0,

@@ -91,7 +91,8 @@ sparse-built dataset) and CEGB. CEGB (``cegb_*``; ``gbdt.py:1406-1440``)
 runs on the depth-wise grower: ``cegb_used`` [F] (the features any
 split has used, on the device) and, under lazy penalties,
 ``cegb_used_rf`` [n, F] persist across trees; ``reset_config`` re-reads
-both setups.
+both setups. Neither rides a checkpoint, as in the JAX package: a
+resumed booster starts them at zeros.
 
 The histogram-plane cuts (``gbdt.py:2107-2161`` of the JAX package) run on
 the fused engine's megastep body, alone or together:
@@ -203,14 +204,22 @@ package does under many processes, and runs at the grower level
 one rank, ``tree_learner`` warns and trains serially. Sparse (prebundled)
 input and ``linear_tree`` are refused in the JAX package's words.
 
-Not ported yet (``_UNPORTED`` raises, naming its ROADMAP item):
-resilience checkpoints (of ``cegb_used`` and ``cegb_used_rf`` too,
-``checkpoint_dir``) and the host-collective policy
-(``collective_timeout``, ``collective_retries``), item 10c; the training
-side of the observability keys (``telemetry_out``, ``trace_out``,
-``health_check_period``, ``run_report_out``, ``profile_dir``,
-``perf_db``), item 10e; ``metrics_port``, ``slo_enabled`` and
-``slo_config``, item 10f.
+Resilience (``_setup_resilience``, the JAX package's ``gbdt.py:1101-
+1219``): ``collective_timeout`` and ``collective_retries`` set the
+host-plane guard (``resilience/comms.py``), ``LIGHTGBM_TPU_FAULTS`` arms
+the fault hooks (crash and hang at the top of ``train_one_iter``,
+diverge after a synchronous iteration), and ``checkpoint_dir`` starts a
+writer thread (``resilience/checkpoint.py``) that ``maybe_checkpoint``
+feeds every ``checkpoint_period`` iterations with ``resilience/state``'s
+capture; GOSS and DART add their random streams
+(``_capture_boosting_extra``). ``reset_config`` keeps the writer for the
+same directory, and drains and stops it for another or none.
+
+Not ported yet (``_UNPORTED`` raises, naming its ROADMAP item): the
+training side of the observability keys (``telemetry_out``,
+``trace_out``, ``health_check_period``, ``run_report_out``,
+``profile_dir``, ``perf_db``), item 10e; ``metrics_port``,
+``slo_enabled`` and ``slo_config``, item 10f.
 """
 from __future__ import annotations
 
@@ -270,28 +279,20 @@ def split_params_from_config(config: Config) -> SplitParams:
 
 
 _UNPORTED = tuple(
-    # the training side of obs/, the SLO plane, resilience checkpoints and
-    # the host-collective policy (lightgbm_tpu/boosting/gbdt.py:460-466,
-    # 532, 554-561, 1101-1111): a non-default value is refused, never
-    # ignored
-    [(key, bool, f"{key} {what} (ROADMAP Queue A item {item})")
-     for key, what, item in (
-         ("telemetry_out", "(per-iteration telemetry)", "10e"),
-         ("trace_out", "(trace spans)", "10e"),
-         ("health_check_period", "(health checks)", "10e"),
-         ("metrics_port", "(the metrics exporter)", "10f"),
-         ("run_report_out", "(the run report)", "10e"),
-         ("profile_dir", "(profiler windows)", "10e"),
-         ("perf_db", "(the performance database)", "10e"),
-         ("slo_enabled", "(the SLO plane)", "10f"),
-         ("slo_config", "(the SLO plane)", "10f"),
-         ("checkpoint_dir", "(resilience checkpoints)", "10c"))]
-    + [("collective_timeout", lambda v: float(v) != 0.0,
-        "collective_timeout (the host-collective policy) "
-        "(ROADMAP Queue A item 10c)"),
-       ("collective_retries", lambda v: int(v) != 2,
-        "collective_retries (the host-collective policy) "
-        "(ROADMAP Queue A item 10c)")])
+    # the training side of obs/ and the SLO plane (lightgbm_tpu/boosting/
+    # gbdt.py:460-466, 532, 554-561): a non-default value is refused,
+    # never ignored
+    (key, bool, f"{key} {what} (ROADMAP Queue A item {item})")
+    for key, what, item in (
+        ("telemetry_out", "(per-iteration telemetry)", "10e"),
+        ("trace_out", "(trace spans)", "10e"),
+        ("health_check_period", "(health checks)", "10e"),
+        ("metrics_port", "(the metrics exporter)", "10f"),
+        ("run_report_out", "(the run report)", "10e"),
+        ("profile_dir", "(profiler windows)", "10e"),
+        ("perf_db", "(the performance database)", "10e"),
+        ("slo_enabled", "(the SLO plane)", "10f"),
+        ("slo_config", "(the SLO plane)", "10f")))
 
 
 class GBDT:
@@ -302,6 +303,9 @@ class GBDT:
     def init(self, config: Config, train_data: BinnedDataset,
              objective, training_metrics: Sequence = ()) -> None:
         self._check_ported(config)
+        # this trainer's host-collective policy guards every gather it
+        # makes, the rank layout's below too, not the previous trainer's
+        self._set_collective_policy(config)
         self.config = config
         self.train_data = train_data
         self.objective = objective
@@ -367,6 +371,15 @@ class GBDT:
                 self.is_bagging = True
                 self.balanced_bagging = True
         self._set_bag(None)
+        # the early-stop state of the JAX package's CLI loop (ROADMAP item
+        # 11), carried through checkpoints
+        self.best_score = {}
+        self.best_iter = {}
+        # resilience: the checkpoint writer, its cadence and the fault
+        # registry
+        self._ckpt = None
+        self._last_ckpt_iter = 0
+        self._setup_resilience(config)
 
     @staticmethod
     def _check_ported(config: Config) -> None:
@@ -374,6 +387,92 @@ class GBDT:
             if bad(getattr(config, key)):
                 log.fatal("%s is not ported to lightgbm_tpu_torch yet "
                           "(%s=%r)", what, key, getattr(config, key))
+
+    # -------------------------------------------------------- resilience
+    @staticmethod
+    def _set_collective_policy(config: Config) -> None:
+        from ..resilience import comms
+        comms.set_collective_policy(float(config.collective_timeout or 0.0),
+                                    int(config.collective_retries))
+
+    def _setup_resilience(self, config: Config) -> None:
+        """The host-collective policy, the fault registry and the
+        checkpoint writer (gbdt.py:1101-1150): a ``reset_config`` with the
+        same ``checkpoint_dir`` keeps the writer, a changed or dropped one
+        drains and stops it."""
+        from ..parallel import mesh
+        from ..resilience.checkpoint import CheckpointManager
+        from ..resilience.faults import registry_from_env
+        self._set_collective_policy(config)
+        self._faults = registry_from_env()
+        self._ckpt_period = int(config.checkpoint_period or 0)
+        root = str(config.checkpoint_dir or "")
+        if self._ckpt is not None and self._ckpt.root != root:
+            # drain the old writer so its checkpoint commits and its
+            # thread does not leak
+            try:
+                self._ckpt.close()
+            except Exception as e:
+                log.warning("checkpoint writer shutdown failed: %s", e)
+            self._ckpt = None
+        if not root:
+            if self._ckpt_period > 0:
+                log.warning("checkpoint_period=%d set without "
+                            "checkpoint_dir; checkpointing is off",
+                            self._ckpt_period)
+            return
+        if self._ckpt_period <= 0:
+            log.warning("checkpoint_dir=%s set without checkpoint_period; "
+                        "no periodic checkpoints will be written", root)
+        if self._ckpt is None:
+            self._ckpt = CheckpointManager(
+                root, rank=mesh.rank(), world=mesh.world(),
+                keep=int(config.checkpoint_keep))
+
+    def maybe_checkpoint(self, extra=None) -> bool:
+        """Capture and enqueue a checkpoint when one is due: every
+        ``checkpoint_period`` iterations, called by ``engine.train`` once
+        each iteration has settled (every body settles its iteration, so
+        this is the one cadence point). ``extra`` returns the engine's
+        JSON-able state to ride the checkpoint. A failed capture warns and
+        never stops training."""
+        if (self._ckpt is None or self._ckpt_period <= 0
+                or self.iter - self._last_ckpt_iter < self._ckpt_period):
+            return False
+        try:
+            from ..resilience import state as rstate
+            payload, arrays = rstate.capture(self, extra)
+            self._ckpt.save(self.iter, payload, arrays)
+            self._last_ckpt_iter = self.iter
+            return True
+        except Exception as e:
+            log.warning("checkpoint capture at iteration %d failed: %s",
+                        self.iter, e)
+            return False
+
+    def wait_checkpoints(self) -> None:
+        """Join the writer's write in flight, so that a checkpoint taken in
+        the last iteration commits before the process may exit (the JAX
+        package's ``_finalize_telemetry_body``, gbdt.py:888-896)."""
+        if self._ckpt is not None:
+            try:
+                self._ckpt.wait()
+            except Exception as e:
+                log.warning("checkpoint writer drain failed: %s", e)
+
+    def _capture_boosting_extra(self) -> Tuple[dict, dict]:
+        """Boosting-mode state beyond the base trainer's (payload dict, npz
+        arrays); DART and GOSS override."""
+        return {}, {}
+
+    def _restore_boosting_extra(self, payload: dict, arrays) -> None:
+        pass
+
+    def _health_resync(self, it: int, per_rank) -> bool:
+        """Repair a divergence from rank 0's model (the auditor's action,
+        ROADMAP item 10e; ``resilience/recovery.py``)."""
+        from ..resilience import recovery
+        return recovery.resync_from_rank0(self, it, per_rank)
 
     # ------------------------------------------------------ distribution
     def _setup_parallel(self, config: Config,
@@ -1310,6 +1409,9 @@ class GBDT:
         ``hessians`` ([k * n] each, class-major, from a custom objective)
         and every case of ``_fast_path_reason`` (the frontier and XLA
         engines among them) take the synchronous body."""
+        if self._faults:
+            from ..resilience import faults
+            faults.on_training_step(self)    # crash and hang chaos hooks
         if gradients is not None and hessians is not None:
             return self._sync_iter_body(gradients, hessians)
         if self.objective is None:
@@ -1536,6 +1638,9 @@ class GBDT:
             return True
         if gains is not None:
             self._update_gain_ema(gains)
+        if self._faults:
+            from ..resilience import faults
+            faults.maybe_diverge(self, self.iter)   # chaos: this rank
         self.iter += 1
         return False
 
@@ -1921,6 +2026,7 @@ class GBDT:
         self.max_leaves = max(2, int(config.num_leaves))
         self.params = split_params_from_config(config)
         self._epi_carry = None
+        self._setup_resilience(config)
         self._setup_cegb(config)
         self._setup_forced_splits(config, self.train_data)
         self._setup_engine(config, self.train_data)
@@ -2089,6 +2195,23 @@ class GOSS(GBDT):
         log.info("Using GOSS")
         self.is_bagging = False
 
+    def _capture_boosting_extra(self):
+        # GOSS samples every iteration from the scores (restored by value)
+        # and this MT19937 stream, which is all it needs saved
+        _, keys, pos, has_gauss, cached = self.bag_rng.get_state()
+        payload = {"goss_mt": {"pos": int(pos),
+                               "has_gauss": int(has_gauss),
+                               "cached": float(cached)}}
+        return payload, {"goss_mt_keys": np.asarray(keys, np.uint32)}
+
+    def _restore_boosting_extra(self, payload, arrays):
+        mt = payload.get("goss_mt")
+        if mt:
+            self.bag_rng.set_state(
+                ("MT19937", np.asarray(arrays["goss_mt_keys"], np.uint32),
+                 int(mt["pos"]), int(mt["has_gauss"]),
+                 float(mt["cached"])))
+
     def _bagging(self, it, grad=None, hess=None):
         """(ref: goss.hpp:103-159 BaggingHelper/Bagging): no sampling
         before iteration 1/learning_rate; then the rows whose |g·h| summed
@@ -2162,6 +2285,22 @@ class DART(GBDT):
         self.tree_weight: List[float] = []
         self.sum_weight = 0.0
         self.drop_index: List[int] = []
+
+    def _capture_boosting_extra(self):
+        # the drop stream's position and the tree weights: the DART state
+        # beyond the (normalized in place, hence checkpointed) trees
+        payload = {"drop_rng_x": int(self.drop_rng.x),
+                   "sum_weight": float(self.sum_weight)}
+        return payload, {"dart_tree_weight": np.asarray(self.tree_weight,
+                                                       np.float64)}
+
+    def _restore_boosting_extra(self, payload, arrays):
+        if "drop_rng_x" in payload:
+            self.drop_rng.x = int(payload["drop_rng_x"])
+            self.sum_weight = float(payload.get("sum_weight", 0.0))
+            self.tree_weight = [float(x)
+                                for x in arrays["dart_tree_weight"]]
+            self.drop_index = []
 
     def _get_gradients(self):
         # drop trees, then the gradients on the reduced scores (ref:

@@ -12,6 +12,9 @@ that is not. The JAX package's megastep is one ``lax.scan`` over
 iterations, so it evaluates the metrics inside the scan and replays these
 callbacks when it drains; the port's megastep is a Python loop over
 iterations and runs them inline after each one, on the same values.
+``record_evaluation`` and ``early_stopping`` keep their state across a
+checkpoint and resume (``_cb_state``/``_cb_restore``, the JAX package's
+JSON state).
 """
 from __future__ import annotations
 
@@ -68,6 +71,21 @@ def record_evaluation(eval_result: Dict[str, Dict[str, List[float]]]):
             eval_result[name][metric].append(value)
     _callback.order = 20
     _callback._megastep_replay = "record_evaluation"
+
+    # checkpoint and resume (resilience/state.py): the recorded curve
+    # continues across a resume instead of restarting there
+    def _cb_state():
+        return {name: {m: [float(v) for v in vals]
+                       for m, vals in metrics.items()}
+                for name, metrics in eval_result.items()}
+
+    def _cb_restore(st, env) -> None:
+        eval_result.clear()
+        for name, metrics in (st or {}).items():
+            eval_result[name] = collections.OrderedDict(
+                (m, list(vals)) for m, vals in metrics.items())
+    _callback._cb_state = _cb_state
+    _callback._cb_restore = _cb_restore
     return _callback
 
 
@@ -209,6 +227,47 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
     # the spec the JAX package's scan-carried early stop mirrors
     _callback._es_spec = (int(stopping_rounds), bool(first_metric_only),
                           min_delta)
+
+    # checkpoint and resume (resilience/state.py): the closure's best
+    # lists are the early-stop state, and restoring them keeps a resumed
+    # run's stopping decision the uninterrupted run's
+    def _cb_state():
+        return {
+            "inited": bool(cmp_op),
+            "enabled": bool(enabled[0]),
+            "first_metric": first_metric[0],
+            "seen": [e is not None for e in best_score_list],
+            "best_score": [float(s) if e is not None else 0.0
+                           for s, e in zip(best_score, best_score_list)],
+            "best_iter": [int(i) for i in best_iter],
+            "best_score_list": [
+                None if e is None
+                else [[n, m, float(v), bool(b)] for n, m, v, b in e]
+                for e in best_score_list],
+        }
+
+    def _cb_restore(st, env) -> None:
+        if not st or not st.get("inited"):
+            return
+        if not cmp_op:
+            # _init builds the per-slot comparators from an evaluation
+            # list (the checkpoint carries the last one)
+            _init(env)
+        if len(best_iter) != len(st["best_iter"]):
+            raise ValueError(
+                f"early-stopping slots changed across resume "
+                f"({len(st['best_iter'])} saved, {len(best_iter)} now)")
+        enabled[0] = bool(st.get("enabled", True))
+        first_metric[0] = st.get("first_metric", first_metric[0])
+        for i in range(len(best_iter)):
+            best_iter[i] = int(st["best_iter"][i])
+            if st["seen"][i]:
+                best_score[i] = float(st["best_score"][i])
+                lst = st["best_score_list"][i]
+                best_score_list[i] = ([tuple(t) for t in lst]
+                                      if lst is not None else None)
+    _callback._cb_state = _cb_state
+    _callback._cb_restore = _cb_restore
     return _callback
 
 

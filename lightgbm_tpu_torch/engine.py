@@ -24,8 +24,15 @@ Dataset, as the JAX package's ``train`` sets it. ``cv`` folds a Dataset
 with query groups by whole queries (``folds.split(groups=...)`` gets each
 row's query id).
 
-Not ported yet (it raises): ``resume_from`` and resilience checkpoints
-(ROADMAP Queue A item 10c).
+``resume_from`` (or the ``resume`` key) restores a run from a resilience
+checkpoint (a ``ckpt_<iteration>`` directory, or a ``checkpoint_dir``
+root, whose newest complete checkpoint is taken) after the valid sets are
+added, with the callbacks' states, and continues it to the model the
+uninterrupted run gives, byte for byte (``resilience/state.py``); pass the
+same parameters, dataset, valid sets and callbacks. With
+``checkpoint_dir`` and ``checkpoint_period`` every settled iteration is a
+cadence point (``GBDT.maybe_checkpoint``), and ``train`` joins the writer
+before it returns.
 """
 from __future__ import annotations
 
@@ -47,12 +54,6 @@ _ROUND_ALIASES = ("num_iterations", "num_iteration", "n_iter", "num_tree",
                   "num_boost_round", "n_estimators", "max_iter")
 _ES_ALIASES = ("early_stopping_round", "early_stopping_rounds",
                "early_stopping", "n_iter_no_change")
-
-
-def _refuse_unported(params: Dict[str, Any], resume_from) -> None:
-    if resume_from or params.get("resume") or params.get("resume_from"):
-        log.fatal("resume_from (resilience checkpoints) is not ported to "
-                  "lightgbm_tpu_torch yet (ROADMAP Queue A item 10c)")
 
 
 def _predictor(init_model, device_type: str) -> Optional[Booster]:
@@ -98,9 +99,23 @@ def train(params: Dict[str, Any], train_set: Dataset,
           keep_training_booster: bool = False,
           callbacks: Optional[List] = None,
           resume_from: Optional[str] = None) -> Booster:
-    """Train a booster (ref: engine.py:25)."""
+    """Train a booster (ref: engine.py:25); ``resume_from`` continues a
+    checkpointed run (the module docstring)."""
     params = dict(params) if params else {}
-    _refuse_unported(params, resume_from)
+    # both keys popped: a resume path left in params would be echoed into
+    # the model text and part it from the uninterrupted run's
+    p_resume = params.pop("resume", "") or params.pop("resume_from", "")
+    params.pop("resume_from", None)
+    if resume_from and p_resume and str(p_resume) != str(resume_from):
+        log.warning("resume_from=%s overrides params resume=%s",
+                    resume_from, p_resume)
+    resume_from = resume_from or p_resume or None
+    for key in ("resume", "resume_from"):
+        train_set.params.pop(key, None)
+    if resume_from and init_model is not None:
+        log.warning("resume_from and init_model both given; resume wins "
+                    "(the checkpoint already contains the full model)")
+        init_model = None
     # round-count aliases in params win, as in the JAX package
     for alias in _ROUND_ALIASES:
         if alias in params:
@@ -164,8 +179,31 @@ def train(params: Dict[str, Any], train_set: Dataset,
     gbdt.arm_megastep(armed and bool(booster.config.tpu_megastep))
 
     evaluation_result_list: List = []
+    start_iteration = 0
+    if resume_from:
+        # after the valid sets were added: their scores are restored too
+        from .resilience import state as rstate
+        payload = rstate.restore_into_booster(booster, str(resume_from))
+        start_iteration = gbdt.iter
+        evaluation_result_list = rstate.eval_list_from_payload(payload)
+        rstate.restore_callback_states(
+            callbacks_before + callbacks_after,
+            (payload.get("engine_extra") or {}).get("callbacks") or [],
+            callback_mod.CallbackEnv(
+                model=booster, params=params,
+                iteration=max(0, start_iteration - 1), begin_iteration=0,
+                end_iteration=num_boost_round,
+                evaluation_result_list=list(evaluation_result_list)))
+
+    def ckpt_extra():
+        # the callbacks' states and the last evaluation list ride every
+        # checkpoint, for the restore above
+        from .resilience import state as rstate
+        return {"callbacks": rstate.callback_states(
+                    callbacks_before + callbacks_after),
+                "eval_list": [list(t) for t in evaluation_result_list]}
     try:
-        for i in range(num_boost_round):
+        for i in range(start_iteration, num_boost_round):
             for cb in callbacks_before:
                 cb(callback_mod.CallbackEnv(
                     model=booster, params=params, iteration=i,
@@ -192,11 +230,15 @@ def train(params: Dict[str, Any], train_set: Dataset,
                 booster.best_iteration = es.best_iteration + 1
                 evaluation_result_list = es.best_score
                 break
+            # the iteration has settled (update, snapshot, eval,
+            # callbacks): the checkpoint's callback states match its model
+            gbdt.maybe_checkpoint(ckpt_extra)
             if finished:
                 break
     finally:
         # a kept booster returns to one body per bare update()
         gbdt.arm_megastep(False)
+        gbdt.wait_checkpoints()
 
     booster.best_score = collections.defaultdict(collections.OrderedDict)
     for name, metric, value, _ in (evaluation_result_list or []):
@@ -287,9 +329,10 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
     over the folds per round. Query groups fold by whole queries;
     categorical features come from ``train_set``'s own
     ``categorical_feature`` (the argument is not read, as in the JAX
-    package's ``cv``)."""
+    package's ``cv``). As there, ``resume`` is not read (every fold
+    trains from the start) and ``checkpoint_dir`` makes its directory but
+    writes no checkpoint (only ``train`` has a cadence point)."""
     params = dict(params) if params else {}
-    _refuse_unported(params, None)
     if init_model is not None:
         log.warning("cv ignores init_model, as the JAX package's cv does")
     for alias in _ROUND_ALIASES:

@@ -1,6 +1,6 @@
 """Binary dataset cache: the JAX package's ``LGBMTPU2`` artifact (a copy of
-``lightgbm_tpu/ingest/cache.py`` and of ``atomic_stream`` from
-``lightgbm_tpu/resilience/atomicio.py``).
+``lightgbm_tpu/ingest/cache.py``; its atomic write is
+``resilience/atomicio.atomic_stream``).
 
 One file per rank, written streaming and atomically, mmap-able on reload:
 
@@ -29,17 +29,17 @@ Dataset::SaveBinaryFile.
 """
 from __future__ import annotations
 
-import contextlib
 import hashlib
 import json
 import os
 import pickle
 import struct
 import time
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 
+from ..resilience.atomicio import atomic_stream
 from ..utils import log
 
 CACHE_MAGIC = b"LGBMTPU2"
@@ -71,27 +71,6 @@ def source_fingerprint(path: str, params_digest: str = "") -> Dict[str, Any]:
     st = os.stat(path)
     return {"path": os.path.abspath(str(path)), "size": int(st.st_size),
             "mtime_ns": int(st.st_mtime_ns), "params_digest": params_digest}
-
-
-@contextlib.contextmanager
-def atomic_stream(path: str) -> Iterator[Any]:
-    """A binary file object on a temp sibling of ``path``: on a clean exit
-    it is fsynced and renamed into place, on any exception removed, so a
-    reader never sees a half-written artifact."""
-    d, base = os.path.split(path)
-    tmp = os.path.join(d, f".{base}.tmp.{os.getpid()}")
-    try:
-        with open(tmp, "wb") as fh:
-            yield fh
-            fh.flush()
-            os.fsync(fh.fileno())
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            try:
-                os.remove(tmp)
-            except OSError:
-                pass
 
 
 def read_magic(path: str) -> bytes:

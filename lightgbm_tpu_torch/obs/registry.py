@@ -15,7 +15,9 @@ Disabled-path contract: every recording method returns after one
 ``self.enabled`` check. The rank is ``torch.distributed``'s where it is
 initialised, else 0. The JAX package's training records (per-iteration
 sections, collectives, megastep records, the jax.monitoring bridge) and
-its trace spans (``trace_out``) wait for ROADMAP Queue A item 10.
+its trace spans (``trace_out``) wait for ROADMAP Queue A item 10e.
+:func:`allgather_json` is the host-plane gather the rank-0 resync rides
+(``resilience/recovery.py``).
 """
 from __future__ import annotations
 
@@ -217,3 +219,29 @@ class Telemetry:
         with self._lock:
             out["events"] = [dict(e) for e in self._events]
         return out
+
+
+def allgather_json(obj: Any) -> List[Any]:
+    """Every rank's JSON-serializable ``obj``, in rank order, over the host
+    plane (``[obj]`` without a group of two or more; the JAX package's
+    ``allgather_json``). Every rank calls it at the same point. Both
+    gathers (the sizes, then the padded bytes) run under the
+    host-collective policy, so a hung peer raises a ``CollectiveError``
+    once ``collective_timeout`` passes."""
+    import json
+
+    import numpy as np
+
+    from ..parallel import mesh
+    from ..parallel.multiproc import _allgather
+    if mesh.world() <= 1:
+        return [obj]
+    payload = np.frombuffer(json.dumps(obj).encode("utf-8"), np.uint8)
+    sizes = _allgather(np.asarray([payload.size], np.int64),
+                       what="allgather_json/sizes").reshape(-1)
+    width = int(sizes.max())
+    buf = np.zeros(width, np.uint8)
+    buf[:payload.size] = payload
+    gathered = _allgather(buf, what="allgather_json/payload")
+    return [json.loads(bytes(gathered[r, :int(sizes[r])]).decode("utf-8"))
+            for r in range(sizes.size)]

@@ -26,8 +26,10 @@ index of its row ``i`` is ``rank * block + i``, which the quantized
 gradients' dither hashes and the bagging draws slice by.
 
 Every host-plane gather is counted (``host_count``, ``host_bytes``:
-gathered result sizes). The two agreement guards of the JAX package live
-here too: :func:`allgather_sample` (``lightgbm_tpu/dataset.py:91-112``:
+gathered result sizes) and runs under the host-collective policy
+(``resilience/comms.guarded_call``). The two agreement guards of the JAX
+package live here too: :func:`allgather_sample`
+(``lightgbm_tpu/dataset.py:91-112``:
 every rank bins from the gathered sample) and :func:`cohort_votes`
 (``lightgbm_tpu/basic.py:128-145``).
 """
@@ -41,18 +43,23 @@ from ..utils import log
 from . import mesh
 
 
-def _allgather(arr: np.ndarray, group=None) -> np.ndarray:
+def _allgather(arr: np.ndarray, group=None,
+               what: str = "mp_allgather") -> np.ndarray:
     """[W, *arr.shape] from every rank's equally-shaped ``arr`` over the
-    host plane (CPU tensors; bool travels as uint8)."""
+    host plane (CPU tensors; bool travels as uint8). Guarded: with
+    ``collective_timeout`` set, a hung peer raises a ``CollectiveError``
+    here instead of wedging this rank (``resilience/comms.py``)."""
     import torch
     import torch.distributed as dist
+
+    from ..resilience.comms import guarded_call
     group = mesh.host_group() if group is None else group
     a = np.ascontiguousarray(arr)
     is_bool = a.dtype == np.bool_
     t = torch.from_numpy(a.astype(np.uint8) if is_bool else a.copy())
     W = dist.get_world_size(group)
     out = [torch.empty_like(t) for _ in range(W)]
-    dist.all_gather(out, t, group=group)
+    guarded_call(lambda: dist.all_gather(out, t, group=group), what=what)
     res = torch.stack(out).numpy()
     return res.astype(np.bool_) if is_bool else res
 

@@ -119,7 +119,15 @@ def test_port_imports_no_jax():
             "lightgbm_tpu_torch.serve.engine",
             "lightgbm_tpu_torch.serve.batcher",
             "lightgbm_tpu_torch.serve.residency",
-            "lightgbm_tpu_torch.serve.service"} <= set(_port_modules())
+            "lightgbm_tpu_torch.serve.service",
+            "lightgbm_tpu_torch.obs.health",
+            "lightgbm_tpu_torch.resilience",
+            "lightgbm_tpu_torch.resilience.atomicio",
+            "lightgbm_tpu_torch.resilience.checkpoint",
+            "lightgbm_tpu_torch.resilience.comms",
+            "lightgbm_tpu_torch.resilience.faults",
+            "lightgbm_tpu_torch.resilience.recovery",
+            "lightgbm_tpu_torch.resilience.state"} <= set(_port_modules())
     code = (
         "import importlib, json, sys\n"
         f"for m in {_port_modules()!r} + ['chip_smoke']:\n"

@@ -182,14 +182,40 @@ def test_body_choice_follows_jax_engine(monkeypatch, case, body, blocker):
 
 
 @pytest.mark.parametrize("kw,params,item", [
-    ({"resume_from": "ckpt_3"}, {}, "item 10"),
     ({}, {"linear_tree": True}, "not supported for sparse input")],
-    ids=["resume", "linear_tree"])
+    ids=["linear_tree"])
 def test_unported_train_arguments_raise(kw, params, item):
-    """``resume_from`` is not ported; ``linear_tree`` trains, but, as in
-    the JAX package, not on sparse input (no raw columns)."""
+    """``linear_tree`` trains, but, as in the JAX package, not on sparse
+    input (no raw columns)."""
     import scipy.sparse as sp
     data = sp.csr_matrix(X) if params else X
     with pytest.raises(lt.LightGBMError, match=item):
         lt.train(dict(PARAMS, device_type="cpu", **params),
                  lt.Dataset(data, label=Y), 2, **kw)
+
+
+def test_resume_from_trains(tmp_path):
+    """The ``resume`` case above, now ported (ROADMAP item 10c): a run
+    resumed from its checkpoint at 2 rounds (a 3-round run's last; early
+    stopping's final-round stop comes before the cadence point, as in the
+    JAX package) trains to the uninterrupted 4-round model, its
+    early-stopping and recorded states restored."""
+    ck = str(tmp_path / "ck")
+    p = dict(PARAMS, device_type="cpu", checkpoint_dir=ck,
+             checkpoint_period=2)
+
+    def run(rounds, **kw):
+        rec = {}
+        ds = lt.Dataset(X, label=Y)
+        b = lt.train(p, ds, rounds, valid_sets=[lt.Dataset(
+            XV, label=YV, reference=ds)], callbacks=[
+            lt.early_stopping(50, verbose=False),
+            lt.record_evaluation(rec)], **kw)
+        return b, rec
+    want, rec_want = run(4)
+    import shutil
+    shutil.rmtree(ck)
+    run(3)
+    got, rec_got = run(4, resume_from=ck)
+    assert got.model_to_string() == want.model_to_string()
+    assert rec_got == rec_want and got.best_iteration == want.best_iteration

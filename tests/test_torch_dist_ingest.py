@@ -20,7 +20,8 @@ One module fixture spawns two CPU ranks of the port once
 - Queue C 7: a one-process cache is refused on both ranks, in the JAX
   package's words;
 - Queue C 10: a non-default ``collective_timeout`` or
-  ``collective_retries`` is refused, naming item 10c.
+  ``collective_retries`` (refused until item 10c was ported) sets the
+  host-collective policy on both ranks.
 """
 import os
 
@@ -135,16 +136,19 @@ def ingest_rank(rank, world, paths):
         out["world1_cache"] = "loaded"
     except CacheError as e:
         out["world1_cache"] = str(e)
-    # Queue C 10
+    # Queue C 10: the policy is set on each rank
+    from lightgbm_tpu_torch.resilience import comms
     out["c10"] = {}
     for key, value in (("collective_timeout", 30.0),
                        ("collective_retries", 5)):
         try:
             lt.train(dict(PARAMS, **{key: value}), lt.Dataset(
                 paths["cached"], params=dict(PARAMS)), 1)
-            out["c10"][key] = "trained"
+            out["c10"][key] = (comms._TIMEOUT_S, comms._RETRIES)
         except LightGBMError as e:
             out["c10"][key] = str(e)
+        finally:
+            comms.set_collective_policy(0.0, 2)
     return out
 
 
@@ -199,9 +203,10 @@ def test_world1_cache_refused_under_two_ranks(ranks):
             in r["world1_cache"]
 
 
-def test_collective_policy_keys_refused_under_ranks(ranks):
-    """Queue C 10."""
+def test_collective_policy_keys_set_under_ranks(ranks):
+    """Queue C 10, once refused: each key trains and sets the
+    host-collective policy on both ranks."""
     res, _, _ = ranks
     for r in res:
-        for key, said in r["c10"].items():
-            assert key in said and "Queue A item 10c" in said
+        assert r["c10"] == {"collective_timeout": (30.0, 2),
+                            "collective_retries": (0.0, 5)}

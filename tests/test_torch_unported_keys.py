@@ -1,10 +1,12 @@
 """Keys and inputs the port does not honour are refused, never ignored.
 
-The JAX trainer reads the observability, checkpoint and host-collective
-keys below (``lightgbm_tpu/boosting/gbdt.py:460-466, 532, 554-561,
-1101-1111``). Until the port has them (ROADMAP Queue A items 10c, 10e and
-10f), ``train()`` and ``Booster(params=..., train_set=...)`` raise, naming
-the item. With a data file the port refuses ``weight_column``,
+The JAX trainer reads the observability keys below
+(``lightgbm_tpu/boosting/gbdt.py:460-466, 532, 554-561``). Until the port
+has them (ROADMAP Queue A items 10e and 10f), ``train()`` and
+``Booster(params=..., train_set=...)`` raise, naming the item. The
+checkpoint and host-collective keys of item 10c (``checkpoint_dir``,
+``collective_timeout``, ``collective_retries``) are ported: they are
+accepted and armed. With a data file the port refuses ``weight_column``,
 ``group_column`` and ``ignore_column`` (declared in the JAX package's
 config and read nowhere there) and a ``header`` its layout scan
 contradicts. A text data file itself now loads (``io/file_loader.py``).
@@ -30,6 +32,9 @@ UNPORTED = [
     ("perf_db", "perf.db"),
     ("slo_enabled", True),
     ("slo_config", "p99_ms=5"),
+]
+# ported in item 10c: (key, a non-default value)
+ARMED = [
     ("checkpoint_dir", "ckpt"),
     ("collective_timeout", 30.0),
     ("collective_retries", 5),
@@ -81,6 +86,31 @@ def test_unported_key_is_refused(key, value, source, match, tmp_path):
         lt.Booster(params=params, train_set=make())
     # nothing was armed: no file or directory appeared
     assert set(tmp_path.iterdir()) == before
+
+
+@pytest.mark.parametrize("key,value", ARMED, ids=[k for k, _ in ARMED])
+def test_resilience_key_is_accepted_and_armed(key, value, tmp_path):
+    """The cases ``test_unported_key_is_refused`` had for these keys: each
+    trains, and arms what it names (a checkpoint writer that commits; the
+    host-collective policy)."""
+    from lightgbm_tpu_torch.resilience import checkpoint, comms
+    X, y = _data()
+    if key == "checkpoint_dir":
+        value = str(tmp_path / value)
+    params = dict(CPU, objective="binary", num_leaves=4,
+                  checkpoint_period=1, **{key: value})
+    try:
+        bst = lt.train(params, lt.Dataset(X, label=y), 2)
+        assert bst.num_trees() == 2
+        if key == "checkpoint_dir":
+            assert bst._gbdt._ckpt.root == value
+            assert checkpoint.select_checkpoint(value, 1).endswith(
+                "ckpt_0000000002")
+        else:
+            assert (comms._TIMEOUT_S, comms._RETRIES) == (
+                (30.0, 2) if key == "collective_timeout" else (0.0, 5))
+    finally:
+        comms.set_collective_policy(0.0, 2)
 
 
 def test_defaults_and_unarmed_keys_still_train():
